@@ -1,0 +1,186 @@
+"""Contiguous, aligned packing of heterogeneous array sets (paper §III-A.2).
+
+OpenCLIPER guarantees that *"a single data set is always aligned and
+contiguous, even though it is highly heterogeneous"* and that data objects
+are *"transferred in a single call"* using pinned memory.  The **arena**
+packs a set of N-D arrays of arbitrary shapes and dtypes into one
+contiguous byte blob with a predictable offset table, every entry starting
+on an ``ALIGN``-byte boundary.  One blob means one pinned host->device copy.
+
+The byte format is shared with the JAX package: for the same specs,
+:func:`pack_host` gives byte-identical blobs and identical offsets, so a
+blob packed by either package unpacks in the other.  On the device, a view
+is ``blob[off:off+n].view(dtype).view(shape)`` over a uint8 tensor:
+zero-copy, so processes read and write the arena in place.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+from typing import Any, Dict, Iterable, List, Mapping, Sequence, Tuple
+
+import numpy as np
+import torch
+
+ALIGN = 128  # bytes: the arena format's entry alignment
+
+_TORCH_TO_NP = {
+    torch.bool: np.bool_, torch.uint8: np.uint8, torch.int8: np.int8,
+    torch.int16: np.int16, torch.int32: np.int32, torch.int64: np.int64,
+    torch.float16: np.float16, torch.float32: np.float32,
+    torch.float64: np.float64, torch.complex64: np.complex64,
+    torch.complex128: np.complex128,
+}
+_NP_TO_TORCH = {np.dtype(v): k for k, v in _TORCH_TO_NP.items()}
+
+
+def np_dtype(dtype: Any) -> np.dtype:
+    """numpy dtype of a numpy/torch dtype or dtype name."""
+    if isinstance(dtype, torch.dtype):
+        return np.dtype(_TORCH_TO_NP[dtype])
+    return np.dtype(dtype)
+
+
+def torch_dtype(dtype: Any) -> torch.dtype:
+    """torch dtype of a numpy/torch dtype or dtype name."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return _NP_TO_TORCH[np.dtype(dtype)]
+
+
+def _round_up(n: int, align: int = ALIGN) -> int:
+    return (n + align - 1) // align * align
+
+
+@dataclasses.dataclass(frozen=True)
+class ArenaEntry:
+    """Placement of one logical array inside the arena blob."""
+
+    name: str
+    shape: Tuple[int, ...]
+    dtype: str           # numpy dtype name, e.g. "float32", "complex64"
+    offset: int          # byte offset into the blob (ALIGN-aligned)
+    nbytes: int          # payload bytes (not including alignment padding)
+
+    @property
+    def np_dtype(self) -> np.dtype:
+        return np.dtype(self.dtype)
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return torch_dtype(self.dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class ArenaLayout:
+    """Immutable offset table for a packed arena."""
+
+    entries: Tuple[ArenaEntry, ...]
+    total_bytes: int
+
+    def __post_init__(self):
+        names = [e.name for e in self.entries]
+        if len(set(names)) != len(names):
+            raise ValueError("duplicate names in arena layout")
+
+    @property
+    def names(self) -> List[str]:
+        return [e.name for e in self.entries]
+
+    def entry(self, name: str) -> ArenaEntry:
+        for e in self.entries:
+            if e.name == name:
+                return e
+        raise KeyError(name)
+
+    def to_json(self) -> str:
+        return json.dumps({
+            "total_bytes": self.total_bytes,
+            "entries": [dataclasses.asdict(e) for e in self.entries],
+        })
+
+    @staticmethod
+    def from_json(text: str) -> "ArenaLayout":
+        obj = json.loads(text)
+        entries = tuple(
+            ArenaEntry(name=e["name"], shape=tuple(e["shape"]),
+                       dtype=e["dtype"], offset=e["offset"],
+                       nbytes=e["nbytes"])
+            for e in obj["entries"])
+        return ArenaLayout(entries=entries, total_bytes=obj["total_bytes"])
+
+
+def plan_layout(specs: Iterable[Tuple[str, Sequence[int], Any]]) -> ArenaLayout:
+    """Compute an aligned layout for ``(name, shape, dtype)`` specs, placed
+    in the given order, each entry rounded up to ``ALIGN`` bytes."""
+    entries: List[ArenaEntry] = []
+    offset = 0
+    for name, shape, dtype in specs:
+        nd = np_dtype(dtype)
+        # np.prod of an empty shape is 1, so 0-d scalars get one item
+        nbytes = int(np.prod(tuple(shape), dtype=np.int64)) * nd.itemsize
+        entries.append(ArenaEntry(
+            name=str(name), shape=tuple(int(s) for s in shape),
+            dtype=nd.name, offset=offset, nbytes=int(nbytes)))
+        offset += _round_up(max(int(nbytes), 1))
+    return ArenaLayout(entries=tuple(entries), total_bytes=offset)
+
+
+# ---------------------------------------------------------------------------
+# Host side (numpy; zero-copy views on unpack)
+# ---------------------------------------------------------------------------
+
+def pack_host(arrays: Mapping[str, Any],
+              layout: ArenaLayout | None = None) -> Tuple[np.ndarray, ArenaLayout]:
+    """Pack named host arrays into one contiguous uint8 blob."""
+    arrays = {k: np.asarray(v) for k, v in arrays.items()}
+    if layout is None:
+        layout = plan_layout((k, a.shape, a.dtype) for k, a in arrays.items())
+    blob = np.zeros(layout.total_bytes, dtype=np.uint8)
+    for e in layout.entries:
+        a = arrays[e.name]
+        if tuple(a.shape) != e.shape:
+            raise ValueError(f"{e.name}: shape {a.shape} != layout {e.shape}")
+        if a.dtype != e.np_dtype:
+            a = a.astype(e.np_dtype)
+        raw = np.ascontiguousarray(a).view(np.uint8).reshape(-1)
+        blob[e.offset: e.offset + e.nbytes] = raw
+    return blob, layout
+
+
+def unpack_host(blob: np.ndarray, layout: ArenaLayout) -> Dict[str, np.ndarray]:
+    """Zero-copy views of each entry out of a host blob."""
+    return {e.name: blob[e.offset: e.offset + e.nbytes].view(e.np_dtype)
+            .reshape(e.shape) for e in layout.entries}
+
+
+# ---------------------------------------------------------------------------
+# Device side (torch; zero-copy views into a uint8 blob)
+# ---------------------------------------------------------------------------
+
+def device_view(blob: torch.Tensor, entry: ArenaEntry) -> torch.Tensor:
+    """Zero-copy view of one entry of a uint8 blob on any torch device."""
+    raw = blob[entry.offset: entry.offset + entry.nbytes]
+    return raw.view(entry.torch_dtype).view(entry.shape)
+
+
+def unpack_device(blob: torch.Tensor, layout: ArenaLayout) -> Dict[str, torch.Tensor]:
+    return {e.name: device_view(blob, e) for e in layout.entries}
+
+
+def pack_device(arrays: Mapping[str, torch.Tensor], layout: ArenaLayout,
+                out: torch.Tensor | None = None) -> torch.Tensor:
+    """Write named tensors into a uint8 blob (``out``, or a new zeroed blob
+    on the first array's device).  An array that already IS the blob's view
+    of its entry (a kernel wrote into the arena in place) is not copied."""
+    if out is None:
+        device = next(iter(arrays.values())).device if arrays else "cpu"
+        out = torch.zeros(layout.total_bytes, dtype=torch.uint8, device=device)
+    for e in layout.entries:
+        dst = device_view(out, e)
+        src = arrays[e.name]
+        if src.data_ptr() == dst.data_ptr() and src.dtype == dst.dtype \
+                and tuple(src.shape) == e.shape and src.is_contiguous():
+            continue
+        dst.copy_(src.reshape(e.shape))
+    return out

@@ -1,0 +1,52 @@
+"""Coil combination: xImageSum (paper §IV-A) and RSS (§IV-B).
+
+Both reduce the coil axis of a (..., C, H, W) stack:
+
+* ``ximage_sum``: complex sum over coils (final step of eq. 1)
+* ``rss``: root-sum-of-squares magnitude, float32 (the Table I/II op)
+
+For CUDA tensors they launch ``coil_combine_kernel`` (``csrc/mri_kernels.cu``);
+for CPU tensors they run the plain versions in :mod:`.ref`.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.registry import count_launch, kernel
+from . import _build, ref
+from .common import check_complex64, check_out, coil_grid, launch_stream
+
+
+def _combine(x: torch.Tensor, rss: bool, out: torch.Tensor | None) -> torch.Tensor:
+    f, c, h, w = coil_grid(x)
+    if x.device.type == "cpu":
+        res = ref.rss(x) if rss else ref.ximage_sum(x)
+        return res if out is None else out.copy_(res)
+    check_complex64("x", x)
+    shape = tuple(x.shape[:-3]) + (h, w)
+    dtype = torch.float32 if rss else torch.complex64
+    if out is None:
+        out = torch.empty(shape, dtype=dtype, device=x.device)
+    else:
+        check_out(out, shape, dtype, x.device)
+    with torch.cuda.device(x.device):
+        err = _build.library().rt_coil_combine(
+            x.data_ptr(), out.data_ptr(), int(rss), f, c, h * w, launch_stream(x))
+    name = "rss" if rss else "xImageSum"
+    _build.check(err, name)
+    count_launch(name)
+    return out
+
+
+def ximage_sum(x: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
+    """Sum over the coil axis of (..., C, H, W)."""
+    return _combine(x, False, out)
+
+
+def rss(x: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
+    """Root-sum-of-squares over the coil axis of (..., C, H, W) -> f32."""
+    return _combine(x, True, out)
+
+
+kernel("xImageSum", ref=ref.ximage_sum)(ximage_sum)
+kernel("rss", ref=ref.rss)(rss)

@@ -1,0 +1,76 @@
+"""Shared helpers for the kernel wrappers.
+
+The CUDA kernels read complex64 directly as ``float2`` (interleaved re/im,
+the layout torch and numpy already use), so there is no re/im plane split
+here: that existed only because TPU Pallas has no complex dtype.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+
+def round_up(n: int, m: int) -> int:
+    return (n + m - 1) // m * m
+
+
+def mag2(x: torch.Tensor) -> torch.Tensor:
+    """|x|² as a real tensor (x·x for real input)."""
+    if x.is_complex():
+        return x.real * x.real + x.imag * x.imag
+    return x * x
+
+
+def check_complex64(name: str, t: torch.Tensor, shape: Sequence[int] | None = None,
+                    device: torch.device | None = None) -> None:
+    """Raise unless ``t`` is a contiguous complex64 CUDA tensor (of
+    ``shape``, on ``device``) — what every kernel entry point takes."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if device is not None and t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != torch.complex64:
+        raise TypeError(f"{name}: kernel takes complex64, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: kernel takes a contiguous tensor")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+
+
+def check_out(out: torch.Tensor, shape: Sequence[int], dtype: torch.dtype,
+              device: torch.device) -> None:
+    """Raise unless ``out`` can take a kernel's result in place."""
+    if (tuple(out.shape) != tuple(shape) or out.dtype != dtype
+            or out.device != device or not out.is_contiguous()):
+        raise ValueError(
+            f"out: {tuple(out.shape)} {out.dtype} on {out.device}, expected a "
+            f"contiguous {tuple(shape)} {dtype} on {device}")
+
+
+def check_in_place(out: torch.Tensor, src: torch.Tensor) -> None:
+    """Raise if ``out`` overlaps ``src`` without being exactly ``src``: an
+    elementwise kernel may write over its input only element for element."""
+    if out.data_ptr() == src.data_ptr():
+        return
+    o0, s0 = out.data_ptr(), src.data_ptr()
+    o1 = o0 + out.numel() * out.element_size()
+    s1 = s0 + src.numel() * src.element_size()
+    if o0 < s1 and s0 < o1:
+        raise ValueError("out partially overlaps the input")
+
+
+def launch_stream(t: torch.Tensor) -> int:
+    """Handle of PyTorch's current stream on ``t``'s device."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def coil_grid(x: torch.Tensor) -> tuple[int, int, int, int]:
+    """(frames, coils, H, W) of a (..., C, H, W) stack, leading axes folded."""
+    if x.ndim < 3:
+        raise ValueError("need (..., C, H, W)")
+    c, h, w = x.shape[-3:]
+    f = 1
+    for s in x.shape[:-3]:
+        f *= int(s)
+    return f, int(c), int(h), int(w)

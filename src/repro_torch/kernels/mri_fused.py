@@ -1,0 +1,142 @@
+"""Fused MRI-reconstruction kernels: the chained per-stage processes
+collapsed into one device pass.
+
+* ``fused_epilogue``: multiply the per-coil x-images by conj(sensitivity
+  maps) and reduce the coil axis (``"sum"``: eq. 1; ``"rss"``: §IV-B) in
+  one kernel, so the (F, C, H, W) product never reaches device memory.
+* ``fused_recon``: the whole chain including the IFFT.  Inside the gate
+  (:func:`dft_fits`) the 2D IFFT is two DFT passes against precomputed
+  inverse-DFT matrices inside ONE kernel (``dft_recon_kernel``); outside
+  it, ``torch.fft.ifft2`` followed by the ``fused_epilogue`` kernel, as in
+  the reference.
+
+The gate comes from the card's limits, not the TPU's: one block keeps a
+(C, W) complex row of every coil in shared memory (``C*W*8`` bytes within
+the 227 KB opt-in limit), and H, W <= 256 (beyond that the O(N) DFT cost
+per output point loses to the radix FFT, and one 256-thread block no
+longer covers a row with one thread per column).
+
+Numerics: the DFT accumulates in fp32 in another order than the radix FFT,
+so it matches ``torch.fft.ifft2`` to ~1e-5 relative, not bitwise.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.registry import count_launch, kernel
+from . import _build, ref
+from .common import check_complex64, check_out, coil_grid, launch_stream
+
+MAX_DFT_DIM = 256
+SMEM_OPTIN_BYTES = 232448    # dynamic shared memory one Hopper block may opt into
+MAX_GRID_Y = 65535           # frames ride on gridDim.y
+_NORM_SCALE = {"ortho": np.sqrt, "backward": float, "forward": lambda n: 1.0}
+
+
+def _check_pair(k: torch.Tensor, smaps: torch.Tensor, combine: str) -> None:
+    if k.ndim < 3:
+        raise ValueError("need (..., C, H, W) k-space / x-images")
+    if tuple(smaps.shape) != tuple(k.shape[-3:]):
+        raise ValueError(
+            f"smaps shape {tuple(smaps.shape)} != coil grid {tuple(k.shape[-3:])}")
+    if combine not in ("sum", "rss"):
+        raise ValueError(f"combine {combine!r}: expected 'sum' or 'rss'")
+
+
+def _result(k: torch.Tensor, combine: str, out: Optional[torch.Tensor]) -> torch.Tensor:
+    _, _, h, w = coil_grid(k)
+    shape = tuple(k.shape[:-3]) + (h, w)
+    dtype = torch.float32 if combine == "rss" else torch.complex64
+    if out is None:
+        return torch.empty(shape, dtype=dtype, device=k.device)
+    check_out(out, shape, dtype, k.device)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# fused epilogue
+# ---------------------------------------------------------------------------
+
+def fused_epilogue(x: torch.Tensor, smaps: torch.Tensor, combine: str = "sum",
+                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(..., C, H, W) x-images * conj(smaps (C, H, W)) -> (..., H, W)."""
+    _check_pair(x, smaps, combine)
+    if x.device.type == "cpu":
+        res = ref.mri_fused_epilogue(x, smaps, combine)
+        return res if out is None else out.copy_(res)
+    check_complex64("x", x)
+    check_complex64("smaps", smaps, device=x.device)
+    f, c, h, w = coil_grid(x)
+    out = _result(x, combine, out)
+    with torch.cuda.device(x.device):
+        err = _build.library().rt_fused_epilogue(
+            x.data_ptr(), smaps.data_ptr(), out.data_ptr(), int(combine == "rss"),
+            f, c, h * w, launch_stream(x))
+    _build.check(err, "fused_epilogue")
+    count_launch("mriFusedEpilogue")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# whole chain: in-kernel DFT IFFT inside the gate
+# ---------------------------------------------------------------------------
+
+def idft_matrix(n: int, norm: str) -> np.ndarray:
+    """Inverse-DFT matrix M[a, b] = exp(2πi·ab/n) / scale, built in float64
+    and cast to complex64 (re/im f32), as the reference's ``_idft_matrix``.
+    Symmetric: M[a, b] == M[b, a]."""
+    j = np.arange(n)
+    m = np.exp(2j * np.pi * np.outer(j, j) / n) / _NORM_SCALE[norm](n)
+    return m.astype(np.complex64)
+
+
+def idft_tables(h: int, w: int, norm: str,
+                device: torch.device | str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(M_H, M_W) on ``device``: built once, by ``init()``, per shape/norm."""
+    return (torch.from_numpy(idft_matrix(h, norm)).to(device),
+            torch.from_numpy(idft_matrix(w, norm)).to(device))
+
+
+def dft_fits(f: int, c: int, h: int, w: int) -> bool:
+    """Whole-chain kernel gate: one (C, W) complex row per block in shared
+    memory, H and W within one 256-thread block, frames within gridDim.y."""
+    return (h <= MAX_DFT_DIM and w <= MAX_DFT_DIM and f <= MAX_GRID_Y
+            and c * w * 8 <= SMEM_OPTIN_BYTES)
+
+
+def fused_recon(k: torch.Tensor, smaps: torch.Tensor, combine: str = "sum",
+                norm: str = "ortho",
+                tables: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Whole SimpleMRIRecon chain, (..., C, H, W) k-space -> (..., H, W).
+    ``tables`` are the (M_H, M_W) of :func:`idft_tables` for this shape and
+    ``norm``, made here when not given."""
+    _check_pair(k, smaps, combine)
+    if norm not in _NORM_SCALE:
+        raise ValueError(f"norm {norm!r}")
+    if k.device.type == "cpu":
+        res = ref.mri_fused_recon(k, smaps, combine, norm)
+        return res if out is None else out.copy_(res)
+    check_complex64("k", k)
+    check_complex64("smaps", smaps, device=k.device)
+    f, c, h, w = coil_grid(k)
+    if not dft_fits(f, c, h, w):
+        return fused_epilogue(torch.fft.ifft2(k, norm=norm), smaps, combine, out)
+    mh, mw = tables if tables is not None else idft_tables(h, w, norm, k.device)
+    check_complex64("M_H", mh, shape=(h, h), device=k.device)
+    check_complex64("M_W", mw, shape=(w, w), device=k.device)
+    out = _result(k, combine, out)
+    with torch.cuda.device(k.device):
+        err = _build.library().rt_dft_recon(
+            k.data_ptr(), smaps.data_ptr(), mh.data_ptr(), mw.data_ptr(),
+            out.data_ptr(), int(combine == "rss"), f, c, h, w, launch_stream(k))
+    _build.check(err, "fused_recon")
+    count_launch("mriFusedRecon")
+    return out
+
+
+kernel("mriFusedEpilogue", ref=ref.mri_fused_epilogue)(fused_epilogue)
+kernel("mriFusedRecon", ref=ref.mri_fused_recon)(fused_recon)
