@@ -164,6 +164,7 @@ __global__ void dft_recon_kernel(const float2* __restrict__ k,
     const int c = idx / w, col = idx - c * w;
     const float2* src = kf + static_cast<long long>(c) * h * w + col;
     float re = 0.f, im = 0.f;
+#pragma unroll 8
     for (int r = 0; r < h; ++r) {
       const float2 m = mrow[r], v = src[static_cast<long long>(r) * w];
       re = fmaf(m.x, v.x, re);
@@ -181,6 +182,7 @@ __global__ void dft_recon_kernel(const float2* __restrict__ k,
       float yr[kCoilChunk], yi[kCoilChunk];
 #pragma unroll
       for (int q = 0; q < kCoilChunk; ++q) yr[q] = yi[q] = 0.f;
+#pragma unroll 4
       for (int col = 0; col < w; ++col) {
         const float2 m = mw[static_cast<long long>(col) * w + b];
 #pragma unroll
