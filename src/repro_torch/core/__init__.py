@@ -6,7 +6,6 @@ has so far.
 """
 from .app import (
     CLapp,
-    CLIPERApp,
     DataHandle,
     DeviceTraits,
     DeviceType,
@@ -38,7 +37,7 @@ from .registry import KernelCompileError, KernelEntry, KernelRegistry, kernel
 from .sync import Coherence, SyncSource
 
 __all__ = [
-    "ALIGN", "ArenaEntry", "ArenaLayout", "CLapp", "CLIPERApp", "Coherence",
+    "ALIGN", "ArenaEntry", "ArenaLayout", "CLapp", "Coherence",
     "Data", "DataHandle", "DeviceTraits", "DeviceType", "DonatedBufferError",
     "INVALID_HANDLE", "KData", "KernelCompileError", "KernelEntry",
     "KernelRegistry", "NDArray", "NoMatchingDeviceError", "PlatformTraits",

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
@@ -38,7 +38,6 @@ class PlatformTraits:
     (``None`` = decided by the device traits)."""
 
     name: Optional[str] = None
-    version: Optional[str] = None       # accepted for API parity; unused
 
 
 @dataclasses.dataclass
@@ -55,17 +54,6 @@ class NoMatchingDeviceError(RuntimeError):
     pass
 
 
-@dataclasses.dataclass
-class _Transfer:
-    """An issued host->device copy: its completion event, the pinned
-    staging blob it reads (kept alive until settled) and the coherence
-    state to settle into."""
-
-    event: Any
-    staging: Optional[torch.Tensor]
-    coherence: Coherence
-
-
 class CLapp:
     """Main framework object.  ``init`` selects the device in a single call
     (paper §III-A.1a); ``addData`` registers + transfers a Data set in a
@@ -77,7 +65,6 @@ class CLapp:
         self._next_handle: DataHandle = 0
         self.kernels = KernelRegistry()
         self._initialized = False
-        self._in_flight: Dict[DataHandle, _Transfer] = {}
         self._copy_stream = None     # side stream for pinned uploads
 
     # ------------------------------------------------------------------ init
@@ -128,9 +115,6 @@ class CLapp:
     def loadKernels(self, modules: str | Sequence[str]) -> List[str]:
         return self.kernels.load(modules, device=self.device)
 
-    def getKernel(self, name: str):
-        return self.kernels.get(name)
-
     # ------------------------------------------------------------------- data
     def addData(self, data: Data, to_device: bool = True) -> DataHandle:
         """Register a Data set; pack it into one arena blob and transfer it
@@ -152,18 +136,16 @@ class CLapp:
 
     def delData(self, handle: DataHandle) -> None:
         data = self._data.pop(handle, None)
-        self._in_flight.pop(handle, None)
         if data is not None:
             data.device_blob = None
 
-    def host2device(self, handle: DataHandle, *, wait: bool = True) -> None:
+    def host2device(self, handle: DataHandle) -> None:
         """Pack + transfer a Data set in one call (the paper's single-call
         pinned transfer).  On CUDA the packed blob is staged in pinned
         memory and copied with ``non_blocking=True`` on a side stream; the
         compute stream waits on the copy's event, so later kernels see the
-        data without the host blocking.  ``wait=False`` leaves the handle
-        ``Coherence.TRANSFERRING`` until :meth:`wait_transfers`.  An existing
-        device blob of the right size is reused."""
+        data without the host blocking.  An existing device blob of the
+        right size is reused."""
         data = self.getData(handle)
         if data.layout is None:
             data.plan()
@@ -171,12 +153,12 @@ class CLapp:
         blob = data.device_blob
         if blob is None or blob.numel() != n or blob.device != self.device:
             blob = torch.empty(n, dtype=torch.uint8, device=self.device)
-        event, staging = None, None
         if all(a.host is not None for a in data):
             host = torch.from_numpy(data.pack_host())
             coherence = Coherence.IN_SYNC
             if self.device.type == "cuda":
-                staging = host.pin_memory()
+                staging = host.pin_memory()  # the caching host allocator
+                # keeps it alive until the copy that reads it has run
                 compute = torch.cuda.current_stream(self.device)
                 if self._copy_stream is None:
                     self._copy_stream = torch.cuda.Stream(self.device)
@@ -194,45 +176,22 @@ class CLapp:
             blob.zero_()
             coherence = Coherence.DEVICE_FRESH
         data.device_blob = blob
-        if wait or event is None:
-            self._in_flight.pop(handle, None)
-            data.coherence = coherence
-        else:
-            data.coherence = Coherence.TRANSFERRING
-            self._in_flight[handle] = _Transfer(event, staging, coherence)
+        data.coherence = coherence
 
-    def wait_transfers(self, handles: Optional[Sequence[DataHandle]] = None) -> None:
-        """Explicit sync point: block until the issued host->device copies
-        of ``handles`` (default: all in flight) have landed, then settle
-        their coherence states."""
-        todo = list(self._in_flight) if handles is None else \
-            [h for h in handles if h in self._in_flight]
-        for h in todo:
-            t = self._in_flight.pop(h)
-            t.event.synchronize()
-            self.getData(h).coherence = t.coherence
-
-    @property
-    def in_flight_handles(self) -> List[DataHandle]:
-        return sorted(self._in_flight)
+    def wait_transfers(self) -> None:
+        """Explicit host sync point: block until every issued host->device
+        copy has landed.  Kernels need no such wait: the compute stream is
+        already ordered after each copy."""
+        if self._copy_stream is not None:
+            self._copy_stream.synchronize()
 
     def device2Host(self, handle: DataHandle,
                     sync: SyncSource = SyncSource.BUFFER_ONLY) -> None:
         if sync is SyncSource.HOST_ONLY:
             return  # host already authoritative
-        self.wait_transfers([handle])
         self.getData(handle).sync_to_host()
 
     def _mark_written(self, handle: DataHandle) -> None:
         """A process wrote this Data's device blob: the device copy is now
-        the newer one, and any pending upload is superseded."""
+        the newer one."""
         self.getData(handle).coherence = Coherence.DEVICE_FRESH
-        self._in_flight.pop(handle, None)
-
-    @property
-    def data_handles(self) -> List[DataHandle]:
-        return sorted(self._data)
-
-
-# Alias used throughout the repo docs
-CLIPERApp = CLapp

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from .arena import ArenaLayout, np_dtype, pack_host, plan_layout, unpack_device, unpack_host
-from .sync import Coherence, SyncSource, resolve_source
+from .sync import Coherence
 
 
 class TensorSpec(NamedTuple):
@@ -45,22 +45,6 @@ class NDArray:
             self.shape = tuple(int(s) for s in shape)
             self.dtype = np_dtype(dtype)
         self.name = name
-
-    @property
-    def width(self) -> int:
-        return self.shape[-1]
-
-    @property
-    def height(self) -> int:
-        return self.shape[-2] if len(self.shape) >= 2 else 1
-
-    @property
-    def ndim(self) -> int:
-        return len(self.shape)
-
-    @property
-    def nbytes(self) -> int:
-        return int(np.prod(self.shape, dtype=np.int64)) * self.dtype.itemsize
 
     @property
     def host(self) -> Optional[np.ndarray]:
@@ -131,18 +115,9 @@ class Data:
         return [a.name for a in self._arrays]
 
     # -- construction helpers ---------------------------------------------------
-    @classmethod
-    def from_layout(cls, layout: ArenaLayout) -> "Data":
-        """Spec-only Data matching an existing arena layout."""
-        d = cls(None)
-        for e in layout.entries:
-            d.add(NDArray(shape=e.shape, dtype=e.dtype, name=e.name))
-        d.layout = layout
-        return d
-
     def spec_clone(self) -> "Data":
-        """Same-shaped, spec-only copy (the paper's
-        ``XData(src, copy_values=False)`` for any Data)."""
+        """Same-shaped, spec-only copy: a scratch or output Data the size
+        of this one."""
         d = Data(None)
         for a in self._arrays:
             d.add(NDArray(shape=a.shape, dtype=a.dtype, name=a.name))
@@ -188,9 +163,6 @@ class Data:
             a.set_host(views[a.name])
         self.coherence = Coherence.IN_SYNC
 
-    def authoritative(self, sync: SyncSource = SyncSource.AUTO) -> str:
-        return resolve_source(sync, self.coherence)
-
     def specs(self) -> Dict[str, TensorSpec]:
         return {a.name: a.spec() for a in self._arrays}
 
@@ -200,19 +172,6 @@ class Data:
 
 class XData(Data):
     """Data with a direct physical interpretation (images, volumes)."""
-
-    def __init__(self, src: Any = None, copy_values: bool = True,
-                 arrays: Sequence[NDArray] | Mapping[str, Any] | None = None):
-        if isinstance(src, Data):
-            # "create output with same size as input" (listing 1, copy=False)
-            if copy_values:
-                super().__init__({a.name: np.array(a.host) for a in src})
-            else:
-                super().__init__(None)
-                for a in src:
-                    self.add(NDArray(shape=a.shape, dtype=a.dtype, name=a.name))
-        else:
-            super().__init__(arrays if arrays is not None else src)
 
 
 class KData(Data):
@@ -235,14 +194,6 @@ class KData(Data):
     @property
     def smaps(self) -> NDArray:
         return self._arrays[self.names.index(self.SMAPS)]
-
-    @property
-    def n_coils(self) -> int:
-        return self.kdata.shape[-3]
-
-    @property
-    def n_frames(self) -> int:
-        return self.kdata.shape[0]
 
     def x_shape(self) -> Tuple[int, ...]:
         """Shape of the reconstructed X-space image set (frames, H, W)."""

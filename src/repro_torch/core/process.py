@@ -2,8 +2,8 @@
 
 A Process is an operator: typed input/output **ports**, launch parameters,
 and :meth:`Process.apply`, which maps named tensor views of the input
-arena(s) to named output tensors.  Every non-aux port other than ``"out"``
-is an input; the primary ``"in"`` comes first, and a secondary input (such
+arena(s) to named output tensors.  Every port other than ``"out"`` is an
+input; the primary ``"in"`` comes first, and a secondary input (such
 as ``smaps``) reaches :meth:`apply` through its ``aux`` argument under its
 port name.
 
@@ -54,31 +54,14 @@ class ProfileParameters:
     On a CUDA device a sample is the time between two ``torch.cuda.Event``
     records on the compute stream around the launch; on the CPU it is the
     host clock.  Statistics return ``nan`` when nothing was recorded.
-    Named phase buckets (``"transfer"``, ``"compute"``) break a launch down.
     """
 
     enable: bool = False
     samples: List[float] = dataclasses.field(default_factory=list)
-    phases: Dict[str, List[float]] = dataclasses.field(default_factory=dict)
 
     def record(self, seconds: float) -> None:
         if self.enable:
             self.samples.append(seconds)
-
-    def record_phase(self, phase: str, seconds: float) -> None:
-        if self.enable:
-            self.phases.setdefault(phase, []).append(seconds)
-
-    def phase_total(self, phase: str) -> float:
-        return float(sum(self.phases.get(phase, ())))
-
-    def phase_totals(self) -> Dict[str, float]:
-        return {k: self.phase_total(k) for k in self.phases}
-
-    def mean(self) -> float:
-        if not self.samples:
-            return float("nan")
-        return float(sum(self.samples) / len(self.samples))
 
     def percentile(self, p: float) -> float:
         if not self.samples:
@@ -87,28 +70,6 @@ class ProfileParameters:
 
     def p50(self) -> float:
         return self.percentile(50.0)
-
-    def p99(self) -> float:
-        return self.percentile(99.0)
-
-
-@dataclasses.dataclass
-class _PhaseView:
-    """Phase-only view of a parent profile: a staged chain hands it to its
-    stages so the chain records ONE sample per launch while the stages
-    still contribute their phase breakdown."""
-
-    parent: ProfileParameters
-
-    @property
-    def enable(self) -> bool:
-        return self.parent.enable
-
-    def record(self, seconds: float) -> None:
-        pass
-
-    def record_phase(self, phase: str, seconds: float) -> None:
-        self.parent.record_phase(phase, seconds)
 
 
 class _Timer:
@@ -150,15 +111,12 @@ class PortError(TypeError):
 
 @dataclasses.dataclass(frozen=True)
 class Port:
-    """Typed declaration of one Process input/output/aux slot.
+    """Typed declaration of one Process input or output.
 
     ``"in"`` and ``"out"`` are the primary input and output; any other
-    non-aux entry is an additional input keyed by its own name;
-    ``Port(aux=True)`` entries are static side parameters.
-    ``dtype`` may be a concrete dtype or a numpy kind such as
-    ``np.complexfloating``."""
+    entry is an additional input keyed by its own name.  ``dtype`` may be a
+    concrete dtype or a numpy kind such as ``np.complexfloating``."""
 
-    aux: bool = False
     optional: bool = False
     names: Optional[Tuple[str, ...]] = None  # NDArray names the Data must hold
     dtype: Any = None
@@ -209,7 +167,6 @@ class Process:
         self._app = app
         self.in_handles: Dict[str, DataHandle] = {"in": INVALID_HANDLE}
         self.out_handle: DataHandle = INVALID_HANDLE
-        self.aux_handles: Dict[str, DataHandle] = {}
         self.launch_params: Any = None
         self._in_names: Tuple[str, ...] = ()
         self._in_place_name: Optional[str] = None
@@ -231,7 +188,7 @@ class Process:
         """The wired inputs in positional order: declared input ports first
         (``"in"`` always position 0), then any extra wired names."""
         wired = [n for n, h in self.in_handles.items() if h != INVALID_HANDLE]
-        declared = [n for n in self.ports if n != "out" and not self.ports[n].aux]
+        declared = [n for n in self.ports if n != "out"]
         ordered = [n for n in declared if n in wired]
         ordered += [n for n in wired if n not in ordered]
         if "in" in ordered and ordered[0] != "in":
@@ -247,8 +204,9 @@ class Process:
     def out_specs(self, in_specs: Mapping[str, TensorSpec],
                   aux_specs: Optional[Mapping[str, Mapping[str, TensorSpec]]] = None,
                   ) -> Dict[str, TensorSpec]:
-        """Infer the named output specs from input specs without computing
-        anything: :meth:`apply` runs on ``meta`` tensors."""
+        """Infer the named output specs from input specs (and secondary
+        inputs' specs by port name) without computing anything:
+        :meth:`apply` runs on ``meta`` tensors."""
         def meta(s):
             return torch.empty(tuple(s.shape), dtype=torch_dtype(s.dtype),
                                device="meta")
@@ -264,9 +222,9 @@ class Process:
         if not self._legacy_warned:
             self._legacy_warned = True
             warnings.warn(
-                f"{type(self).__name__}.set_in_handle/set_out_handle/"
-                "set_aux_handle are deprecated: assign in_handle/in_handles/"
-                "out_handle instead.", DeprecationWarning, stacklevel=3)
+                f"{type(self).__name__}.set_in_handle/set_out_handle are "
+                "deprecated: assign in_handle/in_handles/out_handle instead.",
+                DeprecationWarning, stacklevel=3)
 
     def set_in_handle(self, h: DataHandle) -> None:
         self._warn_legacy_setters()
@@ -275,10 +233,6 @@ class Process:
     def set_out_handle(self, h: DataHandle) -> None:
         self._warn_legacy_setters()
         self.out_handle = h
-
-    def set_aux_handle(self, name: str, h: DataHandle) -> None:
-        self._warn_legacy_setters()
-        self.aux_handles[name] = h
 
     def set_launch_parameters(self, params: Any) -> None:
         if params != self.launch_params:
@@ -294,7 +248,8 @@ class Process:
               aux: Dict[str, Dict[str, torch.Tensor]], params: Any,
               out: Optional[Dict[str, torch.Tensor]] = None,
               ) -> Dict[str, torch.Tensor]:
-        """Input views (+ secondary-input and aux views) -> named outputs.
+        """Primary input views (+ secondary inputs' views, by port name, in
+        ``aux``) -> named outputs.
         ``out``, when given, holds views of the output arena; an output
         computed straight into its view is not copied again."""
         raise NotImplementedError
@@ -313,11 +268,10 @@ class Process:
         owner = type(self).__name__
         wiring = dict(self.in_handles)
         wiring["out"] = self.out_handle
-        wiring.update(self.aux_handles)
         for port_name, port in self.ports.items():
             h = wiring.get(port_name, INVALID_HANDLE)
             if h == INVALID_HANDLE:
-                if port_name in ("in", "out") or not (port.optional or port.aux):
+                if port_name in ("in", "out") or not port.optional:
                     raise PortError(f"{owner}: port {port_name!r} is not wired")
                 continue
             port.validate(app.getData(h).specs(), owner=owner, port=port_name)
@@ -330,8 +284,7 @@ class Process:
             app.loadKernels(list(self.kernel_names))
         self._validate_ports()
         self._in_names = self.input_names
-        for h in [self.in_handles[n] for n in self._in_names] + \
-                list(self.aux_handles.values()) + [self.out_handle]:
+        for h in [self.in_handles[n] for n in self._in_names] + [self.out_handle]:
             d = app.getData(h)
             if d.layout is None:
                 d.plan()
@@ -351,20 +304,12 @@ class Process:
                 f"{self.out_handle} != in_handles[{name!r}]="
                 f"{self.in_handles.get(name)}; call init() for the new wiring.")
 
-    def _input_views(self, handle: DataHandle,
-                     profile: ProfileParameters | None) -> Dict[str, torch.Tensor]:
+    def _input_views(self, handle: DataHandle) -> Dict[str, torch.Tensor]:
         app = self.getApp()
         d = app.getData(handle)
         if d.device_blob is None:
-            t0 = time.perf_counter()
             app.host2device(handle)
-            if profile is not None:
-                profile.record_phase("transfer", time.perf_counter() - t0)
         return d.device_views()
-
-    def _aux_views(self, profile) -> Dict[str, Dict[str, torch.Tensor]]:
-        return {n: self._input_views(h, profile)
-                for n, h in sorted(self.aux_handles.items())}
 
     def launch(self, profile: ProfileParameters | None = None) -> None:
         """Hot path: read the arena views, run, write the output arena."""
@@ -372,9 +317,8 @@ class Process:
             self.init()
         self._check_donation()
         app = self.getApp()
-        ins = [self._input_views(self.in_handles[n], profile) for n in self._in_names]
+        ins = [self._input_views(self.in_handles[n]) for n in self._in_names]
         aux = dict(zip(self._in_names[1:], ins[1:]))
-        aux.update(self._aux_views(profile))
         timer = _Timer(app.device) if profile is not None and profile.enable else None
         dout = app.getData(self.out_handle)
         if dout.device_blob is None:
@@ -383,9 +327,7 @@ class Process:
         pack_device(outs, dout.layout, out=dout.device_blob)
         app._mark_written(self.out_handle)
         if timer is not None:
-            dt = timer.seconds()
-            profile.record(dt)
-            profile.record_phase("compute", dt)
+            profile.record(timer.seconds())
 
 
 class ProcessChain(Process):
@@ -443,25 +385,23 @@ class ProcessChain(Process):
         app = self.getApp()
         timer = _Timer(app.device) if profile is not None and profile.enable else None
         if self.mode == "staged":
-            stage_prof = _PhaseView(profile) if timer is not None else None
             for s in self.stages:
-                s.launch(stage_prof)
+                s.launch()
         else:
-            self._launch_fused(profile)
+            self._launch_fused()
         if timer is not None:
             profile.record(timer.seconds())
 
-    def _launch_fused(self, profile) -> None:
+    def _launch_fused(self) -> None:
         self._check_donation()
         app = self.getApp()
         env: Dict[DataHandle, Dict[str, torch.Tensor]] = {
-            h: self._input_views(h, profile) for h in self.in_handles.values()}
+            h: self._input_views(h) for h in self.in_handles.values()}
         last = len(self.stages) - 1
         for i, s in enumerate(self.stages):
             names = s.input_names
             views = env[s.in_handles[names[0]]]
             aux = {n: env[s.in_handles[n]] for n in names[1:]}
-            aux.update(s._aux_views(profile))
             out = app.getData(s.out_handle).device_views() if i == last else None
             env[s.out_handle] = s._apply_checked(views, aux, out)
         dout = app.getData(self.out_handle)

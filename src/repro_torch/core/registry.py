@@ -26,7 +26,6 @@ class KernelEntry:
     fn: Callable[..., Any]                    # the wrapper
     ref: Optional[Callable[..., Any]] = None  # plain PyTorch version
     module: str = ""
-    doc: str = ""
     launches: int = 0                         # CUDA launches since reset
 
 
@@ -47,9 +46,7 @@ def kernel(name: str, ref: Callable[..., Any] | None = None):
     """Decorator: register ``fn`` as a named kernel entry point."""
 
     def deco(fn: Callable[..., Any]):
-        _GLOBAL[name] = KernelEntry(
-            name=name, fn=fn, ref=ref, module=fn.__module__,
-            doc=(fn.__doc__ or "").strip())
+        _GLOBAL[name] = KernelEntry(name=name, fn=fn, ref=ref, module=fn.__module__)
         return fn
 
     return deco

@@ -20,10 +20,11 @@ class SyncSource(enum.Enum):
 class Coherence(enum.Enum):
     """Freshness state of the (host, device) pair backing a Data object.
 
-    ``TRANSFERRING``: a pinned host->device copy was issued on the app's
-    transfer stream and not yet awaited; ``CLapp.wait_transfers`` (or the
-    next ``device2Host``) settles it.  ``DEVICE_RESIDENT`` marks a blob
-    meant never to land on the host (a pipeline-internal edge).
+    The states are the reference's.  ``TRANSFERRING`` (an upload issued, not
+    awaited) and ``DEVICE_RESIDENT`` (a pipeline-internal edge that never
+    lands on the host) belong to the streaming and graph layers, which the
+    port does not have yet: its uploads are ordered on the device, so a
+    Data is IN_SYNC as soon as ``host2device`` returns.
     """
 
     HOST_FRESH = "host"        # host copy newer (or device absent)

@@ -35,8 +35,7 @@ def data_from_reference(blob: np.ndarray, specs: Sequence[Tuple[str, Sequence[in
                          f"{layout.total_bytes}")
     host = blob.copy()
     arrays = unpack_host(host, layout)
-    cls = _data_class(arrays)
-    data = cls(dict(arrays)) if cls is KData else cls(arrays=dict(arrays))
+    data = _data_class(arrays)(dict(arrays))
     data.layout = layout
     data.device_blob = torch.tensor(blob, device=device)  # a copy: no aliasing
     data.coherence = Coherence.IN_SYNC

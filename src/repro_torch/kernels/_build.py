@@ -39,7 +39,7 @@ _SIGNATURES = {
 
 
 def sources() -> list[Path]:
-    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+    return sorted(CSRC.glob("*.cu"))
 
 
 def source_hash() -> str:

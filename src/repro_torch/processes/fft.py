@@ -20,7 +20,6 @@ class FFTParams:
     var: str | None = None          # transform only this NDArray (None = all)
 
 
-FORWARD = FFTParams("forward")
 BACKWARD = FFTParams("backward")
 
 
