@@ -81,7 +81,7 @@ def build() -> Path:
         tmp.unlink(missing_ok=True)
         raise KernelCompileError("repro_torch.kernels.csrc", log)
     log_path.write_text(log)
-    os.replace(tmp, out)  # atomic: a concurrent builder sees all or nothing
+    os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
     BUILD_INFO.update(path=str(out), seconds=seconds, cached=False, log=log)
     return out
 
