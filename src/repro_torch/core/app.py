@@ -120,7 +120,13 @@ class CLapp:
         """Register a Data set; pack it into one arena blob and transfer it
         in a single call.  Spec-only Data gets a zeroed device blob.  A Data
         that already carries a device blob (``interop``) is registered as
-        it is."""
+        it is; a blob on another device than the app's raises, so no
+        process of this app ever runs on data that lies elsewhere."""
+        blob = data.device_blob
+        if blob is not None and blob.device != self.device:
+            raise ValueError(
+                f"Data's arena lies on {blob.device}, this app runs on "
+                f"{self.device}; make it on app.device")
         handle = self._next_handle
         self._next_handle += 1
         self._data[handle] = data

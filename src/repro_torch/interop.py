@@ -23,11 +23,11 @@ def _data_class(names) -> type:
 
 
 def data_from_reference(blob: np.ndarray, specs: Sequence[Tuple[str, Sequence[int], Any]],
-                        device: torch.device | str = "cpu") -> Data:
+                        device: torch.device | str) -> Data:
     """A port ``KData`` (arrays ``kdata`` + ``sensitivity_maps``) or ``XData``
     from a host blob packed by the reference's ``pack_host`` for ``specs``.
-    The blob lands on ``device`` as the Data's arena; register the result
-    with ``CLapp.addData``, which keeps that arena."""
+    The blob lands on ``device`` (give ``app.device``) as the Data's arena;
+    ``CLapp.addData`` keeps that arena and refuses one on another device."""
     blob = np.ascontiguousarray(blob, dtype=np.uint8).reshape(-1)
     layout = plan_layout(specs)
     if blob.size != layout.total_bytes:
@@ -43,7 +43,7 @@ def data_from_reference(blob: np.ndarray, specs: Sequence[Tuple[str, Sequence[in
 
 
 def arrays_from_reference(arrays: Mapping[str, np.ndarray],
-                          device: torch.device | str = "cpu") -> Data:
+                          device: torch.device | str) -> Data:
     """The same from named arrays: packed in the shared format, then taken
     over as :func:`data_from_reference` does."""
     blob, layout = pack_host(arrays)

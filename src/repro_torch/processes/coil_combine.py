@@ -4,10 +4,11 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
+from repro_torch.core.data import TensorSpec
 from repro_torch.core.process import Port, Process, out_view
-from repro_torch.kernels import ref as kref
 from repro_torch.launch.roofline import resolve_backend
 
 
@@ -17,8 +18,8 @@ class CombineParams:
     use_kernel: bool | str = "auto"
 
 
-def _image_shape(x: torch.Tensor) -> tuple:
-    return tuple(x.shape[:-3]) + tuple(x.shape[-2:])
+def _image_shape(shape) -> tuple:
+    return tuple(shape[:-3]) + tuple(shape[-2:])
 
 
 class XImageSum(Process):
@@ -30,15 +31,16 @@ class XImageSum(Process):
                         doc="(frames, coils, H, W) per-coil x-images"),
              "out": Port(names=("xdata",))}
 
+    def out_specs(self, in_specs, aux_specs=None):
+        k = in_specs["kdata"]
+        return {"xdata": TensorSpec(_image_shape(k.shape), k.dtype)}
+
     def apply(self, views, aux, params, out=None):
         params = params or CombineParams()
         x = views["kdata"]
-        if resolve_backend(params.use_kernel, x):
-            res = self.getApp().kernels.get("xImageSum")(
-                x, out=out_view(out, "xdata", x.dtype, _image_shape(x)))
-        else:
-            res = kref.ximage_sum(x)
-        return {"xdata": res}
+        resolve_backend(params.use_kernel, x)
+        return {"xdata": self.getApp().kernels.get("xImageSum")(
+            x, out=out_view(out, "xdata", x.dtype, _image_shape(x.shape)))}
 
 
 class RSSCombine(Process):
@@ -50,12 +52,13 @@ class RSSCombine(Process):
                         doc="(frames, coils, H, W) per-coil images"),
              "out": Port(names=("xdata",))}
 
+    def out_specs(self, in_specs, aux_specs=None):
+        k = in_specs["kdata"]
+        return {"xdata": TensorSpec(_image_shape(k.shape), np.dtype(np.float32))}
+
     def apply(self, views, aux, params, out=None):
         params = params or CombineParams()
         x = views["kdata"]
-        if resolve_backend(params.use_kernel, x):
-            res = self.getApp().kernels.get("rss")(
-                x, out=out_view(out, "xdata", torch.float32, _image_shape(x)))
-        else:
-            res = kref.rss(x)
-        return {"xdata": res.to(torch.float32)}
+        resolve_backend(params.use_kernel, x)
+        return {"xdata": self.getApp().kernels.get("rss")(
+            x, out=out_view(out, "xdata", torch.float32, _image_shape(x.shape)))}

@@ -7,7 +7,6 @@ import dataclasses
 import numpy as np
 
 from repro_torch.core.process import Port, Process, out_view
-from repro_torch.kernels import ref as kref
 from repro_torch.launch.roofline import resolve_backend
 
 
@@ -39,6 +38,9 @@ class ComplexElementProd(Process):
              "smaps": Port(optional=True, dtype=np.complexfloating,
                            doc="sensitivity maps as a separate Data")}
 
+    def out_specs(self, in_specs, aux_specs=None):
+        return dict(in_specs)   # kdata is overwritten in place, same spec
+
     def apply(self, views, aux, params, out=None):
         params = params or conjugate
         if "smaps" in aux:
@@ -46,12 +48,9 @@ class ComplexElementProd(Process):
         else:
             smaps = views["sensitivity_maps"]
         k = views["kdata"]
-        if resolve_backend(params.use_kernel, k, smaps):
-            fn = self.getApp().kernels.get("complexElementProd")
-            prod = fn(k, smaps, params.conjugate,
-                      out=out_view(out, "kdata", k.dtype, k.shape))
-        else:
-            prod = kref.complex_elementprod(k, smaps, params.conjugate)
+        resolve_backend(params.use_kernel, k, smaps)
+        prod = self.getApp().kernels.get("complexElementProd")(
+            k, smaps, params.conjugate, out=out_view(out, "kdata", k.dtype, k.shape))
         res = dict(views)
         res["kdata"] = prod
         return res

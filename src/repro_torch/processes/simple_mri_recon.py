@@ -13,9 +13,9 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.app import INVALID_HANDLE, DataHandle
 from repro_torch.core.data import TensorSpec
 from repro_torch.core.process import Port, Process, ProcessChain, ProfileParameters, out_view
-from repro_torch.kernels import ref as kref
 from repro_torch.kernels.mri_fused import dft_fits, idft_tables
 from repro_torch.launch.roofline import resolve_backend
 from .coil_combine import CombineParams, XImageSum
@@ -64,6 +64,12 @@ class FusedMRIRecon(Process):
         if app.device.type == "cuda" and dft_fits(f, c, h, w):
             self._tables = idft_tables(h, w, params.norm, app.device)
 
+    def out_specs(self, in_specs, aux_specs=None):
+        params = self.launch_params or FusedReconParams()
+        f, _, h, w = in_specs["kdata"].shape
+        dtype = np.dtype(np.float32) if params.combine == "rss" else in_specs["kdata"].dtype
+        return {"xdata": TensorSpec((f, h, w), dtype)}
+
     def apply(self, views, aux, params, out=None):
         params = params or FusedReconParams()
         if "smaps" in aux:
@@ -71,17 +77,11 @@ class FusedMRIRecon(Process):
         else:
             smaps = views["sensitivity_maps"]
         k = views["kdata"]
-        if resolve_backend(params.use_kernel, k, smaps):
-            dtype = torch.float32 if params.combine == "rss" else k.dtype
-            res = self.getApp().kernels.get("mriFusedRecon")(
-                k, smaps, combine=params.combine, norm=params.norm,
-                tables=self._tables,
-                out=out_view(out, "xdata", dtype, k.shape[:-3] + k.shape[-2:]))
-        else:
-            res = kref.mri_fused_recon(k, smaps, params.combine, params.norm)
-        if params.combine == "rss":
-            res = res.to(torch.float32)
-        return {"xdata": res}
+        resolve_backend(params.use_kernel, k, smaps)
+        dtype = torch.float32 if params.combine == "rss" else k.dtype
+        return {"xdata": self.getApp().kernels.get("mriFusedRecon")(
+            k, smaps, combine=params.combine, norm=params.norm, tables=self._tables,
+            out=out_view(out, "xdata", dtype, k.shape[:-3] + k.shape[-2:]))}
 
 
 class SimpleMRIRecon(Process):
@@ -115,6 +115,7 @@ class SimpleMRIRecon(Process):
         self.in_place = in_place
         self.join = join
         self.chain: ProcessChain | None = None
+        self._scratch: DataHandle = INVALID_HANDLE
         if join:
             self.ports = {
                 "in": Port(names=("kdata",), dtype=np.complexfloating,
@@ -128,6 +129,18 @@ class SimpleMRIRecon(Process):
         k = in_specs["kdata"]
         f, _, h, w = k.shape
         return {"xdata": TensorSpec((f, h, w), k.dtype)}
+
+    def _scratch_handle(self) -> DataHandle:
+        """The scratch arena of ``in_place=False``: allocated by the first
+        ``init()`` and kept by later ones while the input's specs match."""
+        app = self.getApp()
+        specs = app.getData(self.in_handle).specs()
+        if self._scratch != INVALID_HANDLE:
+            if app.getData(self._scratch).specs() == specs:
+                return self._scratch
+            app.delData(self._scratch)
+        self._scratch = app.addData(app.getData(self.in_handle).spec_clone())
+        return self._scratch
 
     def init(self) -> None:
         self._validate_ports()
@@ -143,10 +156,7 @@ class SimpleMRIRecon(Process):
             stages = [p_fused]
             chain_mode = "staged"
         else:
-            if self.in_place:
-                work = self.in_handle
-            else:  # scratch arena, allocated once here
-                work = app.addData(app.getData(self.in_handle).spec_clone())
+            work = self.in_handle if self.in_place else self._scratch_handle()
 
             p_ifft = FFT(app)
             p_ifft.in_handle = self.in_handle

@@ -10,7 +10,7 @@ import torch
 from repro.core import arena as jarena
 from repro_torch import interop
 from repro_torch.core import arena as tarena
-from repro_torch.core import KData, XData
+from repro_torch.core import CLapp, DeviceTraits, DeviceType, KData, PlatformTraits, XData
 
 
 def _mixed(rng):
@@ -86,7 +86,7 @@ def test_data_from_reference_takes_a_jax_packed_kdata(rng):
          ).astype(np.complex64)
     blob, layout = jarena.pack_host({"kdata": k, "sensitivity_maps": s})
     specs = [(e.name, e.shape, e.dtype) for e in layout.entries]
-    data = interop.data_from_reference(np.asarray(blob), specs)
+    data = interop.data_from_reference(np.asarray(blob), specs, "cpu")
     assert isinstance(data, KData)
     assert data.layout.to_json() == layout.to_json()
     assert data.device_blob.numpy().tobytes() == np.asarray(blob).tobytes()  # exact
@@ -101,8 +101,20 @@ def test_data_from_reference_takes_a_jax_packed_kdata(rng):
 
 def test_arrays_from_reference_gives_xdata(rng):
     img = rng.standard_normal((2, 24, 20)).astype(np.float32)
-    data = interop.arrays_from_reference({"xdata": img})
+    data = interop.arrays_from_reference({"xdata": img}, "cpu")
     assert isinstance(data, XData)
     np.testing.assert_array_equal(data.device_view("xdata").numpy(), img)  # exact
     with pytest.raises(ValueError):
-        interop.data_from_reference(np.zeros(3, np.uint8), [("x", (4,), np.float32)])
+        interop.data_from_reference(np.zeros(3, np.uint8), [("x", (4,), np.float32)], "cpu")
+
+
+def test_add_data_refuses_an_arena_on_another_device(rng):
+    """A Data made on one device cannot be fed to an app on another: the
+    app's processes would otherwise run wherever the arena happens to lie.
+    (``meta`` stands in for a second device on a CPU-only machine.)"""
+    app = CLapp().init(PlatformTraits(), DeviceTraits(type=DeviceType.CPU))
+    img = rng.standard_normal((2, 24, 20)).astype(np.float32)
+    with pytest.raises(ValueError, match="lies on meta"):
+        app.addData(interop.arrays_from_reference({"xdata": img}, "meta"))
+    h = app.addData(interop.arrays_from_reference({"xdata": img}, app.device))
+    np.testing.assert_array_equal(app.getData(h).device_view("xdata").numpy(), img)  # exact

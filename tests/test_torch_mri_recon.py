@@ -19,7 +19,7 @@ from repro_torch.core import (CLapp, Data, DeviceTraits, DeviceType, DonatedBuff
                               KData, PlatformTraits, PortError, ProcessChain,
                               ProfileParameters, TensorSpec, XData)
 from repro_torch.processes import (FFT, ComplexElementProd, FFTParams, FusedMRIRecon,
-                                   FusedReconParams, RSSCombine, SimpleMRIRecon)
+                                   FusedReconParams, RSSCombine, SimpleMRIRecon, XImageSum)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 SHAPE = (SMOKE.frames, SMOKE.coils, SMOKE.height, SMOKE.width)
@@ -100,6 +100,27 @@ def test_second_launch_out_of_place_repeats(inputs, mode):
     k, s = inputs
     first, second = _run_port(mode, False, False, k, s, launches=2)
     np.testing.assert_array_equal(first, second)   # same program, same bytes
+
+
+@pytest.mark.parametrize("mode", ["staged", "fused"])
+def test_reinit_reuses_the_scratch_arena(inputs, mode):
+    """``in_place=False`` allocates its scratch KData once: a second
+    ``init()`` registers no new Data, and the result is unchanged (exact)."""
+    k, s = inputs
+    app = _cpu_app()
+    p = SimpleMRIRecon(app, mode=mode, in_place=False)
+    h_out = _wire(tcore, app, p, k, s, join=False)
+    p.init()
+    scratch = p._scratch
+    registered = len(app._data)
+    p.launch()
+    app.device2Host(h_out)
+    first = app.getData(h_out).get_ndarray(0).host.copy()
+    p.init()
+    assert (p._scratch, len(app._data)) == (scratch, registered)
+    p.launch()
+    app.device2Host(h_out)
+    np.testing.assert_array_equal(app.getData(h_out).get_ndarray(0).host, first)
 
 
 def test_rss_combine_matches_jax(inputs):
@@ -201,6 +222,23 @@ def test_out_specs_and_legacy_setters(inputs):
         p.set_out_handle(1)
     assert [w.category for w in caught] == [DeprecationWarning]
     assert (p.in_handle, p.out_handle) == (0, 1)
+
+
+@pytest.mark.parametrize("make", [
+    lambda app: ComplexElementProd(app), lambda app: XImageSum(app),
+    lambda app: RSSCombine(app), lambda app: FusedMRIRecon(app)],
+    ids=["ComplexElementProd", "XImageSum", "RSSCombine", "FusedMRIRecon"])
+def test_out_specs_match_what_apply_returns(inputs, make):
+    """Each kernel process states its output specs without running; they
+    are exactly the shapes and dtypes its ``apply`` gives on the CPU."""
+    k, s = inputs
+    app = _cpu_app()
+    p = make(app)
+    views = {"kdata": torch.from_numpy(k.copy()), "sensitivity_maps": torch.from_numpy(s)}
+    specs = KData({"kdata": k, "sensitivity_maps": s}).specs()
+    got = {n: TensorSpec(tuple(v.shape), np.dtype(str(v.dtype).removeprefix("torch.")))
+           for n, v in p.apply(views, {}, None).items()}
+    assert p.out_specs(specs) == got
 
 
 def test_cpu_tensors_stay_on_the_cpu(inputs):
