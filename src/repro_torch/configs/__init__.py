@@ -1,1 +1,31 @@
-"""Configurations the port runs (so far: the paper's MRI case study)."""
+"""Configurations the port runs: the paper's MRI case study
+(:mod:`.mri_recon`) and the dense LM architectures (``get_config`` /
+``get_smoke`` by arch id, as ``repro.configs``).
+
+Each LM module defines ``CONFIG`` (the published configuration) and
+``SMOKE`` (a reduced same-family config for CPU tests), copied from the JAX
+package's module of the same name.
+"""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.models.common import ArchConfig
+
+#: the architectures whose family the port runs so far
+ARCH_IDS = ["qwen3-14b", "h2o-danube-1.8b", "qwen2-7b"]
+
+
+def _module(arch_id: str):
+    if arch_id not in ARCH_IDS:
+        raise KeyError(f"{arch_id!r} is not ported yet; the port has {ARCH_IDS}")
+    return importlib.import_module(
+        f"repro_torch.configs.{arch_id.replace('-', '_').replace('.', '_')}")
+
+
+def get_config(arch_id: str) -> ArchConfig:
+    return _module(arch_id).CONFIG
+
+
+def get_smoke(arch_id: str) -> ArchConfig:
+    return _module(arch_id).SMOKE

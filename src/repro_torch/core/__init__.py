@@ -2,7 +2,7 @@
 
 Public API mirrors OpenCLIPER's class names (CLapp, Data, XData, KData,
 NDArray, Process) and ``repro.core``'s exports, limited to what the port
-has so far.
+has so far (the graph layer: ``Node`` and ``Pipeline`` in launch mode).
 """
 from .app import (
     CLapp,
@@ -15,6 +15,7 @@ from .app import (
 )
 from .arena import (
     ALIGN,
+    BFLOAT16,
     ArenaEntry,
     ArenaLayout,
     device_view,
@@ -25,6 +26,7 @@ from .arena import (
     unpack_host,
 )
 from .data import Data, KData, NDArray, TensorSpec, XData
+from .graph import GraphError, Node, Pipeline
 from .process import (
     DonatedBufferError,
     Port,
@@ -37,11 +39,11 @@ from .registry import KernelCompileError, KernelEntry, KernelRegistry, kernel
 from .sync import Coherence, SyncSource
 
 __all__ = [
-    "ALIGN", "ArenaEntry", "ArenaLayout", "CLapp", "Coherence",
+    "ALIGN", "ArenaEntry", "ArenaLayout", "BFLOAT16", "CLapp", "Coherence",
     "Data", "DataHandle", "DeviceTraits", "DeviceType", "DonatedBufferError",
-    "INVALID_HANDLE", "KData", "KernelCompileError", "KernelEntry",
-    "KernelRegistry", "NDArray", "NoMatchingDeviceError", "PlatformTraits",
-    "Port", "PortError", "Process", "ProcessChain", "ProfileParameters",
+    "GraphError", "INVALID_HANDLE", "KData", "KernelCompileError", "KernelEntry",
+    "KernelRegistry", "NDArray", "Node", "NoMatchingDeviceError", "Pipeline",
+    "PlatformTraits", "Port", "PortError", "Process", "ProcessChain", "ProfileParameters",
     "SyncSource", "TensorSpec", "XData", "device_view", "kernel",
     "pack_device", "pack_host", "plan_layout", "unpack_device", "unpack_host",
 ]

@@ -66,6 +66,9 @@ class CLapp:
         self.kernels = KernelRegistry()
         self._initialized = False
         self._copy_stream = None     # side stream for pinned uploads
+        #: host->device bytes copied per handle by ``host2device`` (zeroing a
+        #: spec-only Data's blob on the device moves none)
+        self.h2d_bytes: Dict[DataHandle, int] = {}
 
     # ------------------------------------------------------------------ init
     def init(self, platform_traits: PlatformTraits | None = None,
@@ -178,6 +181,7 @@ class CLapp:
                 compute.wait_event(event)
             else:
                 blob.copy_(host)
+            self.h2d_bytes[handle] = self.h2d_bytes.get(handle, 0) + n
         else:
             blob.zero_()
             coherence = Coherence.DEVICE_FRESH
@@ -199,5 +203,7 @@ class CLapp:
 
     def _mark_written(self, handle: DataHandle) -> None:
         """A process wrote this Data's device blob: the device copy is now
-        the newer one."""
-        self.getData(handle).coherence = Coherence.DEVICE_FRESH
+        the newer one, and the only one for a device-resident Data."""
+        data = self.getData(handle)
+        data.coherence = (Coherence.DEVICE_RESIDENT if data.residency == "device"
+                          else Coherence.DEVICE_FRESH)

@@ -24,6 +24,14 @@ import torch
 
 ALIGN = 128  # bytes: the arena format's entry alignment
 
+#: the layout's name for bfloat16 entries, as the JAX package writes it.
+#: numpy has no bfloat16 of its own (the JAX package gets one from
+#: ``ml_dtypes``, which the port does not use), so a bfloat16 entry's host
+#: bytes are held as uint16 bit patterns; on the device its view is
+#: ``torch.bfloat16``.  A blob packed by either package unpacks in the other
+#: with the same bytes at the same offsets.
+BFLOAT16 = "bfloat16"
+
 _TORCH_TO_NP = {
     torch.bool: np.bool_, torch.uint8: np.uint8, torch.int8: np.int8,
     torch.int16: np.int16, torch.int32: np.int32, torch.int64: np.int64,
@@ -34,18 +42,60 @@ _TORCH_TO_NP = {
 _NP_TO_TORCH = {np.dtype(v): k for k, v in _TORCH_TO_NP.items()}
 
 
-def np_dtype(dtype: Any) -> np.dtype:
-    """numpy dtype of a numpy/torch dtype or dtype name."""
+def spec_dtype(dtype: Any) -> "np.dtype | str":
+    """Canonical dtype of an array spec: a numpy dtype, or :data:`BFLOAT16`
+    for torch's bfloat16, the name "bfloat16", or a numpy bfloat16 dtype
+    from ``ml_dtypes`` (the JAX package's arrays)."""
     if isinstance(dtype, torch.dtype):
-        return np.dtype(_TORCH_TO_NP[dtype])
-    return np.dtype(dtype)
+        return BFLOAT16 if dtype == torch.bfloat16 else np.dtype(_TORCH_TO_NP[dtype])
+    if isinstance(dtype, str) and dtype == BFLOAT16:
+        return BFLOAT16
+    nd = np.dtype(dtype)
+    return BFLOAT16 if nd.name == BFLOAT16 else nd
+
+
+def is_bfloat16(dtype: Any) -> bool:
+    return isinstance(spec_dtype(dtype), str)
+
+
+def dtype_name(dtype: Any) -> str:
+    """The layout's name of a dtype ("float32", "bfloat16", ...)."""
+    d = spec_dtype(dtype)
+    return d if isinstance(d, str) else d.name
+
+
+def np_dtype(dtype: Any) -> np.dtype:
+    """numpy dtype that holds a spec's host bytes (uint16 for bfloat16)."""
+    d = spec_dtype(dtype)
+    return np.dtype(np.uint16) if isinstance(d, str) else d
 
 
 def torch_dtype(dtype: Any) -> torch.dtype:
     """torch dtype of a numpy/torch dtype or dtype name."""
     if isinstance(dtype, torch.dtype):
         return dtype
-    return _NP_TO_TORCH[np.dtype(dtype)]
+    d = spec_dtype(dtype)
+    return torch.bfloat16 if isinstance(d, str) else _NP_TO_TORCH[d]
+
+
+def host_array(value: Any, dtype: Any) -> np.ndarray:
+    """``value`` (numpy array, torch tensor or nested list) as a numpy array
+    holding ``dtype``'s host bytes.  For bfloat16: 2-byte values (uint16
+    bits, or ``ml_dtypes`` bfloat16) are taken bit for bit, anything else
+    is rounded to bfloat16 (to nearest even, torch's conversion)."""
+    if not is_bfloat16(dtype):
+        if isinstance(value, torch.Tensor):
+            value = value.detach().cpu().numpy()
+        return np.asarray(value).astype(np_dtype(dtype), copy=False)
+    if isinstance(value, torch.Tensor):
+        t = value.detach().cpu()
+        if t.dtype != torch.bfloat16:
+            t = t.float().to(torch.bfloat16)
+        return t.view(torch.int16).numpy().view(np.uint16)
+    a = np.asarray(value)
+    if a.dtype.itemsize == 2 and (a.dtype == np.uint16 or a.dtype.name == BFLOAT16):
+        return a.view(np.uint16)
+    return host_array(torch.from_numpy(np.asarray(a, np.float32)), BFLOAT16)
 
 
 def _round_up(n: int, align: int = ALIGN) -> int:
@@ -58,13 +108,14 @@ class ArenaEntry:
 
     name: str
     shape: Tuple[int, ...]
-    dtype: str           # numpy dtype name, e.g. "float32", "complex64"
+    dtype: str           # dtype name, e.g. "float32", "complex64", "bfloat16"
     offset: int          # byte offset into the blob (ALIGN-aligned)
     nbytes: int          # payload bytes (not including alignment padding)
 
     @property
     def np_dtype(self) -> np.dtype:
-        return np.dtype(self.dtype)
+        """numpy dtype of the entry's host bytes (uint16 for bfloat16)."""
+        return np_dtype(self.dtype)
 
     @property
     def torch_dtype(self) -> torch.dtype:
@@ -116,12 +167,11 @@ def plan_layout(specs: Iterable[Tuple[str, Sequence[int], Any]]) -> ArenaLayout:
     entries: List[ArenaEntry] = []
     offset = 0
     for name, shape, dtype in specs:
-        nd = np_dtype(dtype)
         # np.prod of an empty shape is 1, so 0-d scalars get one item
-        nbytes = int(np.prod(tuple(shape), dtype=np.int64)) * nd.itemsize
+        nbytes = int(np.prod(tuple(shape), dtype=np.int64)) * np_dtype(dtype).itemsize
         entries.append(ArenaEntry(
             name=str(name), shape=tuple(int(s) for s in shape),
-            dtype=nd.name, offset=offset, nbytes=int(nbytes)))
+            dtype=dtype_name(dtype), offset=offset, nbytes=int(nbytes)))
         offset += _round_up(max(int(nbytes), 1))
     return ArenaLayout(entries=tuple(entries), total_bytes=offset)
 
@@ -132,24 +182,26 @@ def plan_layout(specs: Iterable[Tuple[str, Sequence[int], Any]]) -> ArenaLayout:
 
 def pack_host(arrays: Mapping[str, Any],
               layout: ArenaLayout | None = None) -> Tuple[np.ndarray, ArenaLayout]:
-    """Pack named host arrays into one contiguous uint8 blob."""
-    arrays = {k: np.asarray(v) for k, v in arrays.items()}
+    """Pack named host arrays into one contiguous uint8 blob.  Without a
+    layout, each entry takes its array's dtype (a uint16 array stays uint16;
+    give a layout, or a torch bfloat16 tensor, for a bfloat16 entry)."""
     if layout is None:
-        layout = plan_layout((k, a.shape, a.dtype) for k, a in arrays.items())
+        layout = plan_layout(
+            (k, tuple(v.shape), v.dtype if isinstance(v, torch.Tensor) else np.asarray(v).dtype)
+            for k, v in arrays.items())
     blob = np.zeros(layout.total_bytes, dtype=np.uint8)
     for e in layout.entries:
-        a = arrays[e.name]
+        a = host_array(arrays[e.name], e.dtype)
         if tuple(a.shape) != e.shape:
             raise ValueError(f"{e.name}: shape {a.shape} != layout {e.shape}")
-        if a.dtype != e.np_dtype:
-            a = a.astype(e.np_dtype)
         raw = np.ascontiguousarray(a).view(np.uint8).reshape(-1)
         blob[e.offset: e.offset + e.nbytes] = raw
     return blob, layout
 
 
 def unpack_host(blob: np.ndarray, layout: ArenaLayout) -> Dict[str, np.ndarray]:
-    """Zero-copy views of each entry out of a host blob."""
+    """Zero-copy views of each entry out of a host blob (bfloat16 entries
+    as uint16 bit patterns)."""
     return {e.name: blob[e.offset: e.offset + e.nbytes].view(e.np_dtype)
             .reshape(e.shape) for e in layout.entries}
 

@@ -18,43 +18,48 @@ from typing import Any, Dict, List, Mapping, NamedTuple, Optional, Sequence, Tup
 import numpy as np
 import torch
 
-from .arena import ArenaLayout, np_dtype, pack_host, plan_layout, unpack_device, unpack_host
+from .arena import (ArenaLayout, host_array, pack_host, plan_layout, spec_dtype, unpack_device,
+                    unpack_host)
 from .sync import Coherence
 
 
 class TensorSpec(NamedTuple):
-    """Shape and numpy dtype of one array (what ports check)."""
+    """Shape and dtype of one array (what ports check): a numpy dtype, or
+    ``"bfloat16"`` (:data:`~repro_torch.core.arena.BFLOAT16`)."""
 
     shape: Tuple[int, ...]
-    dtype: np.dtype
+    dtype: Any
 
 
 class NDArray:
-    """A signal/image/volume of one dtype: host-backed or spec-only."""
+    """A signal/image/volume of one dtype: host-backed or spec-only.  The
+    host copy of a bfloat16 array holds its uint16 bit patterns."""
 
     def __init__(self, value: Any = None, *, shape: Sequence[int] | None = None,
                  dtype: Any = None, name: str | None = None):
         if value is not None:
-            self._host: Optional[np.ndarray] = np.asarray(value)
+            if dtype is None:
+                dtype = value.dtype if isinstance(value, torch.Tensor) else np.asarray(value).dtype
+            self.dtype = spec_dtype(dtype)
+            self._host: Optional[np.ndarray] = host_array(value, self.dtype)
             self.shape: Tuple[int, ...] = tuple(self._host.shape)
-            self.dtype = self._host.dtype
         else:
             if shape is None or dtype is None:
                 raise ValueError("spec-only NDArray needs shape and dtype")
             self._host = None
             self.shape = tuple(int(s) for s in shape)
-            self.dtype = np_dtype(dtype)
+            self.dtype = spec_dtype(dtype)
         self.name = name
 
     @property
     def host(self) -> Optional[np.ndarray]:
         return self._host
 
-    def set_host(self, value: np.ndarray) -> None:
-        value = np.asarray(value)
+    def set_host(self, value: Any) -> None:
+        value = host_array(value, self.dtype)
         if tuple(value.shape) != self.shape:
             raise ValueError(f"shape mismatch {value.shape} != {self.shape}")
-        self._host = value.astype(self.dtype, copy=False)
+        self._host = value
 
     def spec(self) -> TensorSpec:
         return TensorSpec(self.shape, self.dtype)
@@ -67,7 +72,14 @@ class NDArray:
 class Data:
     """A set of :class:`NDArray` objects moved to/from the device as a unit:
     one arena blob (``device_blob``, a uint8 tensor) with a predictable
-    layout and explicit host/device coherence."""
+    layout and explicit host/device coherence.
+
+    ``persistent`` marks state that lives on the device across launches (a
+    decode cache bound as both the input and the output of a step): the
+    Pipeline plans it device-resident (``residency == "device"``) even on
+    a graph input/output edge, each write stamps it
+    ``Coherence.DEVICE_RESIDENT``, and nothing syncs it to the host, so a
+    spec-only persistent Data never grows a host mirror."""
 
     def __init__(self, arrays: Sequence[NDArray] | Mapping[str, Any] | None = None):
         self._arrays: List[NDArray] = []
@@ -85,6 +97,10 @@ class Data:
         self.layout: Optional[ArenaLayout] = None
         self.device_blob: Optional[torch.Tensor] = None
         self.coherence = self._host_coherence()
+        #: 'host' (pinned host path) or 'device' (stays on the device);
+        #: set by ``Pipeline.build`` on edge Data
+        self.residency: str = "host"
+        self.persistent: bool = False
 
     def _host_coherence(self) -> Coherence:
         # HOST_FRESH only when every array is host-backed; spec-only sets
@@ -115,6 +131,15 @@ class Data:
         return [a.name for a in self._arrays]
 
     # -- construction helpers ---------------------------------------------------
+    @classmethod
+    def from_specs(cls, specs: Mapping[str, TensorSpec]) -> "Data":
+        """Spec-only Data from ``{name -> TensorSpec}`` (the inverse of
+        :meth:`specs`): how the Pipeline allocates its edge Data."""
+        d = cls(None)
+        for name, s in specs.items():
+            d.add(NDArray(shape=s.shape, dtype=s.dtype, name=name))
+        return d
+
     def spec_clone(self) -> "Data":
         """Same-shaped, spec-only copy: a scratch or output Data the size
         of this one."""

@@ -43,7 +43,7 @@ import numpy as np
 import torch
 
 from .app import CLapp, DataHandle, INVALID_HANDLE
-from .arena import np_dtype, pack_device, torch_dtype
+from .arena import is_bfloat16, pack_device, spec_dtype, torch_dtype
 from .data import TensorSpec
 
 
@@ -54,14 +54,26 @@ class ProfileParameters:
     On a CUDA device a sample is the time between two ``torch.cuda.Event``
     records on the compute stream around the launch; on the CPU it is the
     host clock.  Statistics return ``nan`` when nothing was recorded.
+
+    ``phases`` are named buckets beside the samples; ``Pipeline.run``
+    records its input uploads under ``"transfer"``.
     """
 
     enable: bool = False
     samples: List[float] = dataclasses.field(default_factory=list)
+    phases: Dict[str, List[float]] = dataclasses.field(default_factory=dict)
 
     def record(self, seconds: float) -> None:
         if self.enable:
             self.samples.append(seconds)
+
+    def record_phase(self, phase: str, seconds: float) -> None:
+        if self.enable:
+            self.phases.setdefault(phase, []).append(seconds)
+
+    def phase_total(self, phase: str) -> float:
+        """Seconds recorded under ``phase`` (0.0 when it never ran)."""
+        return float(sum(self.phases.get(phase, ())))
 
     def percentile(self, p: float) -> float:
         if not self.samples:
@@ -138,7 +150,9 @@ class Port:
                                 f"{missing} (got {sorted(specs)})")
         for name in (self.names or tuple(specs)):
             s = specs[name]
-            if self.dtype is not None and not np.issubdtype(s.dtype, self.dtype):
+            # bfloat16 has no numpy dtype: it passes wherever float16 would
+            kind = np.float16 if is_bfloat16(s.dtype) else s.dtype
+            if self.dtype is not None and not np.issubdtype(kind, self.dtype):
                 raise PortError(f"{where}: array {name!r} has dtype {s.dtype}, "
                                 f"expected {self.dtype}")
             if self.ndim is not None and len(s.shape) != self.ndim:
@@ -201,6 +215,22 @@ class Process:
             raise RuntimeError("process not bound to a CLapp")
         return self._app
 
+    def bind(self, infile: Any = None, outfile: Any = None, *, params: Any = None,
+             **ports: Any):
+        """Wire this process declaratively; returns a
+        :class:`~repro_torch.core.graph.Node` for ``Pipeline(app) | node``.
+
+        ``infile``/``outfile`` bind the ``"in"``/``"out"`` ports to an edge
+        name, a Data or a registered handle; every other keyword binds the
+        secondary input port of that name to a Data or handle, read live
+        at each launch (weights, a spliced row).  ``params`` forwards to
+        :meth:`set_launch_parameters`."""
+        from .graph import Node  # graph builds on Process
+
+        if params is not None:
+            self.set_launch_parameters(params)
+        return Node(self, infile, outfile, ports)
+
     def out_specs(self, in_specs: Mapping[str, TensorSpec],
                   aux_specs: Optional[Mapping[str, Mapping[str, TensorSpec]]] = None,
                   ) -> Dict[str, TensorSpec]:
@@ -214,7 +244,7 @@ class Process:
         aux = {n: {k: meta(s) for k, s in d.items()}
                for n, d in (aux_specs or {}).items()}
         outs = self.apply(views, aux, self.launch_params)
-        return {k: TensorSpec(tuple(v.shape), np_dtype(v.dtype))
+        return {k: TensorSpec(tuple(v.shape), spec_dtype(v.dtype))
                 for k, v in outs.items()}
 
     # -- legacy imperative wiring (paper: setInHandle / setOutHandle) ---------

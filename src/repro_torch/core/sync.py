@@ -20,11 +20,12 @@ class SyncSource(enum.Enum):
 class Coherence(enum.Enum):
     """Freshness state of the (host, device) pair backing a Data object.
 
-    The states are the reference's.  ``TRANSFERRING`` (an upload issued, not
-    awaited) and ``DEVICE_RESIDENT`` (a pipeline-internal edge that never
-    lands on the host) belong to the streaming and graph layers, which the
-    port does not have yet: its uploads are ordered on the device, so a
-    Data is IN_SYNC as soon as ``host2device`` returns.
+    The states are the reference's.  ``DEVICE_RESIDENT`` marks a Data the
+    Pipeline keeps on the device (a persistent decode state) after a
+    process wrote it.  ``TRANSFERRING`` (an upload issued, not awaited)
+    belongs to the streaming layer, which the port does not have yet: its
+    uploads are ordered on the device, so a Data is IN_SYNC as soon as
+    ``host2device`` returns.
     """
 
     HOST_FRESH = "host"        # host copy newer (or device absent)

@@ -1,10 +1,11 @@
 """Carry state across from the JAX package.
 
-For this system the "weights" are data: the k-space arena and the
-sensitivity maps.  The arena byte format is shared (``core/arena.py``), so
-a host blob the JAX package packed is taken over as it is: same offsets,
-same bytes.  Nothing is downloaded and nothing of the JAX package is
-imported; what crosses is numpy bytes plus ``(name, shape, dtype)`` specs.
+For the MRI path the "weights" are data: the k-space arena and the
+sensitivity maps.  For the LM path they are a model's parameters.  The
+arena byte format is shared (``core/arena.py``), so a host blob the JAX
+package packed is taken over as it is: same offsets, same bytes.  Nothing
+is downloaded and nothing of the JAX package is imported; what crosses is
+numpy arrays plus ``(name, shape, dtype)`` specs.
 """
 from __future__ import annotations
 
@@ -14,8 +15,10 @@ import numpy as np
 import torch
 
 from repro_torch.core.arena import pack_host, plan_layout, unpack_host
-from repro_torch.core.data import Data, KData, XData
+from repro_torch.core.data import Data, KData, NDArray, XData
 from repro_torch.core.sync import Coherence
+from repro_torch.models import build_model
+from repro_torch.models.common import ArchConfig, tree_flatten
 
 
 def _data_class(names) -> type:
@@ -49,3 +52,28 @@ def arrays_from_reference(arrays: Mapping[str, np.ndarray],
     blob, layout = pack_host(arrays)
     return data_from_reference(
         blob, [(e.name, e.shape, e.dtype) for e in layout.entries], device)
+
+
+def params_from_reference(named_arrays: Mapping[str, np.ndarray], cfg: ArchConfig,
+                          device: torch.device | str) -> Data:
+    """The port's weights Data for ``cfg`` from the JAX package's parameters
+    flattened to ``{keystr path: numpy array}`` (``jax.tree_util.keystr``
+    of each leaf path, e.g. ``"['layers']['attn']['w_q']"``).  Entries are
+    named, ordered and typed as :func:`repro_torch.processes.lm.weights_data`
+    lays them out (bfloat16 arrays are taken bit for bit); the packed arena
+    lands on ``device``.  Hand it to ``LMServer`` / ``DecodeSession``."""
+    specs = tree_flatten(build_model(cfg).param_specs())
+    missing = sorted({p for p, _ in specs} - set(named_arrays))
+    extra = sorted(set(named_arrays) - {p for p, _ in specs})
+    if missing or extra:
+        raise ValueError(f"parameters do not match {cfg.name}: missing {missing}, "
+                         f"unexpected {extra}")
+    data = Data({f"w{path}": NDArray(named_arrays[path], dtype=spec.dtype)
+                 for path, spec in specs})
+    for a, (path, spec) in zip(data, specs):
+        if a.shape != tuple(spec.shape):
+            raise ValueError(f"{path}: shape {a.shape}, {cfg.name} has {tuple(spec.shape)}")
+    data.plan()
+    data.device_blob = torch.from_numpy(data.pack_host()).to(device)
+    data.coherence = Coherence.IN_SYNC
+    return data

@@ -38,6 +38,23 @@ def check_complex64(name: str, t: torch.Tensor, shape: Sequence[int] | None = No
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
 
 
+def check_cuda(name: str, t: torch.Tensor, dtypes: Sequence[torch.dtype],
+               device: torch.device | None = None) -> None:
+    """Raise unless ``t`` is a contiguous, 16-byte-aligned CUDA tensor of one
+    of ``dtypes`` (on ``device``).  A transposed view handed to a pointer
+    kernel would be read as if it were contiguous, so it is refused here."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if device is not None and t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name}: kernel takes {list(dtypes)}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: kernel takes a contiguous tensor (call .contiguous())")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: kernel takes a 16-byte-aligned tensor")
+
+
 def check_out(out: torch.Tensor, shape: Sequence[int], dtype: torch.dtype,
               device: torch.device) -> None:
     """Raise unless ``out`` can take a kernel's result in place."""

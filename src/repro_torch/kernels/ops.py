@@ -2,12 +2,14 @@
 
 Importing this module registers every kernel of the port in the global
 registry: ``complexElementProd``, ``xImageSum``, ``rss``,
-``mriFusedEpilogue`` and ``mriFusedRecon``.  ``CLapp.loadKernels([...])``
+``mriFusedEpilogue``, ``mriFusedRecon``, ``rmsnorm`` and ``flash_attention``.  ``CLapp.loadKernels([...])``
 imports the individual modules on demand instead.
 """
 from .coil_combine import rss, ximage_sum
 from .complex_elementprod import complex_elementprod
+from .flash_attention import flash_attention
 from .mri_fused import fused_epilogue, fused_recon
+from .rmsnorm import rmsnorm
 
-__all__ = ["complex_elementprod", "fused_epilogue", "fused_recon", "rss",
-           "ximage_sum"]
+__all__ = ["complex_elementprod", "flash_attention", "fused_epilogue", "fused_recon",
+           "rmsnorm", "rss", "ximage_sum"]

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the kernels of the MRI path.
+"""Plain PyTorch versions of the port's kernels.
 
 Each is the same function as a hand-written kernel beside it, in plain
 tensor code.  A wrapper runs it for CPU tensors; the tests compare it with
@@ -10,6 +10,11 @@ from __future__ import annotations
 import torch
 
 from .common import mag2
+
+#: query lengths at least this long (and divisible by ``ATTN_CHUNK``) take
+#: the q-chunked path of :func:`attention`, bounding the logits buffer
+ATTN_CHUNK_THRESHOLD = 4096
+ATTN_CHUNK = 1024
 
 
 def complex_elementprod(a: torch.Tensor, b: torch.Tensor,
@@ -46,3 +51,60 @@ def mri_fused_recon(k: torch.Tensor, smaps: torch.Tensor, combine: str = "sum",
     """Whole SimpleMRIRecon chain: IFFT2 -> conj(smaps) product -> combine."""
     x = torch.fft.ifft2(k, norm=norm)
     return mri_fused_epilogue(x, smaps, combine)
+
+
+def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMS layer norm over the last axis in f32, output in x's dtype (LM
+    hot path)."""
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * weight.float()).to(x.dtype)
+
+
+def _attend_block(qf, kf, vf, q_off, causal, window, skv, logit_cap):
+    """One q-block of attention.  qf: (B, H, Cq, D) pre-scaled f32."""
+    cq = qf.shape[2]
+    logits = torch.einsum("bhqd,bhkd->bhqk", qf, kf)
+    if logit_cap is not None:
+        logits = logit_cap * torch.tanh(logits / logit_cap)
+    q_pos = q_off + torch.arange(cq, device=qf.device)[:, None]
+    k_pos = torch.arange(skv, device=qf.device)[None, :]
+    mask = torch.ones((cq, skv), dtype=torch.bool, device=qf.device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window is not None:
+        mask &= k_pos > q_pos - window
+    logits = torch.where(mask[None, None], logits, torch.full_like(logits, -1e30))
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", probs, vf)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+              window: int | None = None, scale: float | None = None,
+              logit_cap: float | None = None) -> torch.Tensor:
+    """Multi-head attention with GQA, causal and sliding-window masks.
+
+    q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D); Hq % Hkv == 0.  ``window``
+    attends to keys in (i - window, i].  Query i sits at position
+    i + Skv - Sq (aligned to the END of the keys), which covers prefill
+    (Sq == Skv) and single-token decode (Sq == 1).  Long query sequences
+    run in chunks of ``ATTN_CHUNK`` rows so the logits buffer stays
+    (B, H, chunk, Skv)."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    group = hq // hkv
+    if scale is None:
+        scale = d ** -0.5
+    qf = q.float() * scale
+    kf, vf = k.float(), v.float()
+    if group > 1:
+        kf = kf.repeat_interleave(group, dim=1)
+        vf = vf.repeat_interleave(group, dim=1)
+    offset = skv - sq
+    if sq < ATTN_CHUNK_THRESHOLD or sq % ATTN_CHUNK != 0:
+        return _attend_block(qf, kf, vf, offset, causal, window, skv, logit_cap).to(q.dtype)
+    outs = [_attend_block(qf[:, :, i:i + ATTN_CHUNK], kf, vf, offset + i, causal, window,
+                          skv, logit_cap)
+            for i in range(0, sq, ATTN_CHUNK)]
+    return torch.cat(outs, dim=2).to(q.dtype)

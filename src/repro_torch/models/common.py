@@ -1,0 +1,121 @@
+"""Shared model infrastructure of the port: the architecture config, the
+parameter-tree helpers and parameter init.
+
+Parameters and caches are nested dicts of tensors, as the JAX package's
+pytrees.  :func:`tree_flatten` walks them in sorted key order (the order
+JAX flattens a dict in) and names each leaf by its key path the way
+``jax.tree_util.keystr`` does (``['layers']['attn']['w_q']``), so the
+port's arena layouts match the JAX package's entry for entry.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, List, Optional, Tuple
+
+import torch
+
+from repro_torch.core.arena import torch_dtype
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    """One architecture: the fields the dense decoder path reads.  The JAX
+    package's TPU and mesh levers (``opt_*``, ``unroll_layers``, ``remat``,
+    ``use_pallas``) have no counterpart: the kernel wrappers decide by the
+    tensors' device."""
+
+    name: str
+    family: str                    # dense (the ported family)
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    d_head: Optional[int] = None   # default d_model // n_heads
+    qk_norm: bool = False
+    qkv_bias: bool = False
+    window: Optional[int] = None   # sliding-window attention (h2o-danube)
+    rope_theta: float = 10000.0
+    use_rope: bool = True
+    rotary_pct: float = 1.0
+    causal: bool = True
+    norm: str = "rmsnorm"          # rmsnorm | layernorm
+    mlp: str = "swiglu"            # swiglu | gelu | relu2
+    tie_embeddings: bool = False
+    # families the port does not run yet (DecoderLM raises on them)
+    n_experts: int = 0
+    first_dense_ff: Optional[int] = None
+    mla: bool = False
+    param_dtype: str = "bfloat16"
+    dtype: str = "bfloat16"        # activation dtype
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_head if self.d_head is not None else self.d_model // self.n_heads
+
+    @property
+    def adtype(self) -> torch.dtype:
+        return torch_dtype(self.dtype)
+
+    @property
+    def pdtype(self) -> torch.dtype:
+        return torch_dtype(self.param_dtype)
+
+    def scaled(self, **overrides) -> "ArchConfig":
+        """A copy with some fields replaced (reduced sizes for tests)."""
+        return dataclasses.replace(self, **overrides)
+
+
+# ---------------------------------------------------------------------------
+# Parameter trees
+# ---------------------------------------------------------------------------
+
+def tree_flatten(tree: Any, prefix: str = "") -> List[Tuple[str, Any]]:
+    """``[(keystr path, leaf)]`` of a nested dict, keys sorted."""
+    if isinstance(tree, dict):
+        out: List[Tuple[str, Any]] = []
+        for k in sorted(tree):
+            out += tree_flatten(tree[k], f"{prefix}[{k!r}]")
+        return out
+    return [(prefix, tree)]
+
+
+def tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+# ---------------------------------------------------------------------------
+# Parameter init (random weights from a seeded torch.Generator; the JAX
+# package's jax.random draws are not reproduced: tests carry the JAX
+# parameters across with repro_torch.interop.params_from_reference)
+# ---------------------------------------------------------------------------
+
+def dense_init(generator: torch.Generator, t: torch.Tensor) -> torch.Tensor:
+    """Fill ``t`` in place with N(0, fan_in^-1/2) projection weights; fan_in
+    is the second-last (input) axis, also of a layer-stacked (L, in, out)
+    leaf.  Sampled straight into ``t``: no float32 copy of a large leaf."""
+    return t.normal_(0.0, float(t.shape[-2]) ** -0.5, generator=generator)
+
+
+def embed_init(generator: torch.Generator, t: torch.Tensor) -> torch.Tensor:
+    """Fill ``t`` in place with N(0, 0.02) embedding rows."""
+    return t.normal_(0.0, 0.02, generator=generator)
+
+
+def init_leaf_(name: str, t: torch.Tensor, generator: torch.Generator) -> None:
+    """Fill one parameter in place by its role, as the JAX package's
+    ``init_*`` functions do: norm scales 1, biases 0, embedding rows
+    :func:`embed_init`, projections :func:`dense_init`."""
+    leaf = name.rsplit("[", 1)[-1].strip("[]'")
+    with torch.no_grad():
+        if leaf == "scale":
+            t.fill_(1.0)
+        elif leaf == "bias" or leaf.startswith("b_"):
+            t.zero_()
+        elif leaf == "embedding":
+            embed_init(generator, t)
+        else:
+            dense_init(generator, t)

@@ -1,9 +1,12 @@
-"""Built-in Processes of the MRI path (paper §IV)."""
+"""Built-in Processes: the MRI path (paper §IV) and LM decode (:mod:`.lm`)."""
 from .coil_combine import CombineParams, RSSCombine, XImageSum
 from .complex_elementprod import ComplexElementProd, ComplexElementProdParams
 from .fft import FFT, FFTParams
+from .lm import (CacheSplice, DecodeSession, DecodeStep, PrefillProcess, SlotRelease,
+                 TreeCodec, decode_state_data, weights_data)
 from .simple_mri_recon import FusedMRIRecon, FusedReconParams, SimpleMRIRecon
 
-__all__ = ["CombineParams", "ComplexElementProd", "ComplexElementProdParams",
-           "FFT", "FFTParams", "FusedMRIRecon", "FusedReconParams",
-           "RSSCombine", "SimpleMRIRecon", "XImageSum"]
+__all__ = ["CacheSplice", "CombineParams", "ComplexElementProd", "ComplexElementProdParams",
+           "DecodeSession", "DecodeStep", "FFT", "FFTParams", "FusedMRIRecon",
+           "FusedReconParams", "PrefillProcess", "RSSCombine", "SimpleMRIRecon", "SlotRelease",
+           "TreeCodec", "XImageSum", "decode_state_data", "weights_data"]

@@ -1,0 +1,317 @@
+"""Autoregressive decode as Pipeline processes (mirrors ``repro/processes/lm.py``).
+
+The model speaks nested dicts (parameters, the KV cache); the framework
+speaks arena-backed :class:`Data`.  :class:`TreeCodec` flattens a tree into
+named arena entries, named as the JAX package names them (its
+``jax.tree_util.keystr`` paths, keys sorted), so the weights and decode
+state layouts match the JAX package's entry for entry.
+
+* **decode state as one persistent arena Data**: ``token`` (B, 1),
+  ``positions`` (B,), ``active`` (B,) int32, plus every cache leaf.  It is
+  spec-only and ``persistent``: it lives on the device only, never grows a
+  host mirror, and the step writes it in place.
+* :class:`PrefillProcess`: prompt -> fresh decode state, the cache filled
+  in the output arena itself.
+* :class:`DecodeStep`: one greedy step over the whole batch, bound in place
+  (``infile == outfile`` == the state handle).  Where the JAX package
+  donates the state to XLA, this writes the new K/V row at slot
+  ``pos % cache_len`` straight into the arena views (``index_copy_`` with a
+  device index; ``pos = positions.max()`` stays on the device), so a step
+  never copies the cache and the only host sync per step is the caller's
+  (B, 1) token readback.
+* :class:`CacheSplice` / :class:`SlotRelease`: continuous-batching
+  admission and retirement, in place on the state.
+
+Weights and the spliced row reach ``apply`` as secondary input ports (by
+port name in ``aux``), read live at each launch.  Encoder-decoder models
+(``WhisperEncode`` / ``WhisperPrefill``) and the mesh-partitioned step are
+later slices of the port (ROADMAP).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.app import CLapp
+from repro_torch.core.data import Data, NDArray, TensorSpec
+from repro_torch.core.graph import Pipeline
+from repro_torch.core.process import Port, Process, ProfileParameters
+from repro_torch.models.common import tree_flatten, tree_map
+
+STATE_KEYS = ("token", "positions", "active")
+
+
+class TreeCodec:
+    """Stable tree <-> named-array bridge for one tree structure; the same
+    codec maps a batch-1 row cache and the batch-B cache."""
+
+    def __init__(self, tree: Any, prefix: str = ""):
+        paths = [p for p, _ in tree_flatten(tree)]
+        self.names: Tuple[str, ...] = tuple(prefix + p for p in paths)
+        it = iter(self.names)
+        # the structure, as a tree of leaf names in flatten order
+        self._names_tree = self._names_of(tree, it)
+
+    @classmethod
+    def _names_of(cls, tree: Any, it) -> Any:
+        if isinstance(tree, dict):
+            return {k: cls._names_of(tree[k], it) for k in sorted(tree)}
+        return next(it)
+
+    def flatten(self, tree: Any) -> Dict[str, Any]:
+        leaves = [leaf for _, leaf in tree_flatten(tree)]
+        if len(leaves) != len(self.names):
+            raise ValueError(f"tree has {len(leaves)} leaves, codec expects {len(self.names)}")
+        return dict(zip(self.names, leaves))
+
+    def unflatten(self, named: Dict[str, Any]) -> Any:
+        return tree_map(lambda n: named[n], self._names_tree)
+
+
+def weights_data(params: Any, prefix: str = "w") -> Tuple[Data, TreeCodec]:
+    """Flatten a parameter tree into one arena-backed Data (the ``weights``
+    input of every decode process) plus its codec.
+
+    Tensor leaves give a host-backed Data (uploaded when registered).
+    :class:`TensorSpec` leaves (``model.param_specs()``) give a spec-only,
+    device-only Data: registering it makes a zeroed arena on the device,
+    which ``model.init_params(generator, out=codec.unflatten(
+    data.device_views()))`` fills in place: full-size weights with no host
+    blob and no second device copy."""
+    codec = TreeCodec(params, prefix=prefix)
+    named = codec.flatten(params)
+    if all(isinstance(v, TensorSpec) for v in named.values()):
+        data = Data.from_specs(named)
+        data.persistent = True
+        data.residency = "device"
+    else:
+        data = Data({n: NDArray(v) for n, v in named.items()})
+    return data, codec
+
+
+def decode_state_data(model, batch: int, max_len: int) -> Tuple[Data, TreeCodec]:
+    """Spec-only persistent decode-state Data: sampling bookkeeping
+    (``token``/``positions``/``active``) + every flattened cache leaf."""
+    cache = model.cache_specs(batch, max_len)
+    codec = TreeCodec(cache, prefix="cache")
+    specs: Dict[str, TensorSpec] = {
+        "token": TensorSpec((batch, 1), np.dtype(np.int32)),
+        "positions": TensorSpec((batch,), np.dtype(np.int32)),
+        "active": TensorSpec((batch,), np.dtype(np.int32)),
+    }
+    specs.update(codec.flatten(cache))
+    state = Data.from_specs(specs)
+    state.persistent = True
+    state.residency = "device"
+    return state, codec
+
+
+def resolve_weights(model, weights: Any) -> Tuple[Data, TreeCodec]:
+    """``weights`` as a (Data, codec) pair: a parameter tree is flattened
+    with :func:`weights_data`; a Data (from :func:`weights_data` or
+    :func:`repro_torch.interop.params_from_reference`) is checked against
+    the model's parameter layout."""
+    if not isinstance(weights, Data):
+        return weights_data(weights)
+    codec = TreeCodec(model.param_specs(), prefix="w")
+    if tuple(weights.names) != codec.names:
+        raise ValueError(f"weights Data entries {weights.names[:3]}... do not match the "
+                         f"{model.cfg.name} parameter layout {codec.names[:3]}...")
+    return weights, codec
+
+
+def _target(views: Dict[str, torch.Tensor],
+            out: Optional[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
+    """Where an in-place state process writes: the arena itself when the
+    output views are the input views (bound in place), else the output
+    arena after copying the input state into it, else fresh copies."""
+    if out is None:
+        return {k: v.clone() for k, v in views.items()}
+    if all(out[k].data_ptr() == v.data_ptr() for k, v in views.items()):
+        return views
+    for k, v in views.items():
+        out[k].copy_(v)
+    return {k: out[k] for k in views}
+
+
+class _LMProcess(Process):
+    """Shared plumbing: model + weights/cache codecs.  ``init()`` loads the
+    norm and attention kernels (built on a CUDA app), so a launch never
+    compiles."""
+
+    kernel_names = ("rmsnorm", "flash_attention")
+
+    def __init__(self, app, model, wcodec: TreeCodec, ccodec: TreeCodec, *,
+                 max_len: int, tag: str):
+        super().__init__(app)
+        self.model = model
+        self.wcodec = wcodec
+        self.ccodec = ccodec
+        self.max_len = max_len
+        self.set_launch_parameters((tag, repr(model.cfg), max_len))
+
+    def _weights(self, aux):
+        return self.wcodec.unflatten(aux["weights"])
+
+
+class PrefillProcess(_LMProcess):
+    """Prompt tokens (B, S) -> fresh decode state: the cache is reset and
+    prefilled in the output arena, and the greedy first token is sampled
+    on the device."""
+
+    ports = {"in": Port(names=("tokens",), dtype=np.integer, doc="prompt token ids (B, S)"),
+             "out": Port(names=STATE_KEYS),
+             "weights": Port(doc="flattened model parameters")}
+
+    def __init__(self, app, model, wcodec, ccodec, *, max_len: int):
+        super().__init__(app, model, wcodec, ccodec, max_len=max_len, tag="prefill")
+
+    def out_specs(self, in_specs, aux_specs=None):
+        b = in_specs["tokens"].shape[0]
+        return decode_state_data(self.model, b, self.max_len)[0].specs()
+
+    def apply(self, views, aux, params, out=None):
+        tokens = views["tokens"]
+        b, s = tokens.shape
+        if out is not None:
+            cache = self.model.reset_cache(self.ccodec.unflatten(out))
+        else:
+            cache = self.model.init_cache(b, self.max_len, device=tokens.device)
+        logits, cache = self.model.prefill(self._weights(aux), tokens, cache)
+        state = {"token": logits.argmax(dim=-1).to(torch.int32),
+                 "positions": torch.full((b,), s, dtype=torch.int32, device=tokens.device),
+                 "active": torch.ones((b,), dtype=torch.int32, device=tokens.device)}
+        state.update(self.ccodec.flatten(cache))
+        return state
+
+
+class DecodeStep(_LMProcess):
+    """One greedy decode step over the whole batch, in place on the state.
+
+    Decodes every row at ``pos = positions.max()`` (inactive rows keep
+    re-feeding their last token; the per-slot positions in the cache mask
+    stale entries), then advances only the active rows: the JAX package's
+    ``DecodeStep`` math."""
+
+    ports = {"in": Port(names=STATE_KEYS), "out": Port(names=STATE_KEYS),
+             "weights": Port(doc="flattened model parameters")}
+
+    def __init__(self, app, model, wcodec, ccodec, *, max_len: int):
+        super().__init__(app, model, wcodec, ccodec, max_len=max_len, tag="decode_step")
+
+    def out_specs(self, in_specs, aux_specs=None):
+        return dict(in_specs)
+
+    def apply(self, views, aux, params, out=None):
+        state = _target(views, out)
+        token, positions, active = state["token"], state["positions"], state["active"]
+        pos = positions.max()
+        logits, _ = self.model.decode_step(self._weights(aux), token, pos,
+                                           self.ccodec.unflatten(state))
+        nxt = logits.argmax(dim=-1).to(torch.int32)               # (B, 1)
+        token.copy_(torch.where(active[:, None] > 0, nxt, token))
+        positions.add_(active)
+        return state
+
+
+def _splice_row(full: torch.Tensor, row: torch.Tensor, slot: int) -> torch.Tensor:
+    """Write a 1-row leaf into slot ``slot`` of the batched leaf, in place,
+    with the JAX package's heuristic as it stands: batch axis 0 for leaves
+    whose leading axis differs from the row's (per-row leaves), 1 for
+    stacked-layer (L, B, ...) leaves, and 0 for the rank-1 bookkeeping
+    arrays."""
+    if full.ndim == 1 or (row.ndim >= 2 and full.shape[1:] == row.shape[1:]
+                          and full.shape[0] != row.shape[0]):
+        full.narrow(0, slot, 1).copy_(row)
+    else:
+        full.narrow(1, slot, 1).copy_(row)
+    return full
+
+
+class CacheSplice(Process):
+    """Continuous-batching admission: splice a single-row prefilled state
+    (the ``row`` input, batch 1) into slot ``slot`` of the batched state,
+    in place.  ``slot`` is a launch parameter."""
+
+    ports = {"in": Port(names=STATE_KEYS), "out": Port(names=STATE_KEYS),
+             "row": Port(doc="batch-1 state from a row prefill")}
+
+    def __init__(self, app, slot: int = 0):
+        super().__init__(app)
+        self.set_slot(slot)
+
+    def set_slot(self, slot: int) -> None:
+        self.set_launch_parameters(("cache_splice", int(slot)))
+
+    def out_specs(self, in_specs, aux_specs=None):
+        return dict(in_specs)
+
+    def apply(self, views, aux, params, out=None):
+        slot = int(params[1])
+        row = aux["row"]
+        return {name: _splice_row(full, row[name], slot)
+                for name, full in _target(views, out).items()}
+
+
+class SlotRelease(Process):
+    """Retire slot ``slot``: zero its ``active`` flag on the device
+    (freezing its position and token), in place on the state."""
+
+    ports = {"in": Port(names=STATE_KEYS), "out": Port(names=STATE_KEYS)}
+
+    def __init__(self, app, slot: int = 0):
+        super().__init__(app)
+        self.set_slot(slot)
+
+    def set_slot(self, slot: int) -> None:
+        self.set_launch_parameters(("slot_release", int(slot)))
+
+    def out_specs(self, in_specs, aux_specs=None):
+        return dict(in_specs)
+
+    def apply(self, views, aux, params, out=None):
+        state = _target(views, out)
+        state["active"].narrow(0, int(params[1]), 1).zero_()
+        return state
+
+
+class DecodeSession:
+    """Full-batch decode through the Pipeline stack: one prefill graph
+    writing the persistent state, then one in-place :class:`DecodeStep`
+    launched per token.  ``step()`` reads back only the (B, 1) token view;
+    per-slot continuous batching is :class:`repro_torch.serve.LMServer`."""
+
+    def __init__(self, app: CLapp, model, weights: Any, *, batch: int, max_len: int):
+        self.app = app
+        self.model = model
+        self.batch = batch
+        self.max_len = max_len
+        wdata, self.wcodec = resolve_weights(model, weights)
+        self.weights_h = app.addData(wdata)
+        self.state, self.ccodec = decode_state_data(model, batch, max_len)
+        self.state_h = app.addData(self.state, to_device=False)
+        self.prefill_pipe = Pipeline(app) | PrefillProcess(
+            app, model, self.wcodec, self.ccodec, max_len=max_len).bind(
+                infile="tokens", outfile=self.state_h, weights=self.weights_h)
+        self.decode_pipe = Pipeline(app) | DecodeStep(
+            app, model, self.wcodec, self.ccodec, max_len=max_len).bind(
+                infile=self.state_h, outfile=self.state_h, weights=self.weights_h)
+
+    def tokens(self) -> np.ndarray:
+        """Device -> host copy of the (B, 1) current-token view."""
+        return self.state.device_view("token").cpu().numpy()
+
+    def prefill(self, tokens: np.ndarray,
+                profile: Optional[ProfileParameters] = None) -> np.ndarray:
+        """Prefill the whole batch; returns the greedy first tokens (B, 1)."""
+        self.prefill_pipe.run(Data({"tokens": np.asarray(tokens, np.int32)}), sync=False,
+                              profile=profile)
+        return self.tokens()
+
+    def step(self, profile: Optional[ProfileParameters] = None) -> np.ndarray:
+        """One batched decode step (in place, device-resident); returns the
+        new (B, 1) tokens."""
+        self.decode_pipe.run(None, sync=False, profile=profile)
+        return self.tokens()

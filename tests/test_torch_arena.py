@@ -3,12 +3,14 @@
 Arena bytes are compared exactly (the format is shared); round trips and
 ``interop`` take-overs are compared exactly too.
 """
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.core import arena as jarena
 from repro_torch import interop
+import repro_torch.core as tcore
 from repro_torch.core import arena as tarena
 from repro_torch.core import CLapp, DeviceTraits, DeviceType, KData, PlatformTraits, XData
 
@@ -118,3 +120,53 @@ def test_add_data_refuses_an_arena_on_another_device(rng):
         app.addData(interop.arrays_from_reference({"xdata": img}, "meta"))
     h = app.addData(interop.arrays_from_reference({"xdata": img}, app.device))
     np.testing.assert_array_equal(app.getData(h).device_view("xdata").numpy(), img)  # exact
+
+
+def test_bfloat16_entries_cross_packages_byte_for_byte(rng):
+    """A JAX-packed blob with bfloat16 and int32 entries unpacks in the port
+    with the same bytes (bfloat16 as uint16 bit patterns on the host,
+    torch.bfloat16 on the device), and a port-packed one unpacks in JAX."""
+    x32 = rng.standard_normal((3, 5)).astype(np.float32)
+    s32 = np.asarray(rng.standard_normal(), np.float32)
+    jw = np.asarray(jnp.asarray(x32, jnp.bfloat16))
+    js = np.asarray(jnp.asarray(s32, jnp.bfloat16))
+    ids = rng.integers(-1000, 1000, size=(7,)).astype(np.int32)
+    blob, layout = jarena.pack_host({"w": jw, "ids": ids, "s": js})
+    blob = np.asarray(blob)
+    assert [e.dtype for e in layout.entries] == ["bfloat16", "int32", "bfloat16"]
+    got = tarena.plan_layout([(e.name, e.shape, e.dtype) for e in layout.entries])
+    assert got.to_json() == layout.to_json()
+    host = tarena.unpack_host(blob, got)
+    assert host["w"].dtype == np.uint16 and host["w"].tobytes() == jw.tobytes()  # exact
+    np.testing.assert_array_equal(host["ids"], ids)
+    dev = tarena.unpack_device(torch.from_numpy(blob.copy()), got)
+    assert dev["w"].dtype == torch.bfloat16
+    # the same rounding of the same f32 values in both frameworks
+    assert torch.equal(dev["w"], torch.from_numpy(x32).to(torch.bfloat16))
+    # port-packed from torch bfloat16 tensors: JAX reads the same values
+    tblob, tlayout = tarena.pack_host({"w": torch.from_numpy(x32).to(torch.bfloat16),
+                                       "ids": ids,
+                                       "s": torch.from_numpy(s32).to(torch.bfloat16)})
+    assert tlayout.to_json() == layout.to_json()
+    assert tblob.tobytes() == blob.tobytes()  # exact
+    back = jarena.unpack_host(tblob, layout)
+    np.testing.assert_array_equal(np.asarray(back["w"], np.float32), np.asarray(jw, np.float32))
+    np.testing.assert_array_equal(np.asarray(back["s"], np.float32), np.asarray(js, np.float32))
+
+
+def test_bfloat16_data_round_trips_through_the_device(rng):
+    """A Data with a bfloat16 array: host bits, device view in bfloat16, and
+    back to the host unchanged; f32 values given for a bfloat16 array are
+    rounded as torch rounds them."""
+    x32 = rng.standard_normal((4, 6)).astype(np.float32)
+    app = CLapp().init(PlatformTraits(), DeviceTraits(type=DeviceType.CPU))
+    data = tcore.Data({"w": tcore.NDArray(x32, dtype="bfloat16"), "n": np.arange(3)})
+    assert data.specs()["w"] == tcore.TensorSpec((4, 6), "bfloat16")
+    h = app.addData(data)
+    view = data.device_view("w")
+    assert view.dtype == torch.bfloat16
+    assert torch.equal(view, torch.from_numpy(x32).to(torch.bfloat16))
+    view.mul_(2)
+    app.device2Host(h)
+    assert torch.equal(torch.from_numpy(data.get_ndarray(0).host.view(np.int16)).view(
+        torch.bfloat16), torch.from_numpy(2 * x32).to(torch.bfloat16))

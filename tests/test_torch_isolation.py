@@ -1,4 +1,5 @@
-"""The port stands alone: it imports neither JAX nor the JAX package, it
+"""The port stands alone: it imports neither JAX, the JAX package nor
+``ml_dtypes`` (present here through JAX, absent on the card's machine), it
 loads no kernel library and no ``triton`` when imported, and it never
 lands on the CPU unless asked to."""
 import ast
@@ -14,7 +15,7 @@ from repro_torch.core import CLapp, DeviceTraits, DeviceType, NoMatchingDeviceEr
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
 def _port_files():
@@ -44,7 +45,7 @@ def test_importing_the_port_loads_no_kernel_library_or_triton():
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m.removesuffix('.__init__'))\n"
         "from repro_torch.kernels import _build\n"
-        "bad = [m for m in ('jax', 'jaxlib', 'repro', 'triton') if m in sys.modules]\n"
+        f"bad = [m for m in {FORBIDDEN + ('triton',)!r} if m in sys.modules]\n"
         "print('LIB', _build._LIB is None, 'BAD', bad)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     r = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,

@@ -1,0 +1,295 @@
+"""The port's LM serving path against the JAX package's, on the SMOKE
+configs of qwen3-14b (qk-norm), h2o-danube-1.8b (sliding window 8, so a
+12-token prompt takes the rolling-buffer prefill) and qwen2-7b (QKV bias),
+all float32.  The JAX side runs its Pallas kernels in interpret mode
+(``use_pallas=True``), as ``tests/test_kernels.py`` does; its parameters are
+carried across with ``interop.params_from_reference``, so both packages
+compute the same function.
+
+Tolerances: arena layouts, carried-over weight bytes, cache positions and
+greedy tokens are compared exactly; logits at rtol 1e-4 / atol 1e-5 (f32,
+two frameworks summing in other orders).
+"""
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as j_get_config, get_smoke as j_get_smoke
+from repro.core import arena as jarena
+from repro.core.app import CLapp as JApp
+from repro.models import build_model as j_build_model
+from repro.processes import lm as jlm
+from repro.serve import LMServer as JServer, SamplingConfig as JSampling
+from repro_torch import interop
+from repro_torch.configs import get_config, get_smoke
+from repro_torch.core import (CLapp, Coherence, DeviceTraits, DeviceType,
+                              NoMatchingDeviceError)
+from repro_torch.models import build_model
+from repro_torch.models.common import tree_map
+from repro_torch.processes import lm as tlm
+from repro_torch.serve import LMServer, PromptTooLongError, SamplingConfig
+
+ARCHS = ["qwen3-14b", "h2o-danube-1.8b", "qwen2-7b"]
+LOGITS = dict(rtol=1e-4, atol=1e-5)
+MAX_LEN = 24
+
+
+@functools.lru_cache(maxsize=None)
+def _jax(arch):
+    cfg = j_get_smoke(arch).scaled(use_pallas=True)
+    model = j_build_model(cfg)
+    return model, model.init_params(jax.random.key(0))
+
+
+def _named(params):
+    return {jax.tree_util.keystr(p): np.asarray(v)
+            for p, v in jax.tree_util.tree_flatten_with_path(params)[0]}
+
+
+def _port(arch):
+    """(model, weights Data on the CPU) carrying the JAX parameters."""
+    cfg = get_smoke(arch)
+    return build_model(cfg), interop.params_from_reference(_named(_jax(arch)[1]), cfg, "cpu")
+
+
+def _cpu_app():
+    return CLapp().init(device_traits=DeviceTraits(type=DeviceType.CPU))
+
+
+def _entries(layout):
+    return [(e.name, e.shape, e.dtype, e.offset, e.nbytes) for e in layout.entries], \
+        layout.total_bytes
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_weights_and_state_layouts_match_reference(arch):
+    jmodel, jparams = _jax(arch)
+    model, weights = _port(arch)
+    jw, _ = jlm.weights_data(jparams)
+    tw, codec = tlm.weights_data(model.param_specs())
+    assert _entries(tw.plan()) == _entries(jw.plan())
+    assert codec.names == tuple(jw.names)
+    js, jcodec = jlm.decode_state_data(jmodel, 3, MAX_LEN)
+    ts, tcodec = tlm.decode_state_data(model, 3, MAX_LEN)
+    assert _entries(ts.plan()) == _entries(js.plan())
+    assert tcodec.names == jcodec.names
+    # the carried-over weights are the JAX package's bytes at its offsets,
+    # and so are those of the port's weights_data of the same parameter tree
+    assert _entries(weights.layout) == _entries(jw.layout)
+    want = np.asarray(jw.pack_host()).tobytes()
+    assert weights.device_blob.numpy().tobytes() == want
+    assert tlm.weights_data(codec.unflatten(weights.device_views()))[0].pack_host().tobytes() \
+        == want
+
+
+def test_full_width_bf16_layouts_match_reference():
+    """qwen3-14b at full width in bfloat16: the weights (14.77 B parameters)
+    and a 4 x 2048 decode state plan to the same entries and offsets in
+    both packages, without allocating either."""
+    jmodel = j_build_model(j_get_config("qwen3-14b"))
+    shapes = jax.eval_shape(lambda: jmodel.init_params(jax.random.key(0)))
+    jcodec = jlm.TreeCodec(shapes, prefix="w")
+    jl = jarena.plan_layout((n, leaf.shape, leaf.dtype) for n, leaf in
+                            zip(jcodec.names, jax.tree_util.tree_leaves(shapes)))
+    model = build_model(get_config("qwen3-14b"))
+    tw, _ = tlm.weights_data(model.param_specs())
+    assert _entries(tw.plan()) == _entries(jl)
+    assert {e.dtype for e in tw.layout.entries} == {"bfloat16"}
+    assert sum(int(np.prod(e.shape)) for e in tw.layout.entries) == 14_768_307_200
+    js, _ = jlm.decode_state_data(jmodel, 4, 2048)
+    ts, _ = tlm.decode_state_data(model, 4, 2048)
+    assert _entries(ts.plan()) == _entries(js.plan())
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_prefill_and_decode_logits_match_reference(arch, rng):
+    """Prefill a 12-token prompt, then 5 teacher-forced decode steps (both
+    sides fed the JAX argmax): logits, cache positions and K/V agree."""
+    jmodel, jparams = _jax(arch)
+    model, weights = _port(arch)
+    params = tlm.TreeCodec(model.param_specs(), prefix="w").unflatten(weights.device_views())
+    b, s = 2, 12
+    tokens = rng.integers(0, model.cfg.vocab, (b, s)).astype(np.int32)
+    jl, jcache = jax.jit(jmodel.prefill)(jparams, jnp.asarray(tokens),
+                                         jmodel.init_cache(b, MAX_LEN))
+    tl, tcache = model.prefill(params, torch.from_numpy(tokens), model.init_cache(b, MAX_LEN))
+    step = jax.jit(jmodel.decode_step)
+    for i in range(6):
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **LOGITS)
+        np.testing.assert_array_equal(tcache["scan"]["kpos"].numpy(),
+                                      np.asarray(jcache["scan"]["kpos"]))
+        for leaf in ("k", "v"):
+            np.testing.assert_allclose(tcache["scan"][leaf].numpy(),
+                                       np.asarray(jcache["scan"][leaf]), rtol=1e-4, atol=1e-5)
+        if i == 5:
+            break
+        tok = np.array(jnp.argmax(jl, axis=-1).astype(jnp.int32))
+        jl, jcache = step(jparams, jnp.asarray(tok), jnp.int32(s + i), jcache)
+        tl, tcache = model.decode_step(params, torch.from_numpy(tok),
+                                       torch.tensor(s + i, dtype=torch.int32), tcache)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_decode_session_tokens_match_reference(arch, rng):
+    jmodel, jparams = _jax(arch)
+    model, weights = _port(arch)
+    prompts = rng.integers(0, model.cfg.vocab, (2, 12)).astype(np.int32)
+    jsess = jlm.DecodeSession(JApp().init(), jmodel, jparams, batch=2, max_len=MAX_LEN)
+    tsess = tlm.DecodeSession(_cpu_app(), model, weights, batch=2, max_len=MAX_LEN)
+    np.testing.assert_array_equal(tsess.prefill(prompts), jsess.prefill(prompts))
+    for _ in range(5):
+        np.testing.assert_array_equal(tsess.step(), jsess.step())
+    assert tsess.state.coherence is Coherence.DEVICE_RESIDENT
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_lmserver_matches_reference(arch):
+    """6 prompts of mixed lengths through 2 slots: later requests are
+    admitted into freed slots while others decode, and every request's
+    tokens equal the JAX LMServer's."""
+    jmodel, jparams = _jax(arch)
+    model, weights = _port(arch)
+    rng = np.random.default_rng(7)
+    prompts = [list(rng.integers(0, model.cfg.vocab, n)) for n in (3, 12, 5, 12, 3, 5)]
+    jsrv = JServer(jmodel, jparams, batch=2, max_len=MAX_LEN,
+                   sampling=JSampling(max_new_tokens=5))
+    tsrv = LMServer(model, weights, batch=2, max_len=MAX_LEN,
+                    sampling=SamplingConfig(max_new_tokens=5), app=_cpu_app())
+    for p in prompts:
+        jsrv.submit(p)
+        tsrv.submit(p)
+    want = jsrv.run()
+    assert tsrv.run() == want
+    assert all(len(r) == 5 for r in want)
+    assert (tsrv.steps, tsrv.admitted) == (jsrv.steps, jsrv.admitted)
+
+
+def test_lmserver_state_stays_on_the_device():
+    """The decode state never grows a host mirror and never moves host to
+    device: only the prompts are uploaded."""
+    model, weights = _port("qwen3-14b")
+    app = _cpu_app()
+    srv = LMServer(model, weights, batch=3, max_len=MAX_LEN,
+                   sampling=SamplingConfig(max_new_tokens=4), app=app)
+    for n in (4, 6, 9, 4, 7):
+        srv.submit(list(range(1, n + 1)))
+    srv.run()
+    assert srv.steps > 4 and srv.admitted == 5
+    for data, h in ((srv.state, srv.state_h), (srv._row, srv._row_h)):
+        assert data.coherence is Coherence.DEVICE_RESIDENT
+        assert all(a.host is None for a in data)
+        assert app.h2d_bytes.get(h, 0) == 0
+    assert srv.decode_profile.phase_total("transfer") == 0.0
+    assert len(srv.prefill_profile.phases["transfer"]) == 5    # one prompt upload each
+
+
+def test_splice_row_matches_reference_with_layers_unequal_to_slots(rng):
+    """The admission splice with L = 2 layers and B = 3 slots, on every kind
+    of state leaf, against the JAX package's ``_splice_row``."""
+    shapes = {"k": ((2, 3, 2, 8, 4), (2, 1, 2, 8, 4)), "kpos": ((2, 3, 8), (2, 1, 8)),
+              "token": ((3, 1), (1, 1)), "positions": ((3,), (1,))}
+    for name, (full_shape, row_shape) in shapes.items():
+        full = rng.standard_normal(full_shape).astype(np.float32)
+        row = rng.standard_normal(row_shape).astype(np.float32)
+        for slot in range(3):
+            want = np.asarray(jlm._splice_row(jnp.asarray(full), jnp.asarray(row), slot))
+            got = tlm._splice_row(torch.from_numpy(full.copy()), torch.from_numpy(row), slot)
+            np.testing.assert_array_equal(got.numpy(), want, err_msg=f"{name} slot {slot}")
+
+
+def test_decode_step_bound_out_of_place_leaves_its_input():
+    """DecodeStep writes the state in place when bound in place; bound to
+    another output it copies the state there first and leaves the input
+    as it was, with the same result."""
+    model, weights = _port("h2o-danube-1.8b")
+    app = _cpu_app()
+    sess = tlm.DecodeSession(app, model, weights, batch=2, max_len=MAX_LEN)
+    sess.prefill(np.arange(20, dtype=np.int32).reshape(2, 10))
+    before = sess.state.device_blob.clone()
+    out, _ = tlm.decode_state_data(model, 2, MAX_LEN)
+    out_h = app.addData(out, to_device=False)
+    pipe = tlm.Pipeline(app) | tlm.DecodeStep(app, model, sess.wcodec, sess.ccodec,
+                                              max_len=MAX_LEN).bind(
+        infile=sess.state_h, outfile=out_h, weights=sess.weights_h)
+    pipe.run(None, sync=False)
+    assert torch.equal(sess.state.device_blob, before)
+    sess.step()
+    assert torch.equal(out.device_blob, sess.state.device_blob)
+
+
+def test_prompt_limits_and_greedy_only():
+    model, weights = _port("qwen2-7b")
+    srv = LMServer(model, weights, batch=1, max_len=8, app=_cpu_app())
+    with pytest.raises(PromptTooLongError, match="max_len=8"):
+        srv.submit(list(range(8)))
+    with pytest.raises(PromptTooLongError):
+        srv.submit([])
+    assert srv.submit(list(range(7))) == 0
+    assert issubclass(PromptTooLongError, ValueError)
+    for sampling in (SamplingConfig(temperature=0.7), SamplingConfig(top_k=5)):
+        with pytest.raises(NotImplementedError, match="greedily"):
+            LMServer(model, weights, batch=1, max_len=8, sampling=sampling, app=_cpu_app())
+
+
+def test_lmserver_runs_on_the_card_unless_given_a_cpu_app(monkeypatch):
+    model, weights = _port("qwen2-7b")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(NoMatchingDeviceError):
+        LMServer(model, weights, batch=1, max_len=8)
+
+
+def test_unported_families_raise_naming_the_roadmap():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_model(get_smoke("qwen3-14b").scaled(family="ssm"))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_model(get_smoke("qwen3-14b").scaled(n_experts=4))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_model(get_smoke("qwen3-14b")).loss_fn({}, {})
+
+
+@pytest.mark.parametrize("variant", ["swiglu", "gelu", "relu2", "layernorm", "partial_rope",
+                                     "tied"])
+def test_layer_variants_match_reference(variant, rng):
+    """The dense-path variants no SMOKE config above takes (the MLP kinds,
+    layernorm, partial rotary, tied embeddings), each against the JAX
+    package's layer function on the same numpy inputs (f32, 1e-5)."""
+    from repro.models import layers as jL
+    from repro_torch.models import layers as tL
+
+    base = dict(mlp="gelu" if variant == "gelu" else "relu2" if variant == "relu2" else "swiglu",
+                norm="layernorm" if variant == "layernorm" else "rmsnorm",
+                rotary_pct=0.5 if variant == "partial_rope" else 1.0,
+                tie_embeddings=variant == "tied")
+    jcfg = j_get_smoke("qwen3-14b").scaled(**base)
+    tcfg = get_smoke("qwen3-14b").scaled(**base)
+
+    def arrays(specs):
+        return {k: arrays(v) if isinstance(v, dict) else
+                rng.standard_normal(v.shape).astype(np.float32) for k, v in specs.items()}
+
+    def both(tree):
+        return jax.tree_util.tree_map(jnp.asarray, tree), tree_map(torch.from_numpy, tree)
+
+    x = rng.standard_normal((2, 5, tcfg.d_model)).astype(np.float32)
+    tol = dict(rtol=1e-5, atol=1e-5)
+    if variant in ("swiglu", "gelu", "relu2"):
+        jp, tp = both(arrays(tL.mlp_specs(tcfg)))
+        want, got = jL.apply_mlp(jp, jnp.asarray(x), jcfg), tL.apply_mlp(tp, torch.from_numpy(x), tcfg)
+    elif variant == "layernorm":
+        jp, tp = both(arrays(tL.norm_specs(tcfg)))
+        want, got = jL.apply_norm(jp, jnp.asarray(x), jcfg), tL.apply_norm(tp, torch.from_numpy(x), tcfg)
+    elif variant == "partial_rope":
+        q = rng.standard_normal((2, 4, 5, 16)).astype(np.float32)
+        pos = np.tile(np.arange(3, 8, dtype=np.int32), (2, 1))
+        want = jL.apply_rope(jnp.asarray(q), jnp.asarray(pos), 1e4, 0.5)
+        got = tL.apply_rope(torch.from_numpy(q), torch.from_numpy(pos), 1e4, 0.5)
+    else:
+        jp, tp = both(arrays(tL.embed_specs(tcfg)))
+        assert set(tp) == {"embedding"}
+        want = jL.logits_from_hidden(jp, jnp.asarray(x), jcfg)
+        got = tL.logits_from_hidden(tp, torch.from_numpy(x), tcfg)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **tol)
