@@ -1,0 +1,43 @@
+"""Negate (intensity inversion), the paper's listing 4:
+``output[i] = 1.0 - input[i]``, computed in f32 and stored in x's dtype.
+
+On CUDA tensors it is the hand-written ``negate_kernel``
+(``csrc/negate_kernels.cu``: a grid-stride loop over 16-byte vectors and a
+scalar tail), replacing the Pallas kernel of ``repro/kernels/negate.py``;
+on CPU tensors it is the plain version :func:`.ref.negate`.  Bit-exact
+against the plain version in f32.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core.registry import count_launch, kernel
+from . import _build, ref
+from .common import check_cuda, check_in_place, check_out, launch_stream
+
+DTYPES = (torch.float32, torch.bfloat16)
+
+
+def negate(x: torch.Tensor, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``1 - x`` of any shape; ``out`` (x's shape and dtype) may be ``x``
+    itself or an arena view."""
+    if x.device.type == "cpu":
+        res = ref.negate(x)
+        return res if out is None else out.copy_(res)
+    check_cuda("x", x, DTYPES)
+    if out is None:
+        out = torch.empty_like(x)
+    else:
+        check_out(out, x.shape, x.dtype, x.device)
+        check_in_place(out, x)
+    with torch.cuda.device(x.device):
+        err = _build.library().rt_negate(x.data_ptr(), out.data_ptr(), x.numel(),
+                                         int(x.dtype == torch.bfloat16), launch_stream(x))
+    _build.check(err, "negate")
+    count_launch("negate_kernel")
+    return out
+
+
+kernel("negate_kernel", ref=ref.negate)(negate)

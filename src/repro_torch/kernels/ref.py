@@ -17,6 +17,12 @@ ATTN_CHUNK_THRESHOLD = 4096
 ATTN_CHUNK = 1024
 
 
+def negate(x: torch.Tensor) -> torch.Tensor:
+    """Paper listing 4: ``output[i] = 1.0 - input[i]`` (intensity
+    inversion), in x's dtype."""
+    return (1.0 - x).to(x.dtype)
+
+
 def complex_elementprod(a: torch.Tensor, b: torch.Tensor,
                         conjugate_b: bool = False) -> torch.Tensor:
     """Elementwise complex product, optionally conjugating ``b``
@@ -108,3 +114,27 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool
                           skv, logit_cap)
             for i in range(0, sq, ATTN_CHUNK)]
     return torch.cat(outs, dim=2).to(q.dtype)
+
+
+def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+         u: torch.Tensor, state: torch.Tensor | None = None):
+    """RWKV6 (Finch) time-mix recurrence, a loop over t in f32.
+
+    r, k, v, w: (B, T, H, D); u: (H, D); state: (B, H, D, D) or None.
+    s_t = diag(exp(-exp(w_t))) s_{t-1} + k_t^T v_t
+    o_t = r_t (s_{t-1} + diag(u) k_t^T v_t)
+    Returns (out (B, T, H, D) in r's dtype, final state (B, H, D, D) f32).
+    """
+    b, t, h, d = r.shape
+    s = (torch.zeros((b, h, d, d), dtype=torch.float32, device=r.device)
+         if state is None else state.float())
+    rf, kf, vf = r.float(), k.float(), v.float()
+    decay = torch.exp(-torch.exp(w.float()))
+    uf = u.float()[None, :, :, None]                          # (1, H, D, 1)
+    outs = []
+    for i in range(t):
+        kv = kf[:, i, :, :, None] * vf[:, i, :, None, :]      # (B, H, D, D)
+        outs.append(torch.einsum("bhd,bhde->bhe", rf[:, i], s + uf * kv))
+        s = s * decay[:, i, :, :, None] + kv
+    out = torch.stack(outs, dim=1) if outs else torch.zeros_like(rf)
+    return out.to(r.dtype), s

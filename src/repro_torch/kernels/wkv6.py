@@ -1,0 +1,78 @@
+"""RWKV6 (Finch) WKV recurrence (RWKV6 hot path, every layer of a prefill
+and of a decode step):
+
+    s_t = diag(exp(-exp(w_t))) s_{t-1} + k_t^T v_t
+    o_t = r_t (s_{t-1} + diag(u) k_t^T v_t)
+
+On CUDA tensors it is the hand-written ``wkv6_kernel``
+(``csrc/rwkv_kernels.cu``: one block of D threads per (batch, head), thread
+j holding column j of the state in registers, steps staged in shared memory
+a tile at a time, the ``u`` term factored into one scalar per step), replacing the Pallas kernel of ``repro/kernels/wkv6.py``;
+on CPU tensors it is the plain version :func:`.ref.wkv6`.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.core.registry import count_launch, kernel
+from . import _build, ref
+from .common import check_cuda, check_in_place, check_out, launch_stream
+
+DTYPES = (torch.float32, torch.bfloat16)
+#: the kernel's template instances, the configs' head sizes (SMOKE, full
+#: width): thread j keeps D state floats in registers
+HEAD_DIMS = (8, 64)
+
+
+def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+         u: torch.Tensor, state: Optional[torch.Tensor] = None, *,
+         state_out: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """r, k, v: (B, T, H, D), one dtype; w: (B, T, H, D) f32; u: (H, D) f32;
+    state: (B, H, D, D) f32 or None (zeros).  Returns (out (B, T, H, D) in
+    r's dtype, final state (B, H, D, D) f32).  The final state is written
+    into ``state_out`` when given, which may be ``state`` itself (the
+    decode cache, updated in place)."""
+    if r.ndim != 4 or any(tuple(t.shape) != tuple(r.shape) for t in (k, v, w)):
+        raise ValueError(f"need r, k, v, w of one (B, T, H, D) shape; got "
+                         f"{[tuple(t.shape) for t in (r, k, v, w)]}")
+    b, t, h, d = r.shape
+    if tuple(u.shape) != (h, d):
+        raise ValueError(f"u {tuple(u.shape)}, expected {(h, d)}")
+    sshape = (b, h, d, d)
+    if state is not None and tuple(state.shape) != sshape:
+        raise ValueError(f"state {tuple(state.shape)}, expected {sshape}")
+    if r.device.type == "cpu":
+        out, final = ref.wkv6(r, k, v, w, u, state)
+        return out, final if state_out is None else state_out.copy_(final)
+    check_cuda("r", r, DTYPES)
+    for name, x in (("k", k), ("v", v)):
+        check_cuda(name, x, (r.dtype,), device=r.device)
+    check_cuda("w", w, (torch.float32,), device=r.device)
+    check_cuda("u", u, (torch.float32,), device=r.device)
+    if state is not None:
+        check_cuda("state", state, (torch.float32,), device=r.device)
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head size {d}: the kernel keeps a state column in registers and "
+                         f"is built for head sizes {HEAD_DIMS}")
+    if b * h > 2**31 - 1:
+        raise ValueError(f"{b} batches x {h} heads exceed the kernel's grid")
+    if state_out is None:
+        state_out = torch.empty(sshape, dtype=torch.float32, device=r.device)
+    else:
+        check_out(state_out, sshape, torch.float32, r.device)
+        if state is not None:
+            check_in_place(state_out, state)
+    out = torch.empty_like(r)
+    with torch.cuda.device(r.device):
+        err = _build.library().rt_wkv6(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
+            None if state is None else state.data_ptr(), state_out.data_ptr(),
+            out.data_ptr(), b, t, h, d, int(r.dtype == torch.bfloat16), launch_stream(r))
+    _build.check(err, "wkv6")
+    count_launch("wkv6")
+    return out, state_out
+
+
+kernel("wkv6", ref=ref.wkv6)(wkv6)

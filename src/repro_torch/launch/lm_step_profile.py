@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Where the time of the port's LM serving path goes, on one CUDA card.
 
-    python3 src/repro_torch/launch/lm_step_profile.py [--layers N] [--batch B] [--prompt S]
+    python3 src/repro_torch/launch/lm_step_profile.py [--arch A] [--layers N] [--batch B]
+                                                      [--prompt S]
 
-Builds qwen3-14b at full width (``--layers`` cuts only the depth; random
-bf16 weights made on the card from seed 0), prefills a batch of ``--batch``
+Builds ``--arch`` (qwen3-14b by default, or rwkv6-3b) at full width
+(``--layers`` cuts only the depth; random bf16 weights made on the card
+from seed 0), prefills a batch of ``--batch``
 prompts of ``--prompt`` tokens through ``DecodeSession``, then traces
 decode steps and one single-prompt prefill with ``torch.profiler``.  For
 each it prints the host wall time (ending in a synchronize), the device
@@ -31,7 +33,8 @@ def main() -> None:
     from torch.profiler import ProfilerActivity, profile
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--layers", type=int, default=40)
+    ap.add_argument("--arch", default="qwen3-14b")
+    ap.add_argument("--layers", type=int, default=None, help="default: the config's depth")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt", type=int, default=512)
     ap.add_argument("--steps", type=int, default=5)
@@ -47,7 +50,8 @@ def main() -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
                           "--id=0"], capture_output=True, text=True, check=True).stdout.strip()
     print(smi)
-    cfg = get_config("qwen3-14b").scaled(n_layers=args.layers)
+    cfg = get_config(args.arch)
+    cfg = cfg.scaled(n_layers=args.layers or cfg.n_layers)
     model = build_model(cfg)
     app = CLapp().init()
     weights, codec = weights_data(model.param_specs())
@@ -84,11 +88,13 @@ def main() -> None:
             print(f"  host   {e.self_cpu_time_total / reps / 1e3:8.3f} ms  "
                   f"x{e.count / reps:6.0f}  {e.key[:100]}")
 
-    traced(f"decode step, batch {args.batch}, {cfg.n_layers} layers", sess.step, args.steps)
+    traced(f"{cfg.name} decode step, batch {args.batch}, {cfg.n_layers} layers", sess.step,
+           args.steps)
     row = DecodeSession(app, model, weights, batch=1, max_len=2048)
     toks = rng.integers(0, cfg.vocab, (1, 1024)).astype(np.int32)
     row.prefill(toks)                        # warm-up of the prefill shapes
-    traced(f"prefill, 1 x 1024 tokens, {cfg.n_layers} layers", lambda: row.prefill(toks), 1)
+    traced(f"{cfg.name} prefill, 1 x 1024 tokens, {cfg.n_layers} layers",
+           lambda: row.prefill(toks), 1)
 
 
 if __name__ == "__main__":

@@ -1,5 +1,6 @@
-"""Model zoo of the port: the dense decoder family so far."""
+"""Model zoo of the port: the dense decoder and RWKV6 (ssm) families so far."""
 from .common import ArchConfig
+from .rwkv6 import RWKV6Model
 from .transformer import DecoderLM
 
 
@@ -7,9 +8,11 @@ def build_model(cfg: ArchConfig):
     """Return the model object for a config's family."""
     if cfg.family == "dense":
         return DecoderLM(cfg)
+    if cfg.family == "ssm":
+        return RWKV6Model(cfg)
     raise NotImplementedError(
-        f"family {cfg.family!r} is not ported yet (ROADMAP queue 1: whisper, rwkv6, then "
-        "the rest of the LM stack)")
+        f"family {cfg.family!r} is not ported yet (ROADMAP queue 1: whisper, then the rest "
+        "of the LM stack)")
 
 
-__all__ = ["ArchConfig", "DecoderLM", "build_model"]
+__all__ = ["ArchConfig", "DecoderLM", "RWKV6Model", "build_model"]

@@ -19,13 +19,13 @@ from repro_torch.core.arena import torch_dtype
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
-    """One architecture: the fields the dense decoder path reads.  The JAX
+    """One architecture: the fields the dense decoder and RWKV6 paths read.  The JAX
     package's TPU and mesh levers (``opt_*``, ``unroll_layers``, ``remat``,
     ``use_pallas``) have no counterpart: the kernel wrappers decide by the
     tensors' device."""
 
     name: str
-    family: str                    # dense (the ported family)
+    family: str                    # dense | ssm (the ported families)
     n_layers: int
     d_model: int
     n_heads: int
@@ -47,6 +47,7 @@ class ArchConfig:
     n_experts: int = 0
     first_dense_ff: Optional[int] = None
     mla: bool = False
+    rwkv_head_dim: int = 64        # ssm (RWKV6) head size
     param_dtype: str = "bfloat16"
     dtype: str = "bfloat16"        # activation dtype
 
@@ -93,11 +94,10 @@ def tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
 # parameters across with repro_torch.interop.params_from_reference)
 # ---------------------------------------------------------------------------
 
-def dense_init(generator: torch.Generator, t: torch.Tensor) -> torch.Tensor:
-    """Fill ``t`` in place with N(0, fan_in^-1/2) projection weights; fan_in
-    is the second-last (input) axis, also of a layer-stacked (L, in, out)
-    leaf.  Sampled straight into ``t``: no float32 copy of a large leaf."""
-    return t.normal_(0.0, float(t.shape[-2]) ** -0.5, generator=generator)
+def dense_init(generator: torch.Generator, t: torch.Tensor, fan_in: int) -> torch.Tensor:
+    """Fill ``t`` in place with N(0, fan_in^-1/2) projection weights.
+    Sampled straight into ``t``: no float32 copy of a large leaf."""
+    return t.normal_(0.0, float(fan_in) ** -0.5, generator=generator)
 
 
 def embed_init(generator: torch.Generator, t: torch.Tensor) -> torch.Tensor:
@@ -107,15 +107,45 @@ def embed_init(generator: torch.Generator, t: torch.Tensor) -> torch.Tensor:
 
 def init_leaf_(name: str, t: torch.Tensor, generator: torch.Generator) -> None:
     """Fill one parameter in place by its role, as the JAX package's
-    ``init_*`` functions do: norm scales 1, biases 0, embedding rows
-    :func:`embed_init`, projections :func:`dense_init`."""
+    ``init_*`` functions do: norm scales 1, biases 0, the RWKV6 token-shift
+    mixes and decay base 0, embedding rows :func:`embed_init`, projections
+    :func:`dense_init`.  A projection's fan-in is the first axis of its
+    per-layer shape (the JAX ``dense_init``'s ``shape[0]``), so RWKV6's
+    (5, 32, d) ``tm_w2`` has fan-in 5."""
     leaf = name.rsplit("[", 1)[-1].strip("[]'")
     with torch.no_grad():
-        if leaf == "scale":
+        if leaf in ("scale", "gn_scale"):
             t.fill_(1.0)
-        elif leaf == "bias" or leaf.startswith("b_"):
+        elif leaf in ("bias", "gn_bias", "decay") or leaf.startswith(("b_", "maa_")):
             t.zero_()
         elif leaf == "embedding":
             embed_init(generator, t)
         else:
-            dense_init(generator, t)
+            per_layer = t.shape[1:] if name.startswith("['layers']") else t.shape
+            dense_init(generator, t, per_layer[0])
+
+
+def stacked(specs: Any, n_layers: int) -> Any:
+    """Per-layer specs with a leading (L,) layer axis (the JAX package's
+    ``vmap``-ed layer init and ``scan`` layout)."""
+    return tree_map(lambda s: type(s)((n_layers,) + tuple(s.shape), s.dtype), specs)
+
+
+def alloc_tree(specs: Any, device=None) -> Any:
+    """Uninitialised tensors laid out as a tree of :class:`TensorSpec`."""
+    return tree_map(lambda s: torch.empty(s.shape, dtype=torch_dtype(s.dtype), device=device),
+                    specs)
+
+
+def init_tree(specs: Any, generator: torch.Generator, *, device=None,
+              out: Optional[Any] = None) -> Any:
+    """Random parameters for a model's ``param_specs()`` drawn from
+    ``generator`` (on ``device``, the generator's device), each leaf by its
+    role (:func:`init_leaf_`).  ``out``, a tree laid out as ``specs`` (e.g.
+    the weights arena's views), is filled in place and returned, so
+    full-size weights are made on the card with no second copy."""
+    if out is None:
+        out = alloc_tree(specs, device)
+    for name, t in tree_flatten(out):
+        init_leaf_(name, t, generator)
+    return out

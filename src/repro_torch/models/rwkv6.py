@@ -1,0 +1,204 @@
+"""RWKV6 "Finch", the ssm family: an attention-free LM with data-dependent
+decay (rwkv6-3b).
+
+Mirrors ``repro/models/rwkv6.py``.  Time-mix: token-shift ddlerp (a
+low-rank, data-dependent interpolation of the five r/k/v/w/g streams), the
+WKV6 recurrence (the ``wkv6`` kernel wrapper: the hand-written CUDA kernel
+on CUDA tensors, the plain version on CPU tensors), per-head group norm,
+gated output.  Channel-mix: a token-shifted squared-ReLU MLP.  The decode
+state is O(1) per slot: two shift vectors and the (H, D, D) WKV state per
+layer.
+
+Serving entry points only.  ``prefill`` and ``decode_step`` write the cache
+they are given (views of the decode-state arena) in place and return it:
+the kernel writes each layer's final WKV state straight over
+``cache["wkv"][i]``, and the shift vectors are copied into
+``cache["tm_shift"][i]`` / ``cache["cm_shift"][i]``.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.wkv6 import wkv6
+from . import layers as L
+from .layers import _spec as spec
+from .common import ArchConfig, alloc_tree, init_tree, stacked, tree_flatten, tree_map
+
+Params = Dict[str, Any]
+
+TM_LORA = 32   # ddlerp low-rank dim
+TD_LORA = 64   # decay low-rank dim
+
+_TRAINING = "the training forward is not ported yet (ROADMAP queue 1, Training)"
+
+
+def _heads(cfg: ArchConfig) -> Tuple[int, int]:
+    dh = cfg.rwkv_head_dim
+    return cfg.d_model // dh, dh
+
+
+def layer_specs(cfg: ArchConfig) -> Params:
+    """One layer's parameters, as ``init_rwkv_layer`` of the JAX package
+    lays them out (``u`` is float32, everything else ``param_dtype``)."""
+    d, f, pd = cfg.d_model, cfg.d_ff, cfg.param_dtype
+    nh, dh = _heads(cfg)
+    vec = spec((d,), pd)
+    tm = {name: vec for name in ("maa_x", "maa_w", "maa_k", "maa_v", "maa_r", "maa_g",
+                                 "decay", "gn_scale", "gn_bias")}
+    tm.update(tm_w1=spec((d, 5 * TM_LORA), pd), tm_w2=spec((5, TM_LORA, d), pd),
+              td_w1=spec((d, TD_LORA), pd), td_w2=spec((TD_LORA, d), pd),
+              u=spec((nh, dh), "float32"),
+              **{w: spec((d, d), pd) for w in ("w_r", "w_k", "w_v", "w_g", "w_o")})
+    cm = {"maa_k": vec, "maa_r": vec, "w_k": spec((d, f), pd), "w_v": spec((f, d), pd),
+          "w_r": spec((d, d), pd)}
+    return {"ln1": L.norm_specs(cfg), "ln2": L.norm_specs(cfg), "tm": tm, "cm": cm}
+
+
+def _shift(x: torch.Tensor, last: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token shift: x_{t-1}; position 0 gets ``last`` (B, D) or zeros."""
+    prev = torch.zeros_like(x[:, :1]) if last is None else last[:, None, :].to(x.dtype)
+    return torch.cat([prev, x[:, :-1]], dim=1)
+
+
+def _group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, nh: int, dh: int,
+                eps: float = 64e-5) -> torch.Tensor:
+    """Per-head layer norm of (B, T, D), f32 out."""
+    b, t, d = x.shape
+    xg = x.reshape(b, t, nh, dh).float()
+    mu = xg.mean(dim=-1, keepdim=True)
+    var = xg.var(dim=-1, unbiased=False, keepdim=True)
+    xg = (xg - mu) * torch.rsqrt(var + eps)
+    return xg.reshape(b, t, d) * scale.float() + bias.float()
+
+
+def time_mix(p: Params, x: torch.Tensor, cfg: ArchConfig,
+             shift_in: Optional[torch.Tensor] = None, wkv_state: Optional[torch.Tensor] = None,
+             state_out: Optional[torch.Tensor] = None):
+    """x: (B, T, D).  Returns (out, new shift (B, D), new WKV state); the
+    state is written into ``state_out`` when given (which may be
+    ``wkv_state``, the cache updated in place)."""
+    b, t, d = x.shape
+    nh, dh = _heads(cfg)
+    sx = _shift(x, shift_in) - x
+    xxx = x + sx * p["maa_x"]
+    lora = torch.tanh(xxx @ p["tm_w1"]).reshape(b, t, 5, TM_LORA)
+    mixes = torch.einsum("btfl,fld->btfd", lora, p["tm_w2"])       # (B, T, 5, D)
+    xw = x + sx * (p["maa_w"] + mixes[:, :, 0])
+    xk = x + sx * (p["maa_k"] + mixes[:, :, 1])
+    xv = x + sx * (p["maa_v"] + mixes[:, :, 2])
+    xr = x + sx * (p["maa_r"] + mixes[:, :, 3])
+    xg = x + sx * (p["maa_g"] + mixes[:, :, 4])
+
+    r = (xr @ p["w_r"]).reshape(b, t, nh, dh)
+    k = (xk @ p["w_k"]).reshape(b, t, nh, dh)
+    v = (xv @ p["w_v"]).reshape(b, t, nh, dh)
+    g = F.silu((xg @ p["w_g"]).float())
+    w = (p["decay"].float() + (torch.tanh(xw @ p["td_w1"]) @ p["td_w2"]).float())
+    w = w.reshape(b, t, nh, dh)
+
+    out, new_state = wkv6(r, k, v, w, p["u"], wkv_state, state_out=state_out)
+    out = _group_norm(out.reshape(b, t, d), p["gn_scale"], p["gn_bias"], nh, dh)
+    out = (out * g).to(cfg.adtype) @ p["w_o"]
+    return out, x[:, -1, :], new_state
+
+
+def channel_mix(p: Params, x: torch.Tensor, cfg: ArchConfig,
+                shift_in: Optional[torch.Tensor] = None):
+    """Returns (out, new shift (B, D))."""
+    sx = _shift(x, shift_in) - x
+    xk = x + sx * p["maa_k"]
+    xr = x + sx * p["maa_r"]
+    kv = torch.square(F.relu(xk @ p["w_k"])) @ p["w_v"]
+    return torch.sigmoid((xr @ p["w_r"]).float()).to(cfg.adtype) * kv, x[:, -1, :]
+
+
+class RWKV6Model:
+    """Functional model object: parameters and caches are nested dicts."""
+
+    #: the kernel modules a forward launches (loaded by the LM processes)
+    kernel_names = ("rmsnorm", "wkv6")
+
+    def __init__(self, cfg: ArchConfig):
+        if cfg.d_model % cfg.rwkv_head_dim:
+            raise ValueError(f"{cfg.name}: d_model {cfg.d_model} is not a multiple of the "
+                             f"head size {cfg.rwkv_head_dim}")
+        self.cfg = cfg
+
+    # ------------------------------------------------------------- params
+    def param_specs(self) -> Params:
+        """Shapes and dtypes of the parameter tree, nothing allocated."""
+        cfg = self.cfg
+        return {"embed": L.embed_specs(cfg), "ln0": L.norm_specs(cfg),
+                "layers": stacked(layer_specs(cfg), cfg.n_layers),
+                "final_norm": L.norm_specs(cfg)}
+
+    def init_params(self, generator: torch.Generator, *, device=None,
+                    out: Optional[Params] = None) -> Params:
+        """Random parameters (:func:`~repro_torch.models.common.init_tree`);
+        ``out``, e.g. the weights arena's views, is filled in place."""
+        return init_tree(self.param_specs(), generator, device=device, out=out)
+
+    # ------------------------------------------------------------- cache
+    def cache_specs(self, batch: int, max_len: int) -> Params:
+        """Two shift vectors and the WKV state per layer and slot; the size
+        does not depend on ``max_len``."""
+        cfg = self.cfg
+        nh, dh = _heads(cfg)
+        n, d = cfg.n_layers, cfg.d_model
+        return {"tm_shift": spec((n, batch, d), cfg.dtype),
+                "cm_shift": spec((n, batch, d), cfg.dtype),
+                "wkv": spec((n, batch, nh, dh, dh), "float32")}
+
+    def init_cache(self, batch: int, max_len: int, device=None) -> Params:
+        return self.reset_cache(alloc_tree(self.cache_specs(batch, max_len), device))
+
+    @staticmethod
+    def reset_cache(cache: Params) -> Params:
+        """Empty a cache in place: every shift and state zero."""
+        for _, t in tree_flatten(cache):
+            t.zero_()
+        return cache
+
+    # ------------------------------------------------------------- serve
+    def _run_cached(self, params: Params, tokens: torch.Tensor,
+                    cache: Params) -> Tuple[torch.Tensor, Params]:
+        cfg = self.cfg
+        x = L.embed_tokens(params["embed"], tokens, cfg)
+        x = L.apply_norm(params["ln0"], x, cfg)
+        for i in range(cfg.n_layers):
+            lp = tree_map(lambda a: a[i], params["layers"])
+            tm_shift, cm_shift, wkv = (cache[k][i] for k in ("tm_shift", "cm_shift", "wkv"))
+            h = L.apply_norm(lp["ln1"], x, cfg)
+            out, shift, _ = time_mix(lp["tm"], h, cfg, tm_shift, wkv, state_out=wkv)
+            tm_shift.copy_(shift)
+            x = x + out
+            h = L.apply_norm(lp["ln2"], x, cfg)
+            out, shift = channel_mix(lp["cm"], h, cfg, cm_shift)
+            cm_shift.copy_(shift)
+            x = x + out
+        x = L.apply_norm(params["final_norm"], x[:, -1:].contiguous(), cfg)
+        return L.logits_from_hidden(params["embed"], x, cfg), cache
+
+    def prefill(self, params: Params, tokens: torch.Tensor,
+                cache: Params) -> Tuple[torch.Tensor, Params]:
+        """Run a prompt (B, S) from the state in ``cache`` (zeros after
+        :meth:`reset_cache`); returns (last-token logits (B, 1, V) f32,
+        cache)."""
+        return self._run_cached(params, tokens, cache)
+
+    def decode_step(self, params: Params, token: torch.Tensor, pos,
+                    cache: Params) -> Tuple[torch.Tensor, Params]:
+        """token: (B, 1) int; ``pos`` is ignored (the recurrence has no
+        positions).  Returns (logits (B, 1, V) f32, cache)."""
+        del pos
+        return self._run_cached(params, token, cache)
+
+    # ------------------------------------------------------------- train
+    def hidden_states(self, params, tokens):
+        raise NotImplementedError(_TRAINING)
+
+    def loss_fn(self, params, batch):
+        raise NotImplementedError(_TRAINING)

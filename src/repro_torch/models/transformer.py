@@ -12,9 +12,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.core.arena import torch_dtype
 from . import layers as L
-from .common import ArchConfig, init_leaf_, tree_flatten, tree_map
+from .common import ArchConfig, alloc_tree, init_tree, stacked, tree_flatten, tree_map
 
 Params = Dict[str, Any]
 
@@ -25,6 +24,9 @@ _TRAINING = "the training forward is not ported yet (ROADMAP queue 1, Training)"
 
 class DecoderLM:
     """Functional model object: parameters and caches are nested dicts."""
+
+    #: the kernel modules a forward launches (loaded by the LM processes)
+    kernel_names = ("rmsnorm", "flash_attention")
 
     def __init__(self, cfg: ArchConfig):
         if cfg.mla or cfg.n_experts or cfg.first_dense_ff:
@@ -38,31 +40,21 @@ class DecoderLM:
         layer = {"ln_attn": L.norm_specs(cfg), "ln_mlp": L.norm_specs(cfg),
                  "attn": L.attention_specs(cfg), "mlp": L.mlp_specs(cfg)}
         return {"embed": L.embed_specs(cfg),
-                "layers": tree_map(lambda s: type(s)((cfg.n_layers,) + s.shape, s.dtype), layer),
+                "layers": stacked(layer, cfg.n_layers),
                 "final_norm": L.norm_specs(cfg)}
 
     def init_params(self, generator: torch.Generator, *, device=None,
                     out: Optional[Params] = None) -> Params:
-        """Random parameters drawn from ``generator`` (on ``device``, the
-        generator's device).  ``out``, a tree laid out as
-        :meth:`param_specs` (e.g. the weights arena's views), is filled in
-        place and returned, so full-size weights are made on the card with
-        no second copy."""
-        if out is None:
-            out = tree_map(lambda s: torch.empty(s.shape, dtype=torch_dtype(s.dtype),
-                                                 device=device), self.param_specs())
-        for name, t in tree_flatten(out):
-            init_leaf_(name, t, generator)
-        return out
+        """Random parameters (:func:`~repro_torch.models.common.init_tree`);
+        ``out``, e.g. the weights arena's views, is filled in place."""
+        return init_tree(self.param_specs(), generator, device=device, out=out)
 
     # ------------------------------------------------------------- cache
     def cache_specs(self, batch: int, max_len: int) -> Params:
         return {"scan": L.kv_cache_specs(self.cfg, self.cfg.n_layers, batch, max_len)}
 
     def init_cache(self, batch: int, max_len: int, device=None) -> Params:
-        cache = tree_map(lambda s: torch.empty(s.shape, dtype=torch_dtype(s.dtype), device=device),
-                         self.cache_specs(batch, max_len))
-        return self.reset_cache(cache)
+        return self.reset_cache(alloc_tree(self.cache_specs(batch, max_len), device))
 
     @staticmethod
     def reset_cache(cache: Params) -> Params:

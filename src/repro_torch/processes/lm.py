@@ -14,11 +14,12 @@ state layouts match the JAX package's entry for entry.
   in the output arena itself.
 * :class:`DecodeStep`: one greedy step over the whole batch, bound in place
   (``infile == outfile`` == the state handle).  Where the JAX package
-  donates the state to XLA, this writes the new K/V row at slot
-  ``pos % cache_len`` straight into the arena views (``index_copy_`` with a
-  device index; ``pos = positions.max()`` stays on the device), so a step
-  never copies the cache and the only host sync per step is the caller's
-  (B, 1) token readback.
+  donates the state to XLA, the models write the arena views: the dense
+  decoder its new K/V row at slot ``pos % cache_len`` (``index_copy_``
+  with a device index; ``pos = positions.max()`` stays on the device),
+  RWKV6 its shift vectors and WKV state (the ``wkv6`` kernel writes the
+  state over itself).  A step never copies the cache and the only host
+  sync per step is the caller's (B, 1) token readback.
 * :class:`CacheSplice` / :class:`SlotRelease`: continuous-batching
   admission and retirement, in place on the state.
 
@@ -137,11 +138,13 @@ def _target(views: Dict[str, torch.Tensor],
 
 
 class _LMProcess(Process):
-    """Shared plumbing: model + weights/cache codecs.  ``init()`` loads the
-    norm and attention kernels (built on a CUDA app), so a launch never
-    compiles."""
+    """Shared plumbing: model + weights/cache codecs.  ``init()`` loads every
+    kernel module the model launches (its ``kernel_names``; built on a CUDA
+    app), so a launch never compiles."""
 
-    kernel_names = ("rmsnorm", "flash_attention")
+    @property
+    def kernel_names(self) -> Tuple[str, ...]:
+        return self.model.kernel_names
 
     def __init__(self, app, model, wcodec: TreeCodec, ccodec: TreeCodec, *,
                  max_len: int, tag: str):
@@ -180,6 +183,8 @@ class PrefillProcess(_LMProcess):
         else:
             cache = self.model.init_cache(b, self.max_len, device=tokens.device)
         logits, cache = self.model.prefill(self._weights(aux), tokens, cache)
+        # the returned leaves are the output views when the model wrote them
+        # in place; any other storage is copied in by the launch (pack_device)
         state = {"token": logits.argmax(dim=-1).to(torch.int32),
                  "positions": torch.full((b,), s, dtype=torch.int32, device=tokens.device),
                  "active": torch.ones((b,), dtype=torch.int32, device=tokens.device)}
@@ -208,11 +213,14 @@ class DecodeStep(_LMProcess):
         state = _target(views, out)
         token, positions, active = state["token"], state["positions"], state["active"]
         pos = positions.max()
-        logits, _ = self.model.decode_step(self._weights(aux), token, pos,
-                                           self.ccodec.unflatten(state))
+        logits, cache = self.model.decode_step(self._weights(aux), token, pos,
+                                               self.ccodec.unflatten(state))
         nxt = logits.argmax(dim=-1).to(torch.int32)               # (B, 1)
         token.copy_(torch.where(active[:, None] > 0, nxt, token))
         positions.add_(active)
+        # the models write their cache views in place; a leaf returned as
+        # other storage is copied into the arena by the launch (pack_device)
+        state.update(self.ccodec.flatten(cache))
         return state
 
 

@@ -50,6 +50,11 @@ class LMServer:
     * **release**: a finished request retires its slot with an in-place
       :class:`~repro_torch.processes.lm.SlotRelease`.
 
+    It serves both ported families unchanged: the dense decoder (its state
+    a K/V cache per slot) and RWKV6 (the ssm family: two shift vectors and
+    the (H, D, D) WKV state per layer and slot, spliced like the stacked
+    K/V leaves on their slot axis 1).
+
     Decoding is greedy (the argmax runs on the device); stochastic sampling
     is rejected at construction.  ``weights`` is a parameter tree or a
     weights Data (:func:`~repro_torch.processes.lm.weights_data`,

@@ -1,14 +1,18 @@
 """The port's LM serving path against the JAX package's, on the SMOKE
 configs of qwen3-14b (qk-norm), h2o-danube-1.8b (sliding window 8, so a
-12-token prompt takes the rolling-buffer prefill) and qwen2-7b (QKV bias),
-all float32.  The JAX side runs its Pallas kernels in interpret mode
+12-token prompt takes the rolling-buffer prefill), qwen2-7b (QKV bias) and
+rwkv6-3b (the ssm family: a recurrent state instead of a K/V cache), all
+float32.  The JAX side runs its Pallas kernels in interpret mode
 (``use_pallas=True``), as ``tests/test_kernels.py`` does; its parameters are
 carried across with ``interop.params_from_reference``, so both packages
 compute the same function.
 
 Tolerances: arena layouts, carried-over weight bytes, cache positions and
-greedy tokens are compared exactly; logits at rtol 1e-4 / atol 1e-5 (f32,
-two frameworks summing in other orders).
+greedy tokens are compared exactly; logits and cache leaves at rtol 1e-4 /
+atol 1e-5 (f32, two frameworks summing in other orders), except RWKV6's WKV
+state, at atol 1e-5 x max |state|: each entry is a decayed sum of k v
+products over the prompt, so its rounding error scales with those terms
+(up to about 10 here), not with the entry.
 """
 import functools
 
@@ -29,11 +33,12 @@ from repro_torch.configs import get_config, get_smoke
 from repro_torch.core import (CLapp, Coherence, DeviceTraits, DeviceType,
                               NoMatchingDeviceError)
 from repro_torch.models import build_model
-from repro_torch.models.common import tree_map
+from repro_torch.models.common import tree_flatten, tree_map
+from repro_torch.models.rwkv6 import RWKV6Model
 from repro_torch.processes import lm as tlm
 from repro_torch.serve import LMServer, PromptTooLongError, SamplingConfig
 
-ARCHS = ["qwen3-14b", "h2o-danube-1.8b", "qwen2-7b"]
+ARCHS = ["qwen3-14b", "h2o-danube-1.8b", "qwen2-7b", "rwkv6-3b"]
 LOGITS = dict(rtol=1e-4, atol=1e-5)
 MAX_LEN = 24
 
@@ -86,29 +91,40 @@ def test_weights_and_state_layouts_match_reference(arch):
         == want
 
 
-def test_full_width_bf16_layouts_match_reference():
-    """qwen3-14b at full width in bfloat16: the weights (14.77 B parameters)
-    and a 4 x 2048 decode state plan to the same entries and offsets in
-    both packages, without allocating either."""
-    jmodel = j_build_model(j_get_config("qwen3-14b"))
+def _full_width_layouts_match(arch, n_params):
+    """``arch`` at full width in bfloat16 (rwkv6's ``u`` in float32): the
+    weights and a 4 x 2048 decode state plan to the same entries and
+    offsets in both packages, without allocating either."""
+    jmodel = j_build_model(j_get_config(arch))
     shapes = jax.eval_shape(lambda: jmodel.init_params(jax.random.key(0)))
     jcodec = jlm.TreeCodec(shapes, prefix="w")
     jl = jarena.plan_layout((n, leaf.shape, leaf.dtype) for n, leaf in
                             zip(jcodec.names, jax.tree_util.tree_leaves(shapes)))
-    model = build_model(get_config("qwen3-14b"))
+    model = build_model(get_config(arch))
     tw, _ = tlm.weights_data(model.param_specs())
     assert _entries(tw.plan()) == _entries(jl)
-    assert {e.dtype for e in tw.layout.entries} == {"bfloat16"}
-    assert sum(int(np.prod(e.shape)) for e in tw.layout.entries) == 14_768_307_200
+    assert {e.dtype for e in tw.layout.entries if not e.name.endswith("['u']")} == {"bfloat16"}
+    assert sum(int(np.prod(e.shape)) for e in tw.layout.entries) == n_params
     js, _ = jlm.decode_state_data(jmodel, 4, 2048)
     ts, _ = tlm.decode_state_data(model, 4, 2048)
     assert _entries(ts.plan()) == _entries(js.plan())
 
 
+def test_full_width_bf16_layouts_match_reference():
+    """qwen3-14b (14.77 B parameters)."""
+    _full_width_layouts_match("qwen3-14b", 14_768_307_200)
+
+
+def test_full_width_rwkv6_layouts_match_reference():
+    """rwkv6-3b (3.10 B parameters, ``u`` float32)."""
+    _full_width_layouts_match("rwkv6-3b", 3_099_694_080)
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_prefill_and_decode_logits_match_reference(arch, rng):
     """Prefill a 12-token prompt, then 5 teacher-forced decode steps (both
-    sides fed the JAX argmax): logits, cache positions and K/V agree."""
+    sides fed the JAX argmax): logits and every cache leaf agree (integer
+    leaves, the cache positions, exactly)."""
     jmodel, jparams = _jax(arch)
     model, weights = _port(arch)
     params = tlm.TreeCodec(model.param_specs(), prefix="w").unflatten(weights.device_views())
@@ -120,11 +136,15 @@ def test_prefill_and_decode_logits_match_reference(arch, rng):
     step = jax.jit(jmodel.decode_step)
     for i in range(6):
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **LOGITS)
-        np.testing.assert_array_equal(tcache["scan"]["kpos"].numpy(),
-                                      np.asarray(jcache["scan"]["kpos"]))
-        for leaf in ("k", "v"):
-            np.testing.assert_allclose(tcache["scan"][leaf].numpy(),
-                                       np.asarray(jcache["scan"][leaf]), rtol=1e-4, atol=1e-5)
+        jleaves = _named(jcache)
+        assert sorted(jleaves) == sorted(name for name, _ in tree_flatten(tcache))
+        for name, leaf in tree_flatten(tcache):
+            if leaf.dtype.is_floating_point:
+                scale = np.abs(jleaves[name]).max() if name == "['wkv']" else 1.0
+                np.testing.assert_allclose(leaf.numpy(), jleaves[name], rtol=1e-4,
+                                           atol=1e-5 * scale, err_msg=name)
+            else:
+                np.testing.assert_array_equal(leaf.numpy(), jleaves[name], err_msg=name)
         if i == 5:
             break
         tok = np.array(jnp.argmax(jl, axis=-1).astype(jnp.int32))
@@ -168,16 +188,20 @@ def test_lmserver_matches_reference(arch):
     assert (tsrv.steps, tsrv.admitted) == (jsrv.steps, jsrv.admitted)
 
 
-def test_lmserver_state_stays_on_the_device():
-    """The decode state never grows a host mirror and never moves host to
-    device: only the prompts are uploaded."""
-    model, weights = _port("qwen3-14b")
+def _state_stays_on_the_device(arch):
+    """The decode state never grows a host mirror, never moves host to
+    device and keeps its storage: every step writes the one arena in place,
+    and only the prompts are uploaded."""
+    model, weights = _port(arch)
     app = _cpu_app()
     srv = LMServer(model, weights, batch=3, max_len=MAX_LEN,
                    sampling=SamplingConfig(max_new_tokens=4), app=app)
     for n in (4, 6, 9, 4, 7):
         srv.submit(list(range(1, n + 1)))
+    srv.step()                                   # the first admissions allocate the arenas
+    arena = (srv.state.device_blob.data_ptr(), srv._row.device_blob.data_ptr())
     srv.run()
+    assert (srv.state.device_blob.data_ptr(), srv._row.device_blob.data_ptr()) == arena
     assert srv.steps > 4 and srv.admitted == 5
     for data, h in ((srv.state, srv.state_h), (srv._row, srv._row_h)):
         assert data.coherence is Coherence.DEVICE_RESIDENT
@@ -185,6 +209,16 @@ def test_lmserver_state_stays_on_the_device():
         assert app.h2d_bytes.get(h, 0) == 0
     assert srv.decode_profile.phase_total("transfer") == 0.0
     assert len(srv.prefill_profile.phases["transfer"]) == 5    # one prompt upload each
+
+
+def test_lmserver_state_stays_on_the_device():
+    _state_stays_on_the_device("qwen3-14b")
+
+
+def test_lmserver_rwkv6_state_stays_on_the_device():
+    """The RWKV6 state (shift vectors and WKV state, written by the model
+    and the kernel in place) too."""
+    _state_stays_on_the_device("rwkv6-3b")
 
 
 def test_splice_row_matches_reference_with_layers_unequal_to_slots(rng):
@@ -199,6 +233,44 @@ def test_splice_row_matches_reference_with_layers_unequal_to_slots(rng):
             want = np.asarray(jlm._splice_row(jnp.asarray(full), jnp.asarray(row), slot))
             got = tlm._splice_row(torch.from_numpy(full.copy()), torch.from_numpy(row), slot)
             np.testing.assert_array_equal(got.numpy(), want, err_msg=f"{name} slot {slot}")
+
+
+@pytest.mark.parametrize("full,row", [((32, 4, 2560), (32, 1, 2560)),
+                                      ((32, 4, 40, 64, 64), (32, 1, 40, 64, 64))],
+                         ids=["shift", "wkv"])
+def test_splice_row_takes_the_slot_axis_of_rwkv6_leaves(full, row):
+    """rwkv6-3b's full-width state leaves, (L, B, ...) with L = 32 and B = 4
+    slots: the splice writes slot axis 1, as the JAX package's does."""
+    base = np.zeros(full, np.float32)
+    ones = np.ones(row, np.float32)
+    for slot in (0, 3):
+        want = np.asarray(jlm._splice_row(jnp.asarray(base), jnp.asarray(ones), slot))
+        got = tlm._splice_row(torch.zeros(full), torch.ones(row), slot)
+        assert got.numpy().sum(axis=tuple(i for i in range(len(full)) if i != 1)).nonzero()[0] \
+            .tolist() == [slot]
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+class _CopyingRWKV6(RWKV6Model):
+    """Returns its new cache as fresh tensors and leaves the given one as it
+    was, as a JAX-style pure model would."""
+
+    def _run_cached(self, params, tokens, cache):
+        return super()._run_cached(params, tokens, tree_map(torch.clone, cache))
+
+
+def test_decode_keeps_a_returned_cache_that_is_not_the_arena(rng):
+    """A model that returns its cache instead of writing the arena views
+    decodes the same tokens: prefill and step copy the returned leaves into
+    the state arena."""
+    model, weights = _port("rwkv6-3b")
+    prompts = rng.integers(0, model.cfg.vocab, (2, 9)).astype(np.int32)
+    sessions = [tlm.DecodeSession(_cpu_app(), m, weights, batch=2, max_len=MAX_LEN)
+                for m in (model, _CopyingRWKV6(model.cfg))]
+    np.testing.assert_array_equal(*(s.prefill(prompts) for s in sessions))
+    for _ in range(4):
+        np.testing.assert_array_equal(*(s.step() for s in sessions))
+    assert torch.equal(sessions[0].state.device_blob, sessions[1].state.device_blob)
 
 
 def test_decode_step_bound_out_of_place_leaves_its_input():
@@ -244,7 +316,11 @@ def test_lmserver_runs_on_the_card_unless_given_a_cpu_app(monkeypatch):
 
 def test_unported_families_raise_naming_the_roadmap():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(get_smoke("qwen3-14b").scaled(family="ssm"))
+        build_model(get_smoke("qwen3-14b").scaled(family="hybrid"))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_model(get_smoke("qwen3-14b").scaled(family="encdec"))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_model(get_smoke("rwkv6-3b")).loss_fn({}, {})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(get_smoke("qwen3-14b").scaled(n_experts=4))
     with pytest.raises(NotImplementedError, match="ROADMAP"):

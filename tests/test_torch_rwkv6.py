@@ -1,0 +1,231 @@
+"""The port's RWKV6 pieces against the JAX package's, on the same numpy
+inputs made from a seed.
+
+* ``wkv6``: the wrapper on CPU tensors (its plain version) against the JAX
+  Pallas kernel run as ``tests/test_kernels.py`` runs it (interpret mode off
+  the TPU), with and without an input state, and with the state carried
+  across two calls.  f32 tolerances: rtol 1e-4 / atol 1e-5 for the output
+  and the final state (sums over D taken in another order).
+* The model's layers (``_group_norm``, ``time_mix``, ``channel_mix``)
+  against ``repro.models.rwkv6``'s at f32 1e-5, with and without the
+  carried shift vectors and WKV state.
+
+The whole model and its serving path are compared in
+``tests/test_torch_lm.py``; the CUDA kernel is held against the plain
+version on the card by ``chip_smoke.py``.
+"""
+import ctypes
+import re
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_smoke as j_get_smoke
+from repro.kernels import ref as jref
+from repro.kernels.wkv6 import wkv6 as j_wkv6
+from repro.models import rwkv6 as jrwkv
+from repro_torch.configs import get_config, get_smoke
+from repro_torch.core.registry import KernelRegistry, launch_counts
+from repro_torch.kernels import _build, ref
+from repro_torch.kernels.wkv6 import wkv6
+from repro_torch.models import build_model
+from repro_torch.models import rwkv6 as trwkv
+from repro_torch.models.common import tree_flatten, tree_map
+
+WKV = dict(rtol=1e-4, atol=1e-5)
+LAYER = dict(rtol=1e-5, atol=1e-5)
+
+
+def _wkv_inputs(rng, b, t, h, d, with_state):
+    r, k, v = (rng.standard_normal((b, t, h, d)).astype(np.float32) for _ in range(3))
+    w = (rng.standard_normal((b, t, h, d)) * 0.5).astype(np.float32)
+    u = rng.standard_normal((h, d)).astype(np.float32)
+    s = rng.standard_normal((b, h, d, d)).astype(np.float32) if with_state else None
+    return r, k, v, w, u, s
+
+
+def _t(x):
+    return None if x is None else torch.from_numpy(x)
+
+
+def _j(x):
+    return None if x is None else jnp.asarray(x)
+
+
+@pytest.mark.parametrize("shape", [(1, 16, 2, 8), (2, 37, 3, 8), (1, 9, 2, 64), (4, 1, 3, 8)],
+                         ids=["tile", "ragged-T", "head-64", "decode"])
+@pytest.mark.parametrize("with_state", [False, True], ids=["zeros", "state"])
+def test_wkv6_matches_pallas(rng, shape, with_state):
+    args = _wkv_inputs(rng, *shape, with_state)
+    want_o, want_s = j_wkv6(*map(_j, args))
+    got_o, got_s = wkv6(*map(_t, args))
+    assert got_o.dtype == torch.float32 and got_s.shape == want_s.shape
+    np.testing.assert_allclose(got_o.numpy(), np.asarray(want_o), **WKV)
+    np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s), **WKV)
+
+
+def test_wkv6_chunked_state_passing(rng):
+    """Two calls carrying the state equal one call, in both packages."""
+    r, k, v, w, u, s0 = _wkv_inputs(rng, 2, 21, 2, 8, True)
+    cut = 13
+    o1, s1 = wkv6(*(_t(x[:, :cut]) for x in (r, k, v, w)), _t(u), _t(s0))
+    o2, s2 = wkv6(*(_t(x[:, cut:]) for x in (r, k, v, w)), _t(u), s1)
+    want_o, want_s = j_wkv6(*map(_j, (r, k, v, w, u, s0)))
+    np.testing.assert_allclose(torch.cat([o1, o2], 1).numpy(), np.asarray(want_o), **WKV)
+    np.testing.assert_allclose(s2.numpy(), np.asarray(want_s), **WKV)
+
+
+def test_wkv6_writes_the_final_state_in_place(rng):
+    """``state_out=state`` (how decode updates ``cache["wkv"][i]``) leaves
+    the final state in the input's storage."""
+    r, k, v, w, u, s0 = map(_t, _wkv_inputs(rng, 2, 5, 3, 8, True))
+    want_o, want_s = ref.wkv6(r, k, v, w, u, s0.clone())
+    state = s0.clone()
+    out, final = wkv6(r, k, v, w, u, state, state_out=state)
+    assert final.data_ptr() == state.data_ptr()
+    np.testing.assert_array_equal(out.numpy(), want_o.numpy())
+    np.testing.assert_array_equal(state.numpy(), want_s.numpy())
+
+
+def test_wkv6_plain_version_matches_the_jax_oracle_in_bf16(rng):
+    """bf16 r/k/v (the full-width activation dtype): the output is rounded to
+    bf16 once, so within 2e-2 of max |out| of the JAX oracle on the same bf16
+    inputs; the f32 state within 1e-4."""
+    r, k, v, w, u, s0 = _wkv_inputs(rng, 1, 12, 2, 16, True)
+    jb = [jnp.asarray(x, jnp.bfloat16) for x in (r, k, v)]
+    tb = [torch.from_numpy(x).to(torch.bfloat16) for x in (r, k, v)]
+    want_o, want_s = jref.wkv6(*jb, jnp.asarray(w), jnp.asarray(u), jnp.asarray(s0))
+    got_o, got_s = wkv6(*tb, _t(w), _t(u), _t(s0))
+    assert got_o.dtype == torch.bfloat16
+    want_o = np.asarray(want_o, np.float32)
+    np.testing.assert_allclose(got_o.float().numpy(), want_o, rtol=0,
+                               atol=2e-2 * np.abs(want_o).max())
+    np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s), rtol=1e-4, atol=1e-4)
+
+
+def test_wkv6_checks_shapes_before_choosing_a_device():
+    x = torch.zeros(1, 4, 2, 8)
+    with pytest.raises(ValueError, match="one"):
+        wkv6(x, x, x, torch.zeros(1, 4, 2, 4), torch.zeros(2, 8))
+    with pytest.raises(ValueError, match="u "):
+        wkv6(x, x, x, x, torch.zeros(3, 8))
+    with pytest.raises(ValueError, match="state"):
+        wkv6(x, x, x, x, torch.zeros(2, 8), torch.zeros(1, 2, 8, 4))
+    m = torch.empty(1, 4, 2, 8, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        wkv6(m, m, m, m, torch.empty(2, 8, device="meta"))
+
+
+def test_wkv6_registered_and_cpu_runs_count_no_launch(rng):
+    reg = KernelRegistry()
+    assert reg.load("wkv6") == ["wkv6"]
+    assert reg.ref("wkv6") is ref.wkv6
+    before = launch_counts()
+    reg.get("wkv6")(*map(_t, _wkv_inputs(rng, 1, 3, 2, 8, False)[:5]))
+    assert launch_counts() == before
+
+
+_C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p, "int": ctypes.c_int,
+            "long long": ctypes.c_longlong, "float": ctypes.c_float}
+
+
+def test_c_entry_points_match_their_ctypes_signatures():
+    """Every ``extern "C"`` entry point of ``csrc/*.cu`` is bound with the
+    C types of its prototype, argument for argument (a pointer bound as an
+    int would be cut to 32 bits; a missing argument would be garbage)."""
+    protos = {}
+    for src in _build.sources():
+        for name, args in re.findall(r"^int (rt_\w+)\(([^)]*)\)", src.read_text(), re.M):
+            protos[name] = [re.sub(r"\s*\w+$", "", a.strip()) for a in args.split(",")]
+    assert set(protos) == set(_build._SIGNATURES), sorted(set(protos) ^ set(_build._SIGNATURES))
+    for name, types in protos.items():
+        assert list(_build._SIGNATURES[name]) == [_C_TYPES[t] for t in types], name
+
+
+# ---------------------------------------------------------------------------
+# model layers
+# ---------------------------------------------------------------------------
+
+def _cfgs():
+    return j_get_smoke("rwkv6-3b"), get_smoke("rwkv6-3b")
+
+
+def _layer_params(rng, cfg):
+    """Random f32 arrays for one layer's time-mix and channel-mix (the
+    zero-initialised mixes and decay drawn too, so they matter)."""
+    specs = trwkv.layer_specs(cfg)
+    return {part: {k: (rng.standard_normal(s.shape) * 0.3).astype(np.float32)
+                   for k, s in specs[part].items()} for part in ("tm", "cm")}
+
+
+@pytest.mark.parametrize("carried", [False, True], ids=["fresh", "carried"])
+def test_time_mix_matches_reference(rng, carried):
+    jcfg, tcfg = _cfgs()
+    p = _layer_params(rng, tcfg)["tm"]
+    nh, dh = tcfg.d_model // tcfg.rwkv_head_dim, tcfg.rwkv_head_dim
+    x = rng.standard_normal((2, 7, tcfg.d_model)).astype(np.float32)
+    shift = rng.standard_normal((2, tcfg.d_model)).astype(np.float32) if carried else None
+    state = rng.standard_normal((2, nh, dh, dh)).astype(np.float32) if carried else None
+    jp = {k: jnp.asarray(v) for k, v in p.items()}
+    want = jrwkv.time_mix(jp, jnp.asarray(x), jcfg, lambda *a: jref.wkv6(*a),
+                          _j(shift), _j(state))
+    got = trwkv.time_mix(tree_map(torch.from_numpy, p), torch.from_numpy(x), tcfg,
+                         _t(shift), _t(state))
+    for g, w, tol in zip(got, want, (WKV, LAYER, WKV)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **tol)
+
+
+@pytest.mark.parametrize("carried", [False, True], ids=["fresh", "carried"])
+def test_channel_mix_matches_reference(rng, carried):
+    jcfg, tcfg = _cfgs()
+    p = _layer_params(rng, tcfg)["cm"]
+    x = rng.standard_normal((2, 5, tcfg.d_model)).astype(np.float32)
+    shift = rng.standard_normal((2, tcfg.d_model)).astype(np.float32) if carried else None
+    want = jrwkv.channel_mix({k: jnp.asarray(v) for k, v in p.items()}, jnp.asarray(x), jcfg,
+                             _j(shift))
+    got = trwkv.channel_mix(tree_map(torch.from_numpy, p), torch.from_numpy(x), tcfg,
+                            _t(shift))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **LAYER)
+
+
+def test_group_norm_matches_reference(rng):
+    x = rng.standard_normal((2, 3, 64)).astype(np.float32) * 3 + 1
+    scale, bias = (rng.standard_normal(64).astype(np.float32) for _ in range(2))
+    want = jrwkv._group_norm(jnp.asarray(x), jnp.asarray(scale), jnp.asarray(bias), 8, 8)
+    got = trwkv._group_norm(*map(torch.from_numpy, (x, scale, bias)), 8, 8)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **LAYER)
+
+
+def test_init_params_gives_each_leaf_its_reference_role():
+    """Zero token-shift mixes and decay base, unit group-norm scale, zero
+    bias, f32 ``u``, and the JAX ``dense_init`` fan-in (the first per-layer
+    axis: 5 for ``tm_w2``)."""
+    model = build_model(get_smoke("rwkv6-3b").scaled(n_layers=3, d_model=256,
+                                                     rwkv_head_dim=32))
+    params = dict(tree_flatten(model.init_params(torch.Generator().manual_seed(0))))
+    tm = "['layers']['tm']"
+    for leaf in ("maa_x", "maa_w", "maa_k", "maa_v", "maa_r", "maa_g", "decay", "gn_bias"):
+        assert not params[f"{tm}['{leaf}']"].any(), leaf
+    assert not params["['layers']['cm']['maa_k']"].any()
+    assert bool((params[f"{tm}['gn_scale']"] == 1).all())
+    assert bool((params["['ln0']['scale']"] == 1).all())
+    assert params[f"{tm}['u']"].dtype == torch.float32 and params[f"{tm}['u']"].std() > 0
+    std = float(params[f"{tm}['tm_w2']"].std())
+    assert abs(std - 5 ** -0.5) < 0.05 * 5 ** -0.5, std
+    std = float(params[f"{tm}['td_w2']"].std())
+    assert abs(std - 64 ** -0.5) < 0.05 * 64 ** -0.5, std
+
+
+def test_full_width_state_is_the_published_size():
+    """rwkv6-3b's decode state per slot: 2 x 32 x 2560 shift values and
+    32 x 40 x 64 x 64 f32 WKV state (21 MB), whatever ``max_len`` is."""
+    model = build_model(get_config("rwkv6-3b"))
+    specs = model.cache_specs(4, 2048)
+    assert specs == model.cache_specs(4, 16)
+    assert tuple(specs["wkv"].shape) == (32, 4, 40, 64, 64)
+    assert tuple(specs["tm_shift"].shape) == (32, 4, 2560)
+    n = sum(int(np.prod(s.shape)) for _, s in tree_flatten(model.param_specs()))
+    assert 3.0e9 < n < 3.2e9, n
