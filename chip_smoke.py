@@ -19,12 +19,17 @@
    oracle, and shows through the launch counts that every kernel ran.
 4. Holds the LM kernels (``rmsnorm``, ``flash_attention``) against their
    plain versions on the card (bf16 at rtol/atol 2e-2, f32 at rtol 1e-4 /
-   atol 1e-5) at the qwen3-14b serving shapes and at odd ones; ``wkv6`` at
-   the rwkv6-3b prefill (1, 1024, 40, 64) bf16, a ragged f32 case, the SMOKE
-   head size and the decode shape with its state written in place; and
-   ``negate`` bit for bit.  Times them at the serving shapes beside
-   ``F.rms_norm``, ``F.scaled_dot_product_attention`` and ``1 - x``
-   (yardsticks only; no single PyTorch call computes the wkv6 recurrence).
+   atol 1e-5) at the qwen3-14b and rwkv6-3b serving shapes (the
+   1000-token prefill for a ragged causal tail) and at odd ones that reach
+   every rmsnorm variant; ``wkv6`` at the rwkv6-3b prefill (1, 1024, 40,
+   64) bf16, a ragged f32 case, the SMOKE head size and the decode shape
+   with its state written in place; and ``negate`` bit for bit.  Times
+   them at the serving shapes (rmsnorm at the prefill, decode and q/k-norm
+   shapes) beside ``F.rms_norm``, ``F.scaled_dot_product_attention`` and
+   ``1 - x`` (yardsticks only; no single PyTorch call computes the wkv6
+   recurrence), prints ptxas's registers and shared memory for the
+   flash_attention and rmsnorm kernels, and times each step of the rmsnorm
+   wrapper's host path at the decode shape against ``F.rms_norm``.
 5. Serves qwen3-14b, then rwkv6-3b, at full width (random bf16 weights
    made on the card from a seed) through ``LMServer``: 10 requests of
    17-1024 prompt tokens, 4 slots, 32 new tokens each; checks the tokens,
@@ -108,17 +113,23 @@ def oracle(kdata: np.ndarray, smaps: np.ndarray, combine: str = "sum") -> np.nda
     return prod.sum(axis=1)
 
 
-def ptxas_registers(log: str, fragment: str) -> int | None:
-    """Registers a thread that ptxas reported in ``log`` for the first
-    kernel whose mangled name holds ``fragment``."""
+def ptxas_usage(log: str, *fragments: str) -> tuple[int | None, int | None, int | None]:
+    """(registers a thread, static shared bytes a block, spill-store bytes)
+    that ptxas reported in ``log`` for the first kernel whose mangled name
+    holds every one of ``fragments``."""
     lines = log.splitlines()
     for i, line in enumerate(lines):
-        if "Compiling entry" in line and fragment in line:
+        if "Compiling entry" in line and all(f in line for f in fragments):
+            spill = None
             for nxt in lines[i + 1:]:
+                st = re.search(r"(\d+) bytes spill stores", nxt)
+                if st:
+                    spill = int(st.group(1))
                 m = re.search(r"Used (\d+) registers", nxt)
                 if m:
-                    return int(m.group(1))
-    return None
+                    smem = re.search(r"(\d+) bytes smem", nxt)
+                    return int(m.group(1)), int(smem.group(1)) if smem else 0, spill
+    return None, None, None
 
 
 def visible_pairs(sq: int, skv: int, causal: bool, window: int | None) -> int:
@@ -436,16 +447,24 @@ def main() -> None:
     def rand(*shape, dtype=f32):
         return torch.randn(shape, device=dev, generator=gen).to(dtype)
 
-    for shape, dtype, on_path in (((1024, 5120), bf16, True), ((4, 5120), bf16, True),
-                                  ((1 * 40 * 1024, 128), bf16, True), ((21, 80), f32, False)):
-        x, w = rand(*shape, dtype=dtype), rand(shape[-1], dtype=dtype)
-        check(f"rmsnorm {shape} {dtype}", "rmsnorm", rmsnorm(x, w).float(),
+    # rmsnorm: the serving shapes, then each kernel variant: narrow rows of
+    # 3 and 20 vectors, wide rows past 2048 vectors, a width that is no
+    # multiple of the vector (scalar kernel), and mixed x / weight types
+    for shape, dtype, w_dtype, on_path in (
+            ((1024, 5120), bf16, bf16, True), ((4, 5120), bf16, bf16, True),
+            ((1 * 40 * 1024, 128), bf16, bf16, True), ((1024, 2560), bf16, bf16, True),
+            ((21, 80), f32, f32, False), ((9, 24), bf16, bf16, False),
+            ((3, 20480), bf16, bf16, False), ((5, 100), bf16, bf16, False),
+            ((7, 2560), bf16, f32, False), ((5, 5120), f32, bf16, False)):
+        x, w = rand(*shape, dtype=dtype), rand(shape[-1], dtype=w_dtype)
+        check(f"rmsnorm {shape} {dtype} weight {w_dtype}", "rmsnorm", rmsnorm(x, w).float(),
               ref.rmsnorm(x, w).float(), lm_tol[dtype], on_path)
     flash_cases = (  # q shape, kv shape, causal, window, dtype, on the path
         ((1, 40, 1024, 128), (1, 8, 1024, 128), True, None, bf16, True),  # qwen3-14b prefill
         ((4, 40, 512, 128), (4, 8, 512, 128), True, None, bf16, True),
         ((2, 6, 37, 80), (2, 2, 53, 80), True, 16, bf16, False),  # ragged, window
         ((2, 8, 100, 64), (2, 2, 100, 64), False, None, bf16, False),
+        ((1, 40, 1000, 128), (1, 8, 1000, 128), True, None, bf16, True),  # ragged tail
         ((2, 8, 1, 128), (2, 8, 300, 128), True, None, bf16, False),  # one query
         ((2, 8, 70, 128), (2, 4, 90, 128), True, 33, f32, False))
     for qs, ks, causal, window, dtype, on_path in flash_cases:
@@ -536,28 +555,107 @@ def main() -> None:
         del cold, warm
         return row
 
+    # rmsnorm at the qwen3-14b prefill (1024 rows, the row kept), decode (4
+    # rows) and per-head q/k-norm (40 heads x 1024 tokens, 128 wide) shapes:
+    # read x and w once, write out once, 4 flops an element.
     seq = 1024
-    lm_timed = {
-        "rmsnorm": dict(
-            source=LM_SRC, replaces="src/repro/kernels/rmsnorm.py:40", at=f"x ({seq}, 5120) bf16",
-            make=lambda: (rand(seq, 5120, dtype=bf16), rand(5120, dtype=bf16)),
-            kern=lambda x, w: rmsnorm(x, w), plain=lambda x, w: ref.rmsnorm(x, w),
-            lib=lambda x, w: F.rms_norm(x, (5120,), w, 1e-6),
-            nbytes=2 * seq * 5120 * 2 + 5120 * 2, ops=4 * seq * 5120, peak=bf16_flops),
-        "flash_attention": dict(
-            source=LM_SRC, replaces="src/repro/kernels/flash_attention.py:124",
-            at=f"q (1, 40, {seq}, 128) kv (1, 8, {seq}, 128) bf16 causal",
-            make=lambda: (rand(1, 40, seq, 128, dtype=bf16), rand(1, 8, seq, 128, dtype=bf16),
-                          rand(1, 8, seq, 128, dtype=bf16)),
-            kern=lambda q, k, v: flash_attention(q, k, v),
-            plain=lambda q, k, v: ref.attention(q, k, v),
-            lib=lambda q, k, v: F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                                               enable_gqa=True),
-            nbytes=2 * (40 + 8) * seq * 128 * 2,
-            ops=4 * 40 * 128 * visible_pairs(seq, seq, True, None), peak=bf16_flops),
+    for tag, (n_rows, d) in (("prefill", (seq, 5120)), ("decode", (4, 5120)),
+                             ("q/k norm", (40 * seq, 128))):
+        row = time_kernel(
+            "rmsnorm", LM_SRC, "src/repro/kernels/rmsnorm.py:40",
+            f"{tag} x ({n_rows}, {d}) bf16",
+            lambda n_rows=n_rows, d=d: (rand(n_rows, d, dtype=bf16), rand(d, dtype=bf16)),
+            lambda x, w: rmsnorm(x, w), lambda x, w: ref.rmsnorm(x, w),
+            lambda x, w: F.rms_norm(x, (x.shape[-1],), w, 1e-6),
+            2 * n_rows * d * 2 + d * 2, 4 * n_rows * d, bf16_flops)
+        if tag == "prefill":
+            rows["rmsnorm"] = row
+    rows["flash_attention"] = time_kernel(
+        "flash_attention", LM_SRC, "src/repro/kernels/flash_attention.py:124",
+        f"q (1, 40, {seq}, 128) kv (1, 8, {seq}, 128) bf16 causal",
+        lambda: (rand(1, 40, seq, 128, dtype=bf16), rand(1, 8, seq, 128, dtype=bf16),
+                 rand(1, 8, seq, 128, dtype=bf16)),
+        lambda q, k, v: flash_attention(q, k, v), lambda q, k, v: ref.attention(q, k, v),
+        lambda q, k, v: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                       enable_gqa=True),
+        2 * (40 + 8) * seq * 128 * 2, 4 * 40 * 128 * visible_pairs(seq, seq, True, None),
+        bf16_flops)
+    log = _build.BUILD_INFO["log"]
+    for d in (128, 80, 64):            # dynamic shared memory: Q, K, V tiles of 64 rows
+        regs, smem, spill = ptxas_usage(log, f"flash_mma_kernelILi{d}E")
+        print(f"[ptxas] flash_mma_kernel D={d}: {regs} registers a thread, {spill} bytes "
+              f"spilled, {smem} + {3 * 64 * (d + 8) * 2} (dynamic) bytes shared memory a block")
+    regs, smem, spill = ptxas_usage(log, "flash_fma_kernelILi128E")
+    print(f"[ptxas] flash_fma_kernel (f32) D=128: {regs} registers a thread, {spill} bytes "
+          f"spilled, {smem} bytes shared memory a block")
+    for kind, tmpl in (("wide", "Li4E"), ("wide", "Li8E"), ("narrow", "Li16E"),
+                       ("narrow", "Li32E")):
+        regs, smem, spill = ptxas_usage(log, f"rmsnorm_{kind}_kernelI13__nv_bfloat16S", tmpl)
+        print(f"[ptxas] rmsnorm_{kind}_kernel<bf16, bf16, {tmpl[2:-1]}>: {regs} registers a "
+              f"thread, {spill} bytes spilled, {smem} bytes shared memory a block")
+
+    # the rmsnorm wrapper's host path at the decode shape (4, 5120) bf16, where
+    # the kernel takes less time than the host: each step alone, then the
+    # whole call, the former wrapper's steps (a device switch and back and a
+    # torch.cuda.Stream object on every call) and F.rms_norm, in us a call
+    # (time.perf_counter over 10^4 calls, no synchronise inside)
+    from repro_torch.kernels.common import check_cuda, launch, launch_stream
+    from repro_torch.kernels.rmsnorm import DTYPES as NORM_DTYPES
+
+    def host_us(fn, n=10_000):
+        for _ in range(200):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        us = (time.perf_counter() - t0) / n * 1e6
+        torch.cuda.synchronize()
+        return us
+
+    lib = _build.library()
+    x, w = rand(4, 5120, dtype=bf16), rand(5120, dtype=bf16)
+    out = torch.empty_like(x)
+    stream = launch_stream(x)
+
+    def former_steps():
+        check_cuda("x", x, NORM_DTYPES)
+        check_cuda("weight", w, NORM_DTYPES, device=x.device)
+        o = torch.empty_like(x)
+        with torch.cuda.device(x.device):
+            lib.rt_rmsnorm(x.data_ptr(), w.data_ptr(), o.data_ptr(), 4, 5120, 1, 1, 1e-6,
+                           torch.cuda.current_stream(x.device).cuda_stream)
+
+    def device_guard():
+        with torch.cuda.device(x.device):
+            pass
+
+    parts = {
+        "checks": lambda: (check_cuda("x", x, NORM_DTYPES),
+                           check_cuda("weight", w, NORM_DTYPES, device=x.device)),
+        "empty_like": lambda: torch.empty_like(x),
+        "device guard (with torch.cuda.device)": device_guard,
+        "current-device query (launch)": lambda: torch._C._cuda_getDevice() == x.get_device(),
+        "stream (torch.cuda.current_stream)": lambda: torch.cuda.current_stream(
+            x.device).cuda_stream,
+        "stream (launch_stream)": lambda: launch_stream(x),
+        "ctypes call, no launch (rows 0)": lambda: lib.rt_rmsnorm(
+            x.data_ptr(), w.data_ptr(), out.data_ptr(), 0, 5120, 1, 1, 1e-6, stream),
+        "ctypes call and launch": lambda: lib.rt_rmsnorm(
+            x.data_ptr(), w.data_ptr(), out.data_ptr(), 4, 5120, 1, 1, 1e-6, stream),
+        "launch() with the ctypes call": lambda: launch(
+            lib.rt_rmsnorm, x, x.data_ptr(), w.data_ptr(), out.data_ptr(), 4, 5120, True, True,
+            1e-6),
+        "former wrapper's steps": former_steps,
+        "rmsnorm()": lambda: rmsnorm(x, w),
+        "F.rms_norm": lambda: F.rms_norm(x, (5120,), w, 1e-6),
     }
-    for kname, spec in lm_timed.items():
-        rows[kname] = time_kernel(kname, **spec)
+    host = {k: host_us(fn) for k, fn in parts.items()}
+    print(f"[host] {smi}: rmsnorm host path at (4, 5120) bf16, us a call over 10^4 calls: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in host.items()))
+    print(f"[host] rmsnorm() / F.rms_norm one host call: "
+          f"{host['rmsnorm()'] / host['F.rms_norm']:.3f}")
+    del x, w, out
 
     # wkv6 at the rwkv6-3b prefill (1, 1024, 40, 64) and decode (4, 1, 40, 64)
     # shapes: bytes read and written once (bf16 r/k/v/out, f32 w, u, state
@@ -578,8 +676,7 @@ def main() -> None:
             plain_sets=2 if t > 1 else None, peak_name="the fp32 rate")
         if tag == "prefill":
             rows["wkv6"] = row
-    regs = {f"{tag} D={d}": ptxas_registers(_build.BUILD_INFO["log"],
-                                            f"wkv6_kernelI{mangled}Li{d}E")
+    regs = {f"{tag} D={d}": ptxas_usage(log, f"wkv6_kernelI{mangled}Li{d}E")[0]
             for tag, mangled in (("bf16", "13__nv_bfloat16"), ("f32", "f")) for d in (64, 8)}
     print(f"[ptxas] wkv6_kernel registers a thread: "
           f"{', '.join(f'{k} {v}' for k, v in regs.items())}")

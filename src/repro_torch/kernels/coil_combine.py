@@ -14,7 +14,7 @@ import torch
 
 from repro_torch.core.registry import count_launch, kernel
 from . import _build, ref
-from .common import check_complex64, check_out, coil_grid, launch_stream
+from .common import check_complex64, check_out, coil_grid, launch
 
 
 def _combine(x: torch.Tensor, rss: bool, out: torch.Tensor | None) -> torch.Tensor:
@@ -29,9 +29,8 @@ def _combine(x: torch.Tensor, rss: bool, out: torch.Tensor | None) -> torch.Tens
         out = torch.empty(shape, dtype=dtype, device=x.device)
     else:
         check_out(out, shape, dtype, x.device)
-    with torch.cuda.device(x.device):
-        err = _build.library().rt_coil_combine(
-            x.data_ptr(), out.data_ptr(), int(rss), f, c, h * w, launch_stream(x))
+    err = launch(_build.library().rt_coil_combine, x, x.data_ptr(), out.data_ptr(), int(rss),
+                 f, c, h * w)
     name = "rss" if rss else "xImageSum"
     _build.check(err, name)
     count_launch(name)

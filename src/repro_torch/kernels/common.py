@@ -43,7 +43,7 @@ def check_cuda(name: str, t: torch.Tensor, dtypes: Sequence[torch.dtype],
     """Raise unless ``t`` is a contiguous, 16-byte-aligned CUDA tensor of one
     of ``dtypes`` (on ``device``).  A transposed view handed to a pointer
     kernel would be read as if it were contiguous, so it is refused here."""
-    if t.device.type != "cuda":
+    if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if device is not None and t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
@@ -78,8 +78,27 @@ def check_in_place(out: torch.Tensor, src: torch.Tensor) -> None:
 
 
 def launch_stream(t: torch.Tensor) -> int:
-    """Handle of PyTorch's current stream on ``t``'s device."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """Raw handle (an int) of PyTorch's current stream on ``t``'s CUDA
+    device, read without building a ``torch.cuda.Stream``."""
+    idx = t.get_device()
+    if idx < 0:
+        raise ValueError(f"expected a CUDA tensor, got {t.device}")
+    return torch._C._cuda_getCurrentRawStream(idx)
+
+
+def launch(entry, t: torch.Tensor, *args) -> int:
+    """``entry(*args, stream)``: a kernel entry point called on ``t``'s CUDA
+    device with PyTorch's current stream there.  A launch goes to the
+    calling thread's current device, so that device is switched to ``t``'s
+    for the call, but only when it is not already the current one (the
+    common case costs one query, not a switch and a switch back).  Returns
+    the entry point's error code."""
+    stream = launch_stream(t)
+    idx = t.get_device()
+    if torch._C._cuda_getDevice() == idx:
+        return entry(*args, stream)
+    with torch.cuda.device(idx):
+        return entry(*args, stream)
 
 
 def coil_grid(x: torch.Tensor) -> tuple[int, int, int, int]:

@@ -11,7 +11,7 @@ import torch
 
 from repro_torch.core.registry import count_launch, kernel
 from . import _build, ref
-from .common import check_complex64, check_in_place, check_out, launch_stream
+from .common import check_complex64, check_in_place, check_out, launch
 
 
 def complex_elementprod(a: torch.Tensor, b: torch.Tensor,
@@ -33,10 +33,8 @@ def complex_elementprod(a: torch.Tensor, b: torch.Tensor,
         check_out(out, a.shape, torch.complex64, a.device)
         check_in_place(out, a)
     frames = a.shape[0] if broadcast else 1
-    with torch.cuda.device(a.device):
-        err = _build.library().rt_cprod(
-            a.data_ptr(), b.data_ptr(), out.data_ptr(), frames, b.numel(),
-            int(bool(conjugate_b)), launch_stream(a))
+    err = launch(_build.library().rt_cprod, a, a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                 frames, b.numel(), int(bool(conjugate_b)))
     _build.check(err, "complex_elementprod")
     count_launch("complexElementProd")
     return out

@@ -5,12 +5,13 @@
 // Entry points take device pointers and the CUDA stream as plain C values
 // (bound with ctypes), launch on that stream, do not synchronise, allocate
 // nothing, and return cudaGetLastError() so the Python wrapper can raise on
-// a refused launch.  Inputs are float32 or bfloat16; all arithmetic is
-// float32; outputs are rounded to the input's type (round to nearest even,
-// as torch's own conversion).
+// a refused launch.  Inputs are float32 or bfloat16; sums and softmax
+// statistics are float32; outputs are rounded to the input's type (round
+// to nearest even, as torch's own conversion).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <math.h>
 #include <stdint.h>
 
 namespace {
@@ -32,11 +33,15 @@ __device__ __forceinline__ bf16 from_f32<bf16>(float v) { return __float2bfloat1
 
 // 16 bytes of T <-> float[16 / sizeof(T)]
 template <typename T>
-__device__ __forceinline__ void load16(const T* p, float* v) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+__device__ __forceinline__ void unpack16(const uint4& raw, float* v) {
   const T* e = reinterpret_cast<const T*>(&raw);
 #pragma unroll
   for (int i = 0; i < 16 / static_cast<int>(sizeof(T)); ++i) v[i] = to_f32(e[i]);
+}
+
+template <typename T>
+__device__ __forceinline__ void load16(const T* p, float* v) {
+  unpack16<T>(*reinterpret_cast<const uint4*>(p), v);
 }
 
 template <typename T>
@@ -48,26 +53,18 @@ __device__ __forceinline__ void store16(T* p, const float* v) {
   *reinterpret_cast<uint4*>(p) = raw;
 }
 
-// 4 consecutive elements of T <-> float4 (16 bytes of f32, 8 of bf16)
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const bf16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const bf16* e = reinterpret_cast<const bf16*>(&raw);
-  return make_float4(to_f32(e[0]), to_f32(e[1]), to_f32(e[2]), to_f32(e[3]));
-}
-__device__ __forceinline__ void store4(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
-}
-__device__ __forceinline__ void store4(bf16* p, float4 v) {
-  uint2 raw;
-  bf16* e = reinterpret_cast<bf16*>(&raw);
-  e[0] = from_f32<bf16>(v.x);
-  e[1] = from_f32<bf16>(v.y);
-  e[2] = from_f32<bf16>(v.z);
-  e[3] = from_f32<bf16>(v.w);
-  *reinterpret_cast<uint2*>(p) = raw;
+// N consecutive elements of W as float, in 16-byte loads where N * sizeof(W)
+// allows (the pointer is then 16-byte aligned), else one by one.
+template <typename W, int N>
+__device__ __forceinline__ void load_f32(const W* p, float* v) {
+  constexpr int E = 16 / static_cast<int>(sizeof(W));
+  if constexpr (N % E == 0) {
+#pragma unroll
+    for (int c = 0; c < N; c += E) load16(p + c, v + c);
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) v[i] = to_f32(p[i]);
+  }
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
@@ -77,66 +74,174 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) ==
 // output in x's type, weight read in its own type.
 // Replaces repro/kernels/rmsnorm.py:_rmsnorm_kernel (the pallas_call of
 // rmsnorm).  Bound: bytes (read x and w once, write out once; 4 flops per
-// element).  At qwen3-14b the rows are 5120 wide (hidden state, 1 to 4096
-// rows) or 128 wide (per-head q/k norm, B*H*S rows).
-// Design: one warp per row, 8 rows per block.  Lanes read the row in
-// 16-byte vectors (8 bf16 or 4 f32; scalar loads when the width or a
-// pointer does not allow it), sum x^2 in f32 and reduce with warp shuffles,
-// then read the row again (from L1/L2: 10 KB at d=5120) to scale and store.
+// element).  At qwen3-14b the rows are 5120 wide (hidden state: 4 rows a
+// decode step, up to 4096 a prefill) or 128 wide (per-head q/k norm, B*H*S
+// rows); at rwkv6-3b 2560 wide.
+// What bounds it is bytes in flight: one DRAM round trip is about a
+// microsecond, the whole 1024 x 5120 bf16 row set moves in 6.3 us, so every
+// SM needs tens of KB of loads outstanding at once, and a row must be read
+// from DRAM only once.  Design: each row is loaded into registers in
+// 16-byte vectors (8 bf16 or 4 f32), all of a thread's loads issued before
+// its first add, summed in f32, and scaled and stored from the registers
+// (one pass).  The thread count follows the width:
+// * narrow rows (at most 32 vectors, e.g. 128 wide): G = the next power of
+//   two >= d / V threads a row, one vector each, 256 / G rows a block,
+//   reduced with G-lane shuffles (no idle half warps at d = 128 bf16);
+// * wide rows: one block a row, VPT = 4 (8 past 2048 vectors) vectors a
+//   thread, warp shuffles then one shared-memory sum over the warps; 160
+//   threads at 5120 bf16, so a whole 1024-row prefill is resident at once
+//   (12 blocks an SM, 120 KB of loads in flight) and the 4-row decode
+//   shape costs one load round trip, one barrier and one store;
+// * widths or pointers that do not allow 16-byte vectors (or rows past
+//   4096 vectors): one warp a row, scalar loads, the row read twice.
 // The TPU tiling (row blocks padded to the sublane, the whole feature axis
-// in one VMEM tile) does not carry over: a warp walks any width, and the
-// ragged last block just has idle warps.
+// in one VMEM tile) does not carry over: the ragged last block just has
+// idle threads.
 // ---------------------------------------------------------------------------
-constexpr int kNormWarps = 8;
+constexpr int kNormThreads = 256;      // narrow and scalar kernels
+constexpr int kWideMaxThreads = 512;   // wide kernel: threads a row, at most
+
+template <typename T, typename W, int G>
+__global__ void __launch_bounds__(kNormThreads)
+rmsnorm_narrow_kernel(const T* __restrict__ x, const W* __restrict__ w, T* __restrict__ out,
+                      long long rows, int d, float eps) {
+  constexpr int V = 16 / static_cast<int>(sizeof(T));
+  const long long row = static_cast<long long>(blockIdx.x) * (kNormThreads / G) + threadIdx.x / G;
+  const int c = (threadIdx.x % G) * V;
+  const bool active = row < rows && c < d;
+  float v[V], wv[V];
+  float ss = 0.f;
+  if (active) {
+    load16(x + row * d + c, v);
+    load_f32<W, V>(w + c, wv);
+#pragma unroll
+    for (int i = 0; i < V; ++i) ss = fmaf(v[i], v[i], ss);
+  }
+#pragma unroll
+  for (int off = G / 2; off > 0; off >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, off);
+  if (!active) return;
+  const float inv = rsqrtf(ss / static_cast<float>(d) + eps);
+#pragma unroll
+  for (int i = 0; i < V; ++i) v[i] = (v[i] * inv) * wv[i];
+  store16(out + row * d + c, v);
+}
+
+template <typename T, typename W, int VPT>
+__global__ void __launch_bounds__(kWideMaxThreads)
+rmsnorm_wide_kernel(const T* __restrict__ x, const W* __restrict__ w, T* __restrict__ out,
+                    int d, float eps) {
+  constexpr int V = 16 / static_cast<int>(sizeof(T));
+  __shared__ float part[kWideMaxThreads / 32];
+  const int nvec = d / V;
+  const long long base = static_cast<long long>(blockIdx.x) * d;
+  uint4 raw[VPT];
+#pragma unroll
+  for (int j = 0; j < VPT; ++j) {  // every load in flight before the first add
+    const int idx = threadIdx.x + j * blockDim.x;
+    raw[j] = idx < nvec ? *reinterpret_cast<const uint4*>(x + base + idx * V)
+                        : make_uint4(0u, 0u, 0u, 0u);
+  }
+  float ss = 0.f;
+#pragma unroll
+  for (int j = 0; j < VPT; ++j) {
+    float v[V];
+    unpack16<T>(raw[j], v);
+#pragma unroll
+    for (int i = 0; i < V; ++i) ss = fmaf(v[i], v[i], ss);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, off);
+  if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = ss;
+  __syncthreads();
+  float total = 0.f;  // every thread sums the warps in the same order
+  for (int i = 0; i < static_cast<int>(blockDim.x >> 5); ++i) total += part[i];
+  const float inv = rsqrtf(total / static_cast<float>(d) + eps);
+#pragma unroll
+  for (int j = 0; j < VPT; ++j) {
+    const int idx = threadIdx.x + j * blockDim.x;
+    if (idx < nvec) {
+      float v[V], wv[V];
+      unpack16<T>(raw[j], v);
+      load_f32<W, V>(w + idx * V, wv);
+#pragma unroll
+      for (int i = 0; i < V; ++i) v[i] = (v[i] * inv) * wv[i];
+      store16(out + base + idx * V, v);
+    }
+  }
+}
 
 template <typename T, typename W>
-__global__ void __launch_bounds__(kNormWarps * 32)
-rmsnorm_kernel(const T* __restrict__ x, const W* __restrict__ w, T* __restrict__ out,
-               long long rows, int d, float eps, int vec) {
+__global__ void __launch_bounds__(kNormThreads)
+rmsnorm_scalar_kernel(const T* __restrict__ x, const W* __restrict__ w, T* __restrict__ out,
+                      long long rows, int d, float eps) {
   const int lane = threadIdx.x & 31;
-  const long long row = static_cast<long long>(blockIdx.x) * kNormWarps + (threadIdx.x >> 5);
+  const long long row = static_cast<long long>(blockIdx.x) * (kNormThreads / 32) + (threadIdx.x >> 5);
   if (row >= rows) return;  // the whole warp shares the row
   const T* xr = x + row * d;
   T* orow = out + row * d;
-  constexpr int V = 16 / static_cast<int>(sizeof(T));
   float ss = 0.f;
-  if (vec) {
-    for (int c = lane * V; c < d; c += 32 * V) {
-      float v[V];
-      load16(xr + c, v);
-#pragma unroll
-      for (int i = 0; i < V; ++i) ss = fmaf(v[i], v[i], ss);
-    }
-  } else {
-    for (int i = lane; i < d; i += 32) {
-      const float v = to_f32(xr[i]);
-      ss = fmaf(v, v, ss);
-    }
+  for (int i = lane; i < d; i += 32) {
+    const float v = to_f32(xr[i]);
+    ss = fmaf(v, v, ss);
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, off);
   const float inv = rsqrtf(ss / static_cast<float>(d) + eps);
-  if (vec) {
-    for (int c = lane * V; c < d; c += 32 * V) {
-      float v[V];
-      load16(xr + c, v);
-#pragma unroll
-      for (int i = 0; i < V; ++i) v[i] = (v[i] * inv) * to_f32(w[c + i]);
-      store16(orow + c, v);
-    }
-  } else {
-    for (int i = lane; i < d; i += 32) orow[i] = from_f32<T>((to_f32(xr[i]) * inv) * to_f32(w[i]));
-  }
+  for (int i = lane; i < d; i += 32) orow[i] = from_f32<T>((to_f32(xr[i]) * inv) * to_f32(w[i]));
+}
+
+int grid_or_error(long long blocks, unsigned* out) {
+  if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  *out = static_cast<unsigned>(blocks);
+  return 0;
+}
+
+template <typename T, typename W, int G>
+int launch_norm_narrow(const void* x, const void* w, void* out, long long rows, int d,
+                       float eps, cudaStream_t st) {
+  unsigned grid;
+  if (int e = grid_or_error((rows + kNormThreads / G - 1) / (kNormThreads / G), &grid)) return e;
+  rmsnorm_narrow_kernel<T, W, G><<<grid, kNormThreads, 0, st>>>(
+      static_cast<const T*>(x), static_cast<const W*>(w), static_cast<T*>(out), rows, d, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, typename W, int VPT>
+int launch_norm_wide(const void* x, const void* w, void* out, long long rows, int d, float eps,
+                     cudaStream_t st) {
+  constexpr int V = 16 / static_cast<int>(sizeof(T));
+  const int threads = ((d / V + VPT - 1) / VPT + 31) / 32 * 32;
+  unsigned grid;
+  if (int e = grid_or_error(rows, &grid)) return e;
+  rmsnorm_wide_kernel<T, W, VPT><<<grid, threads, 0, st>>>(
+      static_cast<const T*>(x), static_cast<const W*>(w), static_cast<T*>(out), d, eps);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, typename W>
 int launch_rmsnorm(const void* x, const void* w, void* out, long long rows, int d, float eps,
                    cudaStream_t st) {
-  const long long blocks = (rows + kNormWarps - 1) / kNormWarps;
-  if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
-  const int vec = (d % (16 / static_cast<int>(sizeof(T))) == 0) && aligned16(x) && aligned16(out);
-  rmsnorm_kernel<T, W><<<static_cast<unsigned>(blocks), kNormWarps * 32, 0, st>>>(
-      static_cast<const T*>(x), static_cast<const W*>(w), static_cast<T*>(out), rows, d, eps, vec);
+  constexpr int V = 16 / static_cast<int>(sizeof(T));
+  const int nvec = d / V;
+  const bool vec = d % V == 0 && aligned16(x) && aligned16(w) && aligned16(out);
+  if (vec && nvec <= 32) {
+    if (nvec <= 1) return launch_norm_narrow<T, W, 1>(x, w, out, rows, d, eps, st);
+    if (nvec <= 2) return launch_norm_narrow<T, W, 2>(x, w, out, rows, d, eps, st);
+    if (nvec <= 4) return launch_norm_narrow<T, W, 4>(x, w, out, rows, d, eps, st);
+    if (nvec <= 8) return launch_norm_narrow<T, W, 8>(x, w, out, rows, d, eps, st);
+    if (nvec <= 16) return launch_norm_narrow<T, W, 16>(x, w, out, rows, d, eps, st);
+    return launch_norm_narrow<T, W, 32>(x, w, out, rows, d, eps, st);
+  }
+  if (vec && nvec <= 4 * kWideMaxThreads) {
+    return launch_norm_wide<T, W, 4>(x, w, out, rows, d, eps, st);
+  }
+  if (vec && nvec <= 8 * kWideMaxThreads) {
+    return launch_norm_wide<T, W, 8>(x, w, out, rows, d, eps, st);
+  }
+  unsigned grid;
+  if (int e = grid_or_error((rows + kNormThreads / 32 - 1) / (kNormThreads / 32), &grid)) return e;
+  rmsnorm_scalar_kernel<T, W><<<grid, kNormThreads, 0, st>>>(
+      static_cast<const T*>(x), static_cast<const W*>(w), static_cast<T*>(out), rows, d, eps);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -147,39 +252,319 @@ int launch_rmsnorm(const void* x, const void* w, void* out, long long rows, int 
 // end of the keys, so one kernel covers prefill and single-token decode),
 // rows that see no key -> 0.
 // Replaces repro/kernels/flash_attention.py:_flash_kernel (the pallas_call
-// of flash_attention).  Bound: operations at prefill sizes
-// (4 * D flops per unmasked query-key pair against 2 * D bytes per key
-// row); this first version runs on the f32 FMA units, not the tensor cores.
-// Design: one block of 256 threads per (64-query tile, query head, batch).
-// Four neighbouring threads share a query row: each holds a quarter of q
-// (pre-scaled by scale * log2 e, so the softmax uses exp2) and of the f32
-// accumulator in registers, as float4 chunks interleaved so the four
-// threads read 64 contiguous bytes of a shared-memory key row (no bank
-// conflicts; the other rows of the warp read the same address, a
-// broadcast).  Keys stream through shared memory in tiles of 32 (K and V
-// converted to f32 on load, 32 KB at D = 128).  Per tile: the 32 partial
-// dot products are summed over the four threads with two xor shuffles,
-// masked, and folded into the running max and sum (online softmax, one
-// rescale of the accumulator per tile).  Key tiles that causality or the
-// window mask out for every query of the block are never loaded, as the
-// Pallas kernel's pl.when guard skips them; the ragged ends (Sq, Skv not
-// multiples of the tiles) are masked here, so the wrapper pads nothing.
-// The TPU kernel's sequential kv grid axis with (m, l, acc) carried in
-// VMEM scratch becomes the loop over key tiles inside one block.
+// of flash_attention).  Bound: operations at prefill sizes (4 * D flops
+// per unmasked query-key pair against 2 * D bytes per key row): the bf16
+// tensor-core rate.  The TPU kernel's sequential kv grid axis with
+// (m, l, acc) carried in VMEM scratch becomes the loop over key tiles
+// inside one block; key tiles that causality or the window mask out for
+// every query of the block are never loaded, as the Pallas kernel's
+// pl.when guard skips them; the ragged ends (Sq, Skv not multiples of the
+// tiles) are masked here, so the wrapper pads nothing.
+//
+// bf16 inputs: flash_mma_kernel, on the tensor cores (FA2's design with
+// mma.sync.m16n8k16, bf16 operands, f32 accumulators).  One block of 4
+// warps per (64-query tile, query head, batch); each warp owns 16 query
+// rows, its Q fragments loaded once into registers with ldmatrix.  K and V
+// tiles of 64 keys stay bf16 in shared memory, rows padded by 16 bytes so
+// the 8 row addresses of an ldmatrix (ldmatrix.trans for V) fall in 8
+// different bank groups.  The copies are cp.async into two buffers: V of
+// tile j lands while S = Q K_j^T runs, K of tile j+1 while the softmax and
+// P V_j run.  S is scaled by scale * log2 e in f32; the online softmax
+// works on the accumulator fragments (each thread holds 2 rows, row max
+// and sum over its quad with two shuffles, exp2f, one rescale of O per
+// tile); P is rounded to bf16 in registers and is the A operand of the
+// P V product directly (the accumulator layout of m16n8 is the operand
+// layout of m16k16), so it never goes through shared memory.  The row sum
+// l adds the unrounded f32 P.  Masks are evaluated only on tiles that cut
+// the causal diagonal, the window edge or the end of the keys.  The grid
+// puts the query heads on x and the query tiles on y, last tile first:
+// blocks start in x-fastest order, so the tiles that see the most keys
+// under causality start first over all heads and the grid's tail is
+// short (with the tiles on x, longest first only within each head, the
+// heaviest blocks of the last heads started last).  Shared memory: Q, K and
+// V tiles, 3 x 64 x (D + 8) x 2 bytes (52 KB at D = 128, dynamic); the
+// output goes through the Q tile for 16-byte stores.  What still bounds it
+// (PERF.md has its time against the bf16 tensor rate): every warp reads
+// the whole K and V tile through ldmatrix, 128 KB of shared-memory reads
+// a block per tile, about as many SM clocks as the block's 512 mma, with
+// three barriers a tile; wgmma on K/V tiles that a warpgroup reads once
+// is the next step.
+//
+// f32 inputs: flash_fma_kernel, the first version, on the f32 FMA units.
+// TF32 tensor cores would keep about three decimal digits, and the f32
+// path is what the card-vs-CPU checks use to hold the model to 1e-3 x
+// max |logit|, so it stays exact f32.  One block of 256 threads per
+// (64-query tile, query head, batch); four neighbouring threads share a
+// query row (a quarter of q, pre-scaled by scale * log2 e, and of the
+// accumulator each, as float4 chunks interleaved so the four read 64
+// contiguous bytes of a shared key row); keys stream through shared memory
+// in f32 tiles of 32; partial dot products are summed over the four
+// threads with two xor shuffles.
 // ---------------------------------------------------------------------------
+constexpr int kMmaWarps = 4;
+constexpr int kMmaRows = 16 * kMmaWarps;   // query rows per block
+constexpr int kMmaKeys = 64;               // keys per K/V tile
+constexpr int kMmaThreads = 32 * kMmaWarps;
+static_assert(kMmaRows == kMmaKeys, "the Q, K and V tiles share one row count");
+
+constexpr int mma_smem_bytes(int d) { return 3 * kMmaKeys * (d + 8) * 2; }
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, zero-filled when !full (src is then not read)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(full ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// c (16 x 8, f32) += a (16 x 16, bf16, row) * b (16 x 8, bf16, col)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// rows [row0, row0 + 64) of a (rows, D) bf16 matrix into a padded shared
+// tile, rows >= nrows zero-filled
+template <int D>
+__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int row0, int nrows) {
+  constexpr int CH = D / 8;       // 16-byte chunks a row
+  constexpr int S = D + 8;
+  for (int idx = threadIdx.x; idx < kMmaKeys * CH; idx += kMmaThreads) {
+    const int r = idx / CH, c = idx % CH;
+    const bool ok = row0 + r < nrows;
+    cp_async16(smem_u32(dst + r * S + c * 8),
+               src + static_cast<long long>(ok ? row0 + r : 0) * D + c * 8, ok);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, bf16* __restrict__ o, int hq, int hkv, int sq,
+                 int skv, int causal, int window, float scale_log2) {
+  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
+  constexpr int S = D + 8;        // padded row stride, elements
+  constexpr int KD = D / 16;      // k steps of Q K^T
+  constexpr int ND = D / 8;       // n tiles of O
+  constexpr int NK = kMmaKeys / 8;  // n tiles of S
+  extern __shared__ __align__(16) unsigned char mma_smem[];
+  bf16* s_q = reinterpret_cast<bf16*>(mma_smem);
+  bf16* s_k = s_q + kMmaRows * S;
+  bf16* s_v = s_k + kMmaKeys * S;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;     // mma fragment row group, column pair
+  const int h = blockIdx.x, b = blockIdx.z;
+  const int hk = h / (hq / hkv);
+  const int q_tile = (gridDim.y - 1 - blockIdx.y) * kMmaRows;  // longest rows first
+  const int offset = skv - sq;
+  const bf16* qb = q + (static_cast<long long>(b) * hq + h) * sq * D;
+  const bf16* kb = k + (static_cast<long long>(b) * hkv + hk) * skv * D;
+  const bf16* vb = v + (static_cast<long long>(b) * hkv + hk) * skv * D;
+  bf16* ob = o + (static_cast<long long>(b) * hq + h) * sq * D;
+
+  // key tiles some query of this block can see
+  const int q_lo = q_tile + offset;
+  const int q_hi = min(q_tile + kMmaRows, sq) - 1 + offset;
+  const int k_end = causal ? min(skv, q_hi + 1) : skv;
+  int k_begin = window > 0 ? max(0, q_lo - window + 1) : 0;
+  k_begin = (k_begin / kMmaKeys) * kMmaKeys;
+
+  load_tile<D>(s_q, qb, q_tile, sq);
+  if (k_begin < k_end) load_tile<D>(s_k, kb, k_begin, skv);
+  cp_async_commit();
+
+  const int pos0 = q_tile + warp * 16 + g + offset;  // this thread's rows: pos0, pos0 + 8
+  uint32_t qf[KD][4];
+  float acc[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+  for (int k0 = k_begin; k0 < k_end; k0 += kMmaKeys) {
+    cp_async_wait<0>();
+    __syncthreads();              // K tile (and Q) landed; every warp is done with V
+    if (k0 == k_begin) {
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        ldsm_x4(smem_u32(s_q + (warp * 16 + (lane & 15)) * S + kk * 16 + (lane >> 4) * 8),
+                qf[kk]);
+      }
+    }
+    load_tile<D>(s_v, vb, k0, skv);
+    cp_async_commit();
+
+    float s[NK][4];
+#pragma unroll
+    for (int j = 0; j < NK; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+#pragma unroll
+      for (int np = 0; np < NK / 2; ++np) {   // two key n-tiles per ldmatrix.x4
+        uint32_t bk[4];
+        ldsm_x4(smem_u32(s_k + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * S + kk * 16 +
+                         ((lane >> 3) & 1) * 8),
+                bk);
+        mma_bf16(s[2 * np], qf[kk], bk[0], bk[1]);
+        mma_bf16(s[2 * np + 1], qf[kk], bk[2], bk[3]);
+      }
+    }
+    __syncthreads();              // every warp is done with K
+    if (k0 + kMmaKeys < k_end) load_tile<D>(s_k, kb, k0 + kMmaKeys, skv);
+    cp_async_commit();
+
+    // scale, mask (only tiles that cut the diagonal, the window edge or
+    // the end of the keys), online softmax on the fragments
+    const bool masked = k0 + kMmaKeys > skv || (causal && k0 + kMmaKeys - 1 > q_lo) ||
+                        (window > 0 && k0 <= q_hi - window);
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < NK; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * scale_log2;
+        if (masked) {
+          const int key = k0 + j * 8 + 2 * t4 + (e & 1);
+          const int pos = pos0 + (e >> 1) * 8;
+          bool ok = key < skv;
+          if (causal) ok = ok && key <= pos;
+          if (window > 0) ok = ok && key > pos - window;
+          x = ok ? x : -INFINITY;
+        }
+        s[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    }
+    float base[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      base[r] = mx[r] == -INFINITY ? 0.f : mx[r];   // no key seen yet: p = 0
+      const float alpha = exp2f(m[r] - base[r]);
+      m[r] = mx[r];
+      l[r] *= alpha;
+#pragma unroll
+      for (int j = 0; j < ND; ++j) {
+        acc[j][2 * r] *= alpha;
+        acc[j][2 * r + 1] *= alpha;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NK; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(s[j][e] - base[e >> 1]);
+        l[e >> 1] += p;
+        s[j][e] = p;
+      }
+    }
+
+    cp_async_wait<1>();
+    __syncthreads();              // V tile landed (the next K may still be on its way)
+#pragma unroll
+    for (int kk = 0; kk < kMmaKeys / 16; ++kk) {
+      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int dp = 0; dp < ND / 2; ++dp) {   // two dim n-tiles per ldmatrix.x4.trans
+        uint32_t bv[4];
+        ldsm_x4_trans(smem_u32(s_v + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * S +
+                               dp * 16 + (lane >> 4) * 8),
+                      bv);
+        mma_bf16(acc[2 * dp], pa, bv[0], bv[1]);
+        mma_bf16(acc[2 * dp + 1], pa, bv[2], bv[3]);
+      }
+    }
+  }
+
+  // epilogue: 1 / l, bf16, through this warp's rows of the Q tile
+  cp_async_wait<0>();
+  __syncthreads();
+  bf16* so = s_q + warp * 16 * S;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const float inv = l[r] > 0.f ? 1.f / l[r] : 1.f;  // no key seen: acc is 0
+#pragma unroll
+    for (int j = 0; j < ND; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(so + (g + 8 * r) * S + j * 8 + 2 * t4) =
+          __floats2bfloat162_rn(acc[j][2 * r] * inv, acc[j][2 * r + 1] * inv);
+    }
+  }
+  __syncwarp();
+  constexpr int CH = D / 8;
+  for (int idx = lane; idx < 16 * CH; idx += 32) {
+    const int r = idx / CH, c = idx % CH;
+    const int qi = q_tile + warp * 16 + r;
+    if (qi < sq) {
+      *reinterpret_cast<uint4*>(ob + static_cast<long long>(qi) * D + c * 8) =
+          *reinterpret_cast<const uint4*>(so + r * S + c * 8);
+    }
+  }
+}
+
+template <int D>
+int launch_flash_mma(const void* q, const void* k, const void* v, void* o, int b, int hq,
+                     int hkv, int sq, int skv, int causal, int window, float scale,
+                     cudaStream_t st) {
+  constexpr int smem = mma_smem_bytes(D);
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(hq, (sq + kMmaRows - 1) / kMmaRows, b);
+  flash_mma_kernel<D><<<grid, kMmaThreads, smem, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(o), hq, hkv, sq, skv, causal, window, scale * kLog2e);
+  return static_cast<int>(cudaGetLastError());
+}
+
 constexpr int kFlashRows = 64;   // query rows per block
 constexpr int kFlashKeys = 32;   // keys per shared-memory tile (one mask bit each)
 constexpr int kRowThreads = 4;   // threads sharing one query row
 constexpr int kFlashThreads = kFlashRows * kRowThreads;
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kFlashThreads)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-             T* __restrict__ o, int hq, int hkv, int sq, int skv, int causal, int window,
-             float scale_log2) {
+flash_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, int hq, int hkv, int sq,
+                 int skv, int causal, int window, float scale_log2) {
   static_assert(D % 16 == 0, "head dim must be a multiple of 16");
   constexpr int C = D / 16;                  // float4 chunks a thread holds
-  constexpr int V = 16 / static_cast<int>(sizeof(T));  // elements per 16-byte load
   __shared__ float4 ks[kFlashKeys][D / 4];
   __shared__ float4 vs[kFlashKeys][D / 4];
 
@@ -194,15 +579,16 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   const int qpos = qi + offset;
   const bool row_ok = qi < sq;
   const long long q_row = ((static_cast<long long>(b) * hq + h) * sq + qi) * D;
-  const T* kb = k + (static_cast<long long>(b) * hkv + hk) * skv * D;
-  const T* vb = v + (static_cast<long long>(b) * hkv + hk) * skv * D;
+  const float* kb = k + (static_cast<long long>(b) * hkv + hk) * skv * D;
+  const float* vb = v + (static_cast<long long>(b) * hkv + hk) * skv * D;
 
   // chunk c of this thread = dims 16c + 4g .. 16c + 4g + 3
   float4 qv[C], acc[C];
 #pragma unroll
   for (int c = 0; c < C; ++c) {
     acc[c] = make_float4(0.f, 0.f, 0.f, 0.f);
-    float4 t = row_ok ? load4(q + q_row + 16 * c + 4 * g) : make_float4(0.f, 0.f, 0.f, 0.f);
+    float4 t = row_ok ? *reinterpret_cast<const float4*>(q + q_row + 16 * c + 4 * g)
+                      : make_float4(0.f, 0.f, 0.f, 0.f);
     qv[c] = make_float4(t.x * scale_log2, t.y * scale_log2, t.z * scale_log2, t.w * scale_log2);
   }
   float m = kNegInf, l = 0.f;
@@ -215,21 +601,12 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   k_begin = (k_begin / kFlashKeys) * kFlashKeys;
 
   for (int k0 = k_begin; k0 < k_end; k0 += kFlashKeys) {
-    for (int idx = tid; idx < kFlashKeys * (D / V); idx += kFlashThreads) {
-      const int j = idx / (D / V), e = (idx % (D / V)) * V;  // key row, first element
-      float kv[V], vv[V];
-      if (k0 + j < skv) {
-        load16(kb + static_cast<long long>(k0 + j) * D + e, kv);
-        load16(vb + static_cast<long long>(k0 + j) * D + e, vv);
-      } else {
-#pragma unroll
-        for (int i = 0; i < V; ++i) kv[i] = vv[i] = 0.f;
-      }
-#pragma unroll
-      for (int t = 0; t < V / 4; ++t) {
-        ks[j][e / 4 + t] = make_float4(kv[4 * t], kv[4 * t + 1], kv[4 * t + 2], kv[4 * t + 3]);
-        vs[j][e / 4 + t] = make_float4(vv[4 * t], vv[4 * t + 1], vv[4 * t + 2], vv[4 * t + 3]);
-      }
+    for (int idx = tid; idx < kFlashKeys * (D / 4); idx += kFlashThreads) {
+      const int j = idx / (D / 4), e = idx % (D / 4);  // key row, float4 chunk
+      const bool ok = k0 + j < skv;
+      const long long at = static_cast<long long>(k0 + j) * D + 4 * e;
+      ks[j][e] = ok ? *reinterpret_cast<const float4*>(kb + at) : make_float4(0.f, 0.f, 0.f, 0.f);
+      vs[j][e] = ok ? *reinterpret_cast<const float4*>(vb + at) : make_float4(0.f, 0.f, 0.f, 0.f);
     }
     __syncthreads();
 
@@ -289,32 +666,21 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
     const float inv = l > 0.f ? 1.f / l : 1.f;  // no key seen: acc is 0
 #pragma unroll
     for (int c = 0; c < C; ++c) {
-      store4(o + q_row + 16 * c + 4 * g,
-             make_float4(acc[c].x * inv, acc[c].y * inv, acc[c].z * inv, acc[c].w * inv));
+      *reinterpret_cast<float4*>(o + q_row + 16 * c + 4 * g) =
+          make_float4(acc[c].x * inv, acc[c].y * inv, acc[c].z * inv, acc[c].w * inv);
     }
   }
 }
 
-template <typename T, int D>
-int launch_flash(const void* q, const void* k, const void* v, void* o, int b, int hq, int hkv,
-                 int sq, int skv, int causal, int window, float scale, cudaStream_t st) {
+template <int D>
+int launch_flash_fma(const void* q, const void* k, const void* v, void* o, int b, int hq,
+                     int hkv, int sq, int skv, int causal, int window, float scale,
+                     cudaStream_t st) {
   const dim3 grid((sq + kFlashRows - 1) / kFlashRows, hq, b);
-  flash_kernel<T, D><<<grid, kFlashThreads, 0, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), hq, hkv, sq, skv, causal, window, scale * kLog2e);
+  flash_fma_kernel<D><<<grid, kFlashThreads, 0, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), hq, hkv, sq, skv, causal, window, scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int dispatch_flash(int d, const void* q, const void* k, const void* v, void* o, int b, int hq,
-                   int hkv, int sq, int skv, int causal, int window, float scale,
-                   cudaStream_t st) {
-  switch (d) {
-    case 64: return launch_flash<T, 64>(q, k, v, o, b, hq, hkv, sq, skv, causal, window, scale, st);
-    case 80: return launch_flash<T, 80>(q, k, v, o, b, hq, hkv, sq, skv, causal, window, scale, st);
-    case 128: return launch_flash<T, 128>(q, k, v, o, b, hq, hkv, sq, skv, causal, window, scale, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
 }
 
 }  // namespace
@@ -343,9 +709,19 @@ int rt_flash_attention(const void* q, const void* k, const void* v, void* o, int
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (b == 0 || hq == 0 || sq == 0) return static_cast<int>(cudaGetLastError());
+  if (bf16_inputs && (sq + kMmaRows - 1) / kMmaRows > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);   // query tiles ride on gridDim.y
+  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16_inputs) return dispatch_flash<bf16>(d, q, k, v, o, b, hq, hkv, sq, skv, causal, window, scale, st);
-  return dispatch_flash<float>(d, q, k, v, o, b, hq, hkv, sq, skv, causal, window, scale, st);
+  switch (d * 2 + (bf16_inputs ? 1 : 0)) {
+    case 64 * 2 + 1: return launch_flash_mma<64>(q, k, v, o, b, hq, hkv, sq, skv, causal, window, scale, st);
+    case 80 * 2 + 1: return launch_flash_mma<80>(q, k, v, o, b, hq, hkv, sq, skv, causal, window, scale, st);
+    case 128 * 2 + 1: return launch_flash_mma<128>(q, k, v, o, b, hq, hkv, sq, skv, causal, window, scale, st);
+    case 64 * 2: return launch_flash_fma<64>(q, k, v, o, b, hq, hkv, sq, skv, causal, window, scale, st);
+    case 80 * 2: return launch_flash_fma<80>(q, k, v, o, b, hq, hkv, sq, skv, causal, window, scale, st);
+    case 128 * 2: return launch_flash_fma<128>(q, k, v, o, b, hq, hkv, sq, skv, causal, window, scale, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // extern "C"

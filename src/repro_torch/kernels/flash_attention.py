@@ -2,12 +2,14 @@
 sliding-window masks, queries aligned to the end of the keys, rows that
 see no key -> 0.
 
-On CUDA tensors it is the hand-written ``flash_kernel``
-(``csrc/lm_kernels.cu``: one block per 64-query tile and query head, key
-tiles of 32 in shared memory, masked tiles skipped, ragged edges masked in
-the kernel, f32 accumulation), replacing the Pallas kernel of
-``repro/kernels/flash_attention.py``; on CPU tensors it is the plain
-version :func:`.ref.attention`.
+On CUDA tensors it is a hand-written kernel of ``csrc/lm_kernels.cu``,
+replacing the Pallas kernel of ``repro/kernels/flash_attention.py``: for
+bf16 ``flash_mma_kernel`` on the tensor cores (``mma.sync`` m16n8k16,
+bf16 operands, f32 softmax statistics and sums, P rounded to bf16 for the
+P·V product), for f32 ``flash_fma_kernel`` on the f32 FMA units (exact f32,
+no TF32).  Both take one block per 64-query tile and query head, skip key
+tiles that no query of the block sees and mask the ragged edges
+themselves.  On CPU tensors it is the plain version :func:`.ref.attention`.
 """
 from __future__ import annotations
 
@@ -17,11 +19,12 @@ import torch
 
 from repro_torch.core.registry import count_launch, kernel
 from . import _build, ref
-from .common import check_cuda, launch_stream
+from .common import check_cuda, launch
 
 DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (64, 80, 128)      # the kernel's template instances
-MAX_GRID_YZ = 65535            # query heads ride on gridDim.y, batch on z
+MAX_GRID_YZ = 65535            # batch rides on gridDim.z; query heads (f32) or
+                               # 64-query tiles (bf16) on gridDim.y
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -39,21 +42,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"window must be positive, got {window}")
     if scale is None:
         scale = d ** -0.5
-    if q.device.type == "cpu":
+    if q.is_cpu:
         return ref.attention(q, k, v, causal=causal, window=window, scale=scale)
     check_cuda("q", q, DTYPES)
     for name, t in (("k", k), ("v", v)):
         check_cuda(name, t, (q.dtype,), device=q.device)
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d}: the kernel is built for {HEAD_DIMS}")
-    if hq > MAX_GRID_YZ or b > MAX_GRID_YZ:
-        raise ValueError(f"{b} batches x {hq} heads exceed the kernel's grid")
+    if hq > MAX_GRID_YZ or b > MAX_GRID_YZ or -(-sq // 64) > MAX_GRID_YZ:
+        raise ValueError(f"{b} batches x {hq} heads x {sq} queries exceed the kernel's grid")
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        err = _build.library().rt_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq, hkv, sq,
-            k.shape[2], d, int(causal), int(window or 0), float(scale),
-            int(q.dtype == torch.bfloat16), launch_stream(q))
+    err = launch(_build.library().rt_flash_attention, q, q.data_ptr(), k.data_ptr(),
+                 v.data_ptr(), out.data_ptr(), b, hq, hkv, sq, k.shape[2], d, causal,
+                 window or 0, scale, q.dtype == torch.bfloat16)
     _build.check(err, "flash_attention")
     count_launch("flash_attention")
     return out

@@ -28,7 +28,7 @@ import torch
 
 from repro_torch.core.registry import count_launch, kernel
 from . import _build, ref
-from .common import check_complex64, check_out, coil_grid, launch_stream
+from .common import check_complex64, check_out, coil_grid, launch
 
 MAX_DFT_DIM = 256
 SMEM_OPTIN_BYTES = 232448    # dynamic shared memory one Hopper block may opt into
@@ -71,10 +71,8 @@ def fused_epilogue(x: torch.Tensor, smaps: torch.Tensor, combine: str = "sum",
     check_complex64("smaps", smaps, device=x.device)
     f, c, h, w = coil_grid(x)
     out = _result(x, combine, out)
-    with torch.cuda.device(x.device):
-        err = _build.library().rt_fused_epilogue(
-            x.data_ptr(), smaps.data_ptr(), out.data_ptr(), int(combine == "rss"),
-            f, c, h * w, launch_stream(x))
+    err = launch(_build.library().rt_fused_epilogue, x, x.data_ptr(), smaps.data_ptr(),
+                 out.data_ptr(), int(combine == "rss"), f, c, h * w)
     _build.check(err, "fused_epilogue")
     count_launch("mriFusedEpilogue")
     return out
@@ -129,10 +127,8 @@ def fused_recon(k: torch.Tensor, smaps: torch.Tensor, combine: str = "sum",
     check_complex64("M_H", mh, shape=(h, h), device=k.device)
     check_complex64("M_W", mw, shape=(w, w), device=k.device)
     out = _result(k, combine, out)
-    with torch.cuda.device(k.device):
-        err = _build.library().rt_dft_recon(
-            k.data_ptr(), smaps.data_ptr(), mh.data_ptr(), mw.data_ptr(),
-            out.data_ptr(), int(combine == "rss"), f, c, h, w, launch_stream(k))
+    err = launch(_build.library().rt_dft_recon, k, k.data_ptr(), smaps.data_ptr(),
+                 mh.data_ptr(), mw.data_ptr(), out.data_ptr(), int(combine == "rss"), f, c, h, w)
     _build.check(err, "fused_recon")
     count_launch("mriFusedRecon")
     return out

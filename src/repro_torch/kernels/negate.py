@@ -15,7 +15,7 @@ import torch
 
 from repro_torch.core.registry import count_launch, kernel
 from . import _build, ref
-from .common import check_cuda, check_in_place, check_out, launch_stream
+from .common import check_cuda, check_in_place, check_out, launch
 
 DTYPES = (torch.float32, torch.bfloat16)
 
@@ -32,9 +32,8 @@ def negate(x: torch.Tensor, out: Optional[torch.Tensor] = None) -> torch.Tensor:
     else:
         check_out(out, x.shape, x.dtype, x.device)
         check_in_place(out, x)
-    with torch.cuda.device(x.device):
-        err = _build.library().rt_negate(x.data_ptr(), out.data_ptr(), x.numel(),
-                                         int(x.dtype == torch.bfloat16), launch_stream(x))
+    err = launch(_build.library().rt_negate, x, x.data_ptr(), out.data_ptr(), x.numel(),
+                 int(x.dtype == torch.bfloat16))
     _build.check(err, "negate")
     count_launch("negate_kernel")
     return out

@@ -1,10 +1,13 @@
 """RMS norm over the last axis (LM hot path): ``x * rsqrt(mean(x²) + eps)
 * w`` in f32, output in x's dtype.
 
-On CUDA tensors it is the hand-written ``rmsnorm_kernel``
-(``csrc/lm_kernels.cu``: one warp per row, 16-byte loads, warp-shuffle
-sum), replacing the Pallas kernel of ``repro/kernels/rmsnorm.py``; on CPU
-tensors it is the plain version in :mod:`.ref`.
+On CUDA tensors it is the hand-written one-pass ``rmsnorm_kernel`` family
+(``csrc/lm_kernels.cu``: each row read once into registers in 16-byte
+vectors, the thread count per row chosen by its width), replacing the
+Pallas kernel of ``repro/kernels/rmsnorm.py``; on CPU tensors it is the
+plain version in :mod:`.ref`.  The wrapper runs at every norm of every
+layer (161 calls a qwen3-14b decode step), so its host path is kept short:
+see :func:`.common.launch`.
 """
 from __future__ import annotations
 
@@ -12,27 +15,24 @@ import torch
 
 from repro_torch.core.registry import count_launch, kernel
 from . import _build, ref
-from .common import check_cuda, launch_stream
+from .common import check_cuda, launch
 
 DTYPES = (torch.float32, torch.bfloat16)
 
 
 def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """x: (..., D); weight: (D,).  Matches :func:`ref.rmsnorm`."""
-    if x.ndim < 1 or tuple(weight.shape) != (x.shape[-1],):
+    if x.ndim < 1 or weight.shape != x.shape[-1:]:
         raise ValueError(f"weight {tuple(weight.shape)} does not match x {tuple(x.shape)}")
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return ref.rmsnorm(x, weight, eps)
     check_cuda("x", x, DTYPES)
     check_cuda("weight", weight, DTYPES, device=x.device)
-    d = int(x.shape[-1])
-    rows = x.numel() // d if d else 0
+    d = x.shape[-1]
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        err = _build.library().rt_rmsnorm(
-            x.data_ptr(), weight.data_ptr(), out.data_ptr(), rows, d,
-            int(x.dtype == torch.bfloat16), int(weight.dtype == torch.bfloat16), float(eps),
-            launch_stream(x))
+    err = launch(_build.library().rt_rmsnorm, x, x.data_ptr(), weight.data_ptr(),
+                 out.data_ptr(), x.numel() // d if d else 0, d, x.dtype == torch.bfloat16,
+                 weight.dtype == torch.bfloat16, eps)
     _build.check(err, "rmsnorm")
     count_launch("rmsnorm")
     return out

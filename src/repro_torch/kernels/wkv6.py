@@ -18,7 +18,7 @@ import torch
 
 from repro_torch.core.registry import count_launch, kernel
 from . import _build, ref
-from .common import check_cuda, check_in_place, check_out, launch_stream
+from .common import check_cuda, check_in_place, check_out, launch
 
 DTYPES = (torch.float32, torch.bfloat16)
 #: the kernel's template instances, the configs' head sizes (SMOKE, full
@@ -65,11 +65,10 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
         if state is not None:
             check_in_place(state_out, state)
     out = torch.empty_like(r)
-    with torch.cuda.device(r.device):
-        err = _build.library().rt_wkv6(
-            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
-            None if state is None else state.data_ptr(), state_out.data_ptr(),
-            out.data_ptr(), b, t, h, d, int(r.dtype == torch.bfloat16), launch_stream(r))
+    err = launch(_build.library().rt_wkv6, r, r.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 w.data_ptr(), u.data_ptr(), None if state is None else state.data_ptr(),
+                 state_out.data_ptr(), out.data_ptr(), b, t, h, d,
+                 int(r.dtype == torch.bfloat16))
     _build.check(err, "wkv6")
     count_launch("wkv6")
     return out, state_out

@@ -5,8 +5,13 @@ rmsnorm 1e-5 in f32 and 3e-2 in bf16 (one bf16 rounding of the output),
 attention 2e-5 in f32 and 5e-2 in bf16.  Inputs are made in f32 with numpy
 and rounded to bf16 by each framework (both round to nearest even, so both
 sides see the same bits).  The CUDA kernels themselves are held against
-these plain versions on the card by ``chip_smoke.py``.
+these plain versions on the card by ``chip_smoke.py``; the bf16 tensor-core
+flash kernel's own arithmetic (64-key tiles, exp2, P rounded to bf16) is
+emulated here in plain torch and held against the JAX kernel.
 """
+import math
+from types import SimpleNamespace
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,7 +21,7 @@ from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention as j_flash
 from repro.kernels.rmsnorm import rmsnorm as j_rmsnorm
 from repro_torch.core.registry import KernelRegistry, launch_counts
-from repro_torch.kernels import _build, ops, ref
+from repro_torch.kernels import _build, common, ops, ref
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.rmsnorm import rmsnorm
 
@@ -128,3 +133,109 @@ def test_kernel_library_exports_the_lm_entry_points():
     assert len(_build._SIGNATURES["rt_rmsnorm"]) == 9
     assert len(_build._SIGNATURES["rt_flash_attention"]) == 15
     assert {p.name for p in _build.sources()} >= {"lm_kernels.cu", "mri_kernels.cu"}
+
+
+def _mma_flash_emulation(q, k, v, causal, window, rows=64, keys=64):
+    """The arithmetic of the bf16 ``flash_mma_kernel`` in plain torch, on
+    bf16 q, k, v: query tiles of ``rows``, key tiles of ``keys`` from the
+    first one a query of the tile can see to the last; S = q k^T exactly in
+    f32 (bf16 products are exact) scaled by scale * log2 e in f32; the
+    online softmax in f32 with exp2 (-inf masks, a row with no key yet
+    takes 0 as its base); P rounded to bf16 for P V, the row sum over the
+    unrounded P; rows that see no key -> 0; output rounded to bf16.  The
+    kernel skips the mask on tiles every query sees whole, which changes no
+    value."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    group, offset = hq // hkv, skv - sq
+    scale_log2 = torch.tensor(d ** -0.5, dtype=torch.float32) * torch.tensor(
+        math.log2(math.e), dtype=torch.float32)
+    kf = k.float().repeat_interleave(group, dim=1)
+    vf = v.float().repeat_interleave(group, dim=1)
+    out = torch.zeros(b, hq, sq, d)
+    neg_inf = torch.tensor(-math.inf)
+    for q0 in range(0, sq, rows):
+        q1 = min(q0 + rows, sq)
+        pos = torch.arange(q0, q1) + offset
+        k_end = min(skv, q1 - 1 + offset + 1) if causal else skv
+        k_begin = max(0, q0 + offset - window + 1) if window else 0
+        qt = q[:, :, q0:q1].float()
+        m = torch.full((b, hq, q1 - q0), -math.inf)
+        l = torch.zeros(b, hq, q1 - q0)
+        acc = torch.zeros(b, hq, q1 - q0, d)
+        for k0 in range(k_begin // keys * keys, k_end, keys):
+            kt, vt = kf[:, :, k0:k0 + keys], vf[:, :, k0:k0 + keys]
+            s = (qt @ kt.transpose(-1, -2)) * scale_log2
+            kpos = torch.arange(k0, k0 + kt.shape[2])
+            ok = torch.ones(q1 - q0, kt.shape[2], dtype=torch.bool)
+            if causal:
+                ok &= kpos[None] <= pos[:, None]
+            if window:
+                ok &= kpos[None] > pos[:, None] - window
+            s = torch.where(ok, s, neg_inf)
+            mx = torch.maximum(m, s.amax(dim=-1))
+            base = torch.where(mx == -math.inf, 0.0, mx)
+            alpha = torch.exp2(m - base)
+            p = torch.exp2(s - base[..., None])
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + p.to(torch.bfloat16).float() @ vt
+            m = mx
+        out[:, :, q0:q1] = acc / torch.where(l > 0, l, 1.0)[..., None]
+    return out.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize(
+    "b,hq,hkv,sq,skv,d,causal,window",
+    [
+        (1, 4, 2, 130, 130, 64, True, None),   # GQA causal, three query tiles, ragged
+        (2, 4, 1, 70, 100, 80, True, 33),      # window, kv longer than q, ragged ends
+    ])
+def test_flash_mma_arithmetic_fits_the_bf16_tolerance(rng, b, hq, hkv, sq, skv, d, causal,
+                                                      window):
+    """P rounded to bf16 before P V (the tensor-core kernel's one new
+    rounding) stays inside the (rtol, atol) = (2e-2, 2e-2) that
+    ``chip_smoke.py`` holds the card's bf16 kernel to."""
+    q = rng.standard_normal((b, hq, sq, d)).astype(np.float32)
+    k = rng.standard_normal((b, hkv, skv, d)).astype(np.float32)
+    v = rng.standard_normal((b, hkv, skv, d)).astype(np.float32)
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(a, "bfloat16") for a in (q, k, v))
+    want = np.asarray(j_flash(jq, jk, jv, causal=causal, window=window, block_q=64,
+                              block_k=64), np.float32)
+    got = _mma_flash_emulation(tq, tk, tv, causal, window)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=2e-2, atol=2e-2)
+
+
+def test_launch_helper_takes_the_tensors_device_and_current_stream(monkeypatch):
+    """``common.launch`` passes the raw current-stream handle of the tensor's
+    device, and switches the current device only when it differs."""
+    fake = SimpleNamespace(get_device=lambda: 1, device=torch.device("cuda", 1))
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda i: 1000 + i,
+                        raising=False)
+    switches = []
+
+    class Guard:
+        def __init__(self, idx):
+            self.idx = idx
+
+        def __enter__(self):
+            switches.append(self.idx)
+
+        def __exit__(self, *exc):
+            switches.append("back")
+
+    monkeypatch.setattr(torch.cuda, "device", Guard)
+    monkeypatch.setattr(torch._C, "_cuda_getDevice", lambda: 1, raising=False)
+    assert common.launch_stream(fake) == 1001
+    assert common.launch(lambda *a: a, fake, 7, 8) == (7, 8, 1001)
+    assert switches == []
+    monkeypatch.setattr(torch._C, "_cuda_getDevice", lambda: 0, raising=False)
+    assert common.launch(lambda *a: a, fake, 7) == (7, 1001)
+    assert switches == [1, "back"]
+
+
+def test_launch_helper_refuses_a_cpu_tensor():
+    for t in (torch.zeros(2), torch.empty(2, device="meta")):
+        with pytest.raises(ValueError, match="CUDA"):
+            common.launch_stream(t)
+        with pytest.raises(ValueError, match="CUDA"):
+            common.launch(lambda *a: 0, t)
