@@ -22,14 +22,19 @@
    atol 1e-5) at the qwen3-14b and rwkv6-3b serving shapes (the
    1000-token prefill for a ragged causal tail) and at odd ones that reach
    every rmsnorm variant; ``wkv6`` at the rwkv6-3b prefill (1, 1024, 40,
-   64) bf16, a ragged f32 case, the SMOKE head size and the decode shape
-   with its state written in place; and ``negate`` bit for bit.  Times
-   them at the serving shapes (rmsnorm at the prefill, decode and q/k-norm
-   shapes) beside ``F.rms_norm``, ``F.scaled_dot_product_attention`` and
-   ``1 - x`` (yardsticks only; no single PyTorch call computes the wkv6
-   recurrence), prints ptxas's registers and shared memory for the
-   flash_attention and rmsnorm kernels, and times each step of the rmsnorm
-   wrapper's host path at the decode shape against ``F.rms_norm``.
+   64) bf16, ragged cases (several batches on the grid and a T that is no
+   multiple of the staged tile), the SMOKE head size, the decode shape with
+   its state written in place (bf16 and f32) and a decode step from a zero
+   state; and ``negate`` bit for bit (a misaligned view, sizes one element
+   either side of a whole batch of vectors, in place too).  Times them at
+   the serving shapes (rmsnorm at the prefill, decode and q/k-norm shapes)
+   beside ``F.rms_norm``, ``F.scaled_dot_product_attention`` and
+   ``torch.rsub`` (yardsticks only; no single PyTorch call computes the
+   wkv6 recurrence), times wkv6 at 1 and 4 prefill batches (what limits
+   it), prints ptxas's registers, spills and shared memory for the
+   flash_attention, rmsnorm, wkv6 and negate kernels, and times each step
+   of the rmsnorm wrapper's host path at the decode shape against
+   ``F.rms_norm``.
 5. Serves qwen3-14b, then rwkv6-3b, at full width (random bf16 weights
    made on the card from a seed) through ``LMServer``: 10 requests of
    17-1024 prompt tokens, 4 slots, 32 new tokens each; checks the tokens,
@@ -476,8 +481,10 @@ def main() -> None:
               lm_tol[dtype], on_path)
     del x, w, q, k, v
 
-    # wkv6 at the rwkv6-3b prefill (bf16 r/k/v, f32 w), a ragged f32 case, the
-    # SMOKE head size, and the decode step with its state updated in place.
+    # wkv6 at the rwkv6-3b prefill (bf16 r/k/v, f32 w), ragged cases (3
+    # batches, and 77 steps: no multiple of the staged tile), the SMOKE
+    # head size, the decode step with its state updated in place, and a
+    # decode step from a zero state (no state tensor).
     # Tolerances: the output is a sum over D taken in another order than the
     # plain version's einsum, so it is compared against its scale: within
     # 2e-2 x max |out| in bf16 (one output rounding) and 1e-5 x max |out| +
@@ -486,11 +493,17 @@ def main() -> None:
         r, k, v = (rand(b, t, h, d, dtype=dtype) for _ in range(3))
         return r, k, v, rand(b, t, h, d) * 0.5, rand(h, d) * 0.5, rand(b, h, d, d)
 
-    for shape, dtype, in_place, on_path in (((1, 1024, 40, 64), bf16, False, True),
-                                            ((2, 37, 3, 64), f32, False, False),
-                                            ((2, 16, 8, 8), f32, False, False),
-                                            ((4, 1, 40, 64), bf16, True, True)):
+    for shape, dtype, in_place, on_path, zero in (
+            ((1, 1024, 40, 64), bf16, False, True, False),
+            ((2, 37, 3, 64), f32, False, False, False),
+            ((3, 77, 40, 64), bf16, False, False, False),
+            ((2, 16, 8, 8), f32, False, False, False),
+            ((4, 1, 40, 64), bf16, True, True, False),
+            ((4, 1, 40, 64), f32, True, False, False),
+            ((1, 1, 40, 64), bf16, False, False, True)):
         r, k, v, w, u, s0 = wkv_inputs(*shape, dtype)
+        if zero:
+            s0 = None
         want_o, want_s = ref.wkv6(r, k, v, w, u, s0)
         if in_place:
             got_s = s0.clone()
@@ -501,22 +514,33 @@ def main() -> None:
             got_o, got_s = wkv6(r, k, v, w, u, s0)
         scale = float(want_o.float().abs().max())
         out_tol = (0.0, 2e-2 * scale) if dtype == bf16 else (1e-4, 1e-5 * scale)
-        label = f"wkv6 {shape} {dtype}{' state in place' if in_place else ''}"
+        label = (f"wkv6 {shape} {dtype}{' state in place' if in_place else ''}"
+                 f"{' zero state' if zero else ''}")
         check(f"{label} out", "wkv6", got_o.float(), want_o.float(), out_tol, on_path)
         check(f"{label} state", "wkv6_state", got_s, want_s,
               (1e-4, 1e-5 * float(want_s.abs().max())), False)
     del r, k, v, w, u, s0, want_o, want_s, got_o, got_s
-    for shape, dtype in (((256, 256), f32), ((4096, 4096), f32), ((1000003,), f32),
-                         ((1000003,), bf16)):
+    # negate: the serving sizes and 1000003 (batches of U = 4 16-byte vectors
+    # a thread, a ragged last warp and a tail; 256 x 256 takes one vector a
+    # thread), n = V * U +- 1 (one element either side of V * U: one vector
+    # a thread, and tails), and a misaligned view (the scalar loop)
+    negate_cases = [((256, 256), f32, False), ((4096, 4096), f32, False),
+                    ((1000003,), f32, False), ((1000003,), bf16, False),
+                    ((4096, 4096), f32, True), ((1000003,), bf16, True)]
+    negate_cases += [((16 // t.itemsize * 4 + e,), t, False) for t in (f32, bf16) for e in (-1, 1)]
+    for shape, dtype, misaligned in negate_cases:
         x = rand(*shape, dtype=dtype)
+        if misaligned:
+            x = x.view(-1)[1:]
         got, want = negate(x), ref.negate(x)
+        label = f"negate {tuple(x.shape)} {dtype}{' misaligned view' if misaligned else ''}"
         same = bool(torch.equal(got, want))
-        print(f"[check] negate {shape} {dtype}: bit-exact {'ok' if same else 'FAIL'}")
-        if not same:
-            raise SystemExit(f"chip_smoke: negate {shape} {dtype} is not bit-exact")
         negate(x, out=x)
-        if not torch.equal(x, want):
-            raise SystemExit(f"chip_smoke: negate in place {shape} {dtype} is not bit-exact")
+        same_in_place = bool(torch.equal(x, want))
+        print(f"[check] {label}: bit-exact {'ok' if same else 'FAIL'}, in place "
+              f"{'ok' if same_in_place else 'FAIL'}")
+        if not (same and same_in_place):
+            raise SystemExit(f"chip_smoke: {label} is not bit-exact")
         max_err["negate"] = 0.0
     del x, got, want
 
@@ -676,10 +700,28 @@ def main() -> None:
             plain_sets=2 if t > 1 else None, peak_name="the fp32 rate")
         if tag == "prefill":
             rows["wkv6"] = row
-    regs = {f"{tag} D={d}": ptxas_usage(log, f"wkv6_kernelI{mangled}Li{d}E")[0]
-            for tag, mangled in (("bf16", "13__nv_bfloat16"), ("f32", "f")) for d in (64, 8)}
-    print(f"[ptxas] wkv6_kernel registers a thread: "
-          f"{', '.join(f'{k} {v}' for k, v in regs.items())}")
+    # what limits wkv6: 4 prefill batches put 4x the blocks on the card; a
+    # latency-bound kernel with idle SMs takes about as long as at 1 batch,
+    # one bound by an SM's throughput as long as its busiest SM's share grows
+    # (a decode step of one head, (1, 1, 1, 64), is the path of one block
+    # alone: launch, loads, staging, one step, stores)
+    scaling = {}
+    for key, (b, t, h) in ((1, (1, seq, 40)), (4, (4, seq, 40)), ("one", (1, 1, 1))):
+        cold, _ = cold_and_warm(lambda b=b, t=t, h=h: wkv_inputs(b, t, h, 64, bf16))
+        scaling[key] = device_ms(lambda r, k, v, w, u, s: wkv6(r, k, v, w, u, s), cold)
+        del cold
+    print(f"[time] {smi}: wkv6 at (B, {seq}, 40, 64) bf16, cold-L2 device ms: B=1 "
+          f"{scaling[1]:.5f}, B=4 {scaling[4]:.5f}; ratio {scaling[4] / scaling[1]:.3f}; "
+          f"decode of one head (1, 1, 1, 64): {scaling['one']:.5f}")
+    for tag, mangled in (("bf16", "13__nv_bfloat16"), ("f32", "f")):
+        for d in (64, 8):
+            regs, smem, spill = ptxas_usage(log, f"wkv6_kernelI{mangled}Li{d}E")
+            print(f"[ptxas] wkv6_kernel<{tag}, D={d}>: {regs} registers a thread, {spill} bytes "
+                  f"spilled, {smem} bytes shared memory a block")
+    for tag, mangled in (("f32", "negate_kernelIfE"), ("bf16", "negate_kernelI13__nv_bfloat16E")):
+        regs, smem, spill = ptxas_usage(log, mangled)
+        print(f"[ptxas] negate_kernel<{tag}>: {regs} registers a thread, {spill} bytes spilled, "
+              f"{smem} bytes shared memory a block")
     for n in (4096, 256):        # beyond L2, then the quickstart's image (the row kept)
         rows["negate"] = time_kernel(
             "negate", NEG_SRC, "src/repro/kernels/negate.py:34", f"({n}, {n}) f32",

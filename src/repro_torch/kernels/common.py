@@ -39,10 +39,12 @@ def check_complex64(name: str, t: torch.Tensor, shape: Sequence[int] | None = No
 
 
 def check_cuda(name: str, t: torch.Tensor, dtypes: Sequence[torch.dtype],
-               device: torch.device | None = None) -> None:
-    """Raise unless ``t`` is a contiguous, 16-byte-aligned CUDA tensor of one
-    of ``dtypes`` (on ``device``).  A transposed view handed to a pointer
-    kernel would be read as if it were contiguous, so it is refused here."""
+               device: torch.device | None = None, aligned: bool = True) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of one of ``dtypes``
+    (on ``device``), 16-byte-aligned unless ``aligned`` is False (for a
+    kernel with a path of its own for misaligned pointers).  A transposed
+    view handed to a pointer kernel would be read as if it were contiguous,
+    so it is refused here."""
     if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if device is not None and t.device != device:
@@ -51,7 +53,7 @@ def check_cuda(name: str, t: torch.Tensor, dtypes: Sequence[torch.dtype],
         raise TypeError(f"{name}: kernel takes {list(dtypes)}, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: kernel takes a contiguous tensor (call .contiguous())")
-    if t.data_ptr() % 16:
+    if aligned and t.data_ptr() % 16:
         raise ValueError(f"{name}: kernel takes a 16-byte-aligned tensor")
 
 

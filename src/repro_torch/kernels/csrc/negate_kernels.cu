@@ -15,8 +15,9 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kThreads = 256;
-constexpr int kMaxBlocks = 132 * 16;  // grid-stride cap: 16 blocks per H100 SM
+constexpr int kThreads = 128;
+constexpr int kSMs = 132;  // H100 SXM
+constexpr int kMaxBlocks = kSMs * 32;  // grid-stride cap: two waves of 16 blocks an SM
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
@@ -35,42 +36,75 @@ __device__ __forceinline__ bf16 from_f32<bf16>(float v) { return __float2bfloat1
 // Replaces repro/kernels/negate.py:_negate_kernel (the pallas_call of
 // negate).  Bound: bytes (read x once, write out once; one flop per
 // element).
-// Design: a grid-stride loop over 16-byte vectors (4 f32 or 8 bf16 per
-// load and store) when both pointers are 16-byte aligned, then a scalar
-// tail for the last n % V elements; otherwise scalar throughout.  `out` may
-// be `x` itself (element i is read before it is written, by the same
-// thread).  The TPU version's padding of the flat array to a multiple of
-// its VMEM block does not carry over: the tail is a bound check.
+// Design: when both pointers are 16-byte aligned, a grid-stride loop over
+// batches of u 16-byte vectors (V = 4 f32 or 8 bf16 elements each): a
+// thread loads all u vectors of its batch into registers before its first
+// store, so u loads are in flight per thread.  u is U = 4 when the batches
+// still give every SM a block, else 1 (a small array, such as the
+// quickstart's 256 x 256 image, gains more from blocks on more SMs than
+// from bytes in flight per thread).  `out` may be `x` itself, which keeps
+// the compiler from moving a load above an earlier store; a thread reads
+// only the elements it writes, so loading the whole batch first stays
+// correct in place.  The batches of one warp are interleaved (vector q of
+// lane l at q * L + l, L the warp's batches), so each of the u loads and
+// stores of a warp covers consecutive 16-byte vectors.  The last
+// n % (V * u) elements are a scalar tail; misaligned pointers take the
+// scalar loop throughout (u = 0).  The grid is sized from the batches and
+// capped at two waves of 16 blocks an SM.  The TPU version's padding of
+// the flat array to a multiple of its VMEM block does not carry over: the
+// tail is a bound check.
 // ---------------------------------------------------------------------------
+constexpr int kNegUnroll = 4;  // U: the most 16-byte vectors in flight per thread
+
+// u: 16-byte vectors a batch (1 or U), or 0 for the scalar loop; nb = n / (V * u)
+// whole batches, divided on the host (a 64-bit division is a long call here)
 template <typename T>
-__global__ void negate_kernel(const T* x, T* out, long long n, int vec) {
+__global__ void negate_kernel(const T* x, T* out, long long n, long long nb, int u) {
   constexpr int V = 16 / static_cast<int>(sizeof(T));
+  constexpr int U = kNegUnroll;
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   const long long tid = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   long long done = 0;
-  if (vec) {
-    const long long nv = n / V;
-    for (long long i = tid; i < nv; i += stride) {
-      uint4 raw = reinterpret_cast<const uint4*>(x)[i];
-      T* e = reinterpret_cast<T*>(&raw);
+  if (u) {
+    const uint4* xv = reinterpret_cast<const uint4*>(x);
+    uint4* ov = reinterpret_cast<uint4*>(out);
+#pragma unroll 1  // no trip-count division ahead of the first load
+    for (long long i = tid; i < nb; i += stride) {
+      const long long first = i & ~31LL;  // the warp's first batch
+      const long long lanes = nb - first < 32 ? nb - first : 32;
+      const long long at = first * u + (i - first);
+      uint4 raw[U];
 #pragma unroll
-      for (int c = 0; c < V; ++c) e[c] = from_f32<T>(1.f - to_f32(e[c]));
-      reinterpret_cast<uint4*>(out)[i] = raw;
+      for (int q = 0; q < U; ++q) {
+        if (q < u) raw[q] = xv[at + q * lanes];
+      }
+#pragma unroll
+      for (int q = 0; q < U; ++q) {
+        if (q >= u) break;
+        T* e = reinterpret_cast<T*>(&raw[q]);
+#pragma unroll
+        for (int c = 0; c < V; ++c) e[c] = from_f32<T>(1.f - to_f32(e[c]));
+        ov[at + q * lanes] = raw[q];
+      }
     }
-    done = nv * V;
+    done = nb * V * u;
   }
+#pragma unroll 1
   for (long long i = done + tid; i < n; i += stride) out[i] = from_f32<T>(1.f - to_f32(x[i]));
 }
 
 template <typename T>
 int launch_negate(const void* x, void* out, long long n, cudaStream_t st) {
   constexpr int V = 16 / static_cast<int>(sizeof(T));
-  const int vec = ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out)) & 15u) == 0;
-  long long blocks = ((vec ? n / V : n) + kThreads - 1) / kThreads;
+  const bool aligned = ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out)) & 15u) == 0;
+  const int u = !aligned ? 0 : n / (V * kNegUnroll) >= static_cast<long long>(kSMs) * kThreads
+                                   ? kNegUnroll : 1;
+  const long long nb = u ? n / (V * u) : 0;
+  long long blocks = ((u ? nb : n) + kThreads - 1) / kThreads;
   if (blocks < 1) blocks = 1;
   if (blocks > kMaxBlocks) blocks = kMaxBlocks;
   negate_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
-      static_cast<const T*>(x), static_cast<T*>(out), n, vec);
+      static_cast<const T*>(x), static_cast<T*>(out), n, nb, u);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -33,92 +33,244 @@ __device__ __forceinline__ bf16 from_f32<bf16>(float v) { return __float2bfloat1
 // Replaces repro/kernels/wkv6.py:_wkv6_kernel (the pallas_call of wkv6).
 // Bound: operations at prefill sizes (5 D^2 + O(D) flops per step and head
 // against 14 D bytes), the state's bytes at decode (T = 1).
-// Design: one block of D threads per (batch, head); thread j owns column j
-// of the state, D floats in registers, read once at the start and written
-// once at the end.  A thread reads and writes only its own column, so the
-// final state may be written over the initial one in place (decode passes
-// the same cache tensor as both).  Steps are staged in shared memory a tile
-// at a time (r, k and the decay exp(-exp(w)), computed once per element
-// with expf, as one float4 per (step, i); v beside it; a_t reduced over the
-// block with warp shuffles while staging), so a barrier is paid per tile,
-// not per step; every thread then reads the float4 of row i as a broadcast
-// and spends one FMA on the output and a multiply and an FMA on the state
-// per (i, j).  The output sum runs over four partial accumulators to break
-// the FMA dependency chain.  The TPU kernel's grid over time blocks, with
-// the state carried in VMEM scratch and T padded to a multiple of 8, becomes
-// the loop over tiles inside one block; a ragged T is just the loop bound.
-// With B * H blocks of D threads (40 blocks at the rwkv6-3b prefill) the
-// kernel is latency-bound: a chunked form on the tensor cores is a later
-// step.
+// Design: the recurrence is sequential in t, so the parallelism is in the
+// (D x D) state of each (batch, head), spread over threads and SMs:
+// * Column slices across blocks: grid (B * H, D / JC); a block owns JC = 32
+//   columns of one head's state (80 blocks at the rwkv6-3b prefill, 320 at
+//   a 4-slot decode step), as 16 column pairs of 8 lanes: 128 threads.
+// * Row groups across lanes: the G = 8 lanes of a column pair sit side by
+//   side in one warp, lane g holding rows g, g + G, g + 2G, ... of both
+//   columns (2 D / G floats in registers: 16 at D = 64), which it takes
+//   from and returns to shared memory, where the block's state slice
+//   passes between global memory and registers in whole 16-byte pieces of
+//   rows (one 128-byte row slice per 8 lanes; a lane's own elements would
+//   spread each warp-wide load over 8 rows).  Per step a lane
+//   reads each of its rows' (r, k, decay) once from shared memory for two
+//   columns, and spends a multiply and two FMAs per state element, into two
+//   partial sums of each o_j.  The lanes' partials meet in a reduce-scatter
+//   (one shuffle that hands column 1 to the upper four lanes and column 0 to
+//   the lower four, then log2(G / 2) shuffles), off the state's dependency
+//   chain; lanes 0 and 4 put o_j for the two columns into a shared tile of
+//   the block's outputs, which the block stores, coalesced, once per tile
+//   (a partial last tile, such as a decode step's, stores o_j directly and
+//   so pays one barrier, not two).
+// * Tile staging: each block stages TT steps at a time in shared memory,
+//   one float4 (r_i, k_i, decay_i = exp(-exp(w_i)), v_i) per (step, row)
+//   for all D rows, and a_t in D / 32 partial sums reduced with shuffles
+//   while staging; a barrier is paid twice per tile, not per step.
+//   All the tile's global loads are issued before any is used, and a full
+//   tile is staged without a branch.  The r, k, w and v of a head are read
+//   by its D / JC column blocks, which run together, so the repeat mostly
+//   hits L2.  In a step, the G lanes of a column pair read G consecutive
+//   float4 (conflict-free) that the warp's other pairs read as a broadcast.
+// A thread reads and writes only its own (rows, columns) elements of the
+// state, so the final state may be written over the initial one in place
+// (decode passes the same cache tensor as both).  The TPU kernel's grid
+// over time blocks, with the state carried in VMEM scratch and T padded to
+// a multiple of 8, becomes the loop over tiles inside one block; a ragged
+// T is just the loop bound.  Still a sequential f32 recurrence: a chunked
+// form on the tensor cores is the next step.
 // ---------------------------------------------------------------------------
-constexpr int kWkvTileElems = 2048;  // steps per tile * D: 40 KB of shared memory
+template <int D>
+struct WkvLayout {
+  static constexpr int G = D < 8 ? D : 8;          // lanes of one column pair (row groups)
+  static constexpr int RPT = D / G;                // state rows per thread
+  static constexpr int CPT = 2;                    // state columns per thread
+  static constexpr int JC = D < 32 ? D : 32;       // columns per block
+  static constexpr int THREADS = JC / CPT * G;
+  static constexpr int TT = D < 32 ? 64 : 2048 / D;  // steps per staged tile
+  static constexpr int SPR = THREADS / D;          // steps staged per round of the block
+  static constexpr int ROUNDS = TT / SPR;          // staging rounds per tile
+  static constexpr int LANES = D < 32 ? D : 32;    // lanes of one a_t partial
+  static constexpr int PARTS = D / LANES;          // a_t partials per step
+};
+
+// Stages the nt steps of a tile: thread x takes row i = x % D of step
+// it * SPR + x / D in round it; off0 is the offset of its first element,
+// (t0 + x / D, i).  A whole tile (FULL) issues all its global loads before
+// it uses any; a partial one (a ragged end, a decode step) runs only the
+// rounds it needs, one after another.
+template <bool FULL, typename T, int D>
+__device__ __forceinline__ void wkv6_stage(
+    const T* __restrict__ r, const T* __restrict__ k, const T* __restrict__ v,
+    const float* __restrict__ w, long long off0, long long step, float ui, int nt,
+    float4 (&rkd)[WkvLayout<D>::TT][D],
+    float (&ap)[WkvLayout<D>::TT][WkvLayout<D>::PARTS]) {
+  using L = WkvLayout<D>;
+  constexpr int SPR = L::SPR, ROUNDS = L::ROUNDS, LANES = L::LANES;
+  const int x = threadIdx.x, i = x % D, srow = x / D;
+  // round it: the decay, a_t's partial sums (shuffles over LANES rows), the
+  // shared stores
+  auto put = [&](int it, float ri, float ki, float wi, float vi) {
+    const int tt = it * SPR + srow;
+    float a = ri * ui * ki;
+#pragma unroll
+    for (int q = LANES / 2; q > 0; q >>= 1) a += __shfl_xor_sync(0xffffffffu, a, q);
+    if (FULL || tt < nt) {
+      rkd[tt][i] = make_float4(ri, ki, expf(-expf(wi)), vi);
+      if (i % LANES == 0) ap[tt][i / LANES] = a;
+    }
+  };
+  if (FULL) {
+    float ra[ROUNDS], ka[ROUNDS], wa[ROUNDS], va[ROUNDS];
+#pragma unroll
+    for (int it = 0; it < ROUNDS; ++it) {  // every load of the tile in flight at once
+      const long long off = off0 + static_cast<long long>(it * SPR) * step;  // off0: step srow
+      ra[it] = to_f32(r[off]);
+      ka[it] = to_f32(k[off]);
+      wa[it] = w[off];
+      va[it] = to_f32(v[off]);
+    }
+#pragma unroll
+    for (int it = 0; it < ROUNDS; ++it) put(it, ra[it], ka[it], wa[it], va[it]);
+  } else {
+    const int rounds = (nt + SPR - 1) / SPR;  // the same for the whole block
+#pragma unroll 1
+    for (int it = 0; it < rounds; ++it) {
+      const long long off = off0 + static_cast<long long>(it * SPR) * step;
+      const bool live = it * SPR + srow < nt;
+      put(it, live ? to_f32(r[off]) : 0.f, live ? to_f32(k[off]) : 0.f, live ? w[off] : 0.f,
+          live ? to_f32(v[off]) : 0.f);
+    }
+  }
+}
 
 template <typename T, int D>
-__global__ void __launch_bounds__(D)
+__global__ void __launch_bounds__(WkvLayout<D>::THREADS)
 wkv6_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restrict__ v,
             const float* __restrict__ w, const float* __restrict__ u, const float* state_in,
             float* state_out, T* __restrict__ out, int t_len, int heads) {
-  static_assert(D % 32 == 0 || (D < 32 && (D & (D - 1)) == 0), "D: a power of two or n * 32");
-  constexpr int TT = kWkvTileElems / D;
-  constexpr int LANES = D < 32 ? D : 32;  // threads of the block in one warp
-  constexpr int WARPS = D / LANES;
-  constexpr unsigned MASK = D < 32 ? (1u << D) - 1u : 0xffffffffu;
-  __shared__ float4 rkd[TT][D];  // (r_i, k_i, decay_i, unused) per staged step
-  __shared__ float vs[TT][D];
-  __shared__ float ap[TT][WARPS];  // a_t, summed per warp
+  using L = WkvLayout<D>;
+  constexpr int G = L::G, RPT = L::RPT, JC = L::JC, NT = L::THREADS, TT = L::TT;
+  constexpr int PARTS = L::PARTS;
+  static_assert(D >= 8 && (D & (D - 1)) == 0, "D: a power of two, at least 8");
+  static_assert(L::CPT == 2 && NT % 32 == 0 && NT % D == 0 && TT % L::SPR == 0 && 32 % G == 0,
+                "column pairs, whole warps, whole column groups in a warp, whole rounds");
+  __shared__ float4 rkd[TT][D];    // (r_i, k_i, decay_i, v_i) per staged step
+  __shared__ float ap[TT][PARTS];  // a_t, in PARTS partial sums
+  __shared__ float os[TT][JC];     // the block's outputs of the tile
+  __shared__ __align__(16) float sb[D][JC + 4];  // the state slice in and out (rows padded)
 
-  const int j = threadIdx.x;
+  const int x = threadIdx.x;
+  const int g = x % G;                     // row group: rows g, g + G, ...
+  const int half = g >= G / 2;             // after the reduce-scatter: column c + half
+  const int c = x / G * 2;                 // this thread's column pair in the block
+  const int j = blockIdx.y * JC + c;       // ... in the head
   const int bh = blockIdx.x;
   const int b = bh / heads, h = bh % heads;
   const long long step = static_cast<long long>(heads) * D;  // between t and t + 1
-  const long long base = static_cast<long long>(b) * t_len * step + static_cast<long long>(h) * D + j;
-  const long long sbase = static_cast<long long>(bh) * D * D + j;
-  const float uj = u[h * D + j];
+  const long long base = static_cast<long long>(b) * t_len * step + static_cast<long long>(h) * D;
+  const long long sbase = static_cast<long long>(bh) * D * D + blockIdx.y * JC;  // (bh, 0, j0)
+  const float ui = u[h * D + x % D];
 
-  float s[D];
+  // The block's (D x JC) state slice moves between global and shared memory
+  // in whole 16-byte pieces of rows (a warp reads 4 rows of 128 bytes per
+  // load), and each thread takes its own elements from shared memory: its
+  // own loads would touch 8 rows per warp-wide load.
+  constexpr int V4 = JC / 4, SQ = (D * V4 + NT - 1) / NT;  // float4 a row, a thread
+  float4 sq[SQ];
 #pragma unroll
-  for (int i = 0; i < D; ++i) s[i] = state_in ? state_in[sbase + static_cast<long long>(i) * D] : 0.f;
+  for (int q = 0; q < SQ; ++q) {
+    const int f = x + q * NT;
+    if (f < D * V4) {
+      sq[q] = state_in ? *reinterpret_cast<const float4*>(
+                             state_in + sbase + static_cast<long long>(f / V4) * D + f % V4 * 4)
+                       : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+  auto slice_to_shared = [&]() {
+#pragma unroll
+    for (int q = 0; q < SQ; ++q) {
+      const int f = x + q * NT;
+      if (f < D * V4) *reinterpret_cast<float4*>(&sb[f / V4][f % V4 * 4]) = sq[q];
+    }
+  };
+  float2 s[RPT];                   // rows m * G + g, columns j and j + 1
+  auto own_from_shared = [&]() {
+#pragma unroll
+    for (int m = 0; m < RPT; ++m) s[m] = *reinterpret_cast<const float2*>(&sb[m * G + g][c]);
+  };
+
+  // step tt of the staged tile: returns o of column c + half, whole on
+  // lanes g = 0 and G / 2
+  auto run_step = [&](int tt) -> float {
+    const float2 vj = make_float2(rkd[tt][j].w, rkd[tt][j + 1].w);
+    float o0[2] = {0.f, 0.f}, o1[2] = {0.f, 0.f};
+#pragma unroll
+    for (int m = 0; m < RPT; ++m) {
+      const float4 e = rkd[tt][m * G + g];
+      o0[m & 1] = fmaf(e.x, s[m].x, o0[m & 1]);
+      o1[m & 1] = fmaf(e.x, s[m].y, o1[m & 1]);
+      s[m].x = fmaf(s[m].x, e.z, e.y * vj.x);
+      s[m].y = fmaf(s[m].y, e.z, e.y * vj.y);
+    }
+    const float p0 = o0[0] + o0[1], p1 = o1[0] + o1[1];
+    float p = (half ? p1 : p0) + __shfl_xor_sync(0xffffffffu, half ? p0 : p1, G / 2);
+#pragma unroll
+    for (int q = G / 4; q > 0; q >>= 1) p += __shfl_xor_sync(0xffffffffu, p, q);
+    float a = 0.f;
+#pragma unroll
+    for (int q = 0; q < PARTS; ++q) a += ap[tt][q];
+    return fmaf(a, half ? vj.y : vj.x, p);
+  };
 
   for (int t0 = 0; t0 < t_len; t0 += TT) {
     const int nt = min(TT, t_len - t0);
-#pragma unroll 4
-    for (int tt = 0; tt < nt; ++tt) {
-      const long long off = base + static_cast<long long>(t0 + tt) * step;
-      const float rj = to_f32(r[off]), kj = to_f32(k[off]);
-      rkd[tt][j] = make_float4(rj, kj, expf(-expf(w[off])), 0.f);
-      vs[tt][j] = to_f32(v[off]);
-      float a = rj * uj * kj;
-#pragma unroll
-      for (int m = LANES / 2; m > 0; m >>= 1) a += __shfl_xor_sync(MASK, a, m);
-      if (j % LANES == 0) ap[tt][j / LANES] = a;
-    }
-    __syncthreads();
-    for (int tt = 0; tt < nt; ++tt) {
-      const float vj = vs[tt][j];
-      float a = 0.f;
-#pragma unroll
-      for (int q = 0; q < WARPS; ++q) a += ap[tt][q];
-      float o[4] = {a * vj, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int i = 0; i < D; ++i) {
-        const float4 e = rkd[tt][i];
-        o[i & 3] = fmaf(e.x, s[i], o[i & 3]);
-        s[i] = fmaf(s[i], e.z, e.y * vj);
+    const long long off0 = base + static_cast<long long>(t0 + x / D) * step + x % D;
+    if (nt == TT) {
+      wkv6_stage<true, T, D>(r, k, v, w, off0, step, ui, nt, rkd, ap);
+      if (t0 == 0) slice_to_shared();
+      __syncthreads();
+      if (t0 == 0) own_from_shared();
+#pragma unroll 2
+      for (int tt = 0; tt < TT; ++tt) {
+        const float o = run_step(tt);
+        if (g % (G / 2) == 0) os[tt][c + half] = o;
       }
-      out[base + static_cast<long long>(t0 + tt) * step] = from_f32<T>((o[0] + o[1]) + (o[2] + o[3]));
+      __syncthreads();  // the outputs are in os; the next tile may overwrite the staged steps
+      for (int e = x; e < TT * JC; e += NT) {
+        out[base + static_cast<long long>(t0 + e / JC) * step + blockIdx.y * JC + e % JC] =
+            from_f32<T>(os[e / JC][e % JC]);
+      }
+    } else {  // the last tile, partial (a ragged end, a decode step): no tile follows,
+              // so its outputs go straight out and it needs one barrier, not two
+      wkv6_stage<false, T, D>(r, k, v, w, off0, step, ui, nt, rkd, ap);
+      if (t0 == 0) slice_to_shared();
+      __syncthreads();
+      if (t0 == 0) own_from_shared();
+      for (int tt = 0; tt < nt; ++tt) {
+        const float o = run_step(tt);
+        if (g % (G / 2) == 0) {
+          out[base + static_cast<long long>(t0 + tt) * step + j + half] = from_f32<T>(o);
+        }
+      }
     }
-    __syncthreads();  // the next tile overwrites the staged steps
   }
 
+  if (t_len > 0) {  // each thread writes only its own elements: no barrier before
 #pragma unroll
-  for (int i = 0; i < D; ++i) state_out[sbase + static_cast<long long>(i) * D] = s[i];
+    for (int m = 0; m < RPT; ++m) *reinterpret_cast<float2*>(&sb[m * G + g][c]) = s[m];
+  } else {
+    slice_to_shared();
+  }
+  __syncthreads();
+#pragma unroll
+  for (int q = 0; q < SQ; ++q) {
+    const int f = x + q * NT;
+    if (f < D * V4) {
+      float* dst = state_out + sbase + static_cast<long long>(f / V4) * D + f % V4 * 4;
+      *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(&sb[f / V4][f % V4 * 4]);
+    }
+  }
 }
 
 template <typename T, int D>
 int launch_wkv6(const void* r, const void* k, const void* v, const void* w, const void* u,
                 const void* state_in, void* state_out, void* out, int b, int t, int h,
                 cudaStream_t st) {
-  wkv6_kernel<T, D><<<b * h, D, 0, st>>>(
+  using L = WkvLayout<D>;
+  const dim3 grid(static_cast<unsigned>(b * h), D / L::JC);
+  wkv6_kernel<T, D><<<grid, L::THREADS, 0, st>>>(
       static_cast<const T*>(r), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const float*>(w), static_cast<const float*>(u),
       static_cast<const float*>(state_in), static_cast<float*>(state_out),

@@ -2,10 +2,12 @@
 ``output[i] = 1.0 - input[i]``, computed in f32 and stored in x's dtype.
 
 On CUDA tensors it is the hand-written ``negate_kernel``
-(``csrc/negate_kernels.cu``: a grid-stride loop over 16-byte vectors and a
-scalar tail), replacing the Pallas kernel of ``repro/kernels/negate.py``;
-on CPU tensors it is the plain version :func:`.ref.negate`.  Bit-exact
-against the plain version in f32.
+(``csrc/negate_kernels.cu``: a grid-stride loop over batches of four
+16-byte vectors per thread, all loaded before the first store, or of one
+where four would leave SMs without a block, and a scalar tail; a
+misaligned view takes a scalar loop), replacing the Pallas kernel of
+``repro/kernels/negate.py``; on CPU tensors it is the plain version
+:func:`.ref.negate`.  Bit-exact against the plain version in f32.
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ def negate(x: torch.Tensor, out: Optional[torch.Tensor] = None) -> torch.Tensor:
     if x.device.type == "cpu":
         res = ref.negate(x)
         return res if out is None else out.copy_(res)
-    check_cuda("x", x, DTYPES)
+    check_cuda("x", x, DTYPES, aligned=False)
     if out is None:
         out = torch.empty_like(x)
     else:

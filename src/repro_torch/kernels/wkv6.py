@@ -5,10 +5,15 @@ and of a decode step):
     o_t = r_t (s_{t-1} + diag(u) k_t^T v_t)
 
 On CUDA tensors it is the hand-written ``wkv6_kernel``
-(``csrc/rwkv_kernels.cu``: one block of D threads per (batch, head), thread
-j holding column j of the state in registers, steps staged in shared memory
-a tile at a time, the ``u`` term factored into one scalar per step), replacing the Pallas kernel of ``repro/kernels/wkv6.py``;
-on CPU tensors it is the plain version :func:`.ref.wkv6`.
+(``csrc/rwkv_kernels.cu``), replacing the Pallas kernel of
+``repro/kernels/wkv6.py``: the sequential f32 recurrence with each (batch,
+head)'s state spread over a grid of (B * H, D / 32) blocks, a block owning
+32 columns of the state and 8 lanes of a warp sharing a pair of columns
+(D / 8 rows of both each, in registers, their partial outputs joined by one
+reduce-scatter of shuffles per step); steps staged in shared memory a tile
+at a time, outputs stored a tile at a time; the ``u`` term factored into
+one scalar per step.  On CPU tensors it is the plain version
+:func:`.ref.wkv6`.
 """
 from __future__ import annotations
 
@@ -22,7 +27,7 @@ from .common import check_cuda, check_in_place, check_out, launch
 
 DTYPES = (torch.float32, torch.bfloat16)
 #: the kernel's template instances, the configs' head sizes (SMOKE, full
-#: width): thread j keeps D state floats in registers
+#: width): a thread keeps 2 D / 8 state floats in registers
 HEAD_DIMS = (8, 64)
 
 
@@ -54,7 +59,7 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     if state is not None:
         check_cuda("state", state, (torch.float32,), device=r.device)
     if d not in HEAD_DIMS:
-        raise ValueError(f"head size {d}: the kernel keeps a state column in registers and "
+        raise ValueError(f"head size {d}: the kernel keeps its state slice in registers and "
                          f"is built for head sizes {HEAD_DIMS}")
     if b * h > 2**31 - 1:
         raise ValueError(f"{b} batches x {h} heads exceed the kernel's grid")

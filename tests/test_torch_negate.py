@@ -1,8 +1,11 @@
 """The port's listing-1 path (the ``negate`` kernel, the ``Negate`` process
 and the quickstart walkthrough) against the JAX package's, on the same
 numpy inputs.  ``1 - x`` is one rounding of an exact difference, so every
-comparison here is bit for bit.  The CUDA kernel is held against the plain
+comparison here is bit for bit.  The CUDA kernel's index arithmetic is
+walked here thread by thread; the kernel itself is held against the plain
 version on the card by ``chip_smoke.py``."""
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,6 +17,7 @@ from repro.processes.negate import Negate as JNegate, NegateParams as JNegatePar
 from repro_torch.core import (CLapp, DeviceTraits, DeviceType, NoMatchingDeviceError, Pipeline,
                               PortError, ProfileParameters, XData)
 from repro_torch.core.registry import launch_counts
+from repro_torch.kernels import _build
 from repro_torch.kernels.negate import negate
 from repro_torch.launch import quickstart
 from repro_torch.processes import Negate
@@ -40,6 +44,80 @@ def test_negate_writes_out_in_place(rng):
     assert torch.equal(x, want)
     with pytest.raises(ValueError, match="CUDA"):
         negate(torch.empty(3, device="meta"))
+
+
+def _kernel_constants():
+    """Threads a block, SMs, the grid cap and U (the most 16-byte vectors in
+    flight per thread), read from the kernel's source."""
+    src = (_build.CSRC / "negate_kernels.cu").read_text()
+    const = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
+    per_sm = int(re.search(r"constexpr int kMaxBlocks = kSMs \* (\d+);", src).group(1))
+    return (int(const["kThreads"]), int(const["kSMs"]), int(const["kSMs"]) * per_sm,
+            int(const["kNegUnroll"]))
+
+
+def _negate_batch(n, itemsize, aligned):
+    """The 16-byte vectors per batch that ``launch_negate`` picks: U when
+    the batches give every SM a block, else 1; 0 (scalar) when misaligned."""
+    threads, sms, _, unroll = _kernel_constants()
+    if not aligned:
+        return 0
+    return unroll if n // (16 // itemsize * unroll) >= sms * threads else 1
+
+
+def _negate_kernel_writes(n, itemsize, u):
+    """Every element index that ``negate_kernel`` writes for n elements in
+    batches of u vectors (0: the scalar loop), with repeats, from the index
+    arithmetic of its source: the grid sized from the batches (or the
+    elements); each thread's batch i at (i & ~31) * u + (i - (i & ~31)) +
+    q * L for q < u, L the live batches of its warp; then the scalar tail
+    from the last whole batch, both in grid-stride loops."""
+    threads, _, max_blocks, _ = _kernel_constants()
+    vec = 16 // itemsize
+    nb = n // (vec * u) if u else 0
+    blocks = min(max(-(-(nb if u else n) // threads), 1), max_blocks)
+    stride = blocks * threads
+    tid = np.arange(stride, dtype=np.int64)
+    writes = []
+    for start in range(0, nb, stride):
+        i = tid[tid + start < nb] + start
+        first = i & ~31
+        lanes = np.minimum(nb - first, 32)
+        at = first * u + (i - first)
+        for q in range(u):
+            writes.append(((at + q * lanes)[:, None] * vec + np.arange(vec)).ravel())
+    for start in range(nb * vec * u, n, stride):
+        writes.append(tid[tid + start < n] + start)
+    return np.concatenate(writes)
+
+
+def test_negate_kernel_batches_by_size():
+    """One vector per thread for the quickstart's 256 x 256 image (128
+    blocks, not 32), four for a 4096 x 4096 one; misaligned: scalar."""
+    assert _negate_batch(256 * 256, 4, True) == 1
+    assert _negate_batch(4096 * 4096, 4, True) == _kernel_constants()[3] == 4
+    assert _negate_batch(4096 * 4096, 2, False) == 0
+
+
+@pytest.mark.parametrize("n", ["1", "VU-1", "VU+1", "1000003"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("batch", ["U", "1", "misaligned"])
+def test_negate_kernel_index_walk_covers_each_element_once(rng, n, dtype, batch):
+    """The kernel's batches of U (or 1) vectors, then its scalar tail, or
+    its scalar loop for a misaligned view, write each element exactly once;
+    applying ``1 - x`` at those indices gives the plain version bit for
+    bit."""
+    itemsize = 4 if dtype == "float32" else 2
+    unroll = _kernel_constants()[3]
+    vu = 16 // itemsize * unroll
+    n = {"1": 1, "VU-1": vu - 1, "VU+1": vu + 1, "1000003": 1000003}[n]
+    idx = _negate_kernel_writes(n, itemsize, {"U": unroll, "1": 1, "misaligned": 0}[batch])
+    assert np.array_equal(np.bincount(idx, minlength=n), np.ones(n, np.int64))
+    x = torch.from_numpy((rng.random(n) * 4 - 2).astype(np.float32)).to(getattr(torch, dtype))
+    got = torch.empty_like(x)
+    at = torch.from_numpy(idx)
+    got[at] = (1.0 - x[at].float()).to(x.dtype)
+    assert torch.equal(got, negate(x))
 
 
 def test_negate_pipeline_matches_reference(rng):

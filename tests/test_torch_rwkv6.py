@@ -6,6 +6,10 @@ inputs made from a seed.
   the TPU), with and without an input state, and with the state carried
   across two calls.  f32 tolerances: rtol 1e-4 / atol 1e-5 for the output
   and the final state (sums over D taken in another order).
+* The arithmetic of the CUDA ``wkv6_kernel``, emulated in plain torch
+  (column slices, row groups whose partial sums meet in the kernel's
+  shuffle order, ``fmaf`` state updates, tiles of staged steps), against
+  the same JAX kernel at the same tolerances.
 * The model's layers (``_group_norm``, ``time_mix``, ``channel_mix``)
   against ``repro.models.rwkv6``'s at f32 1e-5, with and without the
   carried shift vectors and WKV state.
@@ -98,6 +102,111 @@ def test_wkv6_plain_version_matches_the_jax_oracle_in_bf16(rng):
     tb = [torch.from_numpy(x).to(torch.bfloat16) for x in (r, k, v)]
     want_o, want_s = jref.wkv6(*jb, jnp.asarray(w), jnp.asarray(u), jnp.asarray(s0))
     got_o, got_s = wkv6(*tb, _t(w), _t(u), _t(s0))
+    assert got_o.dtype == torch.bfloat16
+    want_o = np.asarray(want_o, np.float32)
+    np.testing.assert_allclose(got_o.float().numpy(), want_o, rtol=0,
+                               atol=2e-2 * np.abs(want_o).max())
+    np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s), rtol=1e-4, atol=1e-4)
+
+
+def _fma(a, b, c):
+    """``fmaf`` on f32 tensors: the product is exact in f64 and the sum is
+    rounded once to f64, then to f32 (this double rounding can differ from
+    the card's single one by an ulp, far inside the tolerances)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _butterfly(x):
+    """The sum over the last axis that lane 0 holds after an xor-shuffle
+    reduction with offsets n/2, n/4, ..., 1."""
+    while x.shape[-1] > 1:
+        half = x.shape[-1] // 2
+        x = x[..., :half] + x[..., half:]
+    return x[..., 0]
+
+
+def _wkv6_layout_emulation(r, k, v, w, u, state=None):
+    """The arithmetic of ``wkv6_kernel`` (``csrc/rwkv_kernels.cu``) in plain
+    torch, with its ``WkvLayout``: the G = min(8, D) lanes of a column pair
+    hold rows g, g + G, ... of both columns; per step and column each lane
+    takes ``o[m & 1] = fmaf(r_i, s_ij, o[m & 1])`` and ``s_ij = fmaf(s_ij,
+    decay_i, k_i * v_j)`` over its rows m and adds its two partials; the G
+    lane sums of a column meet in a reduce-scatter whose adds pair the lanes
+    as an xor-shuffle reduction does (offsets G/2, ..., 1); ``o_j =
+    fmaf(a_t, v_j, sum)``.  Steps are staged in tiles of 64 (D < 32) or
+    2048 / D steps: ``decay = exp(-exp(w))`` once per (step, row), and
+    ``a_t`` as (r_i * u_i) * k_i reduced in shuffle order over warps of
+    min(D, 32) rows, the D / 32 warp sums added in order.  Which block owns
+    a column, and when a tile is staged, change no value, so neither is a
+    loop here."""
+    b, t, h, d = r.shape
+    groups = min(8, d)
+    rows, tile = d // groups, 64 if d < 32 else 2048 // d
+    lanes = min(d, 32)
+    rf, kf, vf, uf = r.float(), k.float(), v.float(), u.float()
+    s = torch.zeros(b, h, d, d) if state is None else state.float().clone()
+    sv = s.view(b, h, rows, groups, d)             # row i = m * G + g
+    out = torch.empty(b, t, h, d)
+    for t0 in range(0, t, tile):
+        nt = min(tile, t - t0)
+        decay = torch.exp(-torch.exp(w[:, t0:t0 + nt].float()))
+        parts = _butterfly((rf[:, t0:t0 + nt] * uf * kf[:, t0:t0 + nt])
+                           .reshape(b, nt, h, d // lanes, lanes))
+        a = torch.zeros(b, nt, h)
+        for q in range(d // lanes):
+            a = a + parts[..., q]
+        for tt in range(nt):
+            ti = t0 + tt
+            vj = vf[:, ti][:, :, None, :]          # (B, H, 1, D) over columns j
+            ri, ki, di = (x.reshape(b, h, rows, groups)
+                          for x in (rf[:, ti], kf[:, ti], decay[:, tt]))
+            o = [torch.zeros(b, h, groups, d), torch.zeros(b, h, groups, d)]
+            for m in range(rows):
+                o[m & 1] = _fma(ri[:, :, m, :, None], sv[:, :, m], o[m & 1])
+                sv[:, :, m] = _fma(sv[:, :, m], di[:, :, m, :, None],
+                                   ki[:, :, m, :, None] * vj)
+            lane_sums = _butterfly((o[0] + o[1]).transpose(-1, -2))   # (B, H, D)
+            out[:, ti] = _fma(a[:, tt, :, None], vf[:, ti], lane_sums)
+    return out.to(r.dtype), s
+
+
+@pytest.mark.parametrize("shape", [(1, 16, 2, 8), (2, 37, 3, 8), (1, 9, 2, 64), (2, 37, 3, 64),
+                                   (4, 1, 3, 8), (4, 1, 3, 64)],
+                         ids=["tile", "ragged-T", "head-64", "head-64-two-tiles", "decode",
+                              "decode-64"])
+@pytest.mark.parametrize("with_state", [False, True], ids=["zeros", "state"])
+def test_wkv6_kernel_arithmetic_matches_pallas(rng, shape, with_state):
+    """The kernel's layout and summation order stay inside the tolerances
+    that ``test_wkv6_matches_pallas`` holds the plain version to (37 steps
+    at D = 64 are a 32-step tile and a ragged second)."""
+    args = _wkv_inputs(rng, *shape, with_state)
+    want_o, want_s = j_wkv6(*map(_j, args))
+    got_o, got_s = _wkv6_layout_emulation(*map(_t, args))
+    np.testing.assert_allclose(got_o.numpy(), np.asarray(want_o), **WKV)
+    np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s), **WKV)
+
+
+@pytest.mark.parametrize("d", [8, 64])
+def test_wkv6_kernel_arithmetic_decodes_from_a_carried_state(rng, d):
+    """A prefill of 36 steps, then one T = 1 decode step from its final state
+    (as ``rwkv6.py`` decodes), equals the JAX kernel over all 37 steps."""
+    r, k, v, w, u, s0 = _wkv_inputs(rng, 2, 37, 3, d, True)
+    o1, s1 = _wkv6_layout_emulation(*(_t(x[:, :36]) for x in (r, k, v, w)), _t(u), _t(s0))
+    o2, s2 = _wkv6_layout_emulation(*(_t(x[:, 36:]) for x in (r, k, v, w)), _t(u), s1)
+    want_o, want_s = j_wkv6(*map(_j, (r, k, v, w, u, s0)))
+    np.testing.assert_allclose(torch.cat([o1, o2], 1).numpy(), np.asarray(want_o), **WKV)
+    np.testing.assert_allclose(s2.numpy(), np.asarray(want_s), **WKV)
+
+
+def test_wkv6_kernel_arithmetic_fits_the_bf16_tolerance(rng):
+    """bf16 r/k/v at the full-width head size: the emulated kernel within
+    2e-2 of max |out| of the JAX oracle on the same bf16 inputs (the
+    tolerance ``chip_smoke.py`` holds the card to), the state within 1e-4."""
+    r, k, v, w, u, s0 = _wkv_inputs(rng, 1, 40, 2, 64, True)
+    jb = [jnp.asarray(x, jnp.bfloat16) for x in (r, k, v)]
+    tb = [torch.from_numpy(x).to(torch.bfloat16) for x in (r, k, v)]
+    want_o, want_s = jref.wkv6(*jb, jnp.asarray(w), jnp.asarray(u), jnp.asarray(s0))
+    got_o, got_s = _wkv6_layout_emulation(*tb, _t(w), _t(u), _t(s0))
     assert got_o.dtype == torch.bfloat16
     want_o = np.asarray(want_o, np.float32)
     np.testing.assert_allclose(got_o.float().numpy(), want_o, rtol=0,
