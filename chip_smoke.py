@@ -9,9 +9,13 @@
 2. Holds every kernel against its plain PyTorch version on the card, at the
    paper's case-study size (16x8x160x160 complex64), an odd small shape, the
    C=64 wide-W regression shape, and for ``fused_recon`` shapes on both sides
-   of its gate; then times kernel, plain version and one library call at the
+   of its gate (inside it also a ragged 3x5x97x131 and 117 coils at
+   256x256); then times kernel, plain version and one library call at the
    case-study size (CUDA events; device times from CUDA-graph replays over
-   input copies that exceed L2, so inputs come from DRAM).
+   input copies that exceed L2, so inputs come from DRAM), and for
+   ``fused_recon`` also the two-launch route (cuFFT + the fused epilogue
+   kernel), its time at 33 frames against 16 (what limits it) and ptxas's
+   registers, spills and shared memory of ``dft_recon_kernel``.
 3. Drives the main path through the user entry points (``CLapp`` ->
    ``KData``/``XData`` -> ``SimpleMRIRecon`` in modes staged / fused /
    fused_kernel, the §IV-B RSS variants, and a 384x384 matrix outside the
@@ -161,7 +165,8 @@ def main() -> None:
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels.coil_combine import rss, ximage_sum
     from repro_torch.kernels.complex_elementprod import complex_elementprod
-    from repro_torch.kernels.mri_fused import dft_fits, fused_epilogue, fused_recon, idft_tables
+    from repro_torch.kernels.mri_fused import (dft_fits, fused_epilogue, fused_recon,
+                                               idft_tables, recon_smem_bytes)
     from repro_torch.processes import (FFT, ComplexElementProd, ComplexElementProdParams,
                                        FFTParams, FusedMRIRecon, FusedReconParams,
                                        RSSCombine, SimpleMRIRecon)
@@ -195,6 +200,9 @@ def main() -> None:
 
     cfg = (CONFIG.frames, CONFIG.coils, CONFIG.height, CONFIG.width)
     odd, wide, big = (2, 3, 24, 20), (1, 64, 2, 17000), (8, 16, 384, 384)
+    # inside the DFT gate: H and W no multiple of the 16-row or 8-column
+    # tiles, and 256x256 with 117 coils (past the former 113-coil limit)
+    ragged, edge = (3, 5, 97, 131), (1, 117, 256, 256)
     elem_tol, sum_tol, wide_tol, dft_tol = (2e-6, 1e-5), (2e-6, 2e-5), (2e-5, 2e-4), (1e-4, 1e-4)
     max_err: dict = {}
 
@@ -237,6 +245,7 @@ def main() -> None:
           complex_elementprod(same_a, same_b, True),
           ref.complex_elementprod(same_a, same_b, True), elem_tol, False)
     for shape, norms in ((cfg, ("ortho",)), (odd, ("ortho", "backward", "forward")),
+                         (ragged, ("ortho", "backward", "forward")), (edge, ("ortho",)),
                          (big, ("ortho",)), (wide, ("ortho",))):
         f, c, h, w = shape
         k, s = crand(*shape), crand(*shape[1:])
@@ -246,7 +255,8 @@ def main() -> None:
                 check(f"fused_recon {comb} norm={norm} {shape} ({side} the gate)",
                       "fused_recon", fused_recon(k, s, comb, norm),
                       ref.mri_fused_recon(k, s, comb, norm), dft_tol, shape == cfg)
-    if not dft_fits(*cfg) or dft_fits(*big) or dft_fits(*wide):
+    if (not all(dft_fits(*sh) for sh in (cfg, ragged, edge))
+            or dft_fits(*big) or dft_fits(*wide)):
         raise SystemExit("chip_smoke: fused_recon gate does not split the shapes as planned")
     del a, b, a_copy, k, s
 
@@ -348,6 +358,39 @@ def main() -> None:
               f"warm-L2 device ms: kernel {warm_ms:.5f}, library {warm_lib:.5f}; "
               f"one host call: kernel {call_ms(lambda: kern(x, s, tables)):.5f}, "
               f"library {call_ms(lambda: lib(x, s, tables)):.5f}")
+    # fused_recon beside the route it has to beat to earn its gate (a
+    # yardstick): cuFFT, then the port's fused epilogue kernel (two
+    # launches); then at 33 frames against 16.  The grid is ceil(H / 16) x F
+    # blocks, two resident an SM: 160 blocks fit one round on 132 SMs (28
+    # SMs hold two), 330 take two rounds.  A ratio near 2 says each block's
+    # own latency sets the time; near 1.5 (3 blocks against 2 on the busiest
+    # SM), an SM's throughput.
+    def two_launch(x, s, t):
+        return fused_epilogue(torch.fft.ifft2(x, norm="ortho"), s)
+
+    print(f"[time] {smi}: fused_recon at {cfg}: two-launch route fused_epilogue(ifft2(k)) "
+          f"cold-L2 device ms {device_ms(two_launch, cold):.5f}, warm "
+          f"{device_ms(two_launch, warm):.5f}; dft_recon_kernel cold "
+          f"{rows['fused_recon']['ms']:.5f}")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    by_frames = {}
+    for frames in (16, 33):
+        xf = crand(frames, c, h, w)
+        nb = (xf.numel() + c * hw) * 8
+        sets = [(xf, s, tables)] + [(xf.clone(), s.clone(), tables)
+                                    for _ in range(max(2, -(-3 * l2 // nb) + 1) - 1)]
+        by_frames[frames] = device_ms(lambda x, s, t: fused_recon(x, s, tables=t), sets)
+        del xf, sets
+    print(f"[time] {smi}: fused_recon at (F, {c}, {h}, {w}), cold-L2 device ms: F=16 "
+          f"{by_frames[16]:.5f} ({-(-h // 16) * 16} blocks), F=33 {by_frames[33]:.5f} "
+          f"({-(-h // 16) * 33} blocks) on {sms} SMs; ratio {by_frames[33] / by_frames[16]:.3f}")
+    for tag, rss_flag in (("sum", 0), ("rss", 1)):     # kTiles = ceil(W / 64) tiles a warp
+        for tiles, (th, tw) in ((-(-w // 64), (h, w)), (4, (256, 256))):
+            regs, smem, spill = ptxas_usage(_build.BUILD_INFO["log"],
+                                            f"dft_recon_kernelILb{rss_flag}ELi{tiles}E")
+            print(f"[ptxas] dft_recon_kernel<{tag}, kTiles={tiles}>: {regs} registers a "
+                  f"thread, {spill} bytes spilled, {smem} + {recon_smem_bytes(th, tw)} "
+                  f"(dynamic, at {th}x{tw}) bytes shared memory a block")
     del x, s, tables, cold, warm
 
     # -- 4. the main path through the entry points ---------------------------

@@ -10,14 +10,19 @@ collapsed into one device pass.
   it, ``torch.fft.ifft2`` followed by the ``fused_epilogue`` kernel, as in
   the reference.
 
-The gate comes from the card's limits, not the TPU's: one block keeps a
-(C, W) complex row of every coil in shared memory (``C*W*8`` bytes within
-the 227 KB opt-in limit), and H, W <= 256 (beyond that the O(N) DFT cost
-per output point loses to the radix FFT, and one 256-thread block no
-longer covers a row with one thread per column).
+The gate comes from the card's limits, not the TPU's.  A block owns 16
+output rows of one frame and keeps, in shared memory, the 16-row tile of
+M_H and the 16-row intermediate T, each split into four TF32 planes, and the
+(16, W) coil sums (:func:`recon_smem_bytes`: 104,448 bytes at 160x160,
+165,888 at 256x256), whatever the coil count.  H, W <= 256: the 8
+warps of a block own at most 4 eight-column tiles each, and beyond that
+the O(N) DFT cost per output point loses to the radix FFT.  Frames ride on
+``gridDim.y``.
 
-Numerics: the DFT accumulates in fp32 in another order than the radix FFT,
-so it matches ``torch.fft.ifft2`` to ~1e-5 relative, not bitwise.
+Numerics: the two DFT passes run on the tensor cores as 3xTF32 (each
+operand split into a TF32 pair, three products per real product, f32
+accumulation), in another order than the radix FFT, so the result matches
+``torch.fft.ifft2`` to ~1e-5 relative, not bitwise.
 """
 from __future__ import annotations
 
@@ -28,11 +33,12 @@ import torch
 
 from repro_torch.core.registry import count_launch, kernel
 from . import _build, ref
-from .common import check_complex64, check_out, coil_grid, launch
+from .common import check_complex64, check_cuda, check_out, coil_grid, launch
 
 MAX_DFT_DIM = 256
 SMEM_OPTIN_BYTES = 232448    # dynamic shared memory one Hopper block may opt into
 MAX_GRID_Y = 65535           # frames ride on gridDim.y
+RECON_ROWS = 16              # output rows a dft_recon_kernel block owns
 _NORM_SCALE = {"ortho": np.sqrt, "backward": float, "forward": lambda n: 1.0}
 
 
@@ -91,18 +97,47 @@ def idft_matrix(n: int, norm: str) -> np.ndarray:
     return m.astype(np.complex64)
 
 
+def idft_fragment_table(n: int, norm: str) -> np.ndarray:
+    """The (n, n) inverse-DFT matrix in the order the kernel's B operand
+    loads it: (ceil(n / 8), 4, n, 4) f32, [k-group, t, column] -> (re of row
+    8 k-group + t, re of row + t + 4, im of the two), zero past row n."""
+    m = idft_matrix(n, norm)
+    groups = -(-n // 8)
+    padded = np.zeros((groups * 8, n, 2), np.float32)
+    padded[:n, :, 0], padded[:n, :, 1] = m.real, m.imag
+    # [group, half, t, column, part] -> [group, t, column, part, half]
+    return np.ascontiguousarray(
+        padded.reshape(groups, 2, 4, n, 2).transpose(0, 2, 3, 4, 1).reshape(groups, 4, n, 4))
+
+
 def idft_tables(h: int, w: int, norm: str,
                 device: torch.device | str) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(M_H, M_W) on ``device``: built once, by ``init()``, per shape/norm."""
+    """(M_H, M_W) on ``device`` as the kernel reads them: M_H as the complex64
+    matrix (:func:`idft_matrix`, staged once per block), M_W in fragment order
+    (:func:`idft_fragment_table`, streamed per coil).  Built once, by
+    ``init()``, per shape/norm."""
     return (torch.from_numpy(idft_matrix(h, norm)).to(device),
-            torch.from_numpy(idft_matrix(w, norm)).to(device))
+            torch.from_numpy(idft_fragment_table(w, norm)).to(device))
+
+
+def recon_smem_bytes(h: int, w: int) -> int:
+    """Dynamic shared memory of one ``dft_recon_kernel`` block (as the .cu's
+    ``recon_smem_bytes``): the M_H row tile and T as A-operand tiles of 8
+    row pairs (64 floats per 8-deep k-group, plus 16), and the (16, W)
+    float2 coil sums (plus 16 floats a row)."""
+    def groups(n: int) -> int:
+        return -(-n // 8)
+    pairs = RECON_ROWS // 2
+    return (pairs * ((groups(h) * 64 + 16) + (groups(w) * 64 + 16))
+            + RECON_ROWS * (groups(w) * 16 + 16)) * 4
 
 
 def dft_fits(f: int, c: int, h: int, w: int) -> bool:
-    """Whole-chain kernel gate: one (C, W) complex row per block in shared
-    memory, H and W within one 256-thread block, frames within gridDim.y."""
+    """Whole-chain kernel gate: H and W within the 8 warps' column tiles
+    (<= 256), the block's shared memory (independent of the coil count)
+    within the opt-in limit, frames within gridDim.y."""
     return (h <= MAX_DFT_DIM and w <= MAX_DFT_DIM and f <= MAX_GRID_Y
-            and c * w * 8 <= SMEM_OPTIN_BYTES)
+            and recon_smem_bytes(h, w) <= SMEM_OPTIN_BYTES)
 
 
 def fused_recon(k: torch.Tensor, smaps: torch.Tensor, combine: str = "sum",
@@ -110,8 +145,8 @@ def fused_recon(k: torch.Tensor, smaps: torch.Tensor, combine: str = "sum",
                 tables: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Whole SimpleMRIRecon chain, (..., C, H, W) k-space -> (..., H, W).
-    ``tables`` are the (M_H, M_W) of :func:`idft_tables` for this shape and
-    ``norm``, made here when not given."""
+    ``tables`` are the (M_H, M_W) of :func:`idft_tables` for this shape
+    and ``norm``, made here when not given."""
     _check_pair(k, smaps, combine)
     if norm not in _NORM_SCALE:
         raise ValueError(f"norm {norm!r}")
@@ -125,7 +160,10 @@ def fused_recon(k: torch.Tensor, smaps: torch.Tensor, combine: str = "sum",
         return fused_epilogue(torch.fft.ifft2(k, norm=norm), smaps, combine, out)
     mh, mw = tables if tables is not None else idft_tables(h, w, norm, k.device)
     check_complex64("M_H", mh, shape=(h, h), device=k.device)
-    check_complex64("M_W", mw, shape=(w, w), device=k.device)
+    check_cuda("M_W", mw, (torch.float32,), device=k.device)   # 16-byte loads
+    if tuple(mw.shape) != (-(-w // 8), 4, w, 4):
+        raise ValueError(f"M_W: shape {tuple(mw.shape)}, expected {(-(-w // 8), 4, w, 4)} "
+                         "as idft_tables makes it")
     out = _result(k, combine, out)
     err = launch(_build.library().rt_dft_recon, k, k.data_ptr(), smaps.data_ptr(),
                  mh.data_ptr(), mw.data_ptr(), out.data_ptr(), int(combine == "rss"), f, c, h, w)

@@ -117,9 +117,9 @@ def test_dft_gate_from_card_limits():
     assert dft_fits(16, 8, 160, 160)
     assert not dft_fits(8, 16, 384, 384)            # H, W > 256
     assert not dft_fits(1, 64, 2, 17000)
-    assert dft_fits(1, 116, 256, 250)               # 116*250*8 = 232000 B of smem
-    assert not dft_fits(1, 117, 256, 250)           # over the 227 KB opt-in limit
-    assert not dft_fits(70000, 1, 8, 8)             # frames ride on gridDim.y
+    assert dft_fits(65535, 117, 256, 256)           # every edge; smem has no coil term
+    assert not dft_fits(1, 117, 256, 257)           # W one past the 8 warps' tiles
+    assert not dft_fits(65536, 1, 8, 8)             # frames ride on gridDim.y
 
 
 def test_registry_names_and_cpu_runs_count_no_launch(rng):
