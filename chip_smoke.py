@@ -21,6 +21,12 @@
    fused_kernel, the §IV-B RSS variants, and a 384x384 matrix outside the
    fused kernel's gate), checks each result against a complex128 numpy
    oracle, and shows through the launch counts that every kernel ran.
+   Each process is compiled (captured into a CUDA graph on its second
+   launch, replayed after): each phase checks one capture and a replay
+   for every later launch, then uploads a second k-space (the frames in
+   reverse order) into the same input and checks the replays against its
+   oracle, and prints the launch p50 beside the kernels' device time a
+   launch (``torch.profiler`` over 10 replays).
 4. Holds the LM kernels (``rmsnorm``, ``flash_attention``) against their
    plain versions on the card (bf16 at rtol/atol 2e-2, f32 at rtol 1e-4 /
    atol 1e-5) at the qwen3-14b and rwkv6-3b serving shapes (the
@@ -43,11 +49,20 @@
    made on the card from a seed) through ``LMServer``: 10 requests of
    17-1024 prompt tokens, 4 slots, 32 new tokens each; checks the tokens,
    that every kernel of the model ran on every prefill and step, and that
-   the decode state never moved host to device.  After each, runs the
+   the decode state never moved host to device; the decode step is
+   captured once and replayed on every later step.  Then two more requests
+   repeat the first prompt (a prompt length seen before): their first
+   token must be the first request's, and no prefill, splice or release
+   may have been captured.  After each, runs the
    first 2 layers of the same weights on the card (in bf16 and in f32) and
-   on a CPU app in f32, and compares the logits.
+   on a CPU app in f32, and compares the logits; then runs those 2 layers
+   through ``DecodeSession`` for 32 eager and 32 replayed decode steps from
+   the same prefilled state and checks that the tokens are identical and
+   the decode state bit for bit (or, where cuBLAS chose otherwise under
+   capture, the logits within the bands of ``PERF.md`` §2).
 6. Runs the paper's listing 1 (``repro_torch.launch.quickstart``:
-   ``Pipeline(app) | Negate(app)`` on a 256x256 image) on the card.
+   ``Pipeline(app) | Negate(app)`` on a 256x256 image) on the card,
+   replayed from its second run, bit for bit.
 7. Ends with a ``{"kernels": [...]}`` line and a
    ``{"ok": true, "device": {...}}`` line.
 
@@ -398,29 +413,64 @@ def main() -> None:
     want_sum, want_rss = oracle(kdata, smaps), oracle(kdata, smaps, "rss")
     reset_launch_counts()
 
-    def run_phase(label, build, want, expect, launches=20):
+    from torch.profiler import ProfilerActivity, profile
+
+    def busy_ms(fn, reps=10):
+        """Device time of the kernels of one call of ``fn``: the CUDA
+        kernels' self time under ``torch.profiler`` over ``reps`` calls, or
+        None when the trace holds no kernels."""
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as trace:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        busy = sum(e.self_device_time_total for e in trace.key_averages()
+                   if e.device_type.name == "CUDA")
+        return busy / reps / 1e3 if busy > 0 else None
+
+    def run_phase(label, build, k, want, expect, launches=20):
+        """``launches`` launches of the built process on ``k``, then a
+        second k-space (``k``'s frames in reverse order) uploaded into the
+        same input and launched again: each result against its oracle."""
         app = CLapp().init(PlatformTraits(), DeviceTraits())
         before = launch_counts()
         t0 = time.perf_counter()
-        proc, h_out = build(app)
+        proc, h_in, h_out = build(app)
         proc.init()
         torch.cuda.synchronize()
         init_ms = (time.perf_counter() - t0) * 1e3
         prof = ProfileParameters(enable=True)
-        for _ in range(launches):
-            proc.launch(prof)
-        app.device2Host(h_out)
-        got = app.getData(h_out).get_ndarray(0).host
-        if got.shape != want.shape or not np.isfinite(got).all():
-            raise SystemExit(f"chip_smoke: {label}: bad output {got.shape}")
-        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4, err_msg=label)
+        again = 1 if launches == 1 else 5   # in place (listing 6) overwrites its input
+        for kdata_in, want_out, n in ((k, want, launches), (k[::-1], want[::-1], again)):
+            if kdata_in is not k:
+                next(a for a in app.getData(h_in) if a.name == "kdata").set_host(
+                    np.ascontiguousarray(kdata_in))
+                app.host2device(h_in)
+            for _ in range(n):
+                proc.launch(prof)
+            app.device2Host(h_out)
+            got = app.getData(h_out).get_ndarray(0).host
+            if got.shape != want_out.shape or not np.isfinite(got).all():
+                raise SystemExit(f"chip_smoke: {label}: bad output {got.shape}")
+            np.testing.assert_allclose(got, want_out, rtol=1e-4, atol=1e-4, err_msg=label)
+        total = launches + again
+        graph = getattr(proc, "chain", proc)    # SimpleMRIRecon launches its chain
+        if (graph.captures, graph.replays) != (1, total - 1):
+            raise SystemExit(f"chip_smoke: {label}: {graph.captures} captures and "
+                             f"{graph.replays} replays over {total} launches, expected 1 and "
+                             f"{total - 1}")
         delta = {k: v - before.get(k, 0) for k, v in launch_counts().items()}
         missing = [k for k in expect if delta.get(k, 0) < launches]
         if missing:
             raise SystemExit(f"chip_smoke: {label}: kernels {missing} did not run "
                              f"on every launch (counts {delta})")
+        replays = graph.replays
+        busy = busy_ms(proc.launch) if launches > 1 else None
+        busy_txt = "not measured" if busy is None else f"{busy:.4f} ms"
         print(f"[path] {label}: init {init_ms:.2f} ms, launch p50 {prof.p50() * 1e3:.4f} ms "
-              f"over {launches}, max abs err vs oracle {np.abs(got - want).max():.3e}, "
+              f"over {total} (captures {graph.captures}, replays {replays}; a second "
+              f"k-space from launch {launches + 1}), kernels' device time a launch {busy_txt}, "
+              f"max abs err vs oracle {np.abs(got - want_out).max():.3e}, "
               f"launches {{{', '.join(f'{k}: {v}' for k, v in delta.items() if v)}}}")
 
     def recon(mode, in_place=False, k=kdata, sm=smaps):
@@ -430,7 +480,7 @@ def main() -> None:
                                                          np.complex64)}))
             p = SimpleMRIRecon(app, mode=mode, in_place=in_place)
             p.in_handle, p.out_handle = h_in, h_out
-            return p, h_out
+            return p, h_in, h_out
         return build
 
     def rss_chain(app):
@@ -443,7 +493,7 @@ def main() -> None:
         p_prod.in_handle = p_prod.out_handle = h_work
         p_prod.set_launch_parameters(ComplexElementProdParams(conjugate=True))
         p_rss.in_handle, p_rss.out_handle = h_work, h_out
-        return ProcessChain(app, [p_fft, p_prod, p_rss], mode="staged"), h_out
+        return ProcessChain(app, [p_fft, p_prod, p_rss], mode="staged"), h_in, h_out
 
     def fused_rss(app):
         h_in = app.addData(KData({"kdata": kdata, "sensitivity_maps": smaps}))
@@ -451,22 +501,23 @@ def main() -> None:
         p = FusedMRIRecon(app)
         p.in_handle, p.out_handle = h_in, h_out
         p.set_launch_parameters(FusedReconParams(combine="rss"))
-        return p, h_out
+        return p, h_in, h_out
 
-    run_phase("SimpleMRIRecon staged", recon("staged"), want_sum,
+    run_phase("SimpleMRIRecon staged", recon("staged"), kdata, want_sum,
               ["complexElementProd", "xImageSum"])
-    run_phase("SimpleMRIRecon fused", recon("fused"), want_sum,
+    run_phase("SimpleMRIRecon fused", recon("fused"), kdata, want_sum,
               ["complexElementProd", "xImageSum"])
-    run_phase("SimpleMRIRecon fused_kernel", recon("fused_kernel"), want_sum,
+    run_phase("SimpleMRIRecon fused_kernel", recon("fused_kernel"), kdata, want_sum,
               ["mriFusedRecon"])
-    run_phase("SimpleMRIRecon staged in_place (listing 6)", recon("staged", True),
+    run_phase("SimpleMRIRecon staged in_place (listing 6)", recon("staged", True), kdata,
               want_sum, ["complexElementProd", "xImageSum"], launches=1)
-    run_phase("FFT > ComplexElementProd > RSSCombine (§IV-B)", rss_chain, want_rss,
+    run_phase("FFT > ComplexElementProd > RSSCombine (§IV-B)", rss_chain, kdata, want_rss,
               ["complexElementProd", "rss"])
-    run_phase("FusedMRIRecon combine=rss (§IV-B)", fused_rss, want_rss, ["mriFusedRecon"])
+    run_phase("FusedMRIRecon combine=rss (§IV-B)", fused_rss, kdata, want_rss,
+              ["mriFusedRecon"])
     k_big, s_big = synthetic_kdata(*big, seed=1)
     run_phase(f"SimpleMRIRecon fused_kernel {big} (outside the gate)",
-              recon("fused_kernel", k=k_big, sm=s_big), oracle(k_big, s_big),
+              recon("fused_kernel", k=k_big, sm=s_big), k_big, oracle(k_big, s_big),
               ["mriFusedEpilogue"], launches=5)
     counts = launch_counts()
     names = {"complex_elementprod": "complexElementProd", "ximage_sum": "xImageSum",
@@ -485,7 +536,8 @@ def main() -> None:
     from repro_torch.launch import quickstart
     from repro_torch.models import build_model
     from repro_torch.models.common import tree_map
-    from repro_torch.processes.lm import weights_data
+    from repro_torch.core.arena import device_view
+    from repro_torch.processes.lm import DecodeSession, weights_data
     from repro_torch.serve import LMServer, SamplingConfig
 
     bf16, f32 = torch.bfloat16, torch.float32
@@ -802,8 +854,9 @@ def main() -> None:
                           sampling=SamplingConfig(max_new_tokens=32), app=app)
         rng = np.random.default_rng(0)
         lengths = [int(n) for n in rng.integers(17, 1025, size=10)]
-        for n in lengths:
-            server.submit(rng.integers(0, cfg.vocab, n).tolist())
+        prompts = [rng.integers(0, cfg.vocab, n).tolist() for n in lengths]
+        for prompt in prompts:
+            server.submit(prompt)
         torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
         t0 = time.perf_counter()
@@ -824,6 +877,11 @@ def main() -> None:
         if state_h2d or server.decode_profile.phase_total("transfer"):
             raise SystemExit(f"chip_smoke: {arch}: the decode state moved {state_h2d} bytes "
                              "host to device")
+        step = server.decode_pipe.build().executor
+        if (step.captures, step.replays) != (1, server.steps - 1):
+            raise SystemExit(f"chip_smoke: {arch}: decode step captured {step.captures} and "
+                             f"replayed {step.replays} times over {server.steps} steps, "
+                             f"expected 1 and {server.steps - 1}")
         n_tokens = sum(len(r) for r in results)
         prefill_ms = [t * 1e3 for t in server.prefill_profile.samples]
         decode_ms = [t * 1e3 for t in server.decode_profile.samples]
@@ -832,13 +890,42 @@ def main() -> None:
               f"tokens/s; {server.admitted} prefills, {server.steps} decode steps")
         print(f"[lm] {arch} prefill ms per prompt (length: ms): "
               f"{', '.join(f'{n}: {t:.2f}' for n, t in zip(lengths, prefill_ms))}; "
-              f"mean {statistics.mean(prefill_ms):.2f}")
+              f"mean {statistics.mean(prefill_ms):.2f}; first {prefill_ms[0]:.2f}, mean of the "
+              f"other {len(prefill_ms) - 1} {statistics.mean(prefill_ms[1:]):.2f}")
+        print(f"[lm] {smi}: {arch} decode step: graph captures {step.captures}, replays "
+              f"{step.replays} over {server.steps} steps")
         print(f"[lm] {arch} decode ms per step: p50 {statistics.median(decode_ms):.3f}, "
               f"mean {statistics.mean(decode_ms):.3f}, min {min(decode_ms):.3f}, "
               f"max {max(decode_ms):.3f}; peak device memory "
               f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches "
               f"{', '.join(f'{k} {n}' for k, n in counts.items() if n)}; decode state h2d "
               f"bytes {state_h2d}")
+
+        # a prompt length seen before: the first prompt twice more
+        n_before = len(results)
+        for _ in range(2):
+            server.submit(prompts[0])
+        results = server.run()
+        repeat_ms = [t * 1e3 for t in server.prefill_profile.samples[n_before:]]
+        eager_procs = ([p.build().executor for p in server._prefill_pipes.values()]
+                       + list(server._splice.values()) + list(server._release.values()))
+        captured = [type(p).__name__ for p in eager_procs if p.captures or p.replays]
+        repeats = results[n_before:]
+        if (captured or any(r[0] != results[0][0] for r in repeats)
+                or any(len(r) != 32 or not all(0 <= t < cfg.vocab for t in r) for r in repeats)
+                or (step.captures, step.replays) != (1, server.steps - 1)):
+            raise SystemExit(f"chip_smoke: {arch}: the repeated prompt length: captured "
+                             f"{captured}, first tokens {[r[0] for r in repeats]} against "
+                             f"{results[0][0]}, decode step {step.captures} captures and "
+                             f"{step.replays} replays over {server.steps} steps")
+        print(f"[lm] {smi}: {arch} first prompt ({lengths[0]} tokens) twice more: prefill ms "
+              f"{', '.join(f'{t:.2f}' for t in repeat_ms)} (eager; no prefill, splice or "
+              f"release captured), first tokens equal the first request's, the 32 tokens of "
+              f"each equal to it {sum(r == results[0] for r in repeats)} of 2 (every row decodes "
+              f"at the batch's largest position, so later tokens depend on the other slots); "
+              f"decode step replays {step.replays} over "
+              f"{server.steps} steps; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
 
         # whole model, 2 layers at full width: the same weights on the card
         # (kernels) and on the CPU (plain versions), teacher-forced from the
@@ -891,7 +978,70 @@ def main() -> None:
                   + f"; max |logit| {scale:.4e} {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise SystemExit(f"chip_smoke: 2-layer {arch} {label} disagrees with the CPU")
+        del runs, caches
+        eager_against_replayed(cfg, two, p_bf16, rng)
         return counts
+
+    def eager_against_replayed(cfg, two, p_bf16, rng, steps=32):
+        """The 2-layer full-width model through ``DecodeSession``: ``steps``
+        eager decode steps (``init()`` before each keeps the launch eager),
+        then from the same prefilled state ``steps`` replays of the step's
+        graph.  The tokens must be identical; the decode state bit for bit,
+        since the replay runs the same kernels on the same addresses.  If it
+        is not (cuBLAS chose another algorithm under capture), the max abs
+        difference of each cache leaf is printed and one more step's logits
+        from either state are held to the bands of ``PERF.md`` §2."""
+        app = CLapp().init(PlatformTraits(), DeviceTraits())
+        model = build_model(two)
+        weights, wcodec = weights_data(model.param_specs())
+        app.addData(weights)
+        views = weights.device_views()
+        for leaf, t in wcodec.flatten(p_bf16).items():
+            views[leaf].copy_(t)
+        sess = DecodeSession(app, model, weights, batch=4, max_len=256)
+        sess.prefill(rng.integers(0, two.vocab, (4, 64)).astype(np.int32))
+        step = sess.decode_pipe.build().executor
+        blob = sess.state.device_blob
+        start = blob.clone()
+        eager = []
+        for _ in range(steps):
+            step.init()
+            eager.append(sess.step())
+        eager_state = blob.clone()
+        blob.copy_(start)
+        replayed = [sess.step() for _ in range(steps)]
+        if (step.captures, step.replays) != (1, steps):
+            raise SystemExit(f"chip_smoke: 2-layer {cfg.name}: {step.captures} captures and "
+                             f"{step.replays} replays, expected 1 and {steps}")
+        same_tokens = all(np.array_equal(a, b) for a, b in zip(eager, replayed))
+        same_state = bool(torch.equal(eager_state, blob))
+        gaps = ""
+        if not same_state:
+            layout = sess.state.layout
+            eager_views = {e.name: device_view(eager_state, e) for e in layout.entries}
+            now = sess.state.device_views()
+            gaps = "; max abs difference by leaf: " + ", ".join(
+                f"{n} {float((now[n].float() - v.float()).abs().max()):.4e}"
+                for n, v in eager_views.items() if v.dtype.is_floating_point)
+            params = wcodec.unflatten(weights.device_views())
+            logits = []
+            for state in (eager_views, now):
+                cache = sess.ccodec.unflatten({n: state[n].clone() for n in sess.ccodec.names})
+                lg, _ = model.decode_step(params, state["token"].clone(),
+                                          state["positions"].max(), cache)
+                logits.append(lg.float())
+            scale = float(logits[0].abs().max())
+            band = (5e-2 if cfg.family == "ssm" else 2e-2) * scale
+            gap = float((logits[1] - logits[0]).abs().max())
+            gaps += f"; next-step logits max abs difference {gap:.4e} (limit {band:.4e})"
+            if gap > band:
+                raise SystemExit(f"chip_smoke: 2-layer {cfg.name}: replayed logits outside "
+                                 "the band")
+        print(f"[lm-check] {smi}: 2-layer {cfg.name}, {steps} eager against {steps} replayed "
+              f"decode steps (batch 4, 64-token prompts): tokens identical {same_tokens}, "
+              f"decode state bit for bit {same_state}{gaps}")
+        if not same_tokens:
+            raise SystemExit(f"chip_smoke: 2-layer {cfg.name}: replayed tokens differ")
 
     def dense_kernels(cfg, server):
         return {"rmsnorm": (4 * cfg.n_layers + 1) * (server.admitted + server.steps),
@@ -913,12 +1063,18 @@ def main() -> None:
     reset_launch_counts()
     qs = quickstart.run(runs=10)
     qs_counts = launch_counts()
-    if qs_counts["negate_kernel"] != 11 or not qs["device"].startswith("cuda"):
+    if (qs_counts["negate_kernel"] != 11 or not qs["device"].startswith("cuda")
+            or (qs["captures"], qs["replays"]) != (1, 10)):
         raise SystemExit(f"chip_smoke: quickstart ran on {qs['device']} with launches "
-                         f"{qs_counts}, expected 11 negate_kernel launches on the card")
-    print(f"[path] quickstart (Pipeline | Negate, 256x256 f32) on {qs['device']}: mean launch "
-          f"{qs['mean_launch_s'] * 1e3:.4f} ms over 10 runs, output == 1 - x bit for bit, "
-          f"negate_kernel launches {qs_counts['negate_kernel']}")
+                         f"{qs_counts}, {qs['captures']} captures and {qs['replays']} "
+                         "replays; expected 11 negate_kernel launches on the card, 1 "
+                         "capture and 10 replays")
+    print(f"[path] {smi}: quickstart (Pipeline | Negate, 256x256 f32) on {qs['device']}: mean "
+          f"launch {qs['mean_launch_s'] * 1e3:.4f} ms, p50 {np.median(qs['launch_s']) * 1e3:.4f} "
+          f"over 10 runs (captures {qs['captures']}, replays {qs['replays']}; each run, the "
+          f"first capturing: {', '.join(f'{t * 1e3:.4f}' for t in qs['launch_s'])} ms), "
+          f"output == 1 - x bit for bit, negate_kernel launches "
+          f"{qs_counts['negate_kernel']}")
 
     # -- 9. result lines -----------------------------------------------------
     kernels = []

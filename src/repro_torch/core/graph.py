@@ -303,9 +303,11 @@ class Pipeline:
         """Launch the graph once on ``inputs`` (one Data, or None when the
         input is bound) and return the output Data; ``sync=True`` copies it
         back to the host.  A new input is copied into the pipeline's input
-        buffer and uploaded in one call; that upload is the only host to
-        device traffic of a launch, and ``profile`` records it under the
-        ``"transfer"`` phase."""
+        buffer and uploaded in one call into the same device blob, so a
+        replayed graph of the executor (:meth:`Process.launch` on the card)
+        reads it; that upload is the only host to device traffic of a
+        launch, and ``profile`` records it under the ``"transfer"`` phase.
+        With the input bound (``run(None)``) nothing is uploaded."""
         if mode != "launch":
             raise NotImplementedError(
                 f"mode {mode!r}: the port has the launch mode; stream and serve come "

@@ -15,7 +15,10 @@ The paper's two key properties:
   twiddle tables of the fused reconstruction).  :meth:`Process.launch` only
   executes: it reads zero-copy views of the arena blobs, runs ``apply`` and
   writes the result into the output arena, allocating nothing but the
-  kernels' outputs.
+  kernels' outputs.  On a CUDA app the launch is compiled, as the JAX
+  package's ``aot_compile`` compiles it: the second launch after
+  ``init()`` captures the launch into one CUDA graph (:func:`capture_graph`)
+  and every later launch replays it, one host call for all its kernels.
 * **zero-copy chaining** — a stage's output handle doubling as the next
   stage's input handle moves no bytes.  ``apply`` receives views of the
   output arena as ``out``; a kernel that writes there directly (in place,
@@ -37,11 +40,12 @@ from __future__ import annotations
 import dataclasses
 import time
 import warnings
-from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from . import registry
 from .app import CLapp, DataHandle, INVALID_HANDLE
 from .arena import is_bfloat16, pack_device, spec_dtype, torch_dtype
 from .data import TensorSpec
@@ -104,6 +108,32 @@ class _Timer:
         end.record(self._stream)
         end.synchronize()
         return self._start.elapsed_time(end) / 1e3
+
+
+def capture_graph(body: Callable[[], None], device: torch.device) -> Callable[[], None]:
+    """Capture ``body`` (one launch's device work) into a CUDA graph on
+    ``device`` and return its replay.  Capturing records the kernels and
+    runs none of them.  The compiled launch's one seam: the CPU tests put
+    a recorder here."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.device(device), torch.cuda.graph(graph):
+        body()
+    return graph.replay
+
+
+def _graphs_on(device: torch.device) -> bool:
+    """Whether a launch on ``device`` is compiled (on a CUDA device)."""
+    return device.type == "cuda"
+
+
+@dataclasses.dataclass
+class _Graph:
+    """A captured launch: its replay, the blobs it was captured on, and
+    the kernel launches one replay makes."""
+
+    replay: Callable[[], None]
+    key: Tuple
+    launches: Dict[str, int]
 
 
 def out_view(out: Optional[Dict[str, torch.Tensor]], name: str,
@@ -170,10 +200,17 @@ class DonatedBufferError(RuntimeError):
 class Process:
     """Base class for operators.  Subclasses implement :meth:`apply`,
     declare their wiring contract in :attr:`ports`, and may extend
-    :meth:`init` with their own one-time work."""
+    :meth:`init` with their own one-time work.
+
+    ``captures`` and ``replays`` count the CUDA graphs this process
+    captured and the launches that replayed one (:meth:`launch`)."""
 
     #: kernel modules this process needs (built and loaded in init)
     kernel_names: Sequence[str] = ()
+
+    #: whether a launch on the card is compiled into a CUDA graph; a class
+    #: whose launches rarely repeat on one wiring sets it False
+    graphed: bool = True
 
     ports: Dict[str, Port] = {"in": Port(), "out": Port()}
 
@@ -186,6 +223,10 @@ class Process:
         self._in_place_name: Optional[str] = None
         self._initialized = False
         self._legacy_warned = False
+        self._graph: Optional[_Graph] = None
+        self._warm = False          # launched eagerly since init / the last drop
+        self.captures = 0
+        self.replays = 0
 
     # -- wiring ---------------------------------------------------------------
     @property
@@ -323,6 +364,7 @@ class Process:
         self._in_place_name = next(
             (n for n in self._in_names if self.in_handles[n] == self.out_handle),
             None)
+        self._drop_graph()
         self._initialized = True
 
     def _check_donation(self) -> None:
@@ -342,22 +384,109 @@ class Process:
         return d.device_views()
 
     def launch(self, profile: ProfileParameters | None = None) -> None:
-        """Hot path: read the arena views, run, write the output arena."""
+        """Hot path: read the arena views, run, write the output arena.
+
+        On a CPU app every launch runs eagerly.  On a CUDA app the launch
+        is compiled: the first launch after ``init()`` runs eagerly, which
+        warms up what a capture cannot do (cuBLAS handles, cuFFT plans,
+        the kernel library's lazy load, the kernels' first
+        ``cudaFuncSetAttribute``); the second captures the launch into one
+        CUDA graph and replays it (capturing runs nothing); every later
+        launch replays it.  The warm-up is not done in ``init()`` because
+        it would run an in-place process on live state: a ``DecodeStep``
+        would write K/V into every row of the server's cache.  A process
+        launched once stays eager, and so does every launch of a class
+        that sets :attr:`graphed` False.
+
+        The graph belongs to the wiring it was captured on, as the JAX
+        package's compiled executable does: ``init()``, a changed
+        :meth:`set_launch_parameters`, a re-wired handle, or a blob of a
+        read or written Data that moved or changed size since the capture
+        drops it, and the next launch is eager again.  A capture or replay
+        error reaches the caller; nothing falls back to an eager launch.
+        ``profile`` times each launch around the replay, outside the graph."""
         if not self._initialized:
             self.init()
         self._check_donation()
         app = self.getApp()
+        timer = _Timer(app.device) if profile is not None and profile.enable else None
+        if self.graphed and _graphs_on(app.device):
+            self._launch_compiled()
+        else:
+            self._launch_eager()
+        if timer is not None:
+            profile.record(timer.seconds())
+
+    def _launch_compiled(self) -> None:
+        key = self._graph_key()
+        if self._graph is not None and self._graph.key != key:
+            self._drop_graph()
+        if self._graph is None:
+            if not self._warm or key is None:
+                self._launch_eager()
+                self._warm = True
+                return
+            self._graph = self._capture(key)
+        self._graph.replay()
+        registry.add_launches(self._graph.launches)
+        self.replays += 1
+        self._mark_written()
+
+    def _capture(self, key: Tuple) -> _Graph:
+        tally: Dict[str, int] = {}
+
+        def body() -> None:
+            with registry.counting_into(tally):
+                self._run()
+
+        replay = capture_graph(body, self.getApp().device)
+        self.captures += 1
+        return _Graph(replay=replay, key=key, launches=dict(tally))
+
+    def _drop_graph(self) -> None:
+        self._graph = None
+        self._warm = False
+
+    def _graph_handles(self) -> List[DataHandle]:
+        """Every handle whose blob a launch reads or writes."""
+        return [self.in_handles[n] for n in self._in_names] + [self.out_handle]
+
+    def _graph_key(self) -> Optional[Tuple]:
+        """(handle, blob address, blob size) of every Data a launch reads or
+        writes, or None while one has no device blob yet."""
+        app = self.getApp()
+        key = []
+        for h in self._graph_handles():
+            blob = app.getData(h).device_blob
+            if blob is None:
+                return None
+            key.append((h, blob.data_ptr(), blob.numel()))
+        return tuple(key)
+
+    def _written_handles(self) -> List[DataHandle]:
+        return [self.out_handle]
+
+    def _mark_written(self) -> None:
+        app = self.getApp()
+        for h in self._written_handles():
+            app._mark_written(h)
+
+    def _launch_eager(self) -> None:
+        """One launch with no graph (a staged chain runs its stages so)."""
+        self._run()
+        self._mark_written()
+
+    def _run(self) -> None:
+        """A launch's device work: read the arena views, apply, write the
+        output arena.  Captured as it is into the launch's graph."""
+        app = self.getApp()
         ins = [self._input_views(self.in_handles[n]) for n in self._in_names]
         aux = dict(zip(self._in_names[1:], ins[1:]))
-        timer = _Timer(app.device) if profile is not None and profile.enable else None
         dout = app.getData(self.out_handle)
         if dout.device_blob is None:
             app.host2device(self.out_handle)
         outs = self._apply_checked(ins[0], aux, dout.device_views())
         pack_device(outs, dout.layout, out=dout.device_blob)
-        app._mark_written(self.out_handle)
-        if timer is not None:
-            profile.record(timer.seconds())
 
 
 class ProcessChain(Process):
@@ -407,23 +536,39 @@ class ProcessChain(Process):
         self._in_names = tuple(names)
         self._in_place_name = next(
             (n for n, h in zip(names, inputs) if h == self.out_handle), None)
+        self._drop_graph()
         self._initialized = True
 
-    def launch(self, profile: ProfileParameters | None = None) -> None:
-        if not self._initialized:
-            self.init()
-        app = self.getApp()
-        timer = _Timer(app.device) if profile is not None and profile.enable else None
+    @property
+    def graphed(self) -> bool:
+        """A chain is compiled when each of its stages would be."""
+        return all(s.graphed for s in self.stages)
+
+    def _graph_handles(self) -> List[DataHandle]:
+        return [h for s in self.stages for h in s._graph_handles()]
+
+    def _graph_key(self) -> Optional[Tuple]:
+        # a stage given new launch parameters waits for its init()
+        if not all(s._initialized for s in self.stages):
+            return None
+        return super()._graph_key()
+
+    def _written_handles(self) -> List[DataHandle]:
+        if self.mode == "staged":
+            return [s.out_handle for s in self.stages]
+        return [self.out_handle]
+
+    def _run(self) -> None:
+        """Staged: each stage's own launch, with no graph of its own (the
+        chain's graph holds them all); fused: the stages' ``apply`` back
+        to back, only the last one writing an arena."""
         if self.mode == "staged":
             for s in self.stages:
-                s.launch()
-        else:
-            self._launch_fused()
-        if timer is not None:
-            profile.record(timer.seconds())
-
-    def _launch_fused(self) -> None:
-        self._check_donation()
+                if not s._initialized:
+                    s.init()
+                s._check_donation()
+                s._launch_eager()
+            return
         app = self.getApp()
         env: Dict[DataHandle, Dict[str, torch.Tensor]] = {
             h: self._input_views(h) for h in self.in_handles.values()}
@@ -436,4 +581,3 @@ class ProcessChain(Process):
             env[s.out_handle] = s._apply_checked(views, aux, out)
         dout = app.getData(self.out_handle)
         pack_device(env[self.out_handle], dout.layout, out=dout.device_blob)
-        app._mark_written(self.out_handle)

@@ -10,14 +10,19 @@ its log.
 
 Each entry carries a plain-int launch count: a wrapper adds one where it
 launches its CUDA kernel (and nowhere else), so a run can show that its
-main path really went through the kernel.
+main path really went through the kernel.  While a process's launch is
+captured into a CUDA graph (:meth:`repro_torch.core.process.Process.launch`),
+nothing executes: the wrappers' counts go to that capture's own tally
+(:func:`counting_into`), and each replay adds the tally to the counts
+(:func:`add_launches`), so the counts stay the kernels that really ran.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import importlib
 import traceback
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence
 
 
 @dataclasses.dataclass
@@ -40,6 +45,7 @@ class KernelCompileError(RuntimeError):
 
 
 _GLOBAL: Dict[str, KernelEntry] = {}
+_tally: Optional[Dict[str, int]] = None     # the capture in progress, if any
 
 
 def kernel(name: str, ref: Callable[..., Any] | None = None):
@@ -54,8 +60,30 @@ def kernel(name: str, ref: Callable[..., Any] | None = None):
 
 def count_launch(name: str) -> None:
     """Add one to ``name``'s launch count (called by its wrapper right
-    after a successful CUDA launch)."""
-    _GLOBAL[name].launches += 1
+    after a successful CUDA launch), or to the tally of the graph capture
+    in progress."""
+    if _tally is not None:
+        _tally[name] = _tally.get(name, 0) + 1
+    else:
+        _GLOBAL[name].launches += 1
+
+
+@contextlib.contextmanager
+def counting_into(tally: Dict[str, int]) -> Iterator[None]:
+    """Send the launches counted inside the block to ``tally`` instead of
+    the launch counts (a graph capture, which runs nothing)."""
+    global _tally
+    outer, _tally = _tally, tally
+    try:
+        yield
+    finally:
+        _tally = outer
+
+
+def add_launches(tally: Dict[str, int]) -> None:
+    """Add a captured graph's tally to the launch counts (one replay)."""
+    for name, n in tally.items():
+        _GLOBAL[name].launches += n
 
 
 def launch_counts() -> Dict[str, int]:

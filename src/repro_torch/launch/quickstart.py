@@ -7,7 +7,9 @@ Steps: get an app and select the device (the CUDA card; the CPU only when
 the caller hands in a CPU app), load the ``negate`` kernel module in one
 call, make a synthetic 256x256 "Cameraman" stand-in, declare the operator
 graph ``Pipeline(app) | Negate(app).bind(...)``, run it 10 times with
-profiling, and check the result against ``1 - x`` bit for bit.  Reading and
+profiling (on the card the second run captures the launch into a CUDA
+graph and every later run replays it), and check the result against
+``1 - x`` bit for bit.  Reading and
 writing image files is left to a later slice (``Data.save``/``load``).
 """
 from __future__ import annotations
@@ -28,7 +30,9 @@ def synthetic_image(n: int = 256) -> np.ndarray:
 
 def run(app: Optional[CLapp] = None, runs: int = 10) -> dict:
     """The walkthrough; returns the output image, the mean launch time and
-    the device it ran on.  Raises if the output is not ``1 - x``."""
+    each profiled run's (on the card the first of them captures the
+    graph), the graph's captures and replays, and the device it ran on.
+    Raises if the output is not ``1 - x``."""
     # Steps 0-1: a new app; the default traits select the CUDA card
     if app is None:
         app = CLapp().init()
@@ -48,8 +52,10 @@ def run(app: Optional[CLapp] = None, runs: int = 10) -> dict:
     # Step 6: the result is synced to the host (sync=True); check it
     got = data_out.get_ndarray(0).host
     np.testing.assert_array_equal(got, 1.0 - img)
-    return {"image": got, "mean_launch_s": float(np.mean(prof.samples)), "runs": runs,
-            "device": str(app.device)}
+    negate = pipe.build().executor          # on the card, replayed from its second run
+    return {"image": got, "mean_launch_s": float(np.mean(prof.samples)),
+            "launch_s": list(prof.samples), "runs": runs, "device": str(app.device),
+            "captures": negate.captures, "replays": negate.replays}
 
 
 def main() -> None:

@@ -170,21 +170,20 @@ def attention_decode(p: Params, x: torch.Tensor, cfg: ArchConfig, pos: torch.Ten
     cache_write(v, v_new, slot, 2)
     cache_write(kpos, positions, slot, 1)
 
-    qf = q.float() * (dh ** -0.5)
+    # the G = H / Hkv query heads of a KV head side by side: query head
+    # i * G + g meets KV head i, the JAX function's jnp.repeat mapping,
+    # with no G-fold copy of the cache
+    qf = (q.float() * (dh ** -0.5)).view(b, hkv, h // hkv, dh)
     kf, vf = k.float(), v.float()
-    if h != hkv:
-        kf = kf.repeat_interleave(h // hkv, dim=1)
-        vf = vf.repeat_interleave(h // hkv, dim=1)
-    logits = torch.einsum("bhqd,bhkd->bhqk", qf, kf)
+    logits = torch.einsum("bhgd,bhkd->bhgk", qf, kf)
     kp = kpos[:, None, None, :]
     mask = (kp >= 0) & (kp <= pos)
     if cfg.window:
         mask &= kp > pos - cfg.window
     logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
     probs = torch.softmax(logits, dim=-1)
-    o = torch.einsum("bhqk,bhkd->bhqd", probs, vf).to(x.dtype)
-    o = o.transpose(1, 2).reshape(b, 1, h * dh)
-    return o @ p["w_o"], layer_cache
+    o = torch.einsum("bhgk,bhkd->bhgd", probs, vf).to(x.dtype)   # (B, Hkv, G, dh)
+    return o.reshape(b, 1, h * dh) @ p["w_o"], layer_cache
 
 
 def prefill_kv(p: Params, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor,

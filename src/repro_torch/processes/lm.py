@@ -19,9 +19,12 @@ state layouts match the JAX package's entry for entry.
   with a device index; ``pos = positions.max()`` stays on the device),
   RWKV6 its shift vectors and WKV state (the ``wkv6`` kernel writes the
   state over itself).  A step never copies the cache and the only host
-  sync per step is the caller's (B, 1) token readback.
+  sync per step is the caller's (B, 1) token readback.  On the card the
+  step is compiled: from its second launch on it replays one CUDA graph
+  (:meth:`repro_torch.core.process.Process.launch`).
 * :class:`CacheSplice` / :class:`SlotRelease`: continuous-batching
-  admission and retirement, in place on the state.
+  admission and retirement, in place on the state.  They and the
+  prefill stay eager on the card (``graphed = False``).
 
 Weights and the spliced row reach ``apply`` as secondary input ports (by
 port name in ``aux``), read live at each launch.  Encoder-decoder models
@@ -162,7 +165,14 @@ class _LMProcess(Process):
 class PrefillProcess(_LMProcess):
     """Prompt tokens (B, S) -> fresh decode state: the cache is reset and
     prefilled in the output arena, and the greedy first token is sampled
-    on the device."""
+    on the device.
+
+    Never captured into a CUDA graph: a server launches one prefill per
+    prompt, and a graph of each repeated prompt length would keep its
+    own memory pool at the prefill's activation peak for the server's
+    life."""
+
+    graphed = False
 
     ports = {"in": Port(names=("tokens",), dtype=np.integer, doc="prompt token ids (B, S)"),
              "out": Port(names=STATE_KEYS),
@@ -241,7 +251,12 @@ def _splice_row(full: torch.Tensor, row: torch.Tensor, slot: int) -> torch.Tenso
 class CacheSplice(Process):
     """Continuous-batching admission: splice a single-row prefilled state
     (the ``row`` input, batch 1) into slot ``slot`` of the batched state,
-    in place.  ``slot`` is a launch parameter."""
+    in place.  ``slot`` is a launch parameter.  Never captured: it runs
+    once per admission, a few copy kernels, and on an H100 its capture
+    pays for itself only after 9-52 admissions of one slot
+    (``launch/lm_step_profile.py``), more than a server run usually makes."""
+
+    graphed = False
 
     ports = {"in": Port(names=STATE_KEYS), "out": Port(names=STATE_KEYS),
              "row": Port(doc="batch-1 state from a row prefill")}
@@ -265,7 +280,12 @@ class CacheSplice(Process):
 
 class SlotRelease(Process):
     """Retire slot ``slot``: zero its ``active`` flag on the device
-    (freezing its position and token), in place on the state."""
+    (freezing its position and token), in place on the state.  One
+    kernel a retirement, never captured: its capture pays for itself
+    after 4-5 releases of one slot and then saves 0.3 ms a release (H100,
+    ``launch/lm_step_profile.py``)."""
+
+    graphed = False
 
     ports = {"in": Port(names=STATE_KEYS), "out": Port(names=STATE_KEYS)}
 
@@ -288,7 +308,8 @@ class SlotRelease(Process):
 class DecodeSession:
     """Full-batch decode through the Pipeline stack: one prefill graph
     writing the persistent state, then one in-place :class:`DecodeStep`
-    launched per token.  ``step()`` reads back only the (B, 1) token view;
+    launched per token (on the card, replayed from one CUDA graph from
+    the second step on).  ``step()`` reads back only the (B, 1) token view;
     per-slot continuous batching is :class:`repro_torch.serve.LMServer`."""
 
     def __init__(self, app: CLapp, model, weights: Any, *, batch: int, max_len: int):

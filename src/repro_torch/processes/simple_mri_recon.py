@@ -182,6 +182,8 @@ class SimpleMRIRecon(Process):
         self._initialized = True
 
     def launch(self, profile: ProfileParameters | None = None) -> None:
+        """The chain's launch: on the card its graph (``chain.captures``,
+        ``chain.replays``; :meth:`Process.launch`)."""
         if not self._initialized:
             self.init()
         self.chain.launch(profile)

@@ -43,10 +43,16 @@ class LMServer:
       slot.  Every prefill pipe writes the same row Data (the JAX package
       gives each its own), so the row states take one row's memory.
     * **decode**: one in-place :class:`~repro_torch.processes.lm.DecodeStep`
-      launch per token advances every active slot; the only per-step host
-      traffic is the (B, 1) token readback, and the state never moves
+      launch per token advances every active slot.  On the card the first
+      step runs eagerly and every later one replays one CUDA graph of the
+      whole step (:meth:`~repro_torch.core.process.Process.launch`; the
+      step's ``captures`` and ``replays`` count them).  The only per-step
+      host traffic is the (B, 1) token readback, and the state never moves
       host to device (``app.h2d_bytes`` of ``state_h`` stays 0, and
-      ``decode_profile`` records no ``"transfer"``).
+      ``decode_profile`` records no ``"transfer"``).  The prefill, the
+      splice and the release are never captured (their classes set
+      ``graphed = False``): every prompt's prefill runs eagerly, also at a
+      length seen before.
     * **release**: a finished request retires its slot with an in-place
       :class:`~repro_torch.processes.lm.SlotRelease`.
 
@@ -79,10 +85,10 @@ class LMServer:
         self.state_h = self.app.addData(self.state, to_device=False)
         self._row, _ = lmp.decode_state_data(model, 1, max_len)
         self._row_h = self.app.addData(self._row, to_device=False)
-        self._decode_pipe = Pipeline(self.app) | lmp.DecodeStep(
+        self.decode_pipe = Pipeline(self.app) | lmp.DecodeStep(
             self.app, model, self._wcodec, self._ccodec, max_len=max_len).bind(
                 infile=self.state_h, outfile=self.state_h, weights=self._weights_h)
-        self._decode_pipe.build()
+        self.decode_pipe.build()
         self._prefill_pipes: Dict[int, Pipeline] = {}     # prompt length -> pipe
         self._splice: Dict[int, lmp.CacheSplice] = {}
         self._release: Dict[int, lmp.SlotRelease] = {}
@@ -163,7 +169,7 @@ class LMServer:
         self._admit()
         if not self.active.any():
             return
-        self._decode_pipe.run(None, sync=False, profile=self.decode_profile)
+        self.decode_pipe.run(None, sync=False, profile=self.decode_profile)
         self.steps += 1
         new = self.state.device_view("token").cpu().numpy()       # (B, 1) readback
         for slot in np.where(self.active)[0]:

@@ -369,3 +369,51 @@ def test_layer_variants_match_reference(variant, rng):
         want = jL.logits_from_hidden(jp, jnp.asarray(x), jcfg)
         got = tL.logits_from_hidden(tp, torch.from_numpy(x), tcfg)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["groups_of_5", "groups_of_1", "sliding_window"])
+def test_grouped_decode_attention_matches_reference(case, dtype, rng):
+    """``attention_decode`` with the query heads grouped by KV head (no
+    copy of the cache per query head) against the JAX function, which
+    repeats K and V: G = H / Hkv = 5 (qwen3-14b's 40 / 8 at SMOKE widths),
+    G = 1, and h2o-danube's sliding window (8) at G = 2, over a cache with
+    entries at several positions, empty (kpos = -1) slots and keys outside
+    the window.  f32 at rtol/atol 1e-5; bf16 at 2e-2 (both sides round
+    the projections and the output to bf16, each in its own order)."""
+    from repro.models import layers as jL
+    from repro_torch.models import layers as tL
+
+    arch, heads = {"groups_of_5": ("qwen3-14b", dict(n_heads=10, n_kv_heads=2)),
+                   "groups_of_1": ("qwen3-14b", dict(n_heads=4, n_kv_heads=4)),
+                   "sliding_window": ("h2o-danube-1.8b", {})}[case]
+    over = dict(heads, param_dtype=dtype, dtype=dtype)
+    jcfg, tcfg = j_get_smoke(arch).scaled(**over), get_smoke(arch).scaled(**over)
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "float32" else (jnp.bfloat16,
+                                                                         torch.bfloat16)
+
+    def arrays(specs):
+        return {k: arrays(v) if isinstance(v, dict) else
+                (rng.standard_normal(v.shape) / np.sqrt(v.shape[0])).astype(np.float32)
+                for k, v in specs.items()}
+
+    p = arrays(tL.attention_specs(tcfg))
+    b, hkv, dh, c, pos = 2, tcfg.n_kv_heads, tcfg.head_dim, 12, 9
+    x = rng.standard_normal((b, 1, tcfg.d_model)).astype(np.float32)
+    k, v = (rng.standard_normal((b, hkv, c, dh)).astype(np.float32) for _ in range(2))
+    kpos = np.array([[-1, 3, 0, 7, -1, 5, 1, 8, 2, -1, 6, 4],
+                     [6, -1, -1, 2, 8, 0, 4, -1, 1, 3, 7, 5]], np.int32)
+    jcache = {"k": jnp.asarray(k, jdt), "v": jnp.asarray(v, jdt), "kpos": jnp.asarray(kpos)}
+    tcache = {"k": torch.from_numpy(k).to(tdt), "v": torch.from_numpy(v).to(tdt),
+              "kpos": torch.from_numpy(kpos.copy())}
+    want, jnew = jL.attention_decode(jax.tree_util.tree_map(lambda a: jnp.asarray(a, jdt), p),
+                                     jnp.asarray(x, jdt), jcfg, jnp.int32(pos), jcache)
+    got, tnew = tL.attention_decode(tree_map(lambda a: torch.from_numpy(a).to(tdt), p),
+                                    torch.from_numpy(x).to(tdt), tcfg,
+                                    torch.tensor(pos, dtype=torch.int32), tcache)
+    tol = dict(rtol=1e-5, atol=1e-5) if dtype == "float32" else dict(rtol=2e-2, atol=2e-2)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), **tol)
+    for name in ("k", "v"):
+        np.testing.assert_allclose(tnew[name].float().numpy(), np.asarray(jnew[name], np.float32),
+                                   err_msg=name, **tol)
+    np.testing.assert_array_equal(tnew["kpos"].numpy(), np.asarray(jnew["kpos"]))
