@@ -27,6 +27,21 @@
    reverse order) into the same input and checks the replays against its
    oracle, and prints the launch p50 beside the kernels' device time a
    launch (``torch.profiler`` over 10 replays).
+   Then file in, file out (``[io]``): ``CONFIG``'s k-space and maps
+   written to an npz (the maps first) and read with ``KData(path,
+   variables=[k-space, maps])``, reconstructed in the three modes, each
+   image saved with ``matlab_save`` and read back with ``np.load`` against
+   the oracle, and a new k-space replayed and saved with ``SyncSource.AUTO``
+   (which must sync the device copy first); wall ms of the load, the
+   pinned upload, the launches, the device-to-host copy and the save.
+   ``[join]``: the fan-in graph ``Pipeline.from_graph`` (the maps a second
+   input edge) bit for bit against the single-arena and the aux-bound
+   graphs, ``fuse=True`` within 1e-4, and 6 runs with new k-space and maps
+   on runs 5-6, each against its oracle: 1 capture, replays on runs 2-6,
+   no input blob moved; its launch p50 beside the linear graph's.
+   ``[example]``: ``repro_torch.launch.mri_recon.main`` with ``--pipeline
+   --join`` and ``--kernel --join``.  Each of these phases counts its
+   kernel launches from 0.
 4. Holds the LM kernels (``rmsnorm``, ``flash_attention``) against their
    plain versions on the card (bf16 at rtol/atol 2e-2, f32 at rtol 1e-4 /
    atol 1e-5) at the qwen3-14b and rwkv6-3b serving shapes (the
@@ -61,8 +76,10 @@
    the decode state bit for bit (or, where cuBLAS chose otherwise under
    capture, the logits within the bands of ``PERF.md`` §2).
 6. Runs the paper's listing 1 (``repro_torch.launch.quickstart``:
-   ``Pipeline(app) | Negate(app)`` on a 256x256 image) on the card,
-   replayed from its second run, bit for bit.
+   ``Pipeline(app) | Negate(app)`` on a 256x256 8-bit PNG that the script
+   writes) on the card, replayed from its second run, bit for bit, and
+   reads its ``output.png`` back: 1 - x in 8 bits.  Temporary files live in
+   a ``tempfile`` directory that the script removes.
 7. Ends with a ``{"kernels": [...]}`` line and a
    ``{"ok": true, "device": {...}}`` line.
 
@@ -104,37 +121,6 @@ def card_peaks(name: str) -> tuple[float, float, float]:
         if key in name:
             return peaks
     raise SystemExit(f"chip_smoke: no peak rates known for card {name!r}")
-
-
-def synthetic_kdata(frames: int, coils: int, h: int, w: int, seed: int = 0):
-    """Phantom: moving ellipse + smooth coil sensitivities -> K-space."""
-    rng = np.random.default_rng(seed)
-    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
-    smaps = np.stack([
-        np.exp(-(((yy - h * (0.2 + 0.6 * c / max(1, coils - 1))) / h) ** 2
-                 + ((xx - w * 0.5) / w) ** 2) * 3.0)
-        * np.exp(1j * 2 * np.pi * c / coils)
-        for c in range(coils)
-    ]).astype(np.complex64)
-    frames_img = []
-    for f in range(frames):
-        cx = w * (0.4 + 0.2 * np.sin(2 * np.pi * f / frames))
-        img = ((xx - cx) ** 2 / (0.1 * w) ** 2
-               + (yy - h * 0.5) ** 2 / (0.2 * h) ** 2 < 1.0).astype(np.float32)
-        img += 0.1 * rng.standard_normal((h, w)).astype(np.float32)
-        frames_img.append(img.astype(np.complex64))
-    imgs = np.stack(frames_img)
-    coil_imgs = imgs[:, None] * smaps[None]
-    kdata = np.fft.fft2(coil_imgs, norm="ortho").astype(np.complex64)
-    return kdata, smaps
-
-
-def oracle(kdata: np.ndarray, smaps: np.ndarray, combine: str = "sum") -> np.ndarray:
-    x = np.fft.ifft2(kdata.astype(np.complex128), norm="ortho")
-    prod = np.conj(smaps.astype(np.complex128))[None] * x
-    if combine == "rss":
-        return np.sqrt((np.abs(prod) ** 2).sum(axis=1))
-    return prod.sum(axis=1)
 
 
 def ptxas_usage(log: str, *fragments: str) -> tuple[int | None, int | None, int | None]:
@@ -182,6 +168,7 @@ def main() -> None:
     from repro_torch.kernels.complex_elementprod import complex_elementprod
     from repro_torch.kernels.mri_fused import (dft_fits, fused_epilogue, fused_recon,
                                                idft_tables, recon_smem_bytes)
+    from repro_torch.launch.mri_recon import oracle_recon as oracle, synthetic_kdata
     from repro_torch.processes import (FFT, ComplexElementProd, ComplexElementProdParams,
                                        FFTParams, FusedMRIRecon, FusedReconParams,
                                        RSSCombine, SimpleMRIRecon)
@@ -409,7 +396,7 @@ def main() -> None:
     del x, s, tables, cold, warm
 
     # -- 4. the main path through the entry points ---------------------------
-    kdata, smaps = synthetic_kdata(*cfg)
+    kdata, smaps, _ = synthetic_kdata(*cfg)
     want_sum, want_rss = oracle(kdata, smaps), oracle(kdata, smaps, "rss")
     reset_launch_counts()
 
@@ -515,7 +502,7 @@ def main() -> None:
               ["complexElementProd", "rss"])
     run_phase("FusedMRIRecon combine=rss (§IV-B)", fused_rss, kdata, want_rss,
               ["mriFusedRecon"])
-    k_big, s_big = synthetic_kdata(*big, seed=1)
+    k_big, s_big, _ = synthetic_kdata(*big, seed=1)
     run_phase(f"SimpleMRIRecon fused_kernel {big} (outside the gate)",
               recon("fused_kernel", k=k_big, sm=s_big), k_big, oracle(k_big, s_big),
               ["mriFusedEpilogue"], launches=5)
@@ -526,6 +513,206 @@ def main() -> None:
     idle = [k for k, reg in names.items() if counts.get(reg, 0) == 0]
     if idle:
         raise SystemExit(f"chip_smoke: kernels {idle} never launched on the main path")
+
+    # -- 4b. file in, file out: I/O, the fan-in graph and the example --------
+    import tempfile
+
+    from repro_torch.core import NDArray, Pipeline, SyncSource
+    from repro_torch.data.io import load_any, save_any
+    from repro_torch.launch import mri_recon
+    from repro_torch.processes import CombineParams, XImageSum
+
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    io_counts: dict = {}          # launches of the phases below, by kernel
+
+    def counted(label, fn, expect):
+        """``fn()`` with the launch counts set to 0 just before it and read
+        just after; fails unless every kernel of ``expect`` launched."""
+        reset_launch_counts()
+        out = fn()
+        got = {k: v for k, v in launch_counts().items() if v}
+        for k, v in got.items():
+            io_counts[k] = io_counts.get(k, 0) + v
+        missing = [k for k in expect if not got.get(k)]
+        if missing:
+            raise SystemExit(f"chip_smoke: [{label}]: kernels {missing} did not run "
+                             f"(launches {got})")
+        print(f"[{label}] launches {got}")
+        return out
+
+    def wall_ms(t0):
+        return (time.perf_counter() - t0) * 1e3
+
+    def file_modes():
+        """[io]: k-space and maps through a file into all three modes, each
+        image through a file back: wall ms of each step."""
+        path = f"{tmp.name}/kspace.npz"
+        save_any(path, {"maps": smaps, "ksp": kdata})     # the file's order: maps first
+        if np.load(path).files != ["maps", "ksp"]:
+            raise SystemExit("chip_smoke: [io] the k-space file's variable order is not "
+                             "(maps, ksp)")
+        k_rev, want_rev = np.ascontiguousarray(kdata[::-1]), want_sum[::-1]
+        for mode in ("staged", "fused", "fused_kernel"):
+            app = CLapp().init()
+            t0 = time.perf_counter()
+            data_in = KData(path, variables=["ksp", "maps"])  # not the file's order
+            load = wall_ms(t0)
+            if not (np.array_equal(data_in.kdata.host, kdata)
+                    and np.array_equal(data_in.smaps.host, smaps)):
+                raise SystemExit("chip_smoke: [io] KData paired the file's variables by "
+                                 "their order, not by the requested names")
+            t0 = time.perf_counter()
+            h_in = app.addData(data_in)
+            app.wait_transfers()
+            upload = wall_ms(t0)
+            data_out = XData([NDArray(shape=want_sum.shape, dtype=np.complex64, name="xdata")])
+            h_out = app.addData(data_out)
+            proc = SimpleMRIRecon(app, mode=mode, in_place=False)
+            proc.in_handle, proc.out_handle = h_in, h_out
+            proc.init()
+            launch = []
+            for _ in range(11):                  # eager, capturing, 9 replays
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                proc.launch()
+                torch.cuda.synchronize()
+                launch.append(wall_ms(t0))
+            t0 = time.perf_counter()
+            app.device2Host(h_out)
+            d2h = wall_ms(t0)
+            out = f"{tmp.name}/outputFrames_{mode}.npz"
+            t0 = time.perf_counter()
+            data_out.matlab_save(out, "XData", SyncSource.HOST_ONLY)
+            save = wall_ms(t0)
+            got = np.load(out)["xdata"]
+            if got.shape != want_sum.shape or not np.isfinite(got).all():
+                raise SystemExit(f"chip_smoke: [io] {mode}: bad image {got.shape}")
+            np.testing.assert_allclose(got, want_sum, rtol=1e-4, atol=1e-4, err_msg=mode)
+            # a new k-space, launched by a replay: save(AUTO) must sync the
+            # device copy first, not write the stale host image
+            next(a for a in app.getData(h_in) if a.name == "kdata").set_host(k_rev)
+            app.host2device(h_in)
+            proc.launch()
+            data_out.save(f"{tmp.name}/auto_{mode}.npz")
+            got_auto = np.load(f"{tmp.name}/auto_{mode}.npz")["xdata"]
+            np.testing.assert_allclose(got_auto, want_rev, rtol=1e-4, atol=1e-4,
+                                       err_msg=f"{mode} save(AUTO) after a replay")
+            graph = proc.chain
+            if (graph.captures, graph.replays) != (1, 11):
+                raise SystemExit(f"chip_smoke: [io] {mode}: {graph.captures} captures, "
+                                 f"{graph.replays} replays over 12 launches")
+            print(f"[io] {smi}: {mode} at {cfg}, wall ms: load {load:.3f} (npz, "
+                  f"{(kdata.nbytes + smaps.nbytes) / 1e6:.1f} MB k-space + maps), pinned upload {upload:.3f}, launch eager "
+                  f"{launch[0]:.3f}, capturing {launch[1]:.3f}, replayed p50 "
+                  f"{statistics.median(launch[2:]):.4f} (9), device to host {d2h:.3f}, save "
+                  f"{save:.3f}; max abs err vs oracle {np.abs(got - want_sum).max():.3e}; "
+                  "save(AUTO) after a replay on a new k-space holds the new image")
+
+    counted("io", file_modes, ["complexElementProd", "xImageSum", "mriFusedRecon"])
+
+    def fanin(app, fuse=False):
+        """The fan-in graph, its nodes handed over out of order."""
+        fft = FFT(app).bind(infile="kspace", outfile="xspace",
+                            params=FFTParams("backward", var="kdata"))
+        prod = ComplexElementProd(app).bind(infile="xspace", outfile="weighted", smaps="smaps",
+                                            params=ComplexElementProdParams(conjugate=True))
+        comb = XImageSum(app).bind(infile="weighted", outfile="image", params=CombineParams())
+        return Pipeline.from_graph(app, [comb, prod, fft], output="image", fuse=fuse)
+
+    def linear(app, smaps_bound=None):
+        prod = ComplexElementProd(app).bind(
+            params=ComplexElementProdParams(conjugate=True),
+            **({} if smaps_bound is None else {"smaps": smaps_bound}))
+        return (Pipeline(app) | FFT(app).bind(infile="kspace", outfile="xspace",
+                                              params=FFTParams("backward", var="kdata"))
+                | prod | XImageSum(app).bind(params=CombineParams()))
+
+    def join_phase():
+        """[join]: the fan-in, arena and aux-bound graphs bit for bit; fused
+        within 1e-4; 6 runs of the join graph, new inputs on runs 5-6."""
+        app = CLapp().init()
+        item = {"kspace": Data({"kdata": kdata}), "smaps": Data({"sensitivity_maps": smaps})}
+        got_join = fanin(app).run(item).get_ndarray(0).host.copy()
+        got_arena = linear(app).run(KData({"kdata": kdata, "sensitivity_maps": smaps})
+                                    ).get_ndarray(0).host.copy()
+        got_aux = linear(app, Data({"sensitivity_maps": smaps})).run(
+            Data({"kdata": kdata})).get_ndarray(0).host.copy()
+        if not (np.array_equal(got_join, got_arena) and np.array_equal(got_join, got_aux)):
+            raise SystemExit("chip_smoke: [join] fan-in, arena and aux-bound graphs differ")
+        np.testing.assert_allclose(got_join, want_sum, rtol=1e-4, atol=1e-4)
+        got_fused = fanin(app, fuse=True).run(item).get_ndarray(0).host
+        np.testing.assert_allclose(got_fused, got_join, rtol=1e-4, atol=1e-4)
+        print(f"[join] {cfg}: fan-in graph == arena graph == aux-bound graph bit for bit; "
+              f"fuse=True within 1e-4 of staged (bit for bit: "
+              f"{np.array_equal(got_fused, got_join)}, max abs diff "
+              f"{np.abs(got_fused - got_join).max():.3e})")
+
+        k5, s5, _ = synthetic_kdata(*cfg, seed=5)
+        k6, s6, _ = synthetic_kdata(*cfg, seed=6)
+        runs = [(kdata, smaps)] * 4 + [(k5, s5), (k6, s6)]
+        lin, lin_in = linear(app), [KData({"kdata": k, "sensitivity_maps": s}) for k, s in runs]
+        pipe = fanin(app)
+        times = {"fan-in": ProfileParameters(enable=True), "linear": ProfileParameters(enable=True)}
+        blobs = None
+        for r, (k, s) in enumerate(runs):
+            out = pipe.run({"kspace": Data({"kdata": k}), "smaps": Data({"sensitivity_maps": s})},
+                           profile=times["fan-in"])
+            np.testing.assert_allclose(out.get_ndarray(0).host, oracle(k, s), rtol=1e-4,
+                                       atol=1e-4, err_msg=f"join run {r + 1}")
+            built = pipe.build()
+            now = {e: app.getData(h).device_blob.data_ptr()
+                   for e, h in built.input_handles.items()}
+            if blobs is not None and now != blobs:
+                raise SystemExit(f"chip_smoke: [join] an input edge's blob moved on run "
+                                 f"{r + 1}: {blobs} -> {now}")
+            blobs = now
+            lin.run(lin_in[r], profile=times["linear"])
+        ex = pipe.build().executor
+        if (ex.captures, ex.replays) != (1, 5):
+            raise SystemExit(f"chip_smoke: [join] 6 runs gave {ex.captures} captures and "
+                             f"{ex.replays} replays; expected 1 capture (run 2) and replays "
+                             "on runs 2-6")
+        counts6 = (ex.captures, ex.replays)
+        p50 = {n: statistics.median(p.samples[2:]) * 1e3 for n, p in times.items()}
+        up = {n: statistics.median(p.phases["transfer"][2:]) * 1e3 for n, p in times.items()}
+        # the same replays with no upload before them, and their kernels' device time
+        bare, busy = {}, {}
+        for n, graph in (("fan-in", ex), ("linear", lin.build().executor)):
+            prof = ProfileParameters(enable=True)
+            for _ in range(10):
+                graph.launch(prof)
+            bare[n], busy[n] = prof.p50() * 1e3, busy_ms(graph.launch)
+        if (ex.captures, ex.replays) != (1, 5 + 10 + 10):
+            raise SystemExit(f"chip_smoke: [join] the bare replays recaptured ({ex.captures})")
+        print(f"[join] {smi}: 6 runs of the fan-in graph (new k-space and maps on runs 5-6, "
+              f"each against its oracle): 1 eager, 1 capturing, 4 replays (captures "
+              f"{counts6[0]}, replays {counts6[1]}, no recapture, input blobs kept); launch "
+              f"p50 of runs 3-6 {p50['fan-in']:.4f} ms beside the linear graph's "
+              f"{p50['linear']:.4f} ms; input upload p50 {up['fan-in']:.4f} ms (2 edges) "
+              f"and {up['linear']:.4f} ms (1 arena); with no upload before it, replay p50 "
+              f"{bare['fan-in']:.4f} and {bare['linear']:.4f} ms, kernels' device time a "
+              f"launch (torch.profiler) {' and '.join('not measured' if b is None else f'{b:.4f} ms' for b in busy.values())}")
+
+    counted("join", join_phase, ["complexElementProd", "xImageSum"])
+
+    def example_phase():
+        """[example]: the port's MRI example, file in, file out."""
+        for argv in (["--pipeline", "--join"], ["--kernel", "--join"]):
+            out = f"{tmp.name}/example.npz"
+            res = mri_recon.main(argv + ["--out", out])
+            got = np.load(out)["xdata"]
+            np.testing.assert_allclose(got, want_sum, rtol=1e-4, atol=1e-4,
+                                       err_msg=" ".join(argv))
+            if not res["device"].startswith("cuda"):
+                raise SystemExit(f"chip_smoke: [example] ran on {res['device']}")
+            print(f"[example] {smi}: main({argv}) on {res['device']}: wall ms load "
+                  f"{res['load_ms']:.3f}, upload {res['upload_ms']:.3f}, launch "
+                  f"{res['launch_ms']:.3f}, device to host {res['d2h_ms']:.3f}, save "
+                  f"{res['save_ms']:.3f}; max abs err vs oracle {res['max_abs_err']:.3e}; "
+                  f"join {'bit for bit with' if res['join']['exact'] else 'within 1e-4 of'} "
+                  "the launch")
+
+    counted("example", example_phase, ["complexElementProd", "xImageSum", "mriFusedRecon"])
 
     # -- 5. LM and listing-1 kernels against their plain versions ------------
     from repro_torch.configs import get_config
@@ -1059,9 +1246,12 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # -- 8. the paper's listing 1 (quickstart) on the card -------------------
+    # -- 8. the paper's listing 1 (quickstart) on the card, file in, file out --
+    img8 = (quickstart.synthetic_image() * 255.0 + 0.5).astype(np.uint8)
+    in_png, out_png = f"{tmp.name}/input.png", f"{tmp.name}/output.png"
+    save_any(in_png, {"img": img8})
     reset_launch_counts()
-    qs = quickstart.run(runs=10)
+    qs = quickstart.run(runs=10, in_path=in_png, out_path=out_png)
     qs_counts = launch_counts()
     if (qs_counts["negate_kernel"] != 11 or not qs["device"].startswith("cuda")
             or (qs["captures"], qs["replays"]) != (1, 10)):
@@ -1069,18 +1259,25 @@ def main() -> None:
                          f"{qs_counts}, {qs['captures']} captures and {qs['replays']} "
                          "replays; expected 11 negate_kernel launches on the card, 1 "
                          "capture and 10 replays")
-    print(f"[path] {smi}: quickstart (Pipeline | Negate, 256x256 f32) on {qs['device']}: mean "
-          f"launch {qs['mean_launch_s'] * 1e3:.4f} ms, p50 {np.median(qs['launch_s']) * 1e3:.4f} "
-          f"over 10 runs (captures {qs['captures']}, replays {qs['replays']}; each run, the "
-          f"first capturing: {', '.join(f'{t * 1e3:.4f}' for t in qs['launch_s'])} ms), "
-          f"output == 1 - x bit for bit, negate_kernel launches "
+    back = load_any(out_png)["data"]
+    x = img8.astype(np.float32) / np.float32(255.0)
+    want8 = (np.clip(1.0 - x, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
+    if not (np.array_equal(back, want8) and np.array_equal(back, 255 - img8)):
+        raise SystemExit("chip_smoke: quickstart's output.png is not 1 - x in 8 bits")
+    print(f"[path] {smi}: quickstart (Pipeline | Negate, 256x256 8-bit PNG in, PNG out) on "
+          f"{qs['device']}: mean launch {qs['mean_launch_s'] * 1e3:.4f} ms, p50 "
+          f"{np.median(qs['launch_s']) * 1e3:.4f} over 10 runs (captures {qs['captures']}, "
+          f"replays {qs['replays']}; each run, the first capturing: "
+          f"{', '.join(f'{t * 1e3:.4f}' for t in qs['launch_s'])} ms), output == 1 - x bit for "
+          f"bit, {qs['out_path']} read back == 255 - input, negate_kernel launches "
           f"{qs_counts['negate_kernel']}")
+    tmp.cleanup()
 
     # -- 9. result lines -----------------------------------------------------
     kernels = []
     launches = {"rmsnorm": lm_counts["rmsnorm"], "flash_attention": lm_counts["flash_attention"],
                 "wkv6": rwkv_counts["wkv6"], "negate": qs_counts["negate_kernel"]}
-    launches.update({k: counts[reg] for k, reg in names.items()})
+    launches.update({k: counts[reg] + io_counts.get(reg, 0) for k, reg in names.items()})
     for kname in ["negate"] + list(names) + ["rmsnorm", "flash_attention", "wkv6"]:
         row = dict(rows[kname], launches=launches[kname])
         kernels.append({key: row[key] for key in (

@@ -13,14 +13,16 @@ Out-of-the-box specialisations, as in the paper:
 """
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, List, Mapping, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from .arena import (ArenaLayout, host_array, pack_host, plan_layout, spec_dtype, unpack_device,
-                    unpack_host)
-from .sync import Coherence
+from repro_torch.data import io
+from .arena import (ArenaLayout, host_array, is_bfloat16, pack_host, plan_layout, spec_dtype,
+                    unpack_device, unpack_host)
+from .sync import Coherence, SyncSource, resolve_source
 
 
 class TensorSpec(NamedTuple):
@@ -188,26 +190,99 @@ class Data:
             a.set_host(views[a.name])
         self.coherence = Coherence.IN_SYNC
 
+    def authoritative(self, sync: SyncSource = SyncSource.AUTO) -> str:
+        """``"host"`` or ``"device"``: which copy a read takes under ``sync``."""
+        return resolve_source(sync, self.coherence)
+
     def specs(self) -> Dict[str, TensorSpec]:
         return {a.name: a.spec() for a in self._arrays}
+
+    # -- IO (paper: file formats out of the box) ---------------------------------
+    def save(self, path: str, sync: SyncSource = SyncSource.AUTO) -> None:
+        """Write the arrays to ``path`` in the format its extension names
+        (:mod:`repro_torch.data.io`).  With ``AUTO`` a Data whose device
+        copy is the newer one (a launch wrote it, eagerly or by a replayed
+        graph; or it is device-resident) is synced first, so a stale host
+        copy is never written.  A bfloat16 array is refused: its host copy
+        is uint16 bit patterns, and no format here stores bfloat16."""
+        bf16 = [a.name for a in self._arrays if is_bfloat16(a.dtype)]
+        if bf16:
+            raise ValueError(f"cannot save {path}: arrays {bf16} are bfloat16, which no "
+                             "file format of the port stores; convert them to float32")
+        if self.authoritative(sync) == "device":
+            self.sync_to_host()
+        missing = [a.name for a in self._arrays if a.host is None]
+        if missing:
+            raise ValueError(f"cannot save {path}: arrays {missing} have no host values")
+        io.save_any(path, {a.name: a.host for a in self._arrays})
+
+    def matlab_save(self, path: str, var: str | None = None,
+                    sync: SyncSource = SyncSource.AUTO) -> None:
+        """Save in the .mat-analogue container (npz); ``var`` is accepted
+        for the paper's signature, the arrays keep their own names."""
+        self.save(path if path.endswith(".npz") else path + ".npz", sync)
+
+    @classmethod
+    def load(cls, path: str, variables: Sequence[str] | None = None) -> "Data":
+        """A Data of the arrays in ``path`` (``variables``: only those, by name)."""
+        return cls(io.load_any(path, variables))
 
     def __repr__(self):
         return f"{type(self).__name__}({', '.join(map(repr, self._arrays))})"
 
 
 class XData(Data):
-    """Data with a direct physical interpretation (images, volumes)."""
+    """Data with a direct physical interpretation (images, volumes).
+
+    ``src`` is a file path (read with :func:`repro_torch.data.io.load_any`,
+    converted to ``dtype`` when one is given), another Data (its arrays
+    copied, or with ``copy_values=False`` spec-only arrays of the same
+    names, shapes and dtypes: "an output the size of the input", listing
+    1), or arrays as :class:`Data` takes them (also as ``arrays=``)."""
+
+    def __init__(self, src: Any = None, copy_values: bool = True, dtype: Any = None,
+                 arrays: Sequence[NDArray] | Mapping[str, Any] | None = None):
+        if isinstance(src, (str, os.PathLike)):
+            loaded = io.load_any(os.fspath(src))
+            if dtype is not None:
+                loaded = {k: NDArray(v, dtype=dtype) for k, v in loaded.items()}
+            super().__init__(loaded)
+        elif isinstance(src, Data):
+            if copy_values:
+                super().__init__([NDArray(np.array(a.host), dtype=a.dtype, name=a.name)
+                                  for a in src])
+            else:
+                super().__init__([NDArray(shape=a.shape, dtype=a.dtype, name=a.name)
+                                  for a in src])
+        else:
+            super().__init__(arrays if arrays is not None else src)
 
 
 class KData(Data):
     """Complex K-space data + sensitivity maps (paper §IV-A): ``kdata``
-    (frames, coils, H, W) and ``sensitivity_maps`` (coils, H, W)."""
+    (frames, coils, H, W) and ``sensitivity_maps`` (coils, H, W).
+
+    ``src`` is a mapping with those two names, or a file path: then
+    ``variables`` names the file's (k-space, maps) variables, in that
+    order (default the canonical names)."""
 
     KDATA = "kdata"
     SMAPS = "sensitivity_maps"
 
-    def __init__(self, src: Any = None):
-        if isinstance(src, Mapping):
+    def __init__(self, src: Any = None, variables: Sequence[str] | None = None):
+        if isinstance(src, (str, os.PathLike)):
+            names = list(variables or [self.KDATA, self.SMAPS])
+            if len(names) != 2:
+                raise ValueError(f"KData needs exactly (kdata, smaps) variables, got {names}")
+            loaded = io.load_any(os.fspath(src), names)
+            # indexed by the REQUESTED names, never by the reader's order (a
+            # reader may return the file's order, which would swap the two)
+            missing = [n for n in names if n not in loaded]
+            if missing:
+                raise KeyError(f"variables {missing} not found in {os.fspath(src)!r} "
+                               f"(loaded: {sorted(loaded)})")
+            super().__init__({self.KDATA: loaded[names[0]], self.SMAPS: loaded[names[1]]})
+        elif isinstance(src, Mapping):
             super().__init__({self.KDATA: src[self.KDATA], self.SMAPS: src[self.SMAPS]})
         else:
             super().__init__(src)
@@ -219,6 +294,14 @@ class KData(Data):
     @property
     def smaps(self) -> NDArray:
         return self._arrays[self.names.index(self.SMAPS)]
+
+    @property
+    def n_coils(self) -> int:
+        return self.kdata.shape[-3]
+
+    @property
+    def n_frames(self) -> int:
+        return self.kdata.shape[0]
 
     def x_shape(self) -> Tuple[int, ...]:
         """Shape of the reconstructed X-space image set (frames, H, W)."""

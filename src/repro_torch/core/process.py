@@ -263,8 +263,10 @@ class Process:
 
         ``infile``/``outfile`` bind the ``"in"``/``"out"`` ports to an edge
         name, a Data or a registered handle; every other keyword binds the
-        secondary input port of that name to a Data or handle, read live
-        at each launch (weights, a spliced row).  ``params`` forwards to
+        secondary input port of that name to an edge name (a join, which
+        ``Pipeline.from_graph`` turns into a graph input when no node
+        produces the edge) or to a Data or handle, read live at each
+        launch (weights, a spliced row).  ``params`` forwards to
         :meth:`set_launch_parameters`."""
         from .graph import Node  # graph builds on Process
 

@@ -1,0 +1,253 @@
+"""MRI reconstruction example on the port: the paper's §IV-A / listings 5-6,
+file in, file out (the counterpart of the JAX package's
+``examples/mri_recon.py``).
+
+    python -m repro_torch.launch.mri_recon [--fused|--kernel] [--pipeline] [--join]
+        [--kspace PATH] [--out PATH]                  (with src/ on PYTHONPATH)
+
+Reads multicoil cine k-space and its sensitivity maps from an npz
+(``--kspace``; without one, the synthetic 16 frames x 8 coils x 160x160
+phantom of §IV-B is written to a temporary npz and read back, so the
+default run goes through the file path too), uploads them in one pinned
+copy, reconstructs M = sum_i conj(S_i) . IFFT(Y_i) with ``SimpleMRIRecon``
+(staged; ``--fused``: the stages back to back; ``--kernel``: the whole
+chain as one fused kernel, ``dft_recon_kernel`` on the card), checks the
+image against a complex128 numpy oracle at rtol/atol 1e-4, and saves it
+in the .mat-analogue container (``outputFrames.npz``, or ``--out``).
+
+``--pipeline`` runs the same reconstruction as the declarative graph
+``Pipeline(app) | FFT | ComplexElementProd | XImageSum``; ``--join`` as
+the fan-in graph ``Pipeline.from_graph([fft, prod, comb])`` whose maps are
+a second input edge, beside the single-arena graph and the graph with the
+maps bound statically, then through per-slice maps.  Both are bit for bit
+the staged launch's image (within 1e-4 of the fused and kernel modes').
+Only the launch mode: the stream and serve parts of these demos, and the
+reference's ``--stream``, ``--sharded`` and ``--proportional``, come with
+the stream slice.
+
+The app selects the CUDA card unless the caller of :func:`main` hands in
+a CPU app (the tests do, at the SMOKE size).
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import tempfile
+import time
+from typing import Optional
+
+import numpy as np
+
+from repro_torch.configs.mri_recon import CONFIG, MRIReconConfig
+from repro_torch.core import (CLapp, Data, KData, NDArray, Pipeline, ProfileParameters,
+                              SyncSource, XData)
+from repro_torch.data.io import save_any
+from repro_torch.processes import (FFT, CombineParams, ComplexElementProd,
+                                   ComplexElementProdParams, FFTParams, SimpleMRIRecon,
+                                   XImageSum)
+
+TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def synthetic_kdata(frames: int, coils: int, h: int, w: int, seed: int = 0):
+    """Phantom: moving ellipse + smooth coil sensitivities -> K-space.
+    Returns (kdata (F, C, H, W), smaps (C, H, W), images (F, H, W)), complex64."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    smaps = np.stack([
+        np.exp(-(((yy - h * (0.2 + 0.6 * c / max(1, coils - 1))) / h) ** 2
+                 + ((xx - w * 0.5) / w) ** 2) * 3.0)
+        * np.exp(1j * 2 * np.pi * c / coils)
+        for c in range(coils)
+    ]).astype(np.complex64)
+    frames_img = []
+    for f in range(frames):
+        cx = w * (0.4 + 0.2 * np.sin(2 * np.pi * f / frames))
+        img = ((xx - cx) ** 2 / (0.1 * w) ** 2
+               + (yy - h * 0.5) ** 2 / (0.2 * h) ** 2 < 1.0).astype(np.float32)
+        img += 0.1 * rng.standard_normal((h, w)).astype(np.float32)
+        frames_img.append(img.astype(np.complex64))
+    imgs = np.stack(frames_img)
+    coil_imgs = imgs[:, None] * smaps[None]
+    kdata = np.fft.fft2(coil_imgs, norm="ortho").astype(np.complex64)
+    return kdata, smaps, imgs
+
+
+def oracle_recon(kdata: np.ndarray, smaps: np.ndarray, combine: str = "sum") -> np.ndarray:
+    """The reconstruction in complex128 numpy: the coil sum (eq. 1) or RSS."""
+    x = np.fft.ifft2(kdata.astype(np.complex128), norm="ortho")
+    prod = np.conj(smaps.astype(np.complex128))[None] * x
+    if combine == "rss":
+        return np.sqrt((np.abs(prod) ** 2).sum(axis=1))
+    return prod.sum(axis=1)
+
+
+def _check(got: np.ndarray, want: np.ndarray, exact: bool, what: str) -> float:
+    """Bit for bit when ``exact``, else within 1e-4; the max abs difference."""
+    if exact:
+        np.testing.assert_array_equal(got, want, err_msg=what)
+    else:
+        np.testing.assert_allclose(got, want, err_msg=what, **TOL)
+    return float(np.abs(got - want).max())
+
+
+def _fft(app: CLapp):
+    return FFT(app).bind(infile="kspace", outfile="xspace",
+                         params=FFTParams("backward", var="kdata"))
+
+
+def _arena_pipe(app: CLapp) -> Pipeline:
+    """The single-input graph: the maps ride in the KData arena."""
+    return (Pipeline(app) | _fft(app)
+            | ComplexElementProd(app).bind(params=ComplexElementProdParams(conjugate=True))
+            | XImageSum(app).bind(params=CombineParams()))
+
+
+def _ms(t0: float) -> float:
+    return (time.perf_counter() - t0) * 1e3
+
+
+def pipeline_demo(app: CLapp, kdata: np.ndarray, smaps: np.ndarray, reference: np.ndarray,
+                  exact: bool = True) -> dict:
+    """The declarative front end in launch mode, against the imperative
+    launch's image (``reference``; bit for bit when ``exact``)."""
+    pipe = _arena_pipe(app)
+    t0 = time.perf_counter()
+    out = pipe.run(KData({"kdata": kdata, "sensitivity_maps": smaps}))
+    build_launch_ms = _ms(t0)
+    err = _check(out.get_ndarray(0).host, reference, exact, "pipeline launch")
+    print(f"[pipeline] {pipe}: build+launch {build_launch_ms:.1f} ms, "
+          + ("bit-identical to init()/launch()" if exact
+             else "matches the fused/kernel launch within 1e-4"))
+    return {"build_launch_ms": build_launch_ms, "exact": exact, "max_abs_diff": err}
+
+
+def join_demo(app: CLapp, kdata: np.ndarray, smaps: np.ndarray, reference: np.ndarray,
+              cfg: MRIReconConfig, exact: bool = True) -> dict:
+    """Fan-in: the maps as a second input edge (a join), against the
+    imperative launch (``reference``), the single-arena graph and the
+    graph with the maps bound statically; then per-slice maps, which only
+    a join can take, one slice a launch."""
+    arena_pipe = _arena_pipe(app)
+    fft = _fft(app)
+    prod = ComplexElementProd(app).bind(infile="xspace", outfile="weighted", smaps="smaps",
+                                        params=ComplexElementProdParams(conjugate=True))
+    comb = XImageSum(app).bind(infile="weighted", outfile="image", params=CombineParams())
+    join_pipe = Pipeline.from_graph(app, [fft, prod, comb], output="image")
+    print(f"[join] input edges: {list(join_pipe.input_edges)}")
+    t0 = time.perf_counter()
+    out = join_pipe.run({"kspace": Data({"kdata": kdata}),
+                         "smaps": Data({"sensitivity_maps": smaps})})
+    build_launch_ms = _ms(t0)
+    _check(out.get_ndarray(0).host, reference, exact, "joined launch")
+    print("[join] launch " + ("bit-identical to init()/launch()" if exact
+                              else "matches the fused/kernel launch within 1e-4"))
+
+    # shared maps: the join equals the same port bound statically, bit for bit
+    aux_pipe = (Pipeline(app) | _fft(app)
+                | ComplexElementProd(app).bind(smaps=Data({"sensitivity_maps": smaps}),
+                                               params=ComplexElementProdParams(conjugate=True))
+                | XImageSum(app).bind(params=CombineParams()))
+    for s in range(5):
+        k, _, _ = synthetic_kdata(cfg.frames, cfg.coils, cfg.height, cfg.width, seed=700 + s)
+        want = aux_pipe.run(Data({"kdata": k})).get_ndarray(0).host.copy()
+        got = join_pipe.run({"kspace": Data({"kdata": k}),
+                             "smaps": Data({"sensitivity_maps": smaps.copy()})})
+        np.testing.assert_array_equal(got.get_ndarray(0).host, want, err_msg=f"shared {s}")
+    print("[join] 5 k-spaces with shared maps bit-identical to the statically bound maps")
+
+    # per-slice maps, each slice against the single-arena graph and the oracle
+    err = 0.0
+    for s in range(4):
+        k, sm, _ = synthetic_kdata(cfg.frames, cfg.coils, cfg.height, cfg.width, seed=800 + s)
+        want = arena_pipe.run(KData({"kdata": k, "sensitivity_maps": sm})
+                              ).get_ndarray(0).host.copy()
+        got = join_pipe.run({"kspace": Data({"kdata": k}),
+                             "smaps": Data({"sensitivity_maps": sm})}).get_ndarray(0).host
+        np.testing.assert_array_equal(got, want, err_msg=f"per-slice maps {s}")
+        err = max(err, _check(got, oracle_recon(k, sm), False, f"per-slice oracle {s}"))
+    print(f"[join] 4 per-slice map sets through the smaps edge, bit-identical to the "
+          f"single-arena graph, max abs err vs oracle {err:.3e}")
+    return {"build_launch_ms": build_launch_ms, "exact": exact, "max_abs_err": err,
+            "input_edges": list(join_pipe.input_edges),
+            "residency": join_pipe.residency_plan}
+
+
+def _parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.mri_recon",
+                                 description=__doc__.split("\n\n")[0])
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--fused", action="store_true", help="stages back to back")
+    mode.add_argument("--kernel", action="store_true",
+                      help="the whole chain as one fused kernel (mode fused_kernel)")
+    ap.add_argument("--pipeline", action="store_true", help="the declarative graph too")
+    ap.add_argument("--join", action="store_true", help="the fan-in graph too")
+    ap.add_argument("--kspace", help="npz with 'kdata' and 'sensitivity_maps' "
+                                     "(default: the synthetic phantom, through a file)")
+    ap.add_argument("--out", default="outputFrames.npz", help="where the image is saved")
+    return ap
+
+
+def main(argv: Optional[list] = None, app: Optional[CLapp] = None,
+         cfg: MRIReconConfig = CONFIG) -> dict:
+    """The example; returns its timings (wall ms) and checks.  ``app``
+    (default: the CUDA card) and ``cfg`` (the synthetic phantom's size)
+    are for callers in Python."""
+    args = _parser().parse_args(argv)
+    mode = "fused_kernel" if args.kernel else "fused" if args.fused else "staged"
+    if app is None:
+        app = CLapp().init()
+    app.loadKernels(["complex_elementprod", "coil_combine"])
+    res = {"device": str(app.device), "mode": mode}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = args.kspace
+        if path is None:
+            kdata, smaps, _ = synthetic_kdata(cfg.frames, cfg.coils, cfg.height, cfg.width)
+            path = os.path.join(tmp, "kspace.npz")
+            save_any(path, {KData.KDATA: kdata, KData.SMAPS: smaps})
+        t0 = time.perf_counter()
+        data_in = KData(path, variables=[KData.KDATA, KData.SMAPS])
+        res["load_ms"] = _ms(t0)
+    kdata, smaps = data_in.kdata.host, data_in.smaps.host
+    data_out = XData([NDArray(shape=data_in.x_shape(), dtype=kdata.dtype, name="xdata")])
+
+    t0 = time.perf_counter()
+    h_in = app.addData(data_in)              # one pinned upload
+    app.wait_transfers()
+    res["upload_ms"] = _ms(t0)
+    h_out = app.addData(data_out)            # zeroed on the device, nothing uploaded
+    proc = SimpleMRIRecon(app, mode=mode)
+    proc.in_handle, proc.out_handle = h_in, h_out
+    t0 = time.perf_counter()
+    proc.init()
+    res["init_ms"] = _ms(t0)
+    prof = ProfileParameters(enable=True)
+    t0 = time.perf_counter()
+    proc.launch(prof)                        # the profile waits for the launch's end
+    res["launch_ms"] = _ms(t0)
+    res["launch_device_ms"] = prof.samples[-1] * 1e3
+    t0 = time.perf_counter()
+    app.device2Host(h_out)
+    res["d2h_ms"] = _ms(t0)
+    print(f"[{mode}] {app.device}: load {res['load_ms']:.2f} ms, upload "
+          f"{res['upload_ms']:.2f} ms, init {res['init_ms']:.1f} ms, launch "
+          f"{res['launch_ms']:.3f} ms, device to host {res['d2h_ms']:.2f} ms")
+    recon = data_out.get_ndarray(0).host
+    res["max_abs_err"] = _check(recon, oracle_recon(kdata, smaps), False, "oracle")
+    print("reconstruction verified against the numpy oracle")
+    out_path = args.out if args.out.endswith(".npz") else args.out + ".npz"
+    t0 = time.perf_counter()
+    data_out.matlab_save(out_path, "XData", SyncSource.HOST_ONLY)
+    res["save_ms"], res["out_path"] = _ms(t0), out_path
+    print(f"saved {out_path}")
+
+    exact = mode == "staged"
+    if args.pipeline:
+        res["pipeline"] = pipeline_demo(app, kdata, smaps, recon, exact)
+    if args.join:
+        res["join"] = join_demo(app, kdata, smaps, recon, cfg, exact)
+    return res
+
+
+if __name__ == "__main__":
+    main()

@@ -72,8 +72,11 @@ def test_bind_rejects_unknown_ports_and_bad_data(app):
     with pytest.raises(PortError, match="missing required arrays"):
         ComplexElementProd(app).bind(infile=Data({"wrong": np.zeros((1, 1, 2, 2),
                                                                     np.complex64)}))
-    with pytest.raises(GraphError, match="fan-in"):
-        ComplexElementProd(app).bind(smaps="maps_edge")
+    # a secondary port bound to an edge name is a join; to anything but an
+    # edge, a Data or a handle, it is refused
+    assert ComplexElementProd(app).bind(smaps="maps_edge").input_bind == {"smaps": "maps_edge"}
+    with pytest.raises(PortError, match="must be an edge name"):
+        ComplexElementProd(app).bind(smaps=1.5)
 
 
 def test_mis_wired_graphs_fail_when_composed(app):

@@ -153,9 +153,10 @@ def test_negate_refuses_integer_data():
         pipe.run(XData({"img": np.zeros((4, 4), np.int32)}))
 
 
-def test_quickstart_runs_on_a_cpu_app_when_handed_one():
-    res = quickstart.run(_cpu_app(), runs=3)
+def test_quickstart_runs_on_a_cpu_app_when_handed_one(tmp_path):
+    res = quickstart.run(_cpu_app(), runs=3, out_path=str(tmp_path / "output.png"))
     assert res["device"] == "cpu" and res["runs"] == 3 and res["mean_launch_s"] > 0
+    assert res["out_path"] == str(tmp_path / "output.png")
     img = quickstart.synthetic_image()
     assert img.shape == (256, 256) and img.dtype == np.float32
     np.testing.assert_array_equal(res["image"], 1.0 - img)
