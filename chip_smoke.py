@@ -15,7 +15,11 @@
    input copies that exceed L2, so inputs come from DRAM), and for
    ``fused_recon`` also the two-launch route (cuFFT + the fused epilogue
    kernel), its time at 33 frames against 16 (what limits it) and ptxas's
-   registers, spills and shared memory of ``dft_recon_kernel``.
+   registers, spills and shared memory of ``dft_recon_kernel``.  The
+   batched maps form of ``complex_elementprod``, ``fused_epilogue`` and
+   ``fused_recon`` (a stream's batch (B, F, C, H, W) with one map set a
+   slice) at B = 8 x CONFIG and a ragged (3, 5, 3, 97, 131), one map set
+   bit for bit the single-map call, and its times at B = 8.
 3. Drives the main path through the user entry points (``CLapp`` ->
    ``KData``/``XData`` -> ``SimpleMRIRecon`` in modes staged / fused /
    fused_kernel, the §IV-B RSS variants, and a 384x384 matrix outside the
@@ -40,8 +44,25 @@
    on runs 5-6, each against its oracle: 1 capture, replays on runs 2-6,
    no input blob moved; its launch p50 beside the linear graph's.
    ``[example]``: ``repro_torch.launch.mri_recon.main`` with ``--pipeline
-   --join`` and ``--kernel --join``.  Each of these phases counts its
-   kernel launches from 0.
+   --join`` and ``--kernel --join``, each with ``--stream 16 --batch 8``
+   (the demos' stream and serve parts run too).  ``[stream]``:
+   ``SimpleMRIRecon.stream`` at ``CONFIG``, batch 8, 24 slices with their
+   own maps (no tail), 19 (a tail of 3: a twin of its own) and 21 (a tail
+   of 5: padded), in staged / fused / fused_kernel and fused_kernel RSS:
+   each item against the sequential ``launch()`` (bit for bit in the kernel
+   mode, rtol 1e-6 where cuFFT transforms a batch) and the oracle, kernel
+   launches = batches, each twin captured once at its second launch and
+   replayed after; wall ms a slice streamed beside sequential
+   ``host2device`` + ``launch()``, and from a ``torch.profiler`` trace the
+   kernels' device time a batch, the copy stream's GB/s, the share of
+   upload time overlapping a kernel and the device's idle share.
+   ``[serve]``: ``Pipeline.run(mode="serve")`` over the fan-in graph
+   (shared maps bit for bit against the aux-bound graph; per-slice maps
+   against the single-arena graph), then a ``PipelineServer(batch=4,
+   flush_timeout=0.02)`` fed 10 requests from a second thread after
+   ``warmup()``: p50/p99 latency, every response against its oracle, no
+   capture in the worker thread.  Each of these phases counts its kernel
+   launches from 0.
 4. Holds the LM kernels (``rmsnorm``, ``flash_attention``) against their
    plain versions on the card (bf16 at rtol/atol 2e-2, f32 at rtol 1e-4 /
    atol 1e-5) at the qwen3-14b and rwkv6-3b serving shapes (the
@@ -262,6 +283,55 @@ def main() -> None:
         raise SystemExit("chip_smoke: fused_recon gate does not split the shapes as planned")
     del a, b, a_copy, k, s
 
+    # [kernels] the batched maps form: a stream's batch (B, F, C, H, W) with
+    # one map set a slice (B, C, H, W), as a vmap over the JAX kernels; at
+    # B = 8 x CONFIG and a ragged (3, 5, 3, 97, 131).  Then one map set for
+    # the whole batch, and B equal map sets, each bit for bit the single-map
+    # call on the batch folded into frames (B * F, C, H, W): frame f reads
+    # map set f / fpm, so one set is today's arithmetic exactly.
+    for shape, tag in (((8,) + cfg, "B=8 x CONFIG"), ((3, 5, 3, 97, 131), "ragged")):
+        b5, f5 = shape[0], shape[1]
+        k5, s4 = crand(*shape), crand(b5, *shape[2:])
+        fold = k5.view(b5 * f5, *shape[2:])
+        at_cfg = tag != "ragged"
+        for conj in (False, True):
+            check(f"[kernels] complex_elementprod per-slice maps conj={conj} {shape}",
+                  "complex_elementprod", complex_elementprod(k5, s4, conj),
+                  ref.complex_elementprod(k5, s4, conj), elem_tol, at_cfg)
+        for comb in ("sum", "rss"):
+            check(f"[kernels] fused_epilogue {comb} per-slice maps {shape}", "fused_epilogue",
+                  fused_epilogue(k5, s4, comb), ref.mri_fused_epilogue(k5, s4, comb),
+                  sum_tol, at_cfg)
+            check(f"[kernels] fused_recon {comb} per-slice maps {shape} (inside the gate: "
+                  f"{dft_fits(b5 * f5, *shape[2:])})", "fused_recon",
+                  fused_recon(k5, s4, comb), ref.mri_fused_recon(k5, s4, comb), dft_tol,
+                  at_cfg)
+        one, same = s4[0].contiguous(), s4[:1].expand_as(s4).contiguous()
+        pairs = {
+            "complex_elementprod": (lambda m: complex_elementprod(k5, m, True),
+                                    lambda: complex_elementprod(fold, one, True)),
+            "fused_epilogue sum": (lambda m: fused_epilogue(k5, m, "sum"),
+                                   lambda: fused_epilogue(fold, one, "sum")),
+            "fused_epilogue rss": (lambda m: fused_epilogue(k5, m, "rss"),
+                                   lambda: fused_epilogue(fold, one, "rss")),
+            "fused_recon sum": (lambda m: fused_recon(k5, m, "sum"),
+                                lambda: fused_recon(fold, one, "sum")),
+            "fused_recon rss": (lambda m: fused_recon(k5, m, "rss"),
+                                lambda: fused_recon(fold, one, "rss")),
+        }
+        for kname, (batched, single) in pairs.items():
+            want = single().view(-1)
+            exact_one = bool(torch.equal(batched(one).view(-1), want))
+            exact_same = bool(torch.equal(batched(same).view(-1), want))
+            print(f"[kernels] {kname} {shape}: one map set bit for bit the single-map call "
+                  f"on ({b5 * f5}, {', '.join(map(str, shape[2:]))}) "
+                  f"{'ok' if exact_one else 'FAIL'}; {b5} equal map sets "
+                  f"{'ok' if exact_same else 'FAIL'}")
+            if not (exact_one and exact_same):
+                raise SystemExit(f"chip_smoke: {kname} with one map set is not the single-map "
+                                 "call bit for bit")
+        del k5, s4, fold, one, same
+
     # -- 3. times at the case-study size -------------------------------------
     def events_ms(run, reps):
         times = []
@@ -394,6 +464,23 @@ def main() -> None:
                   f"thread, {spill} bytes spilled, {smem} + {recon_smem_bytes(th, tw)} "
                   f"(dynamic, at {th}x{tw}) bytes shared memory a block")
     del x, s, tables, cold, warm
+    # the batched maps form at a stream's batch, B = 8 x CONFIG (210 MB of
+    # k-space, past L2, so two input copies suffice for cold timing): one
+    # map set a slice against one map set for all, which must cost the same
+    bk = crand(8, *cfg)
+    b_sets = [(bk, crand(8, c, h, w)), (bk.clone(), crand(8, c, h, w))]
+    b_one = [(k_, s_[0].contiguous()) for k_, s_ in b_sets]
+    b_tables = idft_tables(h, w, "ortho", dev)
+    batched_ms = {}
+    for kname, fn in (("complex_elementprod", lambda k_, s_: complex_elementprod(k_, s_, True)),
+                      ("fused_epilogue", lambda k_, s_: fused_epilogue(k_, s_)),
+                      ("fused_recon", lambda k_, s_: fused_recon(k_, s_, tables=b_tables))):
+        batched_ms[kname] = (device_ms(fn, b_sets), device_ms(fn, b_one))
+        print(f"[time] {smi}: {kname} at (8,) + {cfg}, cold-L2 device ms: one map set a slice "
+              f"(8, {c}, {h}, {w}) {batched_ms[kname][0]:.5f}, one map set for all "
+              f"{batched_ms[kname][1]:.5f} (a launch per 8 slices; single slice "
+              f"{rows[kname]['ms']:.5f})")
+    del bk, b_sets, b_one, b_tables
 
     # -- 4. the main path through the entry points ---------------------------
     kdata, smaps, _ = synthetic_kdata(*cfg)
@@ -697,7 +784,8 @@ def main() -> None:
 
     def example_phase():
         """[example]: the port's MRI example, file in, file out."""
-        for argv in (["--pipeline", "--join"], ["--kernel", "--join"]):
+        for argv in (["--pipeline", "--join", "--stream", "16", "--batch", "8"],
+                     ["--kernel", "--join", "--stream", "16", "--batch", "8"]):
             out = f"{tmp.name}/example.npz"
             res = mri_recon.main(argv + ["--out", out])
             got = np.load(out)["xdata"]
@@ -705,6 +793,14 @@ def main() -> None:
                                        err_msg=" ".join(argv))
             if not res["device"].startswith("cuda"):
                 raise SystemExit(f"chip_smoke: [example] ran on {res['device']}")
+            st = res["stream"]
+            if st["n"] != 16 or sum(st["launches"].values()) != 4:
+                raise SystemExit(f"chip_smoke: [example] --stream 16 --batch 8 gave {st}")
+            print(f"[example] {smi}: main({argv}): --stream 16 --batch 8 {st['ms']:.1f} ms, "
+                  f"{st['ms_per_slice']:.3f} ms a slice (the first stream, which sets up the "
+                  f"twins, {st['first_ms']:.1f} ms), the last slice "
+                  f"{'bit for bit with' if st['exact'] else 'within 1e-6 of'} launch(), max abs "
+                  f"err vs oracle {st['max_abs_err']:.3e}")
             print(f"[example] {smi}: main({argv}) on {res['device']}: wall ms load "
                   f"{res['load_ms']:.3f}, upload {res['upload_ms']:.3f}, launch "
                   f"{res['launch_ms']:.3f}, device to host {res['d2h_ms']:.3f}, save "
@@ -713,6 +809,347 @@ def main() -> None:
                   "the launch")
 
     counted("example", example_phase, ["complexElementProd", "xImageSum", "mriFusedRecon"])
+
+    # -- 4c. [stream] and [serve]: the many slice stacks of a study ----------
+    # 24 slices at CONFIG, each with its own k-space and its own maps (the
+    # phantom's maps turned by a phase and scaled a slice), so the per-slice
+    # map sets of the batched kernels are exercised.
+
+    from repro_torch.core.stream import _BatchPlan
+
+    n_slices = 24
+    stack = []
+    for i in range(n_slices):
+        k_i, s_i, _ = synthetic_kdata(*cfg, seed=100 + i)
+        stack.append((k_i, (s_i * np.complex64((1 + 0.05 * i) * np.exp(0.3j * i)))
+                      .astype(np.complex64)))
+    oracles = {"sum": [oracle(k, sm) for k, sm in stack],
+               "rss": [oracle(k, sm, "rss") for k, sm in stack]}
+
+    def kd(i):
+        return KData({"kdata": stack[i][0], "sensitivity_maps": stack[i][1]})
+
+    def deltas(fn):
+        before = launch_counts()
+        out = fn()
+        return out, {k: v - before.get(k, 0) for k, v in launch_counts().items()
+                     if v != before.get(k, 0)}
+
+    def merged(intervals):
+        """Sorted, merged (start, end) intervals."""
+        out = []
+        for a, b in sorted(intervals):
+            if out and a <= out[-1][1]:
+                out[-1][1] = max(out[-1][1], b)
+            else:
+                out.append([a, b])
+        return out
+
+    def overlap(a, b, union):
+        return sum(max(0.0, min(b, y) - max(a, x)) for x, y in union)
+
+    def event_timeline(run):
+        """``run()`` with a CUDA event recorded before and after every upload
+        (on the copy stream) and every batch launch (twin launch and the
+        unbatching copy, on the compute stream); returns ``run``'s result,
+        the upload intervals (start ms, end ms, bytes) and the launch
+        intervals, from an event recorded before ``run``."""
+        from unittest import mock
+
+        from repro_torch.core import stream as stream_mod
+
+        def timed():
+            return torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+        marks = {"upload": [], "launch": []}
+        upload0, call0 = stream_mod._DeviceStreams.upload, stream_mod.BatchedProcess.__call__
+
+        def upload(self, dev, host):
+            a, b = timed()
+            a.record(self.copy)
+            upload0(self, dev, host)
+            b.record(self.copy)
+            marks["upload"].append((a, b, dev.numel()))
+
+        def call(self):
+            a, b = timed()
+            a.record()
+            out = call0(self)
+            b.record()
+            marks["launch"].append((a, b, 0))
+            return out
+
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        with mock.patch.object(stream_mod._DeviceStreams, "upload", upload), \
+                mock.patch.object(stream_mod.BatchedProcess, "__call__", call):
+            out = run()
+        torch.cuda.synchronize()
+        return out, {k: [(start.elapsed_time(a), start.elapsed_time(b), n) for a, b, n in v]
+                     for k, v in marks.items()}
+
+    def device_trace(tr, label):
+        """(category, name, start us, end us, bytes) of each device activity
+        (kernel, memcpy, memset) in a torch.profiler trace, read from its
+        chrome trace, which holds every activity the profiler recorded."""
+        path = f"{tmp.name}/trace_{label.replace(' ', '_')}.json"
+        tr.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        return [(e["cat"], e["name"], float(e["ts"]), float(e["ts"]) + float(e["dur"]),
+                 int((e.get("args") or {}).get("bytes", 0) or 0))
+                for e in events
+                if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and e.get("dur", 0) > 0]
+
+    def stream_phase():
+        """[stream]: SimpleMRIRecon.stream at CONFIG, batch 8: 24 slices (no
+        tail), 19 (a tail of 3: waste 5/8, a twin of its own) and 21 (a tail
+        of 5: waste 3/8, padded), in staged / fused / fused_kernel and
+        fused_kernel RSS; each item against the sequential launch() and the
+        oracle; kernel launches = batches; every twin captured once, at its
+        second launch, and replayed after; then the timing and trace lines."""
+        report = {}
+        for mode, comb in (("staged", "sum"), ("fused", "sum"), ("fused_kernel", "sum"),
+                           ("fused_kernel", "rss")):
+            label = f"{mode}{' rss' if comb == 'rss' else ''}"
+            app = CLapp().init()
+            h_in = app.addData(kd(0))
+            out_dt = np.float32 if comb == "rss" else np.complex64
+            h_out = app.addData(XData({"xdata": np.zeros((cfg[0],) + cfg[2:], out_dt)}))
+            if comb == "rss":
+                proc = FusedMRIRecon(app)
+                proc.set_launch_parameters(FusedReconParams(combine="rss"))
+            else:
+                proc = SimpleMRIRecon(app, mode=mode, in_place=False)
+            proc.in_handle, proc.out_handle = h_in, h_out
+            proc.init()
+            expect = (["mriFusedRecon"] if mode == "fused_kernel"
+                      else ["complexElementProd", "xImageSum"])
+            # sequential: host2device + launch() a slice, the reference
+            seq, seq_ms = [], []
+            d_in = app.getData(h_in)
+            for i in range(n_slices):
+                for dst, src in zip(d_in, kd(i)):
+                    dst.set_host(src.host)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                app.host2device(h_in)
+                proc.launch()
+                torch.cuda.synchronize()
+                seq_ms.append(wall_ms(t0))
+                seq.append(app.getData(h_out).device_view("xdata").cpu().numpy().copy())
+            exact = mode == "fused_kernel"
+
+            def check_items(outs, n, what):
+                if len(outs) != n:
+                    raise SystemExit(f"chip_smoke: [stream] {label} {what}: {len(outs)} results "
+                                     f"for {n} slices")
+                err = 0.0
+                for i, o in enumerate(outs):
+                    got = o.device_view("xdata").cpu().numpy()
+                    if got.shape != seq[i].shape or not np.isfinite(got).all():
+                        raise SystemExit(f"chip_smoke: [stream] {label} {what}: bad item {i}")
+                    if exact:
+                        np.testing.assert_array_equal(got, seq[i], err_msg=f"{label} {what} {i}")
+                    else:
+                        np.testing.assert_allclose(got, seq[i], rtol=1e-6, atol=1e-6,
+                                                   err_msg=f"{label} {what} {i}")
+                    np.testing.assert_allclose(got, oracles[comb][i], rtol=1e-4, atol=1e-4,
+                                               err_msg=f"{label} {what} {i} oracle")
+                    err = max(err, float(np.abs(got - oracles[comb][i]).max()))
+                return err
+
+            walls, errs, runs = {}, {}, []
+            trace = None
+            # the twins of both upload slots set up alone (Data, pinned buffers,
+            # the twins' init), as the first stream does before its loop
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _BatchPlan(proc, 8).init()
+            torch.cuda.synchronize()
+            setup_ms = wall_ms(t0)
+            for tag, n in (("cold 24", 24), ("warm 24", 24), ("timed 24", 24),
+                           ("events 24", 24), ("traced 24", 24), ("19", 19), ("21", 21)):
+                items = [kd(i) for i in range(n)]
+                torch.cuda.synchronize()
+                if tag.startswith("events"):
+                    t0 = time.perf_counter()
+                    (outs, got), timeline = event_timeline(
+                        lambda: deltas(lambda: proc.stream(items, batch=8)))
+                    walls[tag] = wall_ms(t0)
+                elif tag.startswith("traced"):
+                    with profile(activities=[ProfilerActivity.CPU,
+                                             ProfilerActivity.CUDA]) as trace:
+                        t0 = time.perf_counter()
+                        outs, got = deltas(lambda: proc.stream(items, batch=8))
+                        torch.cuda.synchronize()
+                        walls[tag] = wall_ms(t0)
+                else:
+                    t0 = time.perf_counter()
+                    outs, got = deltas(lambda: proc.stream(items, batch=8))
+                    torch.cuda.synchronize()
+                    walls[tag] = wall_ms(t0)
+                batches = -(-n // 8)
+                bad = {k: got.get(k, 0) for k in expect if got.get(k, 0) != batches}
+                if bad:
+                    raise SystemExit(f"chip_smoke: [stream] {label} {n} slices: kernel launches "
+                                     f"{got}, expected {batches} of each of {expect}")
+                errs[tag] = check_items(outs, n, tag)
+                runs.append((tag, got))
+            target = proc._stream_target()
+            twins = target._stream_twins
+            for key, bp in sorted(twins.items()):
+                if (bp.captures, bp.replays) != (int(bp.launches >= 2), max(bp.launches - 1, 0)):
+                    raise SystemExit(f"chip_smoke: [stream] {label}: twin (rows, slot) {key}: "
+                                     f"{bp.captures} captures, {bp.replays} replays over "
+                                     f"{bp.launches} launches")
+            if (3, 0) not in twins or (5, 0) in twins or twins[(3, 0)].launches != 1:
+                raise SystemExit(f"chip_smoke: [stream] {label}: tail twins {sorted(twins)}; "
+                                 "expected one for 3 rows (waste 5/8) and none for 5 (padded)")
+            twin_txt = ", ".join(f"{k}: {bp.launches} launches/{bp.captures} capture/"
+                                 f"{bp.replays} replays" for k, bp in sorted(twins.items()))
+            seq_p50 = statistics.median(seq_ms[2:])
+            print(f"[stream] {smi}: {label} at {cfg}, batch 8, per-slice maps: wall ms a "
+                  f"slice streamed {walls['timed 24'] / 24:.3f} (24 slices, every batch a "
+                  f"replay: {walls['timed 24']:.1f} ms; the twins of batch 8 set up in "
+                  f"{setup_ms:.1f} ms, then the first stream, eager, {walls['cold 24']:.1f} ms, "
+                  f"the second, which captures, {walls['warm 24']:.1f} ms) beside sequential "
+                  f"host2device + launch() "
+                  f"{seq_p50:.3f} ms a slice (p50 of 22, replayed); 19 slices "
+                  f"{walls['19']:.1f} ms (tail of 3: its own twin), 21 slices {walls['21']:.1f} "
+                  f"ms (tail of 5: padded); every item "
+                  f"{'bit for bit' if exact else 'within rtol 1e-6 of'} the sequential "
+                  f"launch(), max abs err vs oracle {max(errs.values()):.3e}; kernel launches "
+                  f"= batches in every run; twins {twin_txt}")
+            # the upload ring from CUDA events around each upload and launch
+            ups, lau = timeline["upload"], timeline["launch"]
+            if not ups or not lau:
+                raise SystemExit(f"chip_smoke: [stream] {label}: no upload or launch seen "
+                                 f"through the stream seam ({len(ups)}, {len(lau)})")
+            lu = merged([(a, b) for a, b, _ in lau])
+            up_ms = sum(b - a for a, b, _ in ups)
+            over = sum(overlap(a, b, lu) for a, b, _ in ups)
+            busy = sum(b - a for a, b in merged([(a, b) for a, b, _ in ups + lau]))
+            print(f"[stream] {smi}: {label} 24-slice stream, CUDA events around each upload "
+                  f"and batch launch: {len(ups)} uploads, "
+                  f"{sum(n for _, _, n in ups) / 1e9:.3f} GB in {up_ms:.3f} ms = "
+                  f"{sum(n for _, _, n in ups) / up_ms / 1e6:.2f} GB/s on the copy stream "
+                  f"(each {', '.join(f'{b - a:.3f}' for a, b, _ in ups)} ms); batch launches "
+                  f"{', '.join(f'{b - a:.3f}' for a, b, _ in lau)} ms (twin replay and the "
+                  f"unbatching copy); share of upload time overlapping a launch "
+                  f"{over / up_ms:.3f}; device busy {busy:.2f} ms of the "
+                  f"{walls['events 24']:.1f} ms wall: idle share "
+                  f"{1 - busy / walls['events 24']:.3f}")
+            ev = device_trace(trace, label)
+            kern = [(a, b, nm) for cat, nm, a, b, _ in ev if cat == "kernel"]
+            marker = "dft_recon_kernel" if mode == "fused_kernel" else "cprod_kernel"
+            seen = sum(marker in nm for _, _, nm in kern)
+            if not seen:
+                print(f"[stream] {label}: the torch.profiler trace holds no {marker}: the "
+                      "kernels' device time a batch not measured")
+            else:
+                mine = sum(b - a for a, b, nm in kern if any(
+                    t in nm for t in ("cprod_kernel", "coil_combine_kernel",
+                                      "fused_epilogue_kernel", "dft_recon_kernel")))
+                h2d = sum("HtoD" in nm for cat, nm, _, _, _ in ev if cat == "gpu_memcpy")
+                print(f"[stream] {smi}: {label} traced 24-slice stream (torch.profiler, chrome "
+                      f"trace; it holds {seen} of the 3 batches' {marker} launches and {h2d} of "
+                      f"the 3 uploads): kernels' device time a batch "
+                      f"{sum(b - a for a, b, _ in kern) / seen / 1e3:.3f} ms (the hand-written "
+                      f"kernels' {mine / seen / 1e3:.3f} ms)")
+            report[label] = walls
+            del proc, app
+            gc.collect()
+            torch.cuda.empty_cache()
+        return report
+
+    counted("stream", stream_phase, ["complexElementProd", "xImageSum", "mriFusedRecon"])
+
+    def serve_phase():
+        """[serve]: Pipeline.run(mode="serve") over the linear, fan-in and
+        aux-bound graphs (shared maps bit for bit against the aux-bound
+        graph, per-slice maps against the single-arena graph); then a
+        PipelineServer(batch=4, flush_timeout=0.02) fed 10 requests from a
+        second thread, its twins captured by warmup() before: p50/p99
+        latency, every response against its oracle."""
+        import threading
+
+        app = CLapp().init()
+        maps0 = stack[0][1]
+        kst = [Data({"kdata": stack[i][0]}) for i in range(5)]
+        shared = [{"kspace": d, "smaps": Data({"sensitivity_maps": maps0})} for d in kst]
+        want = linear(app, Data({"sensitivity_maps": maps0})).run(kst, mode="stream", batch=2)
+        prof = ProfileParameters(enable=True)
+        got = fanin(app).run(shared, mode="serve", batch=2, profile=prof)
+        for i, (g, w_) in enumerate(zip(got, want)):
+            np.testing.assert_array_equal(g.get_ndarray(0).host, w_.get_ndarray(0).host,
+                                          err_msg=f"[serve] shared maps {i}")
+            np.testing.assert_allclose(g.get_ndarray(0).host, oracle(stack[i][0], maps0),
+                                       rtol=1e-4, atol=1e-4, err_msg=f"[serve] shared {i}")
+        per = [{"kspace": Data({"kdata": stack[i][0]}),
+                "smaps": Data({"sensitivity_maps": stack[i][1]})} for i in range(5)]
+        got_per = fanin(app).run(per, mode="serve", batch=2)
+        want_per = linear(app).run([kd(i) for i in range(5)], mode="serve", batch=2)
+        for i, (g, w_) in enumerate(zip(got_per, want_per)):
+            np.testing.assert_array_equal(g.get_ndarray(0).host, w_.get_ndarray(0).host,
+                                          err_msg=f"[serve] per-slice maps {i}")
+            np.testing.assert_allclose(g.get_ndarray(0).host, oracles["sum"][i], rtol=1e-4,
+                                       atol=1e-4, err_msg=f"[serve] per-slice {i}")
+        print(f"[serve] {cfg}: Pipeline.run(mode='serve') at batch 2 over 5 slices (a padded "
+              f"tail): the fan-in graph with shared maps bit for bit the aux-bound graph "
+              f"streamed, with per-slice maps bit for bit the single-arena graph served; "
+              f"latency p50 {prof.p50() * 1e3:.2f} ms, p99 {prof.percentile(99) * 1e3:.2f} ms")
+
+        # the threaded server: submit touches no CUDA call; warmup() captured
+        # every twin, so the worker thread only replays
+        pipe = Pipeline(app) | SimpleMRIRecon(app, mode="fused_kernel").bind()
+        server = pipe.serve(batch=4, flush_timeout=0.02)
+        before = launch_counts().get("mriFusedRecon", 0)
+        server.warmup(kd(0))
+        warm = launch_counts().get("mriFusedRecon", 0) - before
+        plan = server._plan
+        captured = {k: bp.captures for k, bp in plan.twins.items()}
+        errors = []
+
+        def submitter():
+            try:
+                for i in range(10):
+                    server.submit(kd(i))
+                    time.sleep(0.004)
+            except BaseException as e:   # reaches the main thread's check below
+                errors.append(e)
+
+        t = threading.Thread(target=submitter, name="chip-smoke-submitter")
+        t0 = time.perf_counter()
+        t.start()
+        resps = server.collect(10, timeout=120.0)
+        total_ms = wall_ms(t0)
+        t.join(timeout=60.0)
+        server.close()
+        if errors or t.is_alive() or len(resps) != 10:
+            raise SystemExit(f"chip_smoke: [serve] threaded server: {len(resps)} responses, "
+                             f"submitter errors {errors}, alive {t.is_alive()}")
+        for r in resps:
+            got = r.data.device_view("xdata").cpu().numpy()
+            np.testing.assert_allclose(got, oracles["sum"][r.rid], rtol=1e-4, atol=1e-4,
+                                       err_msg=f"[serve] request {r.rid}")
+        after = {k: bp.captures for k, bp in plan.twins.items()}
+        served = launch_counts().get("mriFusedRecon", 0) - before - warm
+        if after != captured or any(v != 1 for v in after.values()) or served != server.launches:
+            raise SystemExit(f"chip_smoke: [serve] captures {captured} -> {after} (the worker "
+                             f"must capture nothing), mriFusedRecon launches {served} for "
+                             f"{server.launches} batches")
+        lat = sorted(r.latency_s * 1e3 for r in resps)
+        print(f"[serve] {smi}: PipelineServer(batch=4, flush_timeout=0.02) over SimpleMRIRecon "
+              f"fused_kernel at {cfg}: 10 requests from a second thread (4 ms apart) in "
+              f"{total_ms:.1f} ms, {server.launches} batched launches; latency p50 "
+              f"{float(np.percentile(lat, 50)):.2f} ms, p99 {float(np.percentile(lat, 99)):.2f} "
+              f"ms (min {lat[0]:.2f}, max {lat[-1]:.2f}); warmup() captured twins "
+              f"{sorted(after)} ({warm} launches), none captured in the worker; every "
+              "response within 1e-4 of its oracle")
+
+    counted("serve", serve_phase, ["complexElementProd", "xImageSum", "mriFusedRecon"])
+    del stack, oracles
 
     # -- 5. LM and listing-1 kernels against their plain versions ------------
     from repro_torch.configs import get_config
@@ -725,7 +1162,7 @@ def main() -> None:
     from repro_torch.models.common import tree_map
     from repro_torch.core.arena import device_view
     from repro_torch.processes.lm import DecodeSession, weights_data
-    from repro_torch.serve import LMServer, SamplingConfig
+    from repro_torch.serve import LMServer, SamplingConfig, ServeEngine
 
     bf16, f32 = torch.bfloat16, torch.float32
     lm_tol = {bf16: (2e-2, 2e-2), f32: (1e-4, 1e-5)}   # (rtol, atol); bf16: one
@@ -1167,7 +1604,30 @@ def main() -> None:
                 raise SystemExit(f"chip_smoke: 2-layer {arch} {label} disagrees with the CPU")
         del runs, caches
         eager_against_replayed(cfg, two, p_bf16, rng)
+        if cfg.family != "ssm":
+            engine_against_server(two, p_bf16, rng)
         return counts
+
+    def engine_against_server(two, p_bf16, rng):
+        """``ServeEngine`` (the former API, a shim over ``LMServer``) on the
+        2-layer full-width model: 3 prompts, 2 slots, 8 new tokens; its
+        tokens must be ``LMServer``'s."""
+        app = CLapp().init()
+        model = build_model(two)
+        prompts = [rng.integers(0, two.vocab, n).tolist() for n in (17, 40, 64)]
+        outs = {}
+        for cls in (LMServer, ServeEngine):
+            srv = cls(model, p_bf16, batch=2, max_len=128,
+                      sampling=SamplingConfig(max_new_tokens=8), app=app)
+            for pr in prompts:
+                srv.submit(pr)
+            outs[cls.__name__] = srv.run()
+        same = outs["LMServer"] == outs["ServeEngine"]
+        print(f"[lm-check] {smi}: 2-layer {two.name}: ServeEngine tokens == LMServer tokens "
+              f"({len(prompts)} prompts, 8 new tokens, 2 slots): {same}")
+        if not same or any(len(r) != 8 for r in outs["ServeEngine"]):
+            raise SystemExit(f"chip_smoke: ServeEngine tokens {outs['ServeEngine']} differ from "
+                             f"LMServer's {outs['LMServer']}")
 
     def eager_against_replayed(cfg, two, p_bf16, rng, steps=32):
         """The 2-layer full-width model through ``DecodeSession``: ``steps``

@@ -2,7 +2,9 @@
 
 Public API mirrors OpenCLIPER's class names (CLapp, Data, XData, KData,
 NDArray, Process) and ``repro.core``'s exports, limited to what the port
-has so far (the graph layer: ``Node`` and ``Pipeline`` in launch mode).
+has so far: the graph layer (``Node``, ``Pipeline`` in its launch, stream
+and serve modes) and the single-device streaming executor
+(``StreamQueue``, ``BatchedProcess``).
 """
 from .app import (
     CLapp,
@@ -36,14 +38,15 @@ from .process import (
     ProfileParameters,
 )
 from .registry import KernelCompileError, KernelEntry, KernelRegistry, kernel
+from .stream import BatchedProcess, StreamQueue
 from .sync import Coherence, SyncSource
 
 __all__ = [
-    "ALIGN", "ArenaEntry", "ArenaLayout", "BFLOAT16", "CLapp", "Coherence",
+    "ALIGN", "ArenaEntry", "ArenaLayout", "BFLOAT16", "BatchedProcess", "CLapp", "Coherence",
     "Data", "DataHandle", "DeviceTraits", "DeviceType", "DonatedBufferError",
     "GraphError", "INVALID_HANDLE", "KData", "KernelCompileError", "KernelEntry",
     "KernelRegistry", "NDArray", "Node", "NoMatchingDeviceError", "Pipeline",
     "PlatformTraits", "Port", "PortError", "Process", "ProcessChain", "ProfileParameters",
-    "SyncSource", "TensorSpec", "XData", "device_view", "kernel",
+    "StreamQueue", "SyncSource", "TensorSpec", "XData", "device_view", "kernel",
     "pack_device", "pack_host", "plan_layout", "unpack_device", "unpack_host",
 ]

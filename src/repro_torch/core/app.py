@@ -169,15 +169,14 @@ class CLapp:
                 staging = host.pin_memory()  # the caching host allocator
                 # keeps it alive until the copy that reads it has run
                 compute = torch.cuda.current_stream(self.device)
-                if self._copy_stream is None:
-                    self._copy_stream = torch.cuda.Stream(self.device)
+                copy_stream = self.copy_stream
                 # the blob may still be read by kernels queued earlier
-                self._copy_stream.wait_stream(compute)
+                copy_stream.wait_stream(compute)
                 event = torch.cuda.Event()
-                with torch.cuda.stream(self._copy_stream):
+                with torch.cuda.stream(copy_stream):
                     blob.copy_(staging, non_blocking=True)
-                    event.record(self._copy_stream)
-                blob.record_stream(self._copy_stream)
+                    event.record(copy_stream)
+                blob.record_stream(copy_stream)
                 compute.wait_event(event)
             else:
                 blob.copy_(host)
@@ -187,6 +186,16 @@ class CLapp:
             coherence = Coherence.DEVICE_FRESH
         data.device_blob = blob
         data.coherence = coherence
+
+    @property
+    def copy_stream(self) -> "torch.cuda.Stream":
+        """The side stream of host->device copies on a CUDA app (made at
+        first use): ``host2device``'s and the streaming executor's."""
+        if self.device.type != "cuda":
+            raise RuntimeError(f"a {self.device.type} app has no copy stream")
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(self.device)
+        return self._copy_stream
 
     def wait_transfers(self) -> None:
         """Explicit host sync point: block until every issued host->device

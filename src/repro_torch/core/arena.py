@@ -12,6 +12,14 @@ The byte format is shared with the JAX package: for the same specs,
 blob packed by either package unpacks in the other.  On the device, a view
 is ``blob[off:off+n].view(dtype).view(shape)`` over a uint8 tensor:
 zero-copy, so processes read and write the arena in place.
+
+A batch of ``rows`` items of one layout (the streaming executor's unit)
+lives in two forms: the **batched layout** (:func:`batched_layout`), each
+entry with a leading ``rows`` axis, which a process launched on the whole
+batch reads; and **stacked item blobs**, a ``(rows, total_bytes)`` array
+whose row ``r`` is item ``r``'s own blob (:func:`stack_host_blobs`,
+:func:`split_batched_blob`).  :func:`pack_rows` writes items into the
+first form, :func:`unbatch_device` turns it into the second.
 """
 from __future__ import annotations
 
@@ -235,4 +243,61 @@ def pack_device(arrays: Mapping[str, torch.Tensor], layout: ArenaLayout,
                 and tuple(src.shape) == e.shape and src.is_contiguous():
             continue
         dst.copy_(src.reshape(e.shape))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Batches: k items of one layout (streaming)
+# ---------------------------------------------------------------------------
+
+def batched_layout(layout: ArenaLayout, rows: int) -> ArenaLayout:
+    """The layout of ``rows`` items of ``layout`` with each entry stacked on
+    a leading axis (entry ``name`` of shape ``(rows,) + shape``): what a
+    process launched once for the whole batch reads.  The counterpart of
+    the JAX package's ``batched_spec``, whose vmapped program reads
+    stacked item blobs instead."""
+    return plan_layout((e.name, (int(rows),) + e.shape, e.dtype) for e in layout.entries)
+
+
+def stack_host_blobs(blobs: Sequence[np.ndarray], layout: ArenaLayout) -> np.ndarray:
+    """Per-item host blobs as one contiguous ``(k, total_bytes)`` array,
+    each checked against ``layout``."""
+    for b in blobs:
+        if b.shape != (layout.total_bytes,) or b.dtype != np.uint8:
+            raise ValueError(f"blob shape {b.shape}/{b.dtype} does not match layout "
+                             f"({layout.total_bytes},)/uint8")
+    return np.stack(blobs, axis=0)
+
+
+def split_batched_blob(stacked: torch.Tensor) -> List[torch.Tensor]:
+    """Per-item 1-D blobs (views, no copy) of a ``(k, total_bytes)`` stack."""
+    return [stacked[r] for r in range(int(stacked.shape[0]))]
+
+
+def pack_rows(dst: np.ndarray, batched: ArenaLayout,
+              items: Sequence[Mapping[str, np.ndarray] | None]) -> None:
+    """Write item ``r``'s arrays (``{name -> host array}``) into row ``r``
+    of every entry of the host buffer ``dst`` (uint8, ``batched``'s bytes);
+    a row whose item is None is left as it is."""
+    for e in batched.entries:
+        rows = dst[e.offset: e.offset + e.nbytes].reshape(len(items), -1)
+        for r, arrays in enumerate(items):
+            if arrays is not None:
+                rows[r] = np.ascontiguousarray(arrays[e.name]).view(np.uint8).reshape(-1)
+
+
+def unbatch_device(blob: torch.Tensor, batched: ArenaLayout, item: ArenaLayout,
+                   out: torch.Tensor | None = None) -> torch.Tensor:
+    """A batched-layout device blob as stacked item blobs: a new
+    ``(rows, item.total_bytes)`` tensor (or ``out``), row ``r`` holding
+    item ``r``'s blob; one strided copy an entry.  Alignment padding
+    between entries is zero."""
+    rows = batched.entries[0].shape[0] if batched.entries else 0
+    if out is None:
+        payload = sum(e.nbytes for e in item.entries)
+        make = torch.empty if payload == item.total_bytes else torch.zeros
+        out = make((rows, item.total_bytes), dtype=torch.uint8, device=blob.device)
+    for e_item, e_b in zip(item.entries, batched.entries):
+        src = blob[e_b.offset: e_b.offset + e_b.nbytes].view(rows, e_item.nbytes)
+        out[:, e_item.offset: e_item.offset + e_item.nbytes].copy_(src)
     return out

@@ -142,6 +142,17 @@ class Data:
             d.add(NDArray(shape=s.shape, dtype=s.dtype, name=name))
         return d
 
+    @classmethod
+    def from_layout(cls, layout: ArenaLayout) -> "Data":
+        """Spec-only Data of ``layout``'s entries, planned to that layout:
+        what a streamed or served result is, before its device blob is
+        attached."""
+        d = cls(None)
+        for e in layout.entries:
+            d.add(NDArray(shape=e.shape, dtype=e.dtype, name=e.name))
+        d.layout = layout
+        return d
+
     def spec_clone(self) -> "Data":
         """Same-shaped, spec-only copy: a scratch or output Data the size
         of this one."""

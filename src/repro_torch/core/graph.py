@@ -22,9 +22,13 @@ edge** is a join: it reads that edge, and an edge that no node produces
 becomes one more graph input (:attr:`Pipeline.input_edges`), which
 ``run`` takes as a ``{edge: Data}`` mapping or a tuple in that order.  A
 secondary port bound to a Data or a handle is static (weights, a fixed
-set of maps) and is read live at each launch.  The launch mode is the
-only mode of the port so far; the stream and serve modes come with the
-stream slice.
+set of maps): it is read live at each launch, and a stream or a server
+reads it unbatched for every item (``Process.set_aux_handle``).
+
+``run`` has three modes: ``launch`` (one input set), ``stream`` (many,
+batched and double-buffered through :mod:`repro_torch.core.stream`) and
+``serve`` (many, as requests to a :class:`repro_torch.serve.pipeline.
+PipelineServer`; :meth:`Pipeline.serve` makes a standing one).
 
 Validation happens when the graph is composed or built, never at launch:
 
@@ -137,6 +141,19 @@ class _Built:
     #: edge name -> 'host' (graph input/output edges) or 'device'
     #: (internal edges and persistent Data)
     residency: Dict[str, str]
+
+    @property
+    def input_order(self) -> Tuple[str, ...]:
+        """The input edges in the order the executor streams its inputs
+        (:meth:`Process.stream_inputs`): the order a stream or server item
+        is passed in, each edge once."""
+        h2e = {h: e for e, h in self.input_handles.items()}
+        target = self.executor._stream_target()
+        missing = [h for _, h in target.stream_inputs() if h not in h2e]
+        if missing:
+            raise GraphError(f"executor streams handles {missing} that are not graph input "
+                             f"edges {list(self.input_edges)}; the join is mis-wired")
+        return tuple(h2e[h] for _, h in target.stream_inputs())
 
     @property
     def input_handle(self) -> DataHandle:
@@ -483,7 +500,7 @@ class Pipeline:
                     if id(bound) not in port_handles:
                         port_handles[id(bound)] = app.addData(bound)
                     bound = port_handles[id(bound)]
-                p.in_handles[pname] = bound
+                p.set_aux_handle(pname, bound)
             p.out_handle = handles[self._out_edges[i]]
             procs.append(p)
 
@@ -507,21 +524,105 @@ class Pipeline:
         return self._built
 
     # ------------------------------------------------------------------ run
-    def run(self, inputs: Any = None, *, mode: str = "launch", sync: bool = True,
-            profile: Optional[ProfileParameters] = None) -> Data:
-        """Launch the graph once and return the output Data; ``sync=True``
-        copies it back to the host.  ``inputs`` is one Data, an ``{edge:
-        Data}`` mapping or a tuple in :attr:`input_edges` order (None when
-        the input is bound).  Each input edge's new Data is copied into that
-        edge's own buffer and uploaded in one call into the same device
-        blob, so a replayed graph of the executor (:meth:`Process.launch`
-        on the card) reads every new input; those uploads are the only host
-        to device traffic of a launch, and ``profile`` records them under
-        the ``"transfer"`` phase.  A bound input is not uploaded again."""
+    def _item_tuple(self, built: _Built, item: Any, *, what: str = "item") -> Any:
+        """Normalise one stream/serve item: the caller supplies one Data per
+        graph input edge (a lone Data, an ``{edge: Data}`` mapping, or a
+        tuple in :attr:`input_edges` order); the result is a lone Data or a
+        tuple in ``built.input_order``, the executor's streamed order."""
+        edges = built.input_edges
+        n = len(edges)
+        if isinstance(item, Data):
+            if n != 1:
+                raise GraphError(f"{what} is a single Data but this graph joins {n} input "
+                                 f"edges {list(edges)}; pass one Data per edge as a "
+                                 "{edge name: Data} mapping")
+            by_edge = {edges[0]: item}
+        elif isinstance(item, Mapping):
+            missing = [e for e in edges if e not in item]
+            extra = [e for e in item if e not in edges]
+            if missing or extra:
+                raise GraphError(f"{what} does not cover the graph input edges: missing "
+                                 f"{missing}, unknown {extra} (input edges: {list(edges)})")
+            by_edge = item
+        elif isinstance(item, (tuple, list)):
+            if len(item) != n:
+                raise GraphError(f"{what} supplies {len(item)} Data for {n} input "
+                                 f"edge(s) {list(edges)}")
+            by_edge = dict(zip(edges, item))
+        else:
+            raise GraphError(f"{what} must be a Data or a {{edge name: Data}} mapping, got "
+                             f"{type(item).__name__}")
+        order = built.input_order
+        if len(order) == 1:
+            return by_edge[order[0]]
+        return tuple(by_edge[e] for e in order)
+
+    def run(self, inputs: Any = None, *, mode: str = "launch", batch: int = 1,
+            sharded: bool = False, depth: int = 2, sync: bool = True,
+            tail_waste_threshold: float = 0.5, split: str = "equal", lanes: bool = False,
+            profile: Optional[ProfileParameters] = None) -> Any:
+        """Route the graph through one of three modes:
+
+        ======== ================================ ================================
+        mode     inputs                           returns
+        ======== ================================ ================================
+        launch   one Data, an ``{edge: Data}``    the output Data
+                 mapping or a tuple (None when
+                 the input is bound)
+        stream   a sequence of such items         one output Data per item
+        serve    a sequence of such items         one output Data per request, in
+                 (requests)                       submit order; each request's
+                                                  latency recorded on ``profile``
+        ======== ================================ ================================
+
+        ``launch``: each input edge's new Data is copied into that edge's
+        own buffer and uploaded in one call into the same device blob, so a
+        replayed graph of the executor (:meth:`Process.launch` on the card)
+        reads every new input; those uploads are the only host to device
+        traffic of a launch, and ``profile`` records them under the
+        ``"transfer"`` phase.  A bound input is not uploaded again.
+
+        ``stream`` and ``serve`` take ``batch``, ``depth`` and
+        ``tail_waste_threshold`` (:meth:`Process.stream`); a fan-in graph
+        batches each edge on its own and joins them row-aligned in one
+        launch.  ``sharded``, ``split="proportional"`` and ``lanes`` raise
+        ``NotImplementedError`` (the multi-GPU slice).  ``sync=True``
+        copies results back to the host."""
+        if mode in ("stream", "serve") and isinstance(inputs, (Data, Mapping)):
+            raise TypeError(f"mode={mode!r} takes a sequence of items (one Data, mapping or "
+                            f"tuple each), got one {type(inputs).__name__}; mode='launch' "
+                            "takes one")
+        if mode == "stream":
+            datasets = list(inputs or ())
+            if not datasets:
+                return []
+            built = self.build(datasets[0])
+            items = [self._item_tuple(built, d, what=f"inputs[{i}]")
+                     for i, d in enumerate(datasets)]
+            return built.executor.stream(items, batch=batch, depth=depth, sync=sync,
+                                         sharded=sharded,
+                                         tail_waste_threshold=tail_waste_threshold,
+                                         split=split, lanes=lanes, profile=profile)
+        if mode == "serve":
+            requests = list(inputs or ())
+            if not requests:
+                return []
+            server = self.serve(batch=batch, sharded=sharded, depth=depth,
+                                tail_waste_threshold=tail_waste_threshold, split=split,
+                                lanes=lanes)
+            rids = [server.submit(d) for d in requests]
+            by_rid = {r.rid: r for r in server.drain()}
+            outs = []
+            for rid in rids:
+                resp = by_rid[rid]
+                if profile is not None and profile.enable:
+                    profile.record(resp.latency_s)
+                if sync:
+                    resp.data.sync_to_host()
+                outs.append(resp.data)
+            return outs
         if mode != "launch":
-            raise NotImplementedError(
-                f"mode {mode!r}: the port has the launch mode; stream and serve come "
-                "with the stream slice (ROADMAP)")
+            raise ValueError(f"unknown mode {mode!r}: expected 'launch' | 'stream' | 'serve'")
         built = self.build(inputs)
         app = self.app
         sources = self._example_inputs(inputs)
@@ -545,6 +646,20 @@ class Pipeline:
         if sync:
             out.sync_to_host()
         return out
+
+    def serve(self, *, batch: int = 8, sharded: bool = False, depth: int = 2,
+              tail_waste_threshold: float = 0.5, split: str = "equal", lanes: bool = False,
+              flush_timeout: Optional[float] = None):
+        """A standing request/response loop over this pipeline (admission
+        queue -> dynamic batcher -> batched joined launches); see
+        :class:`repro_torch.serve.pipeline.PipelineServer`.  With
+        ``flush_timeout`` (seconds) a background thread serves, flushing a
+        partial batch once its oldest request waited that long."""
+        from repro_torch.serve.pipeline import PipelineServer  # the serve layer builds on this
+
+        return PipelineServer(self, batch=batch, sharded=sharded, depth=depth,
+                              tail_waste_threshold=tail_waste_threshold, split=split,
+                              lanes=lanes, flush_timeout=flush_timeout)
 
     @staticmethod
     def _copy_into(dst: Data, src: Data, edge: str = "?") -> None:

@@ -34,9 +34,18 @@ In-place safety: a process initialised with its output handle equal to one
 of its input handles refuses to launch after the handles were re-wired
 apart without a new ``init()`` (:class:`DonatedBufferError`), as the
 reference does for a donated buffer.
+
+Streaming (:meth:`Process.stream`, :mod:`repro_torch.core.stream`) runs
+many independent Data sets through a process, a batch of them a launch:
+a **twin** of the process (:meth:`Process._twin`) is wired onto Data
+whose entries carry one more leading axis, and launched as any process
+is.  A class whose ``apply`` takes that axis sets :attr:`Process.
+batch_axis`; an input bound with :meth:`Process.set_aux_handle` is
+static and reaches every item of a batch unbatched.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import time
 import warnings
@@ -170,8 +179,9 @@ class Port:
             object.__setattr__(self, "names", tuple(self.names))
 
     def validate(self, specs: Mapping[str, TensorSpec], *,
-                 owner: str = "?", port: str = "?") -> None:
-        """Check ``{array name -> TensorSpec}`` against this port."""
+                 owner: str = "?", port: str = "?", lead: int = 0) -> None:
+        """Check ``{array name -> TensorSpec}`` against this port; ``lead``
+        leading (batch) axes more than ``ndim`` are allowed."""
         where = f"{owner}.ports[{port!r}]"
         if self.names:
             missing = [n for n in self.names if n not in specs]
@@ -185,10 +195,10 @@ class Port:
             if self.dtype is not None and not np.issubdtype(kind, self.dtype):
                 raise PortError(f"{where}: array {name!r} has dtype {s.dtype}, "
                                 f"expected {self.dtype}")
-            if self.ndim is not None and len(s.shape) != self.ndim:
+            if self.ndim is not None and len(s.shape) != self.ndim + lead:
                 raise PortError(f"{where}: array {name!r} has shape "
                                 f"{tuple(s.shape)} (ndim {len(s.shape)}), "
-                                f"expected ndim {self.ndim}")
+                                f"expected ndim {self.ndim + lead}")
 
 
 class DonatedBufferError(RuntimeError):
@@ -212,6 +222,11 @@ class Process:
     #: whose launches rarely repeat on one wiring sets it False
     graphed: bool = True
 
+    #: whether ``apply`` takes one more leading (batch) axis on every
+    #: streamed input and the output, as a batch of items (:meth:`stream`);
+    #: streaming a class that does not raises
+    batch_axis: bool = False
+
     ports: Dict[str, Port] = {"in": Port(), "out": Port()}
 
     def __init__(self, app: Optional[CLapp] = None):
@@ -227,6 +242,11 @@ class Process:
         self._warm = False          # launched eagerly since init / the last drop
         self.captures = 0
         self.replays = 0
+        #: inputs bound with :meth:`set_aux_handle`: static, not streamed
+        self.aux_names: set = set()
+        self._batched: frozenset = frozenset()   # a twin's batched handles
+        #: a stream's twins of this process, by (rows, slot)
+        self._stream_twins: Dict[Tuple[int, int], Any] = {}
 
     # -- wiring ---------------------------------------------------------------
     @property
@@ -307,6 +327,13 @@ class Process:
         self._warn_legacy_setters()
         self.out_handle = h
 
+    def set_aux_handle(self, name: str, h: DataHandle) -> None:
+        """Wire input ``name`` to ``h`` as a static input: a stream reads
+        the same Data for every item (broadcast), where an input wired in
+        ``in_handles`` takes one Data an item."""
+        self.in_handles[name] = h
+        self.aux_names.add(name)
+
     def set_launch_parameters(self, params: Any) -> None:
         if params != self.launch_params:
             self.launch_params = params
@@ -347,11 +374,13 @@ class Process:
                 if port_name in ("in", "out") or not port.optional:
                     raise PortError(f"{owner}: port {port_name!r} is not wired")
                 continue
-            port.validate(app.getData(h).specs(), owner=owner, port=port_name)
+            port.validate(app.getData(h).specs(), owner=owner, port=port_name,
+                          lead=int(h in self._batched))
 
     def init(self) -> None:
         """One-time work: build and load kernels, plan layouts, check the
         ports, allocate the output arena."""
+        self._release_stream()
         app = self.getApp()
         if self.kernel_names:
             app.loadKernels(list(self.kernel_names))
@@ -490,6 +519,91 @@ class Process:
         outs = self._apply_checked(ins[0], aux, dout.device_views())
         pack_device(outs, dout.layout, out=dout.device_blob)
 
+    # -- streaming (see repro_torch.core.stream) --------------------------------
+    def stream(self, datasets: Sequence[Any], batch: int = 1, *, depth: int = 2,
+               sync: bool = False, sharded: bool = False,
+               tail_waste_threshold: float = 0.5, split: str = "equal",
+               lanes: bool = False, profile: ProfileParameters | None = None) -> List[Any]:
+        """Run many independent input Data sets through this process.
+
+        Batches of ``batch`` items are packed into pinned host buffers,
+        uploaded on the app's copy stream while the batch before computes
+        (:class:`~repro_torch.core.stream.StreamQueue`, ``depth`` buffers),
+        and each batch runs as ONE launch of a twin of this process wired
+        for ``batch`` items (:class:`~repro_torch.core.stream.
+        BatchedProcess`; on the card eager once, then captured and
+        replayed as every launch is).  Returns one output Data per input,
+        device-fresh (``sync=True`` also copies each back to its host
+        arrays).
+
+        For a multi-input process each item supplies one Data per streamed
+        input (:meth:`stream_inputs`): a ``{input name -> Data}`` mapping or
+        a positional tuple; an input bound with :meth:`set_aux_handle` is
+        read unbatched by every item.
+
+        Ragged tail: when the last batch has fewer than ``batch`` items and
+        the padding waste fraction exceeds ``tail_waste_threshold``, it
+        runs through a twin wired for its own row count instead of being
+        padded by repetition (``>= 1.0`` always pads).
+
+        ``sharded=True``, ``split="proportional"`` and ``lanes=True`` (the
+        JAX package's multi-device carves) raise ``NotImplementedError``:
+        they come with the multi-GPU slice."""
+        from .stream import stream_launch  # stream builds on Process
+
+        return stream_launch(self, datasets, batch=batch, depth=depth, sync=sync,
+                             sharded=sharded, tail_waste_threshold=tail_waste_threshold,
+                             split=split, lanes=lanes, profile=profile)
+
+    def stream_inputs(self) -> Tuple[Tuple[str, DataHandle], ...]:
+        """The inputs a stream feeds one Data an item, as (name, handle) in
+        positional order: every wired input but those bound with
+        :meth:`set_aux_handle`.  A handle wired to two ports appears once."""
+        out: List[Tuple[str, DataHandle]] = []
+        for n in self.input_names:
+            h = self.in_handles.get(n, INVALID_HANDLE)
+            if n in self.aux_names or h == INVALID_HANDLE or h in (x for _, x in out):
+                continue
+            out.append((n, h))
+        return tuple(out)
+
+    def _stream_target(self) -> "Process":
+        """The process a stream launches (initialised): this one."""
+        if not self._initialized:
+            self.init()
+        return self
+
+    def _produced_handles(self) -> List[DataHandle]:
+        """Every handle a launch writes."""
+        return [self.out_handle]
+
+    def _twin(self, handles: Mapping[DataHandle, DataHandle]) -> "Process":
+        """A copy of this process wired onto ``handles[h]`` in place of each
+        handle ``h`` it reads or writes (a handle not in ``handles``, a
+        static input, is kept), uninitialised and with no graph: the
+        process a streamed batch launches, on batched Data."""
+        if not self.batch_axis:
+            raise NotImplementedError(
+                f"{type(self).__name__} cannot take a leading batch axis, so it cannot be "
+                "streamed or served (set batch_axis only where apply() handles the axis)")
+        twin = copy.copy(self)
+        twin.in_handles = {n: handles.get(h, h) for n, h in self.in_handles.items()}
+        twin.out_handle = handles.get(self.out_handle, self.out_handle)
+        twin.aux_names = set(self.aux_names)
+        twin._batched = frozenset(handles.values())
+        twin._initialized = False
+        twin._graph, twin._warm = None, False
+        twin.captures = twin.replays = 0
+        twin._stream_twins = {}
+        return twin
+
+    def _release_stream(self) -> None:
+        """Free the twins of earlier streams (their Data leave the app):
+        they were wired from this process as it was before ``init()``."""
+        twins, self._stream_twins = self._stream_twins, {}
+        for bp in twins.values():
+            bp.release()
+
 
 class ProcessChain(Process):
     """Compose processes.  ``mode='staged'`` is the paper-faithful pipeline
@@ -530,6 +644,7 @@ class ProcessChain(Process):
     def init(self) -> None:
         if not self.stages:
             raise ValueError("empty chain")
+        self._release_stream()
         for s in self.stages:
             s.init()
         inputs, names = self._chain_inputs()
@@ -545,6 +660,39 @@ class ProcessChain(Process):
     def graphed(self) -> bool:
         """A chain is compiled when each of its stages would be."""
         return all(s.graphed for s in self.stages)
+
+    @property
+    def batch_axis(self) -> bool:
+        """A chain takes a batch axis when each of its stages does."""
+        return all(s.batch_axis for s in self.stages)
+
+    def stream_inputs(self) -> Tuple[Tuple[str, DataHandle], ...]:
+        """The chain-level inputs (first-consumption order and names) that
+        some stage reads as a streamed input; one read only through static
+        (:meth:`set_aux_handle`) ports is static for the chain too."""
+        streamed = {s.in_handles[n] for s in self.stages for n in s.input_names
+                    if n not in s.aux_names and n in s.in_handles}
+        inputs, names = self._chain_inputs()
+        return tuple((n, h) for n, h in zip(names, inputs) if h in streamed)
+
+    def _stream_target(self) -> Process:
+        # a stage given new launch parameters waits for the chain's init()
+        if not self._initialized or not all(s._initialized for s in self.stages):
+            self.init()
+        return self
+
+    def _produced_handles(self) -> List[DataHandle]:
+        return [s.out_handle for s in self.stages]
+
+    def _twin(self, handles: Mapping[DataHandle, DataHandle]) -> Process:
+        if not self.batch_axis:
+            names = [type(s).__name__ for s in self.stages if not s.batch_axis]
+            raise NotImplementedError(
+                f"ProcessChain stages {names} cannot take a leading batch axis, so the "
+                "chain cannot be streamed or served")
+        twin = super()._twin(handles)
+        twin.stages = [s._twin(handles) for s in self.stages]
+        return twin
 
     def _graph_handles(self) -> List[DataHandle]:
         return [h for s in self.stages for h in s._graph_handles()]

@@ -22,10 +22,11 @@ class Coherence(enum.Enum):
 
     The states are the reference's.  ``DEVICE_RESIDENT`` marks a Data the
     Pipeline keeps on the device (a persistent decode state) after a
-    process wrote it.  ``TRANSFERRING`` (an upload issued, not awaited)
-    belongs to the streaming layer, which the port does not have yet: its
-    uploads are ordered on the device, so a Data is IN_SYNC as soon as
-    ``host2device`` returns.
+    process wrote it.  ``TRANSFERRING`` (an upload issued, not awaited) is
+    never set by the port: its uploads, ``host2device``'s and the
+    streaming executor's, are ordered before the kernels that read them on
+    the device, so a Data is IN_SYNC as soon as ``host2device`` returns,
+    and a streamed result is DEVICE_FRESH.
     """
 
     HOST_FRESH = "host"        # host copy newer (or device absent)

@@ -33,10 +33,10 @@ BUILD_INFO: dict = {}
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
-    "rt_cprod": (_P, _P, _P, _LL, _LL, _I, _P),
+    "rt_cprod": (_P, _P, _P, _LL, _LL, _LL, _I, _P),
     "rt_coil_combine": (_P, _P, _I, _LL, _I, _LL, _P),
-    "rt_fused_epilogue": (_P, _P, _P, _I, _LL, _I, _LL, _P),
-    "rt_dft_recon": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "rt_fused_epilogue": (_P, _P, _P, _I, _LL, _I, _LL, _LL, _P),
+    "rt_dft_recon": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "rt_rmsnorm": (_P, _P, _P, _LL, _I, _I, _I, _F, _P),
     "rt_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P),
     "rt_wkv6": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),

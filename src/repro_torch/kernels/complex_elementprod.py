@@ -1,9 +1,11 @@
 """Complex element-wise product (paper §IV-A, complexElementProd.cl).
 
 ``out[f, ...] = a[f, ...] * conj?(b[...])`` with ``b`` broadcast over the
-leading (frame) axis of ``a``, or of ``a``'s own shape.  For CUDA tensors
-this launches ``cprod_kernel`` (``csrc/mri_kernels.cu``); for CPU tensors
-it runs the plain version in :mod:`.ref`.
+leading axes of ``a``, or of ``a``'s own shape; or, for a batch of slices
+``a`` (B, F, C, H, W), with one map set ``b`` (B, C, H, W) per slice (what
+a ``vmap`` over the JAX kernel computes).  For CUDA tensors this launches
+``cprod_kernel`` (``csrc/mri_kernels.cu``); for CPU tensors it runs the
+plain version in :mod:`.ref`.
 """
 from __future__ import annotations
 
@@ -14,14 +16,30 @@ from . import _build, ref
 from .common import check_complex64, check_in_place, check_out, launch
 
 
+def map_sets(a: torch.Tensor, b: torch.Tensor) -> tuple[int, int, int]:
+    """(frames, elements of one map set, frames per map set) of ``a * b``:
+    ``b`` of ``a``'s shape is one set of ``a.numel()`` elements; ``b``
+    (B, *S) against ``a`` (B, F, *S) of 5 axes is B sets, one per leading
+    item (this reading wins when ``b`` is also ``a``'s trailing shape, F =
+    B); ``b`` of ``a``'s trailing shape is one set broadcast over all of
+    ``a``'s leading axes."""
+    if tuple(b.shape) == tuple(a.shape):
+        return 1, b.numel(), 1
+    if a.ndim == 5 and b.ndim == 4 and tuple(b.shape) == (a.shape[0],) + tuple(a.shape[2:]):
+        return a.shape[0] * a.shape[1], b.numel() // max(b.shape[0], 1), max(a.shape[1], 1)
+    if 0 < b.ndim < a.ndim and tuple(b.shape) == tuple(a.shape[a.ndim - b.ndim:]):
+        frames = a.numel() // max(b.numel(), 1)
+        return frames, b.numel(), max(frames, 1)
+    raise ValueError(f"bad shapes {tuple(a.shape)} vs {tuple(b.shape)}")
+
+
 def complex_elementprod(a: torch.Tensor, b: torch.Tensor,
                         conjugate_b: bool = False,
                         out: torch.Tensor | None = None) -> torch.Tensor:
-    """a: (F, *S) complex; b: (*S) or (F, *S) complex; returns a * conj?(b).
-    ``out`` may be ``a`` itself (in place on the arena)."""
-    broadcast = b.ndim == a.ndim - 1
-    if tuple(b.shape) != (tuple(a.shape[1:]) if broadcast else tuple(a.shape)):
-        raise ValueError(f"bad shapes {tuple(a.shape)} vs {tuple(b.shape)}")
+    """a: (..., *S) complex; b: (*S), a's shape, or (B, C, H, W) against a
+    (B, F, C, H, W) (:func:`map_sets`); returns a * conj?(b).  ``out`` may
+    be ``a`` itself (in place on the arena)."""
+    frames, m, fpm = map_sets(a, b)
     if a.device.type == "cpu":
         res = ref.complex_elementprod(a, b, conjugate_b)
         return res if out is None else out.copy_(res)
@@ -32,9 +50,8 @@ def complex_elementprod(a: torch.Tensor, b: torch.Tensor,
     else:
         check_out(out, a.shape, torch.complex64, a.device)
         check_in_place(out, a)
-    frames = a.shape[0] if broadcast else 1
     err = launch(_build.library().rt_cprod, a, a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                 frames, b.numel(), int(bool(conjugate_b)))
+                 frames, m, fpm, int(bool(conjugate_b)))
     _build.check(err, "complex_elementprod")
     count_launch("complexElementProd")
     return out

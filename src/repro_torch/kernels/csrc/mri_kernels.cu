@@ -38,33 +38,39 @@ int blocks_for(long long n) {
 }
 
 // ---------------------------------------------------------------------------
-// complex_elementprod: out[f, j] = a[f, j] * conj?(b[j]), b broadcast over f.
-// Replaces repro/kernels/complex_elementprod.py:_cprod_kernel.
+// complex_elementprod: out[f, j] = a[f, j] * conj?(b[f / fpm, j]): b holds
+// one map set per fpm frames (fpm = frames: one set broadcast over f, the
+// single-slice path; fpm = F: a batch of B slices, each with its own set).
+// Replaces repro/kernels/complex_elementprod.py:_cprod_kernel (and a vmap
+// over it, which gives each batch item its own b).
 // Bound: bytes (read a and b once, write out once; 6 flops per element).
 // Design: a grid-stride loop over the M map elements; each thread keeps
-// b[j] in a register and walks the F frames, so b is read from device
-// memory once instead of once per frame.  `out` may BE `a` (the staged
-// chain runs in place on the arena), so the pointers carry no __restrict__;
-// a batch of frames is loaded before it is stored, which is safe because
-// out[i] aliases a[i] exactly or not at all.
+// b[s, j] in a register and walks the fpm frames of set s, so b is read
+// from device memory once instead of once per frame.  `out` may BE `a`
+// (the staged chain runs in place on the arena), so the pointers carry no
+// __restrict__; a batch of frames is loaded before it is stored, which is
+// safe because out[i] aliases a[i] exactly or not at all.
 // ---------------------------------------------------------------------------
 __global__ void cprod_kernel(const float2* a, const float2* b, float2* out,
-                             long long frames, long long m, int conj) {
+                             long long frames, long long m, long long fpm, int conj) {
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long j = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
        j < m; j += stride) {
-    float2 bj = b[j];
-    if (conj) bj.y = -bj.y;
-    long long f = 0;
-    for (; f + 4 <= frames; f += 4) {
-      const float2 v0 = a[(f + 0) * m + j], v1 = a[(f + 1) * m + j];
-      const float2 v2 = a[(f + 2) * m + j], v3 = a[(f + 3) * m + j];
-      out[(f + 0) * m + j] = cmul(v0, bj);
-      out[(f + 1) * m + j] = cmul(v1, bj);
-      out[(f + 2) * m + j] = cmul(v2, bj);
-      out[(f + 3) * m + j] = cmul(v3, bj);
+    for (long long f0 = 0; f0 < frames; f0 += fpm) {
+      float2 bj = b[(f0 / fpm) * m + j];
+      if (conj) bj.y = -bj.y;
+      const long long f1 = f0 + fpm < frames ? f0 + fpm : frames;
+      long long f = f0;
+      for (; f + 4 <= f1; f += 4) {
+        const float2 v0 = a[(f + 0) * m + j], v1 = a[(f + 1) * m + j];
+        const float2 v2 = a[(f + 2) * m + j], v3 = a[(f + 3) * m + j];
+        out[(f + 0) * m + j] = cmul(v0, bj);
+        out[(f + 1) * m + j] = cmul(v1, bj);
+        out[(f + 2) * m + j] = cmul(v2, bj);
+        out[(f + 3) * m + j] = cmul(v3, bj);
+      }
+      for (; f < f1; ++f) out[f * m + j] = cmul(a[f * m + j], bj);
     }
-    for (; f < frames; ++f) out[f * m + j] = cmul(a[f * m + j], bj);
   }
 }
 
@@ -101,28 +107,31 @@ __global__ void coil_combine_kernel(const float2* __restrict__ x, void* out,
 }
 
 // ---------------------------------------------------------------------------
-// fused_epilogue: out[f, p] = sum_c x[f, c, p] * conj(s[c, p])
-// (kRss: sqrt(sum_c |x * conj(s)|^2), f32).
+// fused_epilogue: out[f, p] = sum_c x[f, c, p] * conj(s[f / fpm, c, p])
+// (kRss: sqrt(sum_c |x * conj(s)|^2), f32); s holds one map set per fpm
+// frames, as in cprod_kernel.
 // Replaces repro/kernels/mri_fused.py:_epilogue_sum_kernel/_epilogue_rss_kernel
 // (fused_epilogue).  Bound: bytes (read x and s once, write out once).
 // Design: the coil_combine loop with the product fused in, so the
-// (F, C, H, W) product never reaches device memory; s (C*H*W*8 bytes) is
-// re-read per frame from L2.
+// (F, C, H, W) product never reaches device memory; a map set (C*H*W*8
+// bytes) is re-read per frame of its set from L2.
 // ---------------------------------------------------------------------------
 template <bool kRss>
 __global__ void fused_epilogue_kernel(const float2* __restrict__ x,
                                       const float2* __restrict__ s, void* out,
-                                      long long frames, int coils, long long hw) {
+                                      long long frames, int coils, long long hw,
+                                      long long fpm) {
   const long long n = frames * hw;
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
        i < n; i += stride) {
     const long long f = i / hw, p = i - f * hw;
     const float2* src = x + f * coils * hw + p;
+    const float2* sf = s + (f / fpm) * coils * hw + p;
     float re = 0.f, im = 0.f;
 #pragma unroll 8
     for (int c = 0; c < coils; ++c) {
-      const float2 v = cmul_conj(src[c * hw], s[c * hw + p]);
+      const float2 v = cmul_conj(src[c * hw], sf[c * hw]);
       if (kRss) {
         re += fmaf(v.x, v.x, v.y * v.y);
       } else {
@@ -138,7 +147,8 @@ __global__ void fused_epilogue_kernel(const float2* __restrict__ x,
 // ---------------------------------------------------------------------------
 // dft_recon: the whole chain, IDFT2 -> *conj(S) -> combine, for 16 output
 // rows of one frame:  out = sum_c (M_H K_c M_W) * conj(S_c)  (kRss:
-// sqrt(sum_c |.|^2), f32).
+// sqrt(sum_c |.|^2), f32); frame f reads map set f / fpm of S, as in
+// cprod_kernel.
 // Replaces repro/kernels/mri_fused.py:_dft_recon_kernel (_dft_recon).
 // Bound: operations, 8*F*C*H*W*(H+W) fp32 flops for the two DFT passes;
 // issued here as 3 TF32 tensor-core products each (3xTF32).
@@ -293,7 +303,7 @@ template <bool kRss, int kTiles>
 __global__ void __launch_bounds__(kReconThreads, 2)
 dft_recon_kernel(const float2* __restrict__ k, const float2* __restrict__ s,
                  const float2* __restrict__ mh, const float4* __restrict__ mw, void* out,
-                 int coils, int h, int w) {
+                 int coils, int h, int w, int fpm) {
   // mw: (ceil(W / 8), 4, W) float4, [k-group][t][column] (re, im of rows
   // 8 k-group + t and + t + 4, interleaved)
   extern __shared__ __align__(16) float recon_smem[];
@@ -419,7 +429,7 @@ dft_recon_kernel(const float2* __restrict__ k, const float2* __restrict__ s,
     }
     // epilogue: acc += Y conj(S_c); a thread's two columns of a row are one
     // 16-byte word of acc
-    const float2* sc = s + static_cast<long long>(c) * hw;
+    const float2* sc = s + (static_cast<long long>(f / fpm) * coils + c) * hw;
 #pragma unroll
     for (int j = 0; j < kTiles; ++j) {
       const int col = (warp + j * kReconWarps) * 8 + 2 * t4;
@@ -471,24 +481,26 @@ dft_recon_kernel(const float2* __restrict__ k, const float2* __restrict__ s,
 
 template <bool kRss, int kTiles>
 int launch_dft_recon(const float2* k, const float2* s, const float2* mh, const float4* mw,
-                     void* out, int frames, int coils, int h, int w, cudaStream_t st) {
+                     void* out, int frames, int coils, int h, int w, int fpm,
+                     cudaStream_t st) {
   const int smem = static_cast<int>(recon_smem_bytes(h, w));
   cudaFuncSetAttribute(dft_recon_kernel<kRss, kTiles>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   const dim3 grid((h + kReconRows - 1) / kReconRows, frames);
   dft_recon_kernel<kRss, kTiles><<<grid, kReconThreads, smem, st>>>(k, s, mh, mw, out, coils,
-                                                                     h, w);
+                                                                     h, w, fpm);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <bool kRss>
 int launch_dft_recon(const float2* k, const float2* s, const float2* mh, const float4* mw,
-                     void* out, int frames, int coils, int h, int w, cudaStream_t st) {
+                     void* out, int frames, int coils, int h, int w, int fpm,
+                     cudaStream_t st) {
   switch ((w + kReconWarps * 8 - 1) / (kReconWarps * 8)) {
-    case 1: return launch_dft_recon<kRss, 1>(k, s, mh, mw, out, frames, coils, h, w, st);
-    case 2: return launch_dft_recon<kRss, 2>(k, s, mh, mw, out, frames, coils, h, w, st);
-    case 3: return launch_dft_recon<kRss, 3>(k, s, mh, mw, out, frames, coils, h, w, st);
-    default: return launch_dft_recon<kRss, 4>(k, s, mh, mw, out, frames, coils, h, w, st);
+    case 1: return launch_dft_recon<kRss, 1>(k, s, mh, mw, out, frames, coils, h, w, fpm, st);
+    case 2: return launch_dft_recon<kRss, 2>(k, s, mh, mw, out, frames, coils, h, w, fpm, st);
+    case 3: return launch_dft_recon<kRss, 3>(k, s, mh, mw, out, frames, coils, h, w, fpm, st);
+    default: return launch_dft_recon<kRss, 4>(k, s, mh, mw, out, frames, coils, h, w, fpm, st);
   }
 }
 
@@ -501,11 +513,12 @@ const char* rt_error_string(int err) {
 }
 
 int rt_cprod(const void* a, const void* b, void* out, long long frames,
-             long long m, int conj, void* stream) {
+             long long m, long long fpm, int conj, void* stream) {
+  if (fpm < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (frames > 0 && m > 0) {
     cprod_kernel<<<blocks_for(m), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float2*>(a), static_cast<const float2*>(b),
-        static_cast<float2*>(out), frames, m, conj);
+        static_cast<float2*>(out), frames, m, fpm, conj);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -523,22 +536,24 @@ int rt_coil_combine(const void* x, void* out, int rss, long long frames,
 }
 
 int rt_fused_epilogue(const void* x, const void* s, void* out, int rss,
-                      long long frames, int coils, long long hw, void* stream) {
+                      long long frames, int coils, long long hw, long long fpm,
+                      void* stream) {
+  if (fpm < 1) return static_cast<int>(cudaErrorInvalidValue);
   const long long n = frames * hw;
   if (n > 0) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const float2* xp = static_cast<const float2*>(x);
     const float2* sp = static_cast<const float2*>(s);
-    if (rss) fused_epilogue_kernel<true><<<blocks_for(n), kThreads, 0, st>>>(xp, sp, out, frames, coils, hw);
-    else fused_epilogue_kernel<false><<<blocks_for(n), kThreads, 0, st>>>(xp, sp, out, frames, coils, hw);
+    if (rss) fused_epilogue_kernel<true><<<blocks_for(n), kThreads, 0, st>>>(xp, sp, out, frames, coils, hw, fpm);
+    else fused_epilogue_kernel<false><<<blocks_for(n), kThreads, 0, st>>>(xp, sp, out, frames, coils, hw, fpm);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 int rt_dft_recon(const void* k, const void* s, const void* mh, const void* mw,
-                 void* out, int rss, int frames, int coils, int h, int w,
+                 void* out, int rss, int frames, int coils, int h, int w, int fpm,
                  void* stream) {
-  if (h > kReconMaxDim || w > kReconMaxDim || frames > 65535) {
+  if (h > kReconMaxDim || w > kReconMaxDim || frames > 65535 || fpm < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (frames == 0 || h == 0 || w == 0) return static_cast<int>(cudaGetLastError());
@@ -546,8 +561,8 @@ int rt_dft_recon(const void* k, const void* s, const void* mh, const void* mw,
   const float2* mhp = static_cast<const float2*>(mh);
   const float4* mwp = static_cast<const float4*>(mw);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return rss ? launch_dft_recon<true>(kp, sp, mhp, mwp, out, frames, coils, h, w, st)
-             : launch_dft_recon<false>(kp, sp, mhp, mwp, out, frames, coils, h, w, st);
+  return rss ? launch_dft_recon<true>(kp, sp, mhp, mwp, out, frames, coils, h, w, fpm, st)
+             : launch_dft_recon<false>(kp, sp, mhp, mwp, out, frames, coils, h, w, fpm, st);
 }
 
 }  // extern "C"

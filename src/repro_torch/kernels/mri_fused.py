@@ -42,14 +42,21 @@ RECON_ROWS = 16              # output rows a dft_recon_kernel block owns
 _NORM_SCALE = {"ortho": np.sqrt, "backward": float, "forward": lambda n: 1.0}
 
 
-def _check_pair(k: torch.Tensor, smaps: torch.Tensor, combine: str) -> None:
+def _check_pair(k: torch.Tensor, smaps: torch.Tensor, combine: str) -> int:
+    """Check the shapes; return the frames per map set: all frames for maps
+    of the coil grid (C, H, W), F for a batch of map sets (B, C, H, W)
+    against k-space (B, F, C, H, W)."""
     if k.ndim < 3:
         raise ValueError("need (..., C, H, W) k-space / x-images")
-    if tuple(smaps.shape) != tuple(k.shape[-3:]):
-        raise ValueError(
-            f"smaps shape {tuple(smaps.shape)} != coil grid {tuple(k.shape[-3:])}")
     if combine not in ("sum", "rss"):
         raise ValueError(f"combine {combine!r}: expected 'sum' or 'rss'")
+    grid = tuple(k.shape[-3:])
+    if tuple(smaps.shape) == grid:
+        return max(coil_grid(k)[0], 1)
+    if k.ndim == 5 and tuple(smaps.shape) == (k.shape[0],) + grid:
+        return max(k.shape[1], 1)
+    raise ValueError(f"smaps shape {tuple(smaps.shape)} != coil grid {grid} "
+                     f"(or (B,) + the coil grid against (B, F) + the coil grid)")
 
 
 def _result(k: torch.Tensor, combine: str, out: Optional[torch.Tensor]) -> torch.Tensor:
@@ -68,8 +75,9 @@ def _result(k: torch.Tensor, combine: str, out: Optional[torch.Tensor]) -> torch
 
 def fused_epilogue(x: torch.Tensor, smaps: torch.Tensor, combine: str = "sum",
                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """(..., C, H, W) x-images * conj(smaps (C, H, W)) -> (..., H, W)."""
-    _check_pair(x, smaps, combine)
+    """(..., C, H, W) x-images * conj(smaps (C, H, W)) -> (..., H, W); or
+    (B, F, C, H, W) against one map set a slice, smaps (B, C, H, W)."""
+    fpm = _check_pair(x, smaps, combine)
     if x.device.type == "cpu":
         res = ref.mri_fused_epilogue(x, smaps, combine)
         return res if out is None else out.copy_(res)
@@ -78,7 +86,7 @@ def fused_epilogue(x: torch.Tensor, smaps: torch.Tensor, combine: str = "sum",
     f, c, h, w = coil_grid(x)
     out = _result(x, combine, out)
     err = launch(_build.library().rt_fused_epilogue, x, x.data_ptr(), smaps.data_ptr(),
-                 out.data_ptr(), int(combine == "rss"), f, c, h * w)
+                 out.data_ptr(), int(combine == "rss"), f, c, h * w, fpm)
     _build.check(err, "fused_epilogue")
     count_launch("mriFusedEpilogue")
     return out
@@ -144,10 +152,11 @@ def fused_recon(k: torch.Tensor, smaps: torch.Tensor, combine: str = "sum",
                 norm: str = "ortho",
                 tables: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Whole SimpleMRIRecon chain, (..., C, H, W) k-space -> (..., H, W).
+    """Whole SimpleMRIRecon chain, (..., C, H, W) k-space -> (..., H, W),
+    maps (C, H, W), or (B, C, H, W) against k-space (B, F, C, H, W).
     ``tables`` are the (M_H, M_W) of :func:`idft_tables` for this shape
     and ``norm``, made here when not given."""
-    _check_pair(k, smaps, combine)
+    fpm = _check_pair(k, smaps, combine)
     if norm not in _NORM_SCALE:
         raise ValueError(f"norm {norm!r}")
     if k.device.type == "cpu":
@@ -166,7 +175,8 @@ def fused_recon(k: torch.Tensor, smaps: torch.Tensor, combine: str = "sum",
                          "as idft_tables makes it")
     out = _result(k, combine, out)
     err = launch(_build.library().rt_dft_recon, k, k.data_ptr(), smaps.data_ptr(),
-                 mh.data_ptr(), mw.data_ptr(), out.data_ptr(), int(combine == "rss"), f, c, h, w)
+                 mh.data_ptr(), mw.data_ptr(), out.data_ptr(), int(combine == "rss"), f, c, h, w,
+                 fpm)
     _build.check(err, "fused_recon")
     count_launch("mriFusedRecon")
     return out

@@ -23,13 +23,24 @@ def negate(x: torch.Tensor) -> torch.Tensor:
     return (1.0 - x).to(x.dtype)
 
 
+def map_sets(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``b`` as it broadcasts against ``a``: a batch of map sets (B, C, H, W)
+    against (B, F, C, H, W) gains the frame axis, one set per leading item
+    (as a ``vmap`` over the JAX kernels pairs them)."""
+    if a.ndim == 5 and b.ndim == 4 and tuple(b.shape) == (a.shape[0],) + tuple(a.shape[2:]):
+        return b.unsqueeze(1)
+    return b
+
+
 def complex_elementprod(a: torch.Tensor, b: torch.Tensor,
                         conjugate_b: bool = False) -> torch.Tensor:
     """Elementwise complex product, optionally conjugating ``b``
-    (paper §IV-A: multiply x-images by conj(sensitivity maps))."""
+    (paper §IV-A: multiply x-images by conj(sensitivity maps)); ``b``
+    broadcast over ``a``'s leading axes, or one map set a slice
+    (:func:`map_sets`)."""
     if conjugate_b:
         b = b.conj()
-    return a * b
+    return a * map_sets(a, b)
 
 
 def ximage_sum(x: torch.Tensor, axis: int = -3) -> torch.Tensor:

@@ -3,7 +3,7 @@ file in, file out (the counterpart of the JAX package's
 ``examples/mri_recon.py``).
 
     python -m repro_torch.launch.mri_recon [--fused|--kernel] [--pipeline] [--join]
-        [--kspace PATH] [--out PATH]                  (with src/ on PYTHONPATH)
+        [--stream N] [--batch K] [--kspace PATH] [--out PATH]   (with src/ on PYTHONPATH)
 
 Reads multicoil cine k-space and its sensitivity maps from an npz
 (``--kspace``; without one, the synthetic 16 frames x 8 coils x 160x160
@@ -16,14 +16,25 @@ image against a complex128 numpy oracle at rtol/atol 1e-4, and saves it
 in the .mat-analogue container (``outputFrames.npz``, or ``--out``).
 
 ``--pipeline`` runs the same reconstruction as the declarative graph
-``Pipeline(app) | FFT | ComplexElementProd | XImageSum``; ``--join`` as
-the fan-in graph ``Pipeline.from_graph([fft, prod, comb])`` whose maps are
-a second input edge, beside the single-arena graph and the graph with the
-maps bound statically, then through per-slice maps.  Both are bit for bit
-the staged launch's image (within 1e-4 of the fused and kernel modes').
-Only the launch mode: the stream and serve parts of these demos, and the
-reference's ``--stream``, ``--sharded`` and ``--proportional``, come with
-the stream slice.
+``Pipeline(app) | FFT | ComplexElementProd | XImageSum`` in its three
+modes: one launch, then 4 slices streamed and served at batch 2 (stream
+== serve bit for bit); ``--join`` as the fan-in graph
+``Pipeline.from_graph([fft, prod, comb])`` whose maps are a second input
+edge: beside the single-arena graph and the graph with the maps bound
+statically, 5 slices with shared maps streamed and served at batch 2 (a
+tail runs) bit for bit against the statically bound graph, then per-slice
+maps through the ``smaps`` edge, launched and streamed.  The launches are
+bit for bit the staged launch's image (within 1e-4 of the fused and
+kernel modes').
+
+``--stream N`` reconstructs N independent slices (new k-space and maps
+each) through ``SimpleMRIRecon.stream`` at ``--batch K`` (default 4): K
+slices a launch, the next batch uploaded from pinned memory while this
+one computes; the last slice is held against the sequential ``launch()``
+(bit for bit in the kernel mode; within 1e-6 in staged and fused mode,
+where cuFFT may pick another algorithm for the batch) and the oracle.
+``--sharded`` and ``--proportional`` (the JAX example's multi-device
+streams) exit with the message that they come with the multi-GPU slice.
 
 The app selects the CUDA card unless the caller of :func:`main` hands in
 a CPU app (the tests do, at the SMOKE size).
@@ -41,6 +52,7 @@ import numpy as np
 from repro_torch.configs.mri_recon import CONFIG, MRIReconConfig
 from repro_torch.core import (CLapp, Data, KData, NDArray, Pipeline, ProfileParameters,
                               SyncSource, XData)
+from repro_torch.core.stream import MULTI_DEVICE
 from repro_torch.data.io import save_any
 from repro_torch.processes import (FFT, CombineParams, ComplexElementProd,
                                    ComplexElementProdParams, FFTParams, SimpleMRIRecon,
@@ -107,10 +119,22 @@ def _ms(t0: float) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
+def _slices(cfg: MRIReconConfig, n: int, seed: int):
+    """``n`` synthetic slices: (k-space, maps) pairs, each with its own
+    k-space and its own maps (the phantom's turned by a phase a slice)."""
+    out = []
+    for s in range(n):
+        k, sm, _ = synthetic_kdata(cfg.frames, cfg.coils, cfg.height, cfg.width, seed=seed + s)
+        out.append((k, (sm * np.exp(0.3j * s)).astype(np.complex64)))
+    return out
+
+
 def pipeline_demo(app: CLapp, kdata: np.ndarray, smaps: np.ndarray, reference: np.ndarray,
-                  exact: bool = True) -> dict:
-    """The declarative front end in launch mode, against the imperative
-    launch's image (``reference``; bit for bit when ``exact``)."""
+                  cfg: MRIReconConfig, exact: bool = True) -> dict:
+    """The declarative front end in its three modes: one launch against
+    the imperative launch's image (``reference``; bit for bit when
+    ``exact``), then 4 slices streamed and served at batch 2, stream ==
+    serve bit for bit, each against the oracle."""
     pipe = _arena_pipe(app)
     t0 = time.perf_counter()
     out = pipe.run(KData({"kdata": kdata, "sensitivity_maps": smaps}))
@@ -119,7 +143,23 @@ def pipeline_demo(app: CLapp, kdata: np.ndarray, smaps: np.ndarray, reference: n
     print(f"[pipeline] {pipe}: build+launch {build_launch_ms:.1f} ms, "
           + ("bit-identical to init()/launch()" if exact
              else "matches the fused/kernel launch within 1e-4"))
-    return {"build_launch_ms": build_launch_ms, "exact": exact, "max_abs_diff": err}
+    pairs = _slices(cfg, 4, 300)
+    slices = [KData({"kdata": k, "sensitivity_maps": sm}) for k, sm in pairs]
+    streamed = pipe.run(slices, mode="stream", batch=2)
+    prof = ProfileParameters(enable=True)
+    served = pipe.run(slices, mode="serve", batch=2, profile=prof)
+    oracle_err = 0.0
+    for i, (st, sv) in enumerate(zip(streamed, served)):
+        np.testing.assert_array_equal(st.get_ndarray(0).host, sv.get_ndarray(0).host,
+                                      err_msg=f"stream == serve [{i}]")
+        oracle_err = max(oracle_err, _check(st.get_ndarray(0).host,
+                                            oracle_recon(*pairs[i]), False, f"stream {i}"))
+    print(f"[pipeline] stream == serve for {len(slices)} slices at batch 2; serve p50 "
+          f"{prof.p50() * 1e3:.1f} ms / p99 {prof.percentile(99) * 1e3:.1f} ms; max abs err "
+          f"vs oracle {oracle_err:.3e}")
+    return {"build_launch_ms": build_launch_ms, "exact": exact, "max_abs_diff": err,
+            "serve_p50_ms": prof.p50() * 1e3, "serve_p99_ms": prof.percentile(99) * 1e3,
+            "stream_max_abs_err": oracle_err}
 
 
 def join_demo(app: CLapp, kdata: np.ndarray, smaps: np.ndarray, reference: np.ndarray,
@@ -148,29 +188,97 @@ def join_demo(app: CLapp, kdata: np.ndarray, smaps: np.ndarray, reference: np.nd
                 | ComplexElementProd(app).bind(smaps=Data({"sensitivity_maps": smaps}),
                                                params=ComplexElementProdParams(conjugate=True))
                 | XImageSum(app).bind(params=CombineParams()))
-    for s in range(5):
-        k, _, _ = synthetic_kdata(cfg.frames, cfg.coils, cfg.height, cfg.width, seed=700 + s)
-        want = aux_pipe.run(Data({"kdata": k})).get_ndarray(0).host.copy()
-        got = join_pipe.run({"kspace": Data({"kdata": k}),
-                             "smaps": Data({"sensitivity_maps": smaps.copy()})})
+    kstack = [Data({"kdata": k}) for k, _ in _slices(cfg, 5, 700)]
+    for s, kd in enumerate(kstack):
+        want = aux_pipe.run(kd).get_ndarray(0).host.copy()
+        got = join_pipe.run({"kspace": kd, "smaps": Data({"sensitivity_maps": smaps.copy()})})
         np.testing.assert_array_equal(got.get_ndarray(0).host, want, err_msg=f"shared {s}")
     print("[join] 5 k-spaces with shared maps bit-identical to the statically bound maps")
+    # ... and streamed and served: 5 slices at batch 2, so a tail runs
+    shared = [{"kspace": kd, "smaps": Data({"sensitivity_maps": smaps.copy()})}
+              for kd in kstack]
+    want_stream = aux_pipe.run(kstack, mode="stream", batch=2)
+    got_stream = join_pipe.run(shared, mode="stream", batch=2)
+    prof = ProfileParameters(enable=True)
+    got_serve = join_pipe.run(shared, mode="serve", batch=2, profile=prof)
+    for i in range(len(shared)):
+        want = want_stream[i].get_ndarray(0).host
+        np.testing.assert_array_equal(got_stream[i].get_ndarray(0).host, want,
+                                      err_msg=f"stream[{i}]")
+        np.testing.assert_array_equal(got_serve[i].get_ndarray(0).host, want,
+                                      err_msg=f"serve[{i}]")
+    print(f"[join] stream and serve of {len(shared)} slices at batch 2 bit-identical to the "
+          f"statically bound maps streamed; serve p50 {prof.p50() * 1e3:.1f} ms / p99 "
+          f"{prof.percentile(99) * 1e3:.1f} ms")
 
     # per-slice maps, each slice against the single-arena graph and the oracle
     err = 0.0
-    for s in range(4):
-        k, sm, _ = synthetic_kdata(cfg.frames, cfg.coils, cfg.height, cfg.width, seed=800 + s)
+    pairs = _slices(cfg, 4, 800)
+    for s, (k, sm) in enumerate(pairs):
         want = arena_pipe.run(KData({"kdata": k, "sensitivity_maps": sm})
                               ).get_ndarray(0).host.copy()
         got = join_pipe.run({"kspace": Data({"kdata": k}),
                              "smaps": Data({"sensitivity_maps": sm})}).get_ndarray(0).host
         np.testing.assert_array_equal(got, want, err_msg=f"per-slice maps {s}")
         err = max(err, _check(got, oracle_recon(k, sm), False, f"per-slice oracle {s}"))
-    print(f"[join] 4 per-slice map sets through the smaps edge, bit-identical to the "
-          f"single-arena graph, max abs err vs oracle {err:.3e}")
+    # ... and streamed: both edges batched, one map set a slice in the kernel
+    want_arena = arena_pipe.run([KData({"kdata": k, "sensitivity_maps": sm}) for k, sm in pairs],
+                                mode="stream", batch=2)
+    got_items = join_pipe.run([{"kspace": Data({"kdata": k}),
+                                "smaps": Data({"sensitivity_maps": sm})} for k, sm in pairs],
+                              mode="stream", batch=2)
+    for i, (k, sm) in enumerate(pairs):
+        np.testing.assert_array_equal(got_items[i].get_ndarray(0).host,
+                                      want_arena[i].get_ndarray(0).host,
+                                      err_msg=f"per-slice maps streamed {i}")
+        err = max(err, _check(got_items[i].get_ndarray(0).host, oracle_recon(k, sm), False,
+                              f"per-slice streamed oracle {i}"))
+    print(f"[join] 4 per-slice map sets through the smaps edge, launched and streamed at "
+          f"batch 2, bit-identical to the single-arena graph, max abs err vs oracle {err:.3e}")
     return {"build_launch_ms": build_launch_ms, "exact": exact, "max_abs_err": err,
+            "serve_p50_ms": prof.p50() * 1e3, "serve_p99_ms": prof.percentile(99) * 1e3,
             "input_edges": list(join_pipe.input_edges),
             "residency": join_pipe.residency_plan}
+
+
+def stream_slice_stack(app: CLapp, proc: SimpleMRIRecon, cfg: MRIReconConfig,
+                       n_slices: int, batch: int) -> dict:
+    """``n_slices`` independent slices through ``proc.stream`` at ``batch``,
+    twice (the first stream sets up the twins; the second is timed); the
+    last one against the sequential ``launch()`` (bit for bit in the kernel
+    mode, within 1e-6 where cuFFT transforms the whole batch) and the
+    oracle."""
+    pairs = _slices(cfg, n_slices, 100)
+    slices = [KData({"kdata": k, "sensitivity_maps": sm}) for k, sm in pairs]
+    walls = []
+    for _ in range(2):          # the first stream sets up the twins, the second reuses them
+        t0 = time.perf_counter()
+        outs = proc.stream(slices, batch=batch)
+        out_last = outs[-1].device_view("xdata").cpu().numpy()   # waits for the stream's end
+        walls.append(_ms(t0))
+    first_ms, stream_ms = walls
+    d_in = app.getData(proc.in_handle)
+    for dst, src in zip(d_in, slices[-1]):
+        dst.set_host(src.host)
+    app.host2device(proc.in_handle)
+    proc.launch()
+    seq = app.getData(proc.out_handle).device_view("xdata").cpu().numpy()
+    exact = proc.mode == "fused_kernel"
+    if exact:
+        np.testing.assert_array_equal(out_last, seq, err_msg="streamed != launch()")
+    else:
+        np.testing.assert_allclose(out_last, seq, rtol=1e-6, atol=1e-6,
+                                   err_msg="streamed vs launch()")
+    err = _check(out_last, oracle_recon(*pairs[-1]), False, "streamed oracle")
+    twins = proc.chain._stream_twins
+    print(f"[stream] {app.device}: {n_slices} slices at batch {batch}: {stream_ms:.1f} ms, "
+          f"{stream_ms / n_slices:.2f} ms a slice (the first stream, which sets up the "
+          f"twins, {first_ms:.1f} ms); the last slice "
+          + ("bit-identical to" if exact else "within 1e-6 of")
+          + f" launch(), max abs err vs oracle {err:.3e}; twins (rows, slot) {sorted(twins)}")
+    return {"n": n_slices, "batch": batch, "ms": stream_ms, "ms_per_slice": stream_ms / n_slices,
+            "first_ms": first_ms, "exact": exact, "max_abs_err": err,
+            "launches": {k: bp.launches for k, bp in twins.items()}}
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -182,6 +290,14 @@ def _parser() -> argparse.ArgumentParser:
                       help="the whole chain as one fused kernel (mode fused_kernel)")
     ap.add_argument("--pipeline", action="store_true", help="the declarative graph too")
     ap.add_argument("--join", action="store_true", help="the fan-in graph too")
+    ap.add_argument("--stream", type=int, default=0, metavar="N",
+                    help="stream N independent slices too")
+    ap.add_argument("--batch", type=int, default=4, metavar="K",
+                    help="slices a streamed launch (default 4)")
+    ap.add_argument("--sharded", action="store_true",
+                    help="multi-device stream (the multi-GPU slice)")
+    ap.add_argument("--proportional", action="store_true",
+                    help="throughput-proportional multi-device stream (the multi-GPU slice)")
     ap.add_argument("--kspace", help="npz with 'kdata' and 'sensitivity_maps' "
                                      "(default: the synthetic phantom, through a file)")
     ap.add_argument("--out", default="outputFrames.npz", help="where the image is saved")
@@ -194,6 +310,8 @@ def main(argv: Optional[list] = None, app: Optional[CLapp] = None,
     (default: the CUDA card) and ``cfg`` (the synthetic phantom's size)
     are for callers in Python."""
     args = _parser().parse_args(argv)
+    if args.sharded or args.proportional:
+        raise SystemExit(f"--sharded/--proportional: {MULTI_DEVICE}")
     mode = "fused_kernel" if args.kernel else "fused" if args.fused else "staged"
     if app is None:
         app = CLapp().init()
@@ -243,9 +361,11 @@ def main(argv: Optional[list] = None, app: Optional[CLapp] = None,
 
     exact = mode == "staged"
     if args.pipeline:
-        res["pipeline"] = pipeline_demo(app, kdata, smaps, recon, exact)
+        res["pipeline"] = pipeline_demo(app, kdata, smaps, recon, cfg, exact)
     if args.join:
         res["join"] = join_demo(app, kdata, smaps, recon, cfg, exact)
+    if args.stream:
+        res["stream"] = stream_slice_stack(app, proc, cfg, args.stream, args.batch)
     return res
 
 

@@ -23,8 +23,10 @@ def _image_shape(shape) -> tuple:
 
 
 class XImageSum(Process):
-    """(F, C, H, W) -> (F, H, W): sum the per-coil x-images."""
+    """(F, C, H, W) -> (F, H, W): sum the per-coil x-images (leading batch
+    axes folded into F)."""
 
+    batch_axis = True
     kernel_names = ("coil_combine",)
 
     ports = {"in": Port(names=("kdata",), ndim=4,
@@ -44,8 +46,10 @@ class XImageSum(Process):
 
 
 class RSSCombine(Process):
-    """(F, C, H, W) -> (F, H, W) f32: root-sum-of-squares combination."""
+    """(F, C, H, W) -> (F, H, W) f32: root-sum-of-squares combination
+    (leading batch axes folded into F)."""
 
+    batch_axis = True
     kernel_names = ("coil_combine",)
 
     ports = {"in": Port(names=("kdata",), ndim=4,

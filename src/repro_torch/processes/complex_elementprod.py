@@ -27,7 +27,11 @@ class ComplexElementProd(Process):
     wired (a separate Data), else from the primary arena
     (``views["sensitivity_maps"]``, the single-KData layout).  With the
     output Data equal to the input the kernel writes the arena in place.
+    On a stream's batch, kdata is (B, F, C, H, W) and the maps either one
+    set (C, H, W), bound statically, or one set a slice (B, C, H, W).
     """
+
+    batch_axis = True
 
     kernel_names = ("complex_elementprod",)
 

@@ -25,7 +25,10 @@ BACKWARD = FFTParams("backward")
 
 class FFT(Process):
     """2-D (I)FFT over the trailing two axes of every complex NDArray;
-    everything else passes through."""
+    everything else passes through.  Leading axes (a stream's batch) are
+    transformed alike."""
+
+    batch_axis = True
 
     ports = {"in": Port(doc="any Data; complex arrays of ndim>=2 are "
                             "transformed, everything else passes through"),

@@ -14,6 +14,7 @@ class Negate(Process):
     runs the plain version on CPU tensors."""
 
     kernel_names = ("negate",)
+    batch_axis = True
 
     ports = {"in": Port(dtype=np.floating, doc="any float Data; every NDArray is negated"),
              "out": Port()}

@@ -16,6 +16,7 @@ import torch
 from repro_torch.core.app import INVALID_HANDLE, DataHandle
 from repro_torch.core.data import TensorSpec
 from repro_torch.core.process import Port, Process, ProcessChain, ProfileParameters, out_view
+from repro_torch.kernels.common import coil_grid
 from repro_torch.kernels.mri_fused import dft_fits, idft_tables
 from repro_torch.launch.roofline import resolve_backend
 from .coil_combine import CombineParams, XImageSum
@@ -43,6 +44,7 @@ class FusedMRIRecon(Process):
     """
 
     kernel_names = ("mri_fused",)
+    batch_axis = True
 
     ports = {"in": Port(names=("kdata",), dtype=np.complexfloating,
                         doc="multicoil k-space (F, C, H, W); needs "
@@ -59,16 +61,18 @@ class FusedMRIRecon(Process):
         super().init()
         params = self.launch_params or FusedReconParams()
         app = self.getApp()
-        f, c, h, w = app.getData(self.in_handle).specs()["kdata"].shape
+        # a stream's batch (B, F, C, H, W) is B * F frames to the kernel
+        f, c, h, w = coil_grid(torch.empty(
+            app.getData(self.in_handle).specs()["kdata"].shape, device="meta"))
         self._tables = None
         if app.device.type == "cuda" and dft_fits(f, c, h, w):
             self._tables = idft_tables(h, w, params.norm, app.device)
 
     def out_specs(self, in_specs, aux_specs=None):
         params = self.launch_params or FusedReconParams()
-        f, _, h, w = in_specs["kdata"].shape
-        dtype = np.dtype(np.float32) if params.combine == "rss" else in_specs["kdata"].dtype
-        return {"xdata": TensorSpec((f, h, w), dtype)}
+        k = in_specs["kdata"]
+        dtype = np.dtype(np.float32) if params.combine == "rss" else k.dtype
+        return {"xdata": TensorSpec(tuple(k.shape[:-3]) + tuple(k.shape[-2:]), dtype)}
 
     def apply(self, views, aux, params, out=None):
         params = params or FusedReconParams()
@@ -127,8 +131,7 @@ class SimpleMRIRecon(Process):
 
     def out_specs(self, in_specs, aux_specs=None):
         k = in_specs["kdata"]
-        f, _, h, w = k.shape
-        return {"xdata": TensorSpec((f, h, w), k.dtype)}
+        return {"xdata": TensorSpec(tuple(k.shape[:-3]) + tuple(k.shape[-2:]), k.dtype)}
 
     def _scratch_handle(self) -> DataHandle:
         """The scratch arena of ``in_place=False``: allocated by the first
@@ -144,6 +147,8 @@ class SimpleMRIRecon(Process):
 
     def init(self) -> None:
         self._validate_ports()
+        if self.chain is not None:
+            self.chain._release_stream()     # the former chain's stream twins
         app = self.getApp()
         smaps_h = self.in_handles.get("smaps") if self.join else None
         if self.mode == "fused_kernel":
@@ -187,3 +192,13 @@ class SimpleMRIRecon(Process):
         if not self._initialized:
             self.init()
         self.chain.launch(profile)
+
+    def _stream_target(self) -> Process:
+        """A stream (``stream()``, inherited: each item a KData, or with
+        ``join=True`` an ``{"in": kdata, "smaps": maps}`` mapping) and a
+        server launch the chain's twins, as the JAX package lowers this
+        process to the chain's launchable."""
+        if not self._initialized:
+            self.init()
+        return self.chain._stream_target()
+

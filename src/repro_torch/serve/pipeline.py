@@ -1,17 +1,57 @@
-"""Slot-based continuous batching for autoregressive decode
-(``repro/serve/pipeline.py``'s :class:`LMServer`; ``PipelineServer``, the
-request/response loop over Data-set pipelines, is a later slice).
+"""Request/response serving over a built operator Pipeline, and
+slot-based continuous batching for autoregressive decode (the counterpart
+of ``repro/serve/pipeline.py``).
+
+:class:`PipelineServer` serves Data-set workloads (MRI reconstructions,
+image operators):
+
+    admission queue  ->  dynamic batcher  ->  batched launches
+
+* **Admission**: ``submit()`` validates the request against the
+  pipeline's input edges and takes a host snapshot of it (numpy only: it
+  makes no CUDA call, so a submitting thread never disturbs a capture in
+  the worker thread below) and queues it.  A fan-in pipeline takes a
+  **multi-tensor request**: one Data per input edge, as an ``{edge ->
+  Data}`` mapping.
+* **Dynamic batching**: ``drain()`` groups what is pending into batches of
+  up to ``batch`` rows per input edge, row-aligned across edges; a
+  partial batch follows the streaming executor's ragged-tail policy
+  (:class:`repro_torch.core.stream._BatchPlan`): padded by repetition when
+  the waste is small, else launched by a twin for its row count.
+  Requests submitted while a drain runs are taken by the same drain.
+* **Transfer/compute overlap**: each batch goes through the streaming
+  executor's pinned upload slots (:class:`repro_torch.core.stream.
+  StreamQueue`, one per input edge): the next batch uploads while this one
+  computes.
+* **Flush timeout**: with ``flush_timeout`` (seconds) a background thread
+  serves on its own: a full batch launches at once, a partial one once
+  its oldest request waited ``flush_timeout``.  Responses are taken with
+  :meth:`PipelineServer.collect` (or a final ``drain()``); ``close()``
+  flushes what is left and stops the thread.  On the card the worker
+  thread launches, so any twin not captured yet is captured there: under
+  PyTorch's default (global) capture mode a CUDA call from another thread
+  during a capture fails.  :meth:`PipelineServer.warmup` captures every
+  twin the server can use before the thread starts; after it, the worker
+  captures nothing.  A worker's error reaches every later caller.
+
+Each response carries its request id and the wall-clock latency from
+``submit()`` to the result on the device being complete.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Sequence
+import dataclasses
+import threading
+import time
+from collections import deque
+from typing import Any, Deque, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from repro_torch.core.app import CLapp
 from repro_torch.core.data import Data
 from repro_torch.core.graph import Pipeline
-from repro_torch.core.process import ProfileParameters
+from repro_torch.core.process import PortError, ProfileParameters
+from repro_torch.core.stream import _BatchPlan, _edge_blobs, _refuse_multi_device, _result
 from repro_torch.processes import lm as lmp
 from .engine import SamplingConfig
 
@@ -29,6 +69,312 @@ class PromptTooLongError(ValueError):
             "len(prompt) positions and each generated token needs one more)")
         self.prompt_len = prompt_len
         self.max_len = max_len
+
+
+@dataclasses.dataclass
+class ServeResponse:
+    """One served result: the output Data plus latency accounting."""
+
+    rid: int
+    data: Data
+    submitted_s: float          # perf_counter at submit()
+    completed_s: float          # perf_counter when the result was complete
+
+    @property
+    def latency_s(self) -> float:
+        return self.completed_s - self.submitted_s
+
+
+@dataclasses.dataclass
+class _Request:
+    rid: int
+    blobs: Tuple[Any, ...]      # host snapshots (numpy), one per input edge
+    submitted_s: float
+
+
+class PipelineServer:
+    """Serving front end for one :class:`repro_torch.core.graph.Pipeline`.
+
+    Usage::
+
+        server = pipe.serve(batch=8)
+        rids = [server.submit(kdata) for kdata in requests]
+        responses = server.drain()          # a ServeResponse per request
+
+        # fan-in pipeline: one Data per input edge
+        rid = server.submit({"kspace": kd, "smaps": sm})
+
+        # latency-sensitive: a background thread with a partial-batch flush
+        server = pipe.serve(batch=8, flush_timeout=0.010)
+        server.warmup(example)               # captures before the thread runs
+        rids = [server.submit(r) for r in requests]
+        responses = server.collect(len(rids), timeout=5.0)
+        server.close()
+
+    The pipeline is built from the first request (or the ``warmup``
+    example), or reused if already built; every launch goes through the
+    executor's twins of :mod:`repro_torch.core.stream`, kept for the
+    server's life.  ``sharded``, ``split="proportional"`` and ``lanes``
+    raise ``NotImplementedError`` (the multi-GPU slice)."""
+
+    def __init__(self, pipeline, *, batch: int = 8, sharded: bool = False, depth: int = 2,
+                 tail_waste_threshold: float = 0.5, split: str = "equal",
+                 lanes: bool = False, flush_timeout: Optional[float] = None):
+        if batch < 1:
+            raise ValueError(f"batch must be >= 1, got {batch}")
+        if flush_timeout is not None and flush_timeout <= 0:
+            raise ValueError(f"flush_timeout must be > 0 seconds, got {flush_timeout}")
+        self.pipeline = pipeline
+        self.batch = batch
+        self.depth = depth
+        self.tail_waste_threshold = tail_waste_threshold
+        self.flush_timeout = flush_timeout
+        _refuse_multi_device(sharded, split, lanes)
+        self._pending: Deque[_Request] = deque()
+        self._next_rid = 0
+        self._plan: Optional[_BatchPlan] = None
+        self._built = None
+        self.served = 0             # completed requests
+        self.launches = 0           # batched launches issued
+        # background drain state (flush_timeout mode)
+        self._cv = threading.Condition()
+        self._completed: List[ServeResponse] = []
+        self._worker: Optional[threading.Thread] = None
+        self._busy = False          # the worker is launching a group
+        self._force_flush = False
+        self._stop_flag = False
+        self._closed = False
+        self._worker_error: Optional[BaseException] = None
+
+    # ------------------------------------------------------------ lifecycle
+    def _ensure_built(self, request: Any) -> None:
+        if self._plan is not None:
+            return
+        built = self.pipeline.build(request)
+        plan = _BatchPlan(built.executor, self.batch, depth=self.depth,
+                          tail_waste_threshold=self.tail_waste_threshold).init()
+        plan.prepare_aux()
+        self._built, self._plan = built, plan
+
+    @property
+    def pending(self) -> int:
+        with self._cv:
+            return len(self._pending)
+
+    @property
+    def input_edges(self) -> Tuple[str, ...]:
+        """The input edges in the order requests are batched in."""
+        if self._built is None:
+            raise RuntimeError("server not built yet (submit a request)")
+        return self._built.input_order
+
+    def warmup(self, example: Any = None) -> None:
+        """Set up and launch, on whatever their inputs hold, every twin a
+        drain can use (the full batch and each partial-flush row count the
+        ragged-tail policy can pick, in every upload slot) until it replays
+        a graph: on the card each is captured here, in the calling thread,
+        and never in the background thread.  ``example`` (a request) builds
+        the pipeline when no request was submitted yet.  Call it before the
+        first ``submit()`` of a ``flush_timeout`` server."""
+        with self._cv:
+            if self._worker is not None:
+                raise RuntimeError("warmup() after the background thread started: call it "
+                                   "before the first submit()")
+        if self._plan is None:
+            if example is None:
+                raise RuntimeError("server not built yet (submit a request or pass an example)")
+            self._ensure_built(example)
+        plan = self._plan
+        for rows in sorted({plan.launch_rows(r) for r in range(1, self.batch + 1)}):
+            for slot in range(plan.depth):
+                plan.executable(rows, slot).warmup()
+        plan.synchronize()
+
+    # ------------------------------------------------------------ admission
+    def _pack_request(self, request: Any) -> Tuple[Any, ...]:
+        """Normalise and validate one request into per-edge host snapshots,
+        naming graph edges and raising PortError."""
+        item = self.pipeline._item_tuple(self._built, request, what="request")
+        if isinstance(item, Data):
+            item = (item,)
+        return _edge_blobs(item, self._plan.launchable, what="request",
+                           names=self._built.input_order, err=PortError, pack=True)
+
+    def submit(self, request: Any) -> int:
+        """Admit one request: validate, snapshot, queue; returns its id.
+        With ``flush_timeout`` this also starts the background thread
+        (once) and wakes it."""
+        self._ensure_built(request)
+        blobs = self._pack_request(request)
+        with self._cv:
+            self._check_closed()
+            self._check_worker_error()
+            rid = self._next_rid
+            self._next_rid += 1
+            self._pending.append(_Request(rid, blobs, time.perf_counter()))
+            if self.flush_timeout is not None:
+                if self._worker is None:
+                    self._worker = threading.Thread(target=self._worker_loop,
+                                                    name="pipeline-server-drain", daemon=True)
+                    self._worker.start()
+                self._cv.notify_all()
+        return rid
+
+    def _check_closed(self) -> None:
+        """(Caller holds the lock.)  A closed server neither admits nor
+        serves."""
+        if self._closed:
+            raise RuntimeError("server is closed (close() was called); create a new server "
+                               "via pipe.serve()")
+
+    def _check_worker_error(self) -> None:
+        """(Caller holds the lock.)  A failure in the background thread is
+        terminal: every later caller gets it."""
+        if self._worker_error is not None:
+            raise RuntimeError("the background drain thread died; the server cannot serve any "
+                               "more requests (requests of the failing batch were dropped)"
+                               ) from self._worker_error
+
+    # ------------------------------------------------------------- serving
+    def _responses_for(self, group: Sequence[_Request], out, t_done: float
+                       ) -> List[ServeResponse]:
+        la = self._plan.launchable
+        rows = self._plan.split_output(out)[:len(group)]
+        self.launches += 1
+        return [ServeResponse(rid=req.rid, data=_result(la.out_layout, blob),
+                              submitted_s=req.submitted_s, completed_s=t_done)
+                for req, blob in zip(group, rows)]
+
+    def drain(self) -> List[ServeResponse]:
+        """Serve every pending request (including ones admitted while the
+        drain runs); the responses in launch order.  With the background
+        thread running this forces a flush of any partial batch, waits for
+        the thread to go idle and returns what it completed and nobody
+        collected."""
+        with self._cv:
+            self._check_closed()
+        if self._worker is not None:
+            with self._cv:
+                self._force_flush = True
+                self._cv.notify_all()
+                while (self._pending or self._busy) and self._worker_error is None:
+                    self._cv.wait()
+                self._check_worker_error()
+                self._force_flush = False
+                out, self._completed = self._completed, []
+            return out
+        if self._plan is None or not self._pending:
+            return []
+        plan = self._plan
+        tail = len(self._pending) % self.batch
+        if tail:
+            plan.precompile(tail)       # before the loop: never stalls it
+        groups: Deque[List[_Request]] = deque()
+
+        def group_iter():
+            while True:
+                with self._cv:
+                    if not self._pending:
+                        return
+                    group: List[_Request] = []
+                    while self._pending and len(group) < self.batch:
+                        group.append(self._pending.popleft())
+                groups.append(group)
+                yield [r.blobs for r in group]
+
+        responses: List[ServeResponse] = []
+        for out, _ in plan.run(group_iter()):  # the next batch uploads while this runs
+            plan.synchronize()                 # latency: the result is complete
+            responses.extend(self._responses_for(groups.popleft(), out, time.perf_counter()))
+        self.served += len(responses)
+        return responses
+
+    # ------------------------------------------- background drain (timeout)
+    def _worker_loop(self) -> None:
+        plan = self._plan
+        while True:
+            with self._cv:
+                while True:
+                    if self._pending:
+                        n = len(self._pending)
+                        if n >= self.batch or self._force_flush or self._stop_flag:
+                            break
+                        waited = time.perf_counter() - self._pending[0].submitted_s
+                        remaining = self.flush_timeout - waited
+                        if remaining <= 0:
+                            break           # the oldest request timed out: flush
+                        self._cv.wait(timeout=remaining)
+                    else:
+                        if self._stop_flag:
+                            return
+                        self._cv.wait()
+                k = min(len(self._pending), self.batch)
+                group = [self._pending.popleft() for _ in range(k)]
+                self._busy = True
+            responses: List[ServeResponse] = []
+            error: Optional[BaseException] = None
+            try:
+                for out, _ in plan.run(iter([[r.blobs for r in group]])):
+                    plan.synchronize()
+                    responses = self._responses_for(group, out, time.perf_counter())
+            except BaseException as e:    # noqa: BLE001 -- reaches the callers
+                error = e
+            finally:
+                # responses (or the error) land in the same lock transition that
+                # clears busy: a drain() cannot see idle-but-empty, nor hang on a
+                # dead worker
+                with self._cv:
+                    self._completed.extend(responses)
+                    self.served += len(responses)
+                    self._busy = False
+                    if error is not None:
+                        self._worker_error = error
+                    self._cv.notify_all()
+            if error is not None:
+                return
+
+    def collect(self, n: Optional[int] = None,
+                timeout: Optional[float] = None) -> List[ServeResponse]:
+        """Take completed responses from the background thread, waiting for
+        at least ``n`` (or ``timeout`` seconds); ``n=None`` takes what is
+        ready.  Needs ``flush_timeout``: without the thread only ``drain()``
+        produces responses."""
+        if self.flush_timeout is None:
+            raise RuntimeError("collect() needs the background drain thread "
+                               "(flush_timeout=...); without it use drain()")
+        deadline = None if timeout is None else time.perf_counter() + timeout
+        with self._cv:
+            self._check_closed()
+            while n is not None and len(self._completed) < n:
+                self._check_worker_error()
+                rem = None if deadline is None else deadline - time.perf_counter()
+                if rem is not None and rem <= 0:
+                    break
+                self._cv.wait(timeout=rem)
+            out, self._completed = self._completed, []
+        return out
+
+    def close(self) -> None:
+        """Stop the background thread after it flushed what is pending, and
+        mark the server closed (later ``submit``/``drain``/``collect``
+        raise).  Idempotent; a server without ``flush_timeout`` has nothing
+        to close and stays usable."""
+        if self.flush_timeout is None:
+            return
+        with self._cv:
+            self._closed = True
+            worker, self._worker = self._worker, None
+            if worker is None:
+                return
+            self._stop_flag = True
+            self._cv.notify_all()
+        worker.join()
+
+    def __enter__(self) -> "PipelineServer":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
 
 
 class LMServer:

@@ -109,9 +109,18 @@ def test_build_checks_specs_between_nodes(app, mri):
 
 
 def test_only_launch_mode(app, mri):
+    """One Data is the launch mode's input only: the stream mode takes a
+    sequence of items (one KData is refused), an unknown mode is refused
+    naming the three, and the multi-device stream raises
+    NotImplementedError naming the multi-GPU slice."""
     k, s, _ = mri
-    with pytest.raises(NotImplementedError, match="stream"):
-        _chain(app).run(KData({"kdata": k, "sensitivity_maps": s}), mode="stream")
+    kd = KData({"kdata": k, "sensitivity_maps": s})
+    with pytest.raises(TypeError, match="sequence of items"):
+        _chain(app).run(kd, mode="stream")
+    with pytest.raises(ValueError, match="'launch' \\| 'stream' \\| 'serve'"):
+        _chain(app).run(kd, mode="batched")
+    with pytest.raises(NotImplementedError, match="stream.*multi-GPU"):
+        _chain(app).run([kd], mode="stream", sharded=True)
 
 
 def test_persistent_data_stays_on_the_device(app, mri):

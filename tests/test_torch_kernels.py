@@ -9,6 +9,9 @@ matmul in another summation order than the FFT.  The CUDA kernels
 themselves are held against these plain versions on the card by
 ``chip_smoke.py``.
 """
+import re
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,10 +23,10 @@ from repro.kernels.complex_elementprod import complex_elementprod as j_cprod
 from repro.kernels.mri_fused import (_dft_fits as j_dft_fits, _idft_matrix as j_idft_matrix,
                                      fused_epilogue as j_epilogue, fused_recon as j_recon)
 from repro_torch.core.registry import KernelRegistry, launch_counts
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels.coil_combine import rss, ximage_sum
-from repro_torch.kernels.complex_elementprod import complex_elementprod
-from repro_torch.kernels.mri_fused import (dft_fits, fused_epilogue, fused_recon,
+from repro_torch.kernels.complex_elementprod import complex_elementprod, map_sets
+from repro_torch.kernels.mri_fused import (_check_pair, dft_fits, fused_epilogue, fused_recon,
                                            idft_matrix)
 from repro_torch.launch.roofline import resolve_backend
 
@@ -155,3 +158,99 @@ def test_resolve_backend_contract():
     assert resolve_backend(True, torch.zeros(2, device="meta")) is False
     with pytest.raises(ValueError):
         resolve_backend("sometimes", cpu)
+
+
+# ---------------------------------------------------------------------------
+# the batched maps form: a stream's batch (B, F, C, H, W), a map set a slice
+# ---------------------------------------------------------------------------
+
+BATCHED = (3, 2, 3, 24, 20)        # B, F, C, H, W
+
+
+def _batch(rng, shape=BATCHED):
+    b, f, c, h, w = shape
+    return _c(rng, shape), _c(rng, (b, c, h, w))
+
+
+@pytest.mark.parametrize("conj", [False, True])
+def test_complex_elementprod_map_sets_against_jax_vmap(rng, conj):
+    """One map set a slice, against a vmap of the JAX kernel over the batch
+    (what the JAX package's stream runs), at the elementwise tolerance."""
+    k, s = _batch(rng)
+    want = np.asarray(jax.vmap(lambda a, b: j_cprod(a, b, conj))(jnp.asarray(k),
+                                                                 jnp.asarray(s)))
+    np.testing.assert_allclose(complex_elementprod(_t(k), _t(s), conj).numpy(), want, **ELEM)
+
+
+@pytest.mark.parametrize("combine", ["sum", "rss"])
+def test_fused_map_sets_against_jax_vmap(rng, combine):
+    """fused_epilogue and fused_recon with one map set a slice against a
+    vmap of the JAX kernels (tolerances of their single-slice tests)."""
+    k, s = _batch(rng)
+    jk, js = jnp.asarray(k), jnp.asarray(s)
+    want_e = np.asarray(jax.vmap(lambda a, b: j_epilogue(a, b, combine=combine))(jk, js))
+    np.testing.assert_allclose(fused_epilogue(_t(k), _t(s), combine).numpy(), want_e, **SUM)
+    want_r = np.asarray(jax.vmap(lambda a, b: j_recon(a, b, combine=combine))(jk, js))
+    np.testing.assert_allclose(fused_recon(_t(k), _t(s), combine).numpy(), want_r, **DFT)
+
+
+def test_one_map_set_broadcasts_over_the_batch(rng):
+    """Maps bound statically (one set, (C, H, W)) against a batch: every
+    slice reads them, as the single-slice call on the batch folded into
+    frames, bit for bit on the plain versions."""
+    k, s = _batch(rng)
+    b, f, c, h, w = BATCHED
+    one = _t(s[0])
+    fold = _t(k.reshape(b * f, c, h, w))
+    for got, want in (
+            (complex_elementprod(_t(k), one, True), complex_elementprod(fold, one, True)),
+            (fused_epilogue(_t(k), one, "rss"), fused_epilogue(fold, one, "rss")),
+            (fused_recon(_t(k), one), fused_recon(fold, one))):
+        assert torch.equal(got.reshape(want.shape), want)
+
+
+def _kernel_source() -> str:
+    return (_build.CSRC / "mri_kernels.cu").read_text()
+
+
+def test_map_set_index_arithmetic_of_the_kernels(rng):
+    """The kernels' map-set indexing, read from the .cu and walked on flat
+    arrays: ``cprod_kernel`` reads ``b[(f0 / fpm) * m + j]`` for the frames
+    f0..f0+fpm-1 of a set, ``fused_epilogue_kernel`` ``s + (f / fpm) * coils
+    * hw + p``; frames and fpm as the wrappers pass them (``map_sets``,
+    ``_check_pair``).  The gathered products and coil sums equal the plain
+    versions (bit for bit for the product, in coil order for the sum)."""
+    src = _kernel_source()
+    assert "float2 bj = b[(f0 / fpm) * m + j];" in src
+    assert "const float2* sf = s + (f / fpm) * coils * hw + p;" in src
+    assert re.search(r"cmul_conj\(src\[c \* hw\], sf\[c \* hw\]\)", src)
+    k, s = _batch(rng)
+    b, f, c, h, w = BATCHED
+    frames, m, fpm = map_sets(_t(k), _t(s))
+    assert (frames, m, fpm) == (b * f, c * h * w, f)
+    assert _check_pair(_t(k), _t(s), "sum") == f
+    assert map_sets(_t(k), _t(s[0]))[2] == b * f == _check_pair(_t(k), _t(s[0]), "sum")
+    flat_a, flat_b = k.reshape(-1), np.conj(s.reshape(-1))
+    fr = np.repeat(np.arange(frames), m)
+    j = np.tile(np.arange(m), frames)
+    prod = _t(flat_a[fr * m + j]) * _t(flat_b[(fr // fpm) * m + j])    # torch's product
+    want = complex_elementprod(_t(k), _t(s), True).reshape(-1)
+    assert torch.equal(prod, want)
+    hw = h * w
+    x = k.reshape(frames, c, hw)
+    acc = np.zeros((frames, hw), np.complex64)
+    for ci in range(c):        # the kernel's coil order
+        idx = (np.arange(frames)[:, None] // fpm) * c * hw + ci * hw + np.arange(hw)[None]
+        acc += x[:, ci] * np.conj(s.reshape(-1)[idx])
+    np.testing.assert_allclose(acc.reshape(b, f, h, w),
+                               fused_epilogue(_t(k), _t(s)).numpy(), **SUM)
+
+
+def test_map_set_shapes_are_checked(rng):
+    k, s = _batch(rng)
+    with pytest.raises(ValueError, match="bad shapes"):
+        complex_elementprod(_t(k), _t(s[:1]))          # B of the maps != B of k
+    with pytest.raises(ValueError, match="coil grid"):
+        fused_epilogue(_t(k), _t(s[:1]))
+    with pytest.raises(ValueError, match="coil grid"):
+        fused_recon(_t(k[0]), _t(s))                   # 4-D k-space takes one set

@@ -20,6 +20,7 @@ kernel itself is held against the plain version on the card by
 """
 import re
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -105,9 +106,15 @@ def _cmma(yr, yi, a, b, eq, k0, k1, passes):
     return yr + pr, yi + pi
 
 
-def emulate_dft_recon(k, s, combine, norm, passes=3):
-    """(F, C, H, W) complex64 k-space -> (F, H, W), the kernel's arithmetic."""
+def emulate_dft_recon(k, s, combine, norm, passes=3, fpm=None):
+    """(F, C, H, W) complex64 k-space -> (F, H, W), the kernel's arithmetic.
+    ``s`` is one map set (C, H, W), or map sets (S, C, H, W) of which frame
+    f reads set f // ``fpm``, as the kernel's ``s + (f / fpm * coils + c)
+    * hw``."""
     f, c, h, w = k.shape
+    if s.ndim == 3:
+        s, fpm = s[None], f
+    s = s[torch.arange(f) // fpm]                 # (F, C, H, W): each frame's set
     _, _, _, _, _, kstep = _constants()
 
     mh = _planes(torch.from_numpy(idft_matrix(h, norm)))
@@ -128,7 +135,7 @@ def emulate_dft_recon(k, s, combine, norm, passes=3):
     acc_re = torch.zeros((f, h, w), dtype=torch.float32)
     acc_im = torch.zeros_like(acc_re)
     for ci in range(c):
-        sr, si = s[ci].real, s[ci].imag
+        sr, si = s[:, ci].real, s[:, ci].imag
         y_r, y_i = yr[:, ci], yi[:, ci]
         px = _fma(y_r, sr, y_i * si)
         py = _fma(y_i, sr, -y_r * si)
@@ -180,6 +187,26 @@ def test_single_tf32_pass_misses_the_dft_tolerance(rng, combine):
     got3, _ = _scaled_pair(np.random.default_rng(0), combine, "ortho", passes=3)
     excess3 = np.abs(got3 - want) / (DFT["atol"] + DFT["rtol"] * np.abs(want))
     assert excess3.max() < 0.5 * excess.max()
+
+
+def test_map_set_emulation_matches_jax_vmap(rng):
+    """A stream's batch (B, F, C, H, W) with one map set a slice: the
+    emulation, frames folded (B * F) and frame f reading map set f // F as
+    the kernel does, against a vmap of the JAX ``fused_recon`` over the
+    batch (one pallas_call grid axis more), at the DFT tolerance; and the
+    index expression is the kernel's own."""
+    assert re.search(r"const float2\* sc = s \+ \(static_cast<long long>\(f / fpm\) \* coils "
+                     r"\+ c\) \* hw;", _source())
+    b = 2
+    f, c, h, w = RAGGED
+    k = np.stack([_inputs(rng, RAGGED)[0] for _ in range(b)])
+    s = np.stack([_inputs(rng, RAGGED)[1] for _ in range(b)])
+    for combine in ("sum", "rss"):
+        want = np.asarray(jax.vmap(lambda kk, ss: j_recon(kk, ss, combine=combine))(
+            jnp.asarray(k), jnp.asarray(s)))
+        got = emulate_dft_recon(torch.from_numpy(k.reshape(b * f, c, h, w)),
+                                torch.from_numpy(s), combine, "ortho", fpm=f).numpy()
+        np.testing.assert_allclose(got.reshape(want.shape), want, **DFT)
 
 
 # ---------------------------------------------------------------------------
