@@ -66,18 +66,23 @@
 4. Holds the LM kernels (``rmsnorm``, ``flash_attention``) against their
    plain versions on the card (bf16 at rtol/atol 2e-2, f32 at rtol 1e-4 /
    atol 1e-5) at the qwen3-14b and rwkv6-3b serving shapes (the
-   1000-token prefill for a ragged causal tail) and at odd ones that reach
-   every rmsnorm variant; ``wkv6`` at the rwkv6-3b prefill (1, 1024, 40,
+   1000-token prefill for a ragged causal tail), at the whisper-large-v3
+   encoder's (1, 20, 1500, 64) with ``causal=False`` in bf16 and in f32 (the
+   FMA kernel at d 64, as the 2-layer f32 run reaches it) and a ragged
+   causal decoder prefill (1, 20, 211, 64) bf16, at head dim 16 (the SMOKE
+   configs', which ``repro_torch.launch.serve_lm`` serves on the card), and
+   at odd ones that reach every rmsnorm variant; ``wkv6`` at the rwkv6-3b prefill (1, 1024, 40,
    64) bf16, ragged cases (several batches on the grid and a T that is no
    multiple of the staged tile), the SMOKE head size, the decode shape with
    its state written in place (bf16 and f32) and a decode step from a zero
    state; and ``negate`` bit for bit (a misaligned view, sizes one element
    either side of a whole batch of vectors, in place too).  Times them at
-   the serving shapes (rmsnorm at the prefill, decode and q/k-norm shapes)
-   beside ``F.rms_norm``, ``F.scaled_dot_product_attention`` and
-   ``torch.rsub`` (yardsticks only; no single PyTorch call computes the
-   wkv6 recurrence), times wkv6 at 1 and 4 prefill batches (what limits
-   it), prints ptxas's registers, spills and shared memory for the
+   the serving shapes (rmsnorm at the prefill, decode and q/k-norm shapes;
+   flash_attention at the qwen3-14b prefill and at the whisper encoder
+   shape, non-causal) beside ``F.rms_norm``,
+   ``F.scaled_dot_product_attention`` and ``torch.rsub`` (yardsticks only;
+   no single PyTorch call computes the wkv6 recurrence), times wkv6 at 1
+   and 4 prefill batches (what limits it), prints ptxas's registers, spills and shared memory for the
    flash_attention, rmsnorm, wkv6 and negate kernels, and times each step
    of the rmsnorm wrapper's host path at the decode shape against
    ``F.rms_norm``.
@@ -96,12 +101,28 @@
    the same prefilled state and checks that the tokens are identical and
    the decode state bit for bit (or, where cuBLAS chose otherwise under
    capture, the logits within the bands of ``PERF.md`` §2).
+   Then serves whisper-large-v3 at full width (random bf16 weights made on
+   the card) through ``LMServer(batch=4, max_len=448, enc_len=1500)``: 10
+   requests of 4-224 prompt tokens, each with its own (1500, 1280) f32
+   frames, 32 new tokens each; checks the tokens, ``flash_attention``
+   launched 64 times an admission (32 encoder and 32 decoder prefill
+   layers) and never in a decode step, the decode state never moved host to
+   device, the decode step captured once and replayed after (it reads each
+   slot's spliced cross K/V); the first request twice more (its prompt and
+   frames) must start with its first token; every prefill pipe reads the
+   server's one frames Data, uploaded once an admission.  Then 2 encoder
+   and 2 decoder layers of the same weights on the card (bf16, f32)
+   against a CPU app (f32) within the bands of ``PERF.md`` §2, and
+   ``DecodeSession(enc_len=1500)``, whose prefill is the fan-in graph
+   frames -> ``WhisperEncode`` ~ tokens -> ``WhisperPrefill`` on the
+   ``enc`` edge: 32 eager against 32 replayed decode steps.
 6. Runs the paper's listing 1 (``repro_torch.launch.quickstart``:
    ``Pipeline(app) | Negate(app)`` on a 256x256 8-bit PNG that the script
    writes) on the card, replayed from its second run, bit for bit, and
    reads its ``output.png`` back: 1 - x in 8 bits.  Temporary files live in
    a ``tempfile`` directory that the script removes.
-7. Ends with a ``{"kernels": [...]}`` line and a
+7. Ends with a ``{"kernels": [...]}`` line (``flash_attention``'s launches
+   are qwen3-14b's and whisper-large-v3's serves) and a
    ``{"ok": true, "device": {...}}`` line.
 
 Any failure exits non-zero.  Without a CUDA device it exits non-zero at once.
@@ -1190,7 +1211,16 @@ def main() -> None:
         ((2, 8, 100, 64), (2, 2, 100, 64), False, None, bf16, False),
         ((1, 40, 1000, 128), (1, 8, 1000, 128), True, None, bf16, True),  # ragged tail
         ((2, 8, 1, 128), (2, 8, 300, 128), True, None, bf16, False),  # one query
-        ((2, 8, 70, 128), (2, 4, 90, 128), True, 33, f32, False))
+        ((2, 8, 70, 128), (2, 4, 90, 128), True, 33, f32, False),
+        # whisper-large-v3: the encoder over 1500 frames, non-causal, in bf16
+        # (served) and f32 (the 2-layer f32 run: the FMA kernel at d 64), and
+        # a ragged causal decoder prefill
+        ((1, 20, 1500, 64), (1, 20, 1500, 64), False, None, bf16, True),
+        ((1, 20, 1500, 64), (1, 20, 1500, 64), False, None, f32, False),
+        ((1, 20, 211, 64), (1, 20, 211, 64), True, None, bf16, True),
+        # head dim 16, the SMOKE configs' (repro_torch.launch.serve_lm on the card)
+        ((2, 4, 37, 16), (2, 4, 37, 16), True, None, bf16, False),
+        ((2, 4, 37, 16), (2, 2, 53, 16), False, None, f32, False))
     for qs, ks, causal, window, dtype, on_path in flash_cases:
         q, k, v = rand(*qs, dtype=dtype), rand(*ks, dtype=dtype), rand(*ks, dtype=dtype)
         check(f"flash_attention q{qs} kv{ks} causal={causal} window={window} {dtype}",
@@ -1323,14 +1353,30 @@ def main() -> None:
                                                        enable_gqa=True),
         2 * (40 + 8) * seq * 128 * 2, 4 * 40 * 128 * visible_pairs(seq, seq, True, None),
         bf16_flops)
+    # the whisper-large-v3 encoder's attention: 1500 frames, 20 heads of 64,
+    # no mask; every query sees every key
+    enc_t = 1500
+    whisper_flash = time_kernel(
+        "flash_attention", LM_SRC, "src/repro/kernels/flash_attention.py:124",
+        f"q/k/v (1, 20, {enc_t}, 64) bf16 non-causal (whisper-large-v3 encoder)",
+        lambda: tuple(rand(1, 20, enc_t, 64, dtype=bf16) for _ in range(3)),
+        lambda q, k, v: flash_attention(q, k, v, causal=False),
+        lambda q, k, v: ref.attention(q, k, v, causal=False),
+        lambda q, k, v: F.scaled_dot_product_attention(q, k, v),
+        4 * 20 * enc_t * 64 * 2, 4 * 20 * 64 * visible_pairs(enc_t, enc_t, False, None),
+        bf16_flops, plain_sets=2)
+    print(f"[time] {smi}: flash_attention at the whisper encoder shape: kernel / SDPA "
+          f"{whisper_flash['ms'] / whisper_flash['library_ms']:.3f}, bound / kernel "
+          f"{whisper_flash['bound_ms'] / whisper_flash['ms']:.3f}")
     log = _build.BUILD_INFO["log"]
-    for d in (128, 80, 64):            # dynamic shared memory: Q, K, V tiles of 64 rows
+    for d in (128, 80, 64, 16):        # dynamic shared memory: Q, K, V tiles of 64 rows
         regs, smem, spill = ptxas_usage(log, f"flash_mma_kernelILi{d}E")
         print(f"[ptxas] flash_mma_kernel D={d}: {regs} registers a thread, {spill} bytes "
               f"spilled, {smem} + {3 * 64 * (d + 8) * 2} (dynamic) bytes shared memory a block")
-    regs, smem, spill = ptxas_usage(log, "flash_fma_kernelILi128E")
-    print(f"[ptxas] flash_fma_kernel (f32) D=128: {regs} registers a thread, {spill} bytes "
-          f"spilled, {smem} bytes shared memory a block")
+    for d in (128, 64, 16):
+        regs, smem, spill = ptxas_usage(log, f"flash_fma_kernelILi{d}E")
+        print(f"[ptxas] flash_fma_kernel (f32) D={d}: {regs} registers a thread, {spill} bytes "
+              f"spilled, {smem} bytes shared memory a block")
     for kind, tmpl in (("wide", "Li4E"), ("wide", "Li8E"), ("narrow", "Li16E"),
                        ("narrow", "Li32E")):
         regs, smem, spill = ptxas_usage(log, f"rmsnorm_{kind}_kernelI13__nv_bfloat16S", tmpl)
@@ -1450,14 +1496,18 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # -- 7. the LM serving path at full width: qwen3-14b, then rwkv6-3b -------
-    def serve_full_width(arch, expect):
-        """Serve 10 requests (17-1024 prompt tokens, 32 new tokens each) through
-        4 slots of ``LMServer`` at full width with random bf16 weights made on
-        the card from seed 0; check the tokens, that every kernel of
-        ``expect(cfg, server)`` launched exactly that often, and that the decode
-        state never moved host to device.  Then run the first 2 layers of the
-        same weights once on the card and once on a CPU app in f32 and compare
-        the logits.  Returns the run's launch counts."""
+    def serve_full_width(arch, expect, enc_len=None):
+        """Serve 10 requests (32 new tokens each) through 4 slots of ``LMServer``
+        at full width with random bf16 weights made on the card from seed 0:
+        prompts of 17-1024 tokens and max_len 2048, or, for an encoder-decoder
+        (``enc_len`` frames a request, each its own (enc_len, d) f32 frames from
+        the seed), 4-224 tokens and max_len 448.  Check the tokens, that every
+        kernel of ``expect(cfg, server)`` launched exactly that often, that the
+        decode state never moved host to device and that the decode step was
+        captured once and replayed after; then the first request twice more.
+        Then run 2 layers of the same weights (2 encoder and 2 decoder layers
+        of an encoder-decoder) once on the card and once on a CPU app in f32
+        and compare the logits.  Returns the run's launch counts."""
         cfg = get_config(arch)
         model = build_model(cfg)
         app = CLapp().init(PlatformTraits(), DeviceTraits())
@@ -1474,13 +1524,16 @@ def main() -> None:
               f"{weights.layout.total_bytes / 1e9:.3f} GB arena (bf16"
               f"{', u f32' if cfg.family == 'ssm' else ''}), made on the card from seed 0 in "
               f"{init_s:.3f} s")
-        server = LMServer(model, weights, batch=4, max_len=2048,
+        (lo, hi), max_len = ((4, 225), 448) if enc_len else ((17, 1025), 2048)
+        server = LMServer(model, weights, batch=4, max_len=max_len, enc_len=enc_len,
                           sampling=SamplingConfig(max_new_tokens=32), app=app)
         rng = np.random.default_rng(0)
-        lengths = [int(n) for n in rng.integers(17, 1025, size=10)]
+        lengths = [int(n) for n in rng.integers(lo, hi, size=10)]
         prompts = [rng.integers(0, cfg.vocab, n).tolist() for n in lengths]
-        for prompt in prompts:
-            server.submit(prompt)
+        frames = [rng.standard_normal((enc_len, cfg.d_model), dtype=np.float32)
+                  if enc_len else None for _ in lengths]
+        for prompt, fr in zip(prompts, frames):
+            server.submit(prompt, frames=fr)
         torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
         t0 = time.perf_counter()
@@ -1494,7 +1547,7 @@ def main() -> None:
             raise SystemExit(f"chip_smoke: {arch} LMServer requests {bad} did not get 32 "
                              f"tokens in [0, {cfg.vocab})")
         want_counts = expect(cfg, server)
-        if any(counts[k] != n for k, n in want_counts.items()):
+        if any(counts.get(k, 0) != n for k, n in want_counts.items()):
             raise SystemExit(f"chip_smoke: {arch}: kernels did not run on every prefill and "
                              f"step: launches {counts}, expected {want_counts}")
         state_h2d = app.h2d_bytes.get(server.state_h, 0)
@@ -1509,9 +1562,11 @@ def main() -> None:
         n_tokens = sum(len(r) for r in results)
         prefill_ms = [t * 1e3 for t in server.prefill_profile.samples]
         decode_ms = [t * 1e3 for t in server.decode_profile.samples]
-        print(f"[lm] {smi}: LMServer {arch}, 10 requests (prompt lengths {lengths}), 4 slots, "
-              f"max_len 2048: {n_tokens} tokens in {run_s:.3f} s = {n_tokens / run_s:.2f} "
-              f"tokens/s; {server.admitted} prefills, {server.steps} decode steps")
+        audio = f", {enc_len} frames each" if enc_len else ""
+        print(f"[lm] {smi}: LMServer {arch}, 10 requests (prompt lengths {lengths}{audio}), "
+              f"4 slots, max_len {max_len}{f', enc_len {enc_len}' if enc_len else ''}: "
+              f"{n_tokens} tokens in {run_s:.3f} s = {n_tokens / run_s:.2f} tokens/s; "
+              f"{server.admitted} prefills, {server.steps} decode steps")
         print(f"[lm] {arch} prefill ms per prompt (length: ms): "
               f"{', '.join(f'{n}: {t:.2f}' for n, t in zip(lengths, prefill_ms))}; "
               f"mean {statistics.mean(prefill_ms):.2f}; first {prefill_ms[0]:.2f}, mean of the "
@@ -1525,10 +1580,11 @@ def main() -> None:
               f"{', '.join(f'{k} {n}' for k, n in counts.items() if n)}; decode state h2d "
               f"bytes {state_h2d}")
 
-        # a prompt length seen before: the first prompt twice more
+        # a prompt length seen before: the first request twice more (with its
+        # frames)
         n_before = len(results)
         for _ in range(2):
-            server.submit(prompts[0])
+            server.submit(prompts[0], frames=frames[0])
         results = server.run()
         repeat_ms = [t * 1e3 for t in server.prefill_profile.samples[n_before:]]
         eager_procs = ([p.build().executor for p in server._prefill_pipes.values()]
@@ -1542,14 +1598,28 @@ def main() -> None:
                              f"{captured}, first tokens {[r[0] for r in repeats]} against "
                              f"{results[0][0]}, decode step {step.captures} captures and "
                              f"{step.replays} replays over {server.steps} steps")
-        print(f"[lm] {smi}: {arch} first prompt ({lengths[0]} tokens) twice more: prefill ms "
-              f"{', '.join(f'{t:.2f}' for t in repeat_ms)} (eager; no prefill, splice or "
-              f"release captured), first tokens equal the first request's, the 32 tokens of "
-              f"each equal to it {sum(r == results[0] for r in repeats)} of 2 (every row decodes "
-              f"at the batch's largest position, so later tokens depend on the other slots); "
-              f"decode step replays {step.replays} over "
+        print(f"[lm] {smi}: {arch} first prompt ({lengths[0]} tokens"
+              f"{', its frames' if enc_len else ''}) twice more: "
+              f"prefill ms {', '.join(f'{t:.2f}' for t in repeat_ms)} (eager; no prefill, "
+              f"splice or release captured), first tokens equal the first request's, the 32 "
+              f"tokens of each equal to it {sum(r == results[0] for r in repeats)} of 2 (every "
+              f"row decodes at the batch's largest position, so later tokens depend on the "
+              f"other slots); decode step replays {step.replays} over "
               f"{server.steps} steps; peak device memory "
               f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        if enc_len:
+            # every prefill pipe reads the server's one frames Data
+            holders = [h for h, d in app._data.items() if "frames" in d.names]
+            frames_h2d = app.h2d_bytes.get(server._frames_h, 0)
+            if (holders != [server._frames_h]
+                    or frames_h2d != server.admitted * frames[0].nbytes):
+                raise SystemExit(f"chip_smoke: {arch}: frames Data registered {holders} "
+                                 f"(expected [{server._frames_h}]), {frames_h2d} bytes "
+                                 f"uploaded over {server.admitted} admissions")
+            print(f"[lm] {arch}: {len(server._prefill_pipes)} prefill pipes read "
+                  f"{len(holders)} frames Data; {frames_h2d} bytes uploaded into it over "
+                  f"{server.admitted} admissions")
+        del server, frames
 
         # whole model, 2 layers at full width: the same weights on the card
         # (kernels) and on the CPU (plain versions), teacher-forced from the
@@ -1558,14 +1628,19 @@ def main() -> None:
         #   max |card - cpu| <= 1e-3 * max |cpu logit|;
         # * the card in bf16: activations round at every layer boundary, so
         #   the logits agree to a share of their scale: 2e-2 * max |logit|
-        #   for the dense family; 5e-2 * max |logit| for RWKV6, whose bf16
-        #   rounding of the decay and of the group-normed WKV output costs
-        #   more: the CPU alone (plain versions) puts its bf16 logits 3.0-3.2 %
-        #   of max |logit| from its f32 ones on these weights, and an H100 in
-        #   bf16 read 3.5 %.  The CPU's own bf16 gap is printed beside it.
-        two = cfg.scaled(n_layers=2)
+        #   for the dense and encdec families; 5e-2 * max |logit| for RWKV6,
+        #   whose bf16 rounding of the decay and of the group-normed WKV
+        #   output costs more: the CPU alone (plain versions) puts its bf16
+        #   logits 3.0-3.2 % of max |logit| from its f32 ones on these
+        #   weights, and an H100 in bf16 read 3.5 %.  The CPU's own bf16 gap
+        #   is printed beside it.
+        if enc_len:
+            two = cfg.scaled(enc_layers=2, dec_layers=2, n_layers=4)
+            cut = ("enc_layers", "dec_layers")
+        else:
+            two, cut = cfg.scaled(n_layers=2), ("layers",)
         two32 = two.scaled(param_dtype="float32", dtype="float32")
-        p_bf16 = dict(params, layers=tree_map(lambda a: a[:2], params["layers"]))
+        p_bf16 = dict(params, **{k: tree_map(lambda a: a[:2], params[k]) for k in cut})
         p_f32 = tree_map(lambda a: a.float(), p_bf16)
         cpu = torch.device("cpu")
         runs = {"card bf16": (build_model(two), p_bf16, dev),
@@ -1574,10 +1649,13 @@ def main() -> None:
         if cfg.family == "ssm":
             runs["cpu bf16"] = (build_model(two), tree_map(lambda a: a.cpu(), p_bf16), cpu)
         toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, 64)))
-        caches = {k: m.init_cache(1, 128, device=d) for k, (m, _, d) in runs.items()}
+        audio_in = (torch.from_numpy(rng.standard_normal((1, enc_len, cfg.d_model),
+                                                         dtype=np.float32)),) if enc_len else ()
+        cache_args = (1, 128) + ((enc_len,) if enc_len else ())
+        caches = {k: m.init_cache(*cache_args, device=d) for k, (m, _, d) in runs.items()}
         logits = {k: [] for k in runs}
         for k, (m, prm, d) in runs.items():
-            lg, caches[k] = m.prefill(prm, toks.to(d), caches[k])
+            lg, caches[k] = m.prefill(prm, *(a.to(d) for a in audio_in), toks.to(d), caches[k])
             logits[k].append(lg.float().cpu())
         for i in range(4):
             tok = logits["cpu f32"][-1].argmax(dim=-1).to(torch.int32)
@@ -1586,6 +1664,7 @@ def main() -> None:
                                               torch.tensor(64 + i, dtype=torch.int32, device=d),
                                               caches[k])
                 logits[k].append(lg.float().cpu())
+        layers = f" 2+2 layers, {enc_len} frames," if enc_len else ""
         for step, label in enumerate(["prefill last-token logits"]
                                      + [f"decode step {i} logits" for i in range(4)]):
             want = logits["cpu f32"][step]
@@ -1595,7 +1674,7 @@ def main() -> None:
                       "card bf16": (5e-2 if cfg.family == "ssm" else 2e-2) * scale}
             ok = all(gap[k] <= lim for k, lim in limits.items()) and all(
                 bool(torch.isfinite(v[step]).all()) for v in logits.values())
-            print(f"[lm-check] {arch} {label}: max |card - cpu f32| in f32 "
+            print(f"[lm-check] {arch}{layers} {label}: max |card - cpu f32| in f32 "
                   f"{gap['card f32']:.4e} (limit {limits['card f32']:.4e}), in bf16 "
                   f"{gap['card bf16']:.4e} (limit {limits['card bf16']:.4e})"
                   + (f"; cpu bf16 - cpu f32 {gap['cpu bf16']:.4e}" if "cpu bf16" in gap else "")
@@ -1603,8 +1682,8 @@ def main() -> None:
             if not ok:
                 raise SystemExit(f"chip_smoke: 2-layer {arch} {label} disagrees with the CPU")
         del runs, caches
-        eager_against_replayed(cfg, two, p_bf16, rng)
-        if cfg.family != "ssm":
+        eager_against_replayed(cfg, two, p_bf16, rng, enc_len=enc_len)
+        if cfg.family == "dense":
             engine_against_server(two, p_bf16, rng)
         return counts
 
@@ -1629,11 +1708,12 @@ def main() -> None:
             raise SystemExit(f"chip_smoke: ServeEngine tokens {outs['ServeEngine']} differ from "
                              f"LMServer's {outs['LMServer']}")
 
-    def eager_against_replayed(cfg, two, p_bf16, rng, steps=32):
+    def eager_against_replayed(cfg, two, p_bf16, rng, steps=32, enc_len=None):
         """The 2-layer full-width model through ``DecodeSession``: ``steps``
         eager decode steps (``init()`` before each keeps the launch eager),
         then from the same prefilled state ``steps`` replays of the step's
-        graph.  The tokens must be identical; the decode state bit for bit,
+        graph (an encoder-decoder prefilled through the fan-in graph from
+        ``enc_len`` frames a row).  The tokens must be identical; the decode state bit for bit,
         since the replay runs the same kernels on the same addresses.  If it
         is not (cuBLAS chose another algorithm under capture), the max abs
         difference of each cache leaf is printed and one more step's logits
@@ -1645,8 +1725,10 @@ def main() -> None:
         views = weights.device_views()
         for leaf, t in wcodec.flatten(p_bf16).items():
             views[leaf].copy_(t)
-        sess = DecodeSession(app, model, weights, batch=4, max_len=256)
-        sess.prefill(rng.integers(0, two.vocab, (4, 64)).astype(np.int32))
+        sess = DecodeSession(app, model, weights, batch=4, max_len=256, enc_len=enc_len)
+        frames = (rng.standard_normal((4, enc_len, two.d_model), dtype=np.float32)
+                  if enc_len else None)
+        sess.prefill(rng.integers(0, two.vocab, (4, 64)).astype(np.int32), frames=frames)
         step = sess.decode_pipe.build().executor
         blob = sess.state.device_blob
         start = blob.clone()
@@ -1685,7 +1767,9 @@ def main() -> None:
                 raise SystemExit(f"chip_smoke: 2-layer {cfg.name}: replayed logits outside "
                                  "the band")
         print(f"[lm-check] {smi}: 2-layer {cfg.name}, {steps} eager against {steps} replayed "
-              f"decode steps (batch 4, 64-token prompts): tokens identical {same_tokens}, "
+              f"decode steps (batch 4, 64-token prompts"
+              f"{f', {enc_len} frames a row, fan-in prefill' if enc_len else ''}): "
+              f"tokens identical {same_tokens}, "
               f"decode state bit for bit {same_state}{gaps}")
         if not same_tokens:
             raise SystemExit(f"chip_smoke: 2-layer {cfg.name}: replayed tokens differ")
@@ -1699,10 +1783,17 @@ def main() -> None:
         return {"rmsnorm": (2 * cfg.n_layers + 2) * forwards,
                 "wkv6": cfg.n_layers * forwards, "flash_attention": 0}
 
+    def whisper_kernels(cfg, server):  # every encoder and decoder prefill layer
+        return {"flash_attention": (cfg.enc_layers + cfg.dec_layers) * server.admitted,
+                "rmsnorm": 0, "wkv6": 0}
+
     lm_counts = serve_full_width("qwen3-14b", dense_kernels)
     gc.collect()                      # free the qwen3-14b weights and server
     torch.cuda.empty_cache()
     rwkv_counts = serve_full_width("rwkv6-3b", rwkv_kernels)
+    gc.collect()
+    torch.cuda.empty_cache()
+    whisper_counts = serve_full_width("whisper-large-v3", whisper_kernels, enc_len=1500)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1735,7 +1826,8 @@ def main() -> None:
 
     # -- 9. result lines -----------------------------------------------------
     kernels = []
-    launches = {"rmsnorm": lm_counts["rmsnorm"], "flash_attention": lm_counts["flash_attention"],
+    launches = {"rmsnorm": lm_counts["rmsnorm"],
+                "flash_attention": lm_counts["flash_attention"] + whisper_counts["flash_attention"],
                 "wkv6": rwkv_counts["wkv6"], "negate": qs_counts["negate_kernel"]}
     launches.update({k: counts[reg] + io_counts.get(reg, 0) for k, reg in names.items()})
     for kname in ["negate"] + list(names) + ["rmsnorm", "flash_attention", "wkv6"]:

@@ -1,6 +1,6 @@
 """Configurations the port runs: the paper's MRI case study
 (:mod:`.mri_recon`) and the LM architectures of the ported families,
-dense and ssm (``get_config`` / ``get_smoke`` by arch id, as
+dense, ssm and encdec (``get_config`` / ``get_smoke`` by arch id, as
 ``repro.configs``).
 
 Each LM module defines ``CONFIG`` (the published configuration) and
@@ -14,7 +14,7 @@ import importlib
 from repro_torch.models.common import ArchConfig
 
 #: the architectures whose family the port runs so far
-ARCH_IDS = ["qwen3-14b", "h2o-danube-1.8b", "qwen2-7b", "rwkv6-3b"]
+ARCH_IDS = ["qwen3-14b", "h2o-danube-1.8b", "qwen2-7b", "rwkv6-3b", "whisper-large-v3"]
 
 
 def _module(arch_id: str):

@@ -61,8 +61,15 @@ def params_from_reference(named_arrays: Mapping[str, np.ndarray], cfg: ArchConfi
     of each leaf path, e.g. ``"['layers']['attn']['w_q']"``).  Entries are
     named, ordered and typed as :func:`repro_torch.processes.lm.weights_data`
     lays them out (bfloat16 arrays are taken bit for bit); the packed arena
-    lands on ``device``.  Hand it to ``LMServer`` / ``DecodeSession``."""
-    specs = tree_flatten(build_model(cfg).param_specs())
+    lands on ``device``.  Hand it to ``LMServer`` / ``DecodeSession``.
+
+    An encoder-decoder's learned decoder positions (``['pos_dec']``) have
+    as many rows as the array given."""
+    model = build_model(cfg)
+    if cfg.family == "encdec" and "['pos_dec']" in named_arrays:
+        specs = tree_flatten(model.param_specs(np.shape(named_arrays["['pos_dec']"])[0]))
+    else:
+        specs = tree_flatten(model.param_specs())
     missing = sorted({p for p, _ in specs} - set(named_arrays))
     extra = sorted(set(named_arrays) - {p for p, _ in specs})
     if missing or extra:

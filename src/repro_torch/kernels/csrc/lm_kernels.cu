@@ -701,7 +701,7 @@ int rt_rmsnorm(const void* x, const void* w, void* out, long long rows, int d, i
 }
 
 // q (b, hq, sq, d), k and v (b, hkv, skv, d), o like q; contiguous, one
-// type (f32 or bf16), 16-byte aligned; d in {64, 80, 128}; window <= 0 = none.
+// type (f32 or bf16), 16-byte aligned; d in {16, 64, 80, 128}; window <= 0 = none.
 int rt_flash_attention(const void* q, const void* k, const void* v, void* o, int b, int hq,
                        int hkv, int sq, int skv, int d, int causal, int window, float scale,
                        int bf16_inputs, void* stream) {
@@ -714,9 +714,11 @@ int rt_flash_attention(const void* q, const void* k, const void* v, void* o, int
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (d * 2 + (bf16_inputs ? 1 : 0)) {
+    case 16 * 2 + 1: return launch_flash_mma<16>(q, k, v, o, b, hq, hkv, sq, skv, causal, window, scale, st);
     case 64 * 2 + 1: return launch_flash_mma<64>(q, k, v, o, b, hq, hkv, sq, skv, causal, window, scale, st);
     case 80 * 2 + 1: return launch_flash_mma<80>(q, k, v, o, b, hq, hkv, sq, skv, causal, window, scale, st);
     case 128 * 2 + 1: return launch_flash_mma<128>(q, k, v, o, b, hq, hkv, sq, skv, causal, window, scale, st);
+    case 16 * 2: return launch_flash_fma<16>(q, k, v, o, b, hq, hkv, sq, skv, causal, window, scale, st);
     case 64 * 2: return launch_flash_fma<64>(q, k, v, o, b, hq, hkv, sq, skv, causal, window, scale, st);
     case 80 * 2: return launch_flash_fma<80>(q, k, v, o, b, hq, hkv, sq, skv, causal, window, scale, st);
     case 128 * 2: return launch_flash_fma<128>(q, k, v, o, b, hq, hkv, sq, skv, causal, window, scale, st);

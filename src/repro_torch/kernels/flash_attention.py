@@ -22,7 +22,7 @@ from . import _build, ref
 from .common import check_cuda, launch
 
 DTYPES = (torch.float32, torch.bfloat16)
-HEAD_DIMS = (64, 80, 128)      # the kernel's template instances
+HEAD_DIMS = (16, 64, 80, 128)  # the kernel's template instances (16: the SMOKE configs)
 MAX_GRID_YZ = 65535            # batch rides on gridDim.z; query heads (f32) or
                                # 64-query tiles (bf16) on gridDim.y
 

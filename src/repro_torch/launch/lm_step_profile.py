@@ -2,15 +2,18 @@
 """Where the time of the port's LM serving path goes, on one CUDA card.
 
     python3 src/repro_torch/launch/lm_step_profile.py [--arch A] [--layers N] [--batch B]
-                                                      [--prompt S] [--steps K]
+                                                      [--prompt S] [--steps K] [--max-len M]
 
-Builds ``--arch`` (qwen3-14b by default, or rwkv6-3b) at full width
-(``--layers`` cuts only the depth; random bf16 weights made on the card
-from seed 0) in a fresh process, and prints:
+Builds ``--arch`` (qwen3-14b by default, rwkv6-3b or whisper-large-v3) at
+full width (``--layers`` cuts only the depth, of the encoder and the
+decoder alike for whisper; random bf16 weights made on the card from seed
+0) in a fresh process, and prints:
 
 1. **The first prefill, split.**  The kernel library's build and load, the
    first cuBLAS call (handle and workspace), then three single-prompt
-   prefill launches of 1024 tokens, 1024 again and 700 (new GEMM shapes),
+   prefill launches of 1024 tokens, 1024 again and 700 (new GEMM shapes;
+   224, 224 and 150 for whisper, each over 1500 frames, Whisper's 30 s
+   window, through the fan-in prefill graph of ``DecodeSession``),
    each eager (a prefill is never captured; its pipe is built before,
    untimed, as ``LMServer``'s prefill profile times only the launch) and
    traced with
@@ -20,7 +23,8 @@ from seed 0) in a fresh process, and prints:
    the first call's extra time shows where it went.
 2. **The decode step, eager and compiled, in the same process.**  A batch
    of ``--batch`` prompts of ``--prompt`` tokens prefilled through
-   ``DecodeSession``, then ``--steps`` steps traced eagerly (``init()``
+   ``DecodeSession`` (a cache of ``--max-len`` positions, 2048 by default),
+   then ``--steps`` steps traced eagerly (``init()``
    before each step, outside the timed region, keeps the launch eager) and
    ``--steps`` steps replayed from the step's CUDA graph.  For each: host
    wall per step without the profiler (and under it), device busy time
@@ -59,6 +63,7 @@ SRC = Path(__file__).resolve().parents[2]
 # the host's CUDA calls that put work on a stream
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
                 "cudaGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync")
+ENC_LEN = 1500                              # whisper's encoder frames: its 30 s window
 
 
 def main() -> None:
@@ -71,6 +76,7 @@ def main() -> None:
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt", type=int, default=512)
     ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--max-len", type=int, default=2048, help="decode cache positions")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("lm_step_profile: no CUDA card")
@@ -86,7 +92,12 @@ def main() -> None:
                           "--id=0"], capture_output=True, text=True, check=True).stdout.strip()
     print(smi)
     cfg = get_config(args.arch)
-    cfg = cfg.scaled(n_layers=args.layers or cfg.n_layers)
+    encdec = cfg.family == "encdec"
+    if encdec and args.layers:
+        cfg = cfg.scaled(enc_layers=args.layers, dec_layers=args.layers, n_layers=2 * args.layers)
+    elif args.layers:
+        cfg = cfg.scaled(n_layers=args.layers)
+    long, short = (224, 150) if encdec else (1024, 700)
 
     def wall_ms(fn):
         torch.cuda.synchronize()
@@ -112,18 +123,31 @@ def main() -> None:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
         (a @ a).sum()                       # the profiler's own start-up, not timed
     rng = np.random.default_rng(0)
+    enc_len = ENC_LEN if encdec else None
 
-    def traced_once(label, sess, toks):
+    def session(batch):
+        return DecodeSession(app, model, weights, batch=batch, max_len=args.max_len,
+                             enc_len=enc_len)
+
+    def prompts(batch, length):
+        """(tokens, frames or None) of ``batch`` prompts of ``length`` tokens."""
+        toks = rng.integers(0, cfg.vocab, (batch, length)).astype(np.int32)
+        return toks, (rng.standard_normal((batch, enc_len, cfg.d_model), dtype=np.float32)
+                      if encdec else None)
+
+    def traced_once(label, sess, inputs):
         """One prefill launch under the profiler (its pipe built and
         initialised before, untimed, so the launch is eager): wall, device
         busy, new allocator segments, and the host's CUDA runtime calls by
         name."""
-        sess.prefill_pipe.build(Data({"tokens": toks}))
+        toks, frames = inputs
+        sess.prefill_pipe.build({"tokens": Data({"tokens": toks}), "frames": Data(
+            {"frames": frames})} if encdec else Data({"tokens": toks}))
         segs = torch.cuda.memory_stats().get("segment.all.allocated", 0)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            sess.prefill(toks)
+            sess.prefill(toks, frames=frames)
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
         events = prof.key_averages()
@@ -141,19 +165,20 @@ def main() -> None:
               + ", ".join(f"{k} {ms:.2f} ms x{n}" for ms, n, k in ops[:6]))
         return wall
 
-    row = DecodeSession(app, model, weights, batch=1, max_len=2048)
-    toks = rng.integers(0, cfg.vocab, (1, 1024)).astype(np.int32)
-    first = traced_once(f"{cfg.name} prefill 1 x 1024, first call", row, toks)
-    second = traced_once(f"{cfg.name} prefill 1 x 1024, second call", row, toks)
-    other = DecodeSession(app, model, weights, batch=1, max_len=2048)
-    toks700 = rng.integers(0, cfg.vocab, (1, 700)).astype(np.int32)
-    traced_once(f"{cfg.name} prefill 1 x 700, first call at this length", other, toks700)
-    print(f"[first] {smi}: first / second prefill of 1 x 1024: {first / second:.2f}")
+    row = session(1)
+    toks = prompts(1, long)
+    first = traced_once(f"{cfg.name} prefill 1 x {long}, first call", row, toks)
+    second = traced_once(f"{cfg.name} prefill 1 x {long}, second call", row, toks)
+    other = session(1)
+    traced_once(f"{cfg.name} prefill 1 x {short}, first call at this length", other,
+                prompts(1, short))
+    print(f"[first] {smi}: first / second prefill of 1 x {long}: {first / second:.2f}")
     del other
 
     # -- 2. the decode step, eager and compiled ---------------------------------
-    sess = DecodeSession(app, model, weights, batch=args.batch, max_len=2048)
-    sess.prefill(rng.integers(0, cfg.vocab, (args.batch, args.prompt)).astype(np.int32))
+    sess = session(args.batch)
+    p_toks, p_frames = prompts(args.batch, args.prompt)
+    sess.prefill(p_toks, frames=p_frames)
     step = sess.decode_pipe.build().executor
 
     def steps_ms(fn, reps, prep, prof_launch):
@@ -201,7 +226,9 @@ def main() -> None:
     for _ in range(3):                       # warm-up: allocator, cuBLAS
         step.init()
         sess.step()
-    what = f"{cfg.name} decode step, batch {args.batch}, {cfg.n_layers} layers"
+    what = (f"{cfg.name} decode step, batch {args.batch}, max_len {args.max_len}, "
+            + (f"{cfg.dec_layers} decoder layers over {enc_len} frames" if encdec
+               else f"{cfg.n_layers} layers"))
     busy = traced(f"{what}, eager", lambda p: sess.step(p), args.steps, prep=step.init)
     if busy <= 0:
         sys.exit("lm_step_profile: the eager decode trace holds no device time")
@@ -231,19 +258,19 @@ def main() -> None:
                      record=time.perf_counter() - t3)
         return replay
 
-    before = traced_once(f"{cfg.name} prefill 1 x 1024, just before the decode capture",
+    before = traced_once(f"{cfg.name} prefill 1 x {long}, just before the decode capture",
                          row, toks)
     process.capture_graph = timed_capture
     try:
         capturing = wall_ms(sess.step)       # captures the step, then replays it
     finally:
         process.capture_graph = plain_capture
-    after = traced_once(f"{cfg.name} prefill 1 x 1024, just after the decode capture",
+    after = traced_once(f"{cfg.name} prefill 1 x {long}, just after the decode capture",
                         row, toks)
     print(f"[capture] {smi}: {what}: the capturing step {capturing:.3f} ms (torch "
           f"{torch.__version__}, gc.collect in a capture: {bool(capture_gc)}): "
           + ", ".join(f"{k} {v * 1e3:.3f} ms" for k, v in split.items())
-          + f"; a 1024-token prefill {before:.3f} ms before it, {after:.3f} ms after it")
+          + f"; a {long}-token prefill {before:.3f} ms before it, {after:.3f} ms after it")
     sess.step()
     traced(f"{what}, CUDA graph", lambda p: sess.step(p), args.steps)
     print(f"[{what}] graph captures {step.captures}, replays {step.replays}")

@@ -1,7 +1,9 @@
-"""Model zoo of the port: the dense decoder and RWKV6 (ssm) families so far."""
+"""Model zoo of the port: the dense decoder, RWKV6 (ssm) and Whisper
+(encdec) families so far."""
 from .common import ArchConfig
 from .rwkv6 import RWKV6Model
 from .transformer import DecoderLM
+from .whisper import WhisperModel
 
 
 def build_model(cfg: ArchConfig):
@@ -10,9 +12,10 @@ def build_model(cfg: ArchConfig):
         return DecoderLM(cfg)
     if cfg.family == "ssm":
         return RWKV6Model(cfg)
+    if cfg.family == "encdec":
+        return WhisperModel(cfg)
     raise NotImplementedError(
-        f"family {cfg.family!r} is not ported yet (ROADMAP queue 1: whisper, then the rest "
-        "of the LM stack)")
+        f"family {cfg.family!r} is not ported yet (ROADMAP queue 1, rest of the LM stack)")
 
 
-__all__ = ["ArchConfig", "DecoderLM", "RWKV6Model", "build_model"]
+__all__ = ["ArchConfig", "DecoderLM", "RWKV6Model", "WhisperModel", "build_model"]

@@ -19,13 +19,13 @@ from repro_torch.core.arena import torch_dtype
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
-    """One architecture: the fields the dense decoder and RWKV6 paths read.  The JAX
+    """One architecture: the fields the dense decoder, RWKV6 and Whisper paths read.  The JAX
     package's TPU and mesh levers (``opt_*``, ``unroll_layers``, ``remat``,
     ``use_pallas``) have no counterpart: the kernel wrappers decide by the
     tensors' device."""
 
     name: str
-    family: str                    # dense | ssm (the ported families)
+    family: str                    # dense | ssm | encdec (the ported families)
     n_layers: int
     d_model: int
     n_heads: int
@@ -48,6 +48,8 @@ class ArchConfig:
     first_dense_ff: Optional[int] = None
     mla: bool = False
     rwkv_head_dim: int = 64        # ssm (RWKV6) head size
+    enc_layers: int = 0            # encdec (Whisper): encoder layers
+    dec_layers: int = 0            # encdec (Whisper): decoder layers
     param_dtype: str = "bfloat16"
     dtype: str = "bfloat16"        # activation dtype
 
@@ -105,23 +107,28 @@ def embed_init(generator: torch.Generator, t: torch.Tensor) -> torch.Tensor:
     return t.normal_(0.0, 0.02, generator=generator)
 
 
+#: the parameter subtrees stacked with a leading (L,) layer axis
+STACKED = ("['layers']", "['enc_layers']", "['dec_layers']")
+
+
 def init_leaf_(name: str, t: torch.Tensor, generator: torch.Generator) -> None:
     """Fill one parameter in place by its role, as the JAX package's
     ``init_*`` functions do: norm scales 1, biases 0, the RWKV6 token-shift
-    mixes and decay base 0, embedding rows :func:`embed_init`, projections
-    :func:`dense_init`.  A projection's fan-in is the first axis of its
-    per-layer shape (the JAX ``dense_init``'s ``shape[0]``), so RWKV6's
-    (5, 32, d) ``tm_w2`` has fan-in 5."""
+    mixes and decay base 0, embedding rows and Whisper's learned decoder
+    positions :func:`embed_init`, projections :func:`dense_init`.  A
+    projection's fan-in is the first axis of its per-layer shape (the JAX
+    ``dense_init``'s ``shape[0]``), so RWKV6's (5, 32, d) ``tm_w2`` has
+    fan-in 5."""
     leaf = name.rsplit("[", 1)[-1].strip("[]'")
     with torch.no_grad():
         if leaf in ("scale", "gn_scale"):
             t.fill_(1.0)
         elif leaf in ("bias", "gn_bias", "decay") or leaf.startswith(("b_", "maa_")):
             t.zero_()
-        elif leaf == "embedding":
+        elif leaf in ("embedding", "pos_dec"):
             embed_init(generator, t)
         else:
-            per_layer = t.shape[1:] if name.startswith("['layers']") else t.shape
+            per_layer = t.shape[1:] if name.startswith(STACKED) else t.shape
             dense_init(generator, t, per_layer[0])
 
 

@@ -1,6 +1,7 @@
-"""Transformer building blocks of the dense decoder: norms, rotary
-embedding, GQA attention (prefill through the flash-attention kernel,
-cached single-token decode in plain torch), MLPs, embeddings.
+"""Transformer building blocks of the dense decoder and Whisper: norms,
+rotary embedding, GQA attention (prefill and Whisper's cacheless encoder
+attention through the flash-attention kernel, cached single-token decode in
+plain torch), MLPs, embeddings.
 
 Mirrors ``repro/models/layers.py``.  Parameters are nested dicts of
 tensors.  The norm and attention kernels are called through their
@@ -134,6 +135,17 @@ def _project_qkv(p: Params, x: torch.Tensor, cfg: ArchConfig, positions: torch.T
         q = apply_rope(q, positions, cfg.rope_theta, cfg.rotary_pct)
         k = apply_rope(k, positions, cfg.rope_theta, cfg.rotary_pct)
     return q, k, v
+
+
+def attention_full(p: Params, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor, *,
+                   causal: bool = True) -> torch.Tensor:
+    """Full-sequence attention with no cache (Whisper's encoder: ``causal=
+    False``) through the flash-attention kernel.  x: (B, S, D) -> (B, S, D)."""
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(p, x, cfg, positions)
+    o = flash_attention(q, k, v, causal=causal, window=cfg.window)
+    o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.head_dim)
+    return o @ p["w_o"]
 
 
 def kv_cache_specs(cfg: ArchConfig, n_layers: int, batch: int, max_len: int) -> Params:

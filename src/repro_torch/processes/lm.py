@@ -11,7 +11,8 @@ state layouts match the JAX package's entry for entry.
   spec-only and ``persistent``: it lives on the device only, never grows a
   host mirror, and the step writes it in place.
 * :class:`PrefillProcess`: prompt -> fresh decode state, the cache filled
-  in the output arena itself.
+  in the output arena itself.  An encoder-decoder model (Whisper) also
+  binds the ``frames`` port: the audio frames of each prompt.
 * :class:`DecodeStep`: one greedy step over the whole batch, bound in place
   (``infile == outfile`` == the state handle).  Where the JAX package
   donates the state to XLA, the models write the arena views: the dense
@@ -26,10 +27,15 @@ state layouts match the JAX package's entry for entry.
   admission and retirement, in place on the state.  They and the
   prefill stay eager on the card (``graphed = False``).
 
+* :class:`WhisperEncode` / :class:`WhisperPrefill`: the encoder and the
+  decoder prefill as two graph nodes joined on the ``enc`` edge, the fan-in
+  prefill graph of :class:`DecodeSession` for encoder-decoder models.  The
+  ``enc`` edge is internal: planned device-resident, it is never uploaded
+  or read back.
+
 Weights and the spliced row reach ``apply`` as secondary input ports (by
-port name in ``aux``), read live at each launch.  Encoder-decoder models
-(``WhisperEncode`` / ``WhisperPrefill``) and the mesh-partitioned step are
-later slices of the port (ROADMAP).
+port name in ``aux``), read live at each launch.  The mesh-partitioned
+step is a later slice of the port (ROADMAP).
 """
 from __future__ import annotations
 
@@ -39,6 +45,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.app import CLapp
+from repro_torch.core.arena import spec_dtype
 from repro_torch.core.data import Data, NDArray, TensorSpec
 from repro_torch.core.graph import Pipeline
 from repro_torch.core.process import Port, Process, ProfileParameters
@@ -95,10 +102,18 @@ def weights_data(params: Any, prefix: str = "w") -> Tuple[Data, TreeCodec]:
     return data, codec
 
 
-def decode_state_data(model, batch: int, max_len: int) -> Tuple[Data, TreeCodec]:
+def decode_state_data(model, batch: int, max_len: int,
+                      enc_len: Optional[int] = None) -> Tuple[Data, TreeCodec]:
     """Spec-only persistent decode-state Data: sampling bookkeeping
-    (``token``/``positions``/``active``) + every flattened cache leaf."""
-    cache = model.cache_specs(batch, max_len)
+    (``token``/``positions``/``active``) + every flattened cache leaf.  An
+    encoder-decoder model's cache also holds the cross K/V of ``enc_len``
+    encoder positions, which it then requires."""
+    if model.cfg.family == "encdec":
+        if enc_len is None:
+            raise ValueError("encoder-decoder models need enc_len")
+        cache = model.cache_specs(batch, max_len, enc_len)
+    else:
+        cache = model.cache_specs(batch, max_len)
     codec = TreeCodec(cache, prefix="cache")
     specs: Dict[str, TensorSpec] = {
         "token": TensorSpec((batch, 1), np.dtype(np.int32)),
@@ -161,11 +176,34 @@ class _LMProcess(Process):
     def _weights(self, aux):
         return self.wcodec.unflatten(aux["weights"])
 
+    def _cache(self, out, b: int, device, enc_len: Optional[int] = None):
+        """The cache to prefill: the output arena's views, reset, or fresh
+        tensors when there is no output arena."""
+        if out is not None:
+            return self.model.reset_cache(self.ccodec.unflatten(out))
+        if enc_len is None:
+            return self.model.init_cache(b, self.max_len, device=device)
+        return self.model.init_cache(b, self.max_len, enc_len, device=device)
+
+    def _state(self, logits, cache, s: int):
+        """Greedy-sample the prefill logits on the device and assemble the
+        fresh state.  The returned leaves are the output views when the
+        model wrote them in place; any other storage is copied in by the
+        launch (pack_device)."""
+        b, dev = logits.shape[0], logits.device
+        state = {"token": logits.argmax(dim=-1).to(torch.int32),
+                 "positions": torch.full((b,), s, dtype=torch.int32, device=dev),
+                 "active": torch.ones((b,), dtype=torch.int32, device=dev)}
+        state.update(self.ccodec.flatten(cache))
+        return state
+
 
 class PrefillProcess(_LMProcess):
     """Prompt tokens (B, S) -> fresh decode state: the cache is reset and
     prefilled in the output arena, and the greedy first token is sampled
-    on the device.
+    on the device.  Encoder-decoder models bind the ``frames`` port (the
+    audio frames (B, T_enc, D)); the cache's cross K/V then cover T_enc
+    encoder positions.
 
     Never captured into a CUDA graph: a server launches one prefill per
     prompt, and a graph of each repeated prompt length would keep its
@@ -175,6 +213,9 @@ class PrefillProcess(_LMProcess):
     graphed = False
 
     ports = {"in": Port(names=("tokens",), dtype=np.integer, doc="prompt token ids (B, S)"),
+             "frames": Port(optional=True, names=("frames",),
+                            doc="audio frame embeddings (B, T_enc, D), encoder-decoder "
+                                "families only"),
              "out": Port(names=STATE_KEYS),
              "weights": Port(doc="flattened model parameters")}
 
@@ -183,23 +224,83 @@ class PrefillProcess(_LMProcess):
 
     def out_specs(self, in_specs, aux_specs=None):
         b = in_specs["tokens"].shape[0]
-        return decode_state_data(self.model, b, self.max_len)[0].specs()
+        frames = (aux_specs or {}).get("frames")
+        enc_len = frames["frames"].shape[1] if frames is not None else None
+        return decode_state_data(self.model, b, self.max_len, enc_len)[0].specs()
 
     def apply(self, views, aux, params, out=None):
         tokens = views["tokens"]
         b, s = tokens.shape
-        if out is not None:
-            cache = self.model.reset_cache(self.ccodec.unflatten(out))
+        w = self._weights(aux)
+        if self.model.cfg.family == "encdec":
+            if "frames" not in aux:
+                raise ValueError("encoder-decoder prefill needs the 'frames' port bound")
+            frames = aux["frames"]["frames"]
+            cache = self._cache(out, b, tokens.device, frames.shape[1])
+            logits, cache = self.model.prefill(w, frames, tokens, cache)
         else:
-            cache = self.model.init_cache(b, self.max_len, device=tokens.device)
-        logits, cache = self.model.prefill(self._weights(aux), tokens, cache)
-        # the returned leaves are the output views when the model wrote them
-        # in place; any other storage is copied in by the launch (pack_device)
-        state = {"token": logits.argmax(dim=-1).to(torch.int32),
-                 "positions": torch.full((b,), s, dtype=torch.int32, device=tokens.device),
-                 "active": torch.ones((b,), dtype=torch.int32, device=tokens.device)}
-        state.update(self.ccodec.flatten(cache))
-        return state
+            logits, cache = self.model.prefill(w, tokens, self._cache(out, b, tokens.device))
+        return self._state(logits, cache, s)
+
+
+class WhisperEncode(Process):
+    """Audio frames (B, T_enc, D) -> encoder states ``enc``, as a graph node
+    of its own: the first half of the encoder -> decoder fan-in prefill.
+    Its ``enc`` output edge is internal to the graph (device-resident).
+    Eager on the card, as every prefill is."""
+
+    graphed = False
+
+    ports = {"in": Port(names=("frames",), doc="frame embeddings (B, T_enc, D)"),
+             "out": Port(names=("enc",)),
+             "weights": Port(doc="flattened model parameters")}
+
+    def __init__(self, app, model, wcodec: TreeCodec):
+        super().__init__(app)
+        self.model = model
+        self.wcodec = wcodec
+        self.set_launch_parameters(("whisper_encode", repr(model.cfg)))
+
+    @property
+    def kernel_names(self) -> Tuple[str, ...]:
+        return self.model.kernel_names
+
+    def out_specs(self, in_specs, aux_specs=None):
+        return {"enc": TensorSpec(tuple(in_specs["frames"].shape),
+                                  spec_dtype(self.model.cfg.dtype))}
+
+    def apply(self, views, aux, params, out=None):
+        return {"enc": self.model.encode(self.wcodec.unflatten(aux["weights"]),
+                                         views["frames"])}
+
+
+class WhisperPrefill(_LMProcess):
+    """Decoder-side prefill from encoder states: joins the ``enc`` edge of
+    :class:`WhisperEncode`; the cross K/V computed from it land in the
+    cache.  Eager on the card, as :class:`PrefillProcess`."""
+
+    graphed = False
+
+    ports = {"in": Port(names=("tokens",), dtype=np.integer, doc="prompt token ids (B, S)"),
+             "enc": Port(names=("enc",), doc="encoder states (B, T_enc, D)"),
+             "out": Port(names=STATE_KEYS),
+             "weights": Port(doc="flattened model parameters")}
+
+    def __init__(self, app, model, wcodec, ccodec, *, max_len: int):
+        super().__init__(app, model, wcodec, ccodec, max_len=max_len, tag="whisper_prefill")
+
+    def out_specs(self, in_specs, aux_specs=None):
+        b = in_specs["tokens"].shape[0]
+        enc_len = aux_specs["enc"]["enc"].shape[1]
+        return decode_state_data(self.model, b, self.max_len, enc_len)[0].specs()
+
+    def apply(self, views, aux, params, out=None):
+        tokens = views["tokens"]
+        b, s = tokens.shape
+        enc = aux["enc"]["enc"]
+        cache = self._cache(out, b, tokens.device, enc.shape[1])
+        logits, cache = self.model.prefill_from_enc(self._weights(aux), enc, tokens, cache)
+        return self._state(logits, cache, s)
 
 
 class DecodeStep(_LMProcess):
@@ -307,23 +408,35 @@ class SlotRelease(Process):
 
 class DecodeSession:
     """Full-batch decode through the Pipeline stack: one prefill graph
-    writing the persistent state, then one in-place :class:`DecodeStep`
-    launched per token (on the card, replayed from one CUDA graph from
-    the second step on).  ``step()`` reads back only the (B, 1) token view;
-    per-slot continuous batching is :class:`repro_torch.serve.LMServer`."""
+    writing the persistent state (for an encoder-decoder model the fan-in
+    graph ``frames`` -> :class:`WhisperEncode` ~ ``tokens`` ->
+    :class:`WhisperPrefill`, joined on the device-resident ``enc`` edge),
+    then one in-place :class:`DecodeStep` launched per token (on the card,
+    replayed from one CUDA graph from the second step on).  ``step()``
+    reads back only the (B, 1) token view; per-slot continuous batching is
+    :class:`repro_torch.serve.LMServer`."""
 
-    def __init__(self, app: CLapp, model, weights: Any, *, batch: int, max_len: int):
+    def __init__(self, app: CLapp, model, weights: Any, *, batch: int, max_len: int,
+                 enc_len: Optional[int] = None):
         self.app = app
         self.model = model
         self.batch = batch
         self.max_len = max_len
+        self.encdec = model.cfg.family == "encdec"
         wdata, self.wcodec = resolve_weights(model, weights)
         self.weights_h = app.addData(wdata)
-        self.state, self.ccodec = decode_state_data(model, batch, max_len)
+        self.state, self.ccodec = decode_state_data(model, batch, max_len, enc_len)
         self.state_h = app.addData(self.state, to_device=False)
-        self.prefill_pipe = Pipeline(app) | PrefillProcess(
-            app, model, self.wcodec, self.ccodec, max_len=max_len).bind(
-                infile="tokens", outfile=self.state_h, weights=self.weights_h)
+        if self.encdec:
+            encode = WhisperEncode(app, model, self.wcodec).bind(
+                infile="frames", outfile="enc", weights=self.weights_h)
+            prefill = WhisperPrefill(app, model, self.wcodec, self.ccodec, max_len=max_len).bind(
+                infile="tokens", outfile=self.state_h, enc="enc", weights=self.weights_h)
+            self.prefill_pipe = Pipeline.from_graph(app, [encode, prefill])
+        else:
+            self.prefill_pipe = Pipeline(app) | PrefillProcess(
+                app, model, self.wcodec, self.ccodec, max_len=max_len).bind(
+                    infile="tokens", outfile=self.state_h, weights=self.weights_h)
         self.decode_pipe = Pipeline(app) | DecodeStep(
             app, model, self.wcodec, self.ccodec, max_len=max_len).bind(
                 infile=self.state_h, outfile=self.state_h, weights=self.weights_h)
@@ -332,11 +445,15 @@ class DecodeSession:
         """Device -> host copy of the (B, 1) current-token view."""
         return self.state.device_view("token").cpu().numpy()
 
-    def prefill(self, tokens: np.ndarray,
+    def prefill(self, tokens: np.ndarray, frames: Optional[np.ndarray] = None,
                 profile: Optional[ProfileParameters] = None) -> np.ndarray:
-        """Prefill the whole batch; returns the greedy first tokens (B, 1)."""
-        self.prefill_pipe.run(Data({"tokens": np.asarray(tokens, np.int32)}), sync=False,
-                              profile=profile)
+        """Prefill the whole batch (with its audio ``frames`` (B, T_enc, D)
+        for an encoder-decoder model); returns the greedy first tokens
+        (B, 1)."""
+        inputs: Any = Data({"tokens": np.asarray(tokens, np.int32)})
+        if self.encdec:
+            inputs = {"tokens": inputs, "frames": Data({"frames": np.asarray(frames, np.float32)})}
+        self.prefill_pipe.run(inputs, sync=False, profile=profile)
         return self.tokens()
 
     def step(self, profile: Optional[ProfileParameters] = None) -> np.ndarray:

@@ -6,7 +6,8 @@ serve.pipeline.LMServer` (the counterpart of ``repro/serve/engine.py``).
   -- helpers for callers that drive a model's serve contract themselves.
 * :class:`ServeEngine` -- the former fixed-width continuous-batching API,
   served by ``LMServer``: greedy decoding only, as ``LMServer`` samples on
-  the device.  Encoder-decoder models (whisper) are a later slice.
+  the device.  Encoder-decoder models (Whisper) take ``enc_len`` and
+  per-request frames, as ``LMServer`` does.
 """
 from __future__ import annotations
 
@@ -61,18 +62,19 @@ class ServeEngine:
     fresh :class:`SamplingConfig` per engine."""
 
     def __init__(self, model, params, batch: int, max_len: int,
-                 sampling: Optional[SamplingConfig] = None, app=None):
+                 sampling: Optional[SamplingConfig] = None, app=None,
+                 enc_len: Optional[int] = None):
         from .pipeline import LMServer  # the server builds on this module
 
         self.sampling = sampling if sampling is not None else SamplingConfig()
         self.model, self.params = model, params
         self.batch, self.max_len = batch, max_len
         self._server = LMServer(model, params, batch=batch, max_len=max_len,
-                                sampling=self.sampling, app=app)
+                                sampling=self.sampling, enc_len=enc_len, app=app)
 
     # -- request lifecycle (delegated) ----------------------------------------
-    def submit(self, prompt: Sequence[int]) -> int:
-        return self._server.submit(prompt)
+    def submit(self, prompt: Sequence[int], frames=None) -> int:
+        return self._server.submit(prompt, frames)
 
     def step(self) -> None:
         self._server.step()

@@ -387,7 +387,9 @@ class LMServer:
       batch-1 row state on the device, and an in-place
       :class:`~repro_torch.processes.lm.CacheSplice` writes it into the
       slot.  Every prefill pipe writes the same row Data (the JAX package
-      gives each its own), so the row states take one row's memory.
+      gives each its own), and for Whisper reads the same frames Data, so
+      the row states take one row's memory and the frames one request's,
+      however many prompt lengths the server has seen.
     * **decode**: one in-place :class:`~repro_torch.processes.lm.DecodeStep`
       launch per token advances every active slot.  On the card the first
       step runs eagerly and every later one replays one CUDA graph of the
@@ -402,21 +404,28 @@ class LMServer:
     * **release**: a finished request retires its slot with an in-place
       :class:`~repro_torch.processes.lm.SlotRelease`.
 
-    It serves both ported families unchanged: the dense decoder (its state
-    a K/V cache per slot) and RWKV6 (the ssm family: two shift vectors and
-    the (H, D, D) WKV state per layer and slot, spliced like the stacked
-    K/V leaves on their slot axis 1).
+    It serves the three ported families unchanged: the dense decoder (its
+    state a K/V cache per slot), RWKV6 (the ssm family: two shift vectors
+    and the (H, D, D) WKV state per layer and slot, spliced like the
+    stacked K/V leaves on their slot axis 1) and Whisper (encdec: a request
+    brings its audio frames to :meth:`submit`, uploaded with its prompt
+    into the server's one frames Data, which every prefill pipe's frames
+    port reads; the prefill encodes them and writes
+    the cross K/V of ``enc_len`` encoder positions into the row, which the
+    splice writes into the slot, so a replayed decode step reads each
+    slot's own cross cache).
 
     Decoding is greedy (the argmax runs on the device); stochastic sampling
     is rejected at construction.  ``weights`` is a parameter tree or a
     weights Data (:func:`~repro_torch.processes.lm.weights_data`,
     :func:`repro_torch.interop.params_from_reference`).  Without ``app``
     the server runs on the CUDA card (``CLapp().init()`` never falls back
-    to the CPU).  Encoder-decoder models (whisper) are a later slice.
+    to the CPU).
     """
 
     def __init__(self, model, weights: Any, *, batch: int, max_len: int,
-                 sampling: Optional[SamplingConfig] = None, app: Optional[CLapp] = None):
+                 sampling: Optional[SamplingConfig] = None, enc_len: Optional[int] = None,
+                 app: Optional[CLapp] = None):
         self.sampling = sampling if sampling is not None else SamplingConfig()
         if self.sampling.temperature > 0 or self.sampling.top_k:
             raise NotImplementedError(
@@ -424,13 +433,21 @@ class LMServer:
                 "not wired into the device-resident path")
         self.model = model
         self.batch, self.max_len = batch, max_len
+        self.enc_len = enc_len
+        self.encdec = model.cfg.family == "encdec"
+        if self.encdec and enc_len is None:
+            raise ValueError("encoder-decoder models need enc_len")
         self.app = app if app is not None else CLapp().init()
         wdata, self._wcodec = lmp.resolve_weights(model, weights)
         self._weights_h = self.app.addData(wdata)
-        self.state, self._ccodec = lmp.decode_state_data(model, batch, max_len)
+        self.state, self._ccodec = lmp.decode_state_data(model, batch, max_len, enc_len)
         self.state_h = self.app.addData(self.state, to_device=False)
-        self._row, _ = lmp.decode_state_data(model, 1, max_len)
+        self._row, _ = lmp.decode_state_data(model, 1, max_len, enc_len)
         self._row_h = self.app.addData(self._row, to_device=False)
+        if self.encdec:
+            self._frames = Data({"frames": np.zeros((1, enc_len, model.cfg.d_model),
+                                                    np.float32)})
+            self._frames_h = self.app.addData(self._frames, to_device=False)
         self.decode_pipe = Pipeline(self.app) | lmp.DecodeStep(
             self.app, model, self._wcodec, self._ccodec, max_len=max_len).bind(
                 infile=self.state_h, outfile=self.state_h, weights=self._weights_h)
@@ -446,21 +463,40 @@ class LMServer:
         self.queue: List[tuple] = []
         self.steps = 0
         self.admitted = 0
-        #: one sample per prefill launch, prompt uploads under "transfer"
+        #: one sample per prefill launch, prompt (and frames) uploads under
+        #: "transfer", one sample each
         self.prefill_profile = ProfileParameters(enable=True)
         #: one sample per decode step; its "transfer" phase stays empty
         self.decode_profile = ProfileParameters(enable=True)
 
     # -- request lifecycle ----------------------------------------------------
-    def submit(self, prompt: Sequence[int]) -> int:
-        """Queue one request; raises :class:`PromptTooLongError` unless
-        ``1 <= len(prompt) <= max_len - 1``."""
+    def submit(self, prompt: Sequence[int], frames: Optional[np.ndarray] = None) -> int:
+        """Queue one request.  ``frames`` (T_enc, D) or (1, T_enc, D) is
+        required for encoder-decoder models, rejected otherwise.  Raises
+        :class:`PromptTooLongError` unless ``1 <= len(prompt) <= max_len -
+        1``, and ``ValueError`` for frames that do not cover ``enc_len``
+        encoder positions."""
         prompt = [int(t) for t in prompt]
         if not 1 <= len(prompt) <= self.max_len - 1:
             raise PromptTooLongError(len(prompt), self.max_len)
+        if self.encdec and frames is None:
+            raise ValueError(
+                "encoder-decoder models take per-request frames")
+        if not self.encdec and frames is not None:
+            raise ValueError(f"{self.model.cfg.family!r} models take no "
+                             "frames")
+        if frames is not None:
+            frames = np.asarray(frames, np.float32)
+            if frames.ndim == 2:
+                frames = frames[None]
+            if frames.shape[1] != self.enc_len:
+                raise ValueError(
+                    f"frames cover {frames.shape[1]} encoder positions "
+                    f"but the decode state was compiled for "
+                    f"enc_len={self.enc_len}")
         rid = len(self.results)
         self.results.append([])
-        self.queue.append((rid, prompt))
+        self.queue.append((rid, prompt, frames))
         return rid
 
     def _prefill_pipe(self, length: int) -> Pipeline:
@@ -468,8 +504,9 @@ class LMServer:
         if pipe is None:
             proc = lmp.PrefillProcess(self.app, self.model, self._wcodec, self._ccodec,
                                       max_len=self.max_len)
+            ports = {"frames": self._frames_h} if self.encdec else {}
             pipe = Pipeline(self.app) | proc.bind(infile="tokens", outfile=self._row_h,
-                                                  weights=self._weights_h)
+                                                  weights=self._weights_h, **ports)
             self._prefill_pipes[length] = pipe
         return pipe
 
@@ -480,10 +517,18 @@ class LMServer:
             if not self.queue:
                 break
             slot = int(slot)
-            rid, prompt = self.queue.pop(0)
+            rid, prompt, frames = self.queue.pop(0)
             toks = Data({"tokens": np.asarray(prompt, np.int32)[None, :]})
-            row = self._prefill_pipe(len(prompt)).run(toks, sync=False,
-                                                      profile=self.prefill_profile)
+            pipe = self._prefill_pipe(len(prompt))
+            if self.encdec:
+                # into the one frames blob: the copy stream waits for the
+                # launches queued before, so no earlier prefill reads it late
+                t0 = time.perf_counter()
+                self._frames.get_ndarray(0).set_host(frames)
+                self.app.host2device(self._frames_h)
+                self.app.wait_transfers()
+                self.prefill_profile.record_phase("transfer", time.perf_counter() - t0)
+            row = pipe.run(toks, sync=False, profile=self.prefill_profile)
             tok = int(row.device_view("token")[0, 0])
             sp = self._splice.get(slot)
             if sp is None:

@@ -318,7 +318,7 @@ def test_unported_families_raise_naming_the_roadmap():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(get_smoke("qwen3-14b").scaled(family="hybrid"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(get_smoke("qwen3-14b").scaled(family="encdec"))
+        build_model(get_smoke("qwen3-14b").scaled(family="vlm"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(get_smoke("rwkv6-3b")).loss_fn({}, {})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
