@@ -61,8 +61,16 @@
    against the single-arena graph), then a ``PipelineServer(batch=4,
    flush_timeout=0.02)`` fed 10 requests from a second thread after
    ``warmup()``: p50/p99 latency, every response against its oracle, no
-   capture in the worker thread.  Each of these phases counts its kernel
-   launches from 0.
+   capture in the worker thread.  ``[profile]``: the phases of profiled
+   launches (``ProfileParameters``): 25 launches of each mode at ``CONFIG``,
+   the k-space uploaded by the first (exactly 25 samples, one "compute" a
+   stage a launch, one "transfer", no "compile"; each launch's "compute"
+   between the kernels' device time from ``torch.profiler`` and its
+   sample), beside 50 unprofiled replays; the 24-slice stream at batch 8
+   on a new process (3 "transfer", 3 "compute", 1 "compile", then a second
+   stream with no "compile") and the copy rate of its "transfer" phases
+   beside ``[stream]``'s.  Each of these phases counts its kernel launches
+   from 0.
 4. Holds the LM kernels (``rmsnorm``, ``flash_attention``) against their
    plain versions on the card (bf16 at rtol/atol 2e-2, f32 at rtol 1e-4 /
    atol 1e-5) at the qwen3-14b and rwkv6-3b serving shapes (the
@@ -85,13 +93,18 @@
    and 4 prefill batches (what limits it), prints ptxas's registers, spills and shared memory for the
    flash_attention, rmsnorm, wkv6 and negate kernels, and times each step
    of the rmsnorm wrapper's host path at the decode shape against
-   ``F.rms_norm``.
+   ``F.rms_norm``.  ``[chooser]``: ``KernelChooser.calibrate`` for every
+   registered kernel at those shapes (t_kernel, t_plain, the bound from the
+   kernel's cost model and its verdict; a calibration inside a capture must
+   raise), then the MRI path under ``"auto"``, counting its launches.
 5. Serves qwen3-14b, then rwkv6-3b, at full width (random bf16 weights
    made on the card from a seed) through ``LMServer``: 10 requests of
    17-1024 prompt tokens, 4 slots, 32 new tokens each; checks the tokens,
    that every kernel of the model ran on every prefill and step, and that
    the decode state never moved host to device; the decode step is
-   captured once and replayed on every later step.  Then two more requests
+   captured once and replayed on every later step; ``[profile]``: the
+   decode profile holds one "compute" a step and a slot release and no
+   "transfer", the prefill profile the JAX LMServer's counts.  Then two more requests
    repeat the first prompt (a prompt length seen before): their first
    token must be the first request's, and no prefill, splice or release
    may have been captured.  After each, runs the
@@ -146,25 +159,6 @@ LM_SRC = "src/repro_torch/kernels/csrc/lm_kernels.cu"
 RWKV_SRC = "src/repro_torch/kernels/csrc/rwkv_kernels.cu"
 NEG_SRC = "src/repro_torch/kernels/csrc/negate_kernels.cu"
 
-# (memory bytes/s, fp32 non-tensor FLOP/s, bf16 dense tensor FLOP/s) from
-# NVIDIA's data sheets, by the name nvidia-smi reports.  The SXM part
-# reports "H100 80GB HBM3".  The MRI kernels, wkv6 and negate are held to
-# the fp32 rate, rmsnorm and flash_attention to the bf16 tensor rate.
-CARD_PEAKS = {
-    "H100 PCIe": (2.0e12, 51e12, 756e12),
-    "H100 NVL": (3.9e12, 60e12, 835e12),
-    "H200": (4.8e12, 67e12, 989e12),
-    "H100": (3.35e12, 67e12, 989e12),
-}
-
-
-def card_peaks(name: str) -> tuple[float, float, float]:
-    for key, peaks in CARD_PEAKS.items():
-        if key in name:
-            return peaks
-    raise SystemExit(f"chip_smoke: no peak rates known for card {name!r}")
-
-
 def ptxas_usage(log: str, *fragments: str) -> tuple[int | None, int | None, int | None]:
     """(registers a thread, static shared bytes a block, spill-store bytes)
     that ptxas reported in ``log`` for the first kernel whose mangled name
@@ -182,15 +176,6 @@ def ptxas_usage(log: str, *fragments: str) -> tuple[int | None, int | None, int 
                     smem = re.search(r"(\d+) bytes smem", nxt)
                     return int(m.group(1)), int(smem.group(1)) if smem else 0, spill
     return None, None, None
-
-
-def visible_pairs(sq: int, skv: int, causal: bool, window: int | None) -> int:
-    """Query-key pairs attention computes: each query i (at position
-    i + skv - sq) sees keys up to itself (causal) and above its window."""
-    qpos = np.arange(sq) + skv - sq
-    hi = np.minimum(qpos, skv - 1) if causal else np.full(sq, skv - 1)
-    lo = np.maximum(qpos - window + 1, 0) if window else np.zeros(sq, np.int64)
-    return int(np.clip(hi - lo + 1, 0, None).sum())
 
 
 def main() -> None:
@@ -211,6 +196,7 @@ def main() -> None:
     from repro_torch.kernels.mri_fused import (dft_fits, fused_epilogue, fused_recon,
                                                idft_tables, recon_smem_bytes)
     from repro_torch.launch.mri_recon import oracle_recon as oracle, synthetic_kdata
+    from repro_torch.launch.roofline import card_peaks, kernel_cost, roofline_terms
     from repro_torch.processes import (FFT, ComplexElementProd, ComplexElementProdParams,
                                        FFTParams, FusedMRIRecon, FusedReconParams,
                                        RSSCombine, SimpleMRIRecon)
@@ -227,7 +213,19 @@ def main() -> None:
     print(smi)
     print(f"torch.cuda.get_device_name: {name}; torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}")
-    bw, flops, bf16_flops = card_peaks(name)
+    try:
+        peaks = card_peaks(name)
+    except KeyError as err:
+        raise SystemExit(f"chip_smoke: {err}") from None
+
+    def bound_of(kname, *args, **kwargs):
+        """(bound ms, "bytes" or "operations", the cost's bytes and
+        operations) of one call of registered kernel ``kname`` on these
+        arguments: its cost model at this card's data-sheet rates."""
+        t_ops, t_bytes = (t * 1e3 for t in roofline_terms(kname, *args, peaks=peaks, **kwargs))
+        cost = kernel_cost(kname, *args, **kwargs)
+        return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+                f"{cost.bytes / 1e6:.3f} MB, {cost.flops / 1e9:.4f} GFLOP at {cost.peak}")
     t0 = time.perf_counter()
     _build.library()
     print(f"[build] {time.perf_counter() - t0:.2f} s (nvcc {_build.BUILD_INFO['seconds']:.2f} s, "
@@ -408,46 +406,45 @@ def main() -> None:
     warm = [(x, s, tables)] * copies
     print(f"[time] L2 {l2 / 2**20:.0f} MiB; cold timing walks {copies} input copies "
           f"of {in_bytes / 1e6:.1f} MB")
-    stack_b = n * 8
     timed = {
         "complex_elementprod": (
             lambda x, s, t: complex_elementprod(x, s, True),
             lambda x, s, t: ref.complex_elementprod(x, s, True),
             lambda x, s, t: x * s.conj(),
-            stack_b * 2 + c * hw * 8, 6 * n,
+            lambda x, s, t: bound_of("complexElementProd", x, s, True),
             "src/repro/kernels/complex_elementprod.py:60"),
         "ximage_sum": (
             lambda x, s, t: ximage_sum(x), lambda x, s, t: ref.ximage_sum(x),
             lambda x, s, t: x.sum(1),
-            stack_b + f * hw * 8, 2 * n, "src/repro/kernels/coil_combine.py:59"),
+            lambda x, s, t: bound_of("xImageSum", x), "src/repro/kernels/coil_combine.py:59"),
         "rss": (
             lambda x, s, t: rss(x), lambda x, s, t: ref.rss(x),
             lambda x, s, t: torch.linalg.vector_norm(x, dim=1),
-            stack_b + f * hw * 4, 4 * n, "src/repro/kernels/coil_combine.py:59"),
+            lambda x, s, t: bound_of("rss", x), "src/repro/kernels/coil_combine.py:59"),
         "fused_epilogue": (
             lambda x, s, t: fused_epilogue(x, s), lambda x, s, t: ref.mri_fused_epilogue(x, s),
             lambda x, s, t: torch.einsum("fchw,chw->fhw", x, s.conj()),
-            stack_b + c * hw * 8 + f * hw * 8, 8 * n, "src/repro/kernels/mri_fused.py:104"),
+            lambda x, s, t: bound_of("mriFusedEpilogue", x, s),
+            "src/repro/kernels/mri_fused.py:104"),
         "fused_recon": (
             lambda x, s, t: fused_recon(x, s, tables=t),
             lambda x, s, t: ref.mri_fused_recon(x, s),
             lambda x, s, t: torch.einsum("fchw,chw->fhw", torch.fft.ifft2(x, norm="ortho"),
                                          s.conj()),
-            stack_b + c * hw * 8 + (h * h + w * w) * 8 + f * hw * 8,
-            8 * n * (h + w) + 8 * n, "src/repro/kernels/mri_fused.py:194"),
+            lambda x, s, t: bound_of("mriFusedRecon", x, s, tables=t),
+            "src/repro/kernels/mri_fused.py:194"),
     }
     rows = {}
-    for kname, (kern, plain, lib, nbytes, ops, replaces) in timed.items():
-        t_bytes, t_ops = nbytes / bw * 1e3, ops / flops * 1e3
+    for kname, (kern, plain, lib, bound, replaces) in timed.items():
+        bound_ms, bound_by, cost_txt = bound(x, s, tables)
         ms, plain_ms, lib_ms = device_ms(kern, cold), device_ms(plain, cold), device_ms(lib, cold)
         warm_ms, warm_lib = device_ms(kern, warm), device_ms(lib, warm)
         rows[kname] = dict(name=kname, route="cuda", source=SRC, replaces=replaces,
-                           ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
-                           bound_by="bytes" if t_bytes >= t_ops else "operations",
+                           ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                            library_ms=lib_ms, max_abs_err=max_err[kname])
         print(f"[time] {kname} at {cfg}: cold-L2 device ms: kernel {ms:.5f}, "
               f"plain {plain_ms:.5f}, library {lib_ms:.5f}, bound {rows[kname]['bound_ms']:.5f} "
-              f"({rows[kname]['bound_by']}: {nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} GFLOP); "
+              f"({bound_by}: {cost_txt}); "
               f"warm-L2 device ms: kernel {warm_ms:.5f}, library {warm_lib:.5f}; "
               f"one host call: kernel {call_ms(lambda: kern(x, s, tables)):.5f}, "
               f"library {call_ms(lambda: lib(x, s, tables)):.5f}")
@@ -523,6 +520,18 @@ def main() -> None:
                    if e.device_type.name == "CUDA")
         return busy / reps / 1e3 if busy > 0 else None
 
+    def timed_launch(proc, prof):
+        """One unprofiled launch between two CUDA events on the compute
+        stream (a profiled launch's own timer), its time a sample of
+        ``prof``: the launch latency a caller sees, not that of a profiled
+        staged graph, which also records each stage's events."""
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        proc.launch()
+        e1.record()
+        e1.synchronize()
+        prof.record(e0.elapsed_time(e1) / 1e3)
+
     def run_phase(label, build, k, want, expect, launches=20):
         """``launches`` launches of the built process on ``k``, then a
         second k-space (``k``'s frames in reverse order) uploaded into the
@@ -542,7 +551,7 @@ def main() -> None:
                     np.ascontiguousarray(kdata_in))
                 app.host2device(h_in)
             for _ in range(n):
-                proc.launch(prof)
+                timed_launch(proc, prof)
             app.device2Host(h_out)
             got = app.getData(h_out).get_ndarray(0).host
             if got.shape != want_out.shape or not np.isfinite(got).all():
@@ -789,7 +798,8 @@ def main() -> None:
             prof = ProfileParameters(enable=True)
             for _ in range(10):
                 graph.launch(prof)
-            bare[n], busy[n] = prof.p50() * 1e3, busy_ms(graph.launch)
+            bare[n] = prof.p50() * 1e3
+            busy[n] = busy_ms(lambda: graph.launch(ProfileParameters(enable=True)))
         if (ex.captures, ex.replays) != (1, 5 + 10 + 10):
             raise SystemExit(f"chip_smoke: [join] the bare replays recaptured ({ex.captures})")
         print(f"[join] {smi}: 6 runs of the fan-in graph (new k-space and maps on runs 5-6, "
@@ -1078,13 +1088,14 @@ def main() -> None:
                       f"the 3 uploads): kernels' device time a batch "
                       f"{sum(b - a for a, b, _ in kern) / seen / 1e3:.3f} ms (the hand-written "
                       f"kernels' {mine / seen / 1e3:.3f} ms)")
-            report[label] = walls
+            report[label] = dict(walls, gbps=sum(n for _, _, n in ups) / up_ms / 1e6)
             del proc, app
             gc.collect()
             torch.cuda.empty_cache()
         return report
 
-    counted("stream", stream_phase, ["complexElementProd", "xImageSum", "mriFusedRecon"])
+    stream_report = counted("stream", stream_phase,
+                            ["complexElementProd", "xImageSum", "mriFusedRecon"])
 
     def serve_phase():
         """[serve]: Pipeline.run(mode="serve") over the linear, fan-in and
@@ -1119,7 +1130,7 @@ def main() -> None:
         print(f"[serve] {cfg}: Pipeline.run(mode='serve') at batch 2 over 5 slices (a padded "
               f"tail): the fan-in graph with shared maps bit for bit the aux-bound graph "
               f"streamed, with per-slice maps bit for bit the single-arena graph served; "
-              f"latency p50 {prof.p50() * 1e3:.2f} ms, p99 {prof.percentile(99) * 1e3:.2f} ms")
+              f"latency p50 {prof.p50() * 1e3:.2f} ms, p99 {prof.p99() * 1e3:.2f} ms")
 
         # the threaded server: submit touches no CUDA call; warmup() captured
         # every twin, so the worker thread only replays
@@ -1170,6 +1181,116 @@ def main() -> None:
               "response within 1e-4 of its oracle")
 
     counted("serve", serve_phase, ["complexElementProd", "xImageSum", "mriFusedRecon"])
+
+    def phase_counts(prof):
+        return {k: len(v) for k, v in prof.phases.items()}
+
+    def profile_phase():
+        """[profile]: the phases of profiled launches and streams.  MRI at
+        CONFIG in staged / fused / fused_kernel: 25 profiled launches, the
+        k-space uploaded by the first; exactly 25 samples, one "compute" a
+        stage a launch (staged 3, else 1), one "transfer" (the launch that
+        uploaded), no "compile"; each launch's "compute" total at most its
+        sample (1 us of event resolution beside it) and at least 0.95 of the
+        kernels' device time a launch from torch.profiler (the kernels vary
+        from launch to launch); then 50 unprofiled replays beside them.
+        Streams of the 24 slices with their own maps at batch 8 on a new
+        process (staged, fused_kernel): 3 "transfer", 3 "compute" and 1
+        "compile" (its one row count, the JAX package's one compile-cache
+        miss), then a second stream with none; the copy rate of the
+        "transfer" phases beside [stream]'s copy-stream events."""
+        for mode, stages in (("staged", 3), ("fused", 1), ("fused_kernel", 1)):
+            app = CLapp().init()
+            h_in = app.addData(KData({"kdata": kdata, "sensitivity_maps": smaps}),
+                               to_device=False)
+            h_out = app.addData(XData({"xdata": np.zeros(want_sum.shape, np.complex64)}))
+            proc = SimpleMRIRecon(app, mode=mode, in_place=False)
+            proc.in_handle, proc.out_handle = h_in, h_out
+            proc.init()
+            prof = ProfileParameters(enable=True)
+            for _ in range(25):
+                proc.launch(prof)
+            app.device2Host(h_out)
+            np.testing.assert_allclose(app.getData(h_out).get_ndarray(0).host, want_sum,
+                                       rtol=1e-4, atol=1e-4, err_msg=f"[profile] {mode}")
+            want = {"transfer": 1, "compute": 25 * stages}
+            if len(prof.samples) != 25 or phase_counts(prof) != want:
+                raise SystemExit(f"chip_smoke: [profile] {mode}: {len(prof.samples)} samples, "
+                                 f"phases {phase_counts(prof)}, expected 25 and {want}")
+            comp = prof.phases["compute"]
+            per = [sum(comp[i * stages:(i + 1) * stages]) * 1e3 for i in range(25)]
+            samples = [t * 1e3 for t in prof.samples]
+            kern = busy_ms(lambda: proc.launch(ProfileParameters(enable=True)))
+            if kern is None:
+                raise SystemExit(f"chip_smoke: [profile] {mode}: the torch.profiler trace holds "
+                                 "no kernels")
+            outside = [i for i in range(25)
+                       if not 0.95 * kern <= per[i] <= samples[i] + 1e-3]
+            if outside:
+                raise SystemExit(f"chip_smoke: [profile] {mode}: launches {outside}: compute "
+                                 f"{[round(per[i], 5) for i in outside]} ms outside the kernels' "
+                                 f"{kern:.5f} ms and the samples "
+                                 f"{[round(samples[i], 5) for i in outside]} ms")
+            graph = proc.chain
+            for _ in range(3):
+                proc.launch()
+            unprof = events_ms(proc.launch, 50)
+            print(f"[profile] {smi}: SimpleMRIRecon {mode} at {cfg}, 25 profiled launches: "
+                  f"samples {len(prof.samples)}, mean {prof.mean() * 1e3:.5f} ms, p50 "
+                  f"{prof.p50() * 1e3:.5f}, p99 {prof.p99() * 1e3:.5f}; phases "
+                  + ", ".join(f"{k} {len(v)} ({sum(v) * 1e3:.4f} ms)"
+                              for k, v in prof.phases.items())
+                  + f"; a launch's compute p50 {statistics.median(per):.5f} ms (min "
+                  f"{min(per):.5f}, max {max(per):.5f}) between the kernels' device time "
+                  f"{kern:.5f} ms and its sample; unprofiled replay p50 {unprof:.5f} ms "
+                  f"(captures {graph.captures}"
+                  + ("; the profiled launches replay a graph of their own, which records "
+                     "each stage's events)" if mode != "fused" else ")"))
+            del proc, app
+        for mode in ("staged", "fused_kernel"):
+            app = CLapp().init()
+            h_in = app.addData(kd(0))
+            h_out = app.addData(XData({"xdata": np.zeros((cfg[0],) + cfg[2:], np.complex64)}))
+            proc = SimpleMRIRecon(app, mode=mode, in_place=False)
+            proc.in_handle, proc.out_handle = h_in, h_out
+            proc.init()
+            layout_bytes = app.getData(h_in).layout.total_bytes
+            profs = []
+            for run in range(2):
+                prof = ProfileParameters(enable=True)
+                outs = proc.stream([kd(i) for i in range(24)], batch=8, profile=prof)
+                for i, o in enumerate(outs):
+                    np.testing.assert_allclose(o.device_view("xdata").cpu().numpy(),
+                                               oracles["sum"][i], rtol=1e-4, atol=1e-4,
+                                               err_msg=f"[profile] stream {mode} {run} {i}")
+                want = {"transfer": 3, "compute": 3}
+                if run == 0:
+                    want["compile"] = 1
+                if len(prof.samples) != 1 or phase_counts(prof) != want:
+                    raise SystemExit(f"chip_smoke: [profile] stream {mode} run {run}: phases "
+                                     f"{phase_counts(prof)}, expected {want}")
+                profs.append(prof)
+            moved = 3 * 8 * layout_bytes
+            rates = [moved / p.phase_total("transfer") / 1e9 for p in profs]
+            print(f"[profile] {smi}: SimpleMRIRecon.stream {mode}, 24 slices with their own "
+                  f"maps at batch 8, a new process: first stream "
+                  + ", ".join(f"{k} {len(v)} ({sum(v) * 1e3:.3f} ms)"
+                              for k, v in profs[0].phases.items())
+                  + "; second stream "
+                  + ", ".join(f"{k} {len(v)} ({sum(v) * 1e3:.3f} ms)"
+                              for k, v in profs[1].phases.items())
+                  + f"; copy rate from the transfer phases (pack into pinned memory, copy "
+                  f"and landing: {moved / 1e9:.3f} GB a stream) {rates[0]:.2f} / "
+                  f"{rates[1]:.2f} GB/s beside [stream]'s copy-stream events "
+                  f"{stream_report[mode]['gbps']:.2f} GB/s; a batch's transfer "
+                  + ", ".join(f"{t * 1e3:.3f}" for t in profs[1].phases["transfer"])
+                  + " ms, its compute "
+                  + ", ".join(f"{t * 1e3:.3f}" for t in profs[1].phases["compute"]) + " ms")
+            del proc, app, outs
+            gc.collect()
+            torch.cuda.empty_cache()
+
+    counted("profile", profile_phase, ["complexElementProd", "xImageSum", "mriFusedRecon"])
     del stack, oracles
 
     # -- 5. LM and listing-1 kernels against their plain versions ------------
@@ -1300,37 +1421,35 @@ def main() -> None:
         copies = max(2, -(-3 * l2 // nbytes) + 1)
         return [first] + [make() for _ in range(copies - 1)], [first] * copies
 
-    def time_kernel(kname, source, replaces, at, make, kern, plain, lib, nbytes, ops, peak,
-                    plain_sets=None, peak_name="the bf16 tensor rate"):
+    def time_kernel(kname, source, replaces, at, make, kern, plain, lib, registered,
+                    plain_sets=None, **cost_kwargs):
         """Cold- and warm-L2 device times of the kernel, its plain version
         (over ``plain_sets`` input copies when it is too slow for all of
-        them) and one library call; the bound from ``nbytes`` and ``ops``."""
+        them) and one library call; the bound from the cost model of the
+        kernel ``registered`` on the first input set and ``cost_kwargs``."""
         cold, warm = cold_and_warm(make)
-        t_bytes, t_ops = nbytes / bw * 1e3, ops / peak * 1e3
+        bound_ms, bound_by, cost_txt = bound_of(registered, *cold[0], **cost_kwargs)
         ms, warm_ms = device_ms(kern, cold), device_ms(kern, warm)
         plain_ms = (device_ms(plain, cold) if plain_sets is None
                     else device_ms(plain, cold[:plain_sets], reps=3))
         lib_ms = device_ms(lib, cold) if lib is not None else None
         warm_lib = device_ms(lib, warm) if lib is not None else None
         row = dict(name=kname, route="cuda", source=source, replaces=replaces, ms=ms,
-                   plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
-                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                    library_ms=lib_ms, max_abs_err=max_err.get(kname, 0.0))
         lib_txt = "none" if lib is None else f"{lib_ms:.5f}"
         warm_lib_txt = "none" if lib is None else f"{warm_lib:.5f}"
         host_lib_txt = "none" if lib is None else f"{call_ms(lambda: lib(*cold[0])):.5f}"
         print(f"[time] {kname} at {at}: cold-L2 device ms ({len(cold)} input copies): "
               f"kernel {ms:.5f}, plain {plain_ms:.5f}, library {lib_txt}, "
-              f"bound {row['bound_ms']:.5f} ({row['bound_by']}: {nbytes / 1e6:.3f} MB, "
-              f"{ops / 1e9:.4f} GFLOP at {peak_name}); warm-L2 device ms: kernel {warm_ms:.5f}, "
+              f"bound {bound_ms:.5f} ({bound_by}: {cost_txt}); warm-L2 device ms: kernel {warm_ms:.5f}, "
               f"library {warm_lib_txt}; one host call: kernel "
               f"{call_ms(lambda: kern(*cold[0])):.5f}, library {host_lib_txt}")
         del cold, warm
         return row
 
     # rmsnorm at the qwen3-14b prefill (1024 rows, the row kept), decode (4
-    # rows) and per-head q/k-norm (40 heads x 1024 tokens, 128 wide) shapes:
-    # read x and w once, write out once, 4 flops an element.
+    # rows) and per-head q/k-norm (40 heads x 1024 tokens, 128 wide) shapes
     seq = 1024
     for tag, (n_rows, d) in (("prefill", (seq, 5120)), ("decode", (4, 5120)),
                              ("q/k norm", (40 * seq, 128))):
@@ -1339,8 +1458,7 @@ def main() -> None:
             f"{tag} x ({n_rows}, {d}) bf16",
             lambda n_rows=n_rows, d=d: (rand(n_rows, d, dtype=bf16), rand(d, dtype=bf16)),
             lambda x, w: rmsnorm(x, w), lambda x, w: ref.rmsnorm(x, w),
-            lambda x, w: F.rms_norm(x, (x.shape[-1],), w, 1e-6),
-            2 * n_rows * d * 2 + d * 2, 4 * n_rows * d, bf16_flops)
+            lambda x, w: F.rms_norm(x, (x.shape[-1],), w, 1e-6), "rmsnorm")
         if tag == "prefill":
             rows["rmsnorm"] = row
     rows["flash_attention"] = time_kernel(
@@ -1351,8 +1469,7 @@ def main() -> None:
         lambda q, k, v: flash_attention(q, k, v), lambda q, k, v: ref.attention(q, k, v),
         lambda q, k, v: F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                                        enable_gqa=True),
-        2 * (40 + 8) * seq * 128 * 2, 4 * 40 * 128 * visible_pairs(seq, seq, True, None),
-        bf16_flops)
+        "flash_attention")
     # the whisper-large-v3 encoder's attention: 1500 frames, 20 heads of 64,
     # no mask; every query sees every key
     enc_t = 1500
@@ -1363,8 +1480,7 @@ def main() -> None:
         lambda q, k, v: flash_attention(q, k, v, causal=False),
         lambda q, k, v: ref.attention(q, k, v, causal=False),
         lambda q, k, v: F.scaled_dot_product_attention(q, k, v),
-        4 * 20 * enc_t * 64 * 2, 4 * 20 * 64 * visible_pairs(enc_t, enc_t, False, None),
-        bf16_flops, plain_sets=2)
+        "flash_attention", plain_sets=2, causal=False)
     print(f"[time] {smi}: flash_attention at the whisper encoder shape: kernel / SDPA "
           f"{whisper_flash['ms'] / whisper_flash['library_ms']:.3f}, bound / kernel "
           f"{whisper_flash['bound_ms'] / whisper_flash['ms']:.3f}")
@@ -1447,22 +1563,16 @@ def main() -> None:
     del x, w, out
 
     # wkv6 at the rwkv6-3b prefill (1, 1024, 40, 64) and decode (4, 1, 40, 64)
-    # shapes: bytes read and written once (bf16 r/k/v/out, f32 w, u, state
-    # in and out); per step and head 5 D^2 flops (2 D^2 for r s, 3 D^2 for the
-    # decayed state plus k v) and 5 D for the u term (a = sum r u k, then
-    # o += a v), at the fp32 rate.  No single PyTorch call computes the
-    # recurrence, so there is no library time.
+    # shapes.  No single PyTorch call computes the recurrence, so there is
+    # no library time.
     for tag, (b, t, h, d) in (("prefill", (1, seq, 40, 64)), ("decode", (4, 1, 40, 64))):
-        n = b * t * h * d
         row = time_kernel(
             "wkv6", RWKV_SRC, "src/repro/kernels/wkv6.py:82",
             f"{tag} ({b}, {t}, {h}, {d}) bf16 r/k/v, f32 w and state",
             lambda b=b, t=t, h=h, d=d: wkv_inputs(b, t, h, d, bf16),
             lambda r, k, v, w, u, s: wkv6(r, k, v, w, u, s),
-            lambda r, k, v, w, u, s: ref.wkv6(r, k, v, w, u, s), None,
-            4 * n * 2 + n * 4 + h * d * 4 + 2 * b * h * d * d * 4, (5 * d + 5) * d * b * t * h,
-            flops,
-            plain_sets=2 if t > 1 else None, peak_name="the fp32 rate")
+            lambda r, k, v, w, u, s: ref.wkv6(r, k, v, w, u, s), None, "wkv6",
+            plain_sets=2 if t > 1 else None)
         if tag == "prefill":
             rows["wkv6"] = row
     # what limits wkv6: 4 prefill batches put 4x the blocks on the card; a
@@ -1491,9 +1601,87 @@ def main() -> None:
         rows["negate"] = time_kernel(
             "negate", NEG_SRC, "src/repro/kernels/negate.py:34", f"({n}, {n}) f32",
             lambda n=n: (rand(n, n),), lambda x: negate(x), lambda x: ref.negate(x),
-            lambda x: torch.rsub(x, 1.0), 2 * n * n * 4, n * n, flops,
-            peak_name="the fp32 rate")
+            lambda x: torch.rsub(x, 1.0), "negate_kernel")
     torch.cuda.empty_cache()
+
+    # -- 6b. [chooser]: every registered kernel calibrated ---------------------
+    from repro_torch.launch.roofline import default_chooser, resolve_backend
+
+    def chooser_phase():
+        """[chooser]: ``KernelChooser.calibrate`` for every registered kernel at
+        the shapes of PERF.md §6 (the MRI kernels at CONFIG, rmsnorm at the
+        qwen3-14b prefill, flash_attention at the qwen3-14b prefill and the
+        whisper encoder, wkv6 at the rwkv6-3b prefill, negate at 256^2 and
+        4096^2): each timed on the card, its bound from its cost model, its
+        verdict; "auto" runs the kernel whatever the verdict.  A calibration
+        inside a CUDA-graph capture raises.  Then the MRI path under "auto"
+        (SimpleMRIRecon's default), 3 launches each of staged and
+        fused_kernel, whose launch counts show the hand kernels ran."""
+        chooser = default_chooser()
+        f, c, h, w = cfg
+        x, sm = crand(*cfg), crand(c, h, w)
+        q, kk, vv = (rand(1, hh, seq, 128, dtype=bf16) for hh in (40, 8, 8))
+        calls = [
+            ("complexElementProd", (x, sm, True), {}, f"{cfg} complex64, conj"),
+            ("xImageSum", (x,), {}, f"{cfg} complex64"),
+            ("rss", (x,), {}, f"{cfg} complex64"),
+            ("mriFusedEpilogue", (x, sm), {}, f"{cfg} complex64"),
+            ("mriFusedRecon", (x, sm), {"tables": idft_tables(h, w, "ortho", dev)},
+             f"{cfg} complex64, DFT kernel"),
+            ("rmsnorm", (rand(seq, 5120, dtype=bf16), rand(5120, dtype=bf16)), {},
+             f"({seq}, 5120) bf16"),
+            ("flash_attention", (q, kk, vv), {}, f"q (1, 40, {seq}, 128) kv (1, 8, {seq}, 128) "
+             "bf16 causal (qwen3-14b prefill)"),
+            ("flash_attention", tuple(rand(1, 20, 1500, 64, dtype=bf16) for _ in range(3)),
+             {"causal": False}, "(1, 20, 1500, 64) bf16 non-causal (whisper encoder)"),
+            ("wkv6", wkv_inputs(1, seq, 40, 64, bf16), {},
+             f"(1, {seq}, 40, 64) bf16 r/k/v, f32 w, u and state"),
+            ("negate_kernel", (rand(256, 256),), {}, "(256, 256) f32"),
+            ("negate_kernel", (rand(4096, 4096),), {}, "(4096, 4096) f32"),
+        ]
+        for kname, args, kw, at in calls:
+            rec = chooser.calibrate(kname, *args, **kw)
+            if not (rec.timed and 0 < rec.t_kernel_s < float("inf")
+                    and 0 < rec.t_plain_s < float("inf") and rec.bound_s > 0
+                    and chooser.lookup(kname, *args, **kw) is rec
+                    and resolve_backend("auto", kname, *(a for a in args
+                                                         if isinstance(a, torch.Tensor)))):
+                raise SystemExit(f"chip_smoke: [chooser] {kname} at {at}: record {rec}")
+            print(f"[chooser] {smi}: {kname} at {at}: t_kernel {rec.t_kernel_s * 1e3:.5f} ms, "
+                  f"t_plain {rec.t_plain_s * 1e3:.5f} ms (one call's device time, min of "
+                  f"{chooser.reps}, warm, zero inputs); bound {rec.bound_s * 1e3:.5f} ms, "
+                  f"{rec.bound}-bound (compute {rec.t_compute_est_s * 1e3:.5f}, memory "
+                  f"{rec.t_memory_est_s * 1e3:.5f}); verdict {rec.backend}: {rec.reason}")
+        plain = sorted({r.kernel for r in chooser.records() if r.backend == "plain"})
+        print(f"[chooser] {len(chooser.records())} records; \"plain\" verdicts (findings for "
+              f"the redesign queue; \"auto\" runs the kernel all the same): {plain or 'none'}")
+        g = torch.cuda.CUDAGraph()
+        refused = False
+        with torch.cuda.graph(g):
+            x.add_(0)
+            try:
+                chooser.calibrate("rss", crand(2, 3, 8, 8))
+            except RuntimeError:
+                refused = True
+        del g
+        if not refused:
+            raise SystemExit("chip_smoke: [chooser] calibrate ran inside a CUDA-graph capture")
+        del x, sm, q, kk, vv, calls
+        for mode in ("staged", "fused_kernel"):
+            app = CLapp().init()
+            h_out = app.addData(XData({"xdata": np.zeros(want_sum.shape, np.complex64)}))
+            proc = SimpleMRIRecon(app, mode=mode, in_place=False)
+            proc.in_handle = app.addData(KData({"kdata": kdata, "sensitivity_maps": smaps}))
+            proc.out_handle = h_out
+            for _ in range(3):
+                proc.launch()
+            app.device2Host(h_out)
+            np.testing.assert_allclose(app.getData(h_out).get_ndarray(0).host, want_sum,
+                                       rtol=1e-4, atol=1e-4, err_msg=f"[chooser] {mode}")
+            del proc, app
+        torch.cuda.empty_cache()
+
+    counted("chooser", chooser_phase, ["complexElementProd", "xImageSum", "mriFusedRecon"])
 
     # -- 7. the LM serving path at full width: qwen3-14b, then rwkv6-3b -------
     def serve_full_width(arch, expect, enc_len=None):
@@ -1579,6 +1767,29 @@ def main() -> None:
               f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches "
               f"{', '.join(f'{k} {n}' for k, n in counts.items() if n)}; decode state h2d "
               f"bytes {state_h2d}")
+
+        # [profile]: the decode profile holds one "compute" a step and one a
+        # slot release (the JAX LMServer's counts) and no "transfer"; the
+        # samples stay one a step.  The prefill profile: a "compute" a prefill
+        # and a splice, a "transfer" a prompt (and its frames), and the zero
+        # state's, made with the server
+        dec, pre = server.decode_profile, server.prefill_profile
+        want_dec = {"compute": server.steps + len(lengths)}
+        uploads = (2 if enc_len else 1) * server.admitted + 1
+        want_pre = {"transfer": uploads, "compute": 2 * server.admitted}
+        if (phase_counts(dec) != want_dec or len(dec.samples) != server.steps
+                or phase_counts(pre) != want_pre):
+            raise SystemExit(f"chip_smoke: [profile] {arch} LMServer: decode phases "
+                             f"{phase_counts(dec)} over {len(dec.samples)} samples, expected "
+                             f"{want_dec} over {server.steps}; prefill phases "
+                             f"{phase_counts(pre)}, expected {want_pre}")
+        print(f"[profile] {smi}: LMServer {arch} at full width: decode phases compute "
+              f"{len(dec.phases['compute'])} (one a step, {server.steps}, and one a slot "
+              f"release, {len(lengths)}; {dec.phase_total('compute') * 1e3:.3f} ms), no "
+              f"transfer; samples {len(dec.samples)} (a step's compute is its sample), p50 "
+              f"{dec.p50() * 1e3:.3f}, p99 "
+              f"{dec.p99() * 1e3:.3f}; prefill phases "
+              + ", ".join(f"{k} {len(v)} ({sum(v) * 1e3:.3f} ms)" for k, v in pre.phases.items()))
 
         # a prompt length seen before: the first request twice more (with its
         # frames)

@@ -36,6 +36,7 @@ from .process import (
     Process,
     ProcessChain,
     ProfileParameters,
+    compile_cache_stats,
 )
 from .registry import KernelCompileError, KernelEntry, KernelRegistry, kernel
 from .stream import BatchedProcess, StreamQueue
@@ -47,6 +48,7 @@ __all__ = [
     "GraphError", "INVALID_HANDLE", "KData", "KernelCompileError", "KernelEntry",
     "KernelRegistry", "NDArray", "Node", "NoMatchingDeviceError", "Pipeline",
     "PlatformTraits", "Port", "PortError", "Process", "ProcessChain", "ProfileParameters",
-    "StreamQueue", "SyncSource", "TensorSpec", "XData", "device_view", "kernel",
+    "StreamQueue", "SyncSource", "TensorSpec", "XData", "compile_cache_stats", "device_view",
+    "kernel",
     "pack_device", "pack_host", "plan_layout", "unpack_device", "unpack_host",
 ]

@@ -148,13 +148,15 @@ class CLapp:
         if data is not None:
             data.device_blob = None
 
-    def host2device(self, handle: DataHandle) -> None:
+    def host2device(self, handle: DataHandle, phases=None) -> None:
         """Pack + transfer a Data set in one call (the paper's single-call
         pinned transfer).  On CUDA the packed blob is staged in pinned
         memory and copied with ``non_blocking=True`` on a side stream; the
         compute stream waits on the copy's event, so later kernels see the
         data without the host blocking.  An existing device blob of the
-        right size is reused."""
+        right size is reused.  ``phases`` (a profiled launch's) takes the
+        copy's timing events: on CUDA a pair on the copy stream around the
+        pinned copy, on the CPU the host clock around pack and copy."""
         data = self.getData(handle)
         if data.layout is None:
             data.plan()
@@ -162,10 +164,16 @@ class CLapp:
         blob = data.device_blob
         if blob is None or blob.numel() != n or blob.device != self.device:
             blob = torch.empty(n, dtype=torch.uint8, device=self.device)
+        # a profiled launch's upload events: on CUDA on the copy stream
+        # around the pinned copy, else around pack and copy
+        span = None if phases is None else []
+        cuda = self.device.type == "cuda"
+        if span is not None and not cuda:
+            span.append(phases.mark())
         if all(a.host is not None for a in data):
             host = torch.from_numpy(data.pack_host())
             coherence = Coherence.IN_SYNC
-            if self.device.type == "cuda":
+            if cuda:
                 staging = host.pin_memory()  # the caching host allocator
                 # keeps it alive until the copy that reads it has run
                 compute = torch.cuda.current_stream(self.device)
@@ -174,7 +182,11 @@ class CLapp:
                 copy_stream.wait_stream(compute)
                 event = torch.cuda.Event()
                 with torch.cuda.stream(copy_stream):
+                    if span is not None:
+                        span.append(phases.mark(copy_stream))
                     blob.copy_(staging, non_blocking=True)
+                    if span is not None:
+                        span.append(phases.mark(copy_stream))
                     event.record(copy_stream)
                 blob.record_stream(copy_stream)
                 compute.wait_event(event)
@@ -182,8 +194,14 @@ class CLapp:
                 blob.copy_(host)
             self.h2d_bytes[handle] = self.h2d_bytes.get(handle, 0) + n
         else:
+            if span is not None and cuda:
+                span.append(phases.mark())
             blob.zero_()
             coherence = Coherence.DEVICE_FRESH
+        if span is not None:
+            if len(span) == 1:
+                span.append(phases.mark())
+            phases.uploaded(*span)
         data.device_blob = blob
         data.coherence = coherence
 

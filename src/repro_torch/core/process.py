@@ -68,8 +68,13 @@ class ProfileParameters:
     records on the compute stream around the launch; on the CPU it is the
     host clock.  Statistics return ``nan`` when nothing was recorded.
 
-    ``phases`` are named buckets beside the samples; ``Pipeline.run``
-    records its input uploads under ``"transfer"``.
+    ``phases`` are named buckets beside the samples, with the JAX
+    package's names: ``"transfer"`` (host to device uploads),
+    ``"transfer_d2d"`` (a streamed batch already on the device),
+    ``"compute"`` (a launch, or each stage of a staged chain) and
+    ``"compile"`` (a stream's set-up of a new batch row count).  Phases
+    overlap by design: they say where the time went and do not partition
+    the samples.
     """
 
     enable: bool = False
@@ -88,6 +93,15 @@ class ProfileParameters:
         """Seconds recorded under ``phase`` (0.0 when it never ran)."""
         return float(sum(self.phases.get(phase, ())))
 
+    def phase_totals(self) -> Dict[str, float]:
+        """``{phase -> total seconds}`` over every recorded bucket."""
+        return {k: self.phase_total(k) for k in self.phases}
+
+    def mean(self) -> float:
+        if not self.samples:
+            return float("nan")
+        return float(sum(self.samples) / len(self.samples))
+
     def percentile(self, p: float) -> float:
         if not self.samples:
             return float("nan")
@@ -95,6 +109,97 @@ class ProfileParameters:
 
     def p50(self) -> float:
         return self.percentile(50.0)
+
+    def p99(self) -> float:
+        return self.percentile(99.0)
+
+
+@dataclasses.dataclass
+class _PhaseView:
+    """Phase-only view of a profile: :meth:`record_phase` forwards,
+    :meth:`record` is dropped.  ``LMServer`` launches its cache splices and
+    slot releases with one, so their phases count as the JAX package's do
+    while the samples stay one a prefill and one a decode step."""
+
+    parent: ProfileParameters
+
+    @property
+    def enable(self) -> bool:
+        return self.parent.enable
+
+    def record(self, seconds: float) -> None:
+        pass
+
+    def record_phase(self, phase: str, seconds: float) -> None:
+        self.parent.record_phase(phase, seconds)
+
+
+class _HostEvent:
+    """The CPU's stand-in for a timing event: the host clock when recorded
+    (the CPU's work has run by then)."""
+
+    t = float("nan")
+
+    def record(self, stream=None) -> None:
+        self.t = time.perf_counter()
+
+    def elapsed_time(self, end: "_HostEvent") -> float:
+        return (end.t - self.t) * 1e3
+
+    def synchronize(self) -> None:
+        pass
+
+
+class _Phases:
+    """The phase intervals of one profiled launch, as (phase, start, end)
+    event pairs read once the launch has run (:meth:`read`).
+
+    On a CUDA device the events are timing ``torch.cuda.Event`` s: a
+    stage's on the compute stream, an upload's on the copy stream around
+    the pinned copy.  ``external=True`` makes events that a CUDA-graph
+    capture records as nodes of the graph (``cudaEventRecordExternal``),
+    so every replay records them again.  On the CPU they are host clock
+    readings (:class:`_HostEvent`)."""
+
+    def __init__(self, device: torch.device, external: bool = False):
+        self.cuda = device.type == "cuda"
+        self.external = external
+        self.spans: List[Tuple[str, Any, Any]] = []
+        self._upload: Optional[List[Any]] = None
+
+    def event(self):
+        if self.cuda:
+            return torch.cuda.Event(enable_timing=True, external=self.external)
+        return _HostEvent()
+
+    def mark(self, stream=None):
+        """An event recorded now on ``stream`` (the current one)."""
+        ev = self.event()
+        ev.record(stream) if stream is not None else ev.record()
+        return ev
+
+    def uploaded(self, start, end) -> None:
+        """One upload's events: a launch's uploads make one ``"transfer"``
+        span, from the first one's start to the last one's end."""
+        if self._upload is None:
+            self._upload = [start, end]
+        else:
+            self._upload[1] = end
+
+    def end_transfers(self) -> None:
+        """Close the launch's ``"transfer"`` span, if it uploaded."""
+        if self._upload is not None:
+            self.spans.append(("transfer", *self._upload))
+            self._upload = None
+
+    def read(self, profile) -> None:
+        """Record every span's seconds into ``profile`` (the events have
+        completed: the launch's end was waited for).  A failed read
+        raises."""
+        for phase, start, end in self.spans:
+            end.synchronize()
+            profile.record_phase(phase, start.elapsed_time(end) / 1e3)
+        self.spans = []
 
 
 class _Timer:
@@ -117,6 +222,18 @@ class _Timer:
         end.record(self._stream)
         end.synchronize()
         return self._start.elapsed_time(end) / 1e3
+
+
+#: graph replays and captures of every process: the port's compile cache
+#: hits and misses (:func:`compile_cache_stats`)
+_GRAPH_STATS = {"hits": 0, "misses": 0}
+
+
+def compile_cache_stats() -> Tuple[int, int]:
+    """``(hits, misses)`` of the compiled launch, summed over every
+    process: a hit is a graph replay, a miss a capture (the JAX package
+    counts its AOT compile cache's).  A CPU app compiles nothing."""
+    return _GRAPH_STATS["hits"], _GRAPH_STATS["misses"]
 
 
 def capture_graph(body: Callable[[], None], device: torch.device) -> Callable[[], None]:
@@ -143,6 +260,9 @@ class _Graph:
     replay: Callable[[], None]
     key: Tuple
     launches: Dict[str, int]
+    #: a staged chain's per-stage ``"compute"`` events, recorded by every
+    #: replay (a graph captured for a profiled launch; else empty)
+    spans: List[Tuple[str, Any, Any]] = dataclasses.field(default_factory=list)
 
 
 def out_view(out: Optional[Dict[str, torch.Tensor]], name: str,
@@ -213,7 +333,8 @@ class Process:
     :meth:`init` with their own one-time work.
 
     ``captures`` and ``replays`` count the CUDA graphs this process
-    captured and the launches that replayed one (:meth:`launch`)."""
+    captured and the launches that replayed one (:meth:`launch`);
+    ``capture_seconds`` is the host time its captures took."""
 
     #: kernel modules this process needs (built and loaded in init)
     kernel_names: Sequence[str] = ()
@@ -238,10 +359,13 @@ class Process:
         self._in_place_name: Optional[str] = None
         self._initialized = False
         self._legacy_warned = False
-        self._graph: Optional[_Graph] = None
+        #: captured launches: [False] unprofiled, [True] a staged chain's
+        #: profiled launch, whose graph also records each stage's events
+        self._graphs: Dict[bool, _Graph] = {}
         self._warm = False          # launched eagerly since init / the last drop
         self.captures = 0
         self.replays = 0
+        self.capture_seconds = 0.0
         #: inputs bound with :meth:`set_aux_handle`: static, not streamed
         self.aux_names: set = set()
         self._batched: frozenset = frozenset()   # a twin's batched handles
@@ -407,11 +531,12 @@ class Process:
                 f"{self.out_handle} != in_handles[{name!r}]="
                 f"{self.in_handles.get(name)}; call init() for the new wiring.")
 
-    def _input_views(self, handle: DataHandle) -> Dict[str, torch.Tensor]:
+    def _input_views(self, handle: DataHandle,
+                     phases: Optional[_Phases] = None) -> Dict[str, torch.Tensor]:
         app = self.getApp()
         d = app.getData(handle)
         if d.device_blob is None:
-            app.host2device(handle)
+            app.host2device(handle, phases)
         return d.device_views()
 
     def launch(self, profile: ProfileParameters | None = None) -> None:
@@ -435,47 +560,88 @@ class Process:
         read or written Data that moved or changed size since the capture
         drops it, and the next launch is eager again.  A capture or replay
         error reaches the caller; nothing falls back to an eager launch.
-        ``profile`` times each launch around the replay, outside the graph."""
+
+        ``profile`` records the launch's time as one sample and its phases,
+        as the JAX package's launch does: ``"transfer"`` when the launch
+        uploads an input or output Data that has no device blob (on the
+        card the copy stream's events around the pinned copies), and
+        ``"compute"`` around the launch (the sample's compute-stream
+        events), or, for a staged :class:`ProcessChain`, around each stage.
+        A launch records no ``"compile"``: as in the JAX package, whose
+        ``init()`` compiles without a profile, a capture's cost stays in
+        ``captures`` and ``capture_seconds``."""
         if not self._initialized:
             self.init()
         self._check_donation()
         app = self.getApp()
-        timer = _Timer(app.device) if profile is not None and profile.enable else None
+        on = profile is not None and profile.enable
+        phases = _Phases(app.device) if on else None
+        timer = _Timer(app.device) if on else None
         if self.graphed and _graphs_on(app.device):
-            self._launch_compiled()
+            self._launch_compiled(phases)
         else:
-            self._launch_eager()
+            self._launch_eager(phases)
         if timer is not None:
-            profile.record(timer.seconds())
+            seconds = timer.seconds()
+            profile.record(seconds)
+            if not self._times_stages:
+                profile.record_phase("compute", seconds)
+            phases.read(profile)
 
-    def _launch_compiled(self) -> None:
+    @property
+    def _times_stages(self) -> bool:
+        """Whether a profiled launch times each stage (a staged chain), not
+        the launch as a whole."""
+        return False
+
+    @property
+    def _graph(self) -> Optional[_Graph]:
+        """The unprofiled launch's graph, if captured."""
+        return self._graphs.get(False)
+
+    def _launch_compiled(self, phases: Optional[_Phases] = None) -> None:
         key = self._graph_key()
-        if self._graph is not None and self._graph.key != key:
+        if any(g.key != key for g in self._graphs.values()):
             self._drop_graph()
-        if self._graph is None:
+        timed = phases is not None and self._times_stages
+        graph = self._graphs.get(timed)
+        if graph is None:
             if not self._warm or key is None:
-                self._launch_eager()
+                self._launch_eager(phases)
                 self._warm = True
                 return
-            self._graph = self._capture(key)
-        self._graph.replay()
-        registry.add_launches(self._graph.launches)
+            graph = self._graphs[timed] = self._capture(key, timed)
+        graph.replay()
+        registry.add_launches(graph.launches)
         self.replays += 1
+        _GRAPH_STATS["hits"] += 1
+        if timed:
+            phases.spans.extend(graph.spans)
         self._mark_written()
 
-    def _capture(self, key: Tuple) -> _Graph:
+    def _capture(self, key: Tuple, timed: bool = False) -> _Graph:
+        """Capture one launch; ``timed`` records each stage's events into
+        the graph (external events, recorded again by every replay)."""
         tally: Dict[str, int] = {}
+        app = self.getApp()
+        marks = _Phases(app.device, external=True) if timed else None
 
         def body() -> None:
+            if marks is not None:
+                marks.spans.clear()      # a body run again records anew
             with registry.counting_into(tally):
-                self._run()
+                self._run(marks)
 
-        replay = capture_graph(body, self.getApp().device)
+        t0 = time.perf_counter()
+        replay = capture_graph(body, app.device)
+        self.capture_seconds += time.perf_counter() - t0
         self.captures += 1
-        return _Graph(replay=replay, key=key, launches=dict(tally))
+        _GRAPH_STATS["misses"] += 1
+        return _Graph(replay=replay, key=key, launches=dict(tally),
+                      spans=marks.spans if marks is not None else [])
 
     def _drop_graph(self) -> None:
-        self._graph = None
+        self._graphs = {}
         self._warm = False
 
     def _graph_handles(self) -> List[DataHandle]:
@@ -502,20 +668,23 @@ class Process:
         for h in self._written_handles():
             app._mark_written(h)
 
-    def _launch_eager(self) -> None:
+    def _launch_eager(self, phases: Optional[_Phases] = None) -> None:
         """One launch with no graph (a staged chain runs its stages so)."""
-        self._run()
+        self._run(phases)
         self._mark_written()
 
-    def _run(self) -> None:
+    def _run(self, phases: Optional[_Phases] = None) -> None:
         """A launch's device work: read the arena views, apply, write the
-        output arena.  Captured as it is into the launch's graph."""
+        output arena.  Captured as it is into the launch's graph.
+        ``phases`` times the uploads of Data without a device blob."""
         app = self.getApp()
-        ins = [self._input_views(self.in_handles[n]) for n in self._in_names]
+        ins = [self._input_views(self.in_handles[n], phases) for n in self._in_names]
         aux = dict(zip(self._in_names[1:], ins[1:]))
         dout = app.getData(self.out_handle)
         if dout.device_blob is None:
-            app.host2device(self.out_handle)
+            app.host2device(self.out_handle, phases)
+        if phases is not None:
+            phases.end_transfers()
         outs = self._apply_checked(ins[0], aux, dout.device_views())
         pack_device(outs, dout.layout, out=dout.device_blob)
 
@@ -592,8 +761,9 @@ class Process:
         twin.aux_names = set(self.aux_names)
         twin._batched = frozenset(handles.values())
         twin._initialized = False
-        twin._graph, twin._warm = None, False
+        twin._graphs, twin._warm = {}, False
         twin.captures = twin.replays = 0
+        twin.capture_seconds = 0.0
         twin._stream_twins = {}
         return twin
 
@@ -708,20 +878,36 @@ class ProcessChain(Process):
             return [s.out_handle for s in self.stages]
         return [self.out_handle]
 
-    def _run(self) -> None:
+    @property
+    def _times_stages(self) -> bool:
+        return self.mode == "staged"
+
+    def _run(self, phases: Optional[_Phases] = None) -> None:
         """Staged: each stage's own launch, with no graph of its own (the
-        chain's graph holds them all); fused: the stages' ``apply`` back
-        to back, only the last one writing an arena."""
+        chain's graph holds them all), ``phases`` timing each stage under
+        ``"compute"`` (a stage that is itself a staged chain times its own
+        stages, as the JAX package's nested phase views do); fused: the
+        stages' ``apply`` back to back, only the last one writing an
+        arena."""
         if self.mode == "staged":
+            # one event a stage boundary: a stage's end is the next's start
+            start = phases.mark() if phases is not None else None
             for s in self.stages:
                 if not s._initialized:
                     s.init()
                 s._check_donation()
-                s._launch_eager()
+                s._launch_eager(phases)
+                if phases is not None:
+                    end = phases.mark()
+                    if not s._times_stages:
+                        phases.spans.append(("compute", start, end))
+                    start = end
             return
         app = self.getApp()
         env: Dict[DataHandle, Dict[str, torch.Tensor]] = {
-            h: self._input_views(h) for h in self.in_handles.values()}
+            h: self._input_views(h, phases) for h in self.in_handles.values()}
+        if phases is not None:
+            phases.end_transfers()
         last = len(self.stages) - 1
         for i, s in enumerate(self.stages):
             names = s.input_names

@@ -15,6 +15,11 @@ captured into a CUDA graph (:meth:`repro_torch.core.process.Process.launch`),
 nothing executes: the wrappers' counts go to that capture's own tally
 (:func:`counting_into`), and each replay adds the tally to the counts
 (:func:`add_launches`), so the counts stay the kernels that really ran.
+
+Each entry may carry a ``cost``: ``cost(*args, **kwargs)`` gives the
+:class:`Cost` of one call on those arguments (only shapes and dtypes are
+read), the roofline terms of :class:`repro_torch.launch.roofline.
+KernelChooser`, where the JAX package reads XLA's cost analysis.
 """
 from __future__ import annotations
 
@@ -22,7 +27,18 @@ import contextlib
 import dataclasses
 import importlib
 import traceback
-from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence
+from typing import Any, Callable, Dict, Iterator, List, NamedTuple, Optional, Sequence
+
+
+class Cost(NamedTuple):
+    """The work of one kernel call: floating-point operations, bytes moved
+    (each input read once, each output written once) and the peak rate the
+    operations are held to (a key of ``repro_torch.launch.roofline.
+    CARD_PEAKS``: ``"fp32"`` or ``"bf16_tensor"``)."""
+
+    flops: float
+    bytes: float
+    peak: str = "fp32"
 
 
 @dataclasses.dataclass
@@ -32,6 +48,7 @@ class KernelEntry:
     ref: Optional[Callable[..., Any]] = None  # plain PyTorch version
     module: str = ""
     launches: int = 0                         # CUDA launches since reset
+    cost: Optional[Callable[..., Cost]] = None  # roofline terms of one call
 
 
 class KernelCompileError(RuntimeError):
@@ -48,11 +65,14 @@ _GLOBAL: Dict[str, KernelEntry] = {}
 _tally: Optional[Dict[str, int]] = None     # the capture in progress, if any
 
 
-def kernel(name: str, ref: Callable[..., Any] | None = None):
-    """Decorator: register ``fn`` as a named kernel entry point."""
+def kernel(name: str, ref: Callable[..., Any] | None = None,
+           cost: Callable[..., Cost] | None = None):
+    """Decorator: register ``fn`` as a named kernel entry point, with its
+    plain version ``ref`` and its ``cost`` model."""
 
     def deco(fn: Callable[..., Any]):
-        _GLOBAL[name] = KernelEntry(name=name, fn=fn, ref=ref, module=fn.__module__)
+        _GLOBAL[name] = KernelEntry(name=name, fn=fn, ref=ref, module=fn.__module__,
+                                    cost=cost)
         return fn
 
     return deco

@@ -52,6 +52,18 @@ where a library picks another algorithm for a larger batch: cuFFT may, so
 the staged and fused modes of the MRI chain agree with ``launch()`` to
 rtol 1e-6 on the card (the JAX package's caveat for its batched FFT).
 
+A profiled stream (``profile=ProfileParameters(enable=True)``) records
+the JAX package's phases, read once after the stream synchronised, with no
+host wait and no timer thread inside the loop (:class:`_StreamPhases`):
+``"transfer"`` for each batch placed from host items and
+``"transfer_d2d"`` for a batch whose items all lie on the device (from
+the host's start on the batch, its pack into the pinned buffer included,
+to the copy stream's event behind its copies), ``"compute"`` for each
+launch, ragged tails included (compute-stream events around it), and
+``"compile"`` once for each batch row count whose twins this stream set
+up, where the JAX package compiles (and counts a compile-cache miss): the
+twins' ``init()`` plus the captures this stream made of them.
+
 The JAX package's multi-device carves (``sharded=True``,
 ``split="proportional"``, ``lanes=True``; ``_SplitStack``, ``SplitBatch``,
 ``_UploadLanes``, per-device executables and completion timers) come with
@@ -160,6 +172,55 @@ def _host_buffer(streams, nbytes: int) -> torch.Tensor:
     return torch.empty(nbytes, dtype=torch.uint8)
 
 
+class _StreamPhases:
+    """A profiled stream's phase intervals (see the module docstring).
+
+    Each interval's ends are host clock readings or, on a CUDA device,
+    timing events, which :meth:`read` places on the host clock through one
+    reference event that the host waited for before the stream began
+    (``streams`` None: the CPU, where every copy and launch has run when
+    the host reads the clock)."""
+
+    def __init__(self, streams):
+        self.streams = streams
+        self.spans: List[Tuple[str, Any, Any]] = []
+        if streams is not None:
+            self._ref = self._event(streams.copy)
+            self._ref.synchronize()
+            self._host_ref = time.perf_counter()
+
+    @staticmethod
+    def _event(stream) -> "torch.cuda.Event":
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(stream)
+        return ev
+
+    def landed(self):
+        """After an upload's copies: the copy stream's event, or the clock."""
+        if self.streams is None:
+            return time.perf_counter()
+        return self._event(self.streams.copy)
+
+    def launch_mark(self):
+        """Before or after a launch: the compute stream's event, or the
+        clock."""
+        if self.streams is None:
+            return time.perf_counter()
+        return self._event(self.streams._compute())
+
+    def _host_seconds(self, t) -> float:
+        if isinstance(t, float):
+            return t
+        return self._host_ref + self._ref.elapsed_time(t) / 1e3
+
+    def read(self, profile: ProfileParameters) -> None:
+        """Record every interval into ``profile`` (the stream has
+        synchronised; a failed event read raises)."""
+        for phase, start, end in self.spans:
+            profile.record_phase(phase, self._host_seconds(end) - self._host_seconds(start))
+        self.spans = []
+
+
 # ---------------------------------------------------------------------------
 # the upload ring
 # ---------------------------------------------------------------------------
@@ -209,6 +270,12 @@ class _Stack:
     def on_device(self) -> bool:
         return any(isinstance(s, torch.Tensor) for s in self.sources)
 
+    @property
+    def all_on_device(self) -> bool:
+        """Every row a device blob: the JAX package stacks such a batch on
+        the device (its ``"transfer_d2d"``)."""
+        return all(isinstance(s, torch.Tensor) for s in self.sources)
+
 
 class _HostArray:
     """A plain host array fed to a :class:`StreamQueue` of its own slots."""
@@ -240,11 +307,12 @@ class StreamQueue:
     executor, one input's :class:`_Stack` of a batch, whose slot
     ``target(stack, n)`` names: the twin's input blob of that batch.
     ``transfers`` counts the uploads issued; ``in_flight`` those not yet
-    retired by :meth:`sync`."""
+    retired by :meth:`sync`.  ``phases`` (a profiled stream's
+    :class:`_StreamPhases`) takes each upload's interval."""
 
     def __init__(self, items: Iterable[Any], device: Any = None, depth: int = 2, *,
                  target: Optional[Callable[[Any, int], Tuple[_Slot, ArenaLayout]]] = None,
-                 streams: Any = None):
+                 streams: Any = None, phases: Optional[_StreamPhases] = None):
         if depth < 1:
             raise ValueError(f"depth must be >= 1, got {depth}")
         self._it = iter(items)
@@ -259,6 +327,7 @@ class StreamQueue:
         self._n = 0
         self.transfers = 0
         self._issued: List[Any] = []
+        self._phases = phases
 
     def _slot_of(self, item: Any) -> Tuple[Any, _Slot, Optional[ArenaLayout]]:
         if self._target is not None and not isinstance(item, np.ndarray):
@@ -281,6 +350,7 @@ class StreamQueue:
         st = self._streams
         if st is not None:
             st.host_waits(slot.copied)          # the staging buffer's last copy landed
+        t0 = time.perf_counter()
         host = slot.host.numpy()
         on_device = False
         if isinstance(item, _HostArray):
@@ -303,6 +373,10 @@ class StreamQueue:
                     item.copy_device_rows(slot.dev, layout)
             slot.copied = st.copy_event()
             self._issued.append(slot.copied)
+        if self._phases is not None:
+            d2d = isinstance(item, _Stack) and item.all_on_device
+            self._phases.spans.append(("transfer_d2d" if d2d else "transfer", t0,
+                                       self._phases.landed()))
         self.transfers += 1
         self._fifo.append(slot)
 
@@ -408,8 +482,10 @@ class BatchedProcess:
         self.handles: Dict[DataHandle, DataHandle] = {}
         self.slots: List[_Slot] = []
         self.launches = 0
+        self.init_seconds = 0.0
 
     def init(self) -> "BatchedProcess":
+        t0 = time.perf_counter()
         p = self.process
         app = p.getApp()
         la = _Launchable.of(p)
@@ -426,6 +502,7 @@ class BatchedProcess:
             dev = app.getData(self.handles[h]).device_blob
             self.slots.append(_Slot(dev, _host_buffer(self.streams, dev.numel())))
         self._out = app.getData(self.handles[la.out_handle])
+        self.init_seconds = time.perf_counter() - t0
         return self
 
     def layout(self, edge: int) -> ArenaLayout:
@@ -487,9 +564,14 @@ class _BatchPlan:
         self.target = None
         self.launchable: Optional[_Launchable] = None
         self.streams = None
+        self.phases: Optional[_StreamPhases] = None
+        #: twins this plan set up for a row count the process had none of
+        #: (where the JAX package compiles), by row count
+        self.new_rows: Dict[int, List[BatchedProcess]] = {}
 
     def init(self) -> "_BatchPlan":
         self.target = self.process._stream_target()
+        self._known_rows = {rows for rows, _ in self.target._stream_twins}
         app = self.target.getApp()
         self.device = app.device
         self.streams = _streams_for(app.device, app.copy_stream
@@ -516,7 +598,15 @@ class _BatchPlan:
         if bp is None:
             bp = BatchedProcess(self.target, rows, streams=self.streams).init()
             self.twins[(rows, slot)] = bp
+            if rows not in self._known_rows:
+                self.new_rows.setdefault(rows, []).append(bp)
         return bp
+
+    def compile_seconds(self) -> Dict[int, float]:
+        """Per row count this plan set up: its twins' ``init()`` and the
+        captures made of them so far."""
+        return {rows: sum(bp.init_seconds + bp.twin.capture_seconds for bp in bps)
+                for rows, bps in self.new_rows.items()}
 
     def precompile(self, rows: int) -> None:
         """Set up every twin a ``rows``-item group can be launched with
@@ -566,11 +656,16 @@ class _BatchPlan:
         stack and its number of real (unpadded) items."""
         feed = _JoinFeed(self, groups)
         queues = [StreamQueue(feed.feed(e), self.device, self.depth, target=self.slot,
-                              streams=self.streams)
+                              streams=self.streams, phases=self.phases)
                   for e in range(self.launchable.n_inputs)]
+        ph = self.phases
         for n, dev_blobs in enumerate(zip(*queues)):  # batch n+1 uploads while n runs
             rows, k = feed.meta.popleft()
-            yield self.launch(rows, n, dev_blobs), k
+            start = ph.launch_mark() if ph is not None else None
+            out = self.launch(rows, n, dev_blobs)
+            if ph is not None:
+                ph.spans.append(("compute", start, ph.launch_mark()))
+            yield out, k
 
     def synchronize(self) -> None:
         """Block until everything queued on the compute stream ran."""
@@ -752,6 +847,9 @@ def stream_launch(process, datasets: Sequence[Any], *, batch: int = 1, depth: in
     tail = len(datasets) % batch
     if tail:
         plan.precompile(tail)      # before the loop: never stalls the double buffer
+    on = profile is not None and profile.enable
+    if on:
+        plan.phases = _StreamPhases(plan.streams)
 
     def groups() -> Iterator[List[Tuple[Any, ...]]]:
         buf: List[Tuple[Any, ...]] = []
@@ -772,7 +870,10 @@ def stream_launch(process, datasets: Sequence[Any], *, batch: int = 1, depth: in
     if sync:
         for r in results:
             r.sync_to_host()
-    if profile is not None and profile.enable:
+    if on:
         plan.synchronize()
         profile.record(time.perf_counter() - t0)
+        plan.phases.read(profile)
+        for seconds in plan.compile_seconds().values():
+            profile.record_phase("compile", seconds)
     return results

@@ -12,9 +12,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.registry import count_launch, kernel
+from repro_torch.core.registry import Cost, count_launch, kernel
 from . import _build, ref
-from .common import check_complex64, check_out, coil_grid, launch
+from .common import check_complex64, check_out, coil_grid, launch, nbytes
 
 
 def _combine(x: torch.Tensor, rss: bool, out: torch.Tensor | None) -> torch.Tensor:
@@ -47,5 +47,20 @@ def rss(x: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
     return _combine(x, True, out)
 
 
-kernel("xImageSum", ref=ref.ximage_sum)(ximage_sum)
-kernel("rss", ref=ref.rss)(rss)
+def _combine_cost(x: torch.Tensor, out_itemsize: int, flops_each: int) -> Cost:
+    """Read the coil stack once, write one image a frame."""
+    return Cost(flops_each * x.numel(), nbytes(x) + x.numel() // x.shape[-3] * out_itemsize)
+
+
+def ximage_sum_cost(x: torch.Tensor, out=None) -> Cost:
+    """2 flops an element (a complex add); a complex64 image out."""
+    return _combine_cost(x, 8, 2)
+
+
+def rss_cost(x: torch.Tensor, out=None) -> Cost:
+    """4 flops an element (|z|^2 and its sum); an f32 image out."""
+    return _combine_cost(x, 4, 4)
+
+
+kernel("xImageSum", ref=ref.ximage_sum, cost=ximage_sum_cost)(ximage_sum)
+kernel("rss", ref=ref.rss, cost=rss_cost)(rss)

@@ -15,6 +15,11 @@ def round_up(n: int, m: int) -> int:
     return (n + m - 1) // m * m
 
 
+def nbytes(t: torch.Tensor) -> int:
+    """Bytes of ``t``'s elements (a kernel's cost model reads it)."""
+    return t.numel() * t.element_size()
+
+
 def mag2(x: torch.Tensor) -> torch.Tensor:
     """|x|² as a real tensor (x·x for real input)."""
     if x.is_complex():

@@ -11,9 +11,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.registry import count_launch, kernel
+from repro_torch.core.registry import Cost, count_launch, kernel
 from . import _build, ref
-from .common import check_complex64, check_in_place, check_out, launch
+from .common import check_complex64, check_in_place, check_out, launch, nbytes
 
 
 def map_sets(a: torch.Tensor, b: torch.Tensor) -> tuple[int, int, int]:
@@ -57,4 +57,11 @@ def complex_elementprod(a: torch.Tensor, b: torch.Tensor,
     return out
 
 
-kernel("complexElementProd", ref=ref.complex_elementprod)(complex_elementprod)
+def complex_elementprod_cost(a: torch.Tensor, b: torch.Tensor, conjugate_b: bool = False,
+                             out=None) -> Cost:
+    """Read a and b, write a's shape; 6 flops a complex product."""
+    return Cost(6 * a.numel(), 2 * nbytes(a) + nbytes(b))
+
+
+kernel("complexElementProd", ref=ref.complex_elementprod,
+       cost=complex_elementprod_cost)(complex_elementprod)

@@ -17,9 +17,9 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.registry import count_launch, kernel
+from repro_torch.core.registry import Cost, count_launch, kernel
 from . import _build, ref
-from .common import check_cuda, launch
+from .common import check_cuda, launch, nbytes
 
 DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (16, 64, 80, 128)  # the kernel's template instances (16: the SMOKE configs)
@@ -60,4 +60,26 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
-kernel("flash_attention", ref=ref.attention)(flash_attention)
+def visible_pairs(sq: int, skv: int, causal: bool, window: Optional[int]) -> int:
+    """Query-key pairs attention computes: each query i (at position
+    i + skv - sq) sees keys up to itself (causal) and above its window."""
+    qpos = torch.arange(sq, dtype=torch.int64) + skv - sq
+    hi = torch.minimum(qpos, torch.tensor(skv - 1)) if causal else torch.full((sq,), skv - 1)
+    lo = (torch.clamp(qpos - window + 1, min=0) if window
+          else torch.zeros(sq, dtype=torch.int64))
+    return int(torch.clamp(hi - lo + 1, min=0).sum())
+
+
+def flash_attention_cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                         causal: bool = True, window: Optional[int] = None,
+                         scale: Optional[float] = None) -> Cost:
+    """Read q, k, v, write q's shape; 4 D flops a visible query-key pair
+    and query head (q k and p v), held to the bf16 tensor rate for bf16
+    inputs (the tensor-core kernel), else fp32 (the FMA kernel)."""
+    b, hq, sq, d = q.shape
+    pairs = visible_pairs(sq, k.shape[2], causal, window)
+    peak = "bf16_tensor" if q.dtype == torch.bfloat16 else "fp32"
+    return Cost(4 * b * hq * d * pairs, 2 * nbytes(q) + nbytes(k) + nbytes(v), peak)
+
+
+kernel("flash_attention", ref=ref.attention, cost=flash_attention_cost)(flash_attention)

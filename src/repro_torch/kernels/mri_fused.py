@@ -26,14 +26,16 @@ accumulation), in another order than the radix FFT, so the result matches
 """
 from __future__ import annotations
 
+import math
+
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.core.registry import count_launch, kernel
+from repro_torch.core.registry import Cost, count_launch, kernel
 from . import _build, ref
-from .common import check_complex64, check_cuda, check_out, coil_grid, launch
+from .common import check_complex64, check_cuda, check_out, coil_grid, launch, nbytes
 
 MAX_DFT_DIM = 256
 SMEM_OPTIN_BYTES = 232448    # dynamic shared memory one Hopper block may opt into
@@ -182,5 +184,30 @@ def fused_recon(k: torch.Tensor, smaps: torch.Tensor, combine: str = "sum",
     return out
 
 
-kernel("mriFusedEpilogue", ref=ref.mri_fused_epilogue)(fused_epilogue)
-kernel("mriFusedRecon", ref=ref.mri_fused_recon)(fused_recon)
+def _image_bytes(k: torch.Tensor, combine: str) -> int:
+    """Bytes of the (..., H, W) result: complex64 summed, f32 by RSS."""
+    return k.numel() // k.shape[-3] * (4 if combine == "rss" else 8)
+
+
+def fused_epilogue_cost(x: torch.Tensor, smaps: torch.Tensor, combine: str = "sum",
+                        out=None) -> Cost:
+    """Read x and the maps, write the image; 8 flops an element (the
+    conjugate product and the coil sum)."""
+    return Cost(8 * x.numel(), nbytes(x) + nbytes(smaps) + _image_bytes(x, combine))
+
+
+def fused_recon_cost(k: torch.Tensor, smaps: torch.Tensor, combine: str = "sum",
+                     norm: str = "ortho", tables=None, out=None) -> Cost:
+    """What the function needs, not what the DFT kernel does: an inverse
+    FFT a (frame, coil) image, 5 N log2 N flops for its N = H W points,
+    then the epilogue's 8 an element, at the fp32 rate; read k-space and
+    the maps, write the image (the IDFT tables are the kernel's own
+    constants, made from the shape)."""
+    h, w = k.shape[-2:]
+    n = k.numel()
+    return Cost(5 * n * math.log2(h * w) + 8 * n,
+                nbytes(k) + nbytes(smaps) + _image_bytes(k, combine))
+
+
+kernel("mriFusedEpilogue", ref=ref.mri_fused_epilogue, cost=fused_epilogue_cost)(fused_epilogue)
+kernel("mriFusedRecon", ref=ref.mri_fused_recon, cost=fused_recon_cost)(fused_recon)

@@ -15,9 +15,9 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.registry import count_launch, kernel
+from repro_torch.core.registry import Cost, count_launch, kernel
 from . import _build, ref
-from .common import check_cuda, check_in_place, check_out, launch
+from .common import check_cuda, check_in_place, check_out, launch, nbytes
 
 DTYPES = (torch.float32, torch.bfloat16)
 
@@ -41,4 +41,9 @@ def negate(x: torch.Tensor, out: Optional[torch.Tensor] = None) -> torch.Tensor:
     return out
 
 
-kernel("negate_kernel", ref=ref.negate)(negate)
+def negate_cost(x: torch.Tensor, out=None) -> Cost:
+    """Read x, write its shape; one flop an element."""
+    return Cost(x.numel(), 2 * nbytes(x))
+
+
+kernel("negate_kernel", ref=ref.negate, cost=negate_cost)(negate)

@@ -64,8 +64,10 @@ def mri_fused_epilogue(x: torch.Tensor, smaps: torch.Tensor,
 
 
 def mri_fused_recon(k: torch.Tensor, smaps: torch.Tensor, combine: str = "sum",
-                    norm: str = "ortho") -> torch.Tensor:
-    """Whole SimpleMRIRecon chain: IFFT2 -> conj(smaps) product -> combine."""
+                    norm: str = "ortho", tables=None) -> torch.Tensor:
+    """Whole SimpleMRIRecon chain: IFFT2 -> conj(smaps) product -> combine.
+    ``tables`` (the kernel's IDFT tables) is taken and not needed, so the
+    kernel chooser can call both with one set of arguments."""
     x = torch.fft.ifft2(k, norm=norm)
     return mri_fused_epilogue(x, smaps, combine)
 

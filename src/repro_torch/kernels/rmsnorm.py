@@ -13,9 +13,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.registry import count_launch, kernel
+from repro_torch.core.registry import Cost, count_launch, kernel
 from . import _build, ref
-from .common import check_cuda, launch
+from .common import check_cuda, launch, nbytes
 
 DTYPES = (torch.float32, torch.bfloat16)
 
@@ -38,4 +38,11 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.T
     return out
 
 
-kernel("rmsnorm", ref=ref.rmsnorm)(rmsnorm)
+def rmsnorm_cost(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> Cost:
+    """Read x and the weight, write x's shape; 4 flops an element (square,
+    sum, scale, weight), held to the bf16 tensor rate for bf16 rows."""
+    peak = "bf16_tensor" if x.dtype == torch.bfloat16 else "fp32"
+    return Cost(4 * x.numel(), 2 * nbytes(x) + nbytes(weight), peak)
+
+
+kernel("rmsnorm", ref=ref.rmsnorm, cost=rmsnorm_cost)(rmsnorm)

@@ -21,9 +21,9 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.core.registry import count_launch, kernel
+from repro_torch.core.registry import Cost, count_launch, kernel
 from . import _build, ref
-from .common import check_cuda, check_in_place, check_out, launch
+from .common import check_cuda, check_in_place, check_out, launch, nbytes
 
 DTYPES = (torch.float32, torch.bfloat16)
 #: the kernel's template instances, the configs' head sizes (SMOKE, full
@@ -79,4 +79,16 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     return out, state_out
 
 
-kernel("wkv6", ref=ref.wkv6)(wkv6)
+def wkv6_cost(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+              u: torch.Tensor, state: Optional[torch.Tensor] = None, *,
+              state_out: Optional[torch.Tensor] = None) -> Cost:
+    """Read r, k, v, w, u and the state, write the output and the final
+    state; per step and head 5 D^2 flops (r s, the decayed state plus k v)
+    and 5 D for the u term, held to the fp32 rate."""
+    b, t, h, d = r.shape
+    states = (2 if state is not None else 1) * b * h * d * d * 4
+    return Cost((5 * d + 5) * d * b * t * h,
+                nbytes(r) * 2 + nbytes(k) + nbytes(v) + nbytes(w) + nbytes(u) + states)
+
+
+kernel("wkv6", ref=ref.wkv6, cost=wkv6_cost)(wkv6)

@@ -115,6 +115,11 @@ def _arena_pipe(app: CLapp) -> Pipeline:
             | XImageSum(app).bind(params=CombineParams()))
 
 
+def _phases_ms(prof: ProfileParameters) -> str:
+    """A profile's phase totals, in ms."""
+    return ", ".join(f"{k} {v * 1e3:.3f} ms" for k, v in prof.phase_totals().items())
+
+
 def _ms(t0: float) -> float:
     return (time.perf_counter() - t0) * 1e3
 
@@ -155,10 +160,10 @@ def pipeline_demo(app: CLapp, kdata: np.ndarray, smaps: np.ndarray, reference: n
         oracle_err = max(oracle_err, _check(st.get_ndarray(0).host,
                                             oracle_recon(*pairs[i]), False, f"stream {i}"))
     print(f"[pipeline] stream == serve for {len(slices)} slices at batch 2; serve p50 "
-          f"{prof.p50() * 1e3:.1f} ms / p99 {prof.percentile(99) * 1e3:.1f} ms; max abs err "
+          f"{prof.p50() * 1e3:.1f} ms / p99 {prof.p99() * 1e3:.1f} ms; max abs err "
           f"vs oracle {oracle_err:.3e}")
     return {"build_launch_ms": build_launch_ms, "exact": exact, "max_abs_diff": err,
-            "serve_p50_ms": prof.p50() * 1e3, "serve_p99_ms": prof.percentile(99) * 1e3,
+            "serve_p50_ms": prof.p50() * 1e3, "serve_p99_ms": prof.p99() * 1e3,
             "stream_max_abs_err": oracle_err}
 
 
@@ -209,7 +214,7 @@ def join_demo(app: CLapp, kdata: np.ndarray, smaps: np.ndarray, reference: np.nd
                                       err_msg=f"serve[{i}]")
     print(f"[join] stream and serve of {len(shared)} slices at batch 2 bit-identical to the "
           f"statically bound maps streamed; serve p50 {prof.p50() * 1e3:.1f} ms / p99 "
-          f"{prof.percentile(99) * 1e3:.1f} ms")
+          f"{prof.p99() * 1e3:.1f} ms")
 
     # per-slice maps, each slice against the single-arena graph and the oracle
     err = 0.0
@@ -236,7 +241,7 @@ def join_demo(app: CLapp, kdata: np.ndarray, smaps: np.ndarray, reference: np.nd
     print(f"[join] 4 per-slice map sets through the smaps edge, launched and streamed at "
           f"batch 2, bit-identical to the single-arena graph, max abs err vs oracle {err:.3e}")
     return {"build_launch_ms": build_launch_ms, "exact": exact, "max_abs_err": err,
-            "serve_p50_ms": prof.p50() * 1e3, "serve_p99_ms": prof.percentile(99) * 1e3,
+            "serve_p50_ms": prof.p50() * 1e3, "serve_p99_ms": prof.p99() * 1e3,
             "input_edges": list(join_pipe.input_edges),
             "residency": join_pipe.residency_plan}
 
@@ -251,9 +256,10 @@ def stream_slice_stack(app: CLapp, proc: SimpleMRIRecon, cfg: MRIReconConfig,
     pairs = _slices(cfg, n_slices, 100)
     slices = [KData({"kdata": k, "sensitivity_maps": sm}) for k, sm in pairs]
     walls = []
-    for _ in range(2):          # the first stream sets up the twins, the second reuses them
+    prof = ProfileParameters(enable=True)
+    for run in range(2):        # the first stream sets up the twins, the second reuses them
         t0 = time.perf_counter()
-        outs = proc.stream(slices, batch=batch)
+        outs = proc.stream(slices, batch=batch, profile=prof if run else None)
         out_last = outs[-1].device_view("xdata").cpu().numpy()   # waits for the stream's end
         walls.append(_ms(t0))
     first_ms, stream_ms = walls
@@ -275,8 +281,10 @@ def stream_slice_stack(app: CLapp, proc: SimpleMRIRecon, cfg: MRIReconConfig,
           f"{stream_ms / n_slices:.2f} ms a slice (the first stream, which sets up the "
           f"twins, {first_ms:.1f} ms); the last slice "
           + ("bit-identical to" if exact else "within 1e-6 of")
-          + f" launch(), max abs err vs oracle {err:.3e}; twins (rows, slot) {sorted(twins)}")
+          + f" launch(), max abs err vs oracle {err:.3e}; twins (rows, slot) {sorted(twins)}; "
+          f"the timed stream's phases: {_phases_ms(prof)}")
     return {"n": n_slices, "batch": batch, "ms": stream_ms, "ms_per_slice": stream_ms / n_slices,
+            "phases_s": prof.phase_totals(),
             "first_ms": first_ms, "exact": exact, "max_abs_err": err,
             "launches": {k: bp.launches for k, bp in twins.items()}}
 
@@ -344,12 +352,14 @@ def main(argv: Optional[list] = None, app: Optional[CLapp] = None,
     proc.launch(prof)                        # the profile waits for the launch's end
     res["launch_ms"] = _ms(t0)
     res["launch_device_ms"] = prof.samples[-1] * 1e3
+    res["launch_phases_s"] = prof.phase_totals()
     t0 = time.perf_counter()
     app.device2Host(h_out)
     res["d2h_ms"] = _ms(t0)
     print(f"[{mode}] {app.device}: load {res['load_ms']:.2f} ms, upload "
           f"{res['upload_ms']:.2f} ms, init {res['init_ms']:.1f} ms, launch "
-          f"{res['launch_ms']:.3f} ms, device to host {res['d2h_ms']:.2f} ms")
+          f"{res['launch_ms']:.3f} ms ({_phases_ms(prof)}), device to host "
+          f"{res['d2h_ms']:.2f} ms")
     recon = data_out.get_ndarray(0).host
     res["max_abs_err"] = _check(recon, oracle_recon(kdata, smaps), False, "oracle")
     print("reconstruction verified against the numpy oracle")

@@ -65,7 +65,7 @@ def run(app: Optional[CLapp] = None, runs: int = 10, in_path: Optional[str] = No
     out_path = out_path or "output.png"
     data_out.save(out_path, SyncSource.HOST_ONLY)
     negate = pipe.build().executor          # on the card, replayed from its second run
-    return {"image": got, "mean_launch_s": float(np.mean(prof.samples)),
+    return {"image": got, "mean_launch_s": prof.mean(),
             "launch_s": list(prof.samples), "runs": runs, "device": str(app.device),
             "captures": negate.captures, "replays": negate.replays, "out_path": out_path}
 

@@ -40,7 +40,7 @@ class XImageSum(Process):
     def apply(self, views, aux, params, out=None):
         params = params or CombineParams()
         x = views["kdata"]
-        resolve_backend(params.use_kernel, x)
+        resolve_backend(params.use_kernel, "xImageSum", x)
         return {"xdata": self.getApp().kernels.get("xImageSum")(
             x, out=out_view(out, "xdata", x.dtype, _image_shape(x.shape)))}
 
@@ -63,6 +63,6 @@ class RSSCombine(Process):
     def apply(self, views, aux, params, out=None):
         params = params or CombineParams()
         x = views["kdata"]
-        resolve_backend(params.use_kernel, x)
+        resolve_backend(params.use_kernel, "rss", x)
         return {"xdata": self.getApp().kernels.get("rss")(
             x, out=out_view(out, "xdata", torch.float32, _image_shape(x.shape)))}

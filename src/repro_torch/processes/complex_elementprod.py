@@ -52,7 +52,7 @@ class ComplexElementProd(Process):
         else:
             smaps = views["sensitivity_maps"]
         k = views["kdata"]
-        resolve_backend(params.use_kernel, k, smaps)
+        resolve_backend(params.use_kernel, "complexElementProd", k, smaps)
         prod = self.getApp().kernels.get("complexElementProd")(
             k, smaps, params.conjugate, out=out_view(out, "kdata", k.dtype, k.shape))
         res = dict(views)

@@ -81,7 +81,7 @@ class FusedMRIRecon(Process):
         else:
             smaps = views["sensitivity_maps"]
         k = views["kdata"]
-        resolve_backend(params.use_kernel, k, smaps)
+        resolve_backend(params.use_kernel, "mriFusedRecon", k, smaps)
         dtype = torch.float32 if params.combine == "rss" else k.dtype
         return {"xdata": self.getApp().kernels.get("mriFusedRecon")(
             k, smaps, combine=params.combine, norm=params.norm, tables=self._tables,

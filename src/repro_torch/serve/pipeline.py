@@ -50,7 +50,7 @@ import numpy as np
 from repro_torch.core.app import CLapp
 from repro_torch.core.data import Data
 from repro_torch.core.graph import Pipeline
-from repro_torch.core.process import PortError, ProfileParameters
+from repro_torch.core.process import PortError, ProfileParameters, _Phases, _PhaseView
 from repro_torch.core.stream import _BatchPlan, _edge_blobs, _refuse_multi_device, _result
 from repro_torch.processes import lm as lmp
 from .engine import SamplingConfig
@@ -442,6 +442,16 @@ class LMServer:
         self._weights_h = self.app.addData(wdata)
         self.state, self._ccodec = lmp.decode_state_data(model, batch, max_len, enc_len)
         self.state_h = self.app.addData(self.state, to_device=False)
+        #: one sample per prefill launch; "transfer" for the zero decode
+        #: state (here, before any launch; the JAX LMServer's first splice
+        #: uploads it) and for each prompt (and its frames); "compute" for
+        #: each prefill launch and each cache splice (the JAX package's
+        #: counts)
+        self.prefill_profile = ProfileParameters(enable=True)
+        zero = _Phases(self.app.device)
+        self.app.host2device(self.state_h, zero)
+        zero.end_transfers()
+        zero.read(self.prefill_profile)
         self._row, _ = lmp.decode_state_data(model, 1, max_len, enc_len)
         self._row_h = self.app.addData(self._row, to_device=False)
         if self.encdec:
@@ -463,10 +473,8 @@ class LMServer:
         self.queue: List[tuple] = []
         self.steps = 0
         self.admitted = 0
-        #: one sample per prefill launch, prompt (and frames) uploads under
-        #: "transfer", one sample each
-        self.prefill_profile = ProfileParameters(enable=True)
-        #: one sample per decode step; its "transfer" phase stays empty
+        #: one sample per decode step; "compute" for each step and each slot
+        #: release; its "transfer" phase stays empty
         self.decode_profile = ProfileParameters(enable=True)
 
     # -- request lifecycle ----------------------------------------------------
@@ -537,7 +545,7 @@ class LMServer:
                 sp.in_handles["row"] = self._row_h
                 sp.out_handle = self.state_h
                 self._splice[slot] = sp
-            sp.launch()
+            sp.launch(_PhaseView(self.prefill_profile))   # phases only: samples are prefills
             self.active[slot] = True
             self.positions[slot] = len(prompt)
             self.req_of_slot[slot] = rid
@@ -551,7 +559,7 @@ class LMServer:
             rl.in_handles["in"] = self.state_h
             rl.out_handle = self.state_h
             self._release[slot] = rl
-        rl.launch()
+        rl.launch(_PhaseView(self.decode_profile))      # phases only: samples are steps
 
     # -- decode ----------------------------------------------------------------
     def step(self) -> None:

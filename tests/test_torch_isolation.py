@@ -19,7 +19,9 @@ FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    """The package, chip_smoke.py and the port's measurement scripts."""
+    return (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + sorted((ROOT / "scripts").glob("*.py")))
 
 
 def _imported_roots(path: Path):

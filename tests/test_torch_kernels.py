@@ -151,13 +151,13 @@ def test_wrappers_raise_off_cpu_and_cuda(rng):
 
 def test_resolve_backend_contract():
     cpu = torch.zeros(2, dtype=torch.complex64)
-    assert resolve_backend("auto", cpu) is False
-    assert resolve_backend(False, cpu) is False
+    assert resolve_backend("auto", "xImageSum", cpu) is False
+    assert resolve_backend(False, "xImageSum", cpu) is False
     with pytest.raises(ValueError, match="CUDA"):
-        resolve_backend(True, cpu)
-    assert resolve_backend(True, torch.zeros(2, device="meta")) is False
+        resolve_backend(True, "xImageSum", cpu)
+    assert resolve_backend(True, "xImageSum", torch.zeros(2, device="meta")) is False
     with pytest.raises(ValueError):
-        resolve_backend("sometimes", cpu)
+        resolve_backend("sometimes", "xImageSum", cpu)
 
 
 # ---------------------------------------------------------------------------

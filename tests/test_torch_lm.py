@@ -208,7 +208,8 @@ def _state_stays_on_the_device(arch):
         assert all(a.host is None for a in data)
         assert app.h2d_bytes.get(h, 0) == 0
     assert srv.decode_profile.phase_total("transfer") == 0.0
-    assert len(srv.prefill_profile.phases["transfer"]) == 5    # one prompt upload each
+    # one prompt upload each, and the zero state's (the JAX LMServer's first splice uploads it)
+    assert len(srv.prefill_profile.phases["transfer"]) == 5 + 1
 
 
 def test_lmserver_state_stays_on_the_device():

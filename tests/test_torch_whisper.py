@@ -259,7 +259,8 @@ def test_lmserver_matches_reference(rng):
     assert sorted(tsrv._prefill_pipes) == [3, 4, 6]
     assert app.h2d_bytes.get(tsrv.state_h, 0) == 0 and app.h2d_bytes.get(tsrv._row_h, 0) == 0
     assert tsrv.decode_profile.phase_total("transfer") == 0.0
-    assert len(tsrv.prefill_profile.phases["transfer"]) == 8    # a prompt and its frames each
+    # a prompt and its frames each, and the zero state's (the JAX LMServer's first splice's)
+    assert len(tsrv.prefill_profile.phases["transfer"]) == 8 + 1
 
 
 def test_lmserver_frames_buffer_does_not_grow_with_prompt_lengths(rng):
