@@ -78,7 +78,11 @@
    encoder's (1, 20, 1500, 64) with ``causal=False`` in bf16 and in f32 (the
    FMA kernel at d 64, as the 2-layer f32 run reaches it) and a ragged
    causal decoder prefill (1, 20, 211, 64) bf16, at head dim 16 (the SMOKE
-   configs', which ``repro_torch.launch.serve_lm`` serves on the card), and
+   configs', which ``repro_torch.launch.serve_lm`` serves on the card), at
+   the minitron-8b, granite-moe-1b-a400m and deepseek-v2-lite-16b serving
+   shapes (rmsnorm rows of 4096, 1024, 2048 and deepseek's 512-wide latent
+   norm; flash_attention q (1, 32, S, 128) / kv (1, 8, S, 128) and q
+   (1, 16, S, 64) / kv (1, 8, S, 64)), and
    at odd ones that reach every rmsnorm variant; ``wkv6`` at the rwkv6-3b prefill (1, 1024, 40,
    64) bf16, ragged cases (several batches on the grid and a T that is no
    multiple of the staged tile), the SMOKE head size, the decode shape with
@@ -129,13 +133,21 @@
    ``DecodeSession(enc_len=1500)``, whose prefill is the fan-in graph
    frames -> ``WhisperEncode`` ~ tokens -> ``WhisperPrefill`` on the
    ``enc`` edge: 32 eager against 32 replayed decode steps.
+   Then serves minitron-8b (dense, squared ReLU, half rotary),
+   granite-moe-1b-a400m (MoE, top-8 of 32 experts) and deepseek-v2-lite-16b
+   (MLA attention, top-6 of 64 routed experts plus 2 shared, a dense layer
+   0) the same way as qwen3-14b, each after the weights of the one before
+   are freed; the 2-layer cut of deepseek is layer 0 and one stacked layer.
+   For the MoE pair the 2-layer check also runs the CPU in bf16 (its own
+   bf16 gap printed beside the card's) and prints the share of (token, k)
+   router choices that differ from the CPU f32 run's in each run.
 6. Runs the paper's listing 1 (``repro_torch.launch.quickstart``:
    ``Pipeline(app) | Negate(app)`` on a 256x256 8-bit PNG that the script
    writes) on the card, replayed from its second run, bit for bit, and
    reads its ``output.png`` back: 1 - x in 8 bits.  Temporary files live in
    a ``tempfile`` directory that the script removes.
-7. Ends with a ``{"kernels": [...]}`` line (``flash_attention``'s launches
-   are qwen3-14b's and whisper-large-v3's serves) and a
+7. Ends with a ``{"kernels": [...]}`` line (the LM kernels' launches are
+   the sums over the six serves) and a
    ``{"ok": true, "device": {...}}`` line.
 
 Any failure exits non-zero.  Without a CUDA device it exits non-zero at once.
@@ -1300,7 +1312,7 @@ def main() -> None:
     from repro_torch.kernels.rmsnorm import rmsnorm
     from repro_torch.kernels.wkv6 import wkv6
     from repro_torch.launch import quickstart
-    from repro_torch.models import build_model
+    from repro_torch.models import build_model, moe as moe_mod
     from repro_torch.models.common import tree_map
     from repro_torch.core.arena import device_view
     from repro_torch.processes.lm import DecodeSession, weights_data
@@ -1319,6 +1331,13 @@ def main() -> None:
     for shape, dtype, w_dtype, on_path in (
             ((1024, 5120), bf16, bf16, True), ((4, 5120), bf16, bf16, True),
             ((1 * 40 * 1024, 128), bf16, bf16, True), ((1024, 2560), bf16, bf16, True),
+            # minitron-8b, granite-moe-1b-a400m, deepseek-v2-lite-16b (its
+            # residual rows, then the kv latent's), prefill and decode
+            ((1024, 4096), bf16, bf16, True), ((4, 4096), bf16, bf16, True),
+            ((1024, 1024), bf16, bf16, True), ((4, 1024), bf16, bf16, True),
+            ((1024, 2048), bf16, bf16, True), ((4, 2048), bf16, bf16, True),
+            ((1024, 512), bf16, bf16, True), ((4, 512), bf16, bf16, True),
+            ((64, 512), f32, f32, False),     # the 2-layer f32 runs' latent norm
             ((21, 80), f32, f32, False), ((9, 24), bf16, bf16, False),
             ((3, 20480), bf16, bf16, False), ((5, 100), bf16, bf16, False),
             ((7, 2560), bf16, f32, False), ((5, 5120), f32, bf16, False)):
@@ -1339,6 +1358,12 @@ def main() -> None:
         ((1, 20, 1500, 64), (1, 20, 1500, 64), False, None, bf16, True),
         ((1, 20, 1500, 64), (1, 20, 1500, 64), False, None, f32, False),
         ((1, 20, 211, 64), (1, 20, 211, 64), True, None, bf16, True),
+        # minitron-8b and granite-moe-1b-a400m prefills, a whole 1024-token
+        # prompt and a ragged one
+        ((1, 32, 1024, 128), (1, 8, 1024, 128), True, None, bf16, True),
+        ((1, 32, 611, 128), (1, 8, 611, 128), True, None, bf16, True),
+        ((1, 16, 1024, 64), (1, 8, 1024, 64), True, None, bf16, True),
+        ((1, 16, 611, 64), (1, 8, 611, 64), True, None, bf16, True),
         # head dim 16, the SMOKE configs' (repro_torch.launch.serve_lm on the card)
         ((2, 4, 37, 16), (2, 4, 37, 16), True, None, bf16, False),
         ((2, 4, 37, 16), (2, 2, 53, 16), False, None, f32, False))
@@ -1684,6 +1709,10 @@ def main() -> None:
     counted("chooser", chooser_phase, ["complexElementProd", "xImageSum", "mriFusedRecon"])
 
     # -- 7. the LM serving path at full width: qwen3-14b, then rwkv6-3b -------
+    # the 2-layer bf16 runs' band, a share of max |logit|, where a family's
+    # differs from 2e-2 (why: the comment at its check below, PERF.md §2)
+    BF16_BAND = {"ssm": 5e-2, "moe": 4e-2}
+
     def serve_full_width(arch, expect, enc_len=None):
         """Serve 10 requests (32 new tokens each) through 4 slots of ``LMServer``
         at full width with random bf16 weights made on the card from seed 0:
@@ -1710,7 +1739,8 @@ def main() -> None:
         n_params = sum(int(np.prod(e.shape)) for e in weights.layout.entries)
         print(f"[lm] {arch} weights: {n_params} parameters, "
               f"{weights.layout.total_bytes / 1e9:.3f} GB arena (bf16"
-              f"{', u f32' if cfg.family == 'ssm' else ''}), made on the card from seed 0 in "
+              f"{', u f32' if cfg.family == 'ssm' else ''}"
+              f"{', router f32' if cfg.n_experts else ''}), made on the card from seed 0 in "
               f"{init_s:.3f} s")
         (lo, hi), max_len = ((4, 225), 448) if enc_len else ((17, 1025), 2048)
         server = LMServer(model, weights, batch=4, max_len=max_len, enc_len=enc_len,
@@ -1843,21 +1873,30 @@ def main() -> None:
         #   whose bf16 rounding of the decay and of the group-normed WKV
         #   output costs more: the CPU alone (plain versions) puts its bf16
         #   logits 3.0-3.2 % of max |logit| from its f32 ones on these
-        #   weights, and an H100 in bf16 read 3.5 %.  The CPU's own bf16 gap
-        #   is printed beside it.
+        #   weights, and an H100 in bf16 read 3.5 %; 4e-2 * max |logit| for
+        #   the MoE family (granite-moe, deepseek), whose bf16 router inputs
+        #   flip some (token, k) expert choices (0.5-1.3 % of them, the CPU
+        #   alone as much as the card) and whose random expert stacks take
+        #   the reference's fan-in of E, not D, so their outputs are large
+        #   beside the residual: the CPU alone puts its bf16 logits 1.3-2.0 %
+        #   of max |logit| from its f32 ones on these weights, and an H100 in
+        #   bf16 read 1.4-2.1 % (twice the CPU's own gap is the bound).  The
+        #   CPU's own bf16 gap is printed beside both.
+        # (deepseek: "2 layers" is the dense layer 0 and one stacked layer)
         if enc_len:
             two = cfg.scaled(enc_layers=2, dec_layers=2, n_layers=4)
-            cut = ("enc_layers", "dec_layers")
+            cut, depth = ("enc_layers", "dec_layers"), 2
         else:
             two, cut = cfg.scaled(n_layers=2), ("layers",)
+            depth = 2 - (1 if cfg.first_dense_ff else 0)
         two32 = two.scaled(param_dtype="float32", dtype="float32")
-        p_bf16 = dict(params, **{k: tree_map(lambda a: a[:2], params[k]) for k in cut})
+        p_bf16 = dict(params, **{k: tree_map(lambda a: a[:depth], params[k]) for k in cut})
         p_f32 = tree_map(lambda a: a.float(), p_bf16)
         cpu = torch.device("cpu")
         runs = {"card bf16": (build_model(two), p_bf16, dev),
                 "card f32": (build_model(two32), p_f32, dev),
                 "cpu f32": (build_model(two32), tree_map(lambda a: a.cpu(), p_f32), cpu)}
-        if cfg.family == "ssm":
+        if cfg.family in ("ssm", "moe"):
             runs["cpu bf16"] = (build_model(two), tree_map(lambda a: a.cpu(), p_bf16), cpu)
         toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, 64)))
         audio_in = (torch.from_numpy(rng.standard_normal((1, enc_len, cfg.d_model),
@@ -1865,16 +1904,49 @@ def main() -> None:
         cache_args = (1, 128) + ((enc_len,) if enc_len else ())
         caches = {k: m.init_cache(*cache_args, device=d) for k, (m, _, d) in runs.items()}
         logits = {k: [] for k in runs}
-        for k, (m, prm, d) in runs.items():
-            lg, caches[k] = m.prefill(prm, *(a.to(d) for a in audio_in), toks.to(d), caches[k])
-            logits[k].append(lg.float().cpu())
-        for i in range(4):
-            tok = logits["cpu f32"][-1].argmax(dim=-1).to(torch.int32)
+        # each MoE layer's (token, k) router choices, by run (the layer's
+        # dispatch, read through the module the forward calls)
+        choices = {k: [] for k in runs}
+        moe_inner = moe_mod._moe
+
+        def recording(run):
+            def _moe(p, x, c):
+                out = moe_inner(p, x, c)
+                choices[run].append(out[2].cpu())
+                return out
+            return _moe
+
+        try:
             for k, (m, prm, d) in runs.items():
-                lg, caches[k] = m.decode_step(prm, tok.to(d),
-                                              torch.tensor(64 + i, dtype=torch.int32, device=d),
-                                              caches[k])
+                moe_mod._moe = recording(k)
+                lg, caches[k] = m.prefill(prm, *(a.to(d) for a in audio_in), toks.to(d),
+                                          caches[k])
                 logits[k].append(lg.float().cpu())
+            for i in range(4):
+                tok = logits["cpu f32"][-1].argmax(dim=-1).to(torch.int32)
+                for k, (m, prm, d) in runs.items():
+                    moe_mod._moe = recording(k)
+                    lg, caches[k] = m.decode_step(
+                        prm, tok.to(d), torch.tensor(64 + i, dtype=torch.int32, device=d),
+                        caches[k])
+                    logits[k].append(lg.float().cpu())
+        finally:
+            moe_mod._moe = moe_inner
+        if cfg.n_experts:
+            # a choice flips where one run picks an expert the CPU f32 run does
+            # not (the order within the top k does not change the output)
+            def flips(run):
+                n = diff = 0
+                for a, b in zip(choices[run], choices["cpu f32"]):
+                    same = (a[..., :, None] == b[..., None, :]).any(-1)
+                    n, diff = n + same.numel(), diff + int((~same).sum())
+                return diff, n
+            flip = {k: flips(k) for k in runs if k != "cpu f32"}
+            print(f"[lm-check] {arch}{'' if enc_len else ' 2 layers'}: router choices "
+                  f"(token, k) that differ from the CPU f32 run's, prefill of 64 tokens and "
+                  f"4 decode steps over {len(choices['cpu f32'])} MoE layer calls: "
+                  + ", ".join(f"{k} {d} of {n} ({100 * d / n:.3f} %)"
+                              for k, (d, n) in flip.items()))
         layers = f" 2+2 layers, {enc_len} frames," if enc_len else ""
         for step, label in enumerate(["prefill last-token logits"]
                                      + [f"decode step {i} logits" for i in range(4)]):
@@ -1882,7 +1954,7 @@ def main() -> None:
             scale = float(want.abs().max())
             gap = {k: float((v[step] - want).abs().max()) for k, v in logits.items()}
             limits = {"card f32": 1e-3 * scale,
-                      "card bf16": (5e-2 if cfg.family == "ssm" else 2e-2) * scale}
+                      "card bf16": BF16_BAND.get(cfg.family, 2e-2) * scale}
             ok = all(gap[k] <= lim for k, lim in limits.items()) and all(
                 bool(torch.isfinite(v[step]).all()) for v in logits.values())
             print(f"[lm-check] {arch}{layers} {label}: max |card - cpu f32| in f32 "
@@ -1971,7 +2043,7 @@ def main() -> None:
                                           state["positions"].max(), cache)
                 logits.append(lg.float())
             scale = float(logits[0].abs().max())
-            band = (5e-2 if cfg.family == "ssm" else 2e-2) * scale
+            band = BF16_BAND.get(cfg.family, 2e-2) * scale
             gap = float((logits[1] - logits[0]).abs().max())
             gaps += f"; next-step logits max abs difference {gap:.4e} (limit {band:.4e})"
             if gap > band:
@@ -1986,8 +2058,13 @@ def main() -> None:
             raise SystemExit(f"chip_smoke: 2-layer {cfg.name}: replayed tokens differ")
 
     def dense_kernels(cfg, server):
-        return {"rmsnorm": (4 * cfg.n_layers + 1) * (server.admitted + server.steps),
-                "flash_attention": cfg.n_layers * server.admitted}
+        """A decoder forward: ln_attn and ln_mlp a layer, q_norm and k_norm
+        with qk-norm, the kv latent's norm with MLA, the final norm; flash
+        attention a layer of a prefill, none with MLA (plain-torch
+        attention, the reference's) and none in a decode step."""
+        per_layer = 2 + 2 * cfg.qk_norm + cfg.mla
+        return {"rmsnorm": (per_layer * cfg.n_layers + 1) * (server.admitted + server.steps),
+                "flash_attention": 0 if cfg.mla else cfg.n_layers * server.admitted}
 
     def rwkv_kernels(cfg, server):    # ln0, ln1 and ln2 per layer, final norm
         forwards = server.admitted + server.steps
@@ -2007,6 +2084,13 @@ def main() -> None:
     whisper_counts = serve_full_width("whisper-large-v3", whisper_kernels, enc_len=1500)
     gc.collect()
     torch.cuda.empty_cache()
+    # this slice's three: deepseek's 31.4 GB of weights only after the
+    # others' are freed
+    new_counts = []
+    for arch in ("minitron-8b", "granite-moe-1b-a400m", "deepseek-v2-lite-16b"):
+        new_counts.append(serve_full_width(arch, dense_kernels))
+        gc.collect()
+        torch.cuda.empty_cache()
 
     # -- 8. the paper's listing 1 (quickstart) on the card, file in, file out --
     img8 = (quickstart.synthetic_image() * 255.0 + 0.5).astype(np.uint8)
@@ -2037,8 +2121,9 @@ def main() -> None:
 
     # -- 9. result lines -----------------------------------------------------
     kernels = []
-    launches = {"rmsnorm": lm_counts["rmsnorm"],
-                "flash_attention": lm_counts["flash_attention"] + whisper_counts["flash_attention"],
+    serves = [lm_counts, rwkv_counts, whisper_counts] + new_counts
+    launches = {"rmsnorm": sum(c.get("rmsnorm", 0) for c in serves),
+                "flash_attention": sum(c.get("flash_attention", 0) for c in serves),
                 "wkv6": rwkv_counts["wkv6"], "negate": qs_counts["negate_kernel"]}
     launches.update({k: counts[reg] + io_counts.get(reg, 0) for k, reg in names.items()})
     for kname in ["negate"] + list(names) + ["rmsnorm", "flash_attention", "wkv6"]:

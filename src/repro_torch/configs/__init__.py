@@ -1,7 +1,7 @@
 """Configurations the port runs: the paper's MRI case study
 (:mod:`.mri_recon`) and the LM architectures of the ported families,
-dense, ssm and encdec (``get_config`` / ``get_smoke`` by arch id, as
-``repro.configs``).
+dense, moe (MoE and MLA), ssm and encdec (``get_config`` / ``get_smoke``
+by arch id, as ``repro.configs``).
 
 Each LM module defines ``CONFIG`` (the published configuration) and
 ``SMOKE`` (a reduced same-family config for CPU tests), copied from the JAX
@@ -14,7 +14,8 @@ import importlib
 from repro_torch.models.common import ArchConfig
 
 #: the architectures whose family the port runs so far
-ARCH_IDS = ["qwen3-14b", "h2o-danube-1.8b", "qwen2-7b", "rwkv6-3b", "whisper-large-v3"]
+ARCH_IDS = ["granite-moe-1b-a400m", "deepseek-v2-lite-16b", "qwen3-14b", "minitron-8b",
+            "h2o-danube-1.8b", "qwen2-7b", "rwkv6-3b", "whisper-large-v3"]
 
 
 def _module(arch_id: str):

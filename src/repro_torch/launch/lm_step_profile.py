@@ -4,10 +4,12 @@
     python3 src/repro_torch/launch/lm_step_profile.py [--arch A] [--layers N] [--batch B]
                                                       [--prompt S] [--steps K] [--max-len M]
 
-Builds ``--arch`` (qwen3-14b by default, rwkv6-3b or whisper-large-v3) at
-full width (``--layers`` cuts only the depth, of the encoder and the
-decoder alike for whisper; random bf16 weights made on the card from seed
-0) in a fresh process, and prints:
+Builds ``--arch`` (qwen3-14b by default, or any other architecture of
+``repro_torch.configs.ARCH_IDS``: minitron-8b, granite-moe-1b-a400m,
+deepseek-v2-lite-16b, rwkv6-3b, whisper-large-v3, ...) at full width
+(``--layers`` cuts only the depth, of the encoder and the decoder alike
+for whisper, and counts deepseek's dense layer 0; random bf16 weights made
+on the card from seed 0) in a fresh process, and prints:
 
 1. **The first prefill, split.**  The kernel library's build and load, the
    first cuBLAS call (handle and workspace), then three single-prompt
@@ -70,8 +72,11 @@ def main() -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    sys.path.insert(0, str(SRC))
+    from repro_torch.configs import ARCH_IDS, get_config
+
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen3-14b")
+    ap.add_argument("--arch", default="qwen3-14b", choices=ARCH_IDS)
     ap.add_argument("--layers", type=int, default=None, help="default: the config's depth")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt", type=int, default=512)
@@ -80,8 +85,6 @@ def main() -> None:
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("lm_step_profile: no CUDA card")
-    sys.path.insert(0, str(SRC))
-    from repro_torch.configs import get_config
     from repro_torch.core import CLapp, Data, ProfileParameters, process
     from repro_torch.kernels import _build
     from repro_torch.models import build_model

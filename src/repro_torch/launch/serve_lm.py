@@ -2,16 +2,19 @@
 Pipeline stack (the ``serve_transformer`` and ``serve_whisper`` parts of the
 JAX package's ``examples/serve_lm.py``, at the SMOKE sizes).
 
-    python -m repro_torch.launch.serve_lm [--cpu]
+    python -m repro_torch.launch.serve_lm [--cpu] [--arch A]
     (with src/ on PYTHONPATH)
 
 Runs on the CUDA card; ``--cpu`` asks for the CPU.  Random weights come
 from a seeded ``torch.Generator``, nothing is trained or downloaded.
 
-* qwen3-14b SMOKE: 10 requests of 3-9 prompt tokens through 4 slots of
-  :class:`~repro_torch.serve.LMServer`, 16 new tokens each.  The decode
-  state is one persistent arena Data on the device: the decode side
-  records no host-to-device transfer (checked).
+* ``--arch`` SMOKE (qwen3-14b by default; any decoder-only architecture
+  of ``repro_torch.configs.ARCH_IDS``, e.g. minitron-8b,
+  granite-moe-1b-a400m or deepseek-v2-lite-16b): 10 requests of 3-9
+  prompt tokens through 4 slots of :class:`~repro_torch.serve.LMServer`,
+  16 new tokens each.  The decode state is one persistent arena Data on
+  the device: the decode side records no host-to-device transfer
+  (checked).
 * whisper-large-v3 SMOKE: 4 requests through 2 slots, each a 3-token
   prompt with its own audio frames (16 encoder positions, the stubbed
   front end's embeddings), 8 new tokens each (checked).  A request's
@@ -31,7 +34,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from repro_torch.configs import get_smoke
+from repro_torch.configs import ARCH_IDS, get_smoke
 from repro_torch.core import CLapp, DeviceTraits, DeviceType
 from repro_torch.models import build_model
 from repro_torch.serve import LMServer, SamplingConfig
@@ -42,8 +45,8 @@ def _params(model, app: CLapp, seed: int):
                              device=app.device)
 
 
-def serve_transformer(app: CLapp) -> List[List[int]]:
-    cfg = get_smoke("qwen3-14b")
+def serve_transformer(app: CLapp, arch: str = "qwen3-14b") -> List[List[int]]:
+    cfg = get_smoke(arch)
     model = build_model(cfg)
     server = LMServer(model, _params(model, app, 0), batch=4, max_len=64,
                       sampling=SamplingConfig(max_new_tokens=16), app=app)
@@ -55,17 +58,17 @@ def serve_transformer(app: CLapp) -> List[List[int]]:
     outputs = server.run()
     dt = time.perf_counter() - t0
     total = sum(len(o) for o in outputs)
-    print(f"[qwen3] served {len(prompts)} requests through 4 slots on {app.device}: "
+    print(f"[{arch}] served {len(prompts)} requests through 4 slots on {app.device}: "
           f"{total} tokens in {dt:.2f}s ({total / dt:.1f} tok/s)")
     for i, o in enumerate(outputs[:4]):
         print(f"  request {i}: {len(o)} tokens -> {o[:8]}...")
     if not all(len(o) == 16 for o in outputs):
-        raise RuntimeError(f"qwen3: requests got {[len(o) for o in outputs]} tokens, not 16")
+        raise RuntimeError(f"{arch}: requests got {[len(o) for o in outputs]} tokens, not 16")
     transfer = server.decode_profile.phase_total("transfer")
     print(f"  decode-side host2device on the cache edge: {transfer:.6f}s "
           f"over {server.steps} steps")
     if transfer != 0.0:
-        raise RuntimeError(f"qwen3: the decode side moved data host to device ({transfer} s)")
+        raise RuntimeError(f"{arch}: the decode side moved data host to device ({transfer} s)")
     return outputs
 
 
@@ -92,10 +95,12 @@ def serve_whisper(app: CLapp) -> List[List[int]]:
 def main(argv: Optional[list] = None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cpu", action="store_true", help="run on the CPU instead of the card")
+    ap.add_argument("--arch", default="qwen3-14b", help="the decoder-only architecture served",
+                    choices=[a for a in ARCH_IDS if get_smoke(a).family != "encdec"])
     args = ap.parse_args(argv)
     traits = DeviceTraits(type=DeviceType.CPU) if args.cpu else DeviceTraits()
     app = CLapp().init(device_traits=traits)
-    out = {"qwen3": serve_transformer(app), "whisper": serve_whisper(app)}
+    out = {args.arch: serve_transformer(app, args.arch), "whisper": serve_whisper(app)}
     print("all requests completed")
     return out
 

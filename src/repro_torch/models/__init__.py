@@ -1,5 +1,5 @@
-"""Model zoo of the port: the dense decoder, RWKV6 (ssm) and Whisper
-(encdec) families so far."""
+"""Model zoo of the port: the decoder (dense and moe, MLA included), RWKV6
+(ssm) and Whisper (encdec) families so far."""
 from .common import ArchConfig
 from .rwkv6 import RWKV6Model
 from .transformer import DecoderLM
@@ -8,7 +8,7 @@ from .whisper import WhisperModel
 
 def build_model(cfg: ArchConfig):
     """Return the model object for a config's family."""
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         return DecoderLM(cfg)
     if cfg.family == "ssm":
         return RWKV6Model(cfg)

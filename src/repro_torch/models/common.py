@@ -19,13 +19,14 @@ from repro_torch.core.arena import torch_dtype
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
-    """One architecture: the fields the dense decoder, RWKV6 and Whisper paths read.  The JAX
-    package's TPU and mesh levers (``opt_*``, ``unroll_layers``, ``remat``,
+    """One architecture: the fields the decoder (dense, MoE, MLA), RWKV6 and
+    Whisper paths read, with the JAX package's defaults.  The JAX package's
+    TPU and mesh levers (``opt_*``, ``unroll_layers``, ``remat``,
     ``use_pallas``) have no counterpart: the kernel wrappers decide by the
     tensors' device."""
 
     name: str
-    family: str                    # dense | ssm | encdec (the ported families)
+    family: str                    # dense | moe | ssm | encdec (the ported families)
     n_layers: int
     d_model: int
     n_heads: int
@@ -43,10 +44,19 @@ class ArchConfig:
     norm: str = "rmsnorm"          # rmsnorm | layernorm
     mlp: str = "swiglu"            # swiglu | gelu | relu2
     tie_embeddings: bool = False
-    # families the port does not run yet (DecoderLM raises on them)
+    # MoE (granite, deepseek)
     n_experts: int = 0
-    first_dense_ff: Optional[int] = None
+    top_k: int = 0
+    n_shared_experts: int = 0
+    first_dense_ff: Optional[int] = None   # deepseek: layer 0 is dense
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
+    # MLA (deepseek)
     mla: bool = False
+    kv_lora_rank: int = 0
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
     rwkv_head_dim: int = 64        # ssm (RWKV6) head size
     enc_layers: int = 0            # encdec (Whisper): encoder layers
     dec_layers: int = 0            # encdec (Whisper): decoder layers

@@ -1,4 +1,4 @@
-"""Transformer building blocks of the dense decoder and Whisper: norms,
+"""Transformer building blocks of the decoder (dense, MoE, MLA) and Whisper: norms,
 rotary embedding, GQA attention (prefill and Whisper's cacheless encoder
 attention through the flash-attention kernel, cached single-token decode in
 plain torch), MLPs, embeddings.
@@ -56,8 +56,8 @@ def attention_specs(cfg: ArchConfig) -> Params:
     return p
 
 
-def mlp_specs(cfg: ArchConfig) -> Params:
-    d, f, pd = cfg.d_model, cfg.d_ff, cfg.param_dtype
+def mlp_specs(cfg: ArchConfig, d_ff: Optional[int] = None) -> Params:
+    d, f, pd = cfg.d_model, d_ff or cfg.d_ff, cfg.param_dtype
     if cfg.mlp == "swiglu":
         return {"w_gate": _spec((d, f), pd), "w_up": _spec((d, f), pd),
                 "w_down": _spec((f, d), pd)}

@@ -1,0 +1,105 @@
+"""Mixture-of-Experts layer: top-k router and capacity-bounded scatter
+dispatch (granite-moe, deepseek-v2-lite).
+
+Mirrors ``repro/models/moe.py``.  Routing positions, the capacity and the
+scatter are local to each batch row: a token's (token, k) choices take
+slots in its row's (expert, slot) buffer in (token, k) order, and a choice
+past an expert's capacity C goes to the dump slot E·C and is dropped.  The
+dispatch has a fixed shape whatever the data (``topk``, ``cumsum``,
+``where``, ``scatter_``/``gather`` into a (B, E·C + 1, D) buffer; no
+``nonzero``, boolean-mask indexing or host read), so the decode step that
+runs it is captured into a CUDA graph.  As in the reference, every expert
+multiplies its C slots, filled or not, and the expert products are plain
+``torch.einsum`` (the reference's ``jnp.einsum``, outside any Pallas
+kernel).
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from . import layers as L
+from .common import ArchConfig
+from .layers import _spec as spec
+
+Params = Dict[str, object]
+
+
+def moe_specs(cfg: ArchConfig, d_ff: Optional[int] = None) -> Params:
+    """The router (f32, (D, E)), the SwiGLU expert stacks (E, D, F) and
+    (E, F, D), and the shared experts as one MLP of width F · n_shared."""
+    d, f, e, pd = cfg.d_model, d_ff or cfg.d_ff, cfg.n_experts, cfg.param_dtype
+    p = {"router": spec((d, e), "float32"), "w_gate": spec((e, d, f), pd),
+         "w_up": spec((e, d, f), pd), "w_down": spec((e, f, d), pd)}
+    if cfg.n_shared_experts:
+        p["shared"] = L.mlp_specs(cfg, d_ff=f * cfg.n_shared_experts)
+    return p
+
+
+def row_capacity(s: int, cfg: ArchConfig) -> int:
+    """Slots per (row, expert): capacity_factor · S · top_k / E, rounded
+    up to a multiple of 8, at least 8."""
+    c = int(cfg.capacity_factor * s * cfg.top_k / cfg.n_experts)
+    return max(8, -(-c // 8) * 8)
+
+
+def _moe(p: Params, x: torch.Tensor, cfg: ArchConfig):
+    """x (B, S, D) -> (y (B, S, D), router probs (B, S, E), expert ids
+    (B, S, K), kept (B, S·K))."""
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    cap = row_capacity(s, cfg)
+
+    probs = torch.softmax(x.float() @ p["router"], dim=-1)         # (B, S, E) f32
+    gate_vals, eids = torch.topk(probs, k, dim=-1)                  # (B, S, K)
+    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
+
+    # slot of each (token, k) choice within its (row, expert): the count of
+    # earlier choices of that expert in the row
+    flat_eid = eids.reshape(b, s * k)
+    onehot = (flat_eid[..., None] == torch.arange(e, device=x.device)).to(torch.int32)
+    slot_pos = ((torch.cumsum(onehot, dim=1) - onehot) * onehot).sum(-1)   # (B, S·K)
+    keep = slot_pos < cap
+    dest = torch.where(keep, flat_eid * cap + slot_pos, torch.full_like(slot_pos, e * cap))
+    dest_d = dest[..., None].expand(b, s * k, d)
+
+    # row-local scatter into (B, E·C + 1, D); the last slot takes the overflow
+    vals = x.repeat_interleave(k, dim=1).to(cfg.adtype)             # (B, S·K, D)
+    buf = torch.zeros((b, e * cap + 1, d), dtype=cfg.adtype, device=x.device)
+    buf.scatter_(1, dest_d, vals)
+    buf = buf[:, : e * cap].reshape(b, e, cap, d)
+
+    h = F.silu(torch.einsum("becd,edf->becf", buf, p["w_gate"])) * \
+        torch.einsum("becd,edf->becf", buf, p["w_up"])
+    y_e = torch.einsum("becf,efd->becd", h, p["w_down"])             # (B, E, C, D)
+    y_flat = F.pad(y_e.reshape(b, e * cap, d), (0, 0, 0, 1))        # dump slot: zeros
+
+    # combine: each choice's slot output, weighted by its gate, summed over k
+    slot_out = torch.gather(y_flat, 1, dest_d)
+    slot_out = slot_out * gate_vals.reshape(b, s * k, 1).to(slot_out.dtype)
+    y = slot_out.reshape(b, s, k, d).sum(dim=2).to(cfg.adtype)
+    if cfg.n_shared_experts:
+        y = y + L.apply_mlp(p["shared"], x, cfg)
+    return y, probs, eids, keep
+
+
+def moe_forward(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """The MoE layer's output alone: what the serving forward reads (the
+    reference computes the metrics there too, and XLA drops them unused)."""
+    return _moe(p, x, cfg)[0]
+
+
+def apply_moe(p: Params, x: torch.Tensor, cfg: ArchConfig
+              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """x: (B, S, D) -> (B, S, D) and the metrics: the Switch-style
+    load-balance loss (top-1 token share times mean router probability per
+    expert) and the share of (token, k) choices dropped past capacity."""
+    y, probs, eids, keep = _moe(p, x, cfg)
+    e = cfg.n_experts
+    frac_tokens = F.one_hot(eids[..., 0], e).float().mean(dim=(0, 1))
+    frac_probs = probs.mean(dim=(0, 1))
+    aux_loss = e * (frac_tokens * frac_probs).sum() * cfg.router_aux_weight
+    drop_rate = 1.0 - keep.float().mean()
+    return y, {"moe_aux_loss": aux_loss, "moe_drop_rate": drop_rate}

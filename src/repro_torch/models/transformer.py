@@ -1,9 +1,11 @@
-"""Decoder-only LM, dense family (qwen3 / qwen2 / h2o-danube / minitron).
+"""Decoder-only LM: the dense (qwen3 / qwen2 / h2o-danube / minitron) and
+MoE (granite; deepseek-v2-lite with MLA attention and a dense layer 0)
+families.
 
-Mirrors the dense path of ``repro/models/transformer.py``: the stacked
-``(L, ...)`` parameter layout is kept, and the JAX ``lax.scan`` over layers
-is a Python loop over layer views.  Serving entry points only: ``prefill``
-and ``decode_step`` write the cache they are given in place (views of the
+Mirrors ``repro/models/transformer.py``: the stacked ``(L, ...)``
+parameter layout is kept, and the JAX ``lax.scan`` over layers is a Python
+loop over layer views.  Serving entry points only: ``prefill`` and
+``decode_step`` write the cache they are given in place (views of the
 decode-state arena) and return it.
 """
 from __future__ import annotations
@@ -13,6 +15,8 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from . import layers as L
+from . import mla as MLA
+from . import moe as MOE
 from .common import ArchConfig, alloc_tree, init_tree, stacked, tree_flatten, tree_map
 
 Params = Dict[str, Any]
@@ -23,25 +27,44 @@ _TRAINING = "the training forward is not ported yet (ROADMAP queue 1, Training)"
 
 
 class DecoderLM:
-    """Functional model object: parameters and caches are nested dicts."""
+    """Functional model object: parameters and caches are nested dicts.
 
-    #: the kernel modules a forward launches (loaded by the LM processes)
-    kernel_names = ("rmsnorm", "flash_attention")
+    Layer 0 of a config with ``first_dense_ff`` (deepseek) is a dense-FFN
+    layer of width ``first_dense_ff`` outside the stack, its parameters and
+    cache the unstacked ``layer0`` subtrees; the stacked ``layers`` /
+    ``scan`` subtrees hold the other ``n_layers - 1``."""
 
     def __init__(self, cfg: ArchConfig):
-        if cfg.mla or cfg.n_experts or cfg.first_dense_ff:
-            raise NotImplementedError(f"{cfg.name}: MLA and MoE layers are {_LATER}")
         self.cfg = cfg
+        self.n_scan = cfg.n_layers - (1 if cfg.first_dense_ff else 0)
+
+    @property
+    def kernel_names(self) -> Tuple[str, ...]:
+        """The kernel modules a forward launches (loaded by the LM
+        processes): MLA attention is plain torch, so it launches no
+        flash attention."""
+        return ("rmsnorm",) if self.cfg.mla else ("rmsnorm", "flash_attention")
 
     # ------------------------------------------------------------- params
+    def _layer_specs(self, *, moe: bool, d_ff: Optional[int] = None) -> Params:
+        cfg = self.cfg
+        p = {"ln_attn": L.norm_specs(cfg), "ln_mlp": L.norm_specs(cfg),
+             "attn": MLA.mla_specs(cfg) if cfg.mla else L.attention_specs(cfg)}
+        if moe:
+            p["moe"] = MOE.moe_specs(cfg)
+        else:
+            p["mlp"] = L.mlp_specs(cfg, d_ff)
+        return p
+
     def param_specs(self) -> Params:
         """Shapes and dtypes of the parameter tree, nothing allocated."""
         cfg = self.cfg
-        layer = {"ln_attn": L.norm_specs(cfg), "ln_mlp": L.norm_specs(cfg),
-                 "attn": L.attention_specs(cfg), "mlp": L.mlp_specs(cfg)}
-        return {"embed": L.embed_specs(cfg),
-                "layers": stacked(layer, cfg.n_layers),
-                "final_norm": L.norm_specs(cfg)}
+        specs = {"embed": L.embed_specs(cfg),
+                 "layers": stacked(self._layer_specs(moe=bool(cfg.n_experts)), self.n_scan),
+                 "final_norm": L.norm_specs(cfg)}
+        if cfg.first_dense_ff:
+            specs["layer0"] = self._layer_specs(moe=False, d_ff=cfg.first_dense_ff)
+        return specs
 
     def init_params(self, generator: torch.Generator, *, device=None,
                     out: Optional[Params] = None) -> Params:
@@ -51,22 +74,39 @@ class DecoderLM:
 
     # ------------------------------------------------------------- cache
     def cache_specs(self, batch: int, max_len: int) -> Params:
-        return {"scan": L.kv_cache_specs(self.cfg, self.cfg.n_layers, batch, max_len)}
+        cfg = self.cfg
+        specs_of = MLA.mla_cache_specs if cfg.mla else L.kv_cache_specs
+        specs = {"scan": specs_of(cfg, self.n_scan, batch, max_len)}
+        if cfg.first_dense_ff:
+            specs["layer0"] = tree_map(lambda s: type(s)(tuple(s.shape[1:]), s.dtype),
+                                       specs_of(cfg, 1, batch, max_len))
+        return specs
 
     def init_cache(self, batch: int, max_len: int, device=None) -> Params:
         return self.reset_cache(alloc_tree(self.cache_specs(batch, max_len), device))
 
     @staticmethod
     def reset_cache(cache: Params) -> Params:
-        """Empty a cache in place: zero K/V, every slot position -1."""
+        """Empty a cache in place: zero K/V (or latents), every slot
+        position -1."""
         for name, t in tree_flatten(cache):
             t.fill_(-1 if name.endswith("['kpos']") else 0)
         return cache
 
     # ------------------------------------------------------------- serve
-    @staticmethod
-    def _layer(tree: Params, i: int) -> Params:
-        return tree_map(lambda a: a[i], tree)
+    def _layers(self, params: Params, cache: Params):
+        """(layer parameters, layer cache) in order: layer 0, then the
+        stacked layers (views of one index of each leaf)."""
+        if self.cfg.first_dense_ff:
+            yield params["layer0"], cache["layer0"]
+        for i in range(self.n_scan):
+            yield (tree_map(lambda a: a[i], params["layers"]),
+                   tree_map(lambda a: a[i], cache["scan"]))
+
+    def _ffn(self, p: Params, h: torch.Tensor) -> torch.Tensor:
+        if "moe" in p:
+            return MOE.moe_forward(p["moe"], h, self.cfg)
+        return L.apply_mlp(p["mlp"], h, self.cfg)
 
     def prefill(self, params: Params, tokens: torch.Tensor, cache: Params,
                 prefix_embeds: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Params]:
@@ -78,13 +118,12 @@ class DecoderLM:
         x = L.embed_tokens(params["embed"], tokens, cfg)
         b, s, _ = x.shape
         positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
-        for i in range(cfg.n_layers):
-            p = self._layer(params["layers"], i)
+        attend = MLA.mla_prefill if cfg.mla else L.prefill_kv
+        for p, lcache in self._layers(params, cache):
             h = L.apply_norm(p["ln_attn"], x, cfg)
-            attn, _ = L.prefill_kv(p["attn"], h, cfg, positions, self._layer(cache["scan"], i))
+            attn, _ = attend(p["attn"], h, cfg, positions, lcache)
             x = x + attn
-            h = L.apply_norm(p["ln_mlp"], x, cfg)
-            x = x + L.apply_mlp(p["mlp"], h, cfg)
+            x = x + self._ffn(p, L.apply_norm(p["ln_mlp"], x, cfg))
         x = L.apply_norm(params["final_norm"], x[:, -1:].contiguous(), cfg)
         return L.logits_from_hidden(params["embed"], x, cfg), cache
 
@@ -96,13 +135,12 @@ class DecoderLM:
         x = L.embed_tokens(params["embed"], token, cfg)
         if not isinstance(pos, torch.Tensor):
             pos = torch.tensor(pos, dtype=torch.int32, device=x.device)
-        for i in range(cfg.n_layers):
-            p = self._layer(params["layers"], i)
+        attend = MLA.mla_decode if cfg.mla else L.attention_decode
+        for p, lcache in self._layers(params, cache):
             h = L.apply_norm(p["ln_attn"], x, cfg)
-            attn, _ = L.attention_decode(p["attn"], h, cfg, pos, self._layer(cache["scan"], i))
+            attn, _ = attend(p["attn"], h, cfg, pos, lcache)
             x = x + attn
-            h = L.apply_norm(p["ln_mlp"], x, cfg)
-            x = x + L.apply_mlp(p["mlp"], h, cfg)
+            x = x + self._ffn(p, L.apply_norm(p["ln_mlp"], x, cfg))
         x = L.apply_norm(params["final_norm"], x, cfg)
         return L.logits_from_hidden(params["embed"], x, cfg), cache
 

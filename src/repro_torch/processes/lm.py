@@ -338,9 +338,13 @@ class DecodeStep(_LMProcess):
 def _splice_row(full: torch.Tensor, row: torch.Tensor, slot: int) -> torch.Tensor:
     """Write a 1-row leaf into slot ``slot`` of the batched leaf, in place,
     with the JAX package's heuristic as it stands: batch axis 0 for leaves
-    whose leading axis differs from the row's (per-row leaves), 1 for
-    stacked-layer (L, B, ...) leaves, and 0 for the rank-1 bookkeeping
-    arrays."""
+    whose leading axis differs from the row's (per-row leaves, e.g. the
+    unstacked ``layer0`` cache, (B, T, r)), 1 for stacked-layer (L, B, ...)
+    leaves, and 0 for the rank-1 bookkeeping arrays.  A one-slot state
+    (leaf and row of one shape) takes the whole row, which is what the
+    reference's update along either axis gives there."""
+    if full.shape == row.shape:
+        return full.copy_(row)
     if full.ndim == 1 or (row.ndim >= 2 and full.shape[1:] == row.shape[1:]
                           and full.shape[0] != row.shape[0]):
         full.narrow(0, slot, 1).copy_(row)

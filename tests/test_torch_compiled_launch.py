@@ -391,7 +391,8 @@ def _served(arch, graphs, monkeypatch=None):
     return srv, srv.run()
 
 
-@pytest.mark.parametrize("arch", ["qwen3-14b", "rwkv6-3b"])
+@pytest.mark.parametrize("arch", ["qwen3-14b", "rwkv6-3b", "granite-moe-1b-a400m",
+                                  "deepseek-v2-lite-16b"])
 def test_lmserver_captures_its_decode_step_and_nothing_else(monkeypatch, arch):
     """The decode step is captured once and replayed; every prefill, the
     repeated prompt length's included, and every splice and release stay

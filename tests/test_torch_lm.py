@@ -1,8 +1,10 @@
 """The port's LM serving path against the JAX package's, on the SMOKE
 configs of qwen3-14b (qk-norm), h2o-danube-1.8b (sliding window 8, so a
-12-token prompt takes the rolling-buffer prefill), qwen2-7b (QKV bias) and
-rwkv6-3b (the ssm family: a recurrent state instead of a K/V cache), all
-float32.  The JAX side runs its Pallas kernels in interpret mode
+12-token prompt takes the rolling-buffer prefill), qwen2-7b (QKV bias),
+minitron-8b (squared-ReLU MLP, rotary on half the head), granite-moe-1b-a400m
+(MoE, top-2 of 4 experts at SMOKE), deepseek-v2-lite-16b (MLA attention,
+MoE with a shared expert, a dense layer 0 outside the stack) and rwkv6-3b
+(the ssm family: a recurrent state instead of a K/V cache), all float32.  The JAX side runs its Pallas kernels in interpret mode
 (``use_pallas=True``), as ``tests/test_kernels.py`` does; its parameters are
 carried across with ``interop.params_from_reference``, so both packages
 compute the same function.
@@ -38,7 +40,8 @@ from repro_torch.models.rwkv6 import RWKV6Model
 from repro_torch.processes import lm as tlm
 from repro_torch.serve import LMServer, PromptTooLongError, SamplingConfig
 
-ARCHS = ["qwen3-14b", "h2o-danube-1.8b", "qwen2-7b", "rwkv6-3b"]
+ARCHS = ["qwen3-14b", "h2o-danube-1.8b", "qwen2-7b", "minitron-8b", "granite-moe-1b-a400m",
+         "deepseek-v2-lite-16b", "rwkv6-3b"]
 LOGITS = dict(rtol=1e-4, atol=1e-5)
 MAX_LEN = 24
 
@@ -91,10 +94,11 @@ def test_weights_and_state_layouts_match_reference(arch):
         == want
 
 
-def _full_width_layouts_match(arch, n_params):
-    """``arch`` at full width in bfloat16 (rwkv6's ``u`` in float32): the
-    weights and a 4 x 2048 decode state plan to the same entries and
-    offsets in both packages, without allocating either."""
+def _full_width_layouts_match(arch, n_params, f32_leaf="['u']"):
+    """``arch`` at full width in bfloat16 (the leaves named ``f32_leaf``,
+    rwkv6's ``u`` or a MoE router, in float32): the weights and a 4 x 2048
+    decode state plan to the same entries and offsets in both packages,
+    without allocating either."""
     jmodel = j_build_model(j_get_config(arch))
     shapes = jax.eval_shape(lambda: jmodel.init_params(jax.random.key(0)))
     jcodec = jlm.TreeCodec(shapes, prefix="w")
@@ -103,7 +107,8 @@ def _full_width_layouts_match(arch, n_params):
     model = build_model(get_config(arch))
     tw, _ = tlm.weights_data(model.param_specs())
     assert _entries(tw.plan()) == _entries(jl)
-    assert {e.dtype for e in tw.layout.entries if not e.name.endswith("['u']")} == {"bfloat16"}
+    assert {e.dtype for e in tw.layout.entries if not e.name.endswith(f32_leaf)} == {"bfloat16"}
+    assert {e.dtype for e in tw.layout.entries if e.name.endswith(f32_leaf)} <= {"float32"}
     assert sum(int(np.prod(e.shape)) for e in tw.layout.entries) == n_params
     js, _ = jlm.decode_state_data(jmodel, 4, 2048)
     ts, _ = tlm.decode_state_data(model, 4, 2048)
@@ -118,6 +123,17 @@ def test_full_width_bf16_layouts_match_reference():
 def test_full_width_rwkv6_layouts_match_reference():
     """rwkv6-3b (3.10 B parameters, ``u`` float32)."""
     _full_width_layouts_match("rwkv6-3b", 3_099_694_080)
+
+
+@pytest.mark.parametrize("arch,n_params", [("minitron-8b", 7_735_218_176),
+                                           ("granite-moe-1b-a400m", 1_334_628_352),
+                                           ("deepseek-v2-lite-16b", 15_706_484_224)])
+def test_full_width_moe_mla_layouts_match_reference(arch, n_params):
+    """minitron-8b (7.74 B), granite-moe-1b-a400m (1.33 B, 32 experts, the
+    router float32) and deepseek-v2-lite-16b (15.71 B: MLA latents in the
+    cache, 64 routed and 2 shared experts, the unstacked dense ``layer0``
+    in the weights and the cache)."""
+    _full_width_layouts_match(arch, n_params, f32_leaf="['router']")
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -323,7 +339,8 @@ def test_unported_families_raise_naming_the_roadmap():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(get_smoke("rwkv6-3b")).loss_fn({}, {})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(get_smoke("qwen3-14b").scaled(n_experts=4))
+        build_model(get_smoke("qwen3-14b")).prefill({}, torch.zeros((1, 3), dtype=torch.int32),
+                                                    {}, prefix_embeds=torch.zeros((1, 2, 64)))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(get_smoke("qwen3-14b")).loss_fn({}, {})
 

@@ -348,7 +348,7 @@ def test_serve_lm_example_on_a_cpu_app(capsys):
     from repro_torch.launch import serve_lm
 
     out = serve_lm.main(["--cpu"])
-    assert [len(r) for r in out["qwen3"]] == [16] * 10
+    assert [len(r) for r in out["qwen3-14b"]] == [16] * 10
     assert [len(r) for r in out["whisper"]] == [8] * 4
     text = capsys.readouterr().out
     assert "decode-side host2device on the cache edge: 0.000000s" in text
