@@ -82,7 +82,10 @@
    the minitron-8b, granite-moe-1b-a400m and deepseek-v2-lite-16b serving
    shapes (rmsnorm rows of 4096, 1024, 2048 and deepseek's 512-wide latent
    norm; flash_attention q (1, 32, S, 128) / kv (1, 8, S, 128) and q
-   (1, 16, S, 64) / kv (1, 8, S, 64)), and
+   (1, 16, S, 64) / kv (1, 8, S, 64)), at the zamba2-2.7b and internvl2-2b
+   ones (rmsnorm rows of 2560 and 2048; flash_attention (1, 32, S, 80)
+   MHA, bf16 and f32, and q (1, 16, S, 128) / kv (1, 8, S, 128) with
+   S = 256 patches + 64 tokens, bf16 and f32), and
    at odd ones that reach every rmsnorm variant; ``wkv6`` at the rwkv6-3b prefill (1, 1024, 40,
    64) bf16, ragged cases (several batches on the grid and a T that is no
    multiple of the staged tile), the SMOKE head size, the decode shape with
@@ -141,16 +144,26 @@
    For the MoE pair the 2-layer check also runs the CPU in bf16 (its own
    bf16 gap printed beside the card's) and prints the share of (token, k)
    router choices that differ from the CPU f32 run's in each run.
+   Then zamba2-2.7b (hybrid: 54 Mamba2 layers, one shared attention block
+   every 6) and internvl2-2b (vlm, served text-only as the JAX
+   ``LMServer`` serves it) the same way; the "2-layer" cut of zamba2 is one
+   superblock (the shared block and 6 Mamba2 layers; the CPU also in bf16,
+   its gap printed), and internvl2's 2-layer check prefills a (1, 256,
+   2048) f32 patch prefix from the seed before its 64 tokens and decodes
+   at positions 320 + i.
 6. Runs the paper's listing 1 (``repro_torch.launch.quickstart``:
    ``Pipeline(app) | Negate(app)`` on a 256x256 8-bit PNG that the script
    writes) on the card, replayed from its second run, bit for bit, and
    reads its ``output.png`` back: 1 - x in 8 bits.  Temporary files live in
    a ``tempfile`` directory that the script removes.
 7. Ends with a ``{"kernels": [...]}`` line (the LM kernels' launches are
-   the sums over the six serves) and a
+   the sums over the eight serves) and a
    ``{"ok": true, "device": {...}}`` line.
 
-Any failure exits non-zero.  Without a CUDA device it exits non-zero at once.
+``[wall]`` lines give the seconds since the start at each phase's end and,
+in each LM serve, after the serve and after its card-against-CPU check:
+where the script's own time goes.  Any failure exits non-zero.  Without a
+CUDA device it exits non-zero at once.
 """
 from __future__ import annotations
 
@@ -216,6 +229,11 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
+
+    def wall(label):
+        """Where the script's own time goes: seconds since it started."""
+        print(f"[wall] {label}: {time.perf_counter() - t_start:.1f} s since the start")
 
     # -- 1. the card and the build ------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -246,6 +264,7 @@ def main() -> None:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"[ptxas] {line.strip()}")
 
+    wall("before section 2")
     # -- 2. every kernel against its plain version --------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -363,6 +382,7 @@ def main() -> None:
                                  "call bit for bit")
         del k5, s4, fold, one, same
 
+    wall("before section 3")
     # -- 3. times at the case-study size -------------------------------------
     def events_ms(run, reps):
         times = []
@@ -512,6 +532,7 @@ def main() -> None:
               f"{rows[kname]['ms']:.5f})")
     del bk, b_sets, b_one, b_tables
 
+    wall("before section 4")
     # -- 4. the main path through the entry points ---------------------------
     kdata, smaps, _ = synthetic_kdata(*cfg)
     want_sum, want_rss = oracle(kdata, smaps), oracle(kdata, smaps, "rss")
@@ -643,6 +664,7 @@ def main() -> None:
     if idle:
         raise SystemExit(f"chip_smoke: kernels {idle} never launched on the main path")
 
+    wall("before section 4b")
     # -- 4b. file in, file out: I/O, the fan-in graph and the example --------
     import tempfile
 
@@ -667,6 +689,7 @@ def main() -> None:
             raise SystemExit(f"chip_smoke: [{label}]: kernels {missing} did not run "
                              f"(launches {got})")
         print(f"[{label}] launches {got}")
+        wall(f"after [{label}]")
         return out
 
     def wall_ms(t0):
@@ -853,6 +876,7 @@ def main() -> None:
 
     counted("example", example_phase, ["complexElementProd", "xImageSum", "mriFusedRecon"])
 
+    wall("before section 4c")
     # -- 4c. [stream] and [serve]: the many slice stacks of a study ----------
     # 24 slices at CONFIG, each with its own k-space and its own maps (the
     # phantom's maps turned by a phase and scaled a slice), so the per-slice
@@ -1305,6 +1329,7 @@ def main() -> None:
     counted("profile", profile_phase, ["complexElementProd", "xImageSum", "mriFusedRecon"])
     del stack, oracles
 
+    wall("before section 5")
     # -- 5. LM and listing-1 kernels against their plain versions ------------
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import flash_attention
@@ -1337,6 +1362,7 @@ def main() -> None:
             ((1024, 1024), bf16, bf16, True), ((4, 1024), bf16, bf16, True),
             ((1024, 2048), bf16, bf16, True), ((4, 2048), bf16, bf16, True),
             ((1024, 512), bf16, bf16, True), ((4, 512), bf16, bf16, True),
+            ((4, 2560), bf16, bf16, True),    # zamba2-2.7b decode
             ((64, 512), f32, f32, False),     # the 2-layer f32 runs' latent norm
             ((21, 80), f32, f32, False), ((9, 24), bf16, bf16, False),
             ((3, 20480), bf16, bf16, False), ((5, 100), bf16, bf16, False),
@@ -1364,6 +1390,16 @@ def main() -> None:
         ((1, 32, 611, 128), (1, 8, 611, 128), True, None, bf16, True),
         ((1, 16, 1024, 64), (1, 8, 1024, 64), True, None, bf16, True),
         ((1, 16, 611, 64), (1, 8, 611, 64), True, None, bf16, True),
+        # zamba2-2.7b's shared block (MHA, head dim 80): a whole 1024-token
+        # prompt, a ragged one, and the one-superblock f32 run's (FMA kernel)
+        ((1, 32, 1024, 80), (1, 32, 1024, 80), True, None, bf16, True),
+        ((1, 32, 611, 80), (1, 32, 611, 80), True, None, bf16, True),
+        ((1, 32, 64, 80), (1, 32, 64, 80), True, None, f32, False),
+        # internvl2-2b: a 1024-token prompt, and 256 patches + 64 tokens in
+        # bf16 and in f32 (the 2-layer prefix check)
+        ((1, 16, 1024, 128), (1, 8, 1024, 128), True, None, bf16, True),
+        ((1, 16, 320, 128), (1, 8, 320, 128), True, None, bf16, False),
+        ((1, 16, 320, 128), (1, 8, 320, 128), True, None, f32, False),
         # head dim 16, the SMOKE configs' (repro_torch.launch.serve_lm on the card)
         ((2, 4, 37, 16), (2, 4, 37, 16), True, None, bf16, False),
         ((2, 4, 37, 16), (2, 2, 53, 16), False, None, f32, False))
@@ -1439,6 +1475,7 @@ def main() -> None:
         max_err["negate"] = 0.0
     del x, got, want
 
+    wall("before section 6")
     # -- 6. kernel times at the serving shapes ---------------------------------
     def cold_and_warm(make):
         first = make()
@@ -1629,6 +1666,7 @@ def main() -> None:
             lambda x: torch.rsub(x, 1.0), "negate_kernel")
     torch.cuda.empty_cache()
 
+    wall("before section 6b")
     # -- 6b. [chooser]: every registered kernel calibrated ---------------------
     from repro_torch.launch.roofline import default_chooser, resolve_backend
 
@@ -1708,10 +1746,11 @@ def main() -> None:
 
     counted("chooser", chooser_phase, ["complexElementProd", "xImageSum", "mriFusedRecon"])
 
+    wall("before section 7")
     # -- 7. the LM serving path at full width: qwen3-14b, then rwkv6-3b -------
     # the 2-layer bf16 runs' band, a share of max |logit|, where a family's
     # differs from 2e-2 (why: the comment at its check below, PERF.md §2)
-    BF16_BAND = {"ssm": 5e-2, "moe": 4e-2}
+    BF16_BAND = {"ssm": 5e-2, "moe": 4e-2, "hybrid": 5e-2}
 
     def serve_full_width(arch, expect, enc_len=None):
         """Serve 10 requests (32 new tokens each) through 4 slots of ``LMServer``
@@ -1740,6 +1779,7 @@ def main() -> None:
         print(f"[lm] {arch} weights: {n_params} parameters, "
               f"{weights.layout.total_bytes / 1e9:.3f} GB arena (bf16"
               f"{', u f32' if cfg.family == 'ssm' else ''}"
+              f"{', A_log, D and dt_bias f32' if cfg.family == 'hybrid' else ''}"
               f"{', router f32' if cfg.n_experts else ''}), made on the card from seed 0 in "
               f"{init_s:.3f} s")
         (lo, hi), max_len = ((4, 225), 448) if enc_len else ((17, 1025), 2048)
@@ -1861,6 +1901,7 @@ def main() -> None:
                   f"{len(holders)} frames Data; {frames_h2d} bytes uploaded into it over "
                   f"{server.admitted} admissions")
         del server, frames
+        wall(f"{arch} served")
 
         # whole model, 2 layers at full width: the same weights on the card
         # (kernels) and on the CPU (plain versions), teacher-forced from the
@@ -1880,12 +1921,25 @@ def main() -> None:
         #   the reference's fan-in of E, not D, so their outputs are large
         #   beside the residual: the CPU alone puts its bf16 logits 1.3-2.0 %
         #   of max |logit| from its f32 ones on these weights, and an H100 in
-        #   bf16 read 1.4-2.1 % (twice the CPU's own gap is the bound).  The
-        #   CPU's own bf16 gap is printed beside both.
-        # (deepseek: "2 layers" is the dense layer 0 and one stacked layer)
+        #   bf16 read 1.4-2.1 % (twice the CPU's own gap is the bound);
+        #   for the hybrid family (zamba2) the larger of 5e-2 * max |logit|
+        #   and twice the CPU's own bf16 gap at the same step: its bf16
+        #   rounding of the in_proj output (dt, B, C, x) compounds through
+        #   the chunked scan, about 1 % of the residual a Mamba2 layer, so
+        #   the CPU alone puts its bf16 logits 3.9-14.1 % of max |logit|
+        #   from its f32 ones on these weights, and the JAX package's own
+        #   bf16 run 5.8-24.5 % at width 640 (two runs of
+        #   tools/bf16_gap.py on a CPU): no fixed band under 5e-2 holds
+        #   the reference's math.  The CPU's
+        #   own bf16 gap is printed beside both.
+        # (deepseek: "2 layers" is the dense layer 0 and one stacked layer;
+        # zamba2: one superblock, the shared block and 6 Mamba2 layers;
+        # internvl2: the prefill takes a 256-patch f32 prefix first)
         if enc_len:
             two = cfg.scaled(enc_layers=2, dec_layers=2, n_layers=4)
             cut, depth = ("enc_layers", "dec_layers"), 2
+        elif cfg.family == "hybrid":
+            two, cut, depth = cfg.scaled(n_layers=cfg.attn_every), ("mamba_layers",), 1
         else:
             two, cut = cfg.scaled(n_layers=2), ("layers",)
             depth = 2 - (1 if cfg.first_dense_ff else 0)
@@ -1896,12 +1950,15 @@ def main() -> None:
         runs = {"card bf16": (build_model(two), p_bf16, dev),
                 "card f32": (build_model(two32), p_f32, dev),
                 "cpu f32": (build_model(two32), tree_map(lambda a: a.cpu(), p_f32), cpu)}
-        if cfg.family in ("ssm", "moe"):
+        if cfg.family in ("ssm", "moe", "hybrid"):
             runs["cpu bf16"] = (build_model(two), tree_map(lambda a: a.cpu(), p_bf16), cpu)
         toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, 64)))
         audio_in = (torch.from_numpy(rng.standard_normal((1, enc_len, cfg.d_model),
                                                          dtype=np.float32)),) if enc_len else ()
-        cache_args = (1, 128) + ((enc_len,) if enc_len else ())
+        n_patch = cfg.n_patches if cfg.family == "vlm" else 0
+        prefix = {"prefix_embeds": torch.from_numpy(rng.standard_normal(
+            (1, n_patch, cfg.d_model), dtype=np.float32))} if n_patch else {}
+        cache_args = (1, 128 + n_patch) + ((enc_len,) if enc_len else ())
         caches = {k: m.init_cache(*cache_args, device=d) for k, (m, _, d) in runs.items()}
         logits = {k: [] for k in runs}
         # each MoE layer's (token, k) router choices, by run (the layer's
@@ -1920,14 +1977,15 @@ def main() -> None:
             for k, (m, prm, d) in runs.items():
                 moe_mod._moe = recording(k)
                 lg, caches[k] = m.prefill(prm, *(a.to(d) for a in audio_in), toks.to(d),
-                                          caches[k])
+                                          caches[k], **{n: a.to(d) for n, a in prefix.items()})
                 logits[k].append(lg.float().cpu())
             for i in range(4):
                 tok = logits["cpu f32"][-1].argmax(dim=-1).to(torch.int32)
                 for k, (m, prm, d) in runs.items():
                     moe_mod._moe = recording(k)
                     lg, caches[k] = m.decode_step(
-                        prm, tok.to(d), torch.tensor(64 + i, dtype=torch.int32, device=d),
+                        prm, tok.to(d),
+                        torch.tensor(n_patch + 64 + i, dtype=torch.int32, device=d),
                         caches[k])
                     logits[k].append(lg.float().cpu())
         finally:
@@ -1947,7 +2005,10 @@ def main() -> None:
                   f"4 decode steps over {len(choices['cpu f32'])} MoE layer calls: "
                   + ", ".join(f"{k} {d} of {n} ({100 * d / n:.3f} %)"
                               for k, (d, n) in flip.items()))
-        layers = f" 2+2 layers, {enc_len} frames," if enc_len else ""
+        layers = (f" 2+2 layers, {enc_len} frames," if enc_len
+                  else " one superblock," if cfg.family == "hybrid"
+                  else f" 2 layers, {n_patch}-patch prefix," if n_patch else "")
+        failed = []
         for step, label in enumerate(["prefill last-token logits"]
                                      + [f"decode step {i} logits" for i in range(4)]):
             want = logits["cpu f32"][step]
@@ -1955,6 +2016,8 @@ def main() -> None:
             gap = {k: float((v[step] - want).abs().max()) for k, v in logits.items()}
             limits = {"card f32": 1e-3 * scale,
                       "card bf16": BF16_BAND.get(cfg.family, 2e-2) * scale}
+            if cfg.family == "hybrid":
+                limits["card bf16"] = max(limits["card bf16"], 2 * gap["cpu bf16"])
             ok = all(gap[k] <= lim for k, lim in limits.items()) and all(
                 bool(torch.isfinite(v[step]).all()) for v in logits.values())
             print(f"[lm-check] {arch}{layers} {label}: max |card - cpu f32| in f32 "
@@ -1963,23 +2026,40 @@ def main() -> None:
                   + (f"; cpu bf16 - cpu f32 {gap['cpu bf16']:.4e}" if "cpu bf16" in gap else "")
                   + f"; max |logit| {scale:.4e} {'ok' if ok else 'FAIL'}")
             if not ok:
-                raise SystemExit(f"chip_smoke: 2-layer {arch} {label} disagrees with the CPU")
+                failed.append(label)
+        if failed:               # after every step's line is printed
+            raise SystemExit(f"chip_smoke: 2-layer {arch} {', '.join(failed)} disagree with "
+                             "the CPU")
         del runs, caches
+        wall(f"{arch} card against CPU")
         eager_against_replayed(cfg, two, p_bf16, rng, enc_len=enc_len)
         if cfg.family == "dense":
             engine_against_server(two, p_bf16, rng)
+        wall(f"after {arch}")
         return counts
+
+    def device_weights(app, model, params):
+        """``params`` (tensors on the card) as a weights Data of ``app``:
+        a spec-only arena on the card filled by device copies, so the
+        weights make no round trip through the host."""
+        weights, wcodec = weights_data(model.param_specs())
+        app.addData(weights)
+        views = weights.device_views()
+        for leaf, t in wcodec.flatten(params).items():
+            views[leaf].copy_(t)
+        return weights, wcodec
 
     def engine_against_server(two, p_bf16, rng):
         """``ServeEngine`` (the former API, a shim over ``LMServer``) on the
         2-layer full-width model: 3 prompts, 2 slots, 8 new tokens; its
-        tokens must be ``LMServer``'s."""
+        tokens must be ``LMServer``'s.  Both read one weights Data."""
         app = CLapp().init()
         model = build_model(two)
+        weights, _ = device_weights(app, model, p_bf16)
         prompts = [rng.integers(0, two.vocab, n).tolist() for n in (17, 40, 64)]
         outs = {}
         for cls in (LMServer, ServeEngine):
-            srv = cls(model, p_bf16, batch=2, max_len=128,
+            srv = cls(model, weights, batch=2, max_len=128,
                       sampling=SamplingConfig(max_new_tokens=8), app=app)
             for pr in prompts:
                 srv.submit(pr)
@@ -2003,11 +2083,7 @@ def main() -> None:
         from either state are held to the bands of ``PERF.md`` §2."""
         app = CLapp().init(PlatformTraits(), DeviceTraits())
         model = build_model(two)
-        weights, wcodec = weights_data(model.param_specs())
-        app.addData(weights)
-        views = weights.device_views()
-        for leaf, t in wcodec.flatten(p_bf16).items():
-            views[leaf].copy_(t)
+        weights, wcodec = device_weights(app, model, p_bf16)
         sess = DecodeSession(app, model, weights, batch=4, max_len=256, enc_len=enc_len)
         frames = (rng.standard_normal((4, enc_len, two.d_model), dtype=np.float32)
                   if enc_len else None)
@@ -2075,6 +2151,15 @@ def main() -> None:
         return {"flash_attention": (cfg.enc_layers + cfg.dec_layers) * server.admitted,
                 "rmsnorm": 0, "wkv6": 0}
 
+    def hybrid_kernels(cfg, server):
+        """A Zamba2 forward: ln a Mamba2 layer, ln_attn and ln_mlp a
+        superblock (the shared block's), the final norm (the gated norm
+        inside Mamba2 is inline f32, the reference's); flash attention once
+        a superblock of a prefill."""
+        n_super = cfg.n_layers // cfg.attn_every
+        return {"rmsnorm": (cfg.n_layers + 2 * n_super + 1) * (server.admitted + server.steps),
+                "flash_attention": n_super * server.admitted, "wkv6": 0}
+
     lm_counts = serve_full_width("qwen3-14b", dense_kernels)
     gc.collect()                      # free the qwen3-14b weights and server
     torch.cuda.empty_cache()
@@ -2084,14 +2169,17 @@ def main() -> None:
     whisper_counts = serve_full_width("whisper-large-v3", whisper_kernels, enc_len=1500)
     gc.collect()
     torch.cuda.empty_cache()
-    # this slice's three: deepseek's 31.4 GB of weights only after the
-    # others' are freed
+    # minitron, the MoE pair (deepseek's 31.4 GB of weights only after the
+    # others' are freed), then the hybrid and the VLM
     new_counts = []
-    for arch in ("minitron-8b", "granite-moe-1b-a400m", "deepseek-v2-lite-16b"):
-        new_counts.append(serve_full_width(arch, dense_kernels))
+    for arch, expect in (("minitron-8b", dense_kernels), ("granite-moe-1b-a400m", dense_kernels),
+                         ("deepseek-v2-lite-16b", dense_kernels),
+                         ("zamba2-2.7b", hybrid_kernels), ("internvl2-2b", dense_kernels)):
+        new_counts.append(serve_full_width(arch, expect))
         gc.collect()
         torch.cuda.empty_cache()
 
+    wall("before section 8")
     # -- 8. the paper's listing 1 (quickstart) on the card, file in, file out --
     img8 = (quickstart.synthetic_image() * 255.0 + 0.5).astype(np.uint8)
     in_png, out_png = f"{tmp.name}/input.png", f"{tmp.name}/output.png"
@@ -2119,6 +2207,7 @@ def main() -> None:
           f"{qs_counts['negate_kernel']}")
     tmp.cleanup()
 
+    wall("before section 9")
     # -- 9. result lines -----------------------------------------------------
     kernels = []
     serves = [lm_counts, rwkv_counts, whisper_counts] + new_counts

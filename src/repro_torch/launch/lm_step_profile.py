@@ -6,10 +6,12 @@
 
 Builds ``--arch`` (qwen3-14b by default, or any other architecture of
 ``repro_torch.configs.ARCH_IDS``: minitron-8b, granite-moe-1b-a400m,
-deepseek-v2-lite-16b, rwkv6-3b, whisper-large-v3, ...) at full width
-(``--layers`` cuts only the depth, of the encoder and the decoder alike
-for whisper, and counts deepseek's dense layer 0; random bf16 weights made
-on the card from seed 0) in a fresh process, and prints:
+deepseek-v2-lite-16b, rwkv6-3b, whisper-large-v3, zamba2-2.7b,
+internvl2-2b, ...) at full width (``--layers`` cuts only the depth, of the
+encoder and the decoder alike for whisper, counts deepseek's dense layer
+0, and must be a multiple of zamba2's ``attn_every``, 6, whole
+superblocks; random bf16 weights made on the card from seed 0) in a fresh
+process, and prints:
 
 1. **The first prefill, split.**  The kernel library's build and load, the
    first cuBLAS call (handle and workspace), then three single-prompt
@@ -21,7 +23,9 @@ on the card from seed 0) in a fresh process, and prints:
    traced with
    ``torch.profiler``: host wall (ending in a
    synchronize), device busy time, the new allocator segments
-   (``cudaMalloc`` calls) and the host time of the CUDA runtime calls, so
+   (``cudaMalloc`` calls), the peak memory the launch allocated on top
+   of what was there (its activations: zamba2's f32 SSD temporaries) and
+   the host time of the CUDA runtime calls, so
    the first call's extra time shows where it went.
 2. **The decode step, eager and compiled, in the same process.**  A batch
    of ``--batch`` prompts of ``--prompt`` tokens prefilled through
@@ -83,6 +87,10 @@ def main() -> None:
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--max-len", type=int, default=2048, help="decode cache positions")
     args = ap.parse_args()
+    cfg = get_config(args.arch)
+    if args.layers and cfg.attn_every and args.layers % cfg.attn_every:
+        ap.error(f"--layers {args.layers}: {args.arch} needs a multiple of attn_every "
+                 f"({cfg.attn_every})")
     if not torch.cuda.is_available():
         sys.exit("lm_step_profile: no CUDA card")
     from repro_torch.core import CLapp, Data, ProfileParameters, process
@@ -94,7 +102,6 @@ def main() -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
                           "--id=0"], capture_output=True, text=True, check=True).stdout.strip()
     print(smi)
-    cfg = get_config(args.arch)
     encdec = cfg.family == "encdec"
     if encdec and args.layers:
         cfg = cfg.scaled(enc_layers=args.layers, dec_layers=args.layers, n_layers=2 * args.layers)
@@ -148,6 +155,8 @@ def main() -> None:
             {"frames": frames})} if encdec else Data({"tokens": toks}))
         segs = torch.cuda.memory_stats().get("segment.all.allocated", 0)
         torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             sess.prefill(toks, frames=frames)
@@ -161,8 +170,10 @@ def main() -> None:
         runtime = [h for h in host if h[2].startswith("cu")]
         ops = [h for h in host if not h[2].startswith("cu")]
         new_segs = torch.cuda.memory_stats().get("segment.all.allocated", 0) - segs
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e9
         print(f"[first] {label}: wall {wall:.3f} ms, device busy {busy:.3f} ms, {new_segs} new "
-              f"allocator segments; host CUDA calls {sum(h[0] for h in runtime):.2f} ms: "
+              f"allocator segments, peak {peak:.3f} GB above what was allocated before "
+              f"(weights, states); host CUDA calls {sum(h[0] for h in runtime):.2f} ms: "
               + ", ".join(f"{k} {ms:.2f} ms x{n}" for ms, n, k in runtime[:6])
               + f"; other host ops {sum(h[0] for h in ops):.2f} ms: "
               + ", ".join(f"{k} {ms:.2f} ms x{n}" for ms, n, k in ops[:6]))

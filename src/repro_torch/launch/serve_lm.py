@@ -10,7 +10,8 @@ from a seeded ``torch.Generator``, nothing is trained or downloaded.
 
 * ``--arch`` SMOKE (qwen3-14b by default; any decoder-only architecture
   of ``repro_torch.configs.ARCH_IDS``, e.g. minitron-8b,
-  granite-moe-1b-a400m or deepseek-v2-lite-16b): 10 requests of 3-9
+  granite-moe-1b-a400m, deepseek-v2-lite-16b, the hybrid zamba2-2.7b or
+  internvl2-2b, text-only): 10 requests of 3-9
   prompt tokens through 4 slots of :class:`~repro_torch.serve.LMServer`,
   16 new tokens each.  The decode state is one persistent arena Data on
   the device: the decode side records no host-to-device transfer

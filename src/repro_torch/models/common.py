@@ -19,14 +19,15 @@ from repro_torch.core.arena import torch_dtype
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
-    """One architecture: the fields the decoder (dense, MoE, MLA), RWKV6 and
-    Whisper paths read, with the JAX package's defaults.  The JAX package's
+    """One architecture: the fields the decoder (dense, MoE, MLA, VLM),
+    RWKV6, Zamba2 (Mamba2) and Whisper paths read, with the JAX package's
+    defaults.  The JAX package's
     TPU and mesh levers (``opt_*``, ``unroll_layers``, ``remat``,
     ``use_pallas``) have no counterpart: the kernel wrappers decide by the
     tensors' device."""
 
     name: str
-    family: str                    # dense | moe | ssm | encdec (the ported families)
+    family: str                    # dense | moe | ssm | hybrid | encdec | vlm
     n_layers: int
     d_model: int
     n_heads: int
@@ -57,9 +58,18 @@ class ArchConfig:
     qk_nope_dim: int = 128
     qk_rope_dim: int = 64
     v_head_dim: int = 128
+    # SSM (mamba2 / zamba2)
+    ssm_state: int = 0
+    ssm_conv: int = 4
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_chunk: int = 256
+    # hybrid (zamba2): a SHARED attention block applied every k ssm layers
+    attn_every: int = 0
     rwkv_head_dim: int = 64        # ssm (RWKV6) head size
     enc_layers: int = 0            # encdec (Whisper): encoder layers
     dec_layers: int = 0            # encdec (Whisper): decoder layers
+    n_patches: int = 0             # vlm (internvl): patch embeddings before the text
     param_dtype: str = "bfloat16"
     dtype: str = "bfloat16"        # activation dtype
 
@@ -117,28 +127,31 @@ def embed_init(generator: torch.Generator, t: torch.Tensor) -> torch.Tensor:
     return t.normal_(0.0, 0.02, generator=generator)
 
 
-#: the parameter subtrees stacked with a leading (L,) layer axis
-STACKED = ("['layers']", "['enc_layers']", "['dec_layers']")
+#: the parameter subtrees stacked with leading layer axes, and how many:
+#: (L,), or Zamba2's (n_super, per_super) Mamba2 stack
+STACKED = {"['layers']": 1, "['enc_layers']": 1, "['dec_layers']": 1, "['mamba_layers']": 2}
 
 
 def init_leaf_(name: str, t: torch.Tensor, generator: torch.Generator) -> None:
     """Fill one parameter in place by its role, as the JAX package's
-    ``init_*`` functions do: norm scales 1, biases 0, the RWKV6 token-shift
-    mixes and decay base 0, embedding rows and Whisper's learned decoder
-    positions :func:`embed_init`, projections :func:`dense_init`.  A
-    projection's fan-in is the first axis of its per-layer shape (the JAX
+    ``init_*`` functions do: norm scales and Mamba2's skip ``D`` 1, biases,
+    the RWKV6 token-shift mixes and decay base and Mamba2's ``A_log`` and
+    ``dt_bias`` 0, embedding rows and Whisper's learned decoder positions
+    :func:`embed_init`, projections :func:`dense_init`.  A projection's
+    fan-in is the first axis of its per-layer shape (the JAX
     ``dense_init``'s ``shape[0]``), so RWKV6's (5, 32, d) ``tm_w2`` has
-    fan-in 5."""
+    fan-in 5 and Mamba2's (ssm_conv, channels) ``conv_w`` ``ssm_conv``."""
     leaf = name.rsplit("[", 1)[-1].strip("[]'")
     with torch.no_grad():
-        if leaf in ("scale", "gn_scale"):
+        if leaf in ("scale", "gn_scale", "norm_scale", "D"):
             t.fill_(1.0)
-        elif leaf in ("bias", "gn_bias", "decay") or leaf.startswith(("b_", "maa_")):
+        elif (leaf in ("bias", "gn_bias", "decay", "conv_b", "A_log", "dt_bias")
+              or leaf.startswith(("b_", "maa_"))):
             t.zero_()
         elif leaf in ("embedding", "pos_dec"):
             embed_init(generator, t)
         else:
-            per_layer = t.shape[1:] if name.startswith(STACKED) else t.shape
+            per_layer = t.shape[STACKED.get(name[:name.index("]") + 1], 0):]
             dense_init(generator, t, per_layer[0])
 
 

@@ -1,6 +1,6 @@
-"""Decoder-only LM: the dense (qwen3 / qwen2 / h2o-danube / minitron) and
-MoE (granite; deepseek-v2-lite with MLA attention and a dense layer 0)
-families.
+"""Decoder-only LM: the dense (qwen3 / qwen2 / h2o-danube / minitron), MoE
+(granite; deepseek-v2-lite with MLA attention and a dense layer 0) and VLM
+(internvl2: patch embeddings in front of the prompt's) families.
 
 Mirrors ``repro/models/transformer.py``: the stacked ``(L, ...)``
 parameter layout is kept, and the JAX ``lax.scan`` over layers is a Python
@@ -21,8 +21,6 @@ from .common import ArchConfig, alloc_tree, init_tree, stacked, tree_flatten, tr
 
 Params = Dict[str, Any]
 
-#: where the DecoderLM parts not ported yet stand in ROADMAP queue 1
-_LATER = "not ported yet (ROADMAP queue 1, rest of the LM stack)"
 _TRAINING = "the training forward is not ported yet (ROADMAP queue 1, Training)"
 
 
@@ -111,11 +109,14 @@ class DecoderLM:
     def prefill(self, params: Params, tokens: torch.Tensor, cache: Params,
                 prefix_embeds: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Params]:
         """Fill the cache with a full prompt (B, S); returns (last-token
-        logits (B, 1, V) f32, cache)."""
-        if prefix_embeds is not None:
-            raise NotImplementedError(f"the VLM patch prefix is {_LATER}")
+        logits (B, 1, V) f32, cache).  ``prefix_embeds`` (B, P, D), e.g. a
+        VLM's patch embeddings, cast to the activation dtype, go in front
+        of the token embeddings: positions then run over P + S and the
+        cache holds P + S entries."""
         cfg = self.cfg
         x = L.embed_tokens(params["embed"], tokens, cfg)
+        if prefix_embeds is not None:
+            x = torch.cat([prefix_embeds.to(cfg.adtype), x], dim=1)
         b, s, _ = x.shape
         positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
         attend = MLA.mla_prefill if cfg.mla else L.prefill_kv

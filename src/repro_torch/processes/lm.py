@@ -19,7 +19,8 @@ state layouts match the JAX package's entry for entry.
   decoder its new K/V row at slot ``pos % cache_len`` (``index_copy_``
   with a device index; ``pos = positions.max()`` stays on the device),
   RWKV6 its shift vectors and WKV state (the ``wkv6`` kernel writes the
-  state over itself).  A step never copies the cache and the only host
+  state over itself), Zamba2 its Mamba2 conv windows and SSM states
+  (copied into the views).  A step never copies the cache and the only host
   sync per step is the caller's (B, 1) token readback.  On the card the
   step is compiled: from its second launch on it replays one CUDA graph
   (:meth:`repro_torch.core.process.Process.launch`).
@@ -336,20 +337,24 @@ class DecodeStep(_LMProcess):
 
 
 def _splice_row(full: torch.Tensor, row: torch.Tensor, slot: int) -> torch.Tensor:
-    """Write a 1-row leaf into slot ``slot`` of the batched leaf, in place,
-    with the JAX package's heuristic as it stands: batch axis 0 for leaves
-    whose leading axis differs from the row's (per-row leaves, e.g. the
-    unstacked ``layer0`` cache, (B, T, r)), 1 for stacked-layer (L, B, ...)
-    leaves, and 0 for the rank-1 bookkeeping arrays.  A one-slot state
-    (leaf and row of one shape) takes the whole row, which is what the
-    reference's update along either axis gives there."""
+    """Write a 1-row leaf into slot ``slot`` of the batched leaf, in place.
+    The slot axis is the one axis on which the two shapes differ: 0 for the
+    bookkeeping arrays and per-row leaves (deepseek's unstacked ``layer0``
+    cache, (B, T, r)), 1 for stacked-layer (L, B, ...) leaves, 2 for
+    Zamba2's doubly stacked (n_super, per_super, B, ...) Mamba2 state.  A
+    one-slot state (leaf and row of one shape) takes the whole row.
+
+    The JAX package's ``_splice_row`` guesses the axis instead (0 where the
+    leading axes differ, else 1); it gives the same axis for every leaf of
+    the other families, and writes Zamba2's rows into slot 0 (ROADMAP
+    §3)."""
     if full.shape == row.shape:
         return full.copy_(row)
-    if full.ndim == 1 or (row.ndim >= 2 and full.shape[1:] == row.shape[1:]
-                          and full.shape[0] != row.shape[0]):
-        full.narrow(0, slot, 1).copy_(row)
-    else:
-        full.narrow(1, slot, 1).copy_(row)
+    axes = [i for i, (a, b) in enumerate(zip(full.shape, row.shape)) if a != b]
+    if full.ndim != row.ndim or len(axes) != 1 or row.shape[axes[0]] != 1:
+        raise ValueError(f"a row of shape {tuple(row.shape)} does not fit a slot of a "
+                         f"leaf of shape {tuple(full.shape)}")
+    full.narrow(axes[0], slot, 1).copy_(row)
     return full
 
 

@@ -404,10 +404,13 @@ class LMServer:
     * **release**: a finished request retires its slot with an in-place
       :class:`~repro_torch.processes.lm.SlotRelease`.
 
-    It serves the three ported families unchanged: the dense decoder (its
-    state a K/V cache per slot), RWKV6 (the ssm family: two shift vectors
-    and the (H, D, D) WKV state per layer and slot, spliced like the
-    stacked K/V leaves on their slot axis 1) and Whisper (encdec: a request
+    It serves every family unchanged: the decoder (dense, MoE, MLA; the
+    VLM text-only, as the JAX ``LMServer`` serves it: a request brings no
+    patches), its state a K/V cache per slot; RWKV6 (the ssm family: two
+    shift vectors and the (H, D, D) WKV state per layer and slot, spliced
+    like the stacked K/V leaves on their slot axis 1); Zamba2 (hybrid: the
+    shared block's K/V and each Mamba2 layer's conv window and SSM state,
+    (n_super, per_super, B, ...), spliced on slot axis 2); and Whisper (encdec: a request
     brings its audio frames to :meth:`submit`, uploaded with its prompt
     into the server's one frames Data, which every prefill pipe's frames
     port reads; the prefill encodes them and writes

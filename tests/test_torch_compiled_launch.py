@@ -392,7 +392,7 @@ def _served(arch, graphs, monkeypatch=None):
 
 
 @pytest.mark.parametrize("arch", ["qwen3-14b", "rwkv6-3b", "granite-moe-1b-a400m",
-                                  "deepseek-v2-lite-16b"])
+                                  "deepseek-v2-lite-16b", "zamba2-2.7b", "internvl2-2b"])
 def test_lmserver_captures_its_decode_step_and_nothing_else(monkeypatch, arch):
     """The decode step is captured once and replayed; every prefill, the
     repeated prompt length's included, and every splice and release stay

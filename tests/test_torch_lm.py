@@ -3,8 +3,11 @@ configs of qwen3-14b (qk-norm), h2o-danube-1.8b (sliding window 8, so a
 12-token prompt takes the rolling-buffer prefill), qwen2-7b (QKV bias),
 minitron-8b (squared-ReLU MLP, rotary on half the head), granite-moe-1b-a400m
 (MoE, top-2 of 4 experts at SMOKE), deepseek-v2-lite-16b (MLA attention,
-MoE with a shared expert, a dense layer 0 outside the stack) and rwkv6-3b
-(the ssm family: a recurrent state instead of a K/V cache), all float32.  The JAX side runs its Pallas kernels in interpret mode
+MoE with a shared expert, a dense layer 0 outside the stack), rwkv6-3b
+(the ssm family: a recurrent state instead of a K/V cache), zamba2-2.7b
+(the hybrid family: Mamba2 layers and one shared attention block) and
+internvl2-2b (the vlm family, served text-only as the JAX ``LMServer``
+serves it), all float32.  The JAX side runs its Pallas kernels in interpret mode
 (``use_pallas=True``), as ``tests/test_kernels.py`` does; its parameters are
 carried across with ``interop.params_from_reference``, so both packages
 compute the same function.
@@ -12,11 +15,13 @@ compute the same function.
 Tolerances: arena layouts, carried-over weight bytes, cache positions and
 greedy tokens are compared exactly; logits and cache leaves at rtol 1e-4 /
 atol 1e-5 (f32, two frameworks summing in other orders), except RWKV6's WKV
-state, at atol 1e-5 x max |state|: each entry is a decayed sum of k v
-products over the prompt, so its rounding error scales with those terms
-(up to about 10 here), not with the entry.
+state and Zamba2's SSM state, at atol 1e-5 x max |state|: each entry is a
+decayed sum of products over the prompt, so its rounding error scales with
+those terms (up to about 10 here), not with the entry.
 """
+import contextlib
 import functools
+import zlib
 
 import jax
 import jax.numpy as jnp
@@ -27,6 +32,7 @@ import torch
 from repro.configs import get_config as j_get_config, get_smoke as j_get_smoke
 from repro.core import arena as jarena
 from repro.core.app import CLapp as JApp
+from repro.models import common as jcommon
 from repro.models import build_model as j_build_model
 from repro.processes import lm as jlm
 from repro.serve import LMServer as JServer, SamplingConfig as JSampling
@@ -41,16 +47,37 @@ from repro_torch.processes import lm as tlm
 from repro_torch.serve import LMServer, PromptTooLongError, SamplingConfig
 
 ARCHS = ["qwen3-14b", "h2o-danube-1.8b", "qwen2-7b", "minitron-8b", "granite-moe-1b-a400m",
-         "deepseek-v2-lite-16b", "rwkv6-3b"]
+         "deepseek-v2-lite-16b", "rwkv6-3b", "zamba2-2.7b", "internvl2-2b"]
+#: the JAX LMServer writes every admitted zamba2 row into slot 0 (its
+#: slot-axis guess); zamba2's servers are compared in test_torch_zamba2.py
+SERVED_ALIKE = [a for a in ARCHS if a != "zamba2-2.7b"]
 LOGITS = dict(rtol=1e-4, atol=1e-5)
 MAX_LEN = 24
+
+
+@contextlib.contextmanager
+def stable_keys():
+    """The JAX package's ``KeyGen`` folds ``abs(hash(name))`` into its key,
+    and Python salts ``hash`` of a string per process (``PYTHONHASHSEED``),
+    so its seed-0 parameters differ from one test process to the next (the
+    cause of the rare 1e-5 misses these comparisons used to show).  Inside
+    this block it folds a CRC-32 of the name instead: every process draws
+    the same parameters.  Nothing in the JAX package changes."""
+    call = jcommon.KeyGen.__call__
+    jcommon.KeyGen.__call__ = lambda self, name: jax.random.fold_in(
+        self.key, zlib.crc32(name.encode()) % (2 ** 31))
+    try:
+        yield
+    finally:
+        jcommon.KeyGen.__call__ = call
 
 
 @functools.lru_cache(maxsize=None)
 def _jax(arch):
     cfg = j_get_smoke(arch).scaled(use_pallas=True)
     model = j_build_model(cfg)
-    return model, model.init_params(jax.random.key(0))
+    with stable_keys():
+        return model, model.init_params(jax.random.key(0))
 
 
 def _named(params):
@@ -136,6 +163,23 @@ def test_full_width_moe_mla_layouts_match_reference(arch, n_params):
     _full_width_layouts_match(arch, n_params, f32_leaf="['router']")
 
 
+@pytest.mark.parametrize("arch,n_params,f32_leaf", [
+    ("zamba2-2.7b", 2_340_750_240, ("['A_log']", "['D']", "['dt_bias']")),
+    ("internvl2-2b", 1_889_146_880, "['u']")], ids=["zamba2-2.7b", "internvl2-2b"])
+def test_full_width_hybrid_vlm_layouts_match_reference(arch, n_params, f32_leaf):
+    """zamba2-2.7b (2.34 B: the shared block once, 54 Mamba2 layers stacked
+    (9, 6, ...), A_log, D and dt_bias float32; its 4 x 2048 decode state
+    1.045 GB, 0.283 GB of it the float32 SSM states) and internvl2-2b (1.89
+    B, vocab 92553, no multiple of 8)."""
+    _full_width_layouts_match(arch, n_params, f32_leaf)
+    if arch == "zamba2-2.7b":
+        ts, _ = tlm.decode_state_data(build_model(get_config(arch)), 4, 2048)
+        layout = ts.plan()
+        assert round(layout.total_bytes / 1e9, 3) == 1.045
+        ssm = next(e for e in layout.entries if e.name == "cache['ssm']['ssm']")
+        assert ssm.shape == (9, 6, 4, 80, 64, 64) and round(ssm.nbytes / 1e9, 3) == 0.283
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_prefill_and_decode_logits_match_reference(arch, rng):
     """Prefill a 12-token prompt, then 5 teacher-forced decode steps (both
@@ -156,7 +200,8 @@ def test_prefill_and_decode_logits_match_reference(arch, rng):
         assert sorted(jleaves) == sorted(name for name, _ in tree_flatten(tcache))
         for name, leaf in tree_flatten(tcache):
             if leaf.dtype.is_floating_point:
-                scale = np.abs(jleaves[name]).max() if name == "['wkv']" else 1.0
+                scale = (np.abs(jleaves[name]).max() if name in ("['wkv']", "['ssm']['ssm']")
+                         else 1.0)
                 np.testing.assert_allclose(leaf.numpy(), jleaves[name], rtol=1e-4,
                                            atol=1e-5 * scale, err_msg=name)
             else:
@@ -182,7 +227,7 @@ def test_decode_session_tokens_match_reference(arch, rng):
     assert tsess.state.coherence is Coherence.DEVICE_RESIDENT
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", SERVED_ALIKE)
 def test_lmserver_matches_reference(arch):
     """6 prompts of mixed lengths through 2 slots: later requests are
     admitted into freed slots while others decode, and every request's
@@ -332,15 +377,25 @@ def test_lmserver_runs_on_the_card_unless_given_a_cpu_app(monkeypatch):
 
 
 def test_unported_families_raise_naming_the_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(get_smoke("qwen3-14b").scaled(family="hybrid"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(get_smoke("qwen3-14b").scaled(family="vlm"))
+    """Every family of the JAX package is built (the VLM patch prefix
+    and Zamba2 since the thirteenth slice); the training forward still
+    raises, naming its ROADMAP item, and an unknown family is refused."""
+    from repro.configs import ARCH_IDS as J_ARCH_IDS
+    from repro_torch.configs import ARCH_IDS
+
+    assert ARCH_IDS == J_ARCH_IDS
+    for arch in ARCH_IDS:
+        assert type(build_model(get_smoke(arch))).__name__ == \
+            type(j_build_model(j_get_smoke(arch))).__name__
+    with pytest.raises(ValueError, match="unknown family"):
+        build_model(get_smoke("qwen3-14b").scaled(family="diffusion"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(get_smoke("rwkv6-3b")).loss_fn({}, {})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(get_smoke("qwen3-14b")).prefill({}, torch.zeros((1, 3), dtype=torch.int32),
-                                                    {}, prefix_embeds=torch.zeros((1, 2, 64)))
+        build_model(get_smoke("zamba2-2.7b")).loss_fn({}, {})
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_model(get_smoke("internvl2-2b")).logits({}, torch.zeros((1, 3), dtype=torch.int32),
+                                                      prefix_embeds=torch.zeros((1, 2, 64)))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(get_smoke("qwen3-14b")).loss_fn({}, {})
 

@@ -298,6 +298,6 @@ def test_lm_step_profile_takes_the_arch_and_needs_the_card(arch):
     r = subprocess.run([sys.executable, str(script), "--arch", arch, "--layers", "2"],
                        capture_output=True, text=True, timeout=120, env=env)
     assert r.returncode != 0 and "no CUDA card" in r.stderr, r.stderr[-2000:]
-    r = subprocess.run([sys.executable, str(script), "--arch", "internvl2-2b"],
+    r = subprocess.run([sys.executable, str(script), "--arch", "mamba-130m"],
                        capture_output=True, text=True, timeout=120, env=env)
     assert r.returncode == 2 and "invalid choice" in r.stderr, r.stderr[-2000:]
