@@ -151,13 +151,42 @@
    its gap printed), and internvl2's 2-layer check prefills a (1, 256,
    2048) f32 patch prefix from the seed before its 64 tokens and decodes
    at positions 320 + i.
+5t. Training (``[train-kernels]``, ``[train]``, ``[train-ckpt]``): the
+   hand-written backward kernels ``rmsnorm_bwd`` and
+   ``flash_attention_bwd`` against autograd through the plain versions
+   (bf16 within 2e-2 x max |grad|, f32 within rtol 1e-4 + 1e-5 x max
+   |grad|), each run twice bit for bit, at the h2o-danube-1.8b training
+   shapes ((4, 32, 2048, 80) / (4, 8, 2048, 80), window 4096; rows of
+   2560), the window active at (1, 32, 5120, 80), qwen3-14b's (1, 40,
+   1024, 128) / kv 8 and q/k-norm rows of 128, lm-100m's f32 (8, 12, 256,
+   64) / kv 4 and rows of 768, head dim 16, non-causal cases and 20 rows
+   that see no key (dq 0, nothing added to dk, dv); the forward with its
+   log-sum-exp writes the output bit for bit as without; times against
+   bound and library call (SDPA's backward with ``enable_gqa``,
+   ``F.rms_norm``'s backward) and ptxas's registers, spills and shared
+   memory.  Then h2o-danube-1.8b at full width (random bf16 weights made
+   on the card from a seed): 6 ``Trainer`` steps at batch 4 x 2048 on the
+   ``TokenStream`` (the loss falls; 1 capture, 6 replays; exact launch
+   counts of init's warm-up and each step: forward, remat recompute and
+   backward of both kernels), step p50 over 5 more replays, tokens/s, MFU,
+   peak memory, a ``torch.profiler`` breakdown of one replayed step and
+   AdamW alone; a 2-layer full-width cut's loss and every gradient leaf
+   on the card (f32, then bf16) against the CPU's f32 within ``PERF.md``
+   §2's bands.  Then ``repro_torch.launch.train_lm`` (lm-100m, f32) for 40
+   steps into a temporary directory (the loss improves), 10 steps with a
+   failure at step 6 and a checkpoint every 4 bit for bit an
+   uninterrupted 10, and those 10 replayed steps bit for bit 10 eager
+   ones.
 6. Runs the paper's listing 1 (``repro_torch.launch.quickstart``:
    ``Pipeline(app) | Negate(app)`` on a 256x256 8-bit PNG that the script
    writes) on the card, replayed from its second run, bit for bit, and
    reads its ``output.png`` back: 1 - x in 8 bits.  Temporary files live in
    a ``tempfile`` directory that the script removes.
 7. Ends with a ``{"kernels": [...]}`` line (the LM kernels' launches are
-   the sums over the eight serves) and a
+   the sums over the eight serves and the two training runs; the backward
+   kernels', over the training runs; their ``replaces`` names the forward
+   kernel's ``pallas_call``, since the JAX package has no backward kernel)
+   and a
    ``{"ok": true, "device": {...}}`` line.
 
 ``[wall]`` lines give the seconds since the start at each phase's end and,
@@ -2179,6 +2208,404 @@ def main() -> None:
         gc.collect()
         torch.cuda.empty_cache()
 
+    wall("before section 7t")
+    # -- 7t. training: the backward kernels, h2o-danube-1.8b, lm-100m ---------
+    from repro_torch.ckpt import latest_step
+    from repro_torch.core.arena import tree_flatten, tree_unflatten
+    from repro_torch.data.pipeline import StreamConfig, TokenStream
+    from repro_torch.kernels.flash_attention import _forward as flash_forward
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd
+    from repro_torch.launch import train_lm
+    from repro_torch.launch.train import check_fits
+    from repro_torch.optim import AdamWConfig, Schedule, adamw_update
+    from repro_torch.train import (TrainConfig, Trainer, TrainerConfig, make_train_state,
+                                   make_train_step)
+    from repro_torch.train.step import loss_and_grads
+
+    train_counts: dict = {}       # the main path's launches in the training runs
+
+    def add_counts(counts):
+        for k, v in counts.items():
+            train_counts[k] = train_counts.get(k, 0) + v
+
+    def loop_ms(fn, reps=5):
+        """Device time of one call: CUDA events around ``reps`` calls in a
+        row after two warm-up calls (calls of a millisecond or more, so the
+        host's launches hide behind the device's work)."""
+        for _ in range(2):
+            fn()
+        torch.cuda.synchronize()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(reps):
+            fn()
+        e1.record()
+        e1.synchronize()
+        return e0.elapsed_time(e1) / reps
+
+    def grads_check(label, kname, got, want, names, dtype, on_path):
+        """Each gradient against the plain backward's: bf16 within 2e-2 x
+        max |grad| (one rounding of each output plus sums in another
+        order), f32 within rtol 1e-4 + 1e-5 x max |grad|."""
+        for g, w, nm in zip(got, want, names):
+            scale = float(w.float().abs().max())
+            tol = (0.0, 2e-2 * scale) if dtype == bf16 else (1e-4, 1e-5 * scale)
+            check(f"{label} {nm}", kname, g.float(), w.float(), tol, on_path)
+
+    def same_twice(label, first, second):
+        if not all(torch.equal(a, b) for a, b in zip(first, second)):
+            raise SystemExit(f"chip_smoke: [train-kernels] {label}: two runs differ")
+
+    def train_kernels_phase():
+        """[train-kernels]: rmsnorm_bwd and flash_attention_bwd (the
+        gradients of the kernels of src/repro/kernels/rmsnorm.py:40 and
+        flash_attention.py:124, which have no TPU kernel of their own: the
+        "replaces" of their rows names the forward's) against the
+        plain backward (autograd through ref.rmsnorm / ref.attention) at the
+        training shapes, each run twice (bit for bit); a forward with the
+        log-sum-exp writes the same output bit for bit as one without;
+        rows that see no key get zero gradient; times against bound and
+        library call; ptxas's registers, spills and shared memory."""
+        for shape, dtype, w_dtype, on_path in (
+                ((4 * 2048, 2560), bf16, bf16, True),      # h2o-danube-1.8b, batch 4 x 2048
+                ((8 * 256, 768), f32, f32, True),          # lm-100m, batch 8 x 256
+                ((1024, 5120), bf16, bf16, False),         # qwen3-14b hidden rows
+                ((40 * 1024, 128), bf16, bf16, False),     # qwen3-14b q/k-norm rows
+                ((2 * 12, 16), f32, f32, False),           # SMOKE head width
+                ((7, 5120), f32, bf16, False), ((300, 2560), bf16, f32, False)):
+            x, w, dy = rand(*shape, dtype=dtype), rand(shape[-1], dtype=w_dtype), \
+                rand(*shape, dtype=dtype)
+            got = rmsnorm_bwd(x, w, dy)
+            same_twice(f"rmsnorm_bwd {shape}", got, rmsnorm_bwd(x, w, dy))
+            grads_check(f"rmsnorm_bwd {shape} {dtype} weight {w_dtype}", "rmsnorm_bwd", got,
+                        ref.rmsnorm_bwd(x, w, dy), ("dx", "dw"), dtype, on_path)
+        del x, w, dy, got
+        bwd_cases = (  # q shape, kv shape, causal, window, dtype, on the path
+            ((4, 32, 2048, 80), (4, 8, 2048, 80), True, 4096, bf16, True),   # h2o-danube-1.8b
+            ((1, 32, 5120, 80), (1, 8, 5120, 80), True, 4096, bf16, False),  # the window active
+            ((1, 40, 1024, 128), (1, 8, 1024, 128), True, None, bf16, False),  # qwen3-14b
+            ((8, 12, 256, 64), (8, 4, 256, 64), True, None, f32, True),      # lm-100m
+            ((2, 4, 37, 16), (2, 2, 37, 16), True, 8, f32, False),           # SMOKE, window 8
+            ((2, 4, 37, 16), (2, 2, 37, 16), True, None, bf16, False),
+            ((2, 8, 100, 64), (2, 2, 100, 64), False, None, bf16, False),    # non-causal
+            ((1, 4, 77, 80), (1, 1, 77, 80), False, None, f32, False),
+            ((2, 6, 70, 128), (2, 2, 90, 128), True, 33, f32, False))       # Sq < Skv
+        for qs, ks, causal, window, dtype, on_path in bwd_cases:
+            q, k, v = rand(*qs, dtype=dtype), rand(*ks, dtype=dtype), rand(*ks, dtype=dtype)
+            do = rand(*qs, dtype=dtype)
+            scale = qs[-1] ** -0.5
+            o, lse = flash_forward(q, k, v, causal, window, scale, True)
+            if not torch.equal(o, flash_forward(q, k, v, causal, window, scale, False)[0]):
+                raise SystemExit(f"chip_smoke: flash_attention q{qs}: the output with the "
+                                 "log-sum-exp differs from the one without")
+            got = flash_attention_bwd(q, k, v, o, do, lse, causal=causal, window=window)
+            same_twice(f"flash_attention_bwd q{qs}", got,
+                       flash_attention_bwd(q, k, v, o, do, lse, causal=causal, window=window))
+            grads_check(f"flash_attention_bwd q{qs} kv{ks} causal={causal} window={window} "
+                        f"{dtype}", "flash_attention_bwd", got,
+                        ref.attention_bwd(q, k, v, o, do, causal=causal, window=window),
+                        ("dq", "dk", "dv"), dtype, on_path)
+            del q, k, v, do, o, lse, got
+            torch.cuda.empty_cache()
+        # 20 of 70 queries see no key (causal, queries aligned to the end of
+        # 50 keys): their dq is 0 and they add nothing to dk, dv; the plain
+        # version (which gives such rows a uniform softmax) is held against
+        # the kernel with their output gradient zeroed
+        for dtype in (bf16, f32):
+            q, k, v = rand(1, 4, 70, 64, dtype=dtype), rand(1, 2, 50, 64, dtype=dtype), \
+                rand(1, 2, 50, 64, dtype=dtype)
+            do = rand(1, 4, 70, 64, dtype=dtype)
+            o, lse = flash_forward(q, k, v, True, None, 0.125, True)
+            got = flash_attention_bwd(q, k, v, o, do, lse)
+            do0 = do.clone()
+            do0[:, :, :20] = 0
+            got0 = flash_attention_bwd(q, k, v, o, do0, lse)
+            if not (bool((got[0][:, :, :20] == 0).all()) and torch.equal(got[1], got0[1])
+                    and torch.equal(got[2], got0[2]) and bool(torch.isinf(lse[:, :, :20]).all())):
+                raise SystemExit(f"chip_smoke: flash_attention_bwd {dtype}: rows that see no "
+                                 "key changed the gradients")
+            grads_check(f"flash_attention_bwd rows without keys {dtype}", "flash_attention_bwd",
+                        got0, ref.attention_bwd(q, k, v, o, do0), ("dq", "dk", "dv"), dtype,
+                        False)
+        print(f"[train-kernels] rows that see no key: dq 0, nothing added to dk and dv, lse "
+              "+inf (bf16 and f32)")
+
+        # times at the h2o-danube-1.8b training shapes
+        x, w, dy = rand(4 * 2048, 2560, dtype=bf16), rand(2560, dtype=bf16), \
+            rand(4 * 2048, 2560, dtype=bf16)
+        xg, wg = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        y_lib = F.rms_norm(xg, (2560,), wg, 1e-6)
+        bound_ms, bound_by, cost_txt = bound_of("rmsnorm_bwd", x, w, dy)
+        ms = loop_ms(lambda: rmsnorm_bwd(x, w, dy), reps=50)
+        plain_ms = loop_ms(lambda: ref.rmsnorm_bwd(x, w, dy), reps=10)
+        lib_ms = loop_ms(lambda: torch.autograd.grad(y_lib, (xg, wg), dy, retain_graph=True),
+                         reps=20)
+        host_ms = call_ms(lambda: rmsnorm_bwd(x, w, dy))
+        rows["rmsnorm_bwd"] = dict(name="rmsnorm_bwd", route="cuda", source=LM_SRC,
+                                   replaces="src/repro/kernels/rmsnorm.py:40", ms=ms,
+                                   plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                                   library_ms=lib_ms, max_abs_err=max_err["rmsnorm_bwd"])
+        print(f"[time] {smi}: rmsnorm_bwd at x (8192, 2560) bf16 (h2o-danube-1.8b, batch 4 x "
+              f"2048), device ms a call: kernel {ms:.5f}, plain {plain_ms:.5f}, library "
+              f"(F.rms_norm backward) {lib_ms:.5f}, bound {bound_ms:.5f} ({bound_by}: "
+              f"{cost_txt}); one host call {host_ms:.5f}")
+        del x, w, dy, xg, wg, y_lib
+        q, k, v = rand(4, 32, 2048, 80, dtype=bf16), rand(4, 8, 2048, 80, dtype=bf16), \
+            rand(4, 8, 2048, 80, dtype=bf16)
+        do = rand(4, 32, 2048, 80, dtype=bf16)
+        o, lse = flash_forward(q, k, v, True, 4096, 80 ** -0.5, True)
+        qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+        o_lib = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True, enable_gqa=True)
+        bound_ms, bound_by, cost_txt = bound_of("flash_attention_bwd", q, k, v, o, do, lse,
+                                                causal=True, window=4096)
+        ms = loop_ms(lambda: flash_attention_bwd(q, k, v, o, do, lse, causal=True, window=4096))
+        plain_ms = loop_ms(lambda: ref.attention_bwd(q, k, v, o, do, causal=True, window=4096),
+                           reps=2)
+        lib_ms = loop_ms(lambda: torch.autograd.grad(o_lib, (qg, kg, vg), do, retain_graph=True))
+        fwd_ms = loop_ms(lambda: flash_forward(q, k, v, True, 4096, 80 ** -0.5, True))
+        host_ms = call_ms(lambda: flash_attention_bwd(q, k, v, o, do, lse, causal=True,
+                                                      window=4096), reps=5)
+        rows["flash_attention_bwd"] = dict(
+            name="flash_attention_bwd", route="cuda", source=LM_SRC,
+            replaces="src/repro/kernels/flash_attention.py:124", ms=ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
+            max_abs_err=max_err["flash_attention_bwd"])
+        print(f"[time] {smi}: flash_attention_bwd at q (4, 32, 2048, 80) kv (4, 8, 2048, 80) "
+              f"bf16 causal window 4096 (h2o-danube-1.8b, a layer), device ms a call: kernel "
+              f"{ms:.5f}, plain {plain_ms:.5f}, library (SDPA backward, enable_gqa) "
+              f"{lib_ms:.5f}, bound {bound_ms:.5f} ({bound_by}: {cost_txt}); kernel / bound "
+              f"{ms / bound_ms:.1f}, kernel / library {ms / lib_ms:.2f}; the forward with "
+              f"log-sum-exp {fwd_ms:.5f}; one host call {host_ms:.5f}")
+        del q, k, v, do, o, lse, qg, kg, vg, o_lib
+        log = _build.BUILD_INFO["log"]
+        for kern in ("flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel"):
+            for tname, tfrag in (("bf16", "I13__nv_bfloat16"), ("f32", "IfL")):
+                for d in (80, 64, 128, 16):
+                    regs, smem, spill = ptxas_usage(log, kern + tfrag, f"Li{d}E")
+                    print(f"[ptxas] {kern}<{tname}, D={d}>: {regs} registers a thread, {spill} "
+                          f"bytes spilled, {smem} bytes static shared memory "
+                          f"+ {4 * (2 * 32 * (d + 1) + 2 * 32 * d + 2 * 32 * 33 + 64 + 3)} "
+                          "(dynamic, at most) a block")
+        for tmpl in ("Li16E", "Li4E", "Li1E"):
+            regs, smem, spill = ptxas_usage(log, "rmsnorm_bwd_kernelI13__nv_bfloat16S", tmpl)
+            print(f"[ptxas] rmsnorm_bwd_kernel<bf16, bf16, J={tmpl[2:-1]}>: {regs} registers a "
+                  f"thread, {spill} bytes spilled, {smem} bytes shared memory a block")
+        torch.cuda.empty_cache()
+
+    def quiet(_msg):
+        pass
+
+    def max_diff(a, b):
+        return max(float((x.float() - y.float()).abs().max())
+                   for (_, x), (_, y) in zip(tree_flatten(a), tree_flatten(b)))
+
+    def train_full_width(arch, steps=6, batch=4, seq=2048):
+        """[train]: ``arch`` at full width, random bf16 weights made on the
+        card from seed 0, ``steps`` Trainer steps at batch x seq on the
+        TokenStream (AdamW, constant lr 1e-5): the loss falls; one capture,
+        then a replay a step; exact launch counts (init's warm-up forward
+        and backward, then each step's forward, remat recompute and
+        backward); step p50 over 5 more replays, tokens/s, MFU against the
+        bf16 tensor rate, peak memory; a torch.profiler breakdown of one
+        replayed step; AdamW alone."""
+        cfg = get_config(arch)
+        check_fits(cfg, dev)
+        model = build_model(cfg)
+        n_params = sum(int(np.prod(s.shape)) for _, s in tree_flatten(model.param_specs()))
+        stream = TokenStream(StreamConfig(vocab=cfg.vocab, seq=seq, batch=batch, seed=0))
+        tcfg = TrainerConfig(total_steps=steps, log_every=1, train=TrainConfig(
+            opt=AdamWConfig(schedule=Schedule(kind="constant", base_lr=1e-5, warmup_steps=0))))
+        trainer = Trainer(model, tcfg, device=dev, log_fn=quiet)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        state = trainer.fit(stream, 0)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        counts = {k: v for k, v in launch_counts().items() if v}
+        add_counts(counts)
+        norms = 4 if cfg.qk_norm else 2                    # a layer's rmsnorm calls
+        per_step = {"rmsnorm": 2 * norms * cfg.n_layers + 1, "flash_attention": 2 * cfg.n_layers,
+                    "rmsnorm_bwd": norms * cfg.n_layers + 1, "flash_attention_bwd": cfg.n_layers}
+        want = {k: v * (steps + 1) for k, v in per_step.items()}
+        proc = trainer.process
+        losses = [loss for _, loss in trainer.history]
+        print(f"[train] {smi}: {arch} at full width ({n_params} parameters, bf16, AdamW with "
+              f"f32 master, m and v), {steps} Trainer steps at batch {batch} x {seq} on the "
+              f"TokenStream in {fit_s:.1f} s (init's warm-up and capture included): losses "
+              f"{', '.join(f'{x:.4f}' for x in losses)}; captures {proc.captures}, replays "
+              f"{proc.replays}; launches {counts} (expected {want}: {steps} replayed steps "
+              "and init's warm-up forward and backward, each with its remat recompute)")
+        if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+            raise SystemExit(f"chip_smoke: [train] {arch}: the loss did not fall: {losses}")
+        if (proc.captures, proc.replays) != (1, steps):
+            raise SystemExit(f"chip_smoke: [train] {arch}: {proc.captures} captures and "
+                             f"{proc.replays} replays; expected 1 and {steps}")
+        if {k: counts.get(k, 0) for k in want} != want:
+            raise SystemExit(f"chip_smoke: [train] {arch}: launches {counts}, expected {want}")
+        peak = torch.cuda.max_memory_allocated(dev)
+        step_ms = []
+        for i in range(5):
+            batch_i = stream.batch_at(steps + i)
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            proc.launch(state, batch_i)
+            e1.record()
+            e1.synchronize()
+            step_ms.append(e0.elapsed_time(e1))
+        p50 = statistics.median(step_ms)
+        tokens = batch * seq
+        model_flops = 6 * n_params * tokens
+        print(f"[train] {smi}: {arch} replayed step ms (the batch's upload included): "
+              f"{', '.join(f'{t:.2f}' for t in step_ms)}; p50 {p50:.2f}; {tokens / p50 * 1e3:.0f} "
+              f"tokens/s; MFU {model_flops / (p50 * 1e-3) / peaks['bf16_tensor']:.4f} (6 N "
+              f"tokens = {model_flops:.3e} flops a step; bound {model_flops / peaks['bf16_tensor'] * 1e3:.1f} "
+              f"ms at the bf16 tensor rate); peak memory {peak / 2**30:.2f} GiB allocated "
+              f"({torch.cuda.max_memory_reserved(dev) / 2**30:.2f} GiB reserved) of "
+              f"{torch.cuda.get_device_properties(dev).total_memory / 2**30:.2f} GiB")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            proc.launch(state, stream.batch_at(steps + 5))
+            torch.cuda.synchronize()
+        buckets: dict = {}
+        other: dict = {}
+        for ev in prof.key_averages():
+            t = getattr(ev, "device_time_total", getattr(ev, "cuda_time_total", 0.0))
+            nm = ev.key.lower()
+            if t <= 0 or nm.startswith(("cudagraph", "memcpy", "memset")):
+                continue
+            kind = ("flash backward" if "flash_bwd" in nm else
+                    "flash forward" if "flash_mma" in nm or "flash_fma" in nm else
+                    "rmsnorm backward" if "rmsnorm_bwd" in nm or "rmsnorm_dw" in nm else
+                    "rmsnorm forward" if "rmsnorm" in nm else
+                    "GEMMs" if any(s in nm for s in ("gemm", "xmma", "cutlass", "cublas",
+                                                     "nvjet", "sm90_", "ampere")) else
+                    "other (AdamW's elementwise updates, casts, the embedding and loss)")
+            buckets[kind] = buckets.get(kind, 0.0) + t / 1e3
+            if kind.startswith("other"):
+                other[ev.key[:60]] = t / 1e3
+        total = sum(buckets.values())
+        print(f"[train] {smi}: {arch} one replayed step, torch.profiler device ms by kind: "
+              + "; ".join(f"{k} {v:.2f} ({v / total:.3f})" for k, v in
+                          sorted(buckets.items(), key=lambda kv: -kv[1]))
+              + f"; total {total:.2f}; the largest of the other kinds: "
+              + "; ".join(f"{k} {v:.2f}" for k, v in sorted(other.items(),
+                                                            key=lambda kv: -kv[1])[:8]))
+        zero_grads = tree_unflatten((n, torch.zeros_like(p))
+                                    for n, p in tree_flatten(state["params"]))
+        adamw_ms = loop_ms(lambda: adamw_update(state["params"], zero_grads, state["opt"],
+                                                tcfg.train.opt), reps=3)
+        print(f"[train] {smi}: {arch} AdamW update alone (eager, {n_params} parameters, bf16 "
+              f"gradients): {adamw_ms:.2f} ms")
+        del trainer, state, proc, zero_grads, prof
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the first 2 layers at full width: loss and every gradient on the
+        # card (f32, then bf16) against the CPU's f32
+        two32 = cfg.scaled(n_layers=2, param_dtype="float32", dtype="float32")
+        m32, m16 = build_model(two32), build_model(cfg.scaled(n_layers=2))
+        p_cpu = m32.init_params(torch.Generator().manual_seed(1), device="cpu")
+        small = {k: torch.from_numpy(np.ascontiguousarray(v[:1, :256]))
+                 for k, v in stream.batch_at(0).items()}
+        t0 = time.perf_counter()
+        want_m, want_g = loss_and_grads(m32, p_cpu, small)
+        cpu_s = time.perf_counter() - t0
+        want_flat = tree_flatten(want_g)
+        for label, model_d, dtype in (("f32", m32, f32), ("bf16", m16, bf16)):
+            p_dev = tree_unflatten((n, t.to(dev, dtype)) for n, t in tree_flatten(p_cpu))
+            got_m, got_g = loss_and_grads(model_d, p_dev,
+                                          {k: v.to(dev) for k, v in small.items()})
+            loss_gap = abs(float(got_m["loss"]) - float(want_m["loss"])) / abs(float(want_m["loss"]))
+            gaps = {n: float((g.float().cpu() - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+                    for (n, g), (_, w) in zip(tree_flatten(got_g), want_flat)}
+            worst = max(gaps, key=gaps.get)
+            band = TRAIN_BAND[label]
+            print(f"[train-check] {smi}: {arch} 2 layers at full width, batch 1 x 256, card "
+                  f"{label} against CPU f32 ({cpu_s:.1f} s on the CPU): loss {float(got_m['loss']):.6f} "
+                  f"vs {float(want_m['loss']):.6f} (gap {loss_gap:.3e} of it, band "
+                  f"{band[0]:g}); worst gradient leaf {worst} {gaps[worst]:.3e} x its max |grad| "
+                  f"(band {band[1]:g}); median leaf {statistics.median(gaps.values()):.3e}")
+            if loss_gap > band[0] or gaps[worst] > band[1]:
+                raise SystemExit(f"chip_smoke: [train-check] {arch} {label} outside its band")
+            del p_dev, got_g
+        del p_cpu, want_g, want_flat
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # PERF.md §2: the card's loss and each gradient leaf against the CPU's
+    # f32, as (share of the loss, share of the leaf's max |grad|)
+    TRAIN_BAND = {"f32": (1e-4, 1e-3), "bf16": (2e-2, 5e-2)}
+
+    def train_ckpt_phase():
+        """[train-ckpt]: repro_torch.launch.train_lm (lm-100m, f32) for 40
+        steps into a temporary directory (the loss must improve); then 10
+        steps with a failure at step 6 and a checkpoint every 4 against an
+        uninterrupted 10 (bit for bit), and the uninterrupted run's replayed
+        steps against the same 10 steps run eagerly (bit for bit)."""
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        tr = train_lm.main(["--steps", "40"])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = {k: v for k, v in launch_counts().items() if v}
+        add_counts(counts)
+        cfg = train_lm.lm_100m()
+        per_step = {"rmsnorm": 4 * cfg.n_layers + 1, "flash_attention": 2 * cfg.n_layers,
+                    "rmsnorm_bwd": 2 * cfg.n_layers + 1, "flash_attention_bwd": cfg.n_layers}
+        want = {k: 41 * v for k, v in per_step.items()}
+        print(f"[train-ckpt] {smi}: train_lm.main(['--steps', '40']) (lm-100m, f32, batch 8 x "
+              f"256) in {run_s:.1f} s: loss {tr.history[0][1]:.4f} -> {tr.history[-1][1]:.4f}; "
+              f"captures {tr.process.captures}, replays {tr.process.replays}; launches "
+              f"{counts} (expected {want})")
+        if {k: counts.get(k, 0) for k in want} != want:
+            raise SystemExit(f"chip_smoke: [train-ckpt] launches {counts}, expected {want}")
+        stream = TokenStream(StreamConfig(vocab=cfg.vocab, seq=256, batch=8, seed=0))
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as d:
+            t0 = time.perf_counter()
+            ta = Trainer(build_model(cfg), train_lm.trainer_config(10, f"{d}/a", 4),
+                         device=dev, log_fn=quiet)
+            sa = ta.fit(stream, 0)
+            tb = Trainer(build_model(cfg), train_lm.trainer_config(10, f"{d}/b", 4),
+                         device=dev, log_fn=quiet)
+            sb = tb.fit_with_restarts(stream, 0, failure_schedule=[6])
+            restart_s = time.perf_counter() - t0
+            steps_b = (latest_step(f"{d}/a"), latest_step(f"{d}/b"))
+            gap = max_diff(sa, sb)
+            print(f"[train-ckpt] {smi}: 10 steps with a failure at step 6 (resumed from the "
+                  f"step-4 checkpoint) against 10 uninterrupted, checkpoints every 4 (latest "
+                  f"{steps_b}): max |difference| over the whole train state {gap:.3e} "
+                  f"({restart_s:.1f} s)")
+            if gap != 0.0 or steps_b != (10, 10):
+                raise SystemExit("chip_smoke: [train-ckpt] the restarted run does not end "
+                                 "where the uninterrupted one does")
+            model = build_model(cfg)
+            eager = make_train_state(model, 0, device=dev)
+            step = make_train_step(model, train_lm.trainer_config(10, d).train)
+            for i in range(10):
+                eager, _ = step(eager, stream.batch_at(i))
+            gap = max_diff(sa, eager)
+            print(f"[train-ckpt] {smi}: the uninterrupted run's 10 replayed steps against the "
+                  f"same 10 steps eager: max |difference| over the whole train state {gap:.3e}")
+            if gap != 0.0:
+                raise SystemExit("chip_smoke: [train-ckpt] replayed steps differ from eager ones")
+        del tr, ta, tb, sa, sb, eager
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    train_kernels_phase()
+    wall("after [train-kernels]")
+    train_full_width("h2o-danube-1.8b")
+    wall("after [train]")
+    train_ckpt_phase()
+    wall("after [train-ckpt]")
+    missing = [k for k in ("rmsnorm", "flash_attention", "rmsnorm_bwd", "flash_attention_bwd")
+               if not train_counts.get(k)]
+    if missing:
+        raise SystemExit(f"chip_smoke: the training runs launched no {missing}")
+
     wall("before section 8")
     # -- 8. the paper's listing 1 (quickstart) on the card, file in, file out --
     img8 = (quickstart.synthetic_image() * 255.0 + 0.5).astype(np.uint8)
@@ -2211,11 +2638,15 @@ def main() -> None:
     # -- 9. result lines -----------------------------------------------------
     kernels = []
     serves = [lm_counts, rwkv_counts, whisper_counts] + new_counts
-    launches = {"rmsnorm": sum(c.get("rmsnorm", 0) for c in serves),
-                "flash_attention": sum(c.get("flash_attention", 0) for c in serves),
+    launches = {"rmsnorm": sum(c.get("rmsnorm", 0) for c in serves + [train_counts]),
+                "flash_attention": sum(c.get("flash_attention", 0)
+                                       for c in serves + [train_counts]),
+                "rmsnorm_bwd": train_counts["rmsnorm_bwd"],
+                "flash_attention_bwd": train_counts["flash_attention_bwd"],
                 "wkv6": rwkv_counts["wkv6"], "negate": qs_counts["negate_kernel"]}
     launches.update({k: counts[reg] + io_counts.get(reg, 0) for k, reg in names.items()})
-    for kname in ["negate"] + list(names) + ["rmsnorm", "flash_attention", "wkv6"]:
+    for kname in ["negate"] + list(names) + ["rmsnorm", "flash_attention", "wkv6",
+                                             "rmsnorm_bwd", "flash_attention_bwd"]:
         row = dict(rows[kname], launches=launches[kname])
         kernels.append({key: row[key] for key in (
             "name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

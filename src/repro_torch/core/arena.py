@@ -215,6 +215,49 @@ def unpack_host(blob: np.ndarray, layout: ArenaLayout) -> Dict[str, np.ndarray]:
 
 
 # ---------------------------------------------------------------------------
+# Trees of arrays (nested dicts; the checkpoints of repro_torch.ckpt)
+# ---------------------------------------------------------------------------
+
+def tree_flatten(tree: Any, prefix: str = "") -> List[Tuple[str, Any]]:
+    """``[(keystr path, leaf)]`` of a nested dict, keys sorted: the order
+    JAX flattens a dict in, each leaf named by its key path the way
+    ``jax.tree_util.keystr`` names it (``['layers']['attn']['w_q']``)."""
+    if isinstance(tree, dict):
+        out: List[Tuple[str, Any]] = []
+        for k in sorted(tree):
+            out += tree_flatten(tree[k], f"{prefix}[{k!r}]")
+        return out
+    return [(prefix, tree)]
+
+
+def tree_unflatten(flat: Iterable[Tuple[str, Any]]) -> Dict[str, Any]:
+    """The nested dict of ``[(keystr path, leaf)]`` (string keys): the
+    inverse of :func:`tree_flatten`."""
+    out: Dict[str, Any] = {}
+    for name, leaf in flat:
+        node, keys = out, name[2:-2].split("']['")
+        for key in keys[:-1]:
+            node = node.setdefault(key, {})
+        node[keys[-1]] = leaf
+    return out
+
+
+def pack_tree_host(tree: Any) -> Tuple[np.ndarray, ArenaLayout]:
+    """Pack a nested dict of host arrays (numpy, or CPU tensors: a bfloat16
+    tensor becomes a bfloat16 entry) into one blob, each leaf an entry
+    named by its key path: the JAX package's ``pack_tree_host`` layout."""
+    return pack_host(dict(tree_flatten(tree)))
+
+
+def unpack_tree_host(blob: np.ndarray, layout: ArenaLayout, treedef_like: Any) -> Any:
+    """The nested dict laid out as ``treedef_like`` from a blob: its
+    leaves are the entries of their key paths (views into ``blob``;
+    bfloat16 entries as uint16 bit patterns)."""
+    named = unpack_host(blob, layout)
+    return tree_unflatten((name, named[name]) for name, _ in tree_flatten(treedef_like))
+
+
+# ---------------------------------------------------------------------------
 # Device side (torch; zero-copy views into a uint8 blob)
 # ---------------------------------------------------------------------------
 

@@ -14,7 +14,8 @@ from typing import Any, Mapping, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.arena import pack_host, plan_layout, unpack_host
+from repro_torch.core.arena import (host_array, is_bfloat16, pack_host, plan_layout,
+                                    tree_unflatten, unpack_host)
 from repro_torch.core.data import Data, KData, NDArray, XData
 from repro_torch.core.sync import Coherence
 from repro_torch.models import build_model
@@ -84,3 +85,42 @@ def params_from_reference(named_arrays: Mapping[str, np.ndarray], cfg: ArchConfi
     data.device_blob = torch.from_numpy(data.pack_host()).to(device)
     data.coherence = Coherence.IN_SYNC
     return data
+
+
+def _tensor(value: Any, dtype: Any, device) -> torch.Tensor:
+    """A host array as a tensor of ``dtype`` on ``device`` (bfloat16 taken
+    bit for bit)."""
+    a = np.array(host_array(value, dtype), order="C")   # a copy; 0-d stays 0-d
+    if is_bfloat16(dtype):
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def train_state_from_reference(named_arrays: Mapping[str, np.ndarray], cfg: ArchConfig,
+                               device: torch.device | str) -> dict:
+    """The port's train state (:func:`repro_torch.train.make_train_state`'s
+    layout) for ``cfg`` from the JAX package's, flattened to ``{keystr
+    path: numpy array}``: ``params`` in their dtypes (bfloat16 bit for
+    bit), ``opt`` ``master`` / ``m`` / ``v`` in f32 and ``step`` int32,
+    and ``ef`` when the reference state has one, on ``device``.  Both
+    packages then take the same steps from the same state."""
+    specs = tree_flatten(build_model(cfg).param_specs())
+    groups = ["['params']"] + [f"['opt']['{k}']" for k in ("master", "m", "v")]
+    if any(n.startswith("['ef']") for n in named_arrays):
+        groups.append("['ef']")
+    want = {g + p for g in groups for p, _ in specs} | {"['opt']['step']"}
+    missing, extra = sorted(want - set(named_arrays)), sorted(set(named_arrays) - want)
+    if missing or extra:
+        raise ValueError(f"train state does not match {cfg.name}: missing {missing}, "
+                         f"unexpected {extra}")
+
+    def leaf(name: str, dtype: Any, shape) -> torch.Tensor:
+        if tuple(np.shape(named_arrays[name])) != tuple(shape):
+            raise ValueError(f"{name}: shape {np.shape(named_arrays[name])}, {cfg.name} has "
+                             f"{tuple(shape)}")
+        return _tensor(named_arrays[name], dtype, device)
+
+    flat = [(g + p, leaf(g + p, spec.dtype if g == "['params']" else np.float32, spec.shape))
+            for g in groups for p, spec in specs]
+    flat.append(("['opt']['step']", leaf("['opt']['step']", np.int32, ())))
+    return tree_unflatten(flat)

@@ -1,6 +1,6 @@
-// Hand-written CUDA kernels of the LM serving path, for Hopper (built for
-// sm_90a by repro_torch/kernels/_build.py in the same nvcc call as the MRI
-// kernels).
+// Hand-written CUDA kernels of the LM serving and training paths, for Hopper
+// (built for sm_90a by repro_torch/kernels/_build.py in the same nvcc call as
+// the MRI kernels).
 //
 // Entry points take device pointers and the CUDA stream as plain C values
 // (bound with ctypes), launch on that stream, do not synchronise, allocate
@@ -20,6 +20,7 @@ typedef __nv_bfloat16 bf16;
 
 constexpr float kNegInf = -1e30f;          // masked score (finite: no inf - inf)
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
@@ -371,8 +372,8 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int row0, 
 template <int D>
 __global__ void __launch_bounds__(kMmaThreads)
 flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o, int hq, int hkv, int sq,
-                 int skv, int causal, int window, float scale_log2) {
+                 const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
+                 int hq, int hkv, int sq, int skv, int causal, int window, float scale_log2) {
   static_assert(D % 16 == 0, "head dim must be a multiple of 16");
   constexpr int S = D + 8;        // padded row stride, elements
   constexpr int KD = D / 16;      // k steps of Q K^T
@@ -525,6 +526,11 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       *reinterpret_cast<__nv_bfloat162*>(so + (g + 8 * r) * S + j * 8 + 2 * t4) =
           __floats2bfloat162_rn(acc[j][2 * r] * inv, acc[j][2 * r + 1] * inv);
     }
+    const int qi = q_tile + warp * 16 + g + 8 * r;
+    if (lse != nullptr && t4 == 0 && qi < sq) {   // natural log; +inf: no key seen
+      lse[(static_cast<long long>(b) * hq + h) * sq + qi] =
+          l[r] > 0.f ? (m[r] + log2f(l[r])) * kLn2 : INFINITY;
+    }
   }
   __syncwarp();
   constexpr int CH = D / 8;
@@ -539,8 +545,8 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int D>
-int launch_flash_mma(const void* q, const void* k, const void* v, void* o, int b, int hq,
-                     int hkv, int sq, int skv, int causal, int window, float scale,
+int launch_flash_mma(const void* q, const void* k, const void* v, void* o, float* lse, int b,
+                     int hq, int hkv, int sq, int skv, int causal, int window, float scale,
                      cudaStream_t st) {
   constexpr int smem = mma_smem_bytes(D);
   const cudaError_t e = cudaFuncSetAttribute(
@@ -549,7 +555,7 @@ int launch_flash_mma(const void* q, const void* k, const void* v, void* o, int b
   const dim3 grid(hq, (sq + kMmaRows - 1) / kMmaRows, b);
   flash_mma_kernel<D><<<grid, kMmaThreads, smem, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), hq, hkv, sq, skv, causal, window, scale * kLog2e);
+      static_cast<bf16*>(o), lse, hq, hkv, sq, skv, causal, window, scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -561,8 +567,8 @@ constexpr int kFlashThreads = kFlashRows * kRowThreads;
 template <int D>
 __global__ void __launch_bounds__(kFlashThreads)
 flash_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o, int hq, int hkv, int sq,
-                 int skv, int causal, int window, float scale_log2) {
+                 const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+                 int hq, int hkv, int sq, int skv, int causal, int window, float scale_log2) {
   static_assert(D % 16 == 0, "head dim must be a multiple of 16");
   constexpr int C = D / 16;                  // float4 chunks a thread holds
   __shared__ float4 ks[kFlashKeys][D / 4];
@@ -669,17 +675,418 @@ flash_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
       *reinterpret_cast<float4*>(o + q_row + 16 * c + 4 * g) =
           make_float4(acc[c].x * inv, acc[c].y * inv, acc[c].z * inv, acc[c].w * inv);
     }
+    if (lse != nullptr && g == 0) {   // natural log; +inf: no key seen
+      lse[(static_cast<long long>(b) * hq + h) * sq + qi] =
+          l > 0.f ? (m + log2f(l)) * kLn2 : INFINITY;
+    }
   }
 }
 
 template <int D>
-int launch_flash_fma(const void* q, const void* k, const void* v, void* o, int b, int hq,
-                     int hkv, int sq, int skv, int causal, int window, float scale,
+int launch_flash_fma(const void* q, const void* k, const void* v, void* o, float* lse, int b,
+                     int hq, int hkv, int sq, int skv, int causal, int window, float scale,
                      cudaStream_t st) {
   const dim3 grid((sq + kFlashRows - 1) / kFlashRows, hq, b);
   flash_fma_kernel<D><<<grid, kFlashThreads, 0, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), hq, hkv, sq, skv, causal, window, scale * kLog2e);
+      static_cast<float*>(o), lse, hq, hkv, sq, skv, causal, window, scale * kLog2e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// Backward kernels of the training path.  The JAX package trains through
+// plain jnp (its Pallas kernels have no custom_vjp), so these have no TPU
+// kernel to replace: they are the gradients of rmsnorm_*_kernel and
+// flash_*_kernel above, held on the card against autograd through the
+// plain versions (repro_torch/kernels/ref.py).  Both are deterministic by
+// design: no float atomics, every sum in a fixed order, so a training run
+// restarted from a checkpoint ends bit for bit where an uninterrupted one
+// does.
+//
+// rmsnorm_bwd: with r = rsqrt(mean(x^2) + eps) and g = dy * w,
+//   dx = r g - x r^3 mean(g x),   dw = sum over rows of dy (x r).
+// Bound: bytes (read x, dy once, write dx once; dw is d wide).  Design: one
+// block of 256 threads walks a contiguous run of rows, each thread owning
+// the columns tid + 256 j (J of them, J >= d / 256, a template constant so
+// the row stays in registers); the two row sums go through warp shuffles
+// and one shared-memory sum over the 8 warps in a fixed order (double
+// buffered: one barrier a row).  Each block keeps its dw partial in
+// registers and writes it once to a (blocks, d) f32 scratch; a second
+// kernel sums the partials column by column in block order.  The block
+// count depends on the row count only, so the sums' order does too.
+// ---------------------------------------------------------------------------
+constexpr int kNormBwdThreads = 256;
+
+template <typename T, typename W, int J>
+__global__ void __launch_bounds__(kNormBwdThreads)
+rmsnorm_bwd_kernel(const T* __restrict__ x, const W* __restrict__ w, const T* __restrict__ dy,
+                   T* __restrict__ dx, float* __restrict__ dw_part, long long rows, int d,
+                   long long rows_per_block, float eps) {
+  __shared__ float red[2][2][kNormBwdThreads / 32];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long r0 = static_cast<long long>(blockIdx.x) * rows_per_block;
+  const long long r1 = min(rows, r0 + rows_per_block);
+  float wv[J], acc[J];
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const int c = tid + j * kNormBwdThreads;
+    wv[j] = c < d ? to_f32(w[c]) : 0.f;
+    acc[j] = 0.f;
+  }
+  int parity = 0;
+  for (long long row = r0; row < r1; ++row) {
+    const long long base = row * d;
+    float xv[J], dyv[J];
+    float sxx = 0.f, sgx = 0.f;
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const int c = tid + j * kNormBwdThreads;
+      xv[j] = c < d ? to_f32(x[base + c]) : 0.f;
+      dyv[j] = c < d ? to_f32(dy[base + c]) : 0.f;
+      sxx = fmaf(xv[j], xv[j], sxx);
+      sgx = fmaf(dyv[j] * wv[j], xv[j], sgx);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      sxx += __shfl_xor_sync(0xffffffffu, sxx, off);
+      sgx += __shfl_xor_sync(0xffffffffu, sgx, off);
+    }
+    if (lane == 0) {
+      red[parity][0][warp] = sxx;
+      red[parity][1][warp] = sgx;
+    }
+    __syncthreads();
+    float txx = 0.f, tgx = 0.f;   // every thread sums the warps in the same order
+#pragma unroll
+    for (int i = 0; i < kNormBwdThreads / 32; ++i) {
+      txx += red[parity][0][i];
+      tgx += red[parity][1][i];
+    }
+    parity ^= 1;
+    const float inv = rsqrtf(txx / static_cast<float>(d) + eps);
+    const float coef = (tgx / static_cast<float>(d)) * inv * inv * inv;
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const int c = tid + j * kNormBwdThreads;
+      if (c < d) {
+        dx[base + c] = from_f32<T>(inv * (dyv[j] * wv[j]) - xv[j] * coef);
+        acc[j] = fmaf(dyv[j], xv[j] * inv, acc[j]);
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const int c = tid + j * kNormBwdThreads;
+    if (c < d) dw_part[static_cast<long long>(blockIdx.x) * d + c] = acc[j];
+  }
+}
+
+template <typename W>
+__global__ void __launch_bounds__(kNormBwdThreads)
+rmsnorm_dw_reduce_kernel(const float* __restrict__ dw_part, W* __restrict__ dw, int parts, int d) {
+  const int c = blockIdx.x * kNormBwdThreads + threadIdx.x;
+  if (c >= d) return;
+  float s = 0.f;
+  for (int p = 0; p < parts; ++p) s += dw_part[static_cast<long long>(p) * d + c];
+  dw[c] = from_f32<W>(s);
+}
+
+template <typename T, typename W, int J>
+int launch_rmsnorm_bwd_j(const void* x, const void* w, const void* dy, void* dx, float* part,
+                         void* dw, long long rows, int d, int blocks, float eps, cudaStream_t st) {
+  const long long per = (rows + blocks - 1) / blocks;
+  rmsnorm_bwd_kernel<T, W, J><<<blocks, kNormBwdThreads, 0, st>>>(
+      static_cast<const T*>(x), static_cast<const W*>(w), static_cast<const T*>(dy),
+      static_cast<T*>(dx), part, rows, d, per, eps);
+  if (cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
+  rmsnorm_dw_reduce_kernel<W><<<(d + kNormBwdThreads - 1) / kNormBwdThreads, kNormBwdThreads, 0,
+                                st>>>(part, static_cast<W*>(dw), blocks, d);
+  return static_cast<int>(cudaGetLastError());
+}
+
+constexpr int kNormBwdMaxJ = 32;   // widths up to 256 * 32 = 8192
+
+template <typename T, typename W>
+int launch_rmsnorm_bwd(const void* x, const void* w, const void* dy, void* dx, float* part,
+                       void* dw, long long rows, int d, int blocks, float eps, cudaStream_t st) {
+  const int j = (d + kNormBwdThreads - 1) / kNormBwdThreads;
+#define NORM_BWD_CASE(J) \
+  if (j <= J) return launch_rmsnorm_bwd_j<T, W, J>(x, w, dy, dx, part, dw, rows, d, blocks, eps, st);
+  NORM_BWD_CASE(1)
+  NORM_BWD_CASE(2)
+  NORM_BWD_CASE(4)
+  NORM_BWD_CASE(8)
+  NORM_BWD_CASE(12)
+  NORM_BWD_CASE(16)
+  NORM_BWD_CASE(20)
+  NORM_BWD_CASE(24)
+  NORM_BWD_CASE(32)
+#undef NORM_BWD_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// ---------------------------------------------------------------------------
+// flash attention backward, the first version: f32 FMA arithmetic for both
+// types (bf16 operands are widened as they are loaded to shared memory;
+// statistics and sums are f32), two kernels so that no float atomics are
+// needed.  With s = scale q k, p = exp(s - lse) (lse from the forward),
+// dp = dO v, delta = rowsum(dO o) and ds = p (dp - delta):
+//   dV = sum p^T dO,  dK = scale sum ds^T q,  dQ = scale sum ds k.
+// * flash_bwd_dkdv_kernel: one block per (32-key tile, KV head, batch).  K
+//   and V of its tile stay in shared memory; it walks the query heads of
+//   its group, and for each the 32-query tiles that can see the key tile,
+//   in a fixed order, recomputing P from the saved log-sum-exp and delta
+//   from dO and O, and keeps dK and dV in registers.
+// * flash_bwd_dq_kernel: one block per (32-query tile, query head, batch),
+//   walking the key tiles its queries see, dQ in registers.
+// Each tile step is two small products through shared memory: step A, a
+// warp's lanes on the 32 keys and its 4 query rows (q and dO rows read as
+// broadcast float4, K and V rows padded to D + 1 floats so the 32 lanes hit
+// 32 banks) gives s and dp; step B, 8 threads per output row, each
+// accumulating D / 8 interleaved columns.  Masks as in the forward
+// (causal, window, queries aligned to the end of the keys); a row that sees
+// no key has lse = +inf, so p = 0 and its gradients are 0.
+// Bound: operations (10 D flops per visible query-key pair and query head,
+// the bf16 tensor rate for bf16).  This version runs on the f32 FMA units,
+// far from that bound; mma.sync or wgmma tiles are the next step.
+// ---------------------------------------------------------------------------
+constexpr int kBwdTile = 32;       // queries and keys per tile
+constexpr int kBwdThreads = 256;   // 8 warps
+
+template <int D>
+struct BwdSmem {                   // one layout for both kernels (floats)
+  static constexpr int KS = D + 1;                 // padded K / V row
+  static constexpr int k_off = 0;
+  static constexpr int v_off = k_off + kBwdTile * KS;
+  static constexpr int q_off = ((v_off + kBwdTile * KS) + 3) / 4 * 4;   // float4 aligned
+  static constexpr int do_off = q_off + kBwdTile * D;
+  static constexpr int p_off = do_off + kBwdTile * D;
+  static constexpr int ds_off = p_off + kBwdTile * (kBwdTile + 1);
+  static constexpr int lse_off = ds_off + kBwdTile * (kBwdTile + 1);
+  static constexpr int delta_off = lse_off + kBwdTile;
+  static constexpr int floats = delta_off + kBwdTile;
+  static constexpr int bytes = floats * 4;
+};
+
+// rows [row0, row0 + 32) of a (rows, D) matrix into shared f32 with row
+// stride `stride`, rows >= nrows zero
+template <typename T, int D>
+__device__ __forceinline__ void load_rows_f32(float* dst, int stride, const T* src, int row0,
+                                              int nrows) {
+  for (int idx = threadIdx.x; idx < kBwdTile * D; idx += kBwdThreads) {
+    const int r = idx / D, c = idx % D;
+    dst[r * stride + c] = row0 + r < nrows ? to_f32(src[static_cast<long long>(row0 + r) * D + c])
+                                           : 0.f;
+  }
+}
+
+// lse (in log2 units) and delta = rowsum(dO o) of query rows [q0, q0 + 32):
+// 8 threads a row, summed over the 8 with shuffles in a fixed order
+template <typename T, int D>
+__device__ __forceinline__ void row_stats(float* s_lse, float* s_delta, const T* ob,
+                                          const T* dob, const float* lseb, int q0, int sq) {
+  const int r = threadIdx.x >> 3, g = threadIdx.x & 7;
+  const int qi = q0 + r;
+  float part = 0.f;
+  if (qi < sq) {
+    for (int c = g; c < D; c += 8) {
+      const long long at = static_cast<long long>(qi) * D + c;
+      part = fmaf(to_f32(dob[at]), to_f32(ob[at]), part);
+    }
+  }
+  part += __shfl_xor_sync(0xffffffffu, part, 1);
+  part += __shfl_xor_sync(0xffffffffu, part, 2);
+  part += __shfl_xor_sync(0xffffffffu, part, 4);
+  if (g == 0) {
+    s_delta[r] = part;
+    s_lse[r] = qi < sq ? lseb[qi] * kLog2e : INFINITY;
+  }
+}
+
+// step A: p and ds of the tile's (query, key) pairs.  Lane = key, the warp's
+// query rows warp + 8 i.  Writes ds (and p, when s_p is not null) as
+// [query][key] with row stride 33.
+template <int D>
+__device__ __forceinline__ void tile_p_ds(const float* smem, float* s_p, float* s_ds, int q0,
+                                          int k0, int sq, int skv, int offset, int causal,
+                                          int window, float scale_log2) {
+  using L = BwdSmem<D>;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const float* kr = smem + L::k_off + lane * L::KS;
+  const float* vr = smem + L::v_off + lane * L::KS;
+  float s[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+  for (int c = 0; c < D; c += 4) {
+    const float k0v = kr[c], k1v = kr[c + 1], k2v = kr[c + 2], k3v = kr[c + 3];
+    const float v0v = vr[c], v1v = vr[c + 1], v2v = vr[c + 2], v3v = vr[c + 3];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = warp + 8 * i;
+      const float4 qv = *reinterpret_cast<const float4*>(smem + L::q_off + r * D + c);
+      const float4 dv = *reinterpret_cast<const float4*>(smem + L::do_off + r * D + c);
+      s[i] = fmaf(qv.x, k0v, fmaf(qv.y, k1v, fmaf(qv.z, k2v, fmaf(qv.w, k3v, s[i]))));
+      dp[i] = fmaf(dv.x, v0v, fmaf(dv.y, v1v, fmaf(dv.z, v2v, fmaf(dv.w, v3v, dp[i]))));
+    }
+  }
+  const int key = k0 + lane;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = warp + 8 * i;
+    const int qi = q0 + r;
+    const int pos = qi + offset;
+    bool ok = qi < sq && key < skv;
+    if (causal) ok = ok && key <= pos;
+    if (window > 0) ok = ok && key > pos - window;
+    const float p = ok ? exp2f(s[i] * scale_log2 - smem[L::lse_off + r]) : 0.f;
+    const float ds = p * (dp[i] - smem[L::delta_off + r]);
+    if (s_p != nullptr) s_p[r * (kBwdTile + 1) + lane] = p;
+    s_ds[r * (kBwdTile + 1) + lane] = ds;
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kBwdThreads)
+flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                      const T* __restrict__ o, const T* __restrict__ dout,
+                      const float* __restrict__ lse, T* __restrict__ dk, T* __restrict__ dv,
+                      int hq, int hkv, int sq, int skv, int causal, int window, float scale) {
+  using L = BwdSmem<D>;
+  constexpr int C = D / 8;
+  extern __shared__ __align__(16) float bwd_smem[];
+  const int k0 = blockIdx.x * kBwdTile, hk = blockIdx.y, b = blockIdx.z;
+  const int group = hq / hkv;
+  const int offset = skv - sq;
+  const float scale_log2 = scale * kLog2e;
+  const long long kv_base = (static_cast<long long>(b) * hkv + hk) * skv * D;
+  load_rows_f32<T, D>(bwd_smem + L::k_off, L::KS, k + kv_base, k0, skv);
+  load_rows_f32<T, D>(bwd_smem + L::v_off, L::KS, v + kv_base, k0, skv);
+
+  // query rows that can see a key of this tile: position >= k0 (causal),
+  // position < last key + window
+  const int k_last = min(k0 + kBwdTile, skv) - 1;
+  int q_begin = causal ? max(0, k0 - offset) : 0;
+  q_begin = q_begin / kBwdTile * kBwdTile;
+  const int q_end = window > 0 ? min(sq, k_last + window - offset) : sq;
+
+  const int kr = threadIdx.x >> 3, g = threadIdx.x & 7;   // step B: key row, column phase
+  float dka[C], dva[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) dka[c] = dva[c] = 0.f;
+
+  for (int hh = 0; hh < group; ++hh) {
+    const int h = hk * group + hh;
+    const long long q_base = (static_cast<long long>(b) * hq + h) * sq;
+    for (int q0 = q_begin; q0 < q_end; q0 += kBwdTile) {
+      __syncthreads();            // the last tile's Q, dO, P and dS are read
+      load_rows_f32<T, D>(bwd_smem + L::q_off, D, q + q_base * D, q0, sq);
+      load_rows_f32<T, D>(bwd_smem + L::do_off, D, dout + q_base * D, q0, sq);
+      row_stats<T, D>(bwd_smem + L::lse_off, bwd_smem + L::delta_off, o + q_base * D,
+                      dout + q_base * D, lse + q_base, q0, sq);
+      __syncthreads();
+      tile_p_ds<D>(bwd_smem, bwd_smem + L::p_off, bwd_smem + L::ds_off, q0, k0, sq, skv,
+                   offset, causal, window, scale_log2);
+      __syncthreads();
+      const float* s_q = bwd_smem + L::q_off;
+      const float* s_do = bwd_smem + L::do_off;
+      for (int r = 0; r < kBwdTile; ++r) {
+        const float p = bwd_smem[L::p_off + r * (kBwdTile + 1) + kr];
+        const float ds = bwd_smem[L::ds_off + r * (kBwdTile + 1) + kr];
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          dva[c] = fmaf(p, s_do[r * D + g + 8 * c], dva[c]);
+          dka[c] = fmaf(ds, s_q[r * D + g + 8 * c], dka[c]);
+        }
+      }
+    }
+  }
+  if (k0 + kr < skv) {
+    const long long at = kv_base + static_cast<long long>(k0 + kr) * D;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      dk[at + g + 8 * c] = from_f32<T>(dka[c] * scale);
+      dv[at + g + 8 * c] = from_f32<T>(dva[c]);
+    }
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kBwdThreads)
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                    const T* __restrict__ o, const T* __restrict__ dout,
+                    const float* __restrict__ lse, T* __restrict__ dq, int hq, int hkv, int sq,
+                    int skv, int causal, int window, float scale) {
+  using L = BwdSmem<D>;
+  constexpr int C = D / 8;
+  extern __shared__ __align__(16) float bwd_smem[];
+  const int h = blockIdx.x, b = blockIdx.z;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBwdTile;   // rows that see most keys first
+  const int hk = h / (hq / hkv);
+  const int offset = skv - sq;
+  const float scale_log2 = scale * kLog2e;
+  const long long q_base = (static_cast<long long>(b) * hq + h) * sq;
+  const long long kv_base = (static_cast<long long>(b) * hkv + hk) * skv * D;
+  load_rows_f32<T, D>(bwd_smem + L::q_off, D, q + q_base * D, q0, sq);
+  load_rows_f32<T, D>(bwd_smem + L::do_off, D, dout + q_base * D, q0, sq);
+  row_stats<T, D>(bwd_smem + L::lse_off, bwd_smem + L::delta_off, o + q_base * D,
+                  dout + q_base * D, lse + q_base, q0, sq);
+
+  // key tiles some query of this tile can see
+  const int q_lo = q0 + offset;
+  const int q_hi = min(q0 + kBwdTile, sq) - 1 + offset;
+  const int k_end = causal ? min(skv, q_hi + 1) : skv;
+  int k_begin = window > 0 ? max(0, q_lo - window + 1) : 0;
+  k_begin = k_begin / kBwdTile * kBwdTile;
+
+  const int qr = threadIdx.x >> 3, g = threadIdx.x & 7;   // step B: query row, column phase
+  float dqa[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) dqa[c] = 0.f;
+  for (int k0 = k_begin; k0 < k_end; k0 += kBwdTile) {
+    __syncthreads();              // the last tile's K and dS are read
+    load_rows_f32<T, D>(bwd_smem + L::k_off, L::KS, k + kv_base, k0, skv);
+    load_rows_f32<T, D>(bwd_smem + L::v_off, L::KS, v + kv_base, k0, skv);
+    __syncthreads();
+    tile_p_ds<D>(bwd_smem, nullptr, bwd_smem + L::ds_off, q0, k0, sq, skv, offset, causal,
+                 window, scale_log2);
+    __syncthreads();
+    const float* s_k = bwd_smem + L::k_off;
+    for (int j = 0; j < kBwdTile; ++j) {
+      const float ds = bwd_smem[L::ds_off + qr * (kBwdTile + 1) + j];
+#pragma unroll
+      for (int c = 0; c < C; ++c) dqa[c] = fmaf(ds, s_k[j * L::KS + g + 8 * c], dqa[c]);
+    }
+  }
+  if (q0 + qr < sq) {
+    const long long at = (q_base + q0 + qr) * D;
+#pragma unroll
+    for (int c = 0; c < C; ++c) dq[at + g + 8 * c] = from_f32<T>(dqa[c] * scale);
+  }
+}
+
+template <typename T, int D>
+int launch_flash_bwd(const void* q, const void* k, const void* v, const void* o,
+                     const void* dout, const float* lse, void* dq, void* dk, void* dv, int b,
+                     int hq, int hkv, int sq, int skv, int causal, int window, float scale,
+                     cudaStream_t st) {
+  constexpr int smem = BwdSmem<D>::bytes;
+  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<T, D>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess) {
+    e = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  }
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid_kv((skv + kBwdTile - 1) / kBwdTile, hkv, b);
+  flash_bwd_dkdv_kernel<T, D><<<grid_kv, kBwdThreads, smem, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(o), static_cast<const T*>(dout), lse, static_cast<T*>(dk),
+      static_cast<T*>(dv), hq, hkv, sq, skv, causal, window, scale);
+  if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid_q(hq, (sq + kBwdTile - 1) / kBwdTile, b);
+  flash_bwd_dq_kernel<T, D><<<grid_q, kBwdThreads, smem, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(o), static_cast<const T*>(dout), lse, static_cast<T*>(dq), hq, hkv,
+      sq, skv, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -701,10 +1108,13 @@ int rt_rmsnorm(const void* x, const void* w, void* out, long long rows, int d, i
 }
 
 // q (b, hq, sq, d), k and v (b, hkv, skv, d), o like q; contiguous, one
-// type (f32 or bf16), 16-byte aligned; d in {16, 64, 80, 128}; window <= 0 = none.
-int rt_flash_attention(const void* q, const void* k, const void* v, void* o, int b, int hq,
-                       int hkv, int sq, int skv, int d, int causal, int window, float scale,
-                       int bf16_inputs, void* stream) {
+// type (f32 or bf16), 16-byte aligned; d in {16, 64, 80, 128}; window <= 0 =
+// none.  lse: null, or (b, hq, sq) f32 that takes each row's log-sum-exp of
+// the scaled scores (natural log; +inf for a row that sees no key), which
+// the backward reads; o is the same with or without it.
+int rt_flash_attention(const void* q, const void* k, const void* v, void* o, void* lse, int b,
+                       int hq, int hkv, int sq, int skv, int d, int causal, int window,
+                       float scale, int bf16_inputs, void* stream) {
   if (hkv <= 0 || hq % hkv != 0 || hq > 65535 || b > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -714,16 +1124,64 @@ int rt_flash_attention(const void* q, const void* k, const void* v, void* o, int
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (d * 2 + (bf16_inputs ? 1 : 0)) {
-    case 16 * 2 + 1: return launch_flash_mma<16>(q, k, v, o, b, hq, hkv, sq, skv, causal, window, scale, st);
-    case 64 * 2 + 1: return launch_flash_mma<64>(q, k, v, o, b, hq, hkv, sq, skv, causal, window, scale, st);
-    case 80 * 2 + 1: return launch_flash_mma<80>(q, k, v, o, b, hq, hkv, sq, skv, causal, window, scale, st);
-    case 128 * 2 + 1: return launch_flash_mma<128>(q, k, v, o, b, hq, hkv, sq, skv, causal, window, scale, st);
-    case 16 * 2: return launch_flash_fma<16>(q, k, v, o, b, hq, hkv, sq, skv, causal, window, scale, st);
-    case 64 * 2: return launch_flash_fma<64>(q, k, v, o, b, hq, hkv, sq, skv, causal, window, scale, st);
-    case 80 * 2: return launch_flash_fma<80>(q, k, v, o, b, hq, hkv, sq, skv, causal, window, scale, st);
-    case 128 * 2: return launch_flash_fma<128>(q, k, v, o, b, hq, hkv, sq, skv, causal, window, scale, st);
+    case 16 * 2 + 1: return launch_flash_mma<16>(q, k, v, o, static_cast<float*>(lse), b, hq, hkv, sq, skv, causal, window, scale, st);
+    case 64 * 2 + 1: return launch_flash_mma<64>(q, k, v, o, static_cast<float*>(lse), b, hq, hkv, sq, skv, causal, window, scale, st);
+    case 80 * 2 + 1: return launch_flash_mma<80>(q, k, v, o, static_cast<float*>(lse), b, hq, hkv, sq, skv, causal, window, scale, st);
+    case 128 * 2 + 1: return launch_flash_mma<128>(q, k, v, o, static_cast<float*>(lse), b, hq, hkv, sq, skv, causal, window, scale, st);
+    case 16 * 2: return launch_flash_fma<16>(q, k, v, o, static_cast<float*>(lse), b, hq, hkv, sq, skv, causal, window, scale, st);
+    case 64 * 2: return launch_flash_fma<64>(q, k, v, o, static_cast<float*>(lse), b, hq, hkv, sq, skv, causal, window, scale, st);
+    case 80 * 2: return launch_flash_fma<80>(q, k, v, o, static_cast<float*>(lse), b, hq, hkv, sq, skv, causal, window, scale, st);
+    case 128 * 2: return launch_flash_fma<128>(q, k, v, o, static_cast<float*>(lse), b, hq, hkv, sq, skv, causal, window, scale, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// Gradient of rt_rmsnorm: dy, dx like x; dw like w.  dw_part: (blocks, d)
+// f32 scratch, blocks in [1, rows]; d <= 8192.
+int rt_rmsnorm_bwd(const void* x, const void* w, const void* dy, void* dx, void* dw_part,
+                   void* dw, long long rows, int d, int blocks, int x_bf16, int w_bf16, float eps,
+                   void* stream) {
+  if (rows <= 0 || d <= 0 || blocks <= 0 || blocks > rows) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* part = static_cast<float*>(dw_part);
+  if (x_bf16) {
+    if (w_bf16) return launch_rmsnorm_bwd<bf16, bf16>(x, w, dy, dx, part, dw, rows, d, blocks, eps, st);
+    return launch_rmsnorm_bwd<bf16, float>(x, w, dy, dx, part, dw, rows, d, blocks, eps, st);
+  }
+  if (w_bf16) return launch_rmsnorm_bwd<float, bf16>(x, w, dy, dx, part, dw, rows, d, blocks, eps, st);
+  return launch_rmsnorm_bwd<float, float>(x, w, dy, dx, part, dw, rows, d, blocks, eps, st);
+}
+
+// Gradient of rt_flash_attention: o and lse from its forward, dout like q;
+// dq like q, dk and dv like k (written whole, nothing accumulated).
+int rt_flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
+                           const void* dout, const void* lse, void* dq, void* dk, void* dv,
+                           int b, int hq, int hkv, int sq, int skv, int d, int causal,
+                           int window, float scale, int bf16_inputs, void* stream) {
+  if (hkv <= 0 || hq % hkv != 0 || hq > 65535 || hkv > 65535 || b > 65535 ||
+      (sq + kBwdTile - 1) / kBwdTile > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (b == 0 || hq == 0 || sq == 0 || skv == 0) return static_cast<int>(cudaGetLastError());
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* l = static_cast<const float*>(lse);
+#define FLASH_BWD_CASE(D)                                                                      \
+  case D * 2 + 1:                                                                              \
+    return launch_flash_bwd<bf16, D>(q, k, v, o, dout, l, dq, dk, dv, b, hq, hkv, sq, skv,    \
+                                     causal, window, scale, st);                               \
+  case D * 2:                                                                                  \
+    return launch_flash_bwd<float, D>(q, k, v, o, dout, l, dq, dk, dv, b, hq, hkv, sq, skv,   \
+                                      causal, window, scale, st);
+  switch (d * 2 + (bf16_inputs ? 1 : 0)) {
+    FLASH_BWD_CASE(16)
+    FLASH_BWD_CASE(64)
+    FLASH_BWD_CASE(80)
+    FLASH_BWD_CASE(128)
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef FLASH_BWD_CASE
 }
 
 }  // extern "C"

@@ -81,6 +81,17 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.T
     return (y * weight.float()).to(x.dtype)
 
 
+def rmsnorm_bwd(x: torch.Tensor, weight: torch.Tensor, dy: torch.Tensor,
+                eps: float = 1e-6) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dx, dw) of :func:`rmsnorm` for the output gradient ``dy``: autograd
+    through it (dx in x's dtype, dw in the weight's)."""
+    with torch.enable_grad():
+        xg = x.detach().requires_grad_(True)
+        wg = weight.detach().requires_grad_(True)
+        dx, dw = torch.autograd.grad(rmsnorm(xg, wg, eps), (xg, wg), dy)
+    return dx, dw
+
+
 def _attend_block(qf, kf, vf, q_off, causal, window, skv, logit_cap):
     """One q-block of attention.  qf: (B, H, Cq, D) pre-scaled f32."""
     cq = qf.shape[2]
@@ -127,6 +138,19 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool
                           skv, logit_cap)
             for i in range(0, sq, ATTN_CHUNK)]
     return torch.cat(outs, dim=2).to(q.dtype)
+
+
+def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out, dout: torch.Tensor,
+                  lse=None, *, causal: bool = True, window: int | None = None,
+                  scale: float | None = None):
+    """(dq, dk, dv) of :func:`attention` for the output gradient ``dout``:
+    autograd through it.  ``out`` and ``lse`` (the kernel's saved forward
+    output and log-sum-exp) are taken and not needed, so the kernel and
+    this version take one set of arguments."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        o = attention(*leaves, causal=causal, window=window, scale=scale)
+        return torch.autograd.grad(o, leaves, dout)
 
 
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,

@@ -10,19 +10,20 @@ port's arena layouts match the JAX package's entry for entry.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, List, Optional, Tuple
+from typing import Any, Callable, Optional
 
 import torch
 
-from repro_torch.core.arena import torch_dtype
+from repro_torch.core.arena import torch_dtype, tree_flatten
 
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     """One architecture: the fields the decoder (dense, MoE, MLA, VLM),
     RWKV6, Zamba2 (Mamba2) and Whisper paths read, with the JAX package's
-    defaults.  The JAX package's
-    TPU and mesh levers (``opt_*``, ``unroll_layers``, ``remat``,
+    defaults.  ``remat`` (recompute each layer's activations in the
+    backward instead of keeping them) is read by the training forward.
+    The JAX package's TPU and mesh levers (``opt_*``, ``unroll_layers``,
     ``use_pallas``) have no counterpart: the kernel wrappers decide by the
     tensors' device."""
 
@@ -72,6 +73,7 @@ class ArchConfig:
     n_patches: int = 0             # vlm (internvl): patch embeddings before the text
     param_dtype: str = "bfloat16"
     dtype: str = "bfloat16"        # activation dtype
+    remat: bool = True             # training: recompute each layer in the backward
 
     @property
     def head_dim(self) -> int:
@@ -93,16 +95,6 @@ class ArchConfig:
 # ---------------------------------------------------------------------------
 # Parameter trees
 # ---------------------------------------------------------------------------
-
-def tree_flatten(tree: Any, prefix: str = "") -> List[Tuple[str, Any]]:
-    """``[(keystr path, leaf)]`` of a nested dict, keys sorted."""
-    if isinstance(tree, dict):
-        out: List[Tuple[str, Any]] = []
-        for k in sorted(tree):
-            out += tree_flatten(tree[k], f"{prefix}[{k!r}]")
-        return out
-    return [(prefix, tree)]
-
 
 def tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
     if isinstance(tree, dict):

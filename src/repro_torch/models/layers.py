@@ -139,8 +139,9 @@ def _project_qkv(p: Params, x: torch.Tensor, cfg: ArchConfig, positions: torch.T
 
 def attention_full(p: Params, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor, *,
                    causal: bool = True) -> torch.Tensor:
-    """Full-sequence attention with no cache (Whisper's encoder: ``causal=
-    False``) through the flash-attention kernel.  x: (B, S, D) -> (B, S, D)."""
+    """Full-sequence attention with no cache (the decoder's training
+    forward; Whisper's encoder: ``causal=False``) through the
+    flash-attention kernel.  x: (B, S, D) -> (B, S, D)."""
     b, s, _ = x.shape
     q, k, v = _project_qkv(p, x, cfg, positions)
     o = flash_attention(q, k, v, causal=causal, window=cfg.window)
@@ -242,10 +243,26 @@ def apply_mlp(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def embed_tokens(p: Params, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    return p["embedding"][tokens.long()].to(cfg.adtype)
+    """The tokens' embedding rows through ``F.embedding``, whose CUDA
+    backward sums the rows of repeated tokens in a fixed order (no float
+    atomics), so a training step's gradient is the same on every run."""
+    return F.embedding(tokens.long(), p["embedding"]).to(cfg.adtype)
 
 
 def logits_from_hidden(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     if cfg.tie_embeddings:
         return (x @ p["embedding"].T.to(cfg.adtype)).float()
     return (x @ p["unembed"]).float()
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean token cross-entropy; logits (..., V) f32, labels (...) int.
+    With ``mask`` (...), the mean over the positions it weights."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        mask = mask.to(nll.dtype)
+        return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+    return nll.mean()

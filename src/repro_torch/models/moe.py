@@ -68,8 +68,7 @@ def _moe(p: Params, x: torch.Tensor, cfg: ArchConfig):
     # row-local scatter into (B, E·C + 1, D); the last slot takes the overflow
     vals = x.repeat_interleave(k, dim=1).to(cfg.adtype)             # (B, S·K, D)
     buf = torch.zeros((b, e * cap + 1, d), dtype=cfg.adtype, device=x.device)
-    buf.scatter_(1, dest_d, vals)
-    buf = buf[:, : e * cap].reshape(b, e, cap, d)
+    buf = buf.scatter(1, dest_d, vals)[:, : e * cap].reshape(b, e, cap, d)
 
     h = F.silu(torch.einsum("becd,edf->becf", buf, p["w_gate"])) * \
         torch.einsum("becd,edf->becf", buf, p["w_up"])

@@ -4,24 +4,27 @@
 
 Mirrors ``repro/models/transformer.py``: the stacked ``(L, ...)``
 parameter layout is kept, and the JAX ``lax.scan`` over layers is a Python
-loop over layer views.  Serving entry points only: ``prefill`` and
+loop over layer views.  The serving entry points ``prefill`` and
 ``decode_step`` write the cache they are given in place (views of the
-decode-state arena) and return it.
+decode-state arena) and return it; the training entry points
+``hidden_states``, ``logits`` and ``loss_fn`` write nothing in place, so
+autograd differentiates them (through the norm and attention kernels'
+hand-written backward passes on CUDA tensors).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
 from . import mla as MLA
 from . import moe as MOE
+from repro_torch.core.arena import tree_unflatten
 from .common import ArchConfig, alloc_tree, init_tree, stacked, tree_flatten, tree_map
 
 Params = Dict[str, Any]
-
-_TRAINING = "the training forward is not ported yet (ROADMAP queue 1, Training)"
 
 
 class DecoderLM:
@@ -146,8 +149,85 @@ class DecoderLM:
         return L.logits_from_hidden(params["embed"], x, cfg), cache
 
     # ------------------------------------------------------------- train
-    def logits(self, params, tokens, prefix_embeds=None):
-        raise NotImplementedError(_TRAINING)
+    def _layer_fwd(self, p: Params, x: torch.Tensor, positions: torch.Tensor, use_moe: bool
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        cfg = self.cfg
+        h = L.apply_norm(p["ln_attn"], x, cfg)
+        if cfg.mla:
+            attn = MLA.mla_full(p["attn"], h, cfg, positions)
+        else:
+            attn = L.attention_full(p["attn"], h, cfg, positions, causal=cfg.causal)
+        x = x + attn
+        h = L.apply_norm(p["ln_mlp"], x, cfg)
+        if use_moe:
+            y, aux = MOE.apply_moe(p["moe"], h, cfg)
+        else:
+            y, aux = L.apply_mlp(p["mlp"], h, cfg), {}
+        return x + y, aux
 
-    def loss_fn(self, params, batch):
-        raise NotImplementedError(_TRAINING)
+    def _unstacked(self, layers: Params) -> List[Params]:
+        """The stacked layer parameters as one tree a layer, through one
+        ``unbind`` a leaf: its backward stacks the layers' gradients into
+        one tensor (a view a layer would zero-fill a full-size gradient
+        per layer)."""
+        flat = [(name, t.unbind(0)) for name, t in tree_flatten(layers)]
+        return [tree_unflatten((name, parts[i]) for name, parts in flat)
+                for i in range(self.n_scan)]
+
+    def hidden_states(self, params: Params, tokens: torch.Tensor,
+                      prefix_embeds: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Full-sequence forward to the final hidden states (B, P + S, D)
+        and the MoE metrics (``moe_aux_loss``, ``moe_drop_rate``: sums over
+        the stacked layers / their count; empty without experts).
+        tokens: (B, S); prefix_embeds: (B, P, D), a VLM's patch
+        embeddings.  With ``cfg.remat`` and autograd on, each stacked
+        layer runs under non-reentrant ``torch.utils.checkpoint`` (its
+        activations recomputed in the backward), as the reference wraps
+        its scan body in ``jax.checkpoint``; deepseek's layer 0 stays
+        outside, as there."""
+        cfg = self.cfg
+        x = L.embed_tokens(params["embed"], tokens, cfg)
+        if prefix_embeds is not None:
+            x = torch.cat([prefix_embeds.to(cfg.adtype), x], dim=1)
+        b, s, _ = x.shape
+        positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
+        if cfg.first_dense_ff:
+            x, _ = self._layer_fwd(params["layer0"], x, positions, False)
+        use_moe = bool(cfg.n_experts)
+        remat = cfg.remat and torch.is_grad_enabled()
+        aux_sums = None
+        for lp in self._unstacked(params["layers"]):
+            if remat:
+                x, aux = checkpoint(self._layer_fwd, lp, x, positions, use_moe,
+                                    use_reentrant=False, preserve_rng_state=False)
+            else:
+                x, aux = self._layer_fwd(lp, x, positions, use_moe)
+            if use_moe:
+                aux_sums = aux if aux_sums is None else {k: aux_sums[k] + aux[k] for k in aux}
+        x = L.apply_norm(params["final_norm"], x, cfg)
+        if not use_moe:
+            return x, {}
+        n_moe = max(1, self.n_scan)
+        return x, {k: v / n_moe for k, v in aux_sums.items()}
+
+    def logits(self, params: Params, tokens: torch.Tensor,
+               prefix_embeds: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """(logits (B, P + S, V) f32, MoE metrics) of a full sequence."""
+        x, aux = self.hidden_states(params, tokens, prefix_embeds)
+        return L.logits_from_hidden(params["embed"], x, self.cfg), aux
+
+    def loss_fn(self, params: Params, batch: Dict[str, torch.Tensor]
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """(total loss, metrics) of a batch: tokens (B, S), labels (B, S)
+        [, patch_embeds (B, P, D)] [, loss_mask (B, S)].  The loss is the
+        mean token cross-entropy over the text positions (a VLM prefix is
+        left out); the total adds the MoE load-balance loss."""
+        prefix = batch.get("patch_embeds")
+        logits, aux = self.logits(params, batch["tokens"], prefix)
+        if prefix is not None:
+            logits = logits[:, prefix.shape[1]:]
+        loss = L.cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
+        total = loss + aux["moe_aux_loss"] if "moe_aux_loss" in aux else loss
+        return total, {"loss": loss, **aux}

@@ -198,6 +198,18 @@ BOUNDS = {
               + (_meta(1, 1024, 40, 64, dtype=F32), _meta(40, 64, dtype=F32),
                  _meta(1, 40, 64, 64, dtype=F32)), {}), 0.01272, "compute"),
     "negate": (("negate_kernel", (_meta(256, 256, dtype=F32),), {}), 0.0001565, "memory"),
+    # rows 6b and 7b: the backward kernels at the h2o-danube-1.8b training
+    # shapes (batch 4 x 2048; a layer's attention, window 4096)
+    "rmsnorm_bwd": (("rmsnorm_bwd", (_meta(8192, 2560, dtype=BF16), _meta(2560, dtype=BF16),
+                                     _meta(8192, 2560, dtype=BF16)), {}), 0.03756, "memory"),
+    "flash_attention_bwd h2o-danube-1.8b": (
+        ("flash_attention_bwd", (_meta(4, 32, 2048, 80, dtype=BF16),
+                                 _meta(4, 8, 2048, 80, dtype=BF16),
+                                 _meta(4, 8, 2048, 80, dtype=BF16),
+                                 _meta(4, 32, 2048, 80, dtype=BF16),
+                                 _meta(4, 32, 2048, 80, dtype=BF16),
+                                 _meta(4, 32, 2048, dtype=F32)), {"window": 4096}),
+        0.21724, "compute"),
 }
 
 

@@ -95,7 +95,8 @@ def test_plain_attention_chunked_equals_dense(rng, monkeypatch):
 
 def test_registry_names_and_cpu_runs_count_no_launch(rng):
     reg = KernelRegistry()
-    assert sorted(reg.load(["rmsnorm", "flash_attention"])) == ["flash_attention", "rmsnorm"]
+    assert sorted(reg.load(["rmsnorm", "flash_attention"])) == [
+        "flash_attention", "flash_attention_bwd", "rmsnorm", "rmsnorm_bwd"]
     assert reg.get("rmsnorm") is ops.rmsnorm
     assert reg.ref("flash_attention") is ref.attention
     before = launch_counts()
@@ -131,7 +132,9 @@ def test_kernel_library_exports_the_lm_entry_points():
     the whole port, not one path."""
     assert _build.NVCC_FLAGS[:2] == ("-gencode", "arch=compute_90a,code=sm_90a")
     assert len(_build._SIGNATURES["rt_rmsnorm"]) == 9
-    assert len(_build._SIGNATURES["rt_flash_attention"]) == 15
+    assert len(_build._SIGNATURES["rt_flash_attention"]) == 16    # + the log-sum-exp
+    assert len(_build._SIGNATURES["rt_rmsnorm_bwd"]) == 13
+    assert len(_build._SIGNATURES["rt_flash_attention_bwd"]) == 20
     assert {p.name for p in _build.sources()} >= {"lm_kernels.cu", "mri_kernels.cu"}
 
 
