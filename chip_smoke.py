@@ -157,14 +157,17 @@
    (bf16 within 2e-2 x max |grad|, f32 within rtol 1e-4 + 1e-5 x max
    |grad|), each run twice bit for bit, at the h2o-danube-1.8b training
    shapes ((4, 32, 2048, 80) / (4, 8, 2048, 80), window 4096; rows of
-   2560), the window active at (1, 32, 5120, 80), qwen3-14b's (1, 40,
-   1024, 128) / kv 8 and q/k-norm rows of 128, lm-100m's f32 (8, 12, 256,
-   64) / kv 4 and rows of 768, head dim 16, non-causal cases and 20 rows
-   that see no key (dq 0, nothing added to dk, dv); the forward with its
+   2560), the window active at (1, 32, 5120, 80) and at (1, 32, 333, 80)
+   / kv 8, window 100 (ragged at the bf16 kernels' 64-row tiles),
+   qwen3-14b's (1, 40, 1024, 128) / kv 8 and q/k-norm rows of 128,
+   lm-100m's f32 (8, 12, 256, 64) / kv 4 and rows of 768, head dim 16,
+   non-causal cases and 20 rows that see no key (dq 0, nothing added to dk, dv); the forward with its
    log-sum-exp writes the output bit for bit as without; times against
    bound and library call (SDPA's backward with ``enable_gqa``,
    ``F.rms_norm``'s backward) and ptxas's registers, spills and shared
-   memory.  Then h2o-danube-1.8b at full width (random bf16 weights made
+   memory of the bf16 tensor-core kernels (``flash_bwd_delta_kernel``,
+   ``flash_bwd_mma_dkdv_kernel``, ``flash_bwd_mma_dq_kernel``) and the f32
+   FMA ones.  Then h2o-danube-1.8b at full width (random bf16 weights made
    on the card from a seed): 6 ``Trainer`` steps at batch 4 x 2048 on the
    ``TokenStream`` (the loss falls; 1 capture, 6 replays; exact launch
    counts of init's warm-up and each step: forward, remat recompute and
@@ -172,7 +175,10 @@
    peak memory, a ``torch.profiler`` breakdown of one replayed step and
    AdamW alone; a 2-layer full-width cut's loss and every gradient leaf
    on the card (f32, then bf16) against the CPU's f32 within ``PERF.md``
-   §2's bands.  Then ``repro_torch.launch.train_lm`` (lm-100m, f32) for 40
+   §2's bands; the bf16 cut's 3 steps replayed through ``TrainProcess``
+   bit for bit 3 eager ``make_train_step`` steps (batch 1 x 256), with
+   exact launch counts that stay out of the ``{"kernels"}`` line's.  Then
+   ``repro_torch.launch.train_lm`` (lm-100m, f32) for 40
    steps into a temporary directory (the loss improves), 10 steps with a
    failure at step 6 and a checkpoint every 4 bit for bit an
    uninterrupted 10, and those 10 replayed steps bit for bit 10 eager
@@ -230,6 +236,155 @@ def ptxas_usage(log: str, *fragments: str) -> tuple[int | None, int | None, int 
                     smem = re.search(r"(\d+) bytes smem", nxt)
                     return int(m.group(1)), int(smem.group(1)) if smem else 0, spill
     return None, None, None
+
+
+# The training measurements below are shared with scripts/train_step_p50.py,
+# which runs them on whichever ``repro_torch`` comes first on ``sys.path``
+# (so one call can time two trees, each in a fresh process).
+
+def loop_ms(fn, reps: int = 5) -> float:
+    """Device time of one call: CUDA events around ``reps`` calls in a
+    row after two warm-up calls (calls of a millisecond or more, so the
+    host's launches hide behind the device's work)."""
+    import torch
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def backward_times(rand) -> dict:
+    """Device ms a call of the two backward kernels at the h2o-danube-1.8b
+    training shapes, each beside one PyTorch call computing the same
+    function on the same inputs (``rand(*shape, dtype=...)`` makes them):
+    ``rmsnorm_bwd`` at x (8192, 2560) bf16 against ``F.rms_norm``'s
+    backward; ``flash_attention_bwd`` at a layer (q (4, 32, 2048, 80), k
+    and v (4, 8, 2048, 80), bf16, causal, window 4096, with the forward's
+    output and log-sum-exp) against SDPA's backward (``enable_gqa``).
+    Returns the four times and the two kernels' arguments."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import _forward, flash_attention_bwd
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd
+
+    bf16 = torch.bfloat16
+    x, w, dy = rand(4 * 2048, 2560, dtype=bf16), rand(2560, dtype=bf16), \
+        rand(4 * 2048, 2560, dtype=bf16)
+    xg, wg = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    y_lib = F.rms_norm(xg, (2560,), wg, 1e-6)
+    out = {"rmsnorm_bwd_ms": loop_ms(lambda: rmsnorm_bwd(x, w, dy), reps=50),
+           "rms_norm_backward_ms": loop_ms(
+               lambda: torch.autograd.grad(y_lib, (xg, wg), dy, retain_graph=True), reps=20)}
+    del xg, wg, y_lib
+    q, k, v = rand(4, 32, 2048, 80, dtype=bf16), rand(4, 8, 2048, 80, dtype=bf16), \
+        rand(4, 8, 2048, 80, dtype=bf16)
+    do = rand(4, 32, 2048, 80, dtype=bf16)
+    o, lse = _forward(q, k, v, True, 4096, 80 ** -0.5, True)
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+    o_lib = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True, enable_gqa=True)
+    out["flash_attention_bwd_ms"] = loop_ms(
+        lambda: flash_attention_bwd(q, k, v, o, do, lse, causal=True, window=4096))
+    out["sdpa_backward_ms"] = loop_ms(
+        lambda: torch.autograd.grad(o_lib, (qg, kg, vg), do, retain_graph=True))
+    out["rmsnorm_args"], out["flash_args"] = (x, w, dy), (q, k, v, o, do, lse)
+    return out
+
+
+def per_step_launches(cfg) -> dict:
+    """Launches of each kernel a decoder training step makes: the forward,
+    its remat recompute and the backward."""
+    norms = 4 if cfg.qk_norm else 2                    # a layer's rmsnorm calls
+    return {"rmsnorm": 2 * norms * cfg.n_layers + 1, "flash_attention": 2 * cfg.n_layers,
+            "rmsnorm_bwd": norms * cfg.n_layers + 1, "flash_attention_bwd": cfg.n_layers}
+
+
+def fit_and_time(arch: str, dev, peaks: dict, steps: int = 6, batch: int = 4,
+                 seq: int = 2048, reps: int = 5) -> dict:
+    """``arch`` at full width, random bf16 weights made on the card from
+    seed 0: ``steps`` Trainer steps at batch x seq on the TokenStream
+    (AdamW, constant lr 1e-5; init's warm-up and capture included), with
+    their launch counts and peak memory; then ``reps`` more replayed
+    steps, each between two CUDA events (the batch's upload included):
+    their p50, tokens/s and MFU (6 N tokens flops against ``peaks``' bf16
+    tensor rate); then one replayed step under ``torch.profiler``, its
+    device ms by kind of kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.core.arena import tree_flatten
+    from repro_torch.core.registry import launch_counts, reset_launch_counts
+    from repro_torch.data.pipeline import StreamConfig, TokenStream
+    from repro_torch.launch.train import check_fits
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig, Schedule
+    from repro_torch.train import TrainConfig, Trainer, TrainerConfig
+
+    cfg = get_config(arch)
+    check_fits(cfg, dev)
+    model = build_model(cfg)
+    n_params = sum(int(np.prod(s.shape)) for _, s in tree_flatten(model.param_specs()))
+    stream = TokenStream(StreamConfig(vocab=cfg.vocab, seq=seq, batch=batch, seed=0))
+    tcfg = TrainerConfig(total_steps=steps, log_every=1, train=TrainConfig(
+        opt=AdamWConfig(schedule=Schedule(kind="constant", base_lr=1e-5, warmup_steps=0))))
+    trainer = Trainer(model, tcfg, device=dev, log_fn=lambda _msg: None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    state = trainer.fit(stream, 0)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    counts = {k: v for k, v in launch_counts().items() if v}
+    peak = torch.cuda.max_memory_allocated(dev)
+    proc = trainer.process
+    captures, replays = proc.captures, proc.replays
+    step_ms = []
+    for i in range(reps):
+        batch_i = stream.batch_at(steps + i)
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        proc.launch(state, batch_i)
+        e1.record()
+        e1.synchronize()
+        step_ms.append(e0.elapsed_time(e1))
+    p50 = statistics.median(step_ms)
+    tokens = batch * seq
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        proc.launch(state, stream.batch_at(steps + reps))
+        torch.cuda.synchronize()
+    buckets: dict = {}
+    other: dict = {}
+    for ev in prof.key_averages():
+        t = getattr(ev, "device_time_total", getattr(ev, "cuda_time_total", 0.0))
+        nm = ev.key.lower()
+        if t <= 0 or nm.startswith(("cudagraph", "memcpy", "memset")):
+            continue
+        kind = ("flash backward" if "flash_bwd" in nm else
+                "flash forward" if "flash_mma" in nm or "flash_fma" in nm else
+                "rmsnorm backward" if "rmsnorm_bwd" in nm or "rmsnorm_dw" in nm else
+                "rmsnorm forward" if "rmsnorm" in nm else
+                "GEMMs" if any(s in nm for s in ("gemm", "xmma", "cutlass", "cublas",
+                                                 "nvjet", "sm90_", "ampere")) else
+                "other (AdamW's elementwise updates, casts, the embedding and loss)")
+        buckets[kind] = buckets.get(kind, 0.0) + t / 1e3
+        if kind.startswith("other"):
+            other[ev.key[:60]] = t / 1e3
+    return {"cfg": cfg, "stream": stream, "tcfg": tcfg, "trainer": trainer, "state": state,
+            "n_params": n_params, "fit_s": fit_s, "counts": counts, "captures": captures,
+            "replays": replays, "peak": peak,
+            "losses": [loss for _, loss in trainer.history], "step_ms": step_ms,
+            "step_p50_ms": p50, "tokens_per_s": tokens / p50 * 1e3,
+            "model_flops": 6 * n_params * tokens,
+            "mfu": 6 * n_params * tokens / (p50 * 1e-3) / peaks["bf16_tensor"],
+            "buckets": buckets, "other": other}
 
 
 def main() -> None:
@@ -1713,6 +1868,13 @@ def main() -> None:
         f, c, h, w = cfg
         x, sm = crand(*cfg), crand(c, h, w)
         q, kk, vv = (rand(1, hh, seq, 128, dtype=bf16) for hh in (40, 8, 8))
+        # the backward kernels at the h2o-danube-1.8b training shapes (a
+        # layer's attention with the forward's output and log-sum-exp)
+        dq_shape, dkv_shape = (4, 32, 2048, 80), (4, 8, 2048, 80)
+        bwd_args = (rand(*dq_shape, dtype=bf16), rand(*dkv_shape, dtype=bf16),
+                    rand(*dkv_shape, dtype=bf16), rand(*dq_shape, dtype=bf16),
+                    rand(*dq_shape, dtype=bf16),
+                    torch.zeros(dq_shape[:3], dtype=f32, device=dev))
         calls = [
             ("complexElementProd", (x, sm, True), {}, f"{cfg} complex64, conj"),
             ("xImageSum", (x,), {}, f"{cfg} complex64"),
@@ -1730,6 +1892,12 @@ def main() -> None:
              f"(1, {seq}, 40, 64) bf16 r/k/v, f32 w, u and state"),
             ("negate_kernel", (rand(256, 256),), {}, "(256, 256) f32"),
             ("negate_kernel", (rand(4096, 4096),), {}, "(4096, 4096) f32"),
+            ("rmsnorm_bwd", (rand(8192, 2560, dtype=bf16), rand(2560, dtype=bf16),
+                             rand(8192, 2560, dtype=bf16)), {},
+             "x (8192, 2560) bf16 (h2o-danube-1.8b, batch 4 x 2048)"),
+            ("flash_attention_bwd", bwd_args, {"causal": True, "window": 4096},
+             "q (4, 32, 2048, 80) kv (4, 8, 2048, 80) bf16 causal window 4096, o and lse "
+             "(h2o-danube-1.8b, a layer)"),
         ]
         for kname, args, kw, at in calls:
             rec = chooser.calibrate(kname, *args, **kw)
@@ -1758,7 +1926,7 @@ def main() -> None:
         del g
         if not refused:
             raise SystemExit("chip_smoke: [chooser] calibrate ran inside a CUDA-graph capture")
-        del x, sm, q, kk, vv, calls
+        del x, sm, q, kk, vv, calls, bwd_args
         for mode in ("staged", "fused_kernel"):
             app = CLapp().init()
             h_out = app.addData(XData({"xdata": np.zeros(want_sum.shape, np.complex64)}))
@@ -2217,10 +2385,8 @@ def main() -> None:
     from repro_torch.kernels.flash_attention import flash_attention_bwd
     from repro_torch.kernels.rmsnorm import rmsnorm_bwd
     from repro_torch.launch import train_lm
-    from repro_torch.launch.train import check_fits
-    from repro_torch.optim import AdamWConfig, Schedule, adamw_update
-    from repro_torch.train import (TrainConfig, Trainer, TrainerConfig, make_train_state,
-                                   make_train_step)
+    from repro_torch.optim import adamw_update
+    from repro_torch.train import Trainer, TrainProcess, make_train_state, make_train_step
     from repro_torch.train.step import loss_and_grads
 
     train_counts: dict = {}       # the main path's launches in the training runs
@@ -2228,21 +2394,6 @@ def main() -> None:
     def add_counts(counts):
         for k, v in counts.items():
             train_counts[k] = train_counts.get(k, 0) + v
-
-    def loop_ms(fn, reps=5):
-        """Device time of one call: CUDA events around ``reps`` calls in a
-        row after two warm-up calls (calls of a millisecond or more, so the
-        host's launches hide behind the device's work)."""
-        for _ in range(2):
-            fn()
-        torch.cuda.synchronize()
-        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        e0.record()
-        for _ in range(reps):
-            fn()
-        e1.record()
-        e1.synchronize()
-        return e0.elapsed_time(e1) / reps
 
     def grads_check(label, kname, got, want, names, dtype, on_path):
         """Each gradient against the plain backward's: bf16 within 2e-2 x
@@ -2284,6 +2435,7 @@ def main() -> None:
         bwd_cases = (  # q shape, kv shape, causal, window, dtype, on the path
             ((4, 32, 2048, 80), (4, 8, 2048, 80), True, 4096, bf16, True),   # h2o-danube-1.8b
             ((1, 32, 5120, 80), (1, 8, 5120, 80), True, 4096, bf16, False),  # the window active
+            ((1, 32, 333, 80), (1, 8, 333, 80), True, 100, bf16, False),     # ragged at 64, window
             ((1, 40, 1024, 128), (1, 8, 1024, 128), True, None, bf16, False),  # qwen3-14b
             ((8, 12, 256, 64), (8, 4, 256, 64), True, None, f32, True),      # lm-100m
             ((2, 4, 37, 16), (2, 2, 37, 16), True, 8, f32, False),           # SMOKE, window 8
@@ -2332,15 +2484,11 @@ def main() -> None:
               "+inf (bf16 and f32)")
 
         # times at the h2o-danube-1.8b training shapes
-        x, w, dy = rand(4 * 2048, 2560, dtype=bf16), rand(2560, dtype=bf16), \
-            rand(4 * 2048, 2560, dtype=bf16)
-        xg, wg = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
-        y_lib = F.rms_norm(xg, (2560,), wg, 1e-6)
+        bt = backward_times(rand)
+        x, w, dy = bt["rmsnorm_args"]
         bound_ms, bound_by, cost_txt = bound_of("rmsnorm_bwd", x, w, dy)
-        ms = loop_ms(lambda: rmsnorm_bwd(x, w, dy), reps=50)
+        ms, lib_ms = bt["rmsnorm_bwd_ms"], bt["rms_norm_backward_ms"]
         plain_ms = loop_ms(lambda: ref.rmsnorm_bwd(x, w, dy), reps=10)
-        lib_ms = loop_ms(lambda: torch.autograd.grad(y_lib, (xg, wg), dy, retain_graph=True),
-                         reps=20)
         host_ms = call_ms(lambda: rmsnorm_bwd(x, w, dy))
         rows["rmsnorm_bwd"] = dict(name="rmsnorm_bwd", route="cuda", source=LM_SRC,
                                    replaces="src/repro/kernels/rmsnorm.py:40", ms=ms,
@@ -2350,19 +2498,14 @@ def main() -> None:
               f"2048), device ms a call: kernel {ms:.5f}, plain {plain_ms:.5f}, library "
               f"(F.rms_norm backward) {lib_ms:.5f}, bound {bound_ms:.5f} ({bound_by}: "
               f"{cost_txt}); one host call {host_ms:.5f}")
-        del x, w, dy, xg, wg, y_lib
-        q, k, v = rand(4, 32, 2048, 80, dtype=bf16), rand(4, 8, 2048, 80, dtype=bf16), \
-            rand(4, 8, 2048, 80, dtype=bf16)
-        do = rand(4, 32, 2048, 80, dtype=bf16)
-        o, lse = flash_forward(q, k, v, True, 4096, 80 ** -0.5, True)
-        qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
-        o_lib = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True, enable_gqa=True)
+        del x, w, dy
+        q, k, v, o, do, lse = bt["flash_args"]
+        ms, lib_ms = bt["flash_attention_bwd_ms"], bt["sdpa_backward_ms"]
+        del bt
         bound_ms, bound_by, cost_txt = bound_of("flash_attention_bwd", q, k, v, o, do, lse,
                                                 causal=True, window=4096)
-        ms = loop_ms(lambda: flash_attention_bwd(q, k, v, o, do, lse, causal=True, window=4096))
         plain_ms = loop_ms(lambda: ref.attention_bwd(q, k, v, o, do, causal=True, window=4096),
                            reps=2)
-        lib_ms = loop_ms(lambda: torch.autograd.grad(o_lib, (qg, kg, vg), do, retain_graph=True))
         fwd_ms = loop_ms(lambda: flash_forward(q, k, v, True, 4096, 80 ** -0.5, True))
         host_ms = call_ms(lambda: flash_attention_bwd(q, k, v, o, do, lse, causal=True,
                                                       window=4096), reps=5)
@@ -2375,18 +2518,27 @@ def main() -> None:
               f"bf16 causal window 4096 (h2o-danube-1.8b, a layer), device ms a call: kernel "
               f"{ms:.5f}, plain {plain_ms:.5f}, library (SDPA backward, enable_gqa) "
               f"{lib_ms:.5f}, bound {bound_ms:.5f} ({bound_by}: {cost_txt}); kernel / bound "
-              f"{ms / bound_ms:.1f}, kernel / library {ms / lib_ms:.2f}; the forward with "
+              f"{ms / bound_ms:.1f}, kernel / SDPA backward {ms / lib_ms:.2f}; the forward with "
               f"log-sum-exp {fwd_ms:.5f}; one host call {host_ms:.5f}")
-        del q, k, v, do, o, lse, qg, kg, vg, o_lib
+        del q, k, v, do, o, lse
         log = _build.BUILD_INFO["log"]
-        for kern in ("flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel"):
-            for tname, tfrag in (("bf16", "I13__nv_bfloat16"), ("f32", "IfL")):
-                for d in (80, 64, 128, 16):
-                    regs, smem, spill = ptxas_usage(log, kern + tfrag, f"Li{d}E")
-                    print(f"[ptxas] {kern}<{tname}, D={d}>: {regs} registers a thread, {spill} "
-                          f"bytes spilled, {smem} bytes static shared memory "
-                          f"+ {4 * (2 * 32 * (d + 1) + 2 * 32 * d + 2 * 32 * 33 + 64 + 3)} "
-                          "(dynamic, at most) a block")
+        # dynamic shared memory of the bf16 kernels (lm_kernels.cu's
+        # dkdv_smem_bytes / dq_smem_bytes: six 64-row bf16 tiles padded to
+        # D + 8, and the dK/dV kernel's two (lse, delta) pairs of 64 floats)
+        # and of the f32 ones (BwdSmem, at most: 32-row f32 tiles)
+        def fma_smem(d):
+            return 4 * (2 * 32 * (d + 1) + 2 * 32 * d + 2 * 32 * 33 + 64 + 3)
+
+        for kern, dyn in (
+                ("flash_bwd_delta_kernel", lambda d: 0),
+                ("flash_bwd_mma_dkdv_kernel", lambda d: 6 * 64 * (d + 8) * 2 + 4 * 64 * 4),
+                ("flash_bwd_mma_dq_kernel", lambda d: 6 * 64 * (d + 8) * 2),
+                ("flash_bwd_dkdv_kernel", fma_smem), ("flash_bwd_dq_kernel", fma_smem)):
+            for d in (80, 64, 128, 16):
+                regs, smem, spill = ptxas_usage(log, f"{kern}ILi{d}E")
+                label = f"{kern}<D={d}>" + ("" if "mma" in kern or "delta" in kern else " (f32)")
+                print(f"[ptxas] {label}: {regs} registers a thread, {spill} bytes spilled, "
+                      f"{smem} bytes static shared memory + {dyn(d)} dynamic a block")
         for tmpl in ("Li16E", "Li4E", "Li1E"):
             regs, smem, spill = ptxas_usage(log, "rmsnorm_bwd_kernelI13__nv_bfloat16S", tmpl)
             print(f"[ptxas] rmsnorm_bwd_kernel<bf16, bf16, J={tmpl[2:-1]}>: {regs} registers a "
@@ -2409,83 +2561,35 @@ def main() -> None:
         backward); step p50 over 5 more replays, tokens/s, MFU against the
         bf16 tensor rate, peak memory; a torch.profiler breakdown of one
         replayed step; AdamW alone."""
-        cfg = get_config(arch)
-        check_fits(cfg, dev)
-        model = build_model(cfg)
-        n_params = sum(int(np.prod(s.shape)) for _, s in tree_flatten(model.param_specs()))
-        stream = TokenStream(StreamConfig(vocab=cfg.vocab, seq=seq, batch=batch, seed=0))
-        tcfg = TrainerConfig(total_steps=steps, log_every=1, train=TrainConfig(
-            opt=AdamWConfig(schedule=Schedule(kind="constant", base_lr=1e-5, warmup_steps=0))))
-        trainer = Trainer(model, tcfg, device=dev, log_fn=quiet)
-        gc.collect()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats(dev)
-        reset_launch_counts()
-        t0 = time.perf_counter()
-        state = trainer.fit(stream, 0)
-        torch.cuda.synchronize()
-        fit_s = time.perf_counter() - t0
-        counts = {k: v for k, v in launch_counts().items() if v}
+        run = fit_and_time(arch, dev, peaks, steps=steps, batch=batch, seq=seq)
+        cfg, stream, tcfg, state = run["cfg"], run["stream"], run["tcfg"], run["state"]
+        n_params, counts, losses = run["n_params"], run["counts"], run["losses"]
         add_counts(counts)
-        norms = 4 if cfg.qk_norm else 2                    # a layer's rmsnorm calls
-        per_step = {"rmsnorm": 2 * norms * cfg.n_layers + 1, "flash_attention": 2 * cfg.n_layers,
-                    "rmsnorm_bwd": norms * cfg.n_layers + 1, "flash_attention_bwd": cfg.n_layers}
-        want = {k: v * (steps + 1) for k, v in per_step.items()}
-        proc = trainer.process
-        losses = [loss for _, loss in trainer.history]
+        want = {k: v * (steps + 1) for k, v in per_step_launches(cfg).items()}
+        passes = (run["captures"], run["replays"])
         print(f"[train] {smi}: {arch} at full width ({n_params} parameters, bf16, AdamW with "
               f"f32 master, m and v), {steps} Trainer steps at batch {batch} x {seq} on the "
-              f"TokenStream in {fit_s:.1f} s (init's warm-up and capture included): losses "
-              f"{', '.join(f'{x:.4f}' for x in losses)}; captures {proc.captures}, replays "
-              f"{proc.replays}; launches {counts} (expected {want}: {steps} replayed steps "
+              f"TokenStream in {run['fit_s']:.1f} s (init's warm-up and capture included): losses "
+              f"{', '.join(f'{x:.4f}' for x in losses)}; captures {passes[0]}, replays "
+              f"{passes[1]}; launches {counts} (expected {want}: {steps} replayed steps "
               "and init's warm-up forward and backward, each with its remat recompute)")
         if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
             raise SystemExit(f"chip_smoke: [train] {arch}: the loss did not fall: {losses}")
-        if (proc.captures, proc.replays) != (1, steps):
-            raise SystemExit(f"chip_smoke: [train] {arch}: {proc.captures} captures and "
-                             f"{proc.replays} replays; expected 1 and {steps}")
+        if passes != (1, steps):
+            raise SystemExit(f"chip_smoke: [train] {arch}: {passes[0]} captures and "
+                             f"{passes[1]} replays; expected 1 and {steps}")
         if {k: counts.get(k, 0) for k in want} != want:
             raise SystemExit(f"chip_smoke: [train] {arch}: launches {counts}, expected {want}")
-        peak = torch.cuda.max_memory_allocated(dev)
-        step_ms = []
-        for i in range(5):
-            batch_i = stream.batch_at(steps + i)
-            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            e0.record()
-            proc.launch(state, batch_i)
-            e1.record()
-            e1.synchronize()
-            step_ms.append(e0.elapsed_time(e1))
-        p50 = statistics.median(step_ms)
-        tokens = batch * seq
-        model_flops = 6 * n_params * tokens
+        p50, model_flops = run["step_p50_ms"], run["model_flops"]
         print(f"[train] {smi}: {arch} replayed step ms (the batch's upload included): "
-              f"{', '.join(f'{t:.2f}' for t in step_ms)}; p50 {p50:.2f}; {tokens / p50 * 1e3:.0f} "
-              f"tokens/s; MFU {model_flops / (p50 * 1e-3) / peaks['bf16_tensor']:.4f} (6 N "
-              f"tokens = {model_flops:.3e} flops a step; bound {model_flops / peaks['bf16_tensor'] * 1e3:.1f} "
-              f"ms at the bf16 tensor rate); peak memory {peak / 2**30:.2f} GiB allocated "
+              f"{', '.join(f'{t:.2f}' for t in run['step_ms'])}; p50 {p50:.2f}; "
+              f"{run['tokens_per_s']:.0f} tokens/s; MFU {run['mfu']:.4f} (6 N tokens = "
+              f"{model_flops:.3e} flops a step; bound "
+              f"{model_flops / peaks['bf16_tensor'] * 1e3:.1f} ms at the bf16 tensor rate); peak "
+              f"memory {run['peak'] / 2**30:.2f} GiB allocated "
               f"({torch.cuda.max_memory_reserved(dev) / 2**30:.2f} GiB reserved) of "
               f"{torch.cuda.get_device_properties(dev).total_memory / 2**30:.2f} GiB")
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            proc.launch(state, stream.batch_at(steps + 5))
-            torch.cuda.synchronize()
-        buckets: dict = {}
-        other: dict = {}
-        for ev in prof.key_averages():
-            t = getattr(ev, "device_time_total", getattr(ev, "cuda_time_total", 0.0))
-            nm = ev.key.lower()
-            if t <= 0 or nm.startswith(("cudagraph", "memcpy", "memset")):
-                continue
-            kind = ("flash backward" if "flash_bwd" in nm else
-                    "flash forward" if "flash_mma" in nm or "flash_fma" in nm else
-                    "rmsnorm backward" if "rmsnorm_bwd" in nm or "rmsnorm_dw" in nm else
-                    "rmsnorm forward" if "rmsnorm" in nm else
-                    "GEMMs" if any(s in nm for s in ("gemm", "xmma", "cutlass", "cublas",
-                                                     "nvjet", "sm90_", "ampere")) else
-                    "other (AdamW's elementwise updates, casts, the embedding and loss)")
-            buckets[kind] = buckets.get(kind, 0.0) + t / 1e3
-            if kind.startswith("other"):
-                other[ev.key[:60]] = t / 1e3
+        buckets, other = run["buckets"], run["other"]
         total = sum(buckets.values())
         print(f"[train] {smi}: {arch} one replayed step, torch.profiler device ms by kind: "
               + "; ".join(f"{k} {v:.2f} ({v / total:.3f})" for k, v in
@@ -2499,7 +2603,7 @@ def main() -> None:
                                                 tcfg.train.opt), reps=3)
         print(f"[train] {smi}: {arch} AdamW update alone (eager, {n_params} parameters, bf16 "
               f"gradients): {adamw_ms:.2f} ms")
-        del trainer, state, proc, zero_grads, prof
+        del run, state, zero_grads
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -2532,8 +2636,53 @@ def main() -> None:
                 raise SystemExit(f"chip_smoke: [train-check] {arch} {label} outside its band")
             del p_dev, got_g
         del p_cpu, want_g, want_flat
+        replay_against_eager(arch, m16, tcfg.train, stream)
         gc.collect()
         torch.cuda.empty_cache()
+
+    def replay_against_eager(arch, model, tcfg, stream, steps=3):
+        """[train-check]: the bf16 cut's steps replayed through TrainProcess
+        (init's eager forward and backward, one capture, then a replay a
+        step) against the same steps run eagerly through make_train_step,
+        from equal states, in lockstep: the whole train state bit for bit
+        after every step (the bf16 backward kernels run in both), with exact
+        launch counts: init's warm-up and ``steps`` replays, and ``steps``
+        eager steps.  A check, not the main path: its launches stay out of
+        the ``{"kernels"}`` line's."""
+        batches = [{k: torch.from_numpy(np.ascontiguousarray(v[:1, :256]))
+                    for k, v in stream.batch_at(i).items()} for i in range(steps)]
+        reset_launch_counts()
+        replayed = make_train_state(model, 0, device=dev)
+        eager = make_train_state(model, 0, device=dev)
+        if max_diff(replayed, eager) != 0.0:
+            raise SystemExit(f"chip_smoke: [train-check] {arch}: two states from one seed differ")
+        proc = TrainProcess(model, tcfg).init(replayed, batches[0])
+        step = make_train_step(model, tcfg)
+        gaps = []
+        for i, bt in enumerate(batches):
+            proc.launch(replayed, bt)
+            eager, _ = step(eager, bt)
+            torch.cuda.synchronize()
+            gaps.append(max_diff(replayed, eager))
+            if gaps[-1] != 0.0:
+                differ = [n for (n, a), (_, b) in zip(tree_flatten(replayed), tree_flatten(eager))
+                          if not torch.equal(a, b)]
+                raise SystemExit(f"chip_smoke: [train-check] {arch} bf16: replayed step {i} "
+                                 f"differs from the eager one in {len(differ)} leaves, first "
+                                 f"{differ[:6]} (max |difference| {gaps[-1]:.3e})")
+        counts = {k: v for k, v in launch_counts().items() if v}
+        want = {k: v * (1 + 2 * steps) for k, v in per_step_launches(model.cfg).items()}
+        print(f"[train-check] {smi}: {arch} 2 layers at full width, bf16, batch 1 x 256: {steps} "
+              f"steps replayed through TrainProcess (captures {proc.captures}, replays "
+              f"{proc.replays}) against {steps} eager make_train_step steps: max |difference| "
+              f"over the whole train state after each step {', '.join(f'{g:.3e}' for g in gaps)}; "
+              f"launches {counts} (expected {want})")
+        if (proc.captures, proc.replays) != (1, steps):
+            raise SystemExit(f"chip_smoke: [train-check] {arch}: {proc.captures} captures and "
+                             f"{proc.replays} replays; expected 1 and {steps}")
+        if {k: counts.get(k, 0) for k in want} != want:
+            raise SystemExit(f"chip_smoke: [train-check] {arch} bf16 replay against eager: "
+                             f"launches {counts}, expected {want}")
 
     # PERF.md §2: the card's loss and each gradient leaf against the CPU's
     # f32, as (share of the loss, share of the leaf's max |grad|)
@@ -2553,9 +2702,7 @@ def main() -> None:
         counts = {k: v for k, v in launch_counts().items() if v}
         add_counts(counts)
         cfg = train_lm.lm_100m()
-        per_step = {"rmsnorm": 4 * cfg.n_layers + 1, "flash_attention": 2 * cfg.n_layers,
-                    "rmsnorm_bwd": 2 * cfg.n_layers + 1, "flash_attention_bwd": cfg.n_layers}
-        want = {k: 41 * v for k, v in per_step.items()}
+        want = {k: 41 * v for k, v in per_step_launches(cfg).items()}
         print(f"[train-ckpt] {smi}: train_lm.main(['--steps', '40']) (lm-100m, f32, batch 8 x "
               f"256) in {run_s:.1f} s: loss {tr.history[0][1]:.4f} -> {tr.history[-1][1]:.4f}; "
               f"captures {tr.process.captures}, replays {tr.process.replays}; launches "

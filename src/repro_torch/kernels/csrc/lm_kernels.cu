@@ -826,29 +826,68 @@ int launch_rmsnorm_bwd(const void* x, const void* w, const void* dy, void* dx, f
 }
 
 // ---------------------------------------------------------------------------
-// flash attention backward, the first version: f32 FMA arithmetic for both
-// types (bf16 operands are widened as they are loaded to shared memory;
-// statistics and sums are f32), two kernels so that no float atomics are
-// needed.  With s = scale q k, p = exp(s - lse) (lse from the forward),
-// dp = dO v, delta = rowsum(dO o) and ds = p (dp - delta):
+// flash attention backward.  With s = scale q k, p = exp(s - lse) (lse from
+// the forward), dp = dO v, delta = rowsum(dO o) and ds = p (dp - delta):
 //   dV = sum p^T dO,  dK = scale sum ds^T q,  dQ = scale sum ds k.
-// * flash_bwd_dkdv_kernel: one block per (32-key tile, KV head, batch).  K
-//   and V of its tile stay in shared memory; it walks the query heads of
-//   its group, and for each the 32-query tiles that can see the key tile,
-//   in a fixed order, recomputing P from the saved log-sum-exp and delta
-//   from dO and O, and keeps dK and dV in registers.
-// * flash_bwd_dq_kernel: one block per (32-query tile, query head, batch),
-//   walking the key tiles its queries see, dQ in registers.
-// Each tile step is two small products through shared memory: step A, a
-// warp's lanes on the 32 keys and its 4 query rows (q and dO rows read as
-// broadcast float4, K and V rows padded to D + 1 floats so the 32 lanes hit
-// 32 banks) gives s and dp; step B, 8 threads per output row, each
-// accumulating D / 8 interleaved columns.  Masks as in the forward
-// (causal, window, queries aligned to the end of the keys); a row that sees
-// no key has lse = +inf, so p = 0 and its gradients are 0.
+// Two kernels sum the gradients, so that no float atomics are needed: one
+// owns a key tile and sums dK and dV over every query that sees it, the
+// other owns a query tile and sums dQ over its keys.  Both recompute s and
+// dp: 14 D flops a visible pair and query head against the bound's 10 D
+// (dS through device memory, 1 GB a danube layer, per-key-tile dQ partials,
+// 2.7 GB, or float atomics, which break the exact restart, cost more).
+// Masks as in the forward (causal, window, queries aligned to the end of
+// the keys); a row that sees no key has lse = +inf, so p = 0, its dq is 0
+// and it adds nothing to dk and dv.  Every output element is summed by one
+// thread in a fixed order, so the gradients are the same on every run.
 // Bound: operations (10 D flops per visible query-key pair and query head,
-// the bf16 tensor rate for bf16).  This version runs on the f32 FMA units,
-// far from that bound; mma.sync or wgmma tiles are the next step.
+// the bf16 tensor rate for bf16).
+//
+// bf16 inputs, on the tensor cores (mma.sync m16n8k16, bf16 operands, f32
+// accumulators and statistics; the forward's fragment helpers above):
+// * flash_bwd_delta_kernel: delta = rowsum(dO o) in f32, once, into a
+//   (B, Hq, Sq) f32 scratch (8 lanes a row, 16-byte loads, xor shuffles
+//   in a fixed order).
+// * flash_bwd_mma_dkdv_kernel, in the transposed form, so that P^T and
+//   dS^T never leave registers: one block of 4 warps per (64-key tile, KV
+//   head, batch), each warp owning 16 keys with its K and V fragments
+//   loaded once with ldmatrix (D = 128 reads them from shared memory each
+//   tile instead, to stay under 255 registers).  The block walks its
+//   group's query heads and, for each, the 64-query tiles that can see its
+//   keys, in a fixed order; the Q and dO tiles (rows padded as in the
+//   forward) and the tile's lse and delta come through a cp.async double
+//   buffer, one barrier a tile.  S^T = K Q^T and dP^T = V dO^T take Q and
+//   dO rows as B operands through ldmatrix (as K in the forward); P^T =
+//   exp2(S^T scale log2 e - lse log2 e) and dS^T = P^T (dP^T - delta) by
+//   column; both, rounded to bf16 in registers, are the A operands of
+//   dV += P^T dO and dK += dS^T Q directly (the m16n8 accumulator layout
+//   is the m16k16 operand layout), B through ldmatrix.trans (as V in the
+//   forward).  The epilogue scales dK, rounds dK and dV to bf16 and stores
+//   16-byte rows through the warp's rows of the K and V tiles.  Grid: KV
+//   heads on x, key tiles on y, low tiles first: under causality they see
+//   the most queries, so the heaviest blocks start first.
+// * flash_bwd_mma_dq_kernel, the forward's shape with new roles: one block
+//   of 4 warps per (64-query tile, query head, batch), its Q and dO
+//   fragments in registers, K and V tiles through a cp.async double
+//   buffer; S = Q K^T and dP = dO V^T (V rows through ldmatrix, in K's
+//   place), P from lse, dS = P (dP - delta) rounded to bf16 as the A
+//   operand of dQ += dS K (K through ldmatrix.trans, in V's place); dQ
+//   scaled in the epilogue.  Grid as the forward's.
+// Masks are evaluated only on tiles that cut the causal diagonal, the
+// window edge or the ragged ends.  What still bounds them: every warp
+// reads whole tiles through ldmatrix, as the forward does, and mma.sync
+// reaches a part of the tensor rate; wgmma on TMA-fed tiles is the next
+// step.
+//
+// f32 inputs, on the f32 FMA units (exact f32, which the f32 checks at
+// 1e-3 x max |grad| need): flash_bwd_dkdv_kernel, one block per (32-key
+// tile, KV head, batch), K and V of its tile in shared memory, walking its
+// group's query heads and the 32-query tiles that see it and recomputing
+// delta from dO and O; flash_bwd_dq_kernel, one block per (32-query tile,
+// query head, batch).  Each tile step is two small products through shared
+// memory: step A, a warp's lanes on the 32 keys and its 4 query rows (q
+// and dO rows read as broadcast float4, K and V rows padded to D + 1
+// floats so the 32 lanes hit 32 banks) gives s and dp; step B, 8 threads
+// per output row, each accumulating D / 8 interleaved columns.
 // ---------------------------------------------------------------------------
 constexpr int kBwdTile = 32;       // queries and keys per tile
 constexpr int kBwdThreads = 256;   // 8 warps
@@ -870,28 +909,28 @@ struct BwdSmem {                   // one layout for both kernels (floats)
 
 // rows [row0, row0 + 32) of a (rows, D) matrix into shared f32 with row
 // stride `stride`, rows >= nrows zero
-template <typename T, int D>
-__device__ __forceinline__ void load_rows_f32(float* dst, int stride, const T* src, int row0,
+template <int D>
+__device__ __forceinline__ void load_rows_f32(float* dst, int stride, const float* src, int row0,
                                               int nrows) {
   for (int idx = threadIdx.x; idx < kBwdTile * D; idx += kBwdThreads) {
     const int r = idx / D, c = idx % D;
-    dst[r * stride + c] = row0 + r < nrows ? to_f32(src[static_cast<long long>(row0 + r) * D + c])
+    dst[r * stride + c] = row0 + r < nrows ? src[static_cast<long long>(row0 + r) * D + c]
                                            : 0.f;
   }
 }
 
 // lse (in log2 units) and delta = rowsum(dO o) of query rows [q0, q0 + 32):
 // 8 threads a row, summed over the 8 with shuffles in a fixed order
-template <typename T, int D>
-__device__ __forceinline__ void row_stats(float* s_lse, float* s_delta, const T* ob,
-                                          const T* dob, const float* lseb, int q0, int sq) {
+template <int D>
+__device__ __forceinline__ void row_stats(float* s_lse, float* s_delta, const float* ob,
+                                          const float* dob, const float* lseb, int q0, int sq) {
   const int r = threadIdx.x >> 3, g = threadIdx.x & 7;
   const int qi = q0 + r;
   float part = 0.f;
   if (qi < sq) {
     for (int c = g; c < D; c += 8) {
       const long long at = static_cast<long long>(qi) * D + c;
-      part = fmaf(to_f32(dob[at]), to_f32(ob[at]), part);
+      part = fmaf(dob[at], ob[at], part);
     }
   }
   part += __shfl_xor_sync(0xffffffffu, part, 1);
@@ -944,11 +983,11 @@ __device__ __forceinline__ void tile_p_ds(const float* smem, float* s_p, float* 
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kBwdThreads)
-flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                      const T* __restrict__ o, const T* __restrict__ dout,
-                      const float* __restrict__ lse, T* __restrict__ dk, T* __restrict__ dv,
+flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                      const float* __restrict__ o, const float* __restrict__ dout,
+                      const float* __restrict__ lse, float* __restrict__ dk, float* __restrict__ dv,
                       int hq, int hkv, int sq, int skv, int causal, int window, float scale) {
   using L = BwdSmem<D>;
   constexpr int C = D / 8;
@@ -958,8 +997,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
   const int offset = skv - sq;
   const float scale_log2 = scale * kLog2e;
   const long long kv_base = (static_cast<long long>(b) * hkv + hk) * skv * D;
-  load_rows_f32<T, D>(bwd_smem + L::k_off, L::KS, k + kv_base, k0, skv);
-  load_rows_f32<T, D>(bwd_smem + L::v_off, L::KS, v + kv_base, k0, skv);
+  load_rows_f32<D>(bwd_smem + L::k_off, L::KS, k + kv_base, k0, skv);
+  load_rows_f32<D>(bwd_smem + L::v_off, L::KS, v + kv_base, k0, skv);
 
   // query rows that can see a key of this tile: position >= k0 (causal),
   // position < last key + window
@@ -978,9 +1017,9 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
     const long long q_base = (static_cast<long long>(b) * hq + h) * sq;
     for (int q0 = q_begin; q0 < q_end; q0 += kBwdTile) {
       __syncthreads();            // the last tile's Q, dO, P and dS are read
-      load_rows_f32<T, D>(bwd_smem + L::q_off, D, q + q_base * D, q0, sq);
-      load_rows_f32<T, D>(bwd_smem + L::do_off, D, dout + q_base * D, q0, sq);
-      row_stats<T, D>(bwd_smem + L::lse_off, bwd_smem + L::delta_off, o + q_base * D,
+      load_rows_f32<D>(bwd_smem + L::q_off, D, q + q_base * D, q0, sq);
+      load_rows_f32<D>(bwd_smem + L::do_off, D, dout + q_base * D, q0, sq);
+      row_stats<D>(bwd_smem + L::lse_off, bwd_smem + L::delta_off, o + q_base * D,
                       dout + q_base * D, lse + q_base, q0, sq);
       __syncthreads();
       tile_p_ds<D>(bwd_smem, bwd_smem + L::p_off, bwd_smem + L::ds_off, q0, k0, sq, skv,
@@ -1003,17 +1042,17 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
     const long long at = kv_base + static_cast<long long>(k0 + kr) * D;
 #pragma unroll
     for (int c = 0; c < C; ++c) {
-      dk[at + g + 8 * c] = from_f32<T>(dka[c] * scale);
-      dv[at + g + 8 * c] = from_f32<T>(dva[c]);
+      dk[at + g + 8 * c] = dka[c] * scale;
+      dv[at + g + 8 * c] = dva[c];
     }
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kBwdThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                    const T* __restrict__ o, const T* __restrict__ dout,
-                    const float* __restrict__ lse, T* __restrict__ dq, int hq, int hkv, int sq,
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                    const float* __restrict__ o, const float* __restrict__ dout,
+                    const float* __restrict__ lse, float* __restrict__ dq, int hq, int hkv, int sq,
                     int skv, int causal, int window, float scale) {
   using L = BwdSmem<D>;
   constexpr int C = D / 8;
@@ -1025,9 +1064,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const float scale_log2 = scale * kLog2e;
   const long long q_base = (static_cast<long long>(b) * hq + h) * sq;
   const long long kv_base = (static_cast<long long>(b) * hkv + hk) * skv * D;
-  load_rows_f32<T, D>(bwd_smem + L::q_off, D, q + q_base * D, q0, sq);
-  load_rows_f32<T, D>(bwd_smem + L::do_off, D, dout + q_base * D, q0, sq);
-  row_stats<T, D>(bwd_smem + L::lse_off, bwd_smem + L::delta_off, o + q_base * D,
+  load_rows_f32<D>(bwd_smem + L::q_off, D, q + q_base * D, q0, sq);
+  load_rows_f32<D>(bwd_smem + L::do_off, D, dout + q_base * D, q0, sq);
+  row_stats<D>(bwd_smem + L::lse_off, bwd_smem + L::delta_off, o + q_base * D,
                   dout + q_base * D, lse + q_base, q0, sq);
 
   // key tiles some query of this tile can see
@@ -1043,8 +1082,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   for (int c = 0; c < C; ++c) dqa[c] = 0.f;
   for (int k0 = k_begin; k0 < k_end; k0 += kBwdTile) {
     __syncthreads();              // the last tile's K and dS are read
-    load_rows_f32<T, D>(bwd_smem + L::k_off, L::KS, k + kv_base, k0, skv);
-    load_rows_f32<T, D>(bwd_smem + L::v_off, L::KS, v + kv_base, k0, skv);
+    load_rows_f32<D>(bwd_smem + L::k_off, L::KS, k + kv_base, k0, skv);
+    load_rows_f32<D>(bwd_smem + L::v_off, L::KS, v + kv_base, k0, skv);
     __syncthreads();
     tile_p_ds<D>(bwd_smem, nullptr, bwd_smem + L::ds_off, q0, k0, sq, skv, offset, causal,
                  window, scale_log2);
@@ -1059,34 +1098,492 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   if (q0 + qr < sq) {
     const long long at = (q_base + q0 + qr) * D;
 #pragma unroll
-    for (int c = 0; c < C; ++c) dq[at + g + 8 * c] = from_f32<T>(dqa[c] * scale);
+    for (int c = 0; c < C; ++c) dq[at + g + 8 * c] = dqa[c] * scale;
   }
 }
 
-template <typename T, int D>
+template <int D>
 int launch_flash_bwd(const void* q, const void* k, const void* v, const void* o,
                      const void* dout, const float* lse, void* dq, void* dk, void* dv, int b,
                      int hq, int hkv, int sq, int skv, int causal, int window, float scale,
                      cudaStream_t st) {
   constexpr int smem = BwdSmem<D>::bytes;
-  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<T, D>,
+  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<D>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e == cudaSuccess) {
-    e = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, D>,
+    e = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   }
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid_kv((skv + kBwdTile - 1) / kBwdTile, hkv, b);
-  flash_bwd_dkdv_kernel<T, D><<<grid_kv, kBwdThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(o), static_cast<const T*>(dout), lse, static_cast<T*>(dk),
-      static_cast<T*>(dv), hq, hkv, sq, skv, causal, window, scale);
+  flash_bwd_dkdv_kernel<D><<<grid_kv, kBwdThreads, smem, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(o), static_cast<const float*>(dout), lse, static_cast<float*>(dk),
+      static_cast<float*>(dv), hq, hkv, sq, skv, causal, window, scale);
   if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
   const dim3 grid_q(hq, (sq + kBwdTile - 1) / kBwdTile, b);
-  flash_bwd_dq_kernel<T, D><<<grid_q, kBwdThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(o), static_cast<const T*>(dout), lse, static_cast<T*>(dq), hq, hkv,
+  flash_bwd_dq_kernel<D><<<grid_q, kBwdThreads, smem, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(o), static_cast<const float*>(dout), lse, static_cast<float*>(dq), hq, hkv,
       sq, skv, causal, window, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+constexpr int kBwdMmaTile = 64;    // keys and queries per tile of the bf16 backward
+static_assert(kBwdMmaTile == kMmaKeys && kMmaThreads == 2 * kBwdMmaTile,
+              "the bf16 backward stages its tiles with load_tile and one lse or delta "
+              "value a thread");
+constexpr int kDeltaRowLanes = 8;  // lanes summing one row of the delta kernel
+constexpr int kDeltaThreads = 256;
+
+// dK/dV: K and V tiles, two Q and two dO tiles (bf16, padded rows), two
+// (lse, delta) pairs of a query tile (f32)
+constexpr int dkdv_smem_bytes(int d) {
+  return 6 * kBwdMmaTile * (d + 8) * 2 + 2 * 2 * kBwdMmaTile * 4;
+}
+// dQ: Q and dO tiles, two K and two V tiles
+constexpr int dq_smem_bytes(int d) { return 6 * kBwdMmaTile * (d + 8) * 2; }
+
+// 4 bytes global -> shared, zero-filled when !full (src is then not read)
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(full ? 4 : 0)
+               : "memory");
+}
+
+template <int D>
+__global__ void __launch_bounds__(kDeltaThreads)
+flash_bwd_delta_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
+                       float* __restrict__ delta, long long rows) {
+  constexpr int CH = D / 8;        // 16-byte chunks a row
+  const long long row =
+      (static_cast<long long>(blockIdx.x) * kDeltaThreads + threadIdx.x) / kDeltaRowLanes;
+  const int g = threadIdx.x % kDeltaRowLanes;
+  float part = 0.f;
+  if (row < rows) {
+    for (int c = g; c < CH; c += kDeltaRowLanes) {
+      float a[8], b[8];
+      load16<bf16>(o + row * D + c * 8, a);
+      load16<bf16>(dout + row * D + c * 8, b);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) part = fmaf(a[i], b[i], part);
+    }
+  }
+  part += __shfl_xor_sync(0xffffffffu, part, 1);
+  part += __shfl_xor_sync(0xffffffffu, part, 2);
+  part += __shfl_xor_sync(0xffffffffu, part, 4);
+  if (g == 0 && row < rows) delta[row] = part;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_bwd_mma_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          bf16* __restrict__ dk, bf16* __restrict__ dv, int hq, int hkv, int sq,
+                          int skv, int causal, int window, float scale) {
+  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
+  constexpr int T = kBwdMmaTile;
+  constexpr int S = D + 8;          // padded row stride, elements
+  constexpr int KD = D / 16;        // k steps of K Q^T and V dO^T
+  constexpr int ND = D / 8;         // n tiles of dK and dV
+  constexpr int NQ = T / 8;         // n tiles of S^T and dP^T (queries)
+  constexpr bool kKvRegs = D <= 80; // K and V fragments held in registers
+  constexpr int KR = kKvRegs ? KD : 1;
+  extern __shared__ __align__(16) unsigned char mma_smem[];
+  bf16* s_k = reinterpret_cast<bf16*>(mma_smem);
+  bf16* s_v = s_k + T * S;
+  bf16* s_qb = s_v + T * S;                                    // [2][T][S]
+  bf16* s_dob = s_qb + 2 * T * S;                              // [2][T][S]
+  float* s_stat = reinterpret_cast<float*>(s_dob + 2 * T * S); // [2][lse T, delta T]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;     // mma fragment row group, column pair
+  const int hk = blockIdx.x, k0 = blockIdx.y * T, b = blockIdx.z;
+  const int group = hq / hkv;
+  const int offset = skv - sq;
+  const float scale_log2 = scale * kLog2e;
+  const long long kv_base = (static_cast<long long>(b) * hkv + hk) * skv * D;
+
+  // query rows that can see a key of this tile: position >= k0 (causal),
+  // position < last key + window
+  const int k_last = min(k0 + T, skv) - 1;
+  int q_begin = causal ? max(0, k0 - offset) : 0;
+  q_begin = q_begin / T * T;
+  const int q_end = window > 0 ? min(sq, k_last + window - offset) : sq;
+  const int nq = q_end > q_begin ? (q_end - q_begin + T - 1) / T : 0;
+  const int steps = group * nq;   // (query head, query tile) pairs, head-major
+
+  // step i's Q and dO tiles and its lse and delta into buffer `buf`
+  auto stage = [&](int i, int buf) {
+    const long long row0 = (static_cast<long long>(b) * hq + hk * group + i / nq) * sq;
+    const int q0 = q_begin + (i % nq) * T;
+    load_tile<D>(s_qb + buf * T * S, q + row0 * D, q0, sq);
+    load_tile<D>(s_dob + buf * T * S, dout + row0 * D, q0, sq);
+    const int r = threadIdx.x & (T - 1);
+    const bool ok = q0 + r < sq;
+    cp_async4(smem_u32(s_stat + buf * 2 * T + threadIdx.x),
+              (threadIdx.x < T ? lse : delta) + row0 + (ok ? q0 + r : 0), ok);
+  };
+
+  load_tile<D>(s_k, k + kv_base, k0, skv);
+  load_tile<D>(s_v, v + kv_base, k0, skv);
+  cp_async_commit();
+  if (steps > 0) stage(0, 0);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();                // K and V landed
+
+  uint32_t kf[KR][4], vf[KR][4];
+  if constexpr (kKvRegs) {
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      const int at = (warp * 16 + (lane & 15)) * S + kk * 16 + (lane >> 4) * 8;
+      ldsm_x4(smem_u32(s_k + at), kf[kk]);
+      ldsm_x4(smem_u32(s_v + at), vf[kk]);
+    }
+  }
+  float dka[ND][4], dva[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
+  }
+  const int key0 = k0 + warp * 16 + g;   // this thread's keys: key0, key0 + 8
+
+  for (int i = 0; i < steps; ++i) {
+    const int buf = i & 1;
+    cp_async_wait<0>();
+    __syncthreads();              // step i landed; every warp is done with the other buffer
+    if (i + 1 < steps) stage(i + 1, buf ^ 1);
+    cp_async_commit();
+    const bf16* s_q = s_qb + buf * T * S;
+    const bf16* s_do = s_dob + buf * T * S;
+    const float* s_lse = s_stat + buf * 2 * T;
+    const float* s_delta = s_lse + T;
+    const int q0 = q_begin + (i % nq) * T;
+
+    // S^T = K Q^T, dP^T = V dO^T (this warp's 16 keys x 64 queries)
+    float st[NQ][4], dpt[NQ][4];
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t ka[4], va[4];
+      if constexpr (kKvRegs) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          ka[e] = kf[kk][e];
+          va[e] = vf[kk][e];
+        }
+      } else {
+        const int at = (warp * 16 + (lane & 15)) * S + kk * 16 + (lane >> 4) * 8;
+        ldsm_x4(smem_u32(s_k + at), ka);
+        ldsm_x4(smem_u32(s_v + at), va);
+      }
+#pragma unroll
+      for (int np = 0; np < NQ / 2; ++np) {   // two query n-tiles per ldmatrix.x4
+        const int at = (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * S + kk * 16 +
+                       ((lane >> 3) & 1) * 8;
+        uint32_t bq[4], bo[4];
+        ldsm_x4(smem_u32(s_q + at), bq);
+        ldsm_x4(smem_u32(s_do + at), bo);
+        mma_bf16(st[2 * np], ka, bq[0], bq[1]);
+        mma_bf16(st[2 * np + 1], ka, bq[2], bq[3]);
+        mma_bf16(dpt[2 * np], va, bo[0], bo[1]);
+        mma_bf16(dpt[2 * np + 1], va, bo[2], bo[3]);
+      }
+    }
+
+    // P^T and dS^T by column (query); masks only on tiles that cut the
+    // diagonal, the window edge or the ragged ends
+    const int q_hi = min(q0 + T, sq) - 1 + offset;
+    const bool masked = q0 + T > sq || k0 + T > skv || (causal && k0 + T - 1 > q0 + offset) ||
+                        (window > 0 && k0 <= q_hi - window);
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int col = j * 8 + 2 * t4 + c;
+        const float l2 = s_lse[col] * kLog2e;
+        const float dl = s_delta[col];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int e = 2 * r + c;
+          float p = exp2f(fmaf(st[j][e], scale_log2, -l2));
+          if (masked) {
+            const int key = key0 + 8 * r, pos = q0 + col + offset;
+            bool ok = q0 + col < sq && key < skv;
+            if (causal) ok = ok && key <= pos;
+            if (window > 0) ok = ok && key > pos - window;
+            p = ok ? p : 0.f;
+          }
+          st[j][e] = p;
+          dpt[j][e] = p * (dpt[j][e] - dl);
+        }
+      }
+    }
+
+    // dV += P^T dO, dK += dS^T Q: P^T and dS^T in bf16 as A operands
+#pragma unroll
+    for (int kk = 0; kk < T / 16; ++kk) {
+      const uint32_t pa[4] = {pack_bf16(st[2 * kk][0], st[2 * kk][1]),
+                              pack_bf16(st[2 * kk][2], st[2 * kk][3]),
+                              pack_bf16(st[2 * kk + 1][0], st[2 * kk + 1][1]),
+                              pack_bf16(st[2 * kk + 1][2], st[2 * kk + 1][3])};
+      const uint32_t da[4] = {pack_bf16(dpt[2 * kk][0], dpt[2 * kk][1]),
+                              pack_bf16(dpt[2 * kk][2], dpt[2 * kk][3]),
+                              pack_bf16(dpt[2 * kk + 1][0], dpt[2 * kk + 1][1]),
+                              pack_bf16(dpt[2 * kk + 1][2], dpt[2 * kk + 1][3])};
+#pragma unroll
+      for (int dp = 0; dp < ND / 2; ++dp) {   // two dim n-tiles per ldmatrix.x4.trans
+        const int at = (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * S + dp * 16 +
+                       (lane >> 4) * 8;
+        uint32_t bo[4], bq[4];
+        ldsm_x4_trans(smem_u32(s_do + at), bo);
+        ldsm_x4_trans(smem_u32(s_q + at), bq);
+        mma_bf16(dva[2 * dp], pa, bo[0], bo[1]);
+        mma_bf16(dva[2 * dp + 1], pa, bo[2], bo[3]);
+        mma_bf16(dka[2 * dp], da, bq[0], bq[1]);
+        mma_bf16(dka[2 * dp + 1], da, bq[2], bq[3]);
+      }
+    }
+  }
+
+  // epilogue: dK x scale, bf16, through this warp's rows of the K and V
+  // tiles (no other warp reads them)
+  cp_async_wait<0>();
+  __syncwarp();
+  bf16* sk = s_k + warp * 16 * S;
+  bf16* sv = s_v + warp * 16 * S;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+#pragma unroll
+    for (int j = 0; j < ND; ++j) {
+      const int at = (g + 8 * r) * S + j * 8 + 2 * t4;
+      *reinterpret_cast<__nv_bfloat162*>(sk + at) =
+          __floats2bfloat162_rn(dka[j][2 * r] * scale, dka[j][2 * r + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(sv + at) =
+          __floats2bfloat162_rn(dva[j][2 * r], dva[j][2 * r + 1]);
+    }
+  }
+  __syncwarp();
+  constexpr int CH = D / 8;
+  for (int idx = lane; idx < 16 * CH; idx += 32) {
+    const int r = idx / CH, c = idx % CH;
+    const int key = k0 + warp * 16 + r;
+    if (key < skv) {
+      const long long at = kv_base + static_cast<long long>(key) * D + c * 8;
+      *reinterpret_cast<uint4*>(dk + at) = *reinterpret_cast<const uint4*>(sk + r * S + c * 8);
+      *reinterpret_cast<uint4*>(dv + at) = *reinterpret_cast<const uint4*>(sv + r * S + c * 8);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_bwd_mma_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        bf16* __restrict__ dq, int hq, int hkv, int sq, int skv, int causal,
+                        int window, float scale) {
+  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
+  constexpr int T = kBwdMmaTile;
+  constexpr int S = D + 8;          // padded row stride, elements
+  constexpr int KD = D / 16;        // k steps of Q K^T and dO V^T
+  constexpr int ND = D / 8;         // n tiles of dQ
+  constexpr int NK = T / 8;         // n tiles of S and dP (keys)
+  extern __shared__ __align__(16) unsigned char mma_smem[];
+  bf16* s_q = reinterpret_cast<bf16*>(mma_smem);
+  bf16* s_do = s_q + T * S;
+  bf16* s_kb = s_do + T * S;        // [2][T][S]
+  bf16* s_vb = s_kb + 2 * T * S;    // [2][T][S]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int h = blockIdx.x, b = blockIdx.z;
+  const int hk = h / (hq / hkv);
+  const int q_tile = (gridDim.y - 1 - blockIdx.y) * T;   // rows that see the most keys first
+  const int offset = skv - sq;
+  const float scale_log2 = scale * kLog2e;
+  const long long row0 = (static_cast<long long>(b) * hq + h) * sq;
+  const bf16* kb = k + (static_cast<long long>(b) * hkv + hk) * skv * D;
+  const bf16* vb = v + (static_cast<long long>(b) * hkv + hk) * skv * D;
+
+  // key tiles some query of this tile can see
+  const int q_lo = q_tile + offset;
+  const int q_hi = min(q_tile + T, sq) - 1 + offset;
+  const int k_end = causal ? min(skv, q_hi + 1) : skv;
+  int k_begin = window > 0 ? max(0, q_lo - window + 1) : 0;
+  k_begin = k_begin / T * T;
+
+  load_tile<D>(s_q, q + row0 * D, q_tile, sq);
+  load_tile<D>(s_do, dout + row0 * D, q_tile, sq);
+  cp_async_commit();
+  if (k_begin < k_end) {
+    load_tile<D>(s_kb, kb, k_begin, skv);
+    load_tile<D>(s_vb, vb, k_begin, skv);
+  }
+  cp_async_commit();
+
+  // this thread's rows (pos0, pos0 + 8): lse in log2 units (+inf past the
+  // end: p = 0) and delta
+  const int pos0 = q_tile + warp * 16 + g + offset;
+  float l2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = q_tile + warp * 16 + g + 8 * r;
+    l2[r] = qi < sq ? lse[row0 + qi] * kLog2e : INFINITY;
+    dl[r] = qi < sq ? delta[row0 + qi] : 0.f;
+  }
+  cp_async_wait<1>();
+  __syncthreads();                // Q and dO landed
+  uint32_t qf[KD][4], of[KD][4];
+#pragma unroll
+  for (int kk = 0; kk < KD; ++kk) {
+    const int at = (warp * 16 + (lane & 15)) * S + kk * 16 + (lane >> 4) * 8;
+    ldsm_x4(smem_u32(s_q + at), qf[kk]);
+    ldsm_x4(smem_u32(s_do + at), of[kk]);
+  }
+  float acc[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  int buf = 0;
+  for (int k0 = k_begin; k0 < k_end; k0 += T, buf ^= 1) {
+    cp_async_wait<0>();
+    __syncthreads();              // this tile landed; every warp is done with the other buffer
+    if (k0 + T < k_end) {
+      load_tile<D>(s_kb + (buf ^ 1) * T * S, kb, k0 + T, skv);
+      load_tile<D>(s_vb + (buf ^ 1) * T * S, vb, k0 + T, skv);
+    }
+    cp_async_commit();
+    const bf16* s_k = s_kb + buf * T * S;
+    const bf16* s_v = s_vb + buf * T * S;
+
+    // S = Q K^T, dP = dO V^T (this warp's 16 queries x 64 keys)
+    float s[NK][4], dp[NK][4];
+#pragma unroll
+    for (int j = 0; j < NK; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+#pragma unroll
+      for (int np = 0; np < NK / 2; ++np) {   // two key n-tiles per ldmatrix.x4
+        const int at = (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * S + kk * 16 +
+                       ((lane >> 3) & 1) * 8;
+        uint32_t bk[4], bv[4];
+        ldsm_x4(smem_u32(s_k + at), bk);
+        ldsm_x4(smem_u32(s_v + at), bv);
+        mma_bf16(s[2 * np], qf[kk], bk[0], bk[1]);
+        mma_bf16(s[2 * np + 1], qf[kk], bk[2], bk[3]);
+        mma_bf16(dp[2 * np], of[kk], bv[0], bv[1]);
+        mma_bf16(dp[2 * np + 1], of[kk], bv[2], bv[3]);
+      }
+    }
+
+    // P from lse, dS = P (dP - delta) in place of S
+    const bool masked = k0 + T > skv || (causal && k0 + T - 1 > q_lo) ||
+                        (window > 0 && k0 <= q_hi - window);
+#pragma unroll
+    for (int j = 0; j < NK; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        float p = exp2f(fmaf(s[j][e], scale_log2, -l2[r]));
+        if (masked) {
+          const int key = k0 + j * 8 + 2 * t4 + (e & 1);
+          const int pos = pos0 + 8 * r;
+          bool ok = key < skv;
+          if (causal) ok = ok && key <= pos;
+          if (window > 0) ok = ok && key > pos - window;
+          p = ok ? p : 0.f;
+        }
+        s[j][e] = p * (dp[j][e] - dl[r]);
+      }
+    }
+
+    // dQ += dS K: dS in bf16 as the A operand, K through ldmatrix.trans
+#pragma unroll
+    for (int kk = 0; kk < T / 16; ++kk) {
+      const uint32_t da[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int dn = 0; dn < ND / 2; ++dn) {   // two dim n-tiles per ldmatrix.x4.trans
+        uint32_t bk[4];
+        ldsm_x4_trans(smem_u32(s_k + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * S +
+                               dn * 16 + (lane >> 4) * 8),
+                      bk);
+        mma_bf16(acc[2 * dn], da, bk[0], bk[1]);
+        mma_bf16(acc[2 * dn + 1], da, bk[2], bk[3]);
+      }
+    }
+  }
+
+  // epilogue: dQ x scale, bf16, through this warp's rows of the Q tile (no
+  // other warp reads them)
+  cp_async_wait<0>();
+  __syncwarp();
+  bf16* so = s_q + warp * 16 * S;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+#pragma unroll
+    for (int j = 0; j < ND; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(so + (g + 8 * r) * S + j * 8 + 2 * t4) =
+          __floats2bfloat162_rn(acc[j][2 * r] * scale, acc[j][2 * r + 1] * scale);
+    }
+  }
+  __syncwarp();
+  constexpr int CH = D / 8;
+  bf16* dqb = dq + row0 * D;
+  for (int idx = lane; idx < 16 * CH; idx += 32) {
+    const int r = idx / CH, c = idx % CH;
+    const int qi = q_tile + warp * 16 + r;
+    if (qi < sq) {
+      *reinterpret_cast<uint4*>(dqb + static_cast<long long>(qi) * D + c * 8) =
+          *reinterpret_cast<const uint4*>(so + r * S + c * 8);
+    }
+  }
+}
+
+template <int D>
+int launch_flash_bwd_mma(const void* q, const void* k, const void* v, const void* o,
+                         const void* dout, const float* lse, float* delta, void* dq, void* dk,
+                         void* dv, int b, int hq, int hkv, int sq, int skv, int causal,
+                         int window, float scale, cudaStream_t st) {
+  constexpr int smem_kv = dkdv_smem_bytes(D), smem_q = dq_smem_bytes(D);
+  cudaError_t e = cudaFuncSetAttribute(flash_bwd_mma_dkdv_kernel<D>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem_kv);
+  if (e == cudaSuccess) {
+    e = cudaFuncSetAttribute(flash_bwd_mma_dq_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem_q);
+  }
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const bf16* qq = static_cast<const bf16*>(q);
+  const bf16* kk = static_cast<const bf16*>(k);
+  const bf16* vv = static_cast<const bf16*>(v);
+  const bf16* dd = static_cast<const bf16*>(dout);
+  const long long rows = static_cast<long long>(b) * hq * sq;
+  const long long rows_per_block = kDeltaThreads / kDeltaRowLanes;
+  flash_bwd_delta_kernel<D><<<static_cast<unsigned>((rows + rows_per_block - 1) / rows_per_block),
+                              kDeltaThreads, 0, st>>>(static_cast<const bf16*>(o), dd, delta, rows);
+  if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid_kv(hkv, (skv + kBwdMmaTile - 1) / kBwdMmaTile, b);
+  flash_bwd_mma_dkdv_kernel<D><<<grid_kv, kMmaThreads, smem_kv, st>>>(
+      qq, kk, vv, dd, lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), hq, hkv, sq,
+      skv, causal, window, scale);
+  if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid_q(hq, (sq + kBwdMmaTile - 1) / kBwdMmaTile, b);
+  flash_bwd_mma_dq_kernel<D><<<grid_q, kMmaThreads, smem_q, st>>>(
+      qq, kk, vv, dd, lse, delta, static_cast<bf16*>(dq), hq, hkv, sq, skv, causal, window,
+      scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1156,24 +1653,29 @@ int rt_rmsnorm_bwd(const void* x, const void* w, const void* dy, void* dx, void*
 
 // Gradient of rt_flash_attention: o and lse from its forward, dout like q;
 // dq like q, dk and dv like k (written whole, nothing accumulated).
+// delta: (b, hq, sq) f32 scratch for bf16 inputs (rowsum(dout o)), null
+// for f32 (whose kernels compute it themselves).
 int rt_flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
-                           const void* dout, const void* lse, void* dq, void* dk, void* dv,
-                           int b, int hq, int hkv, int sq, int skv, int d, int causal,
+                           const void* dout, const void* lse, void* delta, void* dq, void* dk,
+                           void* dv, int b, int hq, int hkv, int sq, int skv, int d, int causal,
                            int window, float scale, int bf16_inputs, void* stream) {
+  const int tile = bf16_inputs ? kBwdMmaTile : kBwdTile;   // query tiles ride on gridDim.y
   if (hkv <= 0 || hq % hkv != 0 || hq > 65535 || hkv > 65535 || b > 65535 ||
-      (sq + kBwdTile - 1) / kBwdTile > 65535) {
+      (sq + tile - 1) / tile > 65535 ||
+      (bf16_inputs && ((skv + tile - 1) / tile > 65535 || delta == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (b == 0 || hq == 0 || sq == 0 || skv == 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
+  float* dl = static_cast<float*>(delta);
 #define FLASH_BWD_CASE(D)                                                                      \
   case D * 2 + 1:                                                                              \
-    return launch_flash_bwd<bf16, D>(q, k, v, o, dout, l, dq, dk, dv, b, hq, hkv, sq, skv,    \
-                                     causal, window, scale, st);                               \
+    return launch_flash_bwd_mma<D>(q, k, v, o, dout, l, dl, dq, dk, dv, b, hq, hkv, sq, skv,  \
+                                   causal, window, scale, st);                                 \
   case D * 2:                                                                                  \
-    return launch_flash_bwd<float, D>(q, k, v, o, dout, l, dq, dk, dv, b, hq, hkv, sq, skv,   \
-                                      causal, window, scale, st);
+    return launch_flash_bwd<D>(q, k, v, o, dout, l, dq, dk, dv, b, hq, hkv, sq, skv,         \
+                               causal, window, scale, st);
   switch (d * 2 + (bf16_inputs ? 1 : 0)) {
     FLASH_BWD_CASE(16)
     FLASH_BWD_CASE(64)

@@ -14,10 +14,15 @@ themselves.  On CPU tensors it is the plain version :func:`.ref.attention`.
 When autograd needs a gradient of a CUDA call (a training forward), the
 call goes through :class:`FlashAttentionFn`: its forward also writes each
 row's log-sum-exp (the output is the same bit for bit), and its backward
-is two hand-written kernels, ``flash_bwd_dkdv_kernel`` (a block per key
-tile and KV head, looping over the query tiles and heads of its group in a
-fixed order) and ``flash_bwd_dq_kernel`` (a block per query tile and
-head), with no float atomics, so the gradients are the same on every run.
+is hand-written kernels with no float atomics, so the gradients are the
+same on every run.  For bf16, three kernels on the tensor cores:
+``flash_bwd_delta_kernel`` (rowsum(dO o) once, into a scratch),
+``flash_bwd_mma_dkdv_kernel`` (a block per 64-key tile and KV head in the
+transposed form, walking the query tiles and heads of its group in a fixed
+order, P^T and dS^T kept in registers as the A operands of dV and dK) and
+``flash_bwd_mma_dq_kernel`` (a block per 64-query tile and head, the
+forward's shape); for f32, ``flash_bwd_dkdv_kernel`` and
+``flash_bwd_dq_kernel`` on the FMA units, 32-key and 32-query tiles.
 The JAX package trains through plain ``jnp``, so the gradient has no
 Pallas kernel to replace; its plain version is autograd through
 :func:`.ref.attention`.
@@ -34,9 +39,11 @@ from .common import check_cuda, launch, nbytes
 
 DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (16, 64, 80, 128)  # the kernel's template instances (16: the SMOKE configs)
-MAX_GRID_YZ = 65535            # batch rides on gridDim.z; query heads (f32) or
-                               # 64-query tiles (bf16; 32-query tiles of the
-                               # backward) on gridDim.y
+MAX_GRID_YZ = 65535            # batch rides on gridDim.z; query heads (f32
+                               # forward) or query tiles (the others) on
+                               # gridDim.y, and key tiles too (bf16 backward)
+#: query and key tiles of the backward kernels (kBwdMmaTile, kBwdTile)
+BWD_TILE = {torch.bfloat16: 64, torch.float32: 32}
 
 
 def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -54,7 +61,8 @@ def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _check_cuda_inputs(q: torch.Tensor, *others: torch.Tensor, tile: int = 64) -> None:
     """Raise unless the inputs suit a kernel whose query tiles of ``tile``
-    rows ride on gridDim.y (64 the forward's, 32 the backward's)."""
+    rows ride on gridDim.y (64 the forward's, :data:`BWD_TILE` the
+    backward's)."""
     b, hq, sq, d = q.shape
     check_cuda("q", q, DTYPES)
     for i, t in enumerate(others):
@@ -133,16 +141,23 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
     if q.is_cpu:
         return ref.attention_bwd(q, k, v, out, dout, lse, causal=causal, window=window,
                                  scale=scale)
-    _check_cuda_inputs(q, k, v, out, dout, tile=32)
+    tile = BWD_TILE.get(q.dtype, 32)
+    _check_cuda_inputs(q, k, v, out, dout, tile=tile)
     b, hq, sq, d = q.shape
+    bf16 = q.dtype == torch.bfloat16
+    if bf16 and -(-k.shape[2] // tile) > MAX_GRID_YZ:
+        raise ValueError(f"{k.shape[2]} keys exceed the backward kernel's grid")
     if lse is None or lse.dtype != torch.float32 or tuple(lse.shape) != (b, hq, sq) \
             or not lse.is_contiguous() or lse.device != q.device:
         raise ValueError(f"lse: need the forward's ({b}, {hq}, {sq}) f32 log-sum-exp")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    # rowsum(dout o) for the bf16 kernels (the f32 ones compute it themselves)
+    delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device) if bf16 else None
     err = launch(_build.library().rt_flash_attention_bwd, q, q.data_ptr(), k.data_ptr(),
-                 v.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(), dq.data_ptr(),
-                 dk.data_ptr(), dv.data_ptr(), b, hq, k.shape[1], sq, k.shape[2], d, causal,
-                 window or 0, scale, q.dtype == torch.bfloat16)
+                 v.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+                 delta.data_ptr() if bf16 else None, dq.data_ptr(), dk.data_ptr(),
+                 dv.data_ptr(), b, hq, k.shape[1], sq, k.shape[2], d, causal, window or 0,
+                 scale, bf16)
     _build.check(err, "flash_attention_bwd")
     count_launch("flash_attention_bwd")
     return dq, dk, dv

@@ -8,7 +8,9 @@ gradients), the trainer's fault-tolerance cases of
 ``tests/test_trainer_ft.py`` on the port, the captured ``TrainProcess``
 through a recorder in the capture seam, the launchers, and the plain
 backward versions of the norm and attention kernels, with plain-torch
-walks of the CUDA backward kernels' tiling.
+walks of the CUDA backward kernels' tiling and an emulation of the bf16
+tensor-core backward's arithmetic (held to ``jax.vjp`` within 2e-2 x max
+|grad|, the band ``chip_smoke.py`` holds the card to).
 
 Tolerances: the loss within rtol 1e-5 of the reference's (with
 ``use_pallas=False``, and with ``use_pallas=True``: interpret-mode Pallas
@@ -30,6 +32,7 @@ code.  Restart equality is exact.
 """
 import contextlib
 import math
+import re
 import types
 
 import jax
@@ -54,8 +57,8 @@ from repro_torch.core.arena import tree_flatten, tree_unflatten
 from repro_torch.core.registry import KernelRegistry, launch_counts, reset_launch_counts
 from repro_torch.data import io as tio
 from repro_torch.data.pipeline import ArenaFeed, FileCorpus, StreamConfig, TokenStream
-from repro_torch.kernels import ref
-from repro_torch.kernels.flash_attention import flash_attention_bwd
+from repro_torch.kernels import _build, ref
+from repro_torch.kernels.flash_attention import BWD_TILE, flash_attention_bwd
 from repro_torch.kernels.rmsnorm import BWD_BLOCKS, rmsnorm_bwd
 from repro_torch.launch import train as train_launch
 from repro_torch.launch import train_lm
@@ -65,6 +68,7 @@ from repro_torch.optim import AdamWConfig, Schedule
 from repro_torch.train import (StepTimeout, TrainConfig, Trainer, TrainerConfig, TrainProcess,
                                make_train_state, make_train_step, state_pspecs)
 from test_torch_lm import _named, stable_keys
+from test_torch_lm_kernels import _mma_flash_emulation
 
 ARCHS = ["qwen3-14b", "h2o-danube-1.8b", "qwen2-7b", "minitron-8b", "granite-moe-1b-a400m",
          "deepseek-v2-lite-16b", "internvl2-2b"]
@@ -593,13 +597,27 @@ def test_backward_wrappers_raise_off_cpu_and_cuda():
         flash_attention_bwd(q, q, q, q[:, :, :2], q, None)
 
 
-def _flash_bwd_walk(q, k, v, o, do, lse, causal, window, tile=32):
+def _bwd_tiles():
+    """The backward kernels' tiles as ``lm_kernels.cu`` has them: bf16
+    (``kBwdMmaTile``, the tensor-core kernels) and f32 (``kBwdTile``, the
+    FMA kernels)."""
+    src = (_build.CSRC / "lm_kernels.cu").read_text()
+    return {name: int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+            for name in ("kBwdMmaTile", "kBwdTile")}
+
+
+def test_backward_tiles_of_the_wrapper_are_the_kernels():
+    tiles = _bwd_tiles()
+    assert BWD_TILE == {torch.bfloat16: tiles["kBwdMmaTile"], torch.float32: tiles["kBwdTile"]}
+
+
+def _flash_bwd_walk(q, k, v, o, do, lse, causal, window, tile):
     """The CUDA backward's loops in plain torch (f32): the dK/dV kernel's
-    blocks over 32-key tiles, each walking its group's query heads and the
-    query tiles that can see it (``q_begin`` / ``q_end`` as the kernel
-    computes them), and the dQ kernel's blocks over 32-query tiles walking
-    their key tiles (``k_begin`` / ``k_end``); P from the log-sum-exp,
-    delta from dO and O, the masks of the kernel."""
+    blocks over key tiles of ``tile``, each walking its group's query heads
+    and the query tiles that can see it (``q_begin`` / ``q_end`` as the
+    kernels compute them), and the dQ kernel's blocks over query tiles
+    walking their key tiles (``k_begin`` / ``k_end``); P from the
+    log-sum-exp, delta from dO and O, the masks of the kernels."""
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     group, offset, scale = hq // hkv, skv - sq, d ** -0.5
@@ -623,56 +641,165 @@ def _flash_bwd_walk(q, k, v, o, do, lse, causal, window, tile=32):
     for bi in range(b):
         for hk in range(hkv):
             for k0 in range(0, skv, tile):
-                k_last = min(k0 + tile, skv) - 1
-                q_begin = (max(0, k0 - offset) if causal else 0) // tile * tile
-                q_end = min(sq, k_last + window - offset) if window else sq
-                for h in range(hk * group, (hk + 1) * group):
-                    for q0 in range(q_begin, q_end, tile):
-                        qi, kj, p, ds = p_ds(bi, h, q0, k0)
-                        dv[bi, hk, kj] += p.T @ do[bi, h, qi]
-                        dk[bi, hk, kj] += scale * ds.T @ q[bi, h, qi]
+                for h, q0 in _dkdv_steps(k0, hk, group, sq, skv, causal, window, tile):
+                    qi, kj, p, ds = p_ds(bi, h, q0, k0)
+                    dv[bi, hk, kj] += p.T @ do[bi, h, qi]
+                    dk[bi, hk, kj] += scale * ds.T @ q[bi, h, qi]
         for h in range(hq):
             for q0 in range(0, sq, tile):
-                q_lo, q_hi = q0 + offset, min(q0 + tile, sq) - 1 + offset
-                k_end = min(skv, q_hi + 1) if causal else skv
-                k_begin = (max(0, q_lo - window + 1) if window else 0) // tile * tile
-                for k0 in range(k_begin, k_end, tile):
+                for k0 in _dq_key_tiles(q0, sq, skv, causal, window, tile):
                     qi, kj, _, ds = p_ds(bi, h, q0, k0)
                     dq[bi, h, qi] += scale * ds @ k[bi, h // group, kj]
     return dq, dk, dv
 
 
-WALK_CASES = [((1, 4, 100, 16), (1, 2, 100, 16), True, None),
-              ((1, 2, 130, 16), (1, 1, 130, 16), True, 8),
-              ((1, 2, 70, 16), (1, 2, 90, 16), True, 33),
-              ((1, 4, 77, 16), (1, 1, 77, 16), False, None),
-              ((2, 2, 64, 16), (2, 2, 64, 16), True, 40),
-              ((1, 2, 45, 16), (1, 1, 45, 16), False, 10)]
+def _dkdv_steps(k0, hk, group, sq, skv, causal, window, tile):
+    """(query head, query tile) of the dK/dV block of key tile ``k0``, in
+    its order: the query rows that can see a key of the tile (position >=
+    k0 under causality, position < last key + window)."""
+    offset, k_last = skv - sq, min(k0 + tile, skv) - 1
+    q_begin = (max(0, k0 - offset) if causal else 0) // tile * tile
+    q_end = min(sq, k_last + window - offset) if window else sq
+    return [(h, q0) for h in range(hk * group, (hk + 1) * group)
+            for q0 in range(q_begin, q_end, tile)]
 
 
-@pytest.mark.parametrize("qs,ks,causal,window", WALK_CASES)
-def test_flash_backward_tiling_visits_every_pair_once(qs, ks, causal, window):
-    """The kernels' tile ranges skip only pairs that no mask lets through,
-    and visit the others once: the walk equals autograd through the plain
-    version."""
-    g = torch.Generator().manual_seed(0)
-    q, do = torch.randn(qs, generator=g), torch.randn(qs, generator=g)
-    k, v = torch.randn(ks, generator=g), torch.randn(ks, generator=g)
-    o = ref.attention(q, k, v, causal=causal, window=window)
-    # the forward's log-sum-exp of the scaled scores over the visible keys
-    s = torch.einsum("bhqd,bhkd->bhqk", q, k.repeat_interleave(qs[1] // ks[1], 1)) * qs[-1] ** -.5
-    pos = torch.arange(qs[2])[:, None] + ks[2] - qs[2]
-    kp = torch.arange(ks[2])[None]
+def _dq_key_tiles(q0, sq, skv, causal, window, tile):
+    """The key tiles the dQ block of query tile ``q0`` walks (those some
+    query of the tile can see)."""
+    q_lo, q_hi = q0 + skv - sq, min(q0 + tile, sq) - 1 + skv - sq
+    k_end = min(skv, q_hi + 1) if causal else skv
+    k_begin = (max(0, q_lo - window + 1) if window else 0) // tile * tile
+    return range(k_begin, k_end, tile)
+
+
+WALK_SHAPES = [((1, 4, 100, 16), (1, 2, 100, 16), True, None),
+               ((1, 2, 130, 16), (1, 1, 130, 16), True, 8),
+               ((1, 2, 70, 16), (1, 2, 90, 16), True, 33),
+               ((1, 4, 77, 16), (1, 1, 77, 16), False, None),
+               ((2, 2, 64, 16), (2, 2, 64, 16), True, 40),
+               ((1, 2, 45, 16), (1, 1, 45, 16), False, 10)]
+# each shape at the f32 kernels' tile (kBwdTile; the ids these cases had
+# before the bf16 kernels' tile came in) and the bf16 ones' (kBwdMmaTile)
+WALK_CASES = [pytest.param(*case, kind, id=f"qs{i}-ks{i}-{case[2]}-{case[3]}{suffix}")
+              for kind, suffix in (("kBwdTile", ""), ("kBwdMmaTile", "-mma"))
+              for i, case in enumerate(WALK_SHAPES)]
+
+
+def _visible_lse(q, k, causal, window, scale):
+    """The forward's log-sum-exp of the scaled scores over the visible keys
+    (f32; +inf for a row that sees no key)."""
+    hq, sq, skv = q.shape[1], q.shape[2], k.shape[2]
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(),
+                     k.float().repeat_interleave(hq // k.shape[1], 1)) * scale
+    pos = torch.arange(sq)[:, None] + skv - sq
+    kp = torch.arange(skv)[None]
     ok = torch.ones_like(pos * kp, dtype=torch.bool)
     if causal:
         ok &= kp <= pos
     if window:
         ok &= kp > pos - window
     lse = torch.logsumexp(torch.where(ok, s, -torch.inf), -1)
-    got = _flash_bwd_walk(q, k, v, o, do, lse, causal, window)
+    return torch.where(ok.any(-1), lse, torch.inf)
+
+
+@pytest.mark.parametrize("qs,ks,causal,window,kind", WALK_CASES)
+def test_flash_backward_tiling_visits_every_pair_once(qs, ks, causal, window, kind):
+    """The kernels' tile ranges skip only pairs that no mask lets through,
+    and visit the others once: the walk equals autograd through the plain
+    version, at both kernels' tiles."""
+    g = torch.Generator().manual_seed(0)
+    q, do = torch.randn(qs, generator=g), torch.randn(qs, generator=g)
+    k, v = torch.randn(ks, generator=g), torch.randn(ks, generator=g)
+    o = ref.attention(q, k, v, causal=causal, window=window)
+    lse = _visible_lse(q, k, causal, window, qs[-1] ** -.5)
+    got = _flash_bwd_walk(q, k, v, o, do, lse, causal, window, _bwd_tiles()[kind])
     want = ref.attention_bwd(q, k, v, o, do, causal=causal, window=window)
     for a, b in zip(got, want):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4, atol=1e-5)
+
+
+def _mma_flash_bwd_emulation(q, k, v, o, do, lse, causal, window):
+    """The arithmetic of the bf16 backward kernels in plain torch, on bf16
+    q, k, v, o and dO and the forward's f32 log-sum-exp: delta =
+    rowsum(dO o) in f32 once; the dK/dV blocks over 64-key tiles walk their
+    group's query heads and 64-query tiles in the kernel's order, the dQ
+    blocks over 64-query tiles their key tiles; S and dP exact in f32 (bf16
+    products are exact; the sums in another order than the mma's); P =
+    exp2(S scale log2 e - lse log2 e) in f32, 0 where masked; dS = P (dP -
+    delta); P and dS rounded to bf16 before the products, which sum in f32;
+    dK and dQ times the scale, the three outputs rounded to bf16."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    tile = _bwd_tiles()["kBwdMmaTile"]
+    group, offset = hq // hkv, skv - sq
+    scale = torch.tensor(d ** -0.5, dtype=torch.float32)
+    log2e = torch.tensor(math.log2(math.e), dtype=torch.float32)
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    delta = (dof * o.float()).sum(-1)
+    lse2 = lse * log2e
+
+    def p_ds(bi, h, q0, k0):
+        qi = torch.arange(q0, min(q0 + tile, sq))
+        kj = torch.arange(k0, min(k0 + tile, skv))
+        s = qf[bi, h, qi] @ kf[bi, h // group, kj].T
+        dp = dof[bi, h, qi] @ vf[bi, h // group, kj].T
+        pos = (qi + offset)[:, None]
+        ok = torch.ones_like(s, dtype=torch.bool)
+        if causal:
+            ok &= kj[None] <= pos
+        if window:
+            ok &= kj[None] > pos - window
+        p = torch.where(ok, torch.exp2(s * (scale * log2e) - lse2[bi, h, qi][:, None]), 0.0)
+        ds = p * (dp - delta[bi, h, qi][:, None])
+        return qi, kj, p.bfloat16().float(), ds.bfloat16().float()
+
+    dq = torch.zeros(b, hq, sq, d)
+    dk, dv = torch.zeros(b, hkv, skv, d), torch.zeros(b, hkv, skv, d)
+    for bi in range(b):
+        for hk in range(hkv):
+            for k0 in range(0, skv, tile):
+                for h, q0 in _dkdv_steps(k0, hk, group, sq, skv, causal, window, tile):
+                    qi, kj, p, ds = p_ds(bi, h, q0, k0)
+                    dv[bi, hk, kj] += p.T @ dof[bi, h, qi]
+                    dk[bi, hk, kj] += ds.T @ qf[bi, h, qi]
+        for h in range(hq):
+            for q0 in range(0, sq, tile):
+                for k0 in _dq_key_tiles(q0, sq, skv, causal, window, tile):
+                    qi, kj, _, ds = p_ds(bi, h, q0, k0)
+                    dq[bi, h, qi] += ds @ kf[bi, h // group, kj]
+    return (dq * scale).bfloat16(), (dk * scale).bfloat16(), dv.bfloat16()
+
+
+@pytest.mark.parametrize(
+    "b,hq,hkv,sq,skv,d,causal,window",
+    [
+        (1, 4, 2, 130, 130, 64, True, None),   # GQA causal, three tiles each way, ragged
+        (2, 4, 1, 70, 100, 80, True, 33),      # window, kv longer than q, ragged ends
+        (1, 6, 2, 90, 77, 16, False, None),    # non-causal, the SMOKE head dim
+    ])
+def test_mma_flash_bwd_arithmetic_fits_the_bf16_tolerance(b, hq, hkv, sq, skv, d, causal,
+                                                          window):
+    """The bf16 backward kernels' roundings (P and dS to bf16 before the
+    products, the outputs to bf16), on the bf16 forward's output, stay
+    within the 2e-2 x max |grad| that ``chip_smoke.py`` holds the card's
+    kernels to, against ``jax.vjp`` of the reference attention in f32 on
+    the same (bf16-valued) inputs."""
+    rng = np.random.default_rng(3)
+    q, do = (torch.tensor(rng.standard_normal((b, hq, sq, d)), dtype=torch.bfloat16)
+             for _ in range(2))
+    k, v = (torch.tensor(rng.standard_normal((b, hkv, skv, d)), dtype=torch.bfloat16)
+            for _ in range(2))
+    o = _mma_flash_emulation(q, k, v, causal, window)
+    lse = _visible_lse(q, k, causal, window, d ** -0.5)
+    got = _mma_flash_bwd_emulation(q, k, v, o, do, lse, causal, window)
+    _, vjp = jax.vjp(lambda a, b_, c: jref.attention(a, b_, c, causal=causal, window=window),
+                     *(jnp.asarray(t.float().numpy()) for t in (q, k, v)))
+    want = vjp(jnp.asarray(do.float().numpy()))
+    for name, g_, w in zip(("dq", "dk", "dv"), got, want):
+        w = np.asarray(w)
+        err = np.abs(g_.float().numpy() - w).max() / np.abs(w).max()
+        assert err <= 2e-2, f"{name}: {err:.3e} x max |grad|"
 
 
 @pytest.mark.parametrize("rows,d", [(7, 16), (300, 40), (1000, 8)])
