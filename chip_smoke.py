@@ -164,10 +164,21 @@
    non-causal cases and 20 rows that see no key (dq 0, nothing added to dk, dv); the forward with its
    log-sum-exp writes the output bit for bit as without; times against
    bound and library call (SDPA's backward with ``enable_gqa``,
-   ``F.rms_norm``'s backward) and ptxas's registers, spills and shared
+   ``F.rms_norm``'s backward, with one host call of each beside the
+   kernel's) and ptxas's registers, spills and shared
    memory of the bf16 tensor-core kernels (``flash_bwd_delta_kernel``,
    ``flash_bwd_mma_dkdv_kernel``, ``flash_bwd_mma_dq_kernel``) and the f32
-   FMA ones.  Then h2o-danube-1.8b at full width (random bf16 weights made
+   FMA ones.  The flash backward also at whisper-large-v3's encoder (8, 20,
+   1500, 64) non-causal and decoder (8, 20, 448, 64) and zamba2-2.7b's
+   shared block (4, 32, 2048, 80) MHA.  ``wkv6_bwd`` (with the training
+   forward's state checkpoints, whose output and final state must be the
+   serving forward's bit for bit) at the rwkv6-3b training shape (4, 2048,
+   40, 64) bf16, a ragged bf16 case with a state and a final-state
+   gradient, and f32 at head sizes 64 and 8, against autograd through
+   ``ref.wkv6`` in the same bands, twice bit for bit; its max |err| beside
+   the plain version's own bf16 gap; its time against bound and plain
+   version (no library call computes it); ptxas of its two kernels and of
+   the checkpointing forward.  Then h2o-danube-1.8b at full width (random bf16 weights made
    on the card from a seed): 6 ``Trainer`` steps at batch 4 x 2048 on the
    ``TokenStream`` (the loss falls; 1 capture, 6 replays; exact launch
    counts of init's warm-up and each step: forward, remat recompute and
@@ -177,7 +188,13 @@
    on the card (f32, then bf16) against the CPU's f32 within ``PERF.md``
    §2's bands; the bf16 cut's 3 steps replayed through ``TrainProcess``
    bit for bit 3 eager ``make_train_step`` steps (batch 1 x 256), with
-   exact launch counts that stay out of the ``{"kernels"}`` line's.  Then
+   exact launch counts that stay out of the ``{"kernels"}`` line's.  The
+   same for rwkv6-3b and zamba2-2.7b at batch 4 x 2048 and
+   whisper-large-v3 at batch 8 x 448 tokens with 1500 frames a sample (4
+   steps, p50 over 3 replays; MFU from the parameters each token or frame
+   passes through), their cuts 2 layers, one superblock, and 2 encoder +
+   2 decoder layers, the CPU also in bf16: where its own gap exceeds the
+   danube bf16 band, the card's band is twice that gap.  Then
    ``repro_torch.launch.train_lm`` (lm-100m, f32) for 40
    steps into a temporary directory (the loss improves), 10 steps with a
    failure at step 6 and a checkpoint every 4 bit for bit an
@@ -189,7 +206,7 @@
    reads its ``output.png`` back: 1 - x in 8 bits.  Temporary files live in
    a ``tempfile`` directory that the script removes.
 7. Ends with a ``{"kernels": [...]}`` line (the LM kernels' launches are
-   the sums over the eight serves and the two training runs; the backward
+   the sums over the eight serves and the five training runs; the backward
    kernels', over the training runs; their ``replaces`` names the forward
    kernel's ``pallas_call``, since the JAX package has no backward kernel)
    and a
@@ -298,22 +315,63 @@ def backward_times(rand) -> dict:
 
 
 def per_step_launches(cfg) -> dict:
-    """Launches of each kernel a decoder training step makes: the forward,
-    its remat recompute and the backward."""
-    norms = 4 if cfg.qk_norm else 2                    # a layer's rmsnorm calls
+    """Launches of each kernel a training step makes: the forward, its
+    remat recompute (every norm and kernel inside a checkpointed layer or
+    superblock runs twice) and the backward."""
+    if cfg.family == "ssm":        # rwkv6: ln1, ln2 a layer; ln0 and the final norm outside
+        n = cfg.n_layers
+        return {"rmsnorm": 2 * 2 * n + 2, "rmsnorm_bwd": 2 * n + 2, "wkv6": 2 * n,
+                "wkv6_bwd": n}
+    if cfg.family == "hybrid":     # zamba2: the shared block's 2 norms and each Mamba2 layer's
+        n_super = cfg.n_layers // cfg.attn_every
+        inner = 2 * n_super + cfg.n_layers
+        return {"rmsnorm": 2 * inner + 1, "rmsnorm_bwd": inner + 1,
+                "flash_attention": 2 * n_super, "flash_attention_bwd": n_super}
+    if cfg.family == "encdec":     # whisper: LayerNorms are plain; one self-attention a layer
+        n = cfg.enc_layers + cfg.dec_layers
+        return {"flash_attention": 2 * n, "flash_attention_bwd": n}
+    norms = 4 if cfg.qk_norm else 2                    # a decoder layer's rmsnorm calls
     return {"rmsnorm": 2 * norms * cfg.n_layers + 1, "flash_attention": 2 * cfg.n_layers,
             "rmsnorm_bwd": norms * cfg.n_layers + 1, "flash_attention_bwd": cfg.n_layers}
 
 
+def model_flops(cfg, specs, batch: int, seq: int, frames: int = 0) -> tuple[float, str]:
+    """(flops of one training step, its formula): 6 x the parameters a
+    token passes through x the tokens.  For zamba2 the shared block counts
+    once a superblock (it runs n_super times); for whisper the encoder's
+    parameters (and the decoder's cross K/V projections, which read the
+    encoder states) count against the frames, the rest of the decoder's
+    (learned positions left out: a lookup) against the decoder tokens."""
+    n_of = {name: int(np.prod(spec.shape)) for name, spec in specs}
+    total = sum(n_of.values())
+    if cfg.family == "hybrid":
+        n_super = cfg.n_layers // cfg.attn_every
+        shared = sum(n for k, n in n_of.items() if k.startswith("['shared']"))
+        eff = total + (n_super - 1) * shared
+        return (6.0 * eff * batch * seq,
+                f"6 x (N + {n_super - 1} x the shared block's {shared}) = 6 x {eff} x "
+                f"{batch * seq} tokens")
+    if cfg.family == "encdec":
+        on_frames = sum(n for k, n in n_of.items()
+                        if k.startswith(("['enc_layers']", "['enc_norm']"))
+                        or k.endswith(("['cross_attn']['w_k']", "['cross_attn']['w_v']")))
+        on_tokens = total - on_frames - n_of["['pos_dec']"]
+        return (6.0 * (on_frames * batch * frames + on_tokens * batch * seq),
+                f"6 x ({on_frames} encoder and cross K/V parameters x {batch * frames} frames "
+                f"+ {on_tokens} decoder parameters x {batch * seq} tokens)")
+    return 6.0 * total * batch * seq, f"6 N tokens = 6 x {total} x {batch * seq}"
+
+
 def fit_and_time(arch: str, dev, peaks: dict, steps: int = 6, batch: int = 4,
-                 seq: int = 2048, reps: int = 5) -> dict:
+                 seq: int = 2048, reps: int = 5, enc_frames: int = 0) -> dict:
     """``arch`` at full width, random bf16 weights made on the card from
-    seed 0: ``steps`` Trainer steps at batch x seq on the TokenStream
-    (AdamW, constant lr 1e-5; init's warm-up and capture included), with
-    their launch counts and peak memory; then ``reps`` more replayed
+    seed 0: ``steps`` Trainer steps at batch x seq on the TokenStream of
+    its family (an encoder-decoder's batches carry ``enc_frames`` frames a
+    sample; AdamW, constant lr 1e-5; init's warm-up and capture included),
+    with their launch counts and peak memory; then ``reps`` more replayed
     steps, each between two CUDA events (the batch's upload included):
-    their p50, tokens/s and MFU (6 N tokens flops against ``peaks``' bf16
-    tensor rate); then one replayed step under ``torch.profiler``, its
+    their p50, tokens/s and MFU (:func:`model_flops` against ``peaks``'
+    bf16 tensor rate); then one replayed step under ``torch.profiler``, its
     device ms by kind of kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -329,8 +387,12 @@ def fit_and_time(arch: str, dev, peaks: dict, steps: int = 6, batch: int = 4,
     cfg = get_config(arch)
     check_fits(cfg, dev)
     model = build_model(cfg)
-    n_params = sum(int(np.prod(s.shape)) for _, s in tree_flatten(model.param_specs()))
-    stream = TokenStream(StreamConfig(vocab=cfg.vocab, seq=seq, batch=batch, seed=0))
+    specs = tree_flatten(model.param_specs())
+    n_params = sum(int(np.prod(s.shape)) for _, s in specs)
+    flops, flops_txt = model_flops(cfg, specs, batch, seq, enc_frames)
+    kind = "encdec" if cfg.family == "encdec" else "lm"
+    stream = TokenStream(StreamConfig(vocab=cfg.vocab, seq=seq, batch=batch, seed=0, kind=kind,
+                                      d_model=cfg.d_model, enc_frames=enc_frames))
     tcfg = TrainerConfig(total_steps=steps, log_every=1, train=TrainConfig(
         opt=AdamWConfig(schedule=Schedule(kind="constant", base_lr=1e-5, warmup_steps=0))))
     trainer = Trainer(model, tcfg, device=dev, log_fn=lambda _msg: None)
@@ -371,9 +433,12 @@ def fit_and_time(arch: str, dev, peaks: dict, steps: int = 6, batch: int = 4,
                 "flash forward" if "flash_mma" in nm or "flash_fma" in nm else
                 "rmsnorm backward" if "rmsnorm_bwd" in nm or "rmsnorm_dw" in nm else
                 "rmsnorm forward" if "rmsnorm" in nm else
+                "wkv6 backward" if "wkv6_bwd" in nm else
+                "wkv6 forward" if "wkv6" in nm else
                 "GEMMs" if any(s in nm for s in ("gemm", "xmma", "cutlass", "cublas",
                                                  "nvjet", "sm90_", "ampere")) else
-                "other (AdamW's elementwise updates, casts, the embedding and loss)")
+                "other (elementwise and reductions: AdamW, casts, the embedding, the loss, "
+                "plain-torch norms and Mamba2's SSD)")
         buckets[kind] = buckets.get(kind, 0.0) + t / 1e3
         if kind.startswith("other"):
             other[ev.key[:60]] = t / 1e3
@@ -382,8 +447,8 @@ def fit_and_time(arch: str, dev, peaks: dict, steps: int = 6, batch: int = 4,
             "replays": replays, "peak": peak,
             "losses": [loss for _, loss in trainer.history], "step_ms": step_ms,
             "step_p50_ms": p50, "tokens_per_s": tokens / p50 * 1e3,
-            "model_flops": 6 * n_params * tokens,
-            "mfu": 6 * n_params * tokens / (p50 * 1e-3) / peaks["bf16_tensor"],
+            "model_flops": flops, "flops_formula": flops_txt,
+            "mfu": flops / (p50 * 1e-3) / peaks["bf16_tensor"],
             "buckets": buckets, "other": other}
 
 
@@ -1836,7 +1901,7 @@ def main() -> None:
           f"decode of one head (1, 1, 1, 64): {scaling['one']:.5f}")
     for tag, mangled in (("bf16", "13__nv_bfloat16"), ("f32", "f")):
         for d in (64, 8):
-            regs, smem, spill = ptxas_usage(log, f"wkv6_kernelI{mangled}Li{d}E")
+            regs, smem, spill = ptxas_usage(log, f"wkv6_kernelI{mangled}Li{d}ELb0E")
             print(f"[ptxas] wkv6_kernel<{tag}, D={d}>: {regs} registers a thread, {spill} bytes "
                   f"spilled, {smem} bytes shared memory a block")
     for tag, mangled in (("f32", "negate_kernelIfE"), ("bf16", "negate_kernelI13__nv_bfloat16E")):
@@ -1898,6 +1963,12 @@ def main() -> None:
             ("flash_attention_bwd", bwd_args, {"causal": True, "window": 4096},
              "q (4, 32, 2048, 80) kv (4, 8, 2048, 80) bf16 causal window 4096, o and lse "
              "(h2o-danube-1.8b, a layer)"),
+            # the kernel's call without checkpoints runs the checkpointing
+            # forward first, as the plain version's autograd runs its forward
+            ("wkv6_bwd", wkv_inputs(4, 2048, 40, 64, bf16)[:5]
+             + (None, rand(4, 2048, 40, 64, dtype=bf16)), {},
+             "(4, 2048, 40, 64) bf16 r/k/v and output gradient, f32 w and u, no state "
+             "(rwkv6-3b, a layer; the forward with checkpoints included)"),
         ]
         for kname, args, kw, at in calls:
             rec = chooser.calibrate(kname, *args, **kw)
@@ -2379,11 +2450,13 @@ def main() -> None:
     wall("before section 7t")
     # -- 7t. training: the backward kernels, h2o-danube-1.8b, lm-100m ---------
     from repro_torch.ckpt import latest_step
-    from repro_torch.core.arena import tree_flatten, tree_unflatten
+    from repro_torch.core.arena import torch_dtype, tree_flatten, tree_unflatten
     from repro_torch.data.pipeline import StreamConfig, TokenStream
     from repro_torch.kernels.flash_attention import _forward as flash_forward
     from repro_torch.kernels.flash_attention import flash_attention_bwd
     from repro_torch.kernels.rmsnorm import rmsnorm_bwd
+    from repro_torch.kernels.wkv6 import _forward as wkv6_forward
+    from repro_torch.kernels.wkv6 import wkv6_bwd
     from repro_torch.launch import train_lm
     from repro_torch.optim import adamw_update
     from repro_torch.train import Trainer, TrainProcess, make_train_state, make_train_step
@@ -2442,7 +2515,13 @@ def main() -> None:
             ((2, 4, 37, 16), (2, 2, 37, 16), True, None, bf16, False),
             ((2, 8, 100, 64), (2, 2, 100, 64), False, None, bf16, False),    # non-causal
             ((1, 4, 77, 80), (1, 1, 77, 80), False, None, f32, False),
-            ((2, 6, 70, 128), (2, 2, 90, 128), True, 33, f32, False))       # Sq < Skv
+            ((2, 6, 70, 128), (2, 2, 90, 128), True, 33, f32, False),       # Sq < Skv
+            # whisper-large-v3's encoder over 1500 frames, non-causal (1500 is
+            # no multiple of the 64-row tiles) and its decoder's 448 tokens,
+            # batch 8; zamba2-2.7b's shared block, MHA, batch 4 x 2048
+            ((8, 20, 1500, 64), (8, 20, 1500, 64), False, None, bf16, True),
+            ((8, 20, 448, 64), (8, 20, 448, 64), True, None, bf16, True),
+            ((4, 32, 2048, 80), (4, 32, 2048, 80), True, None, bf16, True))
         for qs, ks, causal, window, dtype, on_path in bwd_cases:
             q, k, v = rand(*qs, dtype=dtype), rand(*ks, dtype=dtype), rand(*ks, dtype=dtype)
             do = rand(*qs, dtype=dtype)
@@ -2483,6 +2562,48 @@ def main() -> None:
         print(f"[train-kernels] rows that see no key: dq 0, nothing added to dk and dv, lse "
               "+inf (bf16 and f32)")
 
+        # wkv6_bwd (with the training forward's checkpoints) at the rwkv6-3b
+        # training shape (bf16 r/k/v and output gradient, f32 w, no state), a
+        # ragged bf16 case with a state and a final-state gradient (77 steps:
+        # no multiple of the 16-step chunk), ragged f32 at head size 64 and
+        # the SMOKE head size 8, each against autograd through ref.wkv6 and
+        # run twice bit for bit; the training forward's output and final
+        # state are the serving forward's bit for bit
+        for shape, dtype, stateful, on_path in (
+                ((4, 2048, 40, 64), bf16, False, True), ((3, 77, 40, 64), bf16, True, False),
+                ((2, 37, 3, 64), f32, True, False), ((2, 100, 4, 8), f32, True, False)):
+            b_, t_, h_, d_ = shape
+            r, k, v, w, u, s0 = wkv_inputs(*shape, dtype)
+            s0 = s0 if stateful else None
+            do = rand(*shape, dtype=dtype)
+            ds = rand(b_, h_, d_, d_) if stateful else None
+            o_ck, s_ck, ckpt = wkv6_forward(r, k, v, w, u, s0, None, with_ckpt=True)
+            o_sv, s_sv = wkv6(r, k, v, w, u, s0)
+            if not (torch.equal(o_ck, o_sv) and torch.equal(s_ck, s_sv)):
+                raise SystemExit(f"chip_smoke: wkv6 {shape}: the training forward's output or "
+                                 "state differs from the serving forward's")
+            names = ("dr", "dk", "dv", "dw", "du") + (("ds0",) if stateful else ())
+            got = wkv6_bwd(r, k, v, w, u, s0, do, ds, ckpt=ckpt)[:len(names)]
+            same_twice(f"wkv6_bwd {shape}", got,
+                       wkv6_bwd(r, k, v, w, u, s0, do, ds, ckpt=ckpt)[:len(names)])
+            want = ref.wkv6_bwd(r, k, v, w, u, s0, do, ds)[:len(names)]
+            label = f"wkv6_bwd {shape} {dtype}{' state and final-state gradient' if stateful else ''}"
+            grads_check(label, "wkv6_bwd", got, want, names, dtype, on_path)
+            if dtype == bf16 and not stateful:
+                # the plain version's own bf16 gap: its bf16 run against its f32
+                # run on the same (bf16-valued) inputs, beside the kernel's
+                want32 = ref.wkv6_bwd(r.float(), k.float(), v.float(), w, u, None, do.float())
+                gaps = [(float((g.float() - x).abs().max() / x.abs().max()),
+                         float((p_.float() - x).abs().max() / x.abs().max()))
+                        for g, p_, x in zip(got, want, want32)]
+                print(f"[train-kernels] {smi}: wkv6_bwd {shape} bf16, max |err| / max |grad| "
+                      f"against the plain version's f32 run, kernel vs plain bf16: "
+                      + ", ".join(f"{nm} {kg:.3e} vs {pg:.3e}" for nm, (kg, pg) in
+                                  zip(names, gaps)))
+                del want32
+            del r, k, v, w, u, s0, do, ds, o_ck, s_ck, ckpt, o_sv, s_sv, got, want
+            torch.cuda.empty_cache()
+
         # times at the h2o-danube-1.8b training shapes
         bt = backward_times(rand)
         x, w, dy = bt["rmsnorm_args"]
@@ -2490,6 +2611,10 @@ def main() -> None:
         ms, lib_ms = bt["rmsnorm_bwd_ms"], bt["rms_norm_backward_ms"]
         plain_ms = loop_ms(lambda: ref.rmsnorm_bwd(x, w, dy), reps=10)
         host_ms = call_ms(lambda: rmsnorm_bwd(x, w, dy))
+        xg, wg = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        y_lib = F.rms_norm(xg, (x.shape[-1],), wg, 1e-6)
+        lib_host_ms = call_ms(lambda: torch.autograd.grad(y_lib, (xg, wg), dy, retain_graph=True))
+        del xg, wg, y_lib
         rows["rmsnorm_bwd"] = dict(name="rmsnorm_bwd", route="cuda", source=LM_SRC,
                                    replaces="src/repro/kernels/rmsnorm.py:40", ms=ms,
                                    plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
@@ -2497,7 +2622,7 @@ def main() -> None:
         print(f"[time] {smi}: rmsnorm_bwd at x (8192, 2560) bf16 (h2o-danube-1.8b, batch 4 x "
               f"2048), device ms a call: kernel {ms:.5f}, plain {plain_ms:.5f}, library "
               f"(F.rms_norm backward) {lib_ms:.5f}, bound {bound_ms:.5f} ({bound_by}: "
-              f"{cost_txt}); one host call {host_ms:.5f}")
+              f"{cost_txt}); one host call: kernel {host_ms:.5f}, library {lib_host_ms:.5f}")
         del x, w, dy
         q, k, v, o, do, lse = bt["flash_args"]
         ms, lib_ms = bt["flash_attention_bwd_ms"], bt["sdpa_backward_ms"]
@@ -2509,6 +2634,11 @@ def main() -> None:
         fwd_ms = loop_ms(lambda: flash_forward(q, k, v, True, 4096, 80 ** -0.5, True))
         host_ms = call_ms(lambda: flash_attention_bwd(q, k, v, o, do, lse, causal=True,
                                                       window=4096), reps=5)
+        qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+        o_lib = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True, enable_gqa=True)
+        lib_host_ms = call_ms(lambda: torch.autograd.grad(o_lib, (qg, kg, vg), do,
+                                                          retain_graph=True), reps=5)
+        del qg, kg, vg, o_lib
         rows["flash_attention_bwd"] = dict(
             name="flash_attention_bwd", route="cuda", source=LM_SRC,
             replaces="src/repro/kernels/flash_attention.py:124", ms=ms, plain_ms=plain_ms,
@@ -2519,8 +2649,33 @@ def main() -> None:
               f"{ms:.5f}, plain {plain_ms:.5f}, library (SDPA backward, enable_gqa) "
               f"{lib_ms:.5f}, bound {bound_ms:.5f} ({bound_by}: {cost_txt}); kernel / bound "
               f"{ms / bound_ms:.1f}, kernel / SDPA backward {ms / lib_ms:.2f}; the forward with "
-              f"log-sum-exp {fwd_ms:.5f}; one host call {host_ms:.5f}")
+              f"log-sum-exp {fwd_ms:.5f}; one host call: kernel {host_ms:.5f}, library "
+              f"{lib_host_ms:.5f}")
         del q, k, v, do, o, lse
+        torch.cuda.empty_cache()
+        # wkv6_bwd at the rwkv6-3b training shape (a layer: bf16 r/k/v and
+        # output gradient, f32 w, no state) with the forward's checkpoints;
+        # no PyTorch call computes this gradient, so there is no library time
+        r, k, v, w, u, _ = wkv_inputs(4, 2048, 40, 64, bf16)
+        do = rand(4, 2048, 40, 64, dtype=bf16)
+        _, _, ckpt = wkv6_forward(r, k, v, w, u, None, None, with_ckpt=True)
+        ms = loop_ms(lambda: wkv6_bwd(r, k, v, w, u, None, do, ckpt=ckpt))
+        fwd_ms = loop_ms(lambda: wkv6_forward(r, k, v, w, u, None, None, with_ckpt=True))
+        serve_ms = loop_ms(lambda: wkv6(r, k, v, w, u))
+        plain_ms = loop_ms(lambda: ref.wkv6_bwd(r, k, v, w, u, None, do), reps=1)
+        host_ms = call_ms(lambda: wkv6_bwd(r, k, v, w, u, None, do, ckpt=ckpt), reps=5)
+        bound_ms, bound_by, cost_txt = bound_of("wkv6_bwd", r, k, v, w, u, None, do)
+        rows["wkv6_bwd"] = dict(
+            name="wkv6_bwd", route="cuda", source=RWKV_SRC,
+            replaces="src/repro/kernels/wkv6.py:82", ms=ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+            max_abs_err=max_err["wkv6_bwd"])
+        print(f"[time] {smi}: wkv6_bwd at (4, 2048, 40, 64) bf16 r/k/v, f32 w, no state "
+              f"(rwkv6-3b, a layer), device ms a call: kernel {ms:.5f}, plain {plain_ms:.5f}, "
+              f"library none, bound {bound_ms:.5f} ({bound_by}: {cost_txt}); kernel / bound "
+              f"{ms / bound_ms:.1f}; the training forward (with checkpoints) {fwd_ms:.5f}, the "
+              f"serving forward {serve_ms:.5f}; one host call {host_ms:.5f}")
+        del r, k, v, w, u, do, ckpt
         log = _build.BUILD_INFO["log"]
         # dynamic shared memory of the bf16 kernels (lm_kernels.cu's
         # dkdv_smem_bytes / dq_smem_bytes: six 64-row bf16 tiles padded to
@@ -2539,6 +2694,17 @@ def main() -> None:
                 label = f"{kern}<D={d}>" + ("" if "mma" in kern or "delta" in kern else " (f32)")
                 print(f"[ptxas] {label}: {regs} registers a thread, {spill} bytes spilled, "
                       f"{smem} bytes static shared memory + {dyn(d)} dynamic a block")
+        for tag, mangled in (("bf16", "13__nv_bfloat16"), ("f32", "f")):
+            for d in (64, 8):
+                regs, smem, spill = ptxas_usage(log, f"wkv6_bwd_kernelI{mangled}Li{d}E")
+                print(f"[ptxas] wkv6_bwd_kernel<{tag}, D={d}>: {regs} registers a thread, "
+                      f"{spill} bytes spilled, {smem} bytes shared memory a block")
+                regs, smem, spill = ptxas_usage(log, f"wkv6_kernelI{mangled}Li{d}ELb1E")
+                print(f"[ptxas] wkv6_kernel<{tag}, D={d}, checkpoints>: {regs} registers a "
+                      f"thread, {spill} bytes spilled, {smem} bytes shared memory a block")
+            regs, smem, spill = ptxas_usage(log, f"wkv6_bwd_finish_kernelI{mangled}E")
+            print(f"[ptxas] wkv6_bwd_finish_kernel<{tag}>: {regs} registers a thread, {spill} "
+                  f"bytes spilled, {smem} bytes shared memory a block")
         for tmpl in ("Li16E", "Li4E", "Li1E"):
             regs, smem, spill = ptxas_usage(log, "rmsnorm_bwd_kernelI13__nv_bfloat16S", tmpl)
             print(f"[ptxas] rmsnorm_bwd_kernel<bf16, bf16, J={tmpl[2:-1]}>: {regs} registers a "
@@ -2552,24 +2718,41 @@ def main() -> None:
         return max(float((x.float() - y.float()).abs().max())
                    for (_, x), (_, y) in zip(tree_flatten(a), tree_flatten(b)))
 
-    def train_full_width(arch, steps=6, batch=4, seq=2048):
+    def cut_of(cfg):
+        """The first layers of ``cfg`` that ``[train-check]`` runs, and what
+        they are: 2 layers; zamba2's first superblock (the shared block and
+        its attn_every Mamba2 layers); whisper's first 2 encoder and 2
+        decoder layers."""
+        if cfg.family == "hybrid":
+            return {"n_layers": cfg.attn_every}, (f"one superblock (the shared block and "
+                                                  f"{cfg.attn_every} Mamba2 layers)")
+        if cfg.family == "encdec":
+            return {"enc_layers": 2, "dec_layers": 2}, "2 encoder and 2 decoder layers"
+        return {"n_layers": 2}, "2 layers"
+
+    def train_full_width(arch, steps=6, batch=4, seq=2048, reps=5, enc_frames=0):
         """[train]: ``arch`` at full width, random bf16 weights made on the
-        card from seed 0, ``steps`` Trainer steps at batch x seq on the
+        card from seed 0, ``steps`` Trainer steps at batch x seq (and
+        ``enc_frames`` frames a sample for an encoder-decoder) on the
         TokenStream (AdamW, constant lr 1e-5): the loss falls; one capture,
         then a replay a step; exact launch counts (init's warm-up forward
         and backward, then each step's forward, remat recompute and
-        backward); step p50 over 5 more replays, tokens/s, MFU against the
-        bf16 tensor rate, peak memory; a torch.profiler breakdown of one
-        replayed step; AdamW alone."""
-        run = fit_and_time(arch, dev, peaks, steps=steps, batch=batch, seq=seq)
+        backward); step p50 over ``reps`` more replays, tokens/s, MFU against
+        the bf16 tensor rate, peak memory; a torch.profiler breakdown of one
+        replayed step; AdamW alone.  Then ``[train-check]``: the cut of
+        :func:`cut_of` on the card against the CPU's f32, and its bf16
+        steps replayed against eager ones."""
+        run = fit_and_time(arch, dev, peaks, steps=steps, batch=batch, seq=seq, reps=reps,
+                           enc_frames=enc_frames)
         cfg, stream, tcfg, state = run["cfg"], run["stream"], run["tcfg"], run["state"]
         n_params, counts, losses = run["n_params"], run["counts"], run["losses"]
         add_counts(counts)
         want = {k: v * (steps + 1) for k, v in per_step_launches(cfg).items()}
         passes = (run["captures"], run["replays"])
+        frames_txt = f" (and {enc_frames} frames a sample)" if enc_frames else ""
         print(f"[train] {smi}: {arch} at full width ({n_params} parameters, bf16, AdamW with "
-              f"f32 master, m and v), {steps} Trainer steps at batch {batch} x {seq} on the "
-              f"TokenStream in {run['fit_s']:.1f} s (init's warm-up and capture included): losses "
+              f"f32 master, m and v), {steps} Trainer steps at batch {batch} x {seq}{frames_txt} "
+              f"on the TokenStream in {run['fit_s']:.1f} s (init's warm-up and capture included): losses "
               f"{', '.join(f'{x:.4f}' for x in losses)}; captures {passes[0]}, replays "
               f"{passes[1]}; launches {counts} (expected {want}: {steps} replayed steps "
               "and init's warm-up forward and backward, each with its remat recompute)")
@@ -2583,8 +2766,8 @@ def main() -> None:
         p50, model_flops = run["step_p50_ms"], run["model_flops"]
         print(f"[train] {smi}: {arch} replayed step ms (the batch's upload included): "
               f"{', '.join(f'{t:.2f}' for t in run['step_ms'])}; p50 {p50:.2f}; "
-              f"{run['tokens_per_s']:.0f} tokens/s; MFU {run['mfu']:.4f} (6 N tokens = "
-              f"{model_flops:.3e} flops a step; bound "
+              f"{run['tokens_per_s']:.0f} tokens/s; MFU {run['mfu']:.4f} ({run['flops_formula']} "
+              f"= {model_flops:.3e} flops a step; bound "
               f"{model_flops / peaks['bf16_tensor'] * 1e3:.1f} ms at the bf16 tensor rate); peak "
               f"memory {run['peak'] / 2**30:.2f} GiB allocated "
               f"({torch.cuda.max_memory_reserved(dev) / 2**30:.2f} GiB reserved) of "
@@ -2597,6 +2780,11 @@ def main() -> None:
               + f"; total {total:.2f}; the largest of the other kinds: "
               + "; ".join(f"{k} {v:.2f}" for k, v in sorted(other.items(),
                                                             key=lambda kv: -kv[1])[:8]))
+        # the captured step (its graph's memory pool: 40 GiB for zamba2) goes
+        # before AdamW runs alone beside the state
+        del run["trainer"]
+        gc.collect()
+        torch.cuda.empty_cache()
         zero_grads = tree_unflatten((n, torch.zeros_like(p))
                                     for n, p in tree_flatten(state["params"]))
         adamw_ms = loop_ms(lambda: adamw_update(state["params"], zero_grads, state["opt"],
@@ -2607,10 +2795,13 @@ def main() -> None:
         gc.collect()
         torch.cuda.empty_cache()
 
-        # the first 2 layers at full width: loss and every gradient on the
-        # card (f32, then bf16) against the CPU's f32
-        two32 = cfg.scaled(n_layers=2, param_dtype="float32", dtype="float32")
-        m32, m16 = build_model(two32), build_model(cfg.scaled(n_layers=2))
+        # the cut at full width: loss and every gradient on the card (f32,
+        # then bf16) against the CPU's f32; for rwkv6, zamba2 and whisper
+        # the CPU also runs bf16, and where its own gap exceeds the danube
+        # band, the card's bf16 band is twice that gap
+        cut, cut_txt = cut_of(cfg)
+        two32 = cfg.scaled(**cut, param_dtype="float32", dtype="float32")
+        m32, m16 = build_model(two32), build_model(cfg.scaled(**cut))
         p_cpu = m32.init_params(torch.Generator().manual_seed(1), device="cpu")
         small = {k: torch.from_numpy(np.ascontiguousarray(v[:1, :256]))
                  for k, v in stream.batch_at(0).items()}
@@ -2618,16 +2809,41 @@ def main() -> None:
         want_m, want_g = loss_and_grads(m32, p_cpu, small)
         cpu_s = time.perf_counter() - t0
         want_flat = tree_flatten(want_g)
-        for label, model_d, dtype in (("f32", m32, f32), ("bf16", m16, bf16)):
-            p_dev = tree_unflatten((n, t.to(dev, dtype)) for n, t in tree_flatten(p_cpu))
-            got_m, got_g = loss_and_grads(model_d, p_dev,
-                                          {k: v.to(dev) for k, v in small.items()})
+
+        def gaps_of(got_m, got_g):
             loss_gap = abs(float(got_m["loss"]) - float(want_m["loss"])) / abs(float(want_m["loss"]))
             gaps = {n: float((g.float().cpu() - w).abs().max()) / max(float(w.abs().max()), 1e-30)
                     for (n, g), (_, w) in zip(tree_flatten(got_g), want_flat)}
+            return loss_gap, gaps
+
+        def cast(params, model_d, device):
+            """Each leaf in its spec's dtype (a bf16 model keeps rwkv6's u and
+            Mamba2's A_log, D and dt_bias in f32)."""
+            specs = dict(tree_flatten(model_d.param_specs()))
+            return tree_unflatten((n, t.to(device, torch_dtype(specs[n].dtype)))
+                                  for n, t in tree_flatten(params))
+
+        bands = dict(TRAIN_BAND)
+        if cfg.family in ("ssm", "hybrid", "encdec"):
+            cpu16_m, cpu16_g = loss_and_grads(m16, cast(p_cpu, m16, "cpu"), small)
+            cpu_loss_gap, cpu_gaps = gaps_of(cpu16_m, cpu16_g)
+            cpu_worst = max(cpu_gaps.values())
+            danube = TRAIN_BAND["bf16"]
+            bands["bf16"] = (danube[0] if cpu_loss_gap <= danube[0] else 2 * cpu_loss_gap,
+                             danube[1] if cpu_worst <= danube[1] else 2 * cpu_worst)
+            print(f"[train-check] {smi}: {arch} {cut_txt} at full width, batch 1 x 256, CPU bf16 "
+                  f"against CPU f32: loss gap {cpu_loss_gap:.3e}, worst gradient leaf "
+                  f"{max(cpu_gaps, key=cpu_gaps.get)} {cpu_worst:.3e} x its max |grad|: the "
+                  f"card's bf16 band (loss, leaf) {bands['bf16']}")
+            del cpu16_g
+        for label, model_d in (("f32", m32), ("bf16", m16)):
+            p_dev = cast(p_cpu, model_d, dev)
+            got_m, got_g = loss_and_grads(model_d, p_dev,
+                                          {k: v.to(dev) for k, v in small.items()})
+            loss_gap, gaps = gaps_of(got_m, got_g)
             worst = max(gaps, key=gaps.get)
-            band = TRAIN_BAND[label]
-            print(f"[train-check] {smi}: {arch} 2 layers at full width, batch 1 x 256, card "
+            band = bands[label]
+            print(f"[train-check] {smi}: {arch} {cut_txt} at full width, batch 1 x 256, card "
                   f"{label} against CPU f32 ({cpu_s:.1f} s on the CPU): loss {float(got_m['loss']):.6f} "
                   f"vs {float(want_m['loss']):.6f} (gap {loss_gap:.3e} of it, band "
                   f"{band[0]:g}); worst gradient leaf {worst} {gaps[worst]:.3e} x its max |grad| "
@@ -2672,7 +2888,8 @@ def main() -> None:
                                  f"{differ[:6]} (max |difference| {gaps[-1]:.3e})")
         counts = {k: v for k, v in launch_counts().items() if v}
         want = {k: v * (1 + 2 * steps) for k, v in per_step_launches(model.cfg).items()}
-        print(f"[train-check] {smi}: {arch} 2 layers at full width, bf16, batch 1 x 256: {steps} "
+        print(f"[train-check] {smi}: {arch} {cut_of(model.cfg)[1]} at full width, bf16, batch "
+              f"1 x 256: {steps} "
               f"steps replayed through TrainProcess (captures {proc.captures}, replays "
               f"{proc.replays}) against {steps} eager make_train_step steps: max |difference| "
               f"over the whole train state after each step {', '.join(f'{g:.3e}' for g in gaps)}; "
@@ -2745,11 +2962,18 @@ def main() -> None:
     train_kernels_phase()
     wall("after [train-kernels]")
     train_full_width("h2o-danube-1.8b")
-    wall("after [train]")
+    wall("after [train] h2o-danube-1.8b")
+    # rwkv6, zamba2 and whisper: 4 steps and a p50 over 3 replays each;
+    # whisper at its published decoder context (448) and encoder length
+    # (1500 frames)
+    for arch, kw in (("rwkv6-3b", {}), ("zamba2-2.7b", {}),
+                     ("whisper-large-v3", dict(batch=8, seq=448, enc_frames=1500))):
+        train_full_width(arch, steps=4, reps=3, **kw)
+        wall(f"after [train] {arch}")
     train_ckpt_phase()
     wall("after [train-ckpt]")
-    missing = [k for k in ("rmsnorm", "flash_attention", "rmsnorm_bwd", "flash_attention_bwd")
-               if not train_counts.get(k)]
+    missing = [k for k in ("rmsnorm", "flash_attention", "rmsnorm_bwd", "flash_attention_bwd",
+                           "wkv6", "wkv6_bwd") if not train_counts.get(k)]
     if missing:
         raise SystemExit(f"chip_smoke: the training runs launched no {missing}")
 
@@ -2790,10 +3014,11 @@ def main() -> None:
                                        for c in serves + [train_counts]),
                 "rmsnorm_bwd": train_counts["rmsnorm_bwd"],
                 "flash_attention_bwd": train_counts["flash_attention_bwd"],
-                "wkv6": rwkv_counts["wkv6"], "negate": qs_counts["negate_kernel"]}
+                "wkv6": rwkv_counts["wkv6"] + train_counts["wkv6"],
+                "wkv6_bwd": train_counts["wkv6_bwd"], "negate": qs_counts["negate_kernel"]}
     launches.update({k: counts[reg] + io_counts.get(reg, 0) for k, reg in names.items()})
     for kname in ["negate"] + list(names) + ["rmsnorm", "flash_attention", "wkv6",
-                                             "rmsnorm_bwd", "flash_attention_bwd"]:
+                                             "rmsnorm_bwd", "flash_attention_bwd", "wkv6_bwd"]:
         row = dict(rows[kname], launches=launches[kname])
         kernels.append({key: row[key] for key in (
             "name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

@@ -42,7 +42,8 @@ _SIGNATURES = {
     "rt_flash_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P),
     "rt_flash_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _I, _I, _F, _I, _P),
-    "rt_wkv6": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "rt_wkv6": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "rt_wkv6_bwd": (_P,) * 17 + (_I, _I, _I, _I, _I, _P),
     "rt_negate": (_P, _P, _LL, _I, _P),
 }
 

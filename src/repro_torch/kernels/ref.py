@@ -175,3 +175,25 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
         s = s * decay[:, i, :, :, None] + kv
     out = torch.stack(outs, dim=1) if outs else torch.zeros_like(rf)
     return out.to(r.dtype), s
+
+
+def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+             u: torch.Tensor, state: torch.Tensor | None, dout: torch.Tensor,
+             dstate: torch.Tensor | None = None, ckpt=None):
+    """(dr, dk, dv, dw, du, dstate_in) of :func:`wkv6` for the output
+    gradient ``dout`` and the final state's ``dstate`` (None: zeros):
+    autograd through it; ``dstate_in`` is None without an input state.
+    ``ckpt`` (the kernel's state checkpoints) is taken and not needed, so
+    the kernel and this version take one set of arguments."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (r, k, v, w, u)]
+        s0 = None if state is None else state.detach().requires_grad_(True)
+        out, final = wkv6(*leaves, s0)
+        outs, grads = [out], [dout]
+        if dstate is not None:
+            outs.append(final)
+            grads.append(dstate)
+        inputs = leaves + ([] if s0 is None else [s0])
+        got = torch.autograd.grad(outs, inputs, grads, allow_unused=True)
+    got = [torch.zeros_like(t) if g is None else g for g, t in zip(got, inputs)]
+    return (*got[:5], got[5] if s0 is not None else None)

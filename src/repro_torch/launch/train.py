@@ -11,9 +11,11 @@ same-family config; ``--scale full`` the published one on the one card,
 after checking, before anything is allocated, that its train state
 (parameters, f32 master, m and v, gradients) fits the card's memory: a
 config that does not is refused with both sizes (qwen3-14b needs about
-237 GB), not cut down.  The decoder family (dense, moe, vlm) trains;
-rwkv6-3b, zamba2-2.7b and whisper-large-v3 wait for the next slice, and
-``--multi-pod`` (a production mesh) for the multi-GPU slice.
+237 GB), not cut down.  Every family trains: the decoder family (dense,
+moe, vlm), rwkv6-3b (ssm), zamba2-2.7b (hybrid) and whisper-large-v3
+(encdec: its batches carry ``max(8, seq // 2)`` frames a sample, as the
+reference's do); ``--multi-pod`` (a production mesh) waits for the
+multi-GPU slice.
 """
 from __future__ import annotations
 
@@ -30,12 +32,6 @@ from repro_torch.models import build_model
 from repro_torch.models.common import ArchConfig, tree_flatten
 from repro_torch.optim import AdamWConfig, Schedule
 from repro_torch.train import TrainConfig, Trainer, TrainerConfig
-
-#: families whose training waits for the next slice (ROADMAP.md queue 1)
-NEXT_SLICE = {"ssm": "rwkv6 training needs a hand-written wkv6 backward",
-              "hybrid": "zamba2 training (Mamba2 layers) is not ported",
-              "encdec": "whisper training (the encoder-decoder loss) is not ported"}
-
 
 def train_state_bytes(cfg: ArchConfig) -> int:
     """Bytes of a train state of ``cfg`` on the device, from its parameter
@@ -80,9 +76,6 @@ def main(argv: Optional[list] = None) -> Trainer:
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch) if args.scale == "full" else get_smoke(args.arch)
-    if cfg.family in NEXT_SLICE:
-        raise NotImplementedError(f"{args.arch}: {NEXT_SLICE[cfg.family]}; it waits for the "
-                                  "next slice (ROADMAP.md queue 1)")
     if args.multi_pod:
         raise NotImplementedError("--multi-pod: a production mesh waits for the multi-GPU "
                                   "slice (ROADMAP.md queue 1, item 6)")
@@ -90,11 +83,11 @@ def main(argv: Optional[list] = None) -> Trainer:
     check_fits(cfg, device)
     model = build_model(cfg)
 
-    kind = "vlm" if cfg.family == "vlm" else "lm"
+    kind = {"encdec": "encdec", "vlm": "vlm"}.get(cfg.family, "lm")
     seq = args.seq - (cfg.n_patches if kind == "vlm" else 0)
     stream = TokenStream(StreamConfig(
         vocab=cfg.vocab, seq=seq, batch=args.batch, seed=args.seed, kind=kind,
-        n_patches=cfg.n_patches, d_model=cfg.d_model))
+        n_patches=cfg.n_patches, d_model=cfg.d_model, enc_frames=max(8, args.seq // 2)))
     tcfg = TrainerConfig(
         total_steps=args.steps, ckpt_dir=args.ckpt_dir, ckpt_interval=args.ckpt_interval,
         log_every=args.log_every,

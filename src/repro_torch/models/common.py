@@ -13,6 +13,7 @@ import dataclasses
 from typing import Any, Callable, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.arena import torch_dtype, tree_flatten
 
@@ -145,6 +146,23 @@ def init_leaf_(name: str, t: torch.Tensor, generator: torch.Generator) -> None:
         else:
             per_layer = t.shape[STACKED.get(name[:name.index("]") + 1], 0):]
             dense_init(generator, t, per_layer[0])
+
+
+def unstacked(tree: Any, n: int) -> list:
+    """A stacked ``(n, ...)`` parameter tree as ``n`` trees, one ``unbind``
+    a leaf: its backward stacks the parts' gradients into one tensor (a view
+    a layer would zero-fill a full-size gradient per layer)."""
+    parts = tree_map(lambda t: t.unbind(0), tree)
+    return [tree_map(lambda p, i=i: p[i], parts) for i in range(n)]
+
+
+def remat_call(remat: bool, fn: Callable[..., Any], *args: Any) -> Any:
+    """``fn(*args)``, under non-reentrant ``torch.utils.checkpoint`` when
+    ``remat`` (its activations recomputed in the backward), as the
+    reference wraps a layer's scan body in ``jax.checkpoint``."""
+    if remat:
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return fn(*args)
 
 
 def stacked(specs: Any, n_layers: int) -> Any:

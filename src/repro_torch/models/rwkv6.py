@@ -9,11 +9,14 @@ gated output.  Channel-mix: a token-shifted squared-ReLU MLP.  The decode
 state is O(1) per slot: two shift vectors and the (H, D, D) WKV state per
 layer.
 
-Serving entry points only.  ``prefill`` and ``decode_step`` write the cache
+The serving entry points ``prefill`` and ``decode_step`` write the cache
 they are given (views of the decode-state arena) in place and return it:
 the kernel writes each layer's final WKV state straight over
 ``cache["wkv"][i]``, and the shift vectors are copied into
-``cache["tm_shift"][i]`` / ``cache["cm_shift"][i]``.
+``cache["tm_shift"][i]`` / ``cache["cm_shift"][i]``.  The training entry
+points ``hidden_states`` and ``loss_fn`` write nothing in place, so
+autograd differentiates them (through the norm and WKV kernels'
+hand-written backward passes on CUDA tensors).
 """
 from __future__ import annotations
 
@@ -25,14 +28,13 @@ import torch.nn.functional as F
 from repro_torch.kernels.wkv6 import wkv6
 from . import layers as L
 from .layers import _spec as spec
-from .common import ArchConfig, alloc_tree, init_tree, stacked, tree_flatten, tree_map
+from .common import (ArchConfig, alloc_tree, init_tree, remat_call, stacked, tree_flatten,
+                     tree_map, unstacked)
 
 Params = Dict[str, Any]
 
 TM_LORA = 32   # ddlerp low-rank dim
 TD_LORA = 64   # decay low-rank dim
-
-_TRAINING = "the training forward is not ported yet (ROADMAP queue 1, Training)"
 
 
 def _heads(cfg: ArchConfig) -> Tuple[int, int]:
@@ -197,8 +199,32 @@ class RWKV6Model:
         return self._run_cached(params, token, cache)
 
     # ------------------------------------------------------------- train
-    def hidden_states(self, params, tokens):
-        raise NotImplementedError(_TRAINING)
+    def _layer_fwd(self, lp: Params, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        out, _, _ = time_mix(lp["tm"], L.apply_norm(lp["ln1"], x, cfg), cfg)
+        x = x + out
+        out, _ = channel_mix(lp["cm"], L.apply_norm(lp["ln2"], x, cfg), cfg)
+        return x + out
 
-    def loss_fn(self, params, batch):
-        raise NotImplementedError(_TRAINING)
+    def hidden_states(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+        """Full-sequence forward from zero states to the final hidden
+        states (B, S, D).  With ``cfg.remat`` and autograd on, each layer
+        runs under non-reentrant ``torch.utils.checkpoint``, as the
+        reference wraps its scan body in ``jax.checkpoint``; ``ln0`` and the
+        final norm stay outside."""
+        cfg = self.cfg
+        x = L.embed_tokens(params["embed"], tokens, cfg)
+        x = L.apply_norm(params["ln0"], x, cfg)
+        remat = cfg.remat and torch.is_grad_enabled()
+        for lp in unstacked(params["layers"], cfg.n_layers):
+            x = remat_call(remat, self._layer_fwd, lp, x)
+        return L.apply_norm(params["final_norm"], x, cfg)
+
+    def loss_fn(self, params: Params, batch: Dict[str, torch.Tensor]
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """(loss, metrics) of a batch: tokens (B, S), labels (B, S)
+        [, loss_mask (B, S)]; the mean token cross-entropy."""
+        logits = L.logits_from_hidden(params["embed"],
+                                      self.hidden_states(params, batch["tokens"]), self.cfg)
+        loss = L.cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
+        return loss, {"loss": loss}

@@ -13,16 +13,15 @@ hand-written backward passes on CUDA tensors).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
 from . import mla as MLA
 from . import moe as MOE
-from repro_torch.core.arena import tree_unflatten
-from .common import ArchConfig, alloc_tree, init_tree, stacked, tree_flatten, tree_map
+from .common import (ArchConfig, alloc_tree, init_tree, remat_call, stacked, tree_flatten,
+                     tree_map, unstacked)
 
 Params = Dict[str, Any]
 
@@ -165,15 +164,6 @@ class DecoderLM:
             y, aux = L.apply_mlp(p["mlp"], h, cfg), {}
         return x + y, aux
 
-    def _unstacked(self, layers: Params) -> List[Params]:
-        """The stacked layer parameters as one tree a layer, through one
-        ``unbind`` a leaf: its backward stacks the layers' gradients into
-        one tensor (a view a layer would zero-fill a full-size gradient
-        per layer)."""
-        flat = [(name, t.unbind(0)) for name, t in tree_flatten(layers)]
-        return [tree_unflatten((name, parts[i]) for name, parts in flat)
-                for i in range(self.n_scan)]
-
     def hidden_states(self, params: Params, tokens: torch.Tensor,
                       prefix_embeds: Optional[torch.Tensor] = None
                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -197,12 +187,8 @@ class DecoderLM:
         use_moe = bool(cfg.n_experts)
         remat = cfg.remat and torch.is_grad_enabled()
         aux_sums = None
-        for lp in self._unstacked(params["layers"]):
-            if remat:
-                x, aux = checkpoint(self._layer_fwd, lp, x, positions, use_moe,
-                                    use_reentrant=False, preserve_rng_state=False)
-            else:
-                x, aux = self._layer_fwd(lp, x, positions, use_moe)
+        for lp in unstacked(params["layers"], self.n_scan):
+            x, aux = remat_call(remat, self._layer_fwd, lp, x, positions, use_moe)
             if use_moe:
                 aux_sums = aux if aux_sums is None else {k: aux_sums[k] + aux[k] for k in aux}
         x = L.apply_norm(params["final_norm"], x, cfg)

@@ -12,12 +12,15 @@ package's plain reference math (``kref.attention`` there, :func:`repro_torch.
 kernels.ref.attention` here) at prefill and at decode: no Pallas kernel
 covers it, so there is none to port.
 
-Serving entry points only, as :class:`~repro_torch.models.transformer.
-DecoderLM`: the stacked ``(L, ...)`` parameter layout is kept, the JAX
-``lax.scan`` over layers is a Python loop over layer views, and
-``prefill_from_enc`` and ``decode_step`` write the cache they are given in
-place (views of the decode-state arena): the self-attention K/V rows, and
-at prefill each layer's cross K/V, cast to the activation dtype.
+As in :class:`~repro_torch.models.transformer.DecoderLM`, the stacked
+``(L, ...)`` parameter layout is kept and the JAX ``lax.scan`` over layers
+is a Python loop over layer views.  ``prefill_from_enc`` and
+``decode_step`` write the cache they are given in place (views of the
+decode-state arena): the self-attention K/V rows, and at prefill each
+layer's cross K/V, cast to the activation dtype.  The training entry points
+``encode``, ``decode_full`` and ``loss_fn`` write nothing in place, so
+autograd differentiates them (through the attention kernel's hand-written
+backward on CUDA tensors; cross-attention and the LayerNorms are plain).
 """
 from __future__ import annotations
 
@@ -28,12 +31,11 @@ import torch
 
 from repro_torch.kernels import ref
 from . import layers as L
-from .common import ArchConfig, alloc_tree, init_tree, stacked, tree_flatten, tree_map
+from .common import (ArchConfig, alloc_tree, init_tree, remat_call, stacked, tree_flatten,
+                     tree_map, unstacked)
 from .layers import _spec as spec
 
 Params = Dict[str, Any]
-
-_TRAINING = "the training forward is not ported yet (ROADMAP queue 1, Training)"
 
 
 def sinusoids(length: int, channels: int, device=None) -> torch.Tensor:
@@ -131,21 +133,70 @@ class WhisperModel:
         return tree_map(lambda a: a[i], tree)
 
     # ------------------------------------------------------------ encoder
+    def _enc_layer(self, p: Params, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        h = L.apply_norm(p["ln_attn"], x, cfg)
+        x = x + L.attention_full(p["attn"], h, cfg, positions, causal=False)
+        h = L.apply_norm(p["ln_mlp"], x, cfg)
+        return x + L.apply_mlp(p["mlp"], h, cfg)
+
     def encode(self, params: Params, frames: torch.Tensor) -> torch.Tensor:
         """frames: (B, T_enc, D) stub embeddings -> encoder states, in the
         activation dtype (the frames are cast before the positions are
-        added, as in the JAX package)."""
+        added, as in the JAX package).  With ``cfg.remat`` and autograd on,
+        each layer runs under non-reentrant ``torch.utils.checkpoint``, as
+        the reference wraps its scan body in ``jax.checkpoint``."""
         cfg = self.cfg
         b, t, d = frames.shape
         x = frames.to(cfg.adtype) + sinusoids(t, d, frames.device).to(cfg.adtype)[None]
         positions = torch.arange(t, dtype=torch.int32, device=x.device).expand(b, t)
-        for i in range(cfg.enc_layers):
-            p = self._layer(params["enc_layers"], i)
-            h = L.apply_norm(p["ln_attn"], x, cfg)
-            x = x + L.attention_full(p["attn"], h, cfg, positions, causal=False)
-            h = L.apply_norm(p["ln_mlp"], x, cfg)
-            x = x + L.apply_mlp(p["mlp"], h, cfg)
+        remat = cfg.remat and torch.is_grad_enabled()
+        for p in unstacked(params["enc_layers"], cfg.enc_layers):
+            x = remat_call(remat, self._enc_layer, p, x, positions)
         return L.apply_norm(params["enc_norm"], x, cfg)
+
+    # ------------------------------------------------------------ decoder
+    def _embed_dec(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+        """Token embeddings plus the learned positions 0 .. S - 1."""
+        s = tokens.shape[1]
+        return L.embed_tokens(params["embed"], tokens, self.cfg) + \
+            params["pos_dec"][:s][None].to(self.cfg.adtype)
+
+    def _dec_layer(self, p: Params, x: torch.Tensor, enc: torch.Tensor,
+                   positions: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        h = L.apply_norm(p["ln_self"], x, cfg)
+        x = x + L.attention_full(p["self_attn"], h, cfg, positions, causal=True)
+        h = L.apply_norm(p["ln_cross"], x, cfg)
+        ck, cv = cross_kv(p["cross_attn"], enc, cfg)
+        x = x + cross_attention(p["cross_attn"], h, ck, cv, cfg)
+        h = L.apply_norm(p["ln_mlp"], x, cfg)
+        return x + L.apply_mlp(p["mlp"], h, cfg)
+
+    def decode_full(self, params: Params, tokens: torch.Tensor,
+                    enc: torch.Tensor) -> torch.Tensor:
+        """Teacher-forced decoder forward of tokens (B, S) over encoder
+        states ``enc`` (B, T_enc, D) -> logits (B, S, V) f32; each layer
+        rematerialised as in :meth:`encode`."""
+        cfg = self.cfg
+        x = self._embed_dec(params, tokens)
+        b, s, _ = x.shape
+        positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
+        remat = cfg.remat and torch.is_grad_enabled()
+        for p in unstacked(params["dec_layers"], cfg.dec_layers):
+            x = remat_call(remat, self._dec_layer, p, x, enc, positions)
+        x = L.apply_norm(params["final_norm"], x, cfg)
+        return L.logits_from_hidden(params["embed"], x, cfg)
+
+    def loss_fn(self, params: Params, batch: Dict[str, torch.Tensor]
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """(loss, metrics) of a batch: frames (B, T_enc, D), tokens (B, S),
+        labels (B, S) [, loss_mask (B, S)]; the mean token cross-entropy
+        of the teacher-forced decoder over the encoded frames."""
+        enc = self.encode(params, batch["frames"])
+        logits = self.decode_full(params, batch["tokens"], enc)
+        loss = L.cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
+        return loss, {"loss": loss}
 
     # ------------------------------------------------------------- serve
     def prefill(self, params: Params, frames: torch.Tensor, tokens: torch.Tensor,
@@ -162,8 +213,7 @@ class WhisperModel:
         encoder as its own node and joins its ``enc`` edge here."""
         cfg = self.cfg
         b, s = tokens.shape
-        x = L.embed_tokens(params["embed"], tokens, cfg) + \
-            params["pos_dec"][:s][None].to(cfg.adtype)
+        x = self._embed_dec(params, tokens)
         positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
         for i in range(cfg.dec_layers):
             p = self._layer(params["dec_layers"], i)
@@ -204,10 +254,3 @@ class WhisperModel:
             x = x + L.apply_mlp(p["mlp"], h, cfg)
         x = L.apply_norm(params["final_norm"], x, cfg)
         return L.logits_from_hidden(params["embed"], x, cfg), cache
-
-    # ------------------------------------------------------------- train
-    def decode_full(self, params, tokens, enc):
-        raise NotImplementedError(_TRAINING)
-
-    def loss_fn(self, params, batch):
-        raise NotImplementedError(_TRAINING)

@@ -9,12 +9,17 @@ and layers is two Python loops over views.  (The published model adds
 per-invocation LoRA deltas on the shared block and concatenates the
 embedding; the reference leaves both out, and so does the port.)
 
-Serving entry points only.  The cache holds the shared block's K/V, one
-(n_super, B, ...) set per superblock, and each Mamba2 layer's conv window
-and SSM state, (n_super, per_super, B, ...).  ``prefill`` and
-``decode_step`` write the cache they are given (views of the decode-state
-arena) in place and return it.  A prefill starts from the cache's SSM
-state (zeros after :meth:`reset_cache`), as the reference's does.
+The cache holds the shared block's K/V, one (n_super, B, ...) set per
+superblock, and each Mamba2 layer's conv window and SSM state, (n_super,
+per_super, B, ...).  ``prefill`` and ``decode_step`` write the cache they
+are given (views of the decode-state arena) in place and return it.  A
+prefill starts from the cache's SSM state (zeros after
+:meth:`reset_cache`), as the reference's does.  The training entry points
+``hidden_states`` and ``loss_fn`` write nothing in place (the Mamba2
+layers run :func:`~repro_torch.models.mamba2.mamba2_forward`, no cache), so
+autograd differentiates them: through the norm and attention kernels'
+hand-written backward passes on CUDA tensors, and through the plain f32
+SSD.  The shared block's gradient is the sum over its ``n_super`` uses.
 """
 from __future__ import annotations
 
@@ -24,12 +29,10 @@ import torch
 
 from . import layers as L
 from . import mamba2 as M2
-from .common import ArchConfig, alloc_tree, init_tree, stacked, tree_map
+from .common import ArchConfig, alloc_tree, init_tree, remat_call, stacked, tree_map, unstacked
 from .transformer import DecoderLM
 
 Params = Dict[str, Any]
-
-_TRAINING = "the training forward is not ported yet (ROADMAP queue 1, Training)"
 
 
 class Zamba2Model:
@@ -136,8 +139,37 @@ class Zamba2Model:
         return L.logits_from_hidden(params["embed"], x, cfg), cache
 
     # ------------------------------------------------------------- train
-    def hidden_states(self, params, tokens):
-        raise NotImplementedError(_TRAINING)
+    def _superblock_fwd(self, shared: Params, layers: list, x: torch.Tensor,
+                        positions: torch.Tensor) -> torch.Tensor:
+        """The shared attention + MLP block, then the superblock's Mamba2
+        layers, each ``x + mamba2_forward(ln(x))``."""
+        cfg = self.cfg
+        h = L.apply_norm(shared["ln_attn"], x, cfg)
+        x = self._shared_mlp(shared, x + L.attention_full(shared["attn"], h, cfg, positions))
+        for lp in layers:
+            x = x + M2.mamba2_forward(lp["mamba"], L.apply_norm(lp["ln"], x, cfg), cfg)
+        return x
 
-    def loss_fn(self, params, batch):
-        raise NotImplementedError(_TRAINING)
+    def hidden_states(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+        """Full-sequence forward from zero states to the final hidden
+        states (B, S, D).  With ``cfg.remat`` and autograd on, each
+        superblock runs under non-reentrant ``torch.utils.checkpoint``, as
+        the reference wraps its superblock in ``jax.checkpoint``."""
+        cfg = self.cfg
+        x = L.embed_tokens(params["embed"], tokens, cfg)
+        b, s, _ = x.shape
+        positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
+        remat = cfg.remat and torch.is_grad_enabled()
+        for sp in unstacked(params["mamba_layers"], self.n_super):
+            x = remat_call(remat, self._superblock_fwd, params["shared"],
+                           unstacked(sp, self.per_super), x, positions)
+        return L.apply_norm(params["final_norm"], x, cfg)
+
+    def loss_fn(self, params: Params, batch: Dict[str, torch.Tensor]
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """(loss, metrics) of a batch: tokens (B, S), labels (B, S)
+        [, loss_mask (B, S)]; the mean token cross-entropy."""
+        logits = L.logits_from_hidden(params["embed"],
+                                      self.hidden_states(params, batch["tokens"]), self.cfg)
+        loss = L.cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
+        return loss, {"loss": loss}

@@ -210,6 +210,12 @@ BOUNDS = {
                                  _meta(4, 32, 2048, 80, dtype=BF16),
                                  _meta(4, 32, 2048, dtype=F32)), {"window": 4096}),
         0.21724, "compute"),
+    # row 8b: the wkv6 gradient at the rwkv6-3b training shape (a layer,
+    # batch 4 x 2048, no state)
+    "wkv6_bwd rwkv6-3b": (
+        ("wkv6_bwd", tuple(_meta(4, 2048, 40, 64, dtype=BF16) for _ in range(3))
+         + (_meta(4, 2048, 40, 64, dtype=F32), _meta(40, 64, dtype=F32), None,
+            _meta(4, 2048, 40, 64, dtype=BF16)), {}), 0.28609, "compute"),
 }
 
 

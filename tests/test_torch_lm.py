@@ -378,10 +378,8 @@ def test_lmserver_runs_on_the_card_unless_given_a_cpu_app(monkeypatch):
 
 def test_unported_families_raise_naming_the_roadmap():
     """Every family of the JAX package is built (the VLM patch prefix
-    and Zamba2 since the thirteenth slice); the training forward of the
-    ssm and hybrid families still raises, naming its ROADMAP item (the
-    decoder family's trains since the fourteenth slice), and an unknown
-    family is refused."""
+    and Zamba2 since the thirteenth slice), and an unknown family is
+    refused; every family trains (``tests/test_torch_train.py``)."""
     from repro.configs import ARCH_IDS as J_ARCH_IDS
     from repro_torch.configs import ARCH_IDS
 
@@ -391,10 +389,6 @@ def test_unported_families_raise_naming_the_roadmap():
             type(j_build_model(j_get_smoke(arch))).__name__
     with pytest.raises(ValueError, match="unknown family"):
         build_model(get_smoke("qwen3-14b").scaled(family="diffusion"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(get_smoke("rwkv6-3b")).loss_fn({}, {})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(get_smoke("zamba2-2.7b")).loss_fn({}, {})
     vlm = build_model(get_smoke("internvl2-2b"))
     logits, _ = vlm.logits(vlm.init_params(torch.Generator().manual_seed(0)),
                            torch.zeros((1, 3), dtype=torch.int32),

@@ -10,6 +10,19 @@ inputs made from a seed.
   (column slices, row groups whose partial sums meet in the kernel's
   shuffle order, ``fmaf`` state updates, tiles of staged steps), against
   the same JAX kernel at the same tolerances.
+* The gradient: the plain version ``ref.wkv6_bwd`` (autograd through
+  ``ref.wkv6``) against ``jax.vjp`` through the JAX package's plain
+  ``kref.wkv6`` (what ``jax.grad`` trains through), head sizes 8 and 64,
+  with and without an input state and a final-state gradient: f32 within
+  rtol 1e-4 + 1e-6 x max |grad| (measured up to 3.2e-7 x max), bf16 r/k/v
+  within the forward's bf16 band, 2e-2 x max |grad|.  The arithmetic of
+  the CUDA ``wkv6_bwd_kernel`` (the forward's state checkpoints every
+  ``CHUNK`` steps, each chunk's states recomputed from its checkpoint, the
+  steps run backwards, the sums in the kernel's shuffle and warp order)
+  emulated in plain torch against the same ``jax.vjp``, with T no multiple
+  of the chunk and with decays that underflow to 0 in f32; ``Wkv6Fn`` on
+  CPU tensors against autograd through the plain version, counting no
+  launch.
 * The model's layers (``_group_norm``, ``time_mix``, ``channel_mix``)
   against ``repro.models.rwkv6``'s at f32 1e-5, with and without the
   carried shift vectors and WKV state.
@@ -21,6 +34,7 @@ version on the card by ``chip_smoke.py``.
 import ctypes
 import re
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -33,7 +47,7 @@ from repro.models import rwkv6 as jrwkv
 from repro_torch.configs import get_config, get_smoke
 from repro_torch.core.registry import KernelRegistry, launch_counts
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.wkv6 import wkv6
+from repro_torch.kernels.wkv6 import CHUNK, Wkv6Fn, wkv6, wkv6_bwd
 from repro_torch.models import build_model
 from repro_torch.models import rwkv6 as trwkv
 from repro_torch.models.common import tree_flatten, tree_map
@@ -229,8 +243,8 @@ def test_wkv6_checks_shapes_before_choosing_a_device():
 
 def test_wkv6_registered_and_cpu_runs_count_no_launch(rng):
     reg = KernelRegistry()
-    assert reg.load("wkv6") == ["wkv6"]
-    assert reg.ref("wkv6") is ref.wkv6
+    assert reg.load("wkv6") == ["wkv6", "wkv6_bwd"]
+    assert reg.ref("wkv6") is ref.wkv6 and reg.ref("wkv6_bwd") is ref.wkv6_bwd
     before = launch_counts()
     reg.get("wkv6")(*map(_t, _wkv_inputs(rng, 1, 3, 2, 8, False)[:5]))
     assert launch_counts() == before
@@ -249,8 +263,239 @@ def test_c_entry_points_match_their_ctypes_signatures():
         for name, args in re.findall(r"^int (rt_\w+)\(([^)]*)\)", src.read_text(), re.M):
             protos[name] = [re.sub(r"\s*\w+$", "", a.strip()) for a in args.split(",")]
     assert set(protos) == set(_build._SIGNATURES), sorted(set(protos) ^ set(_build._SIGNATURES))
+    assert {"rt_wkv6", "rt_wkv6_bwd"} <= set(protos)
     for name, types in protos.items():
         assert list(_build._SIGNATURES[name]) == [_C_TYPES[t] for t in types], name
+
+
+# ---------------------------------------------------------------------------
+# the gradient
+# ---------------------------------------------------------------------------
+
+def _jax_grads(r, k, v, w, u, s, do, ds):
+    """``jax.vjp`` through the JAX package's plain wkv6 (its scan):
+    (dr, dk, dv, dw, du, ds0 or None)."""
+    if s is None:
+        _, vjp = jax.vjp(lambda *a: jref.wkv6(*a), *map(jnp.asarray, (r, k, v, w, u)))
+    else:
+        _, vjp = jax.vjp(jref.wkv6, *map(jnp.asarray, (r, k, v, w, u, s)))
+    final = jnp.zeros((r.shape[0],) + (r.shape[2],) + (r.shape[3],) * 2, jnp.float32) \
+        if ds is None else jnp.asarray(ds)
+    got = vjp((jnp.asarray(do), final))
+    return tuple(np.asarray(g, np.float32) for g in got) + ((None,) if s is None else ())
+
+
+def _bwd_inputs(rng, b, t, h, d, with_state, with_dstate, w_shift=0.0):
+    r, k, v, w, u, s = _wkv_inputs(rng, b, t, h, d, with_state)
+    do = rng.standard_normal((b, t, h, d)).astype(np.float32)
+    ds = rng.standard_normal((b, h, d, d)).astype(np.float32) if with_dstate else None
+    return r, k, v, (w + np.float32(w_shift)).astype(np.float32), u, s, do, ds
+
+
+def _assert_grads(got, want, rtol=1e-4, atol=1e-6):
+    assert (got[5] is None) == (want[5] is None)
+    for name, g, wv in zip(("dr", "dk", "dv", "dw", "du", "ds0"), got, want):
+        if wv is None:
+            continue
+        g = g.float().numpy() if isinstance(g, torch.Tensor) else g
+        np.testing.assert_allclose(g, wv, rtol=rtol, atol=atol * float(np.abs(wv).max()),
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("shape", [(2, 12, 2, 8), (1, 40, 2, 64)], ids=["head-8", "head-64"])
+@pytest.mark.parametrize("with_state,with_dstate", [(False, False), (True, False), (True, True)],
+                         ids=["zeros", "state", "state-and-final-grad"])
+def test_wkv6_bwd_plain_version_matches_jax_grad(rng, shape, with_state, with_dstate):
+    args = _bwd_inputs(rng, *shape, with_state, with_dstate)
+    got = ref.wkv6_bwd(*map(_t, args))
+    assert got[0].dtype == torch.float32 and got[4].shape == (shape[2], shape[3])
+    _assert_grads(got, _jax_grads(*args))
+
+
+def test_wkv6_bwd_plain_version_in_bf16(rng):
+    """bf16 r/k/v and output gradient (the full-width dtype): dr, dk, dv
+    come back in bf16, every gradient within 2e-2 x max |grad| of
+    ``jax.vjp`` on the same bf16 inputs."""
+    r, k, v, w, u, s, do, _ = _bwd_inputs(rng, 1, 20, 2, 64, True, False)
+    jb = [jnp.asarray(x, jnp.bfloat16) for x in (r, k, v)]
+    _, vjp = jax.vjp(jref.wkv6, *jb, jnp.asarray(w), jnp.asarray(u), jnp.asarray(s))
+    want = [np.asarray(g, np.float32) for g in vjp((jnp.asarray(do, jnp.bfloat16),
+                                                     jnp.zeros((1, 2, 64, 64), jnp.float32)))]
+    tb = [torch.from_numpy(x).to(torch.bfloat16) for x in (r, k, v)]
+    got = ref.wkv6_bwd(*tb, _t(w), _t(u), _t(s), torch.from_numpy(do).to(torch.bfloat16))
+    assert [g.dtype for g in got] == [torch.bfloat16] * 3 + [torch.float32] * 3
+    _assert_grads(got, want, rtol=0, atol=2e-2)
+
+
+def _up(x):
+    """The sum over the last axis that lane 0 holds after an xor-shuffle
+    reduction with offsets 1, 2, ..., n/2 (neighbours first)."""
+    while x.shape[-1] > 1:
+        x = x[..., 0::2] + x[..., 1::2]
+    return x[..., 0]
+
+
+def _wkv6_bwd_emulation(r, k, v, w, u, state, dout, dstate=None):
+    """The arithmetic of ``wkv6_kernel<CKPT>`` + ``wkv6_bwd_kernel`` +
+    ``wkv6_bwd_finish_kernel`` in plain torch, with the forward's
+    ``WkvLayout``.  The forward writes the state entering every CHUNK-th
+    step (``s = fmaf(s, a, k v)`` a step); the backward runs the chunks last
+    to first, recomputes each chunk's states from its checkpoint the same
+    way (never dividing by a decay), then runs its steps backwards: per
+    column pair, ``fmaf(x_j, y_j, x_j1 * y_j1)`` products for dr, dk and dw,
+    summed over the warp's 4 pairs by xor shuffles (offsets G, 2 G:
+    neighbours first), over the warps in order, then over the column
+    blocks of 32 in order; dv as the lanes' sequential ``fmaf`` over their
+    rows, met in the forward's reduce-scatter; the u terms once (column
+    block 0); G = fmaf(a_i, G, r_i do_j); v . do and sum_i (r_i u_i) k_i
+    reduced in shuffle order over min(D, 32) rows, the D / 32 sums in
+    order; du a per-(batch, head) sum over the steps, last to first, then
+    over the batch in order."""
+    b, t, h, d = r.shape
+    groups, lanes = min(8, d), min(d, 32)
+    rows, ny = d // groups, d // lanes
+    warps = lanes // 2 * groups // 32
+    rf, kf, vf, dof, uf = (x.float() for x in (r, k, v, dout, u))
+    ew = torch.exp(w.float())
+    a = torch.exp(-ew)
+
+    def step(s, ti):
+        return _fma(s, a[:, ti, :, :, None], kf[:, ti, :, :, None] * vf[:, ti, :, None, :])
+
+    s = torch.zeros(b, h, d, d) if state is None else state.float().clone()
+    ckpts = []
+    for ti in range(t):
+        if ti % CHUNK == 0:
+            ckpts.append(s)
+        s = step(s, ti)
+
+    def staged(x):
+        parts = _butterfly(x.reshape(b, t, h, d // lanes, lanes))
+        acc = torch.zeros(b, t, h)
+        for q in range(d // lanes):
+            acc = acc + parts[..., q]
+        return acc
+
+    vdo, bonus = staged(vf * dof), staged(rf * uf * kf)
+
+    def colsum(x):                       # (b, h, d, d / 2 pairs) -> (ny, b, h, d)
+        x = _up(x.reshape(b, h, d, ny, warps, 32 // groups))
+        acc = torch.zeros(b, h, d, ny)
+        for wp in range(warps):
+            acc = acc + x[..., wp]
+        return acc.permute(3, 0, 1, 2)
+
+    G = torch.zeros(b, h, d, d) if dstate is None else dstate.float().clone()
+    part = torch.zeros(ny, 3, b, t, h, d)
+    dv = torch.empty(b, t, h, d)
+    du_acc = torch.zeros(b, h, d)
+    for ci in reversed(range(len(ckpts))):
+        t0 = ci * CHUNK
+        states = [ckpts[ci]]
+        for ti in range(t0, min(t0 + CHUNK, t) - 1):
+            states.append(step(states[-1], ti))
+        for tt in reversed(range(len(states))):
+            ti = t0 + tt
+            sp = states[tt].reshape(b, h, d, d // 2, 2)
+            gp = G.reshape(b, h, d, d // 2, 2)
+            doj = dof[:, ti].reshape(b, h, 1, d // 2, 2)
+            vj = vf[:, ti].reshape(b, h, 1, d // 2, 2)
+            dr = colsum(_fma(sp[..., 0], doj[..., 0], sp[..., 1] * doj[..., 1]))
+            dk = colsum(_fma(gp[..., 0], vj[..., 0], gp[..., 1] * vj[..., 1]))
+            dw = colsum(_fma(sp[..., 0], gp[..., 0], sp[..., 1] * gp[..., 1]))
+            ri, ki, vd = rf[:, ti], kf[:, ti], vdo[:, ti, :, None]
+            dr[0] = _fma(uf * ki, vd, dr[0])
+            dk[0] = _fma(uf * ri, vd, dk[0])
+            du_acc = _fma(ri * ki, vd, du_acc)
+            dw = dw * -(ew[:, ti] * a[:, ti])
+            part[:, 0, :, ti], part[:, 1, :, ti], part[:, 2, :, ti] = dr, dk, dw
+            gr, kr = G.view(b, h, rows, groups, d), ki.view(b, h, rows, groups)
+            lane = torch.zeros(b, h, groups, d)
+            for m in range(rows):
+                lane = _fma(gr[:, :, m], kr[:, :, m, :, None], lane)
+            dv[:, ti] = _fma(bonus[:, ti, :, None], dof[:, ti],
+                             _butterfly(lane.transpose(-1, -2)))
+            G = _fma(a[:, ti, :, :, None], G, ri[..., None] * dof[:, ti, :, None, :])
+    sums = torch.zeros(3, b, t, h, d)
+    for y in range(ny):
+        sums = sums + part[y]
+    du = torch.zeros(h, d)
+    for bb in range(b):
+        du = du + du_acc[bb]
+    return (sums[0].to(r.dtype), sums[1].to(r.dtype), dv.to(r.dtype), sums[2], du,
+            None if state is None else G)
+
+
+@pytest.mark.parametrize("shape", [(2, 37, 3, 8), (1, 37, 2, 64), (2, 16, 2, 64), (3, 5, 2, 8)],
+                         ids=["head-8-ragged", "head-64-ragged", "one-chunk", "short"])
+@pytest.mark.parametrize("with_state,with_dstate", [(False, False), (True, True)],
+                         ids=["zeros", "state-and-final-grad"])
+def test_wkv6_bwd_kernel_arithmetic_matches_jax_grad(rng, shape, with_state, with_dstate):
+    """T = 37 is two whole chunks of 16 and a ragged third; the kernel's
+    layout and summation order stay inside the plain version's band."""
+    args = _bwd_inputs(rng, *shape, with_state, with_dstate)
+    _assert_grads(_wkv6_bwd_emulation(*map(_t, args)), _jax_grads(*args))
+
+
+@pytest.mark.parametrize("d", [8, 64])
+def test_wkv6_bwd_kernel_arithmetic_with_decays_that_underflow(rng, d):
+    """w around 7 (exp(w) over 104): exp(-exp(w)) is 0 in f32, so no state
+    could be recovered by dividing by the decay; the recomputation from
+    the checkpoints needs none, and dw is 0 where the decay is, as in
+    ``jax.vjp``."""
+    args = _bwd_inputs(rng, 2, 37, 2, d, True, True, w_shift=7.0)
+    assert not np.exp(-np.exp(args[3])).any()
+    got = _wkv6_bwd_emulation(*map(_t, args))
+    assert np.isfinite(got[3].numpy()).all()
+    _assert_grads(got, _jax_grads(*args))
+
+
+def test_wkv6_bwd_kernel_arithmetic_fits_the_bf16_tolerance(rng):
+    """bf16 r/k/v and output gradient at the full-width head size: the
+    emulated kernel within 2e-2 x max |grad| of ``jax.vjp`` on the same bf16
+    inputs (the band ``chip_smoke.py`` holds the card to)."""
+    r, k, v, w, u, s, do, _ = _bwd_inputs(rng, 1, 40, 2, 64, True, False)
+    jb = [jnp.asarray(x, jnp.bfloat16) for x in (r, k, v)]
+    _, vjp = jax.vjp(jref.wkv6, *jb, jnp.asarray(w), jnp.asarray(u), jnp.asarray(s))
+    want = [np.asarray(g, np.float32) for g in vjp((jnp.asarray(do, jnp.bfloat16),
+                                                     jnp.zeros((1, 2, 64, 64), jnp.float32)))]
+    tb = [torch.from_numpy(x).to(torch.bfloat16) for x in (r, k, v)]
+    got = _wkv6_bwd_emulation(*tb, _t(w), _t(u), _t(s), torch.from_numpy(do).to(torch.bfloat16))
+    assert [g.dtype for g in got[:3]] == [torch.bfloat16] * 3
+    _assert_grads(got, want, rtol=0, atol=2e-2)
+
+
+def test_wkv6_chunk_is_the_kernels():
+    src = (_build.CSRC / "rwkv_kernels.cu").read_text()
+    assert int(re.search(r"constexpr int kWkvChunk = (\d+);", src).group(1)) == CHUNK
+
+
+def test_wkv6_fn_on_cpu_tensors_matches_the_plain_gradient_and_counts_no_launch(rng):
+    """``Wkv6Fn`` (what a CUDA training forward takes) on CPU tensors runs
+    the plain versions: the gradients of autograd through ``ref.wkv6``,
+    bit for bit, and no launch counted."""
+    r, k, v, w, u, s, do, ds = map(_t, _bwd_inputs(rng, 2, 19, 2, 8, True, True))
+    leaves = [x.clone().requires_grad_(True) for x in (r, k, v, w, u, s)]
+    before = launch_counts()
+    out, final = Wkv6Fn.apply(*leaves)
+    torch.autograd.backward((out, final), (do, ds))
+    assert launch_counts() == before
+    want = ref.wkv6_bwd(r, k, v, w, u, s, do, ds)
+    for leaf, g in zip(leaves, want):
+        assert torch.equal(leaf.grad, g)
+    assert all(torch.equal(a, b) for a, b in zip(wkv6_bwd(r, k, v, w, u, s, do, ds), want))
+
+
+def test_wkv6_bwd_checks_shapes_before_choosing_a_device():
+    x = torch.zeros(1, 4, 2, 8)
+    u = torch.zeros(2, 8)
+    with pytest.raises(ValueError, match="dout"):
+        wkv6_bwd(x, x, x, x, u, None, torch.zeros(1, 4, 2, 4))
+    with pytest.raises(ValueError, match="dstate"):
+        wkv6_bwd(x, x, x, x, u, None, x, torch.zeros(1, 2, 8, 4))
+    m = torch.empty(1, 4, 2, 8, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        wkv6_bwd(m, m, m, m, torch.empty(2, 8, device="meta"), None, m)
 
 
 # ---------------------------------------------------------------------------

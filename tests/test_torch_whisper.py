@@ -336,12 +336,18 @@ def test_frames_and_enc_len_are_validated(case):
     assert not srv.queue
 
 
-def test_training_entry_points_raise_naming_the_roadmap():
-    model = build_model(get_smoke(ARCH))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.loss_fn({}, {})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.decode_full({}, None, None)
+def test_decode_full_matches_reference(rng):
+    """The teacher-forced decoder (the training forward's) over encoder
+    states: logits (B, S, V) f32 against the reference's with its Pallas
+    kernels in interpret mode, at the serving tolerance."""
+    jmodel, jparams = _jax()
+    model, _, params = _port()
+    enc = rng.standard_normal((2, ENC_LEN, model.cfg.d_model)).astype(np.float32)
+    tokens = rng.integers(0, model.cfg.vocab, (2, 9)).astype(np.int32)
+    want = jax.jit(jmodel.decode_full)(jparams, jnp.asarray(tokens), jnp.asarray(enc))
+    got = model.decode_full(params, torch.from_numpy(tokens), torch.from_numpy(enc))
+    assert got.shape == (2, 9, model.cfg.vocab) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
 def test_serve_lm_example_on_a_cpu_app(capsys):
