@@ -174,11 +174,15 @@
    forward's state checkpoints, whose output and final state must be the
    serving forward's bit for bit) at the rwkv6-3b training shape (4, 2048,
    40, 64) bf16, a ragged bf16 case with a state and a final-state
-   gradient, and f32 at head sizes 64 and 8, against autograd through
-   ``ref.wkv6`` in the same bands, twice bit for bit; its max |err| beside
-   the plain version's own bf16 gap; its time against bound and plain
-   version (no library call computes it); ptxas of its two kernels and of
-   the checkpointing forward.  Then h2o-danube-1.8b at full width (random bf16 weights made
+   gradient, f32 at head sizes 64 and 8, and w + 7 (every decay 0 in f32:
+   dw exactly 0, every gradient finite) in bf16 and f32, against autograd
+   through ``ref.wkv6`` in the same bands, twice bit for bit; its max
+   |err| beside the plain version's own bf16 gap; its time against bound
+   and plain version (no library call computes it), the checkpointing
+   forward's beside it with the checkpoints' bytes; ptxas of its kernels
+   (``wkv6_bwd_contrib_kernel``, ``wkv6_bwd_scan_kernel``,
+   ``wkv6_bwd_chunk_kernel`` with its dynamic shared memory,
+   ``wkv6_bwd_du_kernel``) and of the checkpointing forward.  Then h2o-danube-1.8b at full width (random bf16 weights made
    on the card from a seed): 6 ``Trainer`` steps at batch 4 x 2048 on the
    ``TokenStream`` (the loss falls; 1 capture, 6 replays; exact launch
    counts of init's warm-up and each step: forward, remat recompute and
@@ -259,6 +263,25 @@ def ptxas_usage(log: str, *fragments: str) -> tuple[int | None, int | None, int 
 # which runs them on whichever ``repro_torch`` comes first on ``sys.path``
 # (so one call can time two trees, each in a fresh process).
 
+def wkv6_bwd_smem(d: int, bf16: bool, chunk: int = 32) -> int:
+    """Dynamic shared memory bytes of ``wkv6_bwd_chunk_kernel`` (its
+    ``WkvBwdLayout``: r, k, v, do rows padded to d + 8 (bf16) or d + 4;
+    decays; S0 and G_end, later the groups' dk and dlambda partials; two
+    (C, d + 8) product tiles; K~, later B's warp partials; do v^T; the
+    per-row and per-step sums; the tiles' prefix products; exp(w)), each
+    region rounded up to 16 bytes."""
+    def r16(x):
+        return (x + 15) // 16 * 16
+
+    c, tiles = chunk, chunk // 8
+    groups, rw = tiles // 2, min(d, 32)
+    staged = 4 * r16(c * (d + 8 if bf16 else d + 4) * (2 if bf16 else 4))
+    return (staged + r16(c * d * 4) + r16(max(2 * d * (d + 4), 2 * groups * c * d) * 4)
+            + 2 * r16(c * (d + 8) * 4) + r16(max(c * (d + 4), d // rw * c * c) * 4)
+            + r16(c * (c + 8) * 4) + 2 * r16(d * 4) + r16(c * 4) + r16(tiles * d * 4)
+            + r16(c * d * 4))
+
+
 def loop_ms(fn, reps: int = 5) -> float:
     """Device time of one call: CUDA events around ``reps`` calls in a
     row after two warm-up calls (calls of a millisecond or more, so the
@@ -312,6 +335,28 @@ def backward_times(rand) -> dict:
         lambda: torch.autograd.grad(o_lib, (qg, kg, vg), do, retain_graph=True))
     out["rmsnorm_args"], out["flash_args"] = (x, w, dy), (q, k, v, o, do, lse)
     return out
+
+
+def wkv6_bwd_times(rand) -> dict:
+    """Device ms a call of ``wkv6_bwd`` at a rwkv6-3b layer ((4, 2048, 40,
+    64) bf16 r/k/v and output gradient, f32 w, no state; ``rand(*shape,
+    dtype=...)`` makes them) with the training forward's state
+    checkpoints, beside the training forward (which writes them) and the
+    serving forward on the same inputs; the checkpoints' bytes.  Returns
+    the times, the bytes and the backward's arguments."""
+    import torch
+    from repro_torch.kernels.wkv6 import _forward, wkv6, wkv6_bwd
+
+    bf16, shape = torch.bfloat16, (4, 2048, 40, 64)
+    r, k, v = (rand(*shape, dtype=bf16) for _ in range(3))
+    w, u, do = rand(*shape) * 0.5, rand(40, 64) * 0.5, rand(*shape, dtype=bf16)
+    _, _, ckpt = _forward(r, k, v, w, u, None, None, with_ckpt=True)
+    return {"wkv6_bwd_ms": loop_ms(lambda: wkv6_bwd(r, k, v, w, u, None, do, ckpt=ckpt), reps=20),
+            "wkv6_train_forward_ms": loop_ms(
+                lambda: _forward(r, k, v, w, u, None, None, with_ckpt=True), reps=20),
+            "wkv6_serve_forward_ms": loop_ms(lambda: wkv6(r, k, v, w, u), reps=20),
+            "ckpt_bytes": ckpt.numel() * ckpt.element_size(),
+            "wkv6_args": (r, k, v, w, u, do, ckpt)}
 
 
 def per_step_launches(cfg) -> dict:
@@ -2455,6 +2500,7 @@ def main() -> None:
     from repro_torch.kernels.flash_attention import _forward as flash_forward
     from repro_torch.kernels.flash_attention import flash_attention_bwd
     from repro_torch.kernels.rmsnorm import rmsnorm_bwd
+    from repro_torch.kernels.wkv6 import CHUNK as wkv6_chunk
     from repro_torch.kernels.wkv6 import _forward as wkv6_forward
     from repro_torch.kernels.wkv6 import wkv6_bwd
     from repro_torch.launch import train_lm
@@ -2565,16 +2611,26 @@ def main() -> None:
         # wkv6_bwd (with the training forward's checkpoints) at the rwkv6-3b
         # training shape (bf16 r/k/v and output gradient, f32 w, no state), a
         # ragged bf16 case with a state and a final-state gradient (77 steps:
-        # no multiple of the 16-step chunk), ragged f32 at head size 64 and
-        # the SMOKE head size 8, each against autograd through ref.wkv6 and
-        # run twice bit for bit; the training forward's output and final
-        # state are the serving forward's bit for bit
-        for shape, dtype, stateful, on_path in (
-                ((4, 2048, 40, 64), bf16, False, True), ((3, 77, 40, 64), bf16, True, False),
-                ((2, 37, 3, 64), f32, True, False), ((2, 100, 4, 8), f32, True, False)):
+        # two 32-step chunks and 13), ragged f32 at head size 64 and the SMOKE
+        # head size 8, and w + 7 (w clamped at -2 first, so exp(-exp(w)) is 0
+        # in f32 at every step: dw must be exactly 0) in bf16 and f32, each
+        # against autograd through ref.wkv6 and run twice bit for bit; the
+        # training forward's output and final state are the serving
+        # forward's bit for bit
+        for shape, dtype, stateful, on_path, shift in (
+                ((4, 2048, 40, 64), bf16, False, True, 0.0),
+                ((3, 77, 40, 64), bf16, True, False, 0.0),
+                ((2, 37, 3, 64), f32, True, False, 0.0), ((2, 100, 4, 8), f32, True, False, 0.0),
+                ((3, 77, 40, 64), bf16, True, False, 7.0), ((2, 69, 3, 64), f32, True, False, 7.0),
+                ((2, 100, 4, 8), f32, True, False, 7.0)):
             b_, t_, h_, d_ = shape
             r, k, v, w, u, s0 = wkv_inputs(*shape, dtype)
             s0 = s0 if stateful else None
+            if shift:   # w >= 5: exp(-exp(w)) < 1e-64, 0 in f32 at every step
+                w = w.clamp(min=-2.0) + shift
+                if bool(torch.exp(-torch.exp(w)).any()):
+                    raise SystemExit(f"chip_smoke: wkv6_bwd {shape} w + {shift}: a decay "
+                                     "does not underflow")
             do = rand(*shape, dtype=dtype)
             ds = rand(b_, h_, d_, d_) if stateful else None
             o_ck, s_ck, ckpt = wkv6_forward(r, k, v, w, u, s0, None, with_ckpt=True)
@@ -2587,8 +2643,17 @@ def main() -> None:
             same_twice(f"wkv6_bwd {shape}", got,
                        wkv6_bwd(r, k, v, w, u, s0, do, ds, ckpt=ckpt)[:len(names)])
             want = ref.wkv6_bwd(r, k, v, w, u, s0, do, ds)[:len(names)]
-            label = f"wkv6_bwd {shape} {dtype}{' state and final-state gradient' if stateful else ''}"
+            label = (f"wkv6_bwd {shape} {dtype}"
+                     f"{' state and final-state gradient' if stateful else ''}"
+                     f"{f' w + {shift}' if shift else ''}")
+            if not all(bool(torch.isfinite(g.float()).all()) for g in got):
+                raise SystemExit(f"chip_smoke: {label}: a gradient is not finite")
+            if shift and bool(got[3].any()):
+                raise SystemExit(f"chip_smoke: {label}: dw is not 0 where every decay is")
             grads_check(label, "wkv6_bwd", got, want, names, dtype, on_path)
+            if shift:
+                print(f"[train-kernels] {label}: every decay 0 in f32, dw exactly 0, finite, "
+                      "twice bit for bit")
             if dtype == bf16 and not stateful:
                 # the plain version's own bf16 gap: its bf16 run against its f32
                 # run on the same (bf16-valued) inputs, beside the kernel's
@@ -2656,12 +2721,11 @@ def main() -> None:
         # wkv6_bwd at the rwkv6-3b training shape (a layer: bf16 r/k/v and
         # output gradient, f32 w, no state) with the forward's checkpoints;
         # no PyTorch call computes this gradient, so there is no library time
-        r, k, v, w, u, _ = wkv_inputs(4, 2048, 40, 64, bf16)
-        do = rand(4, 2048, 40, 64, dtype=bf16)
-        _, _, ckpt = wkv6_forward(r, k, v, w, u, None, None, with_ckpt=True)
-        ms = loop_ms(lambda: wkv6_bwd(r, k, v, w, u, None, do, ckpt=ckpt))
-        fwd_ms = loop_ms(lambda: wkv6_forward(r, k, v, w, u, None, None, with_ckpt=True))
-        serve_ms = loop_ms(lambda: wkv6(r, k, v, w, u))
+        wt = wkv6_bwd_times(rand)
+        r, k, v, w, u, do, ckpt = wt["wkv6_args"]
+        ms, fwd_ms, serve_ms = wt["wkv6_bwd_ms"], wt["wkv6_train_forward_ms"], \
+            wt["wkv6_serve_forward_ms"]
+        del wt
         plain_ms = loop_ms(lambda: ref.wkv6_bwd(r, k, v, w, u, None, do), reps=1)
         host_ms = call_ms(lambda: wkv6_bwd(r, k, v, w, u, None, do, ckpt=ckpt), reps=5)
         bound_ms, bound_by, cost_txt = bound_of("wkv6_bwd", r, k, v, w, u, None, do)
@@ -2673,8 +2737,10 @@ def main() -> None:
         print(f"[time] {smi}: wkv6_bwd at (4, 2048, 40, 64) bf16 r/k/v, f32 w, no state "
               f"(rwkv6-3b, a layer), device ms a call: kernel {ms:.5f}, plain {plain_ms:.5f}, "
               f"library none, bound {bound_ms:.5f} ({bound_by}: {cost_txt}); kernel / bound "
-              f"{ms / bound_ms:.1f}; the training forward (with checkpoints) {fwd_ms:.5f}, the "
-              f"serving forward {serve_ms:.5f}; one host call {host_ms:.5f}")
+              f"{ms / bound_ms:.1f}; the training forward (with checkpoints every "
+              f"{wkv6_chunk} steps, {ckpt.numel() * 4 / 1e6:.1f} MB; the backward's G at each "
+              f"chunk's end the same) {fwd_ms:.5f}, the serving forward {serve_ms:.5f}; one host "
+              f"call {host_ms:.5f}")
         del r, k, v, w, u, do, ckpt
         log = _build.BUILD_INFO["log"]
         # dynamic shared memory of the bf16 kernels (lm_kernels.cu's
@@ -2696,15 +2762,19 @@ def main() -> None:
                       f"{smem} bytes static shared memory + {dyn(d)} dynamic a block")
         for tag, mangled in (("bf16", "13__nv_bfloat16"), ("f32", "f")):
             for d in (64, 8):
-                regs, smem, spill = ptxas_usage(log, f"wkv6_bwd_kernelI{mangled}Li{d}E")
-                print(f"[ptxas] wkv6_bwd_kernel<{tag}, D={d}>: {regs} registers a thread, "
-                      f"{spill} bytes spilled, {smem} bytes shared memory a block")
+                for kern, dyn in (("wkv6_bwd_contrib_kernel", 0),
+                                  ("wkv6_bwd_chunk_kernel", wkv6_bwd_smem(d, tag == "bf16"))):
+                    regs, smem, spill = ptxas_usage(log, f"{kern}I{mangled}Li{d}E")
+                    print(f"[ptxas] {kern}<{tag}, D={d}>: {regs} registers a thread, {spill} "
+                          f"bytes spilled, {smem} bytes static shared memory + {dyn} dynamic a "
+                          "block")
                 regs, smem, spill = ptxas_usage(log, f"wkv6_kernelI{mangled}Li{d}ELb1E")
                 print(f"[ptxas] wkv6_kernel<{tag}, D={d}, checkpoints>: {regs} registers a "
                       f"thread, {spill} bytes spilled, {smem} bytes shared memory a block")
-            regs, smem, spill = ptxas_usage(log, f"wkv6_bwd_finish_kernelI{mangled}E")
-            print(f"[ptxas] wkv6_bwd_finish_kernel<{tag}>: {regs} registers a thread, {spill} "
-                  f"bytes spilled, {smem} bytes shared memory a block")
+        for kern in ("wkv6_bwd_scan_kernel", "wkv6_bwd_du_kernel"):
+            regs, smem, spill = ptxas_usage(log, kern)
+            print(f"[ptxas] {kern}: {regs} registers a thread, {spill} bytes spilled, {smem} "
+                  "bytes shared memory a block")
         for tmpl in ("Li16E", "Li4E", "Li1E"):
             regs, smem, spill = ptxas_usage(log, "rmsnorm_bwd_kernelI13__nv_bfloat16S", tmpl)
             print(f"[ptxas] rmsnorm_bwd_kernel<bf16, bf16, J={tmpl[2:-1]}>: {regs} registers a "

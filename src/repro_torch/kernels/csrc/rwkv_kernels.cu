@@ -10,7 +10,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include <algorithm>
+#include <cstdint>
 
 namespace {
 
@@ -75,12 +75,13 @@ __device__ __forceinline__ bf16 from_f32<bf16>(float v) { return __float2bfloat1
 // form on the tensor cores is the next step.
 // The training forward (CKPT) also writes the state entering every
 // kWkvChunk-th step to ckpt (B, H, ceil(T / kWkvChunk), D, D) f32, each
-// thread its own elements: what wkv6_bwd_kernel recomputes a chunk's states
-// from (the recurrence cannot be run backwards: a decay exp(-exp(w))
-// underflows to 0 in f32, so a state is never recovered by division).
+// thread its own elements: the S0 of each of wkv6_bwd_chunk_kernel's chunks
+// (the recurrence cannot be run backwards: a decay exp(-exp(w)) underflows
+// to 0 in f32, so a state is never recovered by division).
 // ---------------------------------------------------------------------------
-// steps between two of the training forward's state checkpoints
-constexpr int kWkvChunk = 16;
+// steps between two of the training forward's state checkpoints: the
+// backward's chunk
+constexpr int kWkvChunk = 32;
 template <int D>
 struct WkvLayout {
   static constexpr int G = D < 8 ? D : 8;          // lanes of one column pair (row groups)
@@ -316,250 +317,804 @@ int dispatch_wkv6(int d, const void* r, const void* k, const void* v, const void
 // ---------------------------------------------------------------------------
 // wkv6_bwd: the gradient of the recurrence, what jax.grad through the JAX
 // package's plain wkv6 (kernels/ref.py, a lax.scan) computes.  With a_t =
-// exp(-exp(w_t)) acting on the rows i (the k index) and G_t = dL/ds_t:
+// exp(-exp(w_t)) acting on the rows i (the k index), G_t = dL/ds_t and
+// dlambda_t = a_t sum_j s_{t-1}[i][j] G_t[i][j] (so dw_t = -exp(w_t) dlambda_t):
 //   G_{t-1} = diag(a_t) G_t + r_t^T do_t          (from G_T = dstate_out)
 //   dr_t[i] = sum_j s_{t-1}[i][j] do_t[j] + u_i k_t[i] (v_t . do_t)
 //   dk_t[i] = sum_j G_t[i][j] v_t[j] + u_i r_t[i] (v_t . do_t)
 //   dv_t[j] = sum_i G_t[i][j] k_t[i] + (sum_i r_t[i] u_i k_t[i]) do_t[j]
-//   dw_t[i] = -exp(w_t[i]) a_t[i] sum_j s_{t-1}[i][j] G_t[i][j]
 //   du_i    = sum_{b, t} r_t[i] k_t[i] (v_t . do_t);   dstate_in = G_0.
 // The JAX package trains through the plain scan, so there is no Pallas
 // kernel of the gradient to replace; this is the gradient of
 // repro/kernels/wkv6.py:_wkv6_kernel's function.
-// Bound: the bytes (r, k, v, w, do read; dr, dk, dv, dw written) at the
-// training shape; 13 D^2 flops a step and head against them make it
-// operations-bound at fp32 (the cost model in kernels/wkv6.py).
-// Design: the forward's layout (grid (B * H, D / JC), a block owning JC = 32
-// columns, G = 8 lanes of a column pair each holding D / G rows of both
-// columns), since s, G and dv are independent across columns.  The chunks
-// of kWkvChunk steps run last to first; each is staged in shared memory
-// (r, k, a, v, do, exp(w) a row; v . do and sum_i r_i u_i k_i a step), its
-// states are recomputed from the forward's checkpoint (the forward's own
-// fmaf form) into a thread-private scratch in global memory (JC x D x
-// kWkvChunk floats a block: 42 MB in all at (4, 2048, 40, 64), about L2's
-// size), then the steps run backwards with G in registers.  dv is a sum
-// over rows: the forward's reduce-scatter over the 8 lanes.  dr, dk and
-// dw are sums over columns: xor shuffles over the warp's column pairs, one
-// partial a warp into shared memory, one barrier a step (double-buffered),
-// the warps' partials added in warp order and written, per column block, to
-// part; wkv6_bwd_finish_kernel adds the column blocks' partials in order,
-// and du's per-(batch, head) sums over the batch in order.  No float
-// atomics: every sum is taken in one fixed order, so two runs agree bit
-// for bit.  A simple kernel: a barrier and a scratch round trip a step.
+// Bound: operations (the cost model in kernels/wkv6.py: 14 D^2 flops a step
+// and head at the fp32 rate) at the training shape.
+// Design: chunk-parallel over chunks of C = kWkvChunk steps, the forward's
+// state checkpoint S0 entering each.  Within a chunk (t0 .. t1 - 1, E(x, y) the
+// product of the decays a_{y+1} .. a_x, each <= 1, so no factor overflows and
+// a decay that underflows zeroes every span that holds it) the gradient has
+// closed forms in S0 and G_end = G_{t1-1}:
+//   dr'_t = E(t-1, t0-1) (S0 do_t) + sum_{tau<t} E(t-1, tau) k_tau (v_tau . do_t)
+//   dk'_t = E(t1-1, t) (G_end v_t) + sum_{sig>t} E(sig-1, t) r_sig (do_sig . v_t)
+//   dv'_t = G_end^T (E(t1-1, t) k_t) + sum_{sig>t} B[sig][t] do_sig,
+//           B[sig][tau] = sum_i E(sig-1, tau) r_sig k_tau
+//   dlambda_t = E(t1-1, t0-1) rowsum(S0 . G_end)
+//           + sum_{sig>t} r_sig E(sig-1, t0-1) (S0 do_sig)
+//           + sum_{tau<t} k_tau E(t1-1, tau) (G_end v_tau)
+//           + sum_{tau<t<sig} E(sig-1, tau) k_tau r_sig (v_tau . do_sig)
+// (every term of dlambda_t holds a_t: it is exactly 0 where a_t underflows,
+// which a difference of state-sized sums would not give).  Four kernels:
+// * wkv6_bwd_contrib_kernel, every (batch, head, chunk) at once: the chunk's
+//   term of G's scan, (r . E(t-1, t0-1))^T do, a D x C by C x D product on
+//   the tensor cores, and E(t1-1, t0-1).
+// * wkv6_bwd_scan_kernel: the only sequential part, the chunk-level scan
+//   G_{t0-1} = diag(E(t1-1, t0-1)) G_end + term, elementwise (a thread four
+//   elements of one head's G, chunks last to first, terms loaded four
+//   chunks ahead), writing G_end of every chunk over its term (B, H, nc, D,
+//   D) and ds0; no chain or barrier a chunk stands in its way.
+// * wkv6_bwd_chunk_kernel: every (batch, head, chunk) at once, grid (B * H,
+//   nc) (10240 blocks at the rwkv6-3b layer); the chunk's
+//   r, k, v, do (in their type), S0 and G_end by cp.async into shared
+//   memory, the decays and exp(w) beside them.  The products do S0^T,
+//   v G_end^T, do v^T (whose diagonal is v . do) and K~ G_end run on the
+//   tensor cores as 3xTF32 mma.sync m16n8k8 (a bf16 operand is exact in
+//   TF32 and skips its lo term; a warp splits its A fragment once for all
+//   its n8 tiles); the terms with a per-element relative decay stay on FMA:
+//   each row's thread walks 8 x 8 tiles of the tau < sig triangle (the
+//   rows' two groups take sig-tiles a and NTILE - 1 - a, so the work splits
+//   evenly), every decay a product of per-step decays over its span
+//   (tile-local prefix and suffix products and whole tiles' products
+//   between, never a quotient); B's per-pair sums over the rows meet in a
+//   shuffle reduce-scatter and the warps' partials in shared memory;
+//   dlambda's pairs tau < t < sig are tile prefix, suffix and between-tile
+//   sums of the same products.  dv adds B^T do to K~ G_end in the same mma
+//   accumulators; dk, dlambda and du's partial close the chunk in passes
+//   over its steps, two threads a row; dr, dk, dv and dw are written once,
+//   du as per-(b, chunk) partials that wkv6_bwd_du_kernel adds in order.
+//   Shared memory (103,552 bytes at bf16, D = 64) holds two blocks an SM.
+// C = 32: the checkpoints and G_end are 168 MB each at the rwkv6-3b layer
+// (335 MB at 16); at 64 the groups' partials no longer leave room for two
+// blocks an SM.  A guarded global read keeps its address in bounds whether
+// or not it is taken (the compiler may issue it anyway).
+// No float atomics: every sum is taken in one fixed order, so two runs agree
+// bit for bit.
 // ---------------------------------------------------------------------------
 struct WkvBwdArgs {
   const void *r, *k, *v, *w, *u, *ckpt, *dout, *dstate_out;
-  void *dstate_in, *dr, *dk, *dv, *dw, *du, *part, *du_part, *scratch;
+  void *dstate_in, *dr, *dk, *dv, *dw, *du, *gend, *tot, *du_part;
   int b, t, h;
   cudaStream_t st;
 };
 
-template <typename T, int D>
-__global__ void __launch_bounds__(WkvLayout<D>::THREADS)
-wkv6_bwd_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restrict__ v,
-                const float* __restrict__ w, const float* __restrict__ u,
-                const float* __restrict__ ckpt, const T* __restrict__ dout,
-                const float* __restrict__ dstate_out, float* __restrict__ dstate_in,
-                T* __restrict__ dv, float* __restrict__ part, float* __restrict__ du_part,
-                float2* __restrict__ scratch, int t_len, int heads, int batch) {
-  using L = WkvLayout<D>;
-  constexpr int G = L::G, RPT = L::RPT, JC = L::JC, NT = L::THREADS, C = kWkvChunk;
-  constexpr int W = NT / 32, LANES = L::LANES, PARTS = L::PARTS;
-  static_assert(NT % D == 0 && (C * D) % NT == 0 && NT >= D && 32 % G == 0,
-                "whole rows a round, a thread's staged row fixed, whole column pairs a warp");
-  __shared__ float4 rkav[C][D];     // r_i, k_i, a_i, v_i per staged step
-  __shared__ float2 dew[C][D];      // do_i, exp(w_i)
-  __shared__ float2 sc[C][PARTS];   // partial sums of (v . do, sum_i r_i u_i k_i)
-  __shared__ float prt[2][W][3][D]; // a warp's column sums of dr, dk, dw, double-buffered
-
-  const int x = threadIdx.x, g = x % G, half = g >= G / 2, c = x / G * 2, warp = x / 32;
-  const int y = blockIdx.y, j = y * JC + c;
-  const int bh = blockIdx.x, b = bh / heads, h = bh % heads;
-  const long long step = static_cast<long long>(heads) * D;
-  const long long base = static_cast<long long>(b) * t_len * step + static_cast<long long>(h) * D;
-  const long long plane = static_cast<long long>(batch) * t_len * step;  // one part plane
-  const int nc = (t_len + C - 1) / C;
-  const float* ck = ckpt + static_cast<long long>(bh) * nc * D * D + j;
-  float2* scr = scratch + (static_cast<long long>(bh) * gridDim.y + y) * C * RPT * NT + x;
-  const int xi = x % D;             // the row this thread stages and reduces
-  const float ui = u[h * D + xi];
-
-  float2 gs[RPT];                   // G: rows m * G + g, columns j and j + 1
-#pragma unroll
-  for (int m = 0; m < RPT; ++m) {
-    gs[m] = dstate_out ? *reinterpret_cast<const float2*>(
-                             dstate_out + (static_cast<long long>(bh) * D + m * G + g) * D + j)
-                       : make_float2(0.f, 0.f);
-  }
-  float du_acc = 0.f;
-  int buf = 0;
-  for (int ci = nc - 1; ci >= 0; --ci) {
-    const int t0 = ci * C, n = min(C, t_len - t0);
-    __syncthreads();  // the later chunk's steps are done with the staged values
-#pragma unroll
-    for (int e0 = 0; e0 < C * D; e0 += NT) {
-      const int tt = (e0 + x) / D;
-      const bool live = tt < n;
-      const long long off = base + static_cast<long long>(t0 + tt) * step + xi;
-      const float ri = live ? to_f32(r[off]) : 0.f, ki = live ? to_f32(k[off]) : 0.f;
-      const float vi = live ? to_f32(v[off]) : 0.f, wi = live ? w[off] : 0.f;
-      const float doi = live ? to_f32(dout[off]) : 0.f;
-      float vd = vi * doi, bo = ri * ui * ki;
-#pragma unroll
-      for (int q = LANES / 2; q > 0; q >>= 1) {
-        vd += __shfl_xor_sync(0xffffffffu, vd, q);
-        bo += __shfl_xor_sync(0xffffffffu, bo, q);
-      }
-      if (live) {
-        const float ew = expf(wi);
-        rkav[tt][xi] = make_float4(ri, ki, expf(-ew), vi);
-        dew[tt][xi] = make_float2(doi, ew);
-        if (xi % LANES == 0) sc[tt][xi / LANES] = make_float2(vd, bo);
-      }
-    }
-    __syncthreads();
-    // the chunk's states s_{t-1}, recomputed from its checkpoint
-    float2 s[RPT];
-#pragma unroll
-    for (int m = 0; m < RPT; ++m) {
-      s[m] = *reinterpret_cast<const float2*>(ck + (static_cast<long long>(ci) * D + m * G + g) * D);
-    }
-    for (int tt = 0; tt < n; ++tt) {
-      const float2 vj = make_float2(rkav[tt][j].w, rkav[tt][j + 1].w);
-#pragma unroll
-      for (int m = 0; m < RPT; ++m) {
-        scr[(tt * RPT + m) * NT] = s[m];
-        const float4 e = rkav[tt][m * G + g];
-        s[m].x = fmaf(s[m].x, e.z, e.y * vj.x);
-        s[m].y = fmaf(s[m].y, e.z, e.y * vj.y);
-      }
-    }
-    for (int tt = n - 1; tt >= 0; --tt) {
-      const float2 vj = make_float2(rkav[tt][j].w, rkav[tt][j + 1].w);
-      const float2 doj = make_float2(dew[tt][j].x, dew[tt][j + 1].x);
-      float drp[RPT], dkp[RPT], dwp[RPT];
-      float dv0 = 0.f, dv1 = 0.f;
-#pragma unroll
-      for (int m = 0; m < RPT; ++m) {
-        const float2 sp = scr[(tt * RPT + m) * NT];
-        const float4 e = rkav[tt][m * G + g];
-        const float2 gm = gs[m];
-        drp[m] = fmaf(sp.x, doj.x, sp.y * doj.y);
-        dkp[m] = fmaf(gm.x, vj.x, gm.y * vj.y);
-        dwp[m] = fmaf(sp.x, gm.x, sp.y * gm.y);
-        dv0 = fmaf(gm.x, e.y, dv0);
-        dv1 = fmaf(gm.y, e.y, dv1);
-        gs[m].x = fmaf(e.z, gm.x, e.x * doj.x);
-        gs[m].y = fmaf(e.z, gm.y, e.x * doj.y);
-      }
-      // column sums over the warp's column pairs (lanes g, g + G, ...)
-#pragma unroll
-      for (int q = G; q < 32; q <<= 1) {
-#pragma unroll
-        for (int m = 0; m < RPT; ++m) {
-          drp[m] += __shfl_xor_sync(0xffffffffu, drp[m], q);
-          dkp[m] += __shfl_xor_sync(0xffffffffu, dkp[m], q);
-          dwp[m] += __shfl_xor_sync(0xffffffffu, dwp[m], q);
-        }
-      }
-      if (x % 32 < G) {
-#pragma unroll
-        for (int m = 0; m < RPT; ++m) {
-          prt[buf][warp][0][m * G + g] = drp[m];
-          prt[buf][warp][1][m * G + g] = dkp[m];
-          prt[buf][warp][2][m * G + g] = dwp[m];
-        }
-      }
-      // dv: the row sums of the two columns meet in the forward's reduce-scatter
-      float p = (half ? dv1 : dv0) + __shfl_xor_sync(0xffffffffu, half ? dv0 : dv1, G / 2);
-#pragma unroll
-      for (int q = G / 4; q > 0; q >>= 1) p += __shfl_xor_sync(0xffffffffu, p, q);
-      float vdo = 0.f, bonus = 0.f;
-#pragma unroll
-      for (int q = 0; q < PARTS; ++q) {
-        vdo += sc[tt][q].x;
-        bonus += sc[tt][q].y;
-      }
-      const long long row = base + static_cast<long long>(t0 + tt) * step;
-      if (g % (G / 2) == 0) dv[row + j + half] = from_f32<T>(fmaf(bonus, half ? doj.y : doj.x, p));
-      __syncthreads();
-      // the warps' partials in warp order, the u terms (once: column block 0)
-      // and dw's factor; du's per-row sum over this (batch, head)'s steps
-      for (int e = x; e < 3 * D; e += NT) {
-        const int q = e / D;
-        float val = 0.f;
-#pragma unroll
-        for (int wp = 0; wp < W; ++wp) val += prt[buf][wp][q][xi];
-        const float4 ri = rkav[tt][xi];
-        if (q == 2) {
-          val *= -(dew[tt][xi].y * ri.z);
-        } else if (y == 0) {
-          val = fmaf(ui * (q == 0 ? ri.y : ri.x), vdo, val);
-          if (q == 0) du_acc = fmaf(ri.x * ri.y, vdo, du_acc);
-        }
-        part[(static_cast<long long>(y) * 3 + q) * plane + row + xi] = val;
-      }
-      buf ^= 1;
-    }
-  }
-  if (dstate_in) {
-#pragma unroll
-    for (int m = 0; m < RPT; ++m) {
-      *reinterpret_cast<float2*>(dstate_in + (static_cast<long long>(bh) * D + m * G + g) * D + j) =
-          gs[m];
-    }
-  }
-  if (y == 0 && x < D) du_part[static_cast<long long>(bh) * D + x] = du_acc;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// dr, dk (in T) and dw: the column blocks' partials added in block order; du:
-// the (batch, head) sums added in batch order
-template <typename T>
-__global__ void __launch_bounds__(256)
-wkv6_bwd_finish_kernel(const float* __restrict__ part, const float* __restrict__ du_part,
-                       T* __restrict__ dr, T* __restrict__ dk, float* __restrict__ dw,
-                       float* __restrict__ du, long long n, int ny, int batch, int hd) {
-  const long long first = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  for (long long e = first; e < n; e += static_cast<long long>(gridDim.x) * blockDim.x) {
-    float s0 = 0.f, s1 = 0.f, s2 = 0.f;
-    for (int y = 0; y < ny; ++y) {
-      s0 += part[(y * 3 + 0) * n + e];
-      s1 += part[(y * 3 + 1) * n + e];
-      s2 += part[(y * 3 + 2) * n + e];
+// 16 bytes global -> shared, zero-filled when !full (src then not read)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool full = true) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(full ? 16 : 0)
+               : "memory");
+}
+
+// The chunk's rows t0 .. t0 + C - 1 of a (B, T, H, D) input of type T into a
+// shared (C, stride) tile by cp.async, 16 bytes a copy; rows from n on are
+// zeros (their source address stays in bounds all the same).
+template <typename T, int D, int C, int NT>
+__device__ __forceinline__ void stage_rows(T* dst, int stride, const T* src, long long base,
+                                           long long step, int n) {
+  constexpr int E = 16 / sizeof(T), PR = D / E;   // elements a copy, copies a row
+  static_assert(D % E == 0, "whole 16-byte pieces a row");
+#pragma unroll
+  for (int f = threadIdx.x; f < C * PR; f += NT) {
+    const int tt = f / PR, p = f % PR;
+    cp_async16(smem_u32(dst + tt * stride + p * E),
+               src + base + static_cast<long long>(min(tt, n - 1)) * step + p * E, tt < n);
+  }
+}
+
+// The chunk's decays exp(-exp(w)) into a shared (C, D) tile (and exp(w)
+// into ew when not null), float4 loads all in flight together; decay 1 and
+// exp(w) 0 from row n on.
+template <int D, int C, int NT>
+__device__ __forceinline__ void stage_decays(float* dst, float* ew, const float* w,
+                                             long long base, long long step, int n) {
+  static_assert(D % 4 == 0, "float4 rows");
+  constexpr int Q = C * D / 4, R = (Q + NT - 1) / NT;
+  float4 v[R];
+#pragma unroll
+  for (int m = 0; m < R; ++m) {
+    const int f = threadIdx.x + m * NT, tt = min(f / (D / 4), n - 1);
+    v[m] = f < Q ? *reinterpret_cast<const float4*>(w + base + static_cast<long long>(tt) * step +
+                                                    f % (D / 4) * 4)
+                 : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+#pragma unroll
+  for (int m = 0; m < R; ++m) {
+    const int f = threadIdx.x + m * NT;
+    if (f < Q) {
+      const bool live = f / (D / 4) < n;
+      const float4 e = live ? make_float4(expf(v[m].x), expf(v[m].y), expf(v[m].z), expf(v[m].w))
+                            : make_float4(0.f, 0.f, 0.f, 0.f);
+      *reinterpret_cast<float4*>(dst + f * 4) =
+          make_float4(expf(-e.x), expf(-e.y), expf(-e.z), expf(-e.w));
+      if (ew) *reinterpret_cast<float4*>(ew + f * 4) = e;
     }
-    dr[e] = from_f32<T>(s0);
-    dk[e] = from_f32<T>(s1);
-    dw[e] = s2;
   }
-  if (first < hd) {
-    float s = 0.f;
-    for (int bb = 0; bb < batch; ++bb) s += du_part[static_cast<long long>(bb) * hd + first];
-    du[first] = s;
+}
+// every cp.async of this thread landed
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// f32 -> TF32 bit pattern, round to nearest, ties away from zero (the
+// rounding of cvt.rna.tf32.f32, in two integer operations; finite x)
+__device__ __forceinline__ uint32_t tf32_bits(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// x -> (hi, lo) TF32 pair
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_bits(x);
+  lo = tf32_bits(x - __uint_as_float(hi));
+}
+
+// d += a * b, one m16n8k8 TF32 product with f32 accumulation
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+template <typename T>
+struct IsBf16 {
+  static constexpr bool value = false;
+};
+template <>
+struct IsBf16<bf16> {
+  static constexpr bool value = true;
+};
+
+constexpr int cmax(int a, int b) { return a > b ? a : b; }
+constexpr int round16(int bytes) { return (bytes + 15) / 16 * 16; }
+
+// acc[n] += A B for the warp's m16 row tile at m0 and the NN n8 tiles at
+// n0 + 8 n, over K (a multiple of 8), 3xTF32: per k-step and tile a_lo b_hi,
+// a_hi b_lo, a_hi b_hi, in that order; an operand exact in TF32 (AX, BX:
+// bf16 values) has lo = 0 and its term is skipped.  Each k-step's A
+// fragment is loaded and split once for all NN tiles.  fa(row, col) and
+// fb(k, col) read the operands' f32 values (fragment order: a0 row g col t,
+// a1 row g + 8, a2 / a3 col t + 4; b0 k t col g, b1 k t + 4).
+template <bool AX, bool BX, int K, int NN, typename FA, typename FB>
+__device__ __forceinline__ void mma3_rows(float (&acc)[NN][4], int m0, int n0, FA fa, FB fb) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int k0 = 0; k0 < K; k0 += 8) {
+    const float av[4] = {fa(m0 + g, k0 + t4), fa(m0 + g + 8, k0 + t4), fa(m0 + g, k0 + t4 + 4),
+                         fa(m0 + g + 8, k0 + t4 + 4)};
+    uint32_t ah[4], al[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) split_tf32(av[e], ah[e], al[e]);
+#pragma unroll
+    for (int nt = 0; nt < NN; ++nt) {
+      const int col = n0 + nt * 8 + g;
+      const float bv[2] = {fb(k0 + t4, col), fb(k0 + t4 + 4, col)};
+      uint32_t bh[2], bl[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) split_tf32(bv[e], bh[e], bl[e]);
+      if (!AX) mma_tf32(acc[nt], al, bh);
+      if (!BX) mma_tf32(acc[nt], ah, bl);
+      mma_tf32(acc[nt], ah, bh);
+    }
   }
+}
+
+// ---- the chunk-level scan of G ---------------------------------------------
+// wkv6_bwd_contrib_kernel, every (batch, head, chunk) at once: the chunk's
+// term of G's scan, (r . E(t-1, t0-1))^T do (D x C by C x D, 3xTF32
+// mma.sync, a warp a 16-row tile of G), into gend's slot of the chunk, and
+// E(t1-1, t0-1) into tot; the exclusive prefix products a chain a row.
+template <int D>
+constexpr int kRowsPad = D < 16 ? 16 : D;   // G's rows padded to a whole m16 tile
+
+template <int D>
+struct WkvContribLayout {
+  static constexpr int C = kWkvChunk;
+  static constexpr int MT = (D + 15) / 16;        // m16 tiles of G's rows, a warp each
+  static constexpr int NT = MT * 32;
+  static constexpr int RP = (D < 16 ? 16 : D) + 8;  // (r . E) rows: conflict-free A loads
+  static constexpr int DP = D + 8;                // r and do rows: conflict-free B loads
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(WkvContribLayout<D>::NT)
+wkv6_bwd_contrib_kernel(const T* __restrict__ r, const float* __restrict__ w,
+                        const T* __restrict__ dout, float* __restrict__ gend,
+                        float* __restrict__ tot, int t_len, int heads) {
+  using L = WkvContribLayout<D>;
+  constexpr int C = L::C, NT = L::NT, RP = L::RP, DP = L::DP;
+  __shared__ __align__(16) T s_r[C][DP];
+  __shared__ __align__(16) T s_do[C][DP];
+  __shared__ __align__(16) float s_dec[C][D];
+  __shared__ float s_rh[C][RP];   // r . E(t-1, t0-1); rows past D zero
+  const int x = threadIdx.x, warp = x >> 5, lane = x & 31, g = lane >> 2, t4 = lane & 3;
+  const int bh = blockIdx.x, c = blockIdx.y, nc = gridDim.y;
+  const int b = bh / heads, h = bh % heads;
+  const int t0 = c * C, n = min(C, t_len - t0);
+  const long long step = static_cast<long long>(heads) * D;
+  const long long base =
+      (static_cast<long long>(b) * t_len + t0) * step + static_cast<long long>(h) * D;
+  stage_rows<T, D, C, NT>(&s_r[0][0], DP, r, base, step, n);
+  stage_rows<T, D, C, NT>(&s_do[0][0], DP, dout, base, step, n);
+  stage_decays<D, C, NT>(&s_dec[0][0], nullptr, w, base, step, n);
+  cp_async_wait_all();
+  __syncthreads();
+  if (x < D) {
+    float p = 1.f;
+#pragma unroll
+    for (int tt = 0; tt < C; ++tt) {
+      s_rh[tt][x] = to_f32(s_r[tt][x]) * p;
+      p *= s_dec[tt][x];
+    }
+    tot[(static_cast<long long>(bh) * nc + c) * D + x] = p;
+  } else if (x < kRowsPad<D>) {
+#pragma unroll
+    for (int tt = 0; tt < C; ++tt) s_rh[tt][x] = 0.f;
+  }
+  __syncthreads();
+  float acc[D / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+  mma3_rows<false, IsBf16<T>::value, C, D / 8>(
+      acc, warp * 16, 0, [&](int i, int tt) { return s_rh[tt][i]; },
+      [&](int tt, int j) { return to_f32(s_do[tt][j]); });
+  float* dst = gend + (static_cast<long long>(bh) * nc + c) * D * D;
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int row = warp * 16 + g + 8 * hf;
+      if (row < D) {
+        *reinterpret_cast<float2*>(dst + row * D + nt * 8 + 2 * t4) =
+            make_float2(acc[nt][2 * hf], acc[nt][2 * hf + 1]);
+      }
+    }
+  }
+}
+
+// wkv6_bwd_scan_kernel: the scan itself, elementwise, a thread four
+// elements (i, j .. j + 3) of one (batch, head)'s G, chunks last to first:
+// G_end of chunk c replaces the chunk's term in gend, then G = fmaf(tot, G,
+// term); the last G is ds0.  The terms are loaded four chunks ahead.
+constexpr int kScanThreads = 256;
+__global__ void __launch_bounds__(kScanThreads)
+wkv6_bwd_scan_kernel(const float* __restrict__ dstate_out, float* __restrict__ gend,
+                     const float* __restrict__ tot, float* __restrict__ dstate_in, int nc, int d,
+                     long long n4) {
+  const long long q = static_cast<long long>(blockIdx.x) * kScanThreads + threadIdx.x;
+  if (q >= n4) return;
+  const int per = d * d / 4;                       // float4 a (batch, head)'s G
+  const long long bh = q / per;
+  const int f = static_cast<int>(q % per);
+  float4 g4 = dstate_out ? reinterpret_cast<const float4*>(dstate_out)[q]
+                         : make_float4(0.f, 0.f, 0.f, 0.f);
+  float4* gp = reinterpret_cast<float4*>(gend) + bh * nc * per + f;   // chunk c: gp[c * per]
+  const float* tp = tot + bh * nc * d + f * 4 / d;                      // chunk c: tp[c * d]
+  auto step = [&](float4 term, float tc) {
+    g4 = make_float4(fmaf(tc, g4.x, term.x), fmaf(tc, g4.y, term.y), fmaf(tc, g4.z, term.z),
+                     fmaf(tc, g4.w, term.w));
+  };
+  int c = nc - 1;
+  for (; c >= 3; c -= 4) {
+    float4 term[4];
+    float tc[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      term[u] = gp[static_cast<long long>(c - u) * per];
+      tc[u] = tp[static_cast<long long>(c - u) * d];
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      gp[static_cast<long long>(c - u) * per] = g4;
+      step(term[u], tc[u]);
+    }
+  }
+  for (; c >= 0; --c) {
+    const float4 term = gp[static_cast<long long>(c) * per];
+    const float tc = tp[static_cast<long long>(c) * d];
+    gp[static_cast<long long>(c) * per] = g4;
+    step(term, tc);
+  }
+  if (dstate_in) reinterpret_cast<float4*>(dstate_in)[q] = g4;
+}
+
+// ---- the chunks ------------------------------------------------------------
+constexpr int kBwdTile = 8;   // steps of a tile of the FMA part
+
+template <typename T, int D>
+struct WkvBwdLayout {
+  static constexpr int C = kWkvChunk, TS = kBwdTile, NTILE = C / TS, NG = NTILE / 2;
+  static constexpr int RW = D < 32 ? D : 32;   // rows whose B sums one warp's shuffles take
+  static constexpr int WPG = D / RW;           // row segments (warps) of a group
+  static constexpr int NT = D * NG < 32 ? 32 : D * NG;
+  static constexpr int NW = NT / 32;
+  static constexpr int MT = C / 16, ND = D / 8;
+  // the products' split: a warp takes MPW m16 tiles of rows and 1 / WPM of their n8 tiles
+  static constexpr int WPM = NW >= MT ? NW / MT : 1, MPW = MT > NW ? MT / NW : 1;
+  static constexpr int TP = IsBf16<T>::value ? D + 8 : D + 4;  // staged row stride (elements)
+  static constexpr int SP = D + 4;   // S0, G_end, K~: conflict-free A / B fragment loads
+  static constexpr int XP = D + 8;   // fragment-stored (C, D) rows: conflict-free float2 stores
+  static constexpr int AP = C + 8;
+  static constexpr int IN = round16(C * TP * static_cast<int>(sizeof(T)));
+  static constexpr int O_R = 0, O_K = IN, O_V = 2 * IN, O_DO = 3 * IN, O_DEC = 4 * IN;
+  // S0 and G_end, then the groups' dk and dlambda partials
+  static constexpr int O_U = O_DEC + round16(C * D * 4);
+  static constexpr int O_XR = O_U + round16(cmax(2 * D * SP, 2 * NG * C * D) * 4);
+  static constexpr int O_XK = O_XR + round16(C * XP * 4);
+  // K~, then B's warp partials
+  static constexpr int O_KT = O_XK + round16(C * XP * 4);
+  static constexpr int O_A = O_KT + round16(cmax(C * SP, WPG * C * C) * 4);
+  static constexpr int O_TOT = O_A + round16(C * AP * 4);
+  static constexpr int O_P = O_TOT + round16(D * 4);
+  static constexpr int O_BO = O_P + round16(D * 4);
+  static constexpr int O_PRE = O_BO + round16(C * 4);
+  static constexpr int O_EW = O_PRE + round16(NTILE * D * 4);
+  static constexpr int SMEM = O_EW + round16(C * D * 4);
+};
+
+// One splitting stage of reduce_scatter8: N of the 2N values kept (the upper
+// half where lane & o), each plus the partner lane's value of the same index.
+template <int N>
+__device__ __forceinline__ void split_stage(float (&v)[8], int o, bool up, unsigned mask) {
+#pragma unroll
+  for (int m = 0; m < N; ++m) {
+    const float lo = v[m], hi = v[m + N];
+    v[m] = (up ? hi : lo) + __shfl_xor_sync(mask, up ? lo : hi, o);
+  }
+}
+
+// v[0..7] summed over the RW lanes of a row segment in xor-shuffle order
+// (offsets RW / 2, ..., 1): the first three stages split the values
+// (reduce-scatter), the rest add; returns the sum of v[idx], idx from the
+// lane's bits.  mask: the lanes taking part.
+template <int RW>
+__device__ __forceinline__ float reduce_scatter8(float (&v)[8], int lane, unsigned mask,
+                                                 int& idx) {
+  static_assert(RW >= 8, "three splitting stages");
+  const bool u4 = lane & (RW / 2), u2 = lane & (RW / 4), u1 = lane & (RW / 8);
+  split_stage<4>(v, RW / 2, u4, mask);
+  split_stage<2>(v, RW / 4, u2, mask);
+  split_stage<1>(v, RW / 8, u1, mask);
+  idx = (u4 ? 4 : 0) + (u2 ? 2 : 0) + (u1 ? 1 : 0);
+#pragma unroll
+  for (int o = RW / 16; o > 0; o >>= 1) v[0] += __shfl_xor_sync(mask, v[0], o);
+  return v[0];
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(WkvBwdLayout<T, D>::NT, 2)
+wkv6_bwd_chunk_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restrict__ v,
+                      const float* __restrict__ w, const float* __restrict__ u,
+                      const float* __restrict__ ckpt, const float* __restrict__ gend,
+                      const T* __restrict__ dout, T* __restrict__ dr, T* __restrict__ dk,
+                      T* __restrict__ dv, float* __restrict__ dw, float* __restrict__ du_part,
+                      int t_len, int heads) {
+  using L = WkvBwdLayout<T, D>;
+  constexpr int C = L::C, TS = L::TS, NG = L::NG, NT = L::NT, NW = L::NW, RW = L::RW;
+  constexpr int TP = L::TP, SP = L::SP, XP = L::XP, AP = L::AP, MT = L::MT, ND = L::ND;
+  constexpr bool EX = IsBf16<T>::value;
+  constexpr int WPM = L::WPM, MPW = L::MPW, NND = ND / WPM, NNA = C / 8 / WPM;
+  static_assert(C % 16 == 0 && L::NTILE % 2 == 0 && D % 8 == 0 && NT >= 2 * D &&
+                    MPW * NW == MT * WPM && ND % WPM == 0 && (C / 8) % WPM == 0 &&
+                    C % (NW * (32 / RW)) == 0,
+                "whole m16 tiles, paired sig-tiles, whole n8 tiles, two row threads a row, "
+                "the products' tiles split evenly over the warps, whole staging rounds");
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* s_r = reinterpret_cast<T*>(smem + L::O_R);
+  T* s_k = reinterpret_cast<T*>(smem + L::O_K);
+  T* s_v = reinterpret_cast<T*>(smem + L::O_V);
+  T* s_do = reinterpret_cast<T*>(smem + L::O_DO);
+  float* s_dec = reinterpret_cast<float*>(smem + L::O_DEC);   // (C, D) decays, 1 past the end
+  float* s_s0 = reinterpret_cast<float*>(smem + L::O_U);      // (D, SP)
+  float* s_g = s_s0 + D * SP;                                  // (D, SP)
+  float* s_dkp = reinterpret_cast<float*>(smem + L::O_U);     // (NG, C, D), after the products
+  float* s_lamp = s_dkp + NG * C * D;                          // (NG, C, D)
+  float* s_xr = reinterpret_cast<float*>(smem + L::O_XR);     // (C, XP): S0 do_t
+  float* s_xk = reinterpret_cast<float*>(smem + L::O_XK);     // (C, XP): G_end v_t
+  float* s_kt = reinterpret_cast<float*>(smem + L::O_KT);     // (C, SP): K~ = E(t1-1, t) k_t
+  float* s_bp = s_kt;                                          // (WPG, C, C), after the products
+  float* s_a = reinterpret_cast<float*>(smem + L::O_A);       // (C, AP): do_sig . v_tau
+  float* s_tot = reinterpret_cast<float*>(smem + L::O_TOT);
+  float* s_p = reinterpret_cast<float*>(smem + L::O_P);
+  float* s_bo = reinterpret_cast<float*>(smem + L::O_BO);
+  float* s_pre = reinterpret_cast<float*>(smem + L::O_PRE);   // (NTILE, D): E(a TS - 1, t0-1)
+  float* s_ew = reinterpret_cast<float*>(smem + L::O_EW);     // (C, D): exp(w), 0 past the end
+
+  const int x = threadIdx.x, lane = x & 31, warp = x >> 5, g = lane >> 2, t4 = lane & 3;
+  const int bh = blockIdx.x, c = blockIdx.y, nc = gridDim.y;
+  const int b = bh / heads, h = bh % heads;
+  const int t0 = c * C, n = min(C, t_len - t0);
+  const long long step = static_cast<long long>(heads) * D;
+  const long long base =
+      (static_cast<long long>(b) * t_len + t0) * step + static_cast<long long>(h) * D;
+  const long long sbase = (static_cast<long long>(bh) * nc + c) * D * D;
+
+  // ---- staging by cp.async: S0, G_end, the chunk's steps (zero past the
+  // end); the decays (1 past the end) meanwhile
+#pragma unroll
+  for (int f = x; f < D * D / 4; f += NT) {
+    const int i = f / (D / 4), j = f % (D / 4) * 4;
+    cp_async16(smem_u32(s_s0 + i * SP + j), ckpt + sbase + i * D + j);
+    cp_async16(smem_u32(s_g + i * SP + j), gend + sbase + i * D + j);
+  }
+  stage_rows<T, D, C, NT>(s_r, TP, r, base, step, n);
+  stage_rows<T, D, C, NT>(s_k, TP, k, base, step, n);
+  stage_rows<T, D, C, NT>(s_v, TP, v, base, step, n);
+  stage_rows<T, D, C, NT>(s_do, TP, dout, base, step, n);
+  stage_decays<D, C, NT>(s_dec, s_ew, w, base, step, n);
+  cp_async_wait_all();
+  __syncthreads();
+
+  // ---- K~ and E(t1-1, t0-1) (a suffix chain a row), P = rowsum(S0 . G_end)
+  // and the tiles' prefix products (a prefix chain a row), the bonus sums
+  // sum_i (r_i u_i) k_i
+  if (x < D) {
+    float s = 1.f;
+#pragma unroll
+    for (int tt = C - 1; tt >= 0; --tt) {
+      s_kt[tt * SP + x] = s * to_f32(s_k[tt * TP + x]);
+      s *= s_dec[tt * D + x];
+    }
+    s_tot[x] = s;
+  } else if (x < 2 * D) {
+    const int i = x - D;
+    float p = 0.f;
+    for (int j = 0; j < D; j += 4) {
+      const float4 a4 = *reinterpret_cast<const float4*>(s_s0 + i * SP + j);
+      const float4 g4 = *reinterpret_cast<const float4*>(s_g + i * SP + j);
+      p = fmaf(a4.x, g4.x, p);
+      p = fmaf(a4.y, g4.y, p);
+      p = fmaf(a4.z, g4.z, p);
+      p = fmaf(a4.w, g4.w, p);
+    }
+    s_p[i] = p;
+    float pre = 1.f;   // the exclusive prefix products at each tile's first step
+#pragma unroll
+    for (int tt = 0; tt < C; ++tt) {
+      if (tt % TS == 0) s_pre[tt / TS * D + i] = pre;
+      pre *= s_dec[tt * D + i];
+    }
+  }
+  for (int tt = warp * (32 / RW) + lane / RW; tt < C; tt += NW * (32 / RW)) {
+    const int l = lane % RW;
+    float p = to_f32(s_r[tt * TP + l]) * u[h * D + l] * to_f32(s_k[tt * TP + l]);
+#pragma unroll
+    for (int m = 1; m < D / RW; ++m) {
+      const int i = l + m * RW;
+      p = fmaf(to_f32(s_r[tt * TP + i]) * u[h * D + i], to_f32(s_k[tt * TP + i]), p);
+    }
+#pragma unroll
+    for (int o = RW / 2; o > 0; o >>= 1) p += __shfl_xor_sync(0xffffffffu, p, o);
+    if (l == 0) s_bo[tt] = p;
+  }
+  __syncthreads();
+
+  // ---- the products (3xTF32 mma.sync): do S0^T, v G_end^T, do v^T into
+  // shared memory, K~ G_end into each warp's dv accumulators; a warp takes
+  // the m16 row tiles mrow .. mrow + MPW - 1 and 1 / WPM of their n8 tiles
+  auto store_rows = [&](float* dst, int stride, int m0, int n0, const float (&d)[4]) {
+    *reinterpret_cast<float2*>(dst + (m0 + g) * stride + n0 + 2 * t4) = make_float2(d[0], d[1]);
+    *reinterpret_cast<float2*>(dst + (m0 + g + 8) * stride + n0 + 2 * t4) =
+        make_float2(d[2], d[3]);
+  };
+  auto stg = [](const T* s, int stride) {
+    return [=](int row, int col) { return to_f32(s[row * stride + col]); };
+  };
+  const int mrow = warp / WPM * MPW, npart = warp % WPM;
+  float xv[MPW][NND][4];   // dv: row tile mrow + mi, n8 tiles npart * NND + nt
+#pragma unroll
+  for (int mi = 0; mi < MPW; ++mi) {
+    const int m0 = (mrow + mi) * 16;
+    {
+      float acc[NND][4] = {};
+      mma3_rows<EX, false, D, NND>(acc, m0, npart * NND * 8, stg(s_do, TP),
+                                   [&](int j, int i) { return s_s0[i * SP + j]; });
+#pragma unroll
+      for (int nt = 0; nt < NND; ++nt) store_rows(s_xr, XP, m0, (npart * NND + nt) * 8, acc[nt]);
+    }
+    {
+      float acc[NND][4] = {};
+      mma3_rows<EX, false, D, NND>(acc, m0, npart * NND * 8, stg(s_v, TP),
+                                   [&](int j, int i) { return s_g[i * SP + j]; });
+#pragma unroll
+      for (int nt = 0; nt < NND; ++nt) store_rows(s_xk, XP, m0, (npart * NND + nt) * 8, acc[nt]);
+    }
+    {
+      float acc[NNA][4] = {};
+      mma3_rows<EX, EX, D, NNA>(acc, m0, npart * NNA * 8, stg(s_do, TP),
+                                [&](int j, int tau) { return to_f32(s_v[tau * TP + j]); });
+#pragma unroll
+      for (int nt = 0; nt < NNA; ++nt) store_rows(s_a, AP, m0, (npart * NNA + nt) * 8, acc[nt]);
+    }
+#pragma unroll
+    for (int nt = 0; nt < NND; ++nt) {
+      xv[mi][nt][0] = xv[mi][nt][1] = xv[mi][nt][2] = xv[mi][nt][3] = 0.f;
+    }
+    mma3_rows<false, false, D, NND>(xv[mi], m0, npart * NND * 8,
+                                    [&](int tt, int i) { return s_kt[tt * SP + i]; },
+                                    [&](int i, int j) { return s_g[i * SP + j]; });
+  }
+  __syncthreads();
+
+  // ---- the terms with a relative decay: a row's thread, 8 x 8 tiles
+  if (x < D * NG) {
+    constexpr unsigned kMask = D * NG >= 32 ? 0xffffffffu : (1u << (D * NG)) - 1u;
+    const int q = x / D, i = x % D, seg = i / RW;
+    const float ui = u[h * D + i];
+    float* dkp = s_dkp + q * C * D + i;     // [tt * D]
+    float* lamp = s_lamp + q * C * D + i;
+    for (int tt = 0; tt < C; ++tt) {
+      dkp[tt * D] = 0.f;
+      lamp[tt * D] = 0.f;
+    }
+    auto dec = [&](int tt) { return s_dec[tt * D + i]; };
+    // B's per-pair sums of a sig row over the segment's rows, into its warp partial
+    auto b_row = [&](float (&bb)[TS], int sig, int tau0) {
+      int idx;
+      const float s = reduce_scatter8<RW>(bb, lane, kMask, idx);
+      if (lane % (RW / 8) == 0) s_bp[(seg * C + sig) * C + tau0 + idx] = s;
+    };
+    auto a_row = [&](int sig, int tau0, float (&av)[TS]) {
+      const float4 a0 = *reinterpret_cast<const float4*>(s_a + sig * AP + tau0);
+      const float4 a1 = *reinterpret_cast<const float4*>(s_a + sig * AP + tau0 + 4);
+      av[0] = a0.x; av[1] = a0.y; av[2] = a0.z; av[3] = a0.w;
+      av[4] = a1.x; av[5] = a1.y; av[6] = a1.z; av[7] = a1.w;
+    };
+#pragma unroll 1
+    for (int pass = 0; pass < 2; ++pass) {
+      const int a = pass == 0 ? q : L::NTILE - 1 - q, sa = a * TS;
+      const float pre_a = s_pre[a * D + i];   // E(sa-1, t0-1)
+      float lp[TS], rs[TS], dr_acc[TS], lam_a[TS];
+      lp[0] = 1.f;
+#pragma unroll
+      for (int s = 1; s < TS; ++s) lp[s] = lp[s - 1] * dec(sa + s - 1);
+#pragma unroll
+      for (int s = 0; s < TS; ++s) {
+        rs[s] = to_f32(s_r[(sa + s) * TP + i]);
+        lam_a[s] = 0.f;
+      }
+      {   // the diagonal tile: pairs q < s inside sig-tile a
+        float ks[TS], e[TS][TS], drt[TS], dkt[TS];
+#pragma unroll
+        for (int s = 0; s < TS; ++s) {
+          ks[s] = to_f32(s_k[(sa + s) * TP + i]);
+          drt[s] = dkt[s] = 0.f;
+        }
+#pragma unroll
+        for (int s = 1; s < TS; ++s) {
+          e[s][s - 1] = 1.f;
+#pragma unroll
+          for (int qq = s - 2; qq >= 0; --qq) e[s][qq] = e[s][qq + 1] * dec(sa + qq + 1);
+        }
+#pragma unroll
+        for (int s = 0; s < TS; ++s) {
+          float av[TS], bb[TS], run = 0.f;
+          a_row(sa + s, sa, av);
+#pragma unroll
+          for (int qq = 0; qq < TS; ++qq) {
+            if (qq < s) {
+              const float ek = e[s][qq] * ks[qq], er = e[s][qq] * rs[s];
+              drt[s] = fmaf(ek, av[qq], drt[s]);
+              dkt[qq] = fmaf(er, av[qq], dkt[qq]);
+              bb[qq] = er * ks[qq];
+              if (qq < s - 1) {   // pairs qq < t < s: dlambda inside the tile
+                run += rs[s] * (ek * av[qq]);
+                lam_a[qq + 1] += run;
+              }
+            } else {
+              bb[qq] = 0.f;
+            }
+          }
+          b_row(bb, sa + s, sa);
+        }
+#pragma unroll
+        for (int s = 0; s < TS; ++s) {
+          dkp[(sa + s) * D] += dkt[s];
+          dr_acc[s] = drt[s];
+        }
+      }
+      float span = 1.f;   // E(sa-1, tb+TS-1): the whole tiles between
+#pragma unroll 1
+      for (int bt = a - 1; bt >= 0; --bt) {
+        const int tb = bt * TS;
+        float ks[TS], ls[TS], lps[TS], drt[TS], dkt[TS];
+#pragma unroll
+        for (int s = 0; s < TS; ++s) {
+          ks[s] = to_f32(s_k[(tb + s) * TP + i]);
+          lps[s] = lp[s] * span;
+          drt[s] = dkt[s] = 0.f;
+        }
+        ls[TS - 1] = 1.f;
+#pragma unroll
+        for (int qq = TS - 2; qq >= 0; --qq) ls[qq] = ls[qq + 1] * dec(tb + qq + 1);
+        const float tile_prod = ls[0] * dec(tb);
+#pragma unroll
+        for (int s = 0; s < TS; ++s) {
+          float av[TS], bb[TS];
+          a_row(sa + s, tb, av);
+#pragma unroll
+          for (int qq = 0; qq < TS; ++qq) {
+            const float e = lps[s] * ls[qq], ek = e * ks[qq], er = e * rs[s];
+            drt[s] = fmaf(ek, av[qq], drt[s]);
+            dkt[qq] = fmaf(er, av[qq], dkt[qq]);
+            bb[qq] = er * ks[qq];
+          }
+          b_row(bb, sa + s, tb);
+        }
+        float run = 0.f;   // dlambda, t in tau-tile bt: the pairs tau < t
+#pragma unroll
+        for (int qq = 0; qq < TS; ++qq) {
+          dkp[(tb + qq) * D] += dkt[qq];
+          if (qq) lamp[(tb + qq) * D] += run;
+          run = fmaf(ks[qq], dkt[qq], run);
+        }
+        run = 0.f;         // t in sig-tile a: the pairs sig > t
+#pragma unroll
+        for (int s = TS - 1; s >= 0; --s) {
+          if (s < TS - 1) lam_a[s] += run;
+          run = fmaf(rs[s], drt[s], run);
+        }
+        for (int tt = tb + TS; tt < sa; ++tt) lamp[tt * D] += run;   // the tiles between
+#pragma unroll
+        for (int s = 0; s < TS; ++s) dr_acc[s] += drt[s];
+        span *= tile_prod;
+      }
+#pragma unroll
+      for (int s = 0; s < TS; ++s) {   // dr; r_sig E(sig-1, t0-1) (S0 do_sig) for dlambda
+        const int sig = sa + s;
+        const float xr = (pre_a * lp[s]) * s_xr[sig * XP + i];
+        const float val = fmaf(ui * to_f32(s_k[sig * TP + i]), s_a[sig * AP + sig], xr + dr_acc[s]);
+        if (sig < n) dr[base + static_cast<long long>(sig) * step + i] = from_f32<T>(val);
+        s_xr[sig * XP + i] = rs[s] * xr;
+        lamp[sig * D] += lam_a[s];
+      }
+    }
+  }
+  __syncthreads();
+
+  // ---- dv = fmaf(bonus, do, K~ G_end + B^T do)
+#pragma unroll
+  for (int mi = 0; mi < MPW; ++mi) {
+    const int m0 = (mrow + mi) * 16;
+    mma3_rows<false, EX, C, NND>(
+        xv[mi], m0, npart * NND * 8,
+        [&](int tau, int sig) {
+          float sb = 0.f;
+          if (sig > tau) {
+            sb = s_bp[sig * C + tau];
+#pragma unroll
+            for (int sg = 1; sg < L::WPG; ++sg) sb += s_bp[(sg * C + sig) * C + tau];
+          }
+          return sb;
+        },
+        stg(s_do, TP));
+#pragma unroll
+    for (int nt = 0; nt < NND; ++nt) {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int tau = m0 + g + 8 * hf, j = (npart * NND + nt) * 8 + 2 * t4;
+        if (tau < n) {
+          const float v0 = fmaf(s_bo[tau], to_f32(s_do[tau * TP + j]), xv[mi][nt][2 * hf]);
+          const float v1 = fmaf(s_bo[tau], to_f32(s_do[tau * TP + j + 1]), xv[mi][nt][2 * hf + 1]);
+          T* dst = dv + base + static_cast<long long>(tau) * step + j;
+          dst[0] = from_f32<T>(v0);
+          dst[1] = from_f32<T>(v1);
+        }
+      }
+    }
+  }
+
+  // ---- dk, dlambda and du's partial, two threads a row: backwards, dk (and
+  // k_tau E(t1-1, tau) (G_end v_tau) for dlambda) beside the suffix sums
+  // over sig > t and du's partial; then forwards dlambda and dw, half the
+  // steps a thread (the second half's prefix sum taken again in order)
+  if (x < D) {
+    const int i = x;
+    const float ui = u[h * D + i];
+    float suf = 1.f;
+#pragma unroll
+    for (int tt = C - 1; tt >= 0; --tt) {
+      float dki = s_dkp[tt * D + i];
+#pragma unroll
+      for (int q = 1; q < NG; ++q) dki += s_dkp[(q * C + tt) * D + i];
+      const float xk = suf * s_xk[tt * XP + i];
+      const float val = fmaf(ui * to_f32(s_r[tt * TP + i]), s_a[tt * AP + tt], xk + dki);
+      if (tt < n) dk[base + static_cast<long long>(tt) * step + i] = from_f32<T>(val);
+      s_xk[tt * XP + i] = to_f32(s_k[tt * TP + i]) * xk;
+      suf *= s_dec[tt * D + i];
+    }
+  } else if (x < 2 * D) {
+    const int i = x - D;
+    float s1 = 0.f;
+#pragma unroll
+    for (int tt = C - 1; tt >= 0; --tt) {
+      const float l1 = s1;
+      s1 += s_xr[tt * XP + i];
+      s_xr[tt * XP + i] = l1;
+    }
+    float du_acc = 0.f;
+#pragma unroll
+    for (int tt = 0; tt < C; ++tt) {
+      if (tt < n) {
+        du_acc = fmaf(to_f32(s_r[tt * TP + i]) * to_f32(s_k[tt * TP + i]), s_a[tt * AP + tt],
+                      du_acc);
+      }
+    }
+    du_part[(static_cast<long long>(b) * nc + c) * step + h * D + i] = du_acc;
+  }
+  __syncthreads();
+  if (x < 2 * D) {
+    const int i = x % D, t_lo = x / D * (C / 2);
+    const float tp = s_tot[i] * s_p[i];
+    float s2 = 0.f;
+    for (int tt = 0; tt < t_lo; ++tt) s2 += s_xk[tt * XP + i];
+#pragma unroll
+    for (int tt = t_lo; tt < t_lo + C / 2; ++tt) {
+      float lam = (tp + s_xr[tt * XP + i]) + s2;
+#pragma unroll
+      for (int q = 0; q < NG; ++q) lam += s_lamp[(q * C + tt) * D + i];
+      s2 += s_xk[tt * XP + i];
+      if (tt < n) dw[base + static_cast<long long>(tt) * step + i] = -(s_ew[tt * D + i] * lam);
+    }
+  }
+}
+
+// du: the (batch, chunk) partials added in batch, then chunk order
+__global__ void __launch_bounds__(256)
+wkv6_bwd_du_kernel(const float* __restrict__ du_part, float* __restrict__ du, int batch, int nc,
+                   int hd) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= hd) return;
+  float s = 0.f;
+  for (int bb = 0; bb < batch; ++bb) {
+    for (int c = 0; c < nc; ++c) s += du_part[(static_cast<long long>(bb) * nc + c) * hd + e];
+  }
+  du[e] = s;
 }
 
 template <typename T, int D>
 int launch_wkv6_bwd(const WkvBwdArgs& a) {
-  using L = WkvLayout<D>;
-  const int ny = D / L::JC;
-  wkv6_bwd_kernel<T, D><<<dim3(static_cast<unsigned>(a.b * a.h), ny), L::THREADS, 0, a.st>>>(
-      static_cast<const T*>(a.r), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const float*>(a.w), static_cast<const float*>(a.u),
-      static_cast<const float*>(a.ckpt), static_cast<const T*>(a.dout),
-      static_cast<const float*>(a.dstate_out), static_cast<float*>(a.dstate_in),
-      static_cast<T*>(a.dv), static_cast<float*>(a.part), static_cast<float*>(a.du_part),
-      static_cast<float2*>(a.scratch), a.t, a.h, a.b);
+  using L = WkvBwdLayout<T, D>;
+  const int nc = (a.t + kWkvChunk - 1) / kWkvChunk;
+  const unsigned bh = static_cast<unsigned>(a.b * a.h);
+  wkv6_bwd_contrib_kernel<T, D><<<dim3(bh, nc), WkvContribLayout<D>::NT, 0, a.st>>>(
+      static_cast<const T*>(a.r), static_cast<const float*>(a.w), static_cast<const T*>(a.dout),
+      static_cast<float*>(a.gend), static_cast<float*>(a.tot), a.t, a.h);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  const long long n = static_cast<long long>(a.b) * a.t * a.h * D;
+  const long long n4 = static_cast<long long>(bh) * D * D / 4;
+  wkv6_bwd_scan_kernel<<<static_cast<unsigned>((n4 + kScanThreads - 1) / kScanThreads),
+                         kScanThreads, 0, a.st>>>(
+      static_cast<const float*>(a.dstate_out), static_cast<float*>(a.gend),
+      static_cast<const float*>(a.tot), static_cast<float*>(a.dstate_in), nc, D, n4);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = cudaFuncSetAttribute(wkv6_bwd_chunk_kernel<T, D>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  wkv6_bwd_chunk_kernel<T, D><<<dim3(bh, nc), L::NT, L::SMEM, a.st>>>(
+      static_cast<const T*>(a.r), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<const float*>(a.w), static_cast<const float*>(a.u),
+      static_cast<const float*>(a.ckpt), static_cast<const float*>(a.gend),
+      static_cast<const T*>(a.dout), static_cast<T*>(a.dr), static_cast<T*>(a.dk),
+      static_cast<T*>(a.dv), static_cast<float*>(a.dw), static_cast<float*>(a.du_part), a.t, a.h);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
   const int hd = a.h * D;
-  const long long want = (std::max(n, static_cast<long long>(hd)) + 255) / 256;
-  const int blocks = static_cast<int>(std::max<long long>(std::min<long long>(want, 132 * 16),
-                                                          (hd + 255) / 256));
-  wkv6_bwd_finish_kernel<T><<<blocks, 256, 0, a.st>>>(
-      static_cast<const float*>(a.part), static_cast<const float*>(a.du_part),
-      static_cast<T*>(a.dr), static_cast<T*>(a.dk), static_cast<float*>(a.dw),
-      static_cast<float*>(a.du), n, ny, a.b, hd);
+  wkv6_bwd_du_kernel<<<(hd + 255) / 256, 256, 0, a.st>>>(
+      static_cast<const float*>(a.du_part), static_cast<float*>(a.du), a.b, nc, hd);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -599,19 +1154,20 @@ int rt_wkv6(const void* r, const void* k, const void* v, const void* w, const vo
 // d) in r's type and the final state's dstate_out (b, h, d, d) f32 (NULL =
 // zeros): dr, dk, dv (b, t, h, d) in r's type, dw (b, t, h, d) f32, du (h,
 // d) f32 and, when dstate_in is not NULL, the initial state's (b, h, d, d)
-// f32.  Scratch the caller allocates: part (d / 32 or 1, 3, b, t, h, d) f32,
-// du_part (b, h, d) f32 and scratch (b, h, kWkvChunk, d, d) f32.  t >= 1;
-// all contiguous.
+// f32.  Scratch the caller allocates, nc = ceil(t / kWkvChunk): gend (b, h,
+// nc, d, d) f32 (each chunk's term of G's scan, then G at the end of every
+// chunk), tot (b, h, nc, d) f32 (each chunk's whole decay) and du_part (b,
+// nc, h, d) f32.  t >= 1; all contiguous.
 int rt_wkv6_bwd(const void* r, const void* k, const void* v, const void* w, const void* u,
                 const void* ckpt, const void* dout, const void* dstate_out, void* dstate_in,
-                void* dr, void* dk, void* dv, void* dw, void* du, void* part, void* du_part,
-                void* scratch, int b, int t, int h, int d, int bf16_inputs, void* stream) {
+                void* dr, void* dk, void* dv, void* dw, void* du, void* gend, void* tot,
+                void* du_part, int b, int t, int h, int d, int bf16_inputs, void* stream) {
   if (b < 0 || t < 1 || h < 0 || static_cast<long long>(b) * h > 2147483647LL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (b == 0 || h == 0) return static_cast<int>(cudaGetLastError());
   const WkvBwdArgs a{r, k, v, w, u, ckpt, dout, dstate_out, dstate_in, dr, dk, dv, dw, du,
-                     part, du_part, scratch, b, t, h, static_cast<cudaStream_t>(stream)};
+                     gend, tot, du_part, b, t, h, static_cast<cudaStream_t>(stream)};
   if (bf16_inputs) return dispatch_wkv6_bwd<bf16>(d, a);
   return dispatch_wkv6_bwd<float>(d, a);
 }

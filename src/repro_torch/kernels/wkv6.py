@@ -18,12 +18,18 @@ one scalar per step.  On CPU tensors it is the plain version
 When autograd needs a gradient of a CUDA call (the training forward), the
 call goes through :class:`Wkv6Fn`: its forward is the same kernel, which
 also writes the state entering every :data:`CHUNK`-th step (the output and
-final state are the same bit for bit), and its backward is the
-hand-written ``wkv6_bwd_kernel`` + ``wkv6_bwd_finish_kernel``: each chunk's
-states recomputed from its checkpoint, the steps run backwards, no float
-atomics (the gradients are the same on every run).  The JAX package trains
-through its plain scan, so the gradient has no Pallas kernel to replace;
-its plain version is autograd through :func:`.ref.wkv6`.
+final state are the same bit for bit), and its backward is hand-written
+and chunk-parallel: ``wkv6_bwd_contrib_kernel`` forms each chunk's term of
+the state gradient's scan on the tensor cores, ``wkv6_bwd_scan_kernel``
+runs that scan over the chunks (the one sequential part, elementwise) and
+``wkv6_bwd_chunk_kernel`` gives every (batch, head, chunk) its dr, dk, dv
+and dw from closed forms in the chunk's checkpoint and end gradient
+(3xTF32 ``mma.sync`` products, the relative-decay terms on FMA, every
+decay a product of per-step decays), ``wkv6_bwd_du_kernel`` adding du's
+partials; no float atomics (the gradients are the same on every run).
+The JAX package trains through its plain scan, so the gradient has no
+Pallas kernel to replace; its plain version is autograd through
+:func:`.ref.wkv6`.
 """
 from __future__ import annotations
 
@@ -41,8 +47,9 @@ DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (8, 64)
 
 
-#: steps between the training forward's state checkpoints (kWkvChunk)
-CHUNK = 16
+#: steps between the training forward's state checkpoints: the backward's
+#: chunk (kWkvChunk)
+CHUNK = 32
 
 
 def _check_shapes(r, k, v, w, u, state) -> None:
@@ -151,8 +158,10 @@ def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     initial state's gradient f32 (None without a ``state``).  ``ckpt``:
     the training forward's state checkpoints (what :class:`Wkv6Fn` saves);
     without them the forward kernel runs first to write them (one more
-    ``wkv6`` launch).  Matches :func:`ref.wkv6_bwd`, which needs no
-    checkpoints."""
+    ``wkv6`` launch).  Scratch: the state gradient at each chunk's end (B,
+    H, ceil(T / CHUNK), D, D) f32, the chunks' whole decays and du's
+    per-(batch, chunk) partials.  Matches :func:`ref.wkv6_bwd`, which needs
+    no checkpoints."""
     _check_shapes(r, k, v, w, u, state)
     b, t, h, d = r.shape
     if tuple(dout.shape) != tuple(r.shape):
@@ -178,10 +187,10 @@ def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
         if ds is not None:
             ds.copy_(dstate if dstate is not None else torch.zeros_like(ds))
         return dr, dk, dv, dw, du, ds
-    ny = d // 32 if d >= 32 else 1
-    part = torch.empty((ny, 3) + tuple(r.shape), dtype=torch.float32, device=r.device)
-    du_part = torch.empty((b, h, d), dtype=torch.float32, device=r.device)
-    scratch = torch.empty((b, h, CHUNK, d, d), dtype=torch.float32, device=r.device)
+    nc = -(-t // CHUNK)
+    gend = torch.empty((b, h, nc, d, d), dtype=torch.float32, device=r.device)
+    tot = torch.empty((b, h, nc, d), dtype=torch.float32, device=r.device)
+    du_part = torch.empty((b, nc, h, d), dtype=torch.float32, device=r.device)
 
     def ptr(x):
         return None if x is None else x.data_ptr()
@@ -189,8 +198,8 @@ def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     err = launch(_build.library().rt_wkv6_bwd, r, r.data_ptr(), k.data_ptr(), v.data_ptr(),
                  w.data_ptr(), u.data_ptr(), ckpt.data_ptr(), dout.data_ptr(), ptr(dstate),
                  ptr(ds), dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dw.data_ptr(),
-                 du.data_ptr(), part.data_ptr(), du_part.data_ptr(), scratch.data_ptr(), b, t,
-                 h, d, int(r.dtype == torch.bfloat16))
+                 du.data_ptr(), gend.data_ptr(), tot.data_ptr(), du_part.data_ptr(), b, t, h, d,
+                 int(r.dtype == torch.bfloat16))
     _build.check(err, "wkv6_bwd")
     count_launch("wkv6_bwd")
     return dr, dk, dv, dw, du, ds

@@ -16,13 +16,14 @@ inputs made from a seed.
   with and without an input state and a final-state gradient: f32 within
   rtol 1e-4 + 1e-6 x max |grad| (measured up to 3.2e-7 x max), bf16 r/k/v
   within the forward's bf16 band, 2e-2 x max |grad|.  The arithmetic of
-  the CUDA ``wkv6_bwd_kernel`` (the forward's state checkpoints every
-  ``CHUNK`` steps, each chunk's states recomputed from its checkpoint, the
-  steps run backwards, the sums in the kernel's shuffle and warp order)
-  emulated in plain torch against the same ``jax.vjp``, with T no multiple
-  of the chunk and with decays that underflow to 0 in f32; ``Wkv6Fn`` on
-  CPU tensors against autograd through the plain version, counting no
-  launch.
+  the chunk-parallel CUDA backward (the forward's state checkpoints every
+  ``CHUNK`` steps; the chunk-level scan of the state gradient; each
+  chunk's closed forms with its 3xTF32 products, tiles of relative decays
+  and sums in the kernels' shuffle, warp and group order) emulated in
+  plain torch against the same ``jax.vjp``: two whole chunks and a ragged
+  third, one whole chunk, T shorter than a chunk, and decays that
+  underflow to 0 in f32 (dw exactly 0 there); ``Wkv6Fn`` on CPU tensors
+  against autograd through the plain version, counting no launch.
 * The model's layers (``_group_norm``, ``time_mix``, ``channel_mix``)
   against ``repro.models.rwkv6``'s at f32 1e-5, with and without the
   carried shift vectors and WKV state.
@@ -327,112 +328,260 @@ def test_wkv6_bwd_plain_version_in_bf16(rng):
     _assert_grads(got, want, rtol=0, atol=2e-2)
 
 
-def _up(x):
-    """The sum over the last axis that lane 0 holds after an xor-shuffle
-    reduction with offsets 1, 2, ..., n/2 (neighbours first)."""
-    while x.shape[-1] > 1:
-        x = x[..., 0::2] + x[..., 1::2]
-    return x[..., 0]
+def _tf32(x):
+    """f32 -> the TF32 value of the kernels' ``tf32_bits`` (round to nearest,
+    ties away from zero: add 0x1000 to the bit pattern, clear 13 bits)."""
+    bits = x.float().contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    bits = (bits + 0x1000) & 0xFFFFE000
+    return torch.where(bits >= 2**31, bits - 2**32, bits).to(torch.int32).view(torch.float32)
+
+
+def _mma3(acc, a, b, a_exact, b_exact):
+    """``acc (.., M, N) + a (.., M, K) @ b (.., K, N)`` as the kernels' 3xTF32
+    ``mma.sync`` m16n8k8 steps: each operand split into TF32 hi and lo, per
+    8-deep k-step a_lo b_hi, a_hi b_lo, a_hi b_hi in that order, each an
+    exact sum of 8 products added to the f32 accumulator with one rounding
+    (a bf16 operand is exact in TF32: its lo is 0 and its terms are
+    skipped)."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a.float() - ah), _tf32(b.float() - bh)
+    terms = ([] if a_exact else [(al, bh)]) + ([] if b_exact else [(ah, bl)]) + [(ah, bh)]
+    for k0 in range(0, a.shape[-1], 8):
+        for x, y in terms:
+            acc = (acc.double() + x[..., k0:k0 + 8].double() @ y[..., k0:k0 + 8, :].double()
+                   ).float()
+    return acc
+
+
+_TS = 8   # steps of a tile of the chunk kernel's FMA part
 
 
 def _wkv6_bwd_emulation(r, k, v, w, u, state, dout, dstate=None):
-    """The arithmetic of ``wkv6_kernel<CKPT>`` + ``wkv6_bwd_kernel`` +
-    ``wkv6_bwd_finish_kernel`` in plain torch, with the forward's
-    ``WkvLayout``.  The forward writes the state entering every CHUNK-th
-    step (``s = fmaf(s, a, k v)`` a step); the backward runs the chunks last
-    to first, recomputes each chunk's states from its checkpoint the same
-    way (never dividing by a decay), then runs its steps backwards: per
-    column pair, ``fmaf(x_j, y_j, x_j1 * y_j1)`` products for dr, dk and dw,
-    summed over the warp's 4 pairs by xor shuffles (offsets G, 2 G:
-    neighbours first), over the warps in order, then over the column
-    blocks of 32 in order; dv as the lanes' sequential ``fmaf`` over their
-    rows, met in the forward's reduce-scatter; the u terms once (column
-    block 0); G = fmaf(a_i, G, r_i do_j); v . do and sum_i (r_i u_i) k_i
-    reduced in shuffle order over min(D, 32) rows, the D / 32 sums in
-    order; du a per-(batch, head) sum over the steps, last to first, then
-    over the batch in order."""
+    """The arithmetic of ``wkv6_kernel<CKPT>`` (the state entering every
+    CHUNK-th step, ``s = fmaf(s, a, k v)`` a step),
+    ``wkv6_bwd_contrib_kernel``, ``wkv6_bwd_scan_kernel``,
+    ``wkv6_bwd_chunk_kernel`` and ``wkv6_bwd_du_kernel`` in plain torch,
+    with the decays a = exp(-exp(w)) (1 past the end of T).
+
+    * The scan, chunks last to first: G_end of each chunk written, then
+      G = fmaf(tot, G, (r * pre)^T do) with pre the exclusive prefix product
+      of the decays (a chain; the term formed for every chunk at once) and
+      tot the chunk's whole product; ds0 is the last G.
+    * Each chunk: K~ = suf * k (suf the exclusive suffix product), P =
+      rowsum(S0 * G_end) as an fmaf chain over j, the bonus sums
+      sum_i (r_i u_i) k_i in shuffle order; the 3xTF32 products do S0^T,
+      v G_end^T, do v^T (A, whose diagonal is v . do) and K~ G_end; then per
+      row the 8-step tiles of the triangle tau < sigma, each group of rows
+      taking sigma-tiles a and NTILE - 1 - a, the tiles of a from the
+      diagonal down to tau-tile 0, every decay a product of per-step decays
+      over its span (never a quotient): dr and dk as fmaf over the tile in
+      order, B (sum_i E r_sigma k_tau) summed over each warp's rows in
+      shuffle order and over its warps in order, dlambda's pairs
+      tau < t < sigma as within-tile prefix, suffix and between-tile sums;
+      dv = fmaf(bonus, do, K~ G_end + B^T do), dk and dlambda closing the
+      chunk in two passes over its steps; du over the chunk's steps, then
+      over batches and chunks in order."""
     b, t, h, d = r.shape
-    groups, lanes = min(8, d), min(d, 32)
-    rows, ny = d // groups, d // lanes
-    warps = lanes // 2 * groups // 32
-    rf, kf, vf, dof, uf = (x.float() for x in (r, k, v, dout, u))
+    C, nt_ = CHUNK, CHUNK // _TS
+    groups, rw = nt_ // 2, min(d, 32)
+    nc = -(-t // C)
+    exact = r.dtype == torch.bfloat16
     ew = torch.exp(w.float())
-    a = torch.exp(-ew)
+    a_real = torch.exp(-ew)
 
-    def step(s, ti):
-        return _fma(s, a[:, ti, :, :, None], kf[:, ti, :, :, None] * vf[:, ti, :, None, :])
+    def chunked(x, fill=0.0):     # (b, t, h, d) -> (b, h, nc, C, d), padded with fill
+        x = x.float()
+        if nc * C > t:
+            x = torch.cat([x, x.new_full((b, nc * C - t, h, d), fill)], 1)
+        return x.view(b, nc, C, h, d).permute(0, 3, 1, 2, 4)
 
+    rf, kf, vf, dof = (chunked(x) for x in (r, k, v, dout))
+    af = chunked(a_real, 1.0)
+    uf = u.float()[None, :, None, :]
     s = torch.zeros(b, h, d, d) if state is None else state.float().clone()
-    ckpts = []
+    ck = []
+    rt, kt, vt = r.float(), k.float(), v.float()
     for ti in range(t):
-        if ti % CHUNK == 0:
-            ckpts.append(s)
-        s = step(s, ti)
+        if ti % C == 0:
+            ck.append(s)
+        s = _fma(s, a_real[:, ti, :, :, None], kt[:, ti, :, :, None] * vt[:, ti, :, None, :])
+    s0 = torch.stack(ck, 2)                                   # (b, h, nc, d, d)
 
-    def staged(x):
-        parts = _butterfly(x.reshape(b, t, h, d // lanes, lanes))
-        acc = torch.zeros(b, t, h)
-        for q in range(d // lanes):
-            acc = acc + parts[..., q]
-        return acc
+    g = torch.zeros(b, h, d, d) if dstate is None else dstate.float().clone()
+    g_end = [None] * nc
+    for c in reversed(range(nc)):
+        g_end[c] = g
+        p, rhat = torch.ones(b, h, d), []
+        for tt in range(C):
+            rhat.append(rf[:, :, c, tt] * p)
+            p = p * af[:, :, c, tt]
+        contrib = _mma3(torch.zeros(b, h, d, d), torch.stack(rhat, -1), dof[:, :, c], False,
+                        exact)
+        g = _fma(p[..., None], g, contrib)
+    ds0 = g
+    ge = torch.stack(g_end, 2)                                # (b, h, nc, d, d)
 
-    vdo, bonus = staged(vf * dof), staged(rf * uf * kf)
+    def step(x, tt):                                          # (.., C, d) -> (.., d) at tt
+        return x[..., tt, :]
 
-    def colsum(x):                       # (b, h, d, d / 2 pairs) -> (ny, b, h, d)
-        x = _up(x.reshape(b, h, d, ny, warps, 32 // groups))
-        acc = torch.zeros(b, h, d, ny)
-        for wp in range(warps):
-            acc = acc + x[..., wp]
-        return acc.permute(3, 0, 1, 2)
+    suf, kt_ = torch.ones(b, h, nc, d), torch.empty(b, h, nc, C, d)
+    for tt in reversed(range(C)):
+        kt_[..., tt, :] = suf * step(kf, tt)
+        suf = suf * step(af, tt)
+    tot = suf
+    pp = torch.zeros(b, h, nc, d)
+    for j in range(d):
+        pp = _fma(s0[..., j], ge[..., j], pp)
+    ru = rf * uf[..., None, :]
+    lane = ru[..., :rw] * kf[..., :rw]
+    for m in range(1, d // rw):
+        lane = _fma(ru[..., m * rw:(m + 1) * rw], kf[..., m * rw:(m + 1) * rw], lane)
+    bonus = _butterfly(lane)                                  # (b, h, nc, C)
+    zero_cd = torch.zeros(b, h, nc, C, d)
+    xdr = _mma3(zero_cd, dof, s0.transpose(-1, -2), exact, False)
+    xdk = _mma3(zero_cd, vf, ge.transpose(-1, -2), exact, False)
+    am = _mma3(torch.zeros(b, h, nc, C, C), dof, vf.transpose(-1, -2), exact, exact)
+    vdo = torch.diagonal(am, dim1=-2, dim2=-1)                # (b, h, nc, C)
+    acc_dv = _mma3(zero_cd, kt_, ge, False, False)
 
-    G = torch.zeros(b, h, d, d) if dstate is None else dstate.float().clone()
-    part = torch.zeros(ny, 3, b, t, h, d)
-    dv = torch.empty(b, t, h, d)
-    du_acc = torch.zeros(b, h, d)
-    for ci in reversed(range(len(ckpts))):
-        t0 = ci * CHUNK
-        states = [ckpts[ci]]
-        for ti in range(t0, min(t0 + CHUNK, t) - 1):
-            states.append(step(states[-1], ti))
-        for tt in reversed(range(len(states))):
-            ti = t0 + tt
-            sp = states[tt].reshape(b, h, d, d // 2, 2)
-            gp = G.reshape(b, h, d, d // 2, 2)
-            doj = dof[:, ti].reshape(b, h, 1, d // 2, 2)
-            vj = vf[:, ti].reshape(b, h, 1, d // 2, 2)
-            dr = colsum(_fma(sp[..., 0], doj[..., 0], sp[..., 1] * doj[..., 1]))
-            dk = colsum(_fma(gp[..., 0], vj[..., 0], gp[..., 1] * vj[..., 1]))
-            dw = colsum(_fma(sp[..., 0], gp[..., 0], sp[..., 1] * gp[..., 1]))
-            ri, ki, vd = rf[:, ti], kf[:, ti], vdo[:, ti, :, None]
-            dr[0] = _fma(uf * ki, vd, dr[0])
-            dk[0] = _fma(uf * ri, vd, dk[0])
-            du_acc = _fma(ri * ki, vd, du_acc)
-            dw = dw * -(ew[:, ti] * a[:, ti])
-            part[:, 0, :, ti], part[:, 1, :, ti], part[:, 2, :, ti] = dr, dk, dw
-            gr, kr = G.view(b, h, rows, groups, d), ki.view(b, h, rows, groups)
-            lane = torch.zeros(b, h, groups, d)
-            for m in range(rows):
-                lane = _fma(gr[:, :, m], kr[:, :, m, :, None], lane)
-            dv[:, ti] = _fma(bonus[:, ti, :, None], dof[:, ti],
-                             _butterfly(lane.transpose(-1, -2)))
-            G = _fma(a[:, ti, :, :, None], G, ri[..., None] * dof[:, ti, :, None, :])
-    sums = torch.zeros(3, b, t, h, d)
-    for y in range(ny):
-        sums = sums + part[y]
+    dkp = torch.zeros(groups, b, h, nc, C, d)
+    lamp = torch.zeros(groups, b, h, nc, C, d)
+    bp = torch.zeros(d // rw, b, h, nc, C, C)
+    dr, xr_r = torch.empty(b, h, nc, C, d), torch.empty(b, h, nc, C, d)
+
+    def b_partials(bb, sig, tau):                             # bb: (b, h, nc, d) a pair
+        parts = _butterfly(bb.reshape(b, h, nc, d // rw, rw))
+        for wp in range(d // rw):
+            bp[wp, ..., sig, tau] = parts[..., wp]
+
+    for q in range(groups):
+        for a in (q, nt_ - 1 - q):
+            sg = [a * _TS + s_ for s_ in range(_TS)]
+            pre_a = torch.ones(b, h, nc, d)
+            for x in range(a * _TS):
+                pre_a = pre_a * step(af, x)
+            lp = [torch.ones(b, h, nc, d)]
+            for s_ in range(1, _TS):
+                lp.append(lp[-1] * step(af, sg[s_ - 1]))
+            rs = [step(rf, x) for x in sg]
+            dr_acc, lam_a = [None] * _TS, [torch.zeros(b, h, nc, d) for _ in range(_TS)]
+            for bt in range(a, -1, -1):
+                tg = [bt * _TS + q_ for q_ in range(_TS)]
+                ks = [step(kf, x) for x in tg]
+                if bt == a:                                   # the diagonal tile
+                    e = {}
+                    for s_ in range(_TS):
+                        for q_ in range(s_ - 1, -1, -1):
+                            e[s_, q_] = (torch.ones(b, h, nc, d) if q_ == s_ - 1
+                                         else e[s_, q_ + 1] * step(af, tg[q_ + 1]))
+                else:
+                    ls = [None] * _TS
+                    ls[_TS - 1] = torch.ones(b, h, nc, d)
+                    for q_ in range(_TS - 2, -1, -1):
+                        ls[q_] = ls[q_ + 1] * step(af, tg[q_ + 1])
+                    tile_prod = ls[0] * step(af, tg[0])
+                    lps = [x * span for x in lp]
+                    e = {(s_, q_): lps[s_] * ls[q_] for s_ in range(_TS) for q_ in range(_TS)}
+                drt = [torch.zeros(b, h, nc, d) for _ in range(_TS)]
+                dkt = [torch.zeros(b, h, nc, d) for _ in range(_TS)]
+                m = {}
+                for s_ in range(_TS):
+                    for q_ in range(_TS):
+                        if (s_, q_) not in e:
+                            bp[..., sg[s_], tg[q_]] = 0.0
+                            continue
+                        ek, er = e[s_, q_] * ks[q_], e[s_, q_] * rs[s_]
+                        av = am[..., sg[s_], tg[q_], None]
+                        drt[s_] = _fma(ek, av, drt[s_])
+                        dkt[q_] = _fma(er, av, dkt[q_])
+                        b_partials(er * ks[q_], sg[s_], tg[q_])
+                        if bt == a:
+                            m[s_, q_] = rs[s_] * (ek * av)
+                for q_ in range(_TS):
+                    dkp[q, ..., tg[q_], :] += dkt[q_]
+                if bt == a:
+                    for s_ in range(_TS):
+                        run = torch.zeros(b, h, nc, d)
+                        for q_ in range(s_ - 1):
+                            run = run + m[s_, q_]
+                            lam_a[q_ + 1] = lam_a[q_ + 1] + run
+                    dr_acc = drt
+                    span = torch.ones(b, h, nc, d)
+                    continue
+                run = torch.zeros(b, h, nc, d)
+                for q_ in range(_TS):
+                    if q_:
+                        lamp[q, ..., tg[q_], :] += run
+                    run = _fma(ks[q_], dkt[q_], run)
+                run = torch.zeros(b, h, nc, d)
+                for s_ in range(_TS - 1, -1, -1):
+                    if s_ < _TS - 1:
+                        lam_a[s_] = lam_a[s_] + run
+                    run = _fma(rs[s_], drt[s_], run)
+                for c_ in range(bt + 1, a):
+                    lamp[q, ..., c_ * _TS:(c_ + 1) * _TS, :] += run[..., None, :]
+                dr_acc = [x + y for x, y in zip(dr_acc, drt)]
+                span = span * tile_prod
+            for s_, x in enumerate(sg):
+                xr = (pre_a * lp[s_]) * step(xdr, x)
+                dr[..., x, :] = _fma(uf * step(kf, x), vdo[..., x, None], xr + dr_acc[s_])
+                xr_r[..., x, :] = rs[s_] * xr
+                lamp[q, ..., x, :] += lam_a[s_]
+
+    bsum = bp[0]
+    for wp in range(1, d // rw):
+        bsum = bsum + bp[wp]
+    bt_mat = torch.tril(bsum, -1).transpose(-1, -2)           # [tau][sigma], sigma > tau
+    dv = _fma(bonus[..., None], dof, _mma3(acc_dv, bt_mat, dof, False, exact))
+    dk, dw = torch.empty(b, h, nc, C, d), torch.empty(b, h, nc, C, d)
+    suf, s1 = torch.ones(b, h, nc, d), torch.zeros(b, h, nc, d)
+    l1, y = [None] * C, [None] * C
+    for tt in reversed(range(C)):
+        dki = dkp[0, ..., tt, :]
+        for q in range(1, groups):
+            dki = dki + dkp[q, ..., tt, :]
+        xk = suf * step(xdk, tt)
+        dk[..., tt, :] = _fma(uf * step(rf, tt), vdo[..., tt, None], xk + dki)
+        y[tt] = step(kf, tt) * xk
+        l1[tt] = s1
+        s1 = s1 + step(xr_r, tt)
+        suf = suf * step(af, tt)
+    s2 = torch.zeros(b, h, nc, d)
+    ewc = chunked(ew)
+    for tt in range(C):
+        lam = (tot * pp + l1[tt]) + s2
+        for q in range(groups):
+            lam = lam + lamp[q, ..., tt, :]
+        s2 = s2 + y[tt]
+        dw[..., tt, :] = -(step(ewc, tt) * lam)
+    du_part = torch.zeros(b, h, nc, d)
+    for tt in range(C):
+        live = (torch.arange(nc) * C + tt < t)[None, None, :, None]
+        du_part = torch.where(live, _fma(step(rf, tt) * step(kf, tt), vdo[..., tt, None],
+                                         du_part), du_part)
     du = torch.zeros(h, d)
-    for bb in range(b):
-        du = du + du_acc[bb]
-    return (sums[0].to(r.dtype), sums[1].to(r.dtype), dv.to(r.dtype), sums[2], du,
-            None if state is None else G)
+    for bb_ in range(b):
+        for c in range(nc):
+            du = du + du_part[bb_, :, c]
+
+    def unchunk(x):
+        return x.permute(0, 2, 3, 1, 4).reshape(b, nc * C, h, d)[:, :t]
+
+    return (unchunk(dr).to(r.dtype), unchunk(dk).to(r.dtype), unchunk(dv).to(r.dtype),
+            unchunk(dw), du, None if state is None else ds0)
 
 
-@pytest.mark.parametrize("shape", [(2, 37, 3, 8), (1, 37, 2, 64), (2, 16, 2, 64), (3, 5, 2, 8)],
-                         ids=["head-8-ragged", "head-64-ragged", "one-chunk", "short"])
+@pytest.mark.parametrize("shape", [(2, 2 * CHUNK + 5, 3, 8), (1, 2 * CHUNK + 5, 2, 64),
+                                   (2, CHUNK, 2, 64), (3, 5, 2, 8), (1, CHUNK, 3, 8),
+                                   (2, CHUNK - 12, 2, 64)],
+                         ids=["head-8-ragged", "head-64-ragged", "one-chunk", "short",
+                              "one-chunk-head-8", "short-head-64"])
 @pytest.mark.parametrize("with_state,with_dstate", [(False, False), (True, True)],
                          ids=["zeros", "state-and-final-grad"])
 def test_wkv6_bwd_kernel_arithmetic_matches_jax_grad(rng, shape, with_state, with_dstate):
-    """T = 37 is two whole chunks of 16 and a ragged third; the kernel's
-    layout and summation order stay inside the plain version's band."""
+    """T = 2 CHUNK + 5 is two whole chunks and a ragged third, T = CHUNK
+    one whole chunk, T < CHUNK one ragged chunk; the kernels' arithmetic
+    and summation order stay inside the plain version's band."""
     args = _bwd_inputs(rng, *shape, with_state, with_dstate)
     _assert_grads(_wkv6_bwd_emulation(*map(_t, args)), _jax_grads(*args))
 
@@ -443,7 +592,7 @@ def test_wkv6_bwd_kernel_arithmetic_with_decays_that_underflow(rng, d):
     could be recovered by dividing by the decay; the recomputation from
     the checkpoints needs none, and dw is 0 where the decay is, as in
     ``jax.vjp``."""
-    args = _bwd_inputs(rng, 2, 37, 2, d, True, True, w_shift=7.0)
+    args = _bwd_inputs(rng, 2, 2 * CHUNK + 5, 2, d, True, True, w_shift=7.0)
     assert not np.exp(-np.exp(args[3])).any()
     got = _wkv6_bwd_emulation(*map(_t, args))
     assert np.isfinite(got[3].numpy()).all()
@@ -454,7 +603,7 @@ def test_wkv6_bwd_kernel_arithmetic_fits_the_bf16_tolerance(rng):
     """bf16 r/k/v and output gradient at the full-width head size: the
     emulated kernel within 2e-2 x max |grad| of ``jax.vjp`` on the same bf16
     inputs (the band ``chip_smoke.py`` holds the card to)."""
-    r, k, v, w, u, s, do, _ = _bwd_inputs(rng, 1, 40, 2, 64, True, False)
+    r, k, v, w, u, s, do, _ = _bwd_inputs(rng, 1, 2 * CHUNK + 5, 2, 64, True, False)
     jb = [jnp.asarray(x, jnp.bfloat16) for x in (r, k, v)]
     _, vjp = jax.vjp(jref.wkv6, *jb, jnp.asarray(w), jnp.asarray(u), jnp.asarray(s))
     want = [np.asarray(g, np.float32) for g in vjp((jnp.asarray(do, jnp.bfloat16),
@@ -466,8 +615,10 @@ def test_wkv6_bwd_kernel_arithmetic_fits_the_bf16_tolerance(rng):
 
 
 def test_wkv6_chunk_is_the_kernels():
+    """The emulation's chunk and tile are the kernels'."""
     src = (_build.CSRC / "rwkv_kernels.cu").read_text()
     assert int(re.search(r"constexpr int kWkvChunk = (\d+);", src).group(1)) == CHUNK
+    assert int(re.search(r"constexpr int kBwdTile = (\d+);", src).group(1)) == _TS
 
 
 def test_wkv6_fn_on_cpu_tensors_matches_the_plain_gradient_and_counts_no_launch(rng):
