@@ -69,8 +69,20 @@
    sample), beside 50 unprofiled replays; the 24-slice stream at batch 8
    on a new process (3 "transfer", 3 "compute", 1 "compile", then a second
    stream with no "compile") and the copy rate of its "transfer" phases
-   beside ``[stream]``'s.  Each of these phases counts its kernel launches
-   from 0.
+   beside ``[stream]``'s.  ``[mesh]`` (before ``[profile]``): the MRI path
+   over the lanes of a mesh (``repro_torch.launch.mesh``).  Part 1 is the
+   app over every visible card (one lane a card), part 2 a two-lane mesh
+   on card 0 (``make_data_mesh([cuda:0, cuda:0])``) and a (data=1,
+   model=2) mesh on card 0 whose lane splits the frames over the two.
+   Each part streams 24 slices at batch 8 in staged, fused and
+   fused_kernel mode with ``sharded=True``, ``split="proportional"`` and
+   ``lanes=True`` beside the one-device stream, and serves 8 at batch 4:
+   every output against the same slice's ``launch()`` on a one-card app
+   (bit for bit in the kernel mode, rtol 1e-6 under cuFFT), each lane given
+   rows must have launched every kernel of the path; wall ms a slice, the
+   split vectors, twins and captures a lane, launches a lane and a device;
+   ``CLapp.split`` replicas each run one launch.  Each of these phases
+   counts its kernel launches from 0.
 4. Holds the LM kernels (``rmsnorm``, ``flash_attention``) against their
    plain versions on the card (bf16 at rtol/atol 2e-2, f32 at rtol 1e-4 /
    atol 1e-5) at the qwen3-14b and rwkv6-3b serving shapes (the
@@ -1511,6 +1523,201 @@ def main() -> None:
               "response within 1e-4 of its oracle")
 
     counted("serve", serve_phase, ["complexElementProd", "xImageSum", "mriFusedRecon"])
+
+    # -- 4d. [mesh]: the MRI path over the lanes of a mesh --------------------
+    from repro_torch.launch.mesh import make_data_mesh
+
+    mesh_expect = {"staged": ["complexElementProd", "xImageSum"],
+                   "fused": ["complexElementProd", "xImageSum"],
+                   "fused_kernel": ["mriFusedRecon"]}
+
+    def mesh_phase():
+        """[mesh]: SimpleMRIRecon over the lanes of a mesh, at CONFIG.  Part 1
+        is the app over every visible card (one lane a card); part 2 a
+        two-lane mesh on card 0 (``make_data_mesh([cuda:0, cuda:0])``, the
+        port's counterpart of the JAX package's forced host devices) and a
+        (data=1, model=2) mesh on card 0 whose lane splits the frames over
+        the two.  Each part streams 24 slices at batch 8 in the three modes
+        with sharded=True, split="proportional" and lanes=True (untimed
+        until a stream captures nothing new, then timed), part 1 also
+        without a mesh (the one-device stream), and serves 8 at batch 4;
+        every timed and served output against the same slice's launch() on
+        a one-card app, on the card (bit for bit in the kernel mode, rtol
+        1e-6 under cuFFT); each lane given rows must have launched every
+        kernel of the path; CLapp.split replicas each run one launch."""
+        for d in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(d)    # each card's context made before any timed stream
+        n = 24
+        items = [kd(i) for i in range(n)]
+        one_device = {}
+
+        def reference(mode):
+            """launch() of each slice on a one-card app, kept on card 0."""
+            app = CLapp().init(device_traits=DeviceTraits(count=1))
+            h_in = app.addData(kd(0))
+            h_out = app.addData(XData({"xdata": np.zeros((cfg[0],) + cfg[2:], np.complex64)}))
+            proc = SimpleMRIRecon(app, mode=mode, in_place=False)
+            proc.in_handle, proc.out_handle = h_in, h_out
+            proc.init()
+            d_in, want = app.getData(h_in), []
+            for i in range(n):
+                for dst, src in zip(d_in, kd(i)):
+                    dst.set_host(src.host)
+                app.host2device(h_in)
+                proc.launch()
+                want.append(app.getData(h_out).device_view("xdata").clone())
+            proc.chain._release_stream()
+            return want
+
+        def held(outs, want, exact, what):
+            """Each result against its launch(), compared on card 0."""
+            if len(outs) != len(want):
+                raise SystemExit(f"chip_smoke: [mesh] {what}: {len(outs)} results for "
+                                 f"{len(want)} slices")
+            for i, (o, w_) in enumerate(zip(outs, want)):
+                got = o.device_view("xdata").to(w_.device)
+                if got.shape != w_.shape or not bool(torch.isfinite(torch.view_as_real(got)).all()):
+                    raise SystemExit(f"chip_smoke: [mesh] {what}: bad item {i}")
+                same = torch.equal(got, w_) if exact else \
+                    torch.allclose(got, w_, rtol=1e-6, atol=1e-6)
+                if not same:
+                    raise SystemExit(f"chip_smoke: [mesh] {what}: item {i} differs from its "
+                                     f"launch() by {float((got - w_).abs().max()):.3e} "
+                                     + ("(bit for bit expected)" if exact else "(rtol 1e-6)"))
+
+        def twins_of(target, lanes):
+            """(lane, twin) pairs: the lane twins, or the one-device twins as lane 0."""
+            if lanes:
+                return [(key[0][0], bp) for key, bp in target._lane_twins.items()]
+            return [(0, bp) for bp in target._stream_twins.values()]
+
+        def stream_cell(part, app, proc, mode, want, label, kw):
+            target = proc.chain
+            lanes = kw.get("sharded", False)
+            for _ in range(2):                     # until a stream captures nothing new
+                before = sum(bp.captures for _, bp in twins_of(target, lanes))
+                proc.stream(items, batch=8, **kw)
+                after = sum(bp.captures for _, bp in twins_of(target, lanes))
+                if after == before and all(bp.launches >= 2 for _, bp in twins_of(target, lanes)
+                                           if bp.launches):
+                    break
+            lanes = lanes and bool(target._lane_twins)
+            before = {id(bp): dict(bp.kernel_launches) for _, bp in twins_of(target, lanes)}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs = proc.stream(items, batch=8, **kw)
+            for d in range(torch.cuda.device_count()):
+                torch.cuda.synchronize(d)
+            ms = wall_ms(t0)
+            held(outs, want, mode == "fused_kernel", f"{part} {mode} {label}")
+            per_lane, caps, devices = {}, {}, {}
+            for j, bp in twins_of(target, lanes):
+                c = caps.setdefault(j, [0, 0])
+                c[0] += 1
+                c[1] += bp.captures
+                t = per_lane.setdefault(j, {})
+                for k, v in bp.kernel_launches.items():
+                    d = v - before.get(id(bp), {}).get(k, 0)
+                    if d:
+                        t[k] = t.get(k, 0) + d
+            vectors = list(target.split_vectors) if lanes else [(8,)] * 3
+            given = ([j for j in range(len(app.mesh.groups)) if any(v[j] for v in vectors)]
+                     if lanes else [0])
+            for j in given:
+                missing = [k for k in mesh_expect[mode] if not per_lane.get(j, {}).get(k)]
+                if missing:
+                    raise SystemExit(f"chip_smoke: [mesh] {part} {mode} {label}: lane {j} was "
+                                     f"given rows but launched no {missing} (launches "
+                                     f"{per_lane})")
+            for j, t in per_lane.items():
+                d = devices.setdefault(str(app.mesh.groups[j][0]) if lanes else str(app.device),
+                                       {})
+                for k, v in t.items():
+                    d[k] = d.get(k, 0) + v
+            return ms, vectors, per_lane, devices, caps
+
+        def part_run(part, app, with_one_device):
+            shape = app.mesh.shape
+            for mode in ("staged", "fused", "fused_kernel"):
+                want = wants[mode]
+                h_in = app.addData(kd(0))
+                h_out = app.addData(XData({"xdata": np.zeros((cfg[0],) + cfg[2:],
+                                                             np.complex64)}))
+                proc = SimpleMRIRecon(app, mode=mode, in_place=False)
+                proc.in_handle, proc.out_handle = h_in, h_out
+                proc.init()
+                if with_one_device:
+                    one_device[mode] = stream_cell(part, app, proc, mode, want, "one-device",
+                                                   {})[0] / n
+                for label, kw in (("sharded", dict(sharded=True)),
+                                  ("proportional", dict(sharded=True, split="proportional")),
+                                  ("lanes", dict(sharded=True, lanes=True))):
+                    ms, vectors, per_lane, devices, caps = stream_cell(
+                        part, app, proc, mode, want, label, kw)
+                    rates = (f"; lane rates (items/s) "
+                             f"{[round(r, 1) for r in app.device_profiles.rates(range(shape['data']))]}"
+                             if label == "proportional" else "")
+                    print(f"[mesh] {smi}: {part} (mesh {shape}) {mode} {label}: "
+                          f"{ms / n:.3f} ms a slice over {n} slices at batch 8 ({ms:.1f} ms) "
+                          f"beside the one-device stream's {one_device[mode]:.3f} (part 1); "
+                          f"split vectors {vectors}; twins/captures a lane "
+                          f"{ {j: tuple(c) for j, c in sorted(caps.items())} }; launches a lane "
+                          f"{dict(sorted(per_lane.items()))}, a device {devices}{rates}")
+                if mode == "fused_kernel":
+                    serve_pipe = Pipeline(app) | SimpleMRIRecon(app, mode=mode)
+                    served = serve_pipe.run(items[:8], mode="serve", batch=4, sharded=True)
+                    held(served, want[:8], True, f"{part} {mode} serve")
+                    serve_pipe.build().executor.chain._release_stream()
+                    print(f"[mesh] {smi}: {part} {mode}: Pipeline.run(mode='serve', batch=4, "
+                          "sharded=True) over 8 slices, each bit for bit its launch()")
+                proc.chain._release_stream()
+                app.delData(h_in)
+                app.delData(h_out)
+                torch.cuda.empty_cache()
+
+        def replicas(part, app):
+            reps = app.split(len(app.mesh.device_list))
+            for i, r in enumerate(reps):
+                got = (Pipeline(r) | SimpleMRIRecon(r, mode="fused_kernel")).run(kd(i),
+                                                                                sync=False)
+                held([got], [wants["fused_kernel"][i]], True, f"{part} replica {i}")
+            print(f"[mesh] {smi}: {part}: CLapp.split({len(reps)}) replicas on "
+                  f"{[str(r.device) for r in reps]}, each one launch bit for bit launch()")
+
+        wants = {mode: reference(mode) for mode in ("staged", "fused", "fused_kernel")}
+        cards = torch.cuda.device_count()
+        app1 = CLapp().init()
+        part_run(f"part 1 ({cards} card(s))", app1, True)
+        replicas("part 1", app1)
+        wall("after [mesh] part 1")
+        app2 = CLapp().init()
+        app2.set_mesh(make_data_mesh([dev, dev]))
+        part_run("part 2 (two lanes on card 0)", app2, False)
+        replicas("part 2", app2)
+        # the model axis: one lane, a group of two on card 0, frames split
+        app3 = CLapp().init()
+        app3.set_mesh(make_data_mesh([dev, dev], model=2))
+        pipe = Pipeline(app3) | SimpleMRIRecon(app3, mode="fused_kernel")
+        first = launch_counts().get("mriFusedRecon", 0)
+        for i in range(3):           # the pipeline's one output Data: held run by run
+            held([pipe.run(kd(i), sync=False)], [wants["fused_kernel"][i]], True,
+                 f"model axis launch {i}")
+        pieces = launch_counts().get("mriFusedRecon", 0) - first
+        if pieces != 6:
+            raise SystemExit(f"chip_smoke: [mesh] model axis: {pieces} dft_recon launches for "
+                             "3 launches over a model group of 2; expected 6 (a piece each)")
+        held(pipe.run(items, mode="stream", batch=8, sharded=True), wants["fused_kernel"], True,
+             "model axis stream")
+        chain = pipe.build().executor.chain
+        caps = [(key, bp.captures, dict(bp.kernel_launches)) for key, bp in chain._lane_twins.items()]
+        print(f"[mesh] {smi}: part 2 model axis (mesh {app3.mesh.shape}, frames split over 2 "
+              f"pieces on card 0): 3 launches ({pieces} dft_recon_kernel launches) and a "
+              f"24-slice sharded stream at batch 8, bit for bit launch(); twins (lane key, "
+              f"captures, launches) {caps}")
+        chain._release_stream()
+        wall("after [mesh] part 2")
+
+    counted("mesh", mesh_phase, ["complexElementProd", "xImageSum", "mriFusedRecon"])
 
     def phase_counts(prof):
         return {k: len(v) for k, v in prof.phases.items()}

@@ -3,8 +3,9 @@
 Public API mirrors OpenCLIPER's class names (CLapp, Data, XData, KData,
 NDArray, Process) and ``repro.core``'s exports, limited to what the port
 has so far: the graph layer (``Node``, ``Pipeline`` in its launch, stream
-and serve modes) and the single-device streaming executor
-(``StreamQueue``, ``BatchedProcess``).
+and serve modes) and the streaming executor (``StreamQueue``,
+``BatchedProcess``), on one device or over the lanes of the app's mesh
+(``repro_torch.launch.mesh``).
 """
 from .app import (
     CLapp,

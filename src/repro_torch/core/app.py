@@ -6,15 +6,26 @@ the device in one call; ``addData`` registers a Data set and moves it to
 the device in one pinned copy; ``loadKernels`` builds the kernels.
 
 Device selection never falls back: the default ``DeviceType.ANY`` means
-the CUDA card, and without one ``init()`` raises
+the CUDA cards, and without one ``init()`` raises
 :class:`NoMatchingDeviceError`.  The CPU runs only when the caller asks for
 it with ``DeviceTraits(type=DeviceType.CPU)``.
+
+``init()`` also builds the ``("data", "model")`` mesh over the selected
+devices (:mod:`repro_torch.launch.mesh`), one lane a device, and the app
+keeps the per-lane throughput profiles (:attr:`CLapp.device_profiles`)
+that the streaming executor's ``split="proportional"`` policy reads.
+Everything downstream (sharded, proportional and per-lane streams and
+serves) is device-count-agnostic: selecting N devices is all the caller
+does.  :meth:`CLapp.set_mesh` replaces the mesh, for example with one that
+names a device more than once (eight lanes on the one CPU, two on one
+card).  :meth:`CLapp.split` partitions the mesh's devices into replica
+apps.
 """
 from __future__ import annotations
 
 import dataclasses
 import enum
-from typing import Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import torch
 
@@ -61,18 +72,36 @@ class CLapp:
 
     def __init__(self):
         self._devices: List[torch.device] = []
+        self._mesh = None
+        self._mesh_explicit = False  # set_mesh() called; init() must not rebuild
         self._data: Dict[DataHandle, Data] = {}
         self._next_handle: DataHandle = 0
         self.kernels = KernelRegistry()
         self._initialized = False
-        self._copy_stream = None     # side stream for pinned uploads
+        #: side streams for pinned uploads, one a CUDA device (made at first
+        #: use; shared with the app's lane apps)
+        self._copy_streams: Dict[torch.device, Any] = {}
+        #: measured per-lane throughput (items/sec), fed by proportionally
+        #: split streams and read back to carve the next batch
+        from repro_torch.launch.mesh import DeviceProfileRegistry  # lazy: keep core light
+        self.device_profiles = DeviceProfileRegistry()
+        #: the streaming executor's lanes, by (position, group) (repro_torch.core.stream)
+        self._stream_lanes: Dict[Any, Any] = {}
+        #: proportional launches whose timing events the registry has not read yet
+        self._pending_rates: List[Any] = []
         #: host->device bytes copied per handle by ``host2device`` (zeroing a
         #: spec-only Data's blob on the device moves none)
         self.h2d_bytes: Dict[DataHandle, int] = {}
 
     # ------------------------------------------------------------------ init
     def init(self, platform_traits: PlatformTraits | None = None,
-             device_traits: DeviceTraits | None = None) -> "CLapp":
+             device_traits: DeviceTraits | None = None, model_axis: int = 1) -> "CLapp":
+        """Select devices and build the app mesh.  ``model_axis=m`` folds
+        the selected devices into a ``(n//m, m)`` mesh, so each lane is a
+        model group over which annotated processes split their frames
+        (:func:`repro_torch.launch.mesh.shard_by_logical`); the device
+        count must be a multiple of ``m``.  A mesh given with
+        :meth:`set_mesh` is kept."""
         platform_traits = platform_traits or PlatformTraits()
         device_traits = device_traits or DeviceTraits()
         kind = platform_traits.name or (
@@ -102,6 +131,11 @@ class CLapp:
             devices = devices[: device_traits.count]
         self._devices = devices
         self._initialized = True
+        if not self._mesh_explicit:
+            # rebuilt on every init(): a re-selection never leaves a stale
+            # mesh over deselected devices
+            from repro_torch.launch.mesh import make_data_mesh
+            self._mesh = make_data_mesh(devices, model=model_axis)
         return self
 
     @property
@@ -113,6 +147,90 @@ class CLapp:
     @property
     def device(self) -> torch.device:
         return self.devices[0]
+
+    def split(self, n: int) -> List["CLapp"]:
+        """Partition the mesh's devices (the selected devices, or those of
+        a mesh given with :meth:`set_mesh`, in grid order) into ``n``
+        independent replica apps: each owns a contiguous, disjoint share
+        with its own one-lane-a-device mesh, data registry, kernel registry
+        and :class:`~repro_torch.launch.mesh.DeviceProfileRegistry`.  Each
+        replica needs at least one device; extra devices go to the earlier
+        replicas."""
+        devices = self.devices            # raises if init() never ran
+        if self._mesh is not None:
+            devices = self._mesh.device_list
+        if n < 1:
+            raise ValueError(f"need n >= 1 replicas, got {n}")
+        if n > len(devices):
+            raise ValueError(f"cannot split {len(devices)} device(s) into {n} replicas "
+                             "(each replica needs at least one device)")
+        from repro_torch.launch.mesh import DeviceProfileRegistry, make_data_mesh
+        base, extra = divmod(len(devices), n)
+        apps, start = [], 0
+        for i in range(n):
+            stop = start + base + (1 if i < extra else 0)
+            app = CLapp()
+            app._devices = list(devices[start:stop])
+            app._mesh = make_data_mesh(app._devices)
+            app._initialized = True
+            app.device_profiles = DeviceProfileRegistry(ema=self.device_profiles.ema)
+            apps.append(app)
+            start = stop
+        return apps
+
+    # ------------------------------------------------------------------ mesh
+    def set_mesh(self, mesh) -> None:
+        """Use ``mesh`` (a :class:`~repro_torch.launch.mesh.Mesh`) instead
+        of the one ``init()`` builds; ``set_mesh(None)`` goes back to it at
+        the next ``init()``.  A mesh naming a CUDA device that is not
+        present raises :class:`NoMatchingDeviceError`: nothing runs on
+        another device in its place."""
+        if mesh is not None:
+            for d in mesh.device_set:
+                if d.type == "cuda" and (not torch.cuda.is_available() or (
+                        d.index or 0) >= torch.cuda.device_count()):
+                    raise NoMatchingDeviceError(
+                        f"the mesh names {d}, which is not present "
+                        f"({torch.cuda.device_count() if torch.cuda.is_available() else 0} "
+                        "CUDA device(s) found)")
+                if d.type not in ("cuda", "cpu"):
+                    raise NoMatchingDeviceError(f"no devices for platform {d.type!r}")
+        self._mesh = mesh
+        self._mesh_explicit = mesh is not None
+
+    @property
+    def mesh(self):
+        """The app's ``(data, model)`` :class:`~repro_torch.launch.mesh.Mesh`."""
+        return self._mesh
+
+    def data_sharding(self, layout: Optional[Sequence[Optional[str]]] = None):
+        """A :class:`~repro_torch.launch.mesh.Placement` over the app mesh:
+        ``layout`` names a mesh axis (or None) per array dim; the default
+        replicates."""
+        if self._mesh is None:
+            raise RuntimeError("CLapp has no mesh (init() not called?)")
+        from repro_torch.launch.mesh import Placement
+        return Placement(self._mesh, tuple(layout or ()))
+
+    @property
+    def default_sharding(self):
+        """Placement of single (unbatched) Data blobs: the primary device."""
+        from repro_torch.launch.mesh import pinned_sharding
+        return pinned_sharding(self.device)
+
+    def _lane_app(self, group: Sequence[torch.device]) -> "CLapp":
+        """An app for one lane of the streaming executor: its device is the
+        group's first, its mesh the group's ``(1, m)`` mesh; it has its own
+        data registry and shares this app's kernels and copy streams."""
+        from repro_torch.launch.mesh import make_group_mesh
+        lane = CLapp()
+        lane._devices = [group[0]]
+        lane._mesh = make_group_mesh(group)
+        lane._mesh_explicit = True
+        lane._initialized = True
+        lane.kernels = self.kernels
+        lane._copy_streams = self._copy_streams
+        return lane
 
     # ----------------------------------------------------------------- kernels
     def loadKernels(self, modules: str | Sequence[str]) -> List[str]:
@@ -148,7 +266,7 @@ class CLapp:
         if data is not None:
             data.device_blob = None
 
-    def host2device(self, handle: DataHandle, phases=None) -> None:
+    def host2device(self, handle: DataHandle, phases=None, *, sharding=None) -> None:
         """Pack + transfer a Data set in one call (the paper's single-call
         pinned transfer).  On CUDA the packed blob is staged in pinned
         memory and copied with ``non_blocking=True`` on a side stream; the
@@ -156,18 +274,22 @@ class CLapp:
         data without the host blocking.  An existing device blob of the
         right size is reused.  ``phases`` (a profiled launch's) takes the
         copy's timing events: on CUDA a pair on the copy stream around the
-        pinned copy, on the CPU the host clock around pack and copy."""
+        pinned copy, on the CPU the host clock around pack and copy.
+        ``sharding`` (a :class:`~repro_torch.launch.mesh.Placement`, e.g.
+        :func:`~repro_torch.launch.mesh.pinned_sharding`) puts the blob on
+        its device instead of :attr:`device`."""
         data = self.getData(handle)
         if data.layout is None:
             data.plan()
+        target = self.device if sharding is None else sharding.device
         n = data.layout.total_bytes
         blob = data.device_blob
-        if blob is None or blob.numel() != n or blob.device != self.device:
-            blob = torch.empty(n, dtype=torch.uint8, device=self.device)
+        if blob is None or blob.numel() != n or blob.device != target:
+            blob = torch.empty(n, dtype=torch.uint8, device=target)
         # a profiled launch's upload events: on CUDA on the copy stream
         # around the pinned copy, else around pack and copy
         span = None if phases is None else []
-        cuda = self.device.type == "cuda"
+        cuda = target.type == "cuda"
         if span is not None and not cuda:
             span.append(phases.mark())
         if all(a.host is not None for a in data):
@@ -176,8 +298,8 @@ class CLapp:
             if cuda:
                 staging = host.pin_memory()  # the caching host allocator
                 # keeps it alive until the copy that reads it has run
-                compute = torch.cuda.current_stream(self.device)
-                copy_stream = self.copy_stream
+                compute = torch.cuda.current_stream(target)
+                copy_stream = self.copy_stream_for(target)
                 # the blob may still be read by kernels queued earlier
                 copy_stream.wait_stream(compute)
                 event = torch.cuda.Event()
@@ -207,20 +329,30 @@ class CLapp:
 
     @property
     def copy_stream(self) -> "torch.cuda.Stream":
-        """The side stream of host->device copies on a CUDA app (made at
-        first use): ``host2device``'s and the streaming executor's."""
-        if self.device.type != "cuda":
-            raise RuntimeError(f"a {self.device.type} app has no copy stream")
-        if self._copy_stream is None:
-            self._copy_stream = torch.cuda.Stream(self.device)
-        return self._copy_stream
+        """The side stream of host->device copies to :attr:`device` on a
+        CUDA app (made at first use): ``host2device``'s and the streaming
+        executor's."""
+        return self.copy_stream_for(self.device)
+
+    def copy_stream_for(self, device: torch.device) -> "torch.cuda.Stream":
+        """The copy stream of one CUDA device (made at first use): every
+        upload to that device, whichever lane it serves, runs on it."""
+        device = torch.device(device)
+        if device.type != "cuda":
+            raise RuntimeError(f"a {device.type} device has no copy stream")
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        stream = self._copy_streams.get(device)
+        if stream is None:
+            stream = self._copy_streams[device] = torch.cuda.Stream(device)
+        return stream
 
     def wait_transfers(self) -> None:
         """Explicit host sync point: block until every issued host->device
         copy has landed.  Kernels need no such wait: the compute stream is
         already ordered after each copy."""
-        if self._copy_stream is not None:
-            self._copy_stream.synchronize()
+        for stream in self._copy_streams.values():
+            stream.synchronize()
 
     def device2Host(self, handle: DataHandle,
                     sync: SyncSource = SyncSource.BUFFER_ONLY) -> None:

@@ -317,6 +317,21 @@ def split_batched_blob(stacked: torch.Tensor) -> List[torch.Tensor]:
     return [stacked[r] for r in range(int(stacked.shape[0]))]
 
 
+def carve_rows(stacked: Any, split: Sequence[int]) -> List[Any]:
+    """``stacked`` (a ``(rows, total_bytes)`` host or device blob, or any
+    sequence of rows) cut by a split vector: part ``j`` is rows
+    ``sum(split[:j])`` to ``sum(split[:j+1])``, a view (a slice of the
+    list), never a copy.  The parts cover every row in order."""
+    if sum(split) != len(stacked):
+        raise ValueError(f"split vector {tuple(split)} covers {sum(split)} rows, the stack "
+                         f"has {len(stacked)}")
+    parts, off = [], 0
+    for c in split:
+        parts.append(stacked[off:off + c])
+        off += c
+    return parts
+
+
 def pack_rows(dst: np.ndarray, batched: ArenaLayout,
               items: Sequence[Mapping[str, np.ndarray] | None]) -> None:
     """Write item ``r``'s arrays (``{name -> host array}``) into row ``r``

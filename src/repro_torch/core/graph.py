@@ -585,9 +585,10 @@ class Pipeline:
         ``stream`` and ``serve`` take ``batch``, ``depth`` and
         ``tail_waste_threshold`` (:meth:`Process.stream`); a fan-in graph
         batches each edge on its own and joins them row-aligned in one
-        launch.  ``sharded``, ``split="proportional"`` and ``lanes`` raise
-        ``NotImplementedError`` (the multi-GPU slice).  ``sync=True``
-        copies results back to the host."""
+        launch.  ``sharded``, ``split="proportional"`` and ``lanes`` carve
+        each batch over the lanes of the app's mesh (:meth:`Process.stream`),
+        every edge by one split vector.  ``sync=True`` copies results back
+        to the host."""
         if mode in ("stream", "serve") and isinstance(inputs, (Data, Mapping)):
             raise TypeError(f"mode={mode!r} takes a sequence of items (one Data, mapping or "
                             f"tuple each), got one {type(inputs).__name__}; mode='launch' "

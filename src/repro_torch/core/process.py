@@ -45,6 +45,7 @@ static and reaches every item of a batch unbatched.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import time
@@ -236,20 +237,62 @@ def compile_cache_stats() -> Tuple[int, int]:
     return _GRAPH_STATS["hits"], _GRAPH_STATS["misses"]
 
 
+#: a side stream a CUDA device that captures run on (``torch.cuda.graph``'s
+#: default is one stream, made on whichever device captured first)
+_CAPTURE_STREAMS: Dict[torch.device, Any] = {}
+
+
 def capture_graph(body: Callable[[], None], device: torch.device) -> Callable[[], None]:
     """Capture ``body`` (one launch's device work) into a CUDA graph on
-    ``device`` and return its replay.  Capturing records the kernels and
-    runs none of them.  The compiled launch's one seam: the CPU tests put
-    a recorder here."""
+    ``device``, on that device's own capture stream, and return its
+    replay.  Capturing records the kernels and runs none of them.  The
+    compiled launch's one seam: the CPU tests put a recorder here."""
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.device(device), torch.cuda.graph(graph):
-        body()
+    with torch.cuda.device(device):
+        key = torch.device("cuda", torch.cuda.current_device())
+        stream = _CAPTURE_STREAMS.get(key)
+        if stream is None:
+            stream = _CAPTURE_STREAMS[key] = torch.cuda.Stream(key)
+        with torch.cuda.graph(graph, stream=stream):
+            body()
     return graph.replay
 
 
 def _graphs_on(device: torch.device) -> bool:
     """Whether a launch on ``device`` is compiled (on a CUDA device)."""
     return device.type == "cuda"
+
+
+#: the mesh of the launch in progress (None outside one): what
+#: ``repro_torch.launch.mesh.shard_by_logical`` partitions over, so one
+#: annotated ``apply`` body runs whole in a lane's twin on a 1D mesh and
+#: split over its model group in a group's twin (the JAX package's
+#: ``current_compile_mesh``, the mesh of the AOT lowering in progress).
+#: A plain module global, as the JAX package's: a launch runs in the
+#: thread that reads it.
+_CURRENT_COMPILE_MESH: Any = None
+
+
+def current_compile_mesh():
+    """The mesh of the launch in progress (None outside one)."""
+    return _CURRENT_COMPILE_MESH
+
+
+@contextlib.contextmanager
+def _compiling_under(mesh) -> Any:
+    global _CURRENT_COMPILE_MESH
+    prev, _CURRENT_COMPILE_MESH = _CURRENT_COMPILE_MESH, mesh
+    try:
+        yield
+    finally:
+        _CURRENT_COMPILE_MESH = prev
+
+
+def _one_device(mesh) -> bool:
+    """Whether the pieces of a launch under ``mesh`` all run on one device
+    (its first model group names one device): only then is the launch
+    captured into a CUDA graph, which records the work of one device."""
+    return mesh is None or len(set(mesh.groups[0])) == 1
 
 
 @dataclasses.dataclass
@@ -371,6 +414,12 @@ class Process:
         self._batched: frozenset = frozenset()   # a twin's batched handles
         #: a stream's twins of this process, by (rows, slot)
         self._stream_twins: Dict[Tuple[int, int], Any] = {}
+        #: a multi-lane stream's twins, by (lane key, rows, slot): each on its
+        #: lane's device, so two lanes never share a twin or a graph
+        self._lane_twins: Dict[Tuple[Any, int, int], Any] = {}
+        #: the split vector (rows a lane) of each group of the last
+        #: multi-lane stream launched through this process
+        self.split_vectors: List[Tuple[int, ...]] = []
 
     # -- wiring ---------------------------------------------------------------
     @property
@@ -569,7 +618,13 @@ class Process:
         events), or, for a staged :class:`ProcessChain`, around each stage.
         A launch records no ``"compile"``: as in the JAX package, whose
         ``init()`` compiles without a profile, a capture's cost stays in
-        ``captures`` and ``capture_seconds``."""
+        ``captures`` and ``capture_seconds``.
+
+        The launch runs under the app's mesh (:func:`current_compile_mesh`):
+        a process annotated with :func:`repro_torch.launch.mesh.
+        shard_by_logical` splits its frames over the mesh's first model
+        group.  A group that names more than one device runs eagerly: a
+        CUDA graph holds one device's work."""
         if not self._initialized:
             self.init()
         self._check_donation()
@@ -577,10 +632,11 @@ class Process:
         on = profile is not None and profile.enable
         phases = _Phases(app.device) if on else None
         timer = _Timer(app.device) if on else None
-        if self.graphed and _graphs_on(app.device):
-            self._launch_compiled(phases)
-        else:
-            self._launch_eager(phases)
+        with _compiling_under(app.mesh):
+            if self.graphed and _graphs_on(app.device) and _one_device(app.mesh):
+                self._launch_compiled(phases)
+            else:
+                self._launch_eager(phases)
         if timer is not None:
             seconds = timer.seconds()
             profile.record(seconds)
@@ -715,9 +771,18 @@ class Process:
         runs through a twin wired for its own row count instead of being
         padded by repetition (``>= 1.0`` always pads).
 
-        ``sharded=True``, ``split="proportional"`` and ``lanes=True`` (the
-        JAX package's multi-device carves) raise ``NotImplementedError``:
-        they come with the multi-GPU slice."""
+        ``sharded=True`` spreads each batch over the lanes of the app's
+        mesh (:mod:`repro_torch.launch.mesh`; one lane a selected device,
+        a model group on a 2D mesh): lane ``j`` runs its share of the rows
+        through its own twins on its device, uploaded through its own
+        pinned queue, and each item's result stays on the device that
+        computed it.  The equal split needs ``batch`` divisible by the
+        number of lanes; ``split="proportional"`` carves each batch by
+        the lanes' measured throughput (``app.device_profiles``, balanced
+        while cold) and ``lanes=True`` keeps the equal carve without the
+        divisibility rule.  Both need ``sharded=True``.  A one-lane mesh
+        of one device is the single-device stream.  Results equal
+        ``launch()``'s as on one device."""
         from .stream import stream_launch  # stream builds on Process
 
         return stream_launch(self, datasets, batch=batch, depth=depth, sync=sync,
@@ -746,16 +811,21 @@ class Process:
         """Every handle a launch writes."""
         return [self.out_handle]
 
-    def _twin(self, handles: Mapping[DataHandle, DataHandle]) -> "Process":
+    def _twin(self, handles: Mapping[DataHandle, DataHandle],
+              app: Optional[CLapp] = None) -> "Process":
         """A copy of this process wired onto ``handles[h]`` in place of each
         handle ``h`` it reads or writes (a handle not in ``handles``, a
         static input, is kept), uninitialised and with no graph: the
-        process a streamed batch launches, on batched Data."""
+        process a streamed batch launches, on batched Data.  ``app`` (a
+        lane's app, which holds every handle of ``handles``) replaces the
+        process's app."""
         if not self.batch_axis:
             raise NotImplementedError(
                 f"{type(self).__name__} cannot take a leading batch axis, so it cannot be "
                 "streamed or served (set batch_axis only where apply() handles the axis)")
         twin = copy.copy(self)
+        if app is not None:
+            twin._app = app
         twin.in_handles = {n: handles.get(h, h) for n, h in self.in_handles.items()}
         twin.out_handle = handles.get(self.out_handle, self.out_handle)
         twin.aux_names = set(self.aux_names)
@@ -765,13 +835,15 @@ class Process:
         twin.captures = twin.replays = 0
         twin.capture_seconds = 0.0
         twin._stream_twins = {}
+        twin._lane_twins = {}
         return twin
 
     def _release_stream(self) -> None:
-        """Free the twins of earlier streams (their Data leave the app):
+        """Free the twins of earlier streams (their Data leave their app):
         they were wired from this process as it was before ``init()``."""
         twins, self._stream_twins = self._stream_twins, {}
-        for bp in twins.values():
+        lane_twins, self._lane_twins = self._lane_twins, {}
+        for bp in list(twins.values()) + list(lane_twins.values()):
             bp.release()
 
 
@@ -854,14 +926,15 @@ class ProcessChain(Process):
     def _produced_handles(self) -> List[DataHandle]:
         return [s.out_handle for s in self.stages]
 
-    def _twin(self, handles: Mapping[DataHandle, DataHandle]) -> Process:
+    def _twin(self, handles: Mapping[DataHandle, DataHandle],
+              app: Optional[CLapp] = None) -> Process:
         if not self.batch_axis:
             names = [type(s).__name__ for s in self.stages if not s.batch_axis]
             raise NotImplementedError(
                 f"ProcessChain stages {names} cannot take a leading batch axis, so the "
                 "chain cannot be streamed or served")
-        twin = super()._twin(handles)
-        twin.stages = [s._twin(handles) for s in self.stages]
+        twin = super()._twin(handles, app)
+        twin.stages = [s._twin(handles, app) for s in self.stages]
         return twin
 
     def _graph_handles(self) -> List[DataHandle]:

@@ -63,6 +63,7 @@ class KernelCompileError(RuntimeError):
 
 _GLOBAL: Dict[str, KernelEntry] = {}
 _tally: Optional[Dict[str, int]] = None     # the capture in progress, if any
+_also: List[Dict[str, int]] = []            # tallies that see every counted launch
 
 
 def kernel(name: str, ref: Callable[..., Any] | None = None,
@@ -86,6 +87,8 @@ def count_launch(name: str) -> None:
         _tally[name] = _tally.get(name, 0) + 1
     else:
         _GLOBAL[name].launches += 1
+        for t in _also:
+            t[name] = t.get(name, 0) + 1
 
 
 @contextlib.contextmanager
@@ -100,10 +103,27 @@ def counting_into(tally: Dict[str, int]) -> Iterator[None]:
         _tally = outer
 
 
+@contextlib.contextmanager
+def also_counting(tally: Dict[str, int]) -> Iterator[None]:
+    """Add the launches that run inside the block (eager ones and replays)
+    to ``tally`` as well as to the launch counts: the streaming executor
+    counts each lane's launches so."""
+    _also.append(tally)
+    try:
+        yield
+    finally:
+        for i in range(len(_also) - 1, -1, -1):
+            if _also[i] is tally:           # by identity: tallies compare by value
+                del _also[i]
+                break
+
+
 def add_launches(tally: Dict[str, int]) -> None:
     """Add a captured graph's tally to the launch counts (one replay)."""
     for name, n in tally.items():
         _GLOBAL[name].launches += n
+        for t in _also:
+            t[name] = t.get(name, 0) + n
 
 
 def launch_counts() -> Dict[str, int]:

@@ -3,7 +3,8 @@ file in, file out (the counterpart of the JAX package's
 ``examples/mri_recon.py``).
 
     python -m repro_torch.launch.mri_recon [--fused|--kernel] [--pipeline] [--join]
-        [--stream N] [--batch K] [--kspace PATH] [--out PATH]   (with src/ on PYTHONPATH)
+        [--stream N] [--batch K] [--sharded] [--proportional] [--kspace PATH] [--out PATH]
+        (with src/ on PYTHONPATH)
 
 Reads multicoil cine k-space and its sensitivity maps from an npz
 (``--kspace``; without one, the synthetic 16 frames x 8 coils x 160x160
@@ -33,8 +34,11 @@ slices a launch, the next batch uploaded from pinned memory while this
 one computes; the last slice is held against the sequential ``launch()``
 (bit for bit in the kernel mode; within 1e-6 in staged and fused mode,
 where cuFFT may pick another algorithm for the batch) and the oracle.
-``--sharded`` and ``--proportional`` (the JAX example's multi-device
-streams) exit with the message that they come with the multi-GPU slice.
+``--sharded`` streams over every lane of the app's mesh (one a selected
+card; ``--batch`` a multiple of the lane count), each lane's share through
+its own twins and upload queue, and prints each lane's rows and twins;
+``--proportional`` (implies ``--sharded``) carves each batch by the lanes'
+measured throughput and prints the measured rates and the split vectors.
 
 The app selects the CUDA card unless the caller of :func:`main` hands in
 a CPU app (the tests do, at the SMOKE size).
@@ -52,7 +56,6 @@ import numpy as np
 from repro_torch.configs.mri_recon import CONFIG, MRIReconConfig
 from repro_torch.core import (CLapp, Data, KData, NDArray, Pipeline, ProfileParameters,
                               SyncSource, XData)
-from repro_torch.core.stream import MULTI_DEVICE
 from repro_torch.data.io import save_any
 from repro_torch.processes import (FFT, CombineParams, ComplexElementProd,
                                    ComplexElementProdParams, FFTParams, SimpleMRIRecon,
@@ -247,19 +250,22 @@ def join_demo(app: CLapp, kdata: np.ndarray, smaps: np.ndarray, reference: np.nd
 
 
 def stream_slice_stack(app: CLapp, proc: SimpleMRIRecon, cfg: MRIReconConfig,
-                       n_slices: int, batch: int) -> dict:
+                       n_slices: int, batch: int, sharded: bool = False,
+                       split: str = "equal") -> dict:
     """``n_slices`` independent slices through ``proc.stream`` at ``batch``,
     twice (the first stream sets up the twins; the second is timed); the
     last one against the sequential ``launch()`` (bit for bit in the kernel
     mode, within 1e-6 where cuFFT transforms the whole batch) and the
-    oracle."""
+    oracle.  ``sharded``/``split`` carve each batch over the mesh's
+    lanes."""
     pairs = _slices(cfg, n_slices, 100)
     slices = [KData({"kdata": k, "sensitivity_maps": sm}) for k, sm in pairs]
     walls = []
     prof = ProfileParameters(enable=True)
     for run in range(2):        # the first stream sets up the twins, the second reuses them
         t0 = time.perf_counter()
-        outs = proc.stream(slices, batch=batch, profile=prof if run else None)
+        outs = proc.stream(slices, batch=batch, sharded=sharded, split=split,
+                           profile=prof if run else None)
         out_last = outs[-1].device_view("xdata").cpu().numpy()   # waits for the stream's end
         walls.append(_ms(t0))
     first_ms, stream_ms = walls
@@ -276,17 +282,44 @@ def stream_slice_stack(app: CLapp, proc: SimpleMRIRecon, cfg: MRIReconConfig,
         np.testing.assert_allclose(out_last, seq, rtol=1e-6, atol=1e-6,
                                    err_msg="streamed vs launch()")
     err = _check(out_last, oracle_recon(*pairs[-1]), False, "streamed oracle")
-    twins = proc.chain._stream_twins
-    print(f"[stream] {app.device}: {n_slices} slices at batch {batch}: {stream_ms:.1f} ms, "
+    target = proc.chain
+    lanes = target._lane_twins
+    twins = lanes if lanes else target._stream_twins
+    tag = "[stream]" if not sharded else f"[stream sharded split={split}]"
+    print(f"{tag} {app.device}: {n_slices} slices at batch {batch}: {stream_ms:.1f} ms, "
           f"{stream_ms / n_slices:.2f} ms a slice (the first stream, which sets up the "
           f"twins, {first_ms:.1f} ms); the last slice "
           + ("bit-identical to" if exact else "within 1e-6 of")
-          + f" launch(), max abs err vs oracle {err:.3e}; twins (rows, slot) {sorted(twins)}; "
-          f"the timed stream's phases: {_phases_ms(prof)}")
-    return {"n": n_slices, "batch": batch, "ms": stream_ms, "ms_per_slice": stream_ms / n_slices,
-            "phases_s": prof.phase_totals(),
-            "first_ms": first_ms, "exact": exact, "max_abs_err": err,
-            "launches": {k: bp.launches for k, bp in twins.items()}}
+          + f" launch(), max abs err vs oracle {err:.3e}; "
+          + (f"twins (rows, slot) {sorted(twins)}" if not lanes else
+             f"twins a lane {_per_lane(lanes)}")
+          + f"; the timed stream's phases: {_phases_ms(prof)}")
+    res = {"n": n_slices, "batch": batch, "ms": stream_ms, "ms_per_slice": stream_ms / n_slices,
+           "phases_s": prof.phase_totals(),
+           "first_ms": first_ms, "exact": exact, "max_abs_err": err,
+           "launches": {k: bp.launches for k, bp in twins.items()}}
+    if lanes:
+        vectors = getattr(target, "split_vectors", [])
+        rows = [sum(v[j] for v in vectors) for j in range(len(app.mesh.groups))]
+        res.update(vectors=vectors, lane_rows=rows, lane_twins=_per_lane(lanes))
+        print(f"{tag} mesh {app.mesh.shape}: rows a lane over the timed stream {rows}; "
+              f"split vectors {vectors}")
+        if split == "proportional":
+            lanes_idx = range(len(app.mesh.groups))
+            rates = app.device_profiles.rates(lanes_idx)
+            res["rates"] = rates
+            print(f"{tag} measured lane rates (items/s): "
+                  + ", ".join(f"{r:.0f}" for r in rates)
+                  + f"; next split of a full batch: {app.device_profiles.split(batch, lanes_idx)}")
+    return res
+
+
+def _per_lane(lane_twins: dict) -> dict:
+    """The number of twins of each lane (by its position in the mesh)."""
+    out: dict = {}
+    for (key, _, _) in lane_twins:
+        out[key[0]] = out.get(key[0], 0) + 1
+    return dict(sorted(out.items()))
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -303,9 +336,10 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--batch", type=int, default=4, metavar="K",
                     help="slices a streamed launch (default 4)")
     ap.add_argument("--sharded", action="store_true",
-                    help="multi-device stream (the multi-GPU slice)")
+                    help="stream over every lane of the app's mesh (the selected cards)")
     ap.add_argument("--proportional", action="store_true",
-                    help="throughput-proportional multi-device stream (the multi-GPU slice)")
+                    help="carve each streamed batch by the lanes' measured throughput "
+                         "(implies --sharded)")
     ap.add_argument("--kspace", help="npz with 'kdata' and 'sensitivity_maps' "
                                      "(default: the synthetic phantom, through a file)")
     ap.add_argument("--out", default="outputFrames.npz", help="where the image is saved")
@@ -318,8 +352,6 @@ def main(argv: Optional[list] = None, app: Optional[CLapp] = None,
     (default: the CUDA card) and ``cfg`` (the synthetic phantom's size)
     are for callers in Python."""
     args = _parser().parse_args(argv)
-    if args.sharded or args.proportional:
-        raise SystemExit(f"--sharded/--proportional: {MULTI_DEVICE}")
     mode = "fused_kernel" if args.kernel else "fused" if args.fused else "staged"
     if app is None:
         app = CLapp().init()
@@ -375,7 +407,9 @@ def main(argv: Optional[list] = None, app: Optional[CLapp] = None,
     if args.join:
         res["join"] = join_demo(app, kdata, smaps, recon, cfg, exact)
     if args.stream:
-        res["stream"] = stream_slice_stack(app, proc, cfg, args.stream, args.batch)
+        res["stream"] = stream_slice_stack(
+            app, proc, cfg, args.stream, args.batch, sharded=args.sharded or args.proportional,
+            split="proportional" if args.proportional else "equal")
     return res
 
 

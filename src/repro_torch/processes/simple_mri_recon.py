@@ -4,11 +4,15 @@ A ProcessChain of FFT(BACKWARD) -> ComplexElementProd(conjugate, in place)
 -> XImageSum, mirroring the paper's subprocess structure; stage outputs
 ARE stage inputs, so no bytes move between stages.  ``mode="fused_kernel"``
 is the whole reconstruction as one process (:class:`FusedMRIRecon`).
+
+Frames are independent, so the IFFT and the fused reconstruction split
+their ``frame`` axis over the mesh's model axis
+(:func:`repro_torch.launch.mesh.shard_by_logical`, a no-op on a 1D mesh).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -18,6 +22,7 @@ from repro_torch.core.data import TensorSpec
 from repro_torch.core.process import Port, Process, ProcessChain, ProfileParameters, out_view
 from repro_torch.kernels.common import coil_grid
 from repro_torch.kernels.mri_fused import dft_fits, idft_tables
+from repro_torch.launch.mesh import shard_by_logical
 from repro_torch.launch.roofline import resolve_backend
 from .coil_combine import CombineParams, XImageSum
 from .complex_elementprod import ComplexElementProd, ComplexElementProdParams
@@ -38,9 +43,11 @@ class FusedMRIRecon(Process):
 
     With the kernel backend this is a single CUDA kernel inside the
     :func:`~repro_torch.kernels.mri_fused.dft_fits` gate (its IDFT twiddle
-    tables are built once, in ``init()``), and cuFFT + the fused epilogue
-    kernel outside it.  The maps come from the ``smaps`` port when it is
-    wired, else from the primary arena.
+    tables are built once, in ``init()``, on each device of the mesh's
+    model group), and cuFFT + the fused epilogue kernel outside it.  The
+    maps come from the ``smaps`` port when it is wired, else from the
+    primary arena.  On a mesh with a model axis the frames are split over
+    the group (each piece on its device, with that device's tables).
     """
 
     kernel_names = ("mri_fused",)
@@ -55,7 +62,8 @@ class FusedMRIRecon(Process):
 
     def __init__(self, app=None):
         super().__init__(app)
-        self._tables: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+        #: the IDFT tables by device (each device of the model group)
+        self._tables: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
 
     def init(self) -> None:
         super().init()
@@ -64,9 +72,11 @@ class FusedMRIRecon(Process):
         # a stream's batch (B, F, C, H, W) is B * F frames to the kernel
         f, c, h, w = coil_grid(torch.empty(
             app.getData(self.in_handle).specs()["kdata"].shape, device="meta"))
-        self._tables = None
+        self._tables = {}
         if app.device.type == "cuda" and dft_fits(f, c, h, w):
-            self._tables = idft_tables(h, w, params.norm, app.device)
+            group = app.mesh.groups[0] if app.mesh is not None else (app.device,)
+            for dev in dict.fromkeys(group):
+                self._tables[dev] = idft_tables(h, w, params.norm, dev)
 
     def out_specs(self, in_specs, aux_specs=None):
         params = self.launch_params or FusedReconParams()
@@ -83,9 +93,20 @@ class FusedMRIRecon(Process):
         k = views["kdata"]
         resolve_backend(params.use_kernel, "mriFusedRecon", k, smaps)
         dtype = torch.float32 if params.combine == "rss" else k.dtype
-        return {"xdata": self.getApp().kernels.get("mriFusedRecon")(
-            k, smaps, combine=params.combine, norm=params.norm, tables=self._tables,
-            out=out_view(out, "xdata", dtype, k.shape[:-3] + k.shape[-2:]))}
+        kfn = self.getApp().kernels.get("mriFusedRecon")
+
+        def body(kf, sm, out=None):
+            return kfn(kf, sm, combine=params.combine, norm=params.norm,
+                       tables=self._tables.get(kf.device), out=out)
+
+        # a stream's twin reads (B, F, C, H, W) k-space (and batched maps
+        # unless they are static): the item's dims are the trailing ones
+        lead_k, lead_s = (None,) * (k.ndim - 4), (None,) * (smaps.ndim - 3)
+        return {"xdata": shard_by_logical(
+            body, [lead_k + ("frame", "coil", "height", "width"),
+                   lead_s + ("coil", "height", "width")],
+            lead_k + ("frame", "height", "width"))(
+                k, smaps, out=out_view(out, "xdata", dtype, k.shape[:-3] + k.shape[-2:]))}
 
 
 class SimpleMRIRecon(Process):

@@ -51,7 +51,7 @@ from repro_torch.core.app import CLapp
 from repro_torch.core.data import Data
 from repro_torch.core.graph import Pipeline
 from repro_torch.core.process import PortError, ProfileParameters, _Phases, _PhaseView
-from repro_torch.core.stream import _BatchPlan, _edge_blobs, _refuse_multi_device, _result
+from repro_torch.core.stream import _BatchPlan, _check_policy, _edge_blobs, _result
 from repro_torch.processes import lm as lmp
 from .engine import SamplingConfig
 
@@ -115,7 +115,13 @@ class PipelineServer:
     example), or reused if already built; every launch goes through the
     executor's twins of :mod:`repro_torch.core.stream`, kept for the
     server's life.  ``sharded``, ``split="proportional"`` and ``lanes``
-    raise ``NotImplementedError`` (the multi-GPU slice)."""
+    carve each batch over the lanes of the app's mesh as a stream does
+    (:meth:`repro_torch.core.process.Process.stream`): each lane's share
+    through its own twins and upload queue, the split vector shared by
+    every input edge.  ``warmup()`` captures every lane's twins of the
+    balanced and the current split vector; a proportional vector that
+    shifts later may set up (and capture) a new twin in the thread that
+    drains."""
 
     def __init__(self, pipeline, *, batch: int = 8, sharded: bool = False, depth: int = 2,
                  tail_waste_threshold: float = 0.5, split: str = "equal",
@@ -129,7 +135,8 @@ class PipelineServer:
         self.depth = depth
         self.tail_waste_threshold = tail_waste_threshold
         self.flush_timeout = flush_timeout
-        _refuse_multi_device(sharded, split, lanes)
+        _check_policy(sharded, split, lanes)
+        self.sharded, self.split, self.lanes = sharded, split, lanes
         self._pending: Deque[_Request] = deque()
         self._next_rid = 0
         self._plan: Optional[_BatchPlan] = None
@@ -152,7 +159,8 @@ class PipelineServer:
             return
         built = self.pipeline.build(request)
         plan = _BatchPlan(built.executor, self.batch, depth=self.depth,
-                          tail_waste_threshold=self.tail_waste_threshold).init()
+                          tail_waste_threshold=self.tail_waste_threshold,
+                          sharded=self.sharded, split=self.split, lanes=self.lanes).init()
         plan.prepare_aux()
         self._built, self._plan = built, plan
 
@@ -171,9 +179,10 @@ class PipelineServer:
     def warmup(self, example: Any = None) -> None:
         """Set up and launch, on whatever their inputs hold, every twin a
         drain can use (the full batch and each partial-flush row count the
-        ragged-tail policy can pick, in every upload slot) until it replays
-        a graph: on the card each is captured here, in the calling thread,
-        and never in the background thread.  ``example`` (a request) builds
+        ragged-tail policy can pick, in every upload slot, on every lane of
+        a carved server) until it replays a graph: on the card each is
+        captured here, in the calling thread, and never in the background
+        thread.  ``example`` (a request) builds
         the pipeline when no request was submitted yet.  Call it before the
         first ``submit()`` of a ``flush_timeout`` server."""
         with self._cv:
@@ -186,8 +195,8 @@ class PipelineServer:
             self._ensure_built(example)
         plan = self._plan
         for rows in sorted({plan.launch_rows(r) for r in range(1, self.batch + 1)}):
-            for slot in range(plan.depth):
-                plan.executable(rows, slot).warmup()
+            for bp in plan.twins_for(rows):
+                bp.warmup()
         plan.synchronize()
 
     # ------------------------------------------------------------ admission
@@ -286,6 +295,8 @@ class PipelineServer:
         for out, _ in plan.run(group_iter()):  # the next batch uploads while this runs
             plan.synchronize()                 # latency: the result is complete
             responses.extend(self._responses_for(groups.popleft(), out, time.perf_counter()))
+        if plan.proportional:
+            plan.harvest()                     # the launches ran: their rates
         self.served += len(responses)
         return responses
 
@@ -317,6 +328,8 @@ class PipelineServer:
                 for out, _ in plan.run(iter([[r.blobs for r in group]])):
                     plan.synchronize()
                     responses = self._responses_for(group, out, time.perf_counter())
+                if plan.proportional:
+                    plan.harvest()
             except BaseException as e:    # noqa: BLE001 -- reaches the callers
                 error = e
             finally:

@@ -4,6 +4,7 @@ residency, and a chain built with ``|`` against the numpy oracle of the
 MRI reconstruction (rtol 1e-4 / atol 1e-4, the band of the fused modes)."""
 import numpy as np
 import pytest
+import torch
 
 from repro_torch.core import (CLapp, Coherence, Data, DeviceTraits, DeviceType, GraphError,
                               KData, Pipeline, PortError, ProfileParameters, XData)
@@ -111,16 +112,24 @@ def test_build_checks_specs_between_nodes(app, mri):
 def test_only_launch_mode(app, mri):
     """One Data is the launch mode's input only: the stream mode takes a
     sequence of items (one KData is refused), an unknown mode is refused
-    naming the three, and the multi-device stream raises
-    NotImplementedError naming the multi-GPU slice."""
+    naming the three, and the multi-device stream runs: on an eight-lane
+    CPU mesh, ``sharded=True`` equals the launch (rtol 1e-6: the FFT of a
+    batch), each of the 8 slices on a lane of its own."""
+    from repro_torch.launch.mesh import make_data_mesh
+
     k, s, _ = mri
     kd = KData({"kdata": k, "sensitivity_maps": s})
     with pytest.raises(TypeError, match="sequence of items"):
         _chain(app).run(kd, mode="stream")
     with pytest.raises(ValueError, match="'launch' \\| 'stream' \\| 'serve'"):
         _chain(app).run(kd, mode="batched")
-    with pytest.raises(NotImplementedError, match="stream.*multi-GPU"):
-        _chain(app).run([kd], mode="stream", sharded=True)
+    want = _chain(app).run(kd).get_ndarray(0).host.copy()
+    app.set_mesh(make_data_mesh([torch.device("cpu")] * 8))
+    pipe = _chain(app)
+    outs = pipe.run([kd] * 8, mode="stream", sharded=True, batch=8)
+    assert pipe.build().executor.split_vectors == [(1,) * 8]
+    for o in outs:
+        np.testing.assert_allclose(o.get_ndarray(0).host, want, rtol=1e-6, atol=1e-6)
 
 
 def test_persistent_data_stays_on_the_device(app, mri):

@@ -244,20 +244,42 @@ def test_a_process_without_the_batch_axis_is_refused(app, rng):
 
 
 def test_multi_device_options_raise(app, rng):
+    """The multi-device options run: on an eight-lane CPU mesh the sharded,
+    proportional and per-lane streams, stream-mode runs and a server equal
+    launch() bit for bit (no FFT), every lane given rows.  What still
+    raises is the JAX package's: an unknown split policy, and a
+    proportional split or upload lanes without sharded=True."""
+    from repro_torch.launch.mesh import make_data_mesh
+
+    app.set_mesh(make_data_mesh([torch.device("cpu")] * 8))
     h_in, _, h_out = _wired(app)
     p = Scale(app)
     p.in_handle, p.out_handle = h_in, h_out
     p.set_launch_parameters(2.0)
+    p.init()
+    items = [_img(rng) for _ in range(16)]
+    want = [w[0] for w in _sequential(app, p, h_in, h_out, items)]
     pipe = Pipeline(app) | Scale(app).bind(params=2.0)
-    for kw in (dict(sharded=True), dict(split="proportional"), dict(lanes=True)):
-        with pytest.raises(NotImplementedError, match="multi-GPU slice.*item 6"):
-            p.stream([_img(rng)], batch=1, **kw)
-        with pytest.raises(NotImplementedError, match="item 6"):
-            pipe.run([_img(rng)], mode="stream", **kw)
-        with pytest.raises(NotImplementedError, match="item 6"):
-            pipe.serve(**kw)
+    for kw in (dict(sharded=True), dict(sharded=True, split="proportional"),
+               dict(sharded=True, lanes=True)):
+        got = p.stream(items, batch=8, sync=True, **kw)
+        assert p.split_vectors == [(1,) * 8] * 2
+        assert sorted({key[0][0] for key in p._lane_twins}) == list(range(8))
+        ran = pipe.run(items, mode="stream", batch=8, **kw)
+        server = pipe.serve(batch=8, **kw)
+        rids = [server.submit(x) for x in items]
+        served = {r.rid: r.data for r in server.drain()}
+        for i, w in enumerate(want):
+            np.testing.assert_array_equal(_host(got[i]), w, err_msg=f"{kw} stream {i}")
+            np.testing.assert_array_equal(_host(ran[i]), w, err_msg=f"{kw} run {i}")
+            served[rids[i]].sync_to_host()
+            np.testing.assert_array_equal(_host(served[rids[i]]), w, err_msg=f"{kw} serve {i}")
     with pytest.raises(ValueError, match="split policy"):
         p.stream([_img(rng)], split="uneven")
+    with pytest.raises(ValueError, match="needs sharded=True"):
+        p.stream([_img(rng)], split="proportional")
+    with pytest.raises(ValueError, match="needs sharded=True"):
+        pipe.serve(lanes=True)
 
 
 def test_stream_of_stream_results_stays_on_the_device(app, rng):
@@ -745,8 +767,20 @@ def test_mri_recon_example_streams_at_smoke_size(app, tmp_path, argv):
 
 @pytest.mark.parametrize("flag", ["--sharded", "--proportional"])
 def test_mri_recon_example_refuses_the_multi_device_stream(app, tmp_path, flag):
+    """``--stream 4 --sharded`` and ``--proportional`` (which implies
+    ``--sharded``) run on an eight-lane CPU mesh at SMOKE size: the example
+    holds the last slice against launch() (within 1e-6: the FFT) and the
+    oracle; four slices padded to a batch of 8 give every lane one row."""
     from repro_torch.launch import mri_recon
+    from repro_torch.launch.mesh import make_data_mesh
 
-    with pytest.raises(SystemExit, match="multi-GPU slice"):
-        mri_recon.main(["--stream", "4", flag, "--out", str(tmp_path / "o.npz")], app=app,
-                       cfg=SMOKE)
+    app.set_mesh(make_data_mesh([torch.device("cpu")] * 8))
+    res = mri_recon.main(["--stream", "4", "--batch", "8", flag,
+                          "--out", str(tmp_path / "o.npz")], app=app, cfg=SMOKE)
+    st = res["stream"]
+    assert st["max_abs_err"] < 1e-4 and res["max_abs_err"] < 1e-4
+    assert st["vectors"] == [(1,) * 8] and st["lane_rows"] == [1] * 8
+    assert st["lane_twins"] == {j: 2 for j in range(8)}      # rows 1, two upload slots
+    assert sum(st["launches"].values()) == 2 * 8              # two streams, 8 lanes
+    if flag == "--proportional":
+        assert all(r > 0 for r in st["rates"])
