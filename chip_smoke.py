@@ -215,15 +215,24 @@
    steps into a temporary directory (the loss improves), 10 steps with a
    failure at step 6 and a checkpoint every 4 bit for bit an
    uninterrupted 10, and those 10 replayed steps bit for bit 10 eager
-   ones.
+   ones.  Then ``[mesh-lm]``, the LM stack over the lanes of a mesh that
+   names card 0 twice: qwen3-14b served over a (data 1, model 2) group
+   (the decode slots in two strips, one graph; tokens against ``[lm]``'s
+   with the flips counted, the strips' logits within the bf16 band),
+   h2o-danube-1.8b trained at full width over 2 data lanes (ZeRO-1
+   pieces; bit for bit a one-lane ``microbatches=2`` step after 2 steps,
+   exact launches, the loss falls over 4; p50, tokens/s, MFU, peak, piece
+   bytes), and lm-100m over 2 lanes (a sharded save restored onto 2 lanes
+   without and onto one with a gather, a restart, all bit for bit); with
+   more than one visible card, lm-100m and qwen3-14b over every card too.
 6. Runs the paper's listing 1 (``repro_torch.launch.quickstart``:
    ``Pipeline(app) | Negate(app)`` on a 256x256 8-bit PNG that the script
    writes) on the card, replayed from its second run, bit for bit, and
    reads its ``output.png`` back: 1 - x in 8 bits.  Temporary files live in
    a ``tempfile`` directory that the script removes.
 7. Ends with a ``{"kernels": [...]}`` line (the LM kernels' launches are
-   the sums over the eight serves and the five training runs; the backward
-   kernels', over the training runs; their ``replaces`` names the forward
+   the sums over the eight serves, the five training runs and
+   ``[mesh-lm]``; the backward kernels', over the training runs; their ``replaces`` names the forward
    kernel's ``pallas_call``, since the JAX package has no backward kernel)
    and a
    ``{"ok": true, "device": {...}}`` line.
@@ -1851,6 +1860,10 @@ def main() -> None:
     def rand(*shape, dtype=f32):
         return torch.randn(shape, device=dev, generator=gen).to(dtype)
 
+    def bit_for_bit(label, first, second):
+        if not torch.equal(first, second):
+            raise SystemExit(f"chip_smoke: {label}: two runs differ")
+
     # rmsnorm: the serving shapes, then each kernel variant: narrow rows of
     # 3 and 20 vectors, wide rows past 2048 vectors, a width that is no
     # multiple of the vector (scalar kernel), and mixed x / weight types
@@ -1864,12 +1877,20 @@ def main() -> None:
             ((1024, 2048), bf16, bf16, True), ((4, 2048), bf16, bf16, True),
             ((1024, 512), bf16, bf16, True), ((4, 512), bf16, bf16, True),
             ((4, 2560), bf16, bf16, True),    # zamba2-2.7b decode
+            # [mesh-lm]: qwen3-14b's decode strip of 2 slots (hidden rows,
+            # then its q- and k-norm rows), a 2-row lane of h2o-danube-1.8b
+            # (2 x 2048) and of lm-100m (4 x 256)
+            ((2, 5120), bf16, bf16, True), ((2 * 40, 128), bf16, bf16, True),
+            ((2 * 8, 128), bf16, bf16, True), ((2 * 2048, 2560), bf16, bf16, True),
+            ((4 * 256, 768), f32, f32, True),
             ((64, 512), f32, f32, False),     # the 2-layer f32 runs' latent norm
             ((21, 80), f32, f32, False), ((9, 24), bf16, bf16, False),
             ((3, 20480), bf16, bf16, False), ((5, 100), bf16, bf16, False),
             ((7, 2560), bf16, f32, False), ((5, 5120), f32, bf16, False)):
         x, w = rand(*shape, dtype=dtype), rand(shape[-1], dtype=w_dtype)
-        check(f"rmsnorm {shape} {dtype} weight {w_dtype}", "rmsnorm", rmsnorm(x, w).float(),
+        got = rmsnorm(x, w)
+        bit_for_bit(f"rmsnorm {shape}", got, rmsnorm(x, w))
+        check(f"rmsnorm {shape} {dtype} weight {w_dtype}", "rmsnorm", got.float(),
               ref.rmsnorm(x, w).float(), lm_tol[dtype], on_path)
     flash_cases = (  # q shape, kv shape, causal, window, dtype, on the path
         ((1, 40, 1024, 128), (1, 8, 1024, 128), True, None, bf16, True),  # qwen3-14b prefill
@@ -1903,15 +1924,21 @@ def main() -> None:
         ((1, 16, 320, 128), (1, 8, 320, 128), True, None, f32, False),
         # head dim 16, the SMOKE configs' (repro_torch.launch.serve_lm on the card)
         ((2, 4, 37, 16), (2, 4, 37, 16), True, None, bf16, False),
-        ((2, 4, 37, 16), (2, 2, 53, 16), False, None, f32, False))
+        ((2, 4, 37, 16), (2, 2, 53, 16), False, None, f32, False),
+        # [mesh-lm]'s training forwards: a 2-row lane of h2o-danube-1.8b
+        # (window 4096) and a 4-row lane of lm-100m
+        ((2, 32, 2048, 80), (2, 8, 2048, 80), True, 4096, bf16, True),
+        ((4, 12, 256, 64), (4, 4, 256, 64), True, None, f32, True))
     for qs, ks, causal, window, dtype, on_path in flash_cases:
         q, k, v = rand(*qs, dtype=dtype), rand(*ks, dtype=dtype), rand(*ks, dtype=dtype)
+        got = flash_attention(q, k, v, causal=causal, window=window)
+        bit_for_bit(f"flash_attention q{qs}", got,
+                    flash_attention(q, k, v, causal=causal, window=window))
         check(f"flash_attention q{qs} kv{ks} causal={causal} window={window} {dtype}",
-              "flash_attention",
-              flash_attention(q, k, v, causal=causal, window=window).float(),
+              "flash_attention", got.float(),
               ref.attention(q, k, v, causal=causal, window=window).float(),
               lm_tol[dtype], on_path)
-    del x, w, q, k, v
+    del x, w, q, k, v, got
 
     # wkv6 at the rwkv6-3b prefill (bf16 r/k/v, f32 w), ragged cases (3
     # batches, and 77 steps: no multiple of the staged tile), the SMOKE
@@ -2271,6 +2298,8 @@ def main() -> None:
     # the 2-layer bf16 runs' band, a share of max |logit|, where a family's
     # differs from 2e-2 (why: the comment at its check below, PERF.md §2)
     BF16_BAND = {"ssm": 5e-2, "moe": 4e-2, "hybrid": 5e-2}
+    #: each serve's first 10 requests: tokens, tokens/s, decode p50 ms
+    lm_runs: dict = {}
 
     def serve_full_width(arch, expect, enc_len=None):
         """Serve 10 requests (32 new tokens each) through 4 slots of ``LMServer``
@@ -2340,6 +2369,8 @@ def main() -> None:
         n_tokens = sum(len(r) for r in results)
         prefill_ms = [t * 1e3 for t in server.prefill_profile.samples]
         decode_ms = [t * 1e3 for t in server.decode_profile.samples]
+        lm_runs[arch] = {"results": [list(r) for r in results], "tokens_per_s": n_tokens / run_s,
+                         "decode_p50": statistics.median(decode_ms)}
         audio = f", {enc_len} frames each" if enc_len else ""
         print(f"[lm] {smi}: LMServer {arch}, 10 requests (prompt lengths {lengths}{audio}), "
               f"4 slots, max_len {max_len}{f', enc_len {enc_len}' if enc_len else ''}: "
@@ -2747,6 +2778,8 @@ def main() -> None:
         for shape, dtype, w_dtype, on_path in (
                 ((4 * 2048, 2560), bf16, bf16, True),      # h2o-danube-1.8b, batch 4 x 2048
                 ((8 * 256, 768), f32, f32, True),          # lm-100m, batch 8 x 256
+                ((2 * 2048, 2560), bf16, bf16, True),      # [mesh-lm]: a 2-row danube lane
+                ((4 * 256, 768), f32, f32, True),          # [mesh-lm]: a 4-row lm-100m lane
                 ((1024, 5120), bf16, bf16, False),         # qwen3-14b hidden rows
                 ((40 * 1024, 128), bf16, bf16, False),     # qwen3-14b q/k-norm rows
                 ((2 * 12, 16), f32, f32, False),           # SMOKE head width
@@ -2774,7 +2807,10 @@ def main() -> None:
             # batch 8; zamba2-2.7b's shared block, MHA, batch 4 x 2048
             ((8, 20, 1500, 64), (8, 20, 1500, 64), False, None, bf16, True),
             ((8, 20, 448, 64), (8, 20, 448, 64), True, None, bf16, True),
-            ((4, 32, 2048, 80), (4, 32, 2048, 80), True, None, bf16, True))
+            ((4, 32, 2048, 80), (4, 32, 2048, 80), True, None, bf16, True),
+            # [mesh-lm]: a 2-row lane of h2o-danube-1.8b, a 4-row lane of lm-100m
+            ((2, 32, 2048, 80), (2, 8, 2048, 80), True, 4096, bf16, True),
+            ((4, 12, 256, 64), (4, 4, 256, 64), True, None, f32, True))
         for qs, ks, causal, window, dtype, on_path in bwd_cases:
             q, k, v = rand(*qs, dtype=dtype), rand(*ks, dtype=dtype), rand(*ks, dtype=dtype)
             do = rand(*qs, dtype=dtype)
@@ -3236,6 +3272,429 @@ def main() -> None:
         gc.collect()
         torch.cuda.empty_cache()
 
+    def mesh_lm_phase():
+        """[mesh-lm]: the LM stack over the lanes of a mesh on card 0 (the
+        mesh names it twice; one process drives every lane).
+        1. qwen3-14b served over a (data 1, model 2) group: the decode
+           slots in two strips of 2, captured in one graph; its tokens
+           against [lm]'s one-lane server (same weights and traffic), the
+           captures, replays and launches; then the server's DecodeStep
+           on clones of its state under the group and with no mesh:
+           tokens, logits within the bf16 band, and each product of the
+           step against itself on a strip's rows (which ones differ).
+        2. h2o-danube-1.8b trained at full width over 2 data lanes
+           (``Trainer(mesh=)``, batch 4 x 2048, ZeRO-1 pieces placed leaf
+           by leaf): after 2 steps the state and metrics bit for bit a
+           one-lane ``TrainProcess(microbatches=2)``; exact launch counts;
+           the peak memory's growth over the one-lane run's within what
+           ``train_state_bytes`` counts for the second lane; 2 more steps
+           (the loss falls); step p50 over 3 replays, tokens/s, MFU, each
+           lane's piece bytes.
+        3. lm-100m over 2 lanes: a sharded save from both lanes restored
+           onto 2 lanes (no "gather") and one (gather), bit for bit; a
+           failure at step 6 of 10 resumed on 2 lanes bit for bit an
+           uninterrupted 10."""
+        import contextlib
+        import dataclasses
+        import os
+        from repro_torch.ckpt import restore_checkpoint, save_checkpoint
+        from repro_torch.core.process import _compiling_under
+        from repro_torch.launch.mesh import Mesh, make_data_mesh
+        from repro_torch.launch.train import check_fits, train_state_bytes
+        from repro_torch.optim import AdamWConfig, Schedule
+        from repro_torch.train import TrainConfig, TrainerConfig, state_pspecs, to_named
+
+        def rows_trace(b, rows):
+            """Each product of the code run under it (matmul and ``@``,
+            einsum, bmm, F.linear, softmax, the rmsnorm kernel) whose
+            output leads with ``b`` rows is computed again on each strip of
+            ``rows`` rows of its inputs (every input that leads with ``b``
+            rows cut, the rest as they are); returns the mode and a table
+            {op and output shape: [calls, calls whose strips differ from
+            the batch's rows, max |diff| / max |out|]}."""
+            from torch.overrides import TorchFunctionMode
+            import torch.nn.functional as F
+            from repro_torch.models import layers
+            table: dict = {}
+
+            def cut(a, i):
+                return (a[i * rows:(i + 1) * rows] if isinstance(a, torch.Tensor) and a.dim()
+                        and a.shape[0] == b else a)
+
+            def compare(name, fn, args, kwargs, out):
+                if not (isinstance(out, torch.Tensor) and out.dim() and out.shape[0] == b):
+                    return
+                row = table.setdefault(f"{name} {tuple(out.shape)}", [0, 0, 0.0])
+                row[0] += 1
+                scale = float(out.float().abs().max()) or 1.0
+                gaps = [float((fn(*[cut(a, i) for a in args],
+                                  **{k: cut(v, i) for k, v in kwargs.items()}).float()
+                               - cut(out, i).float()).abs().max()) for i in range(b // rows)]
+                row[1] += max(gaps) > 0
+                row[2] = max(row[2], max(gaps) / scale)
+
+            products = {torch.matmul: "matmul", torch.Tensor.matmul: "matmul",  # and @
+                        torch.einsum: "einsum", torch.bmm: "bmm", F.linear: "linear",
+                        torch.softmax: "softmax", torch.Tensor.softmax: "softmax"}
+
+            class Mode(TorchFunctionMode):
+                def __torch_function__(self, func, types, args=(), kwargs=None):
+                    out = func(*args, **(kwargs or {}))
+                    if func in products:
+                        compare(products[func], func, args, kwargs or {}, out)
+                    return out
+
+            kernel = layers.rmsnorm
+
+            def traced_rmsnorm(*args, **kwargs):
+                out = kernel(*args, **kwargs)
+                compare("rmsnorm kernel", kernel, args, kwargs, out)
+                return out
+
+            @contextlib.contextmanager
+            def tracing():
+                layers.rmsnorm = traced_rmsnorm
+                try:
+                    with Mode():
+                        yield
+                finally:
+                    layers.rmsnorm = kernel
+
+            return tracing(), table
+
+        def serve(model, group):
+            """qwen3-14b's weights from seed 0 on the group's first card and
+            [lm]'s traffic through LMServer over a (data 1, model n) group;
+            returns the app, the weights' tree, the server, its tokens,
+            seconds and launches."""
+            app = CLapp().init(PlatformTraits(), DeviceTraits())
+            app.set_mesh(Mesh([group]))
+            weights, wcodec = weights_data(model.param_specs())
+            app.addData(weights)
+            model.init_params(torch.Generator(device=app.device).manual_seed(0),
+                              out=wcodec.unflatten(weights.device_views()))
+            server = LMServer(model, weights, batch=4, max_len=2048,
+                              sampling=SamplingConfig(max_new_tokens=32), app=app)
+            rng = np.random.default_rng(0)
+            for n in rng.integers(17, 1025, size=10):
+                server.submit(rng.integers(0, model.cfg.vocab, int(n)).tolist())
+            reset_launch_counts()
+            for d in set(group):
+                torch.cuda.synchronize(d)
+            t0 = time.perf_counter()
+            results = server.run()
+            for d in set(group):
+                torch.cuda.synchronize(d)
+            return (app, weights, server, results, time.perf_counter() - t0,
+                    {k: v for k, v in launch_counts().items() if v})
+
+        def flips_of(results, want):
+            return ([sum(a != b for a, b in zip(r, w)) for r, w in zip(results, want)],
+                    [next((i for i, (a, b) in enumerate(zip(r, w)) if a != b), None)
+                     for r, w in zip(results, want)])
+
+        # -- 1. qwen3-14b over a (1, 2) group --------------------------------
+        arch = "qwen3-14b"
+        cfg = get_config(arch)
+        model = build_model(cfg)
+        app, weights, server, results, run_s, counts = serve(model, [dev, dev])
+        step = server.decode_pipe.build().executor
+        per_layer = 2 + 2 * cfg.qk_norm
+        want = {"rmsnorm": (per_layer * cfg.n_layers + 1) * (server.admitted + 2 * server.steps),
+                "flash_attention": cfg.n_layers * server.admitted}
+        one = lm_runs[arch]
+        flips, first = flips_of(results, one["results"])
+        strip_tokens = results
+        n_tokens = sum(len(r) for r in results)
+        decode_ms = [t * 1e3 for t in server.decode_profile.samples]
+        print(f"[mesh-lm] {smi}: LMServer {arch} over a (data 1, model 2) group on {dev} "
+              f"(the decode step's 4 slots in 2 strips of 2, one weights Data): {n_tokens} "
+              f"tokens in {run_s:.3f} s = {n_tokens / run_s:.2f} tokens/s (one lane, [lm]: "
+              f"{one['tokens_per_s']:.2f}); decode p50 {statistics.median(decode_ms):.3f} ms "
+              f"(one lane {one['decode_p50']:.3f}); {server.admitted} prefills, "
+              f"{server.steps} decode steps")
+        print(f"[mesh-lm] {arch} tokens against the one-lane server's: requests with a flip "
+              f"{sum(1 for f in flips if f)} of {len(flips)}, tokens that differ "
+              f"{sum(flips)} of {n_tokens} (first flip at token {first}; a flip makes the "
+              "rest of its request differ)")
+        print(f"[mesh-lm] {smi}: {arch} decode step on {dev}: captures {step.captures}, "
+              f"replays {step.replays} over {server.steps} steps (both strips in one graph); "
+              f"launches {counts} (expected {want}: each step's forward twice, one a strip)")
+        bad = [i for i, r in enumerate(results)
+               if len(r) != 32 or not all(0 <= t < cfg.vocab for t in r)]
+        if bad or (step.captures, step.replays) != (1, server.steps - 1):
+            raise SystemExit(f"chip_smoke: [mesh-lm] {arch}: requests {bad} lack 32 tokens in "
+                             f"range, or the step made {step.captures} captures and "
+                             f"{step.replays} replays")
+        if {k: counts.get(k, 0) for k in want} != want:
+            raise SystemExit(f"chip_smoke: [mesh-lm] {arch}: launches {counts}, expected {want}")
+        add_counts(counts)
+        # the server's DecodeStep, launched eagerly on clones of its state
+        # (every slot spliced by the run's admissions, re-activated) once
+        # under the (1, 2) group and once with no mesh: the tokens bit for
+        # bit, the logits (each decode_step call's, recorded) within the
+        # bf16 band; the no-mesh step traced product by product against
+        # the same product on each strip's rows of its inputs
+        state = {n: server.state.device_view(n) for n in server.state.names}
+        state["active"].fill_(1)
+        aux = {"weights": weights.device_views()}
+        seen = []
+        decode = model.decode_step
+
+        def recorded(*args, **kwargs):
+            out = decode(*args, **kwargs)
+            seen.append(out[0])
+            return out
+
+        tracing, table = rows_trace(4, 2)
+        model.decode_step = recorded
+        try:
+            with _compiling_under(app.mesh):
+                got = step.apply({n: v.clone() for n, v in state.items()}, aux, None)
+            strips, seen[:] = torch.cat(seen), []
+            with _compiling_under(None), tracing:
+                want = step.apply({n: v.clone() for n, v in state.items()}, aux, None)
+            full = seen[0]
+        finally:
+            del model.decode_step
+        torch.cuda.synchronize()
+        gap = float((strips.float() - full.float()).abs().max())
+        scale = float(full.float().abs().max())
+        argmax_flips = int((strips.argmax(-1) != full.argmax(-1)).sum())
+        same = [n for n in got if torch.equal(got[n], want[n])]
+        differ = {k: v for k, v in table.items() if v[1]}
+        print(f"[mesh-lm] {smi}: {arch} DecodeStep of the server's state (4 slots, cache "
+              f"2048, positions {state['positions'].tolist()}) under the (1, 2) group against "
+              f"no mesh: tokens {got['token'].flatten().tolist()} / "
+              f"{want['token'].flatten().tolist()}, state leaves bit for bit {len(same)} of "
+              f"{len(got)}; logits max |strips - batch| {gap:.4e} = {gap / scale:.3e} x max "
+              f"|logit| ({scale:.3f}; band 2e-2), argmax flips {argmax_flips} of 4")
+        print(f"[mesh-lm] {arch} products of the no-mesh step against the same product on "
+              f"each 2-row strip of its inputs (calls, calls that differ, max |diff| / max "
+              f"|out|): {len(differ)} of {len(table)} kinds differ: "
+              + "; ".join(f"{k}: {v[0]}, {v[1]}, {v[2]:.3e}" for k, v in table.items()))
+        if not gap <= 2e-2 * scale or argmax_flips != int(
+                (got["token"] != want["token"]).sum()):
+            raise SystemExit(f"chip_smoke: [mesh-lm] {arch}: strip logits {gap:.4e} from the "
+                             f"full batch's, beyond 2e-2 x {scale:.3f}, or the tokens do not "
+                             "follow the logits")
+        if gap > 0 and not differ:
+            raise SystemExit(f"chip_smoke: [mesh-lm] {arch}: the strips' logits differ, but "
+                             "no product differs on a strip's rows")
+        del server, step, app, weights, aux, state, got, want, strips, full, seen, decode
+        gc.collect()
+        torch.cuda.empty_cache()
+        wall("after [mesh-lm] part 1 (qwen3-14b served over 2 strips)")
+
+        # -- 2. h2o-danube-1.8b trained over 2 data lanes ---------------------
+        arch = "h2o-danube-1.8b"
+        cfg = get_config(arch)
+        model = build_model(cfg)
+        stream = TokenStream(StreamConfig(vocab=cfg.vocab, seq=2048, batch=4, seed=0))
+        opt = AdamWConfig(schedule=Schedule(kind="constant", base_lr=1e-5, warmup_steps=0))
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)      # what earlier phases left on the card
+        t0 = time.perf_counter()
+        state = make_train_state(model, 0, device=dev)
+        proc = TrainProcess(model, TrainConfig(microbatches=2, opt=opt)).init(
+            state, stream.batch_at(0))
+        for i in range(2):
+            state, metrics = proc.launch(state, stream.batch_at(i))
+        torch.cuda.synchronize()
+        want_state = {k: v.cpu() for k, v in tree_flatten(state)}
+        want_metrics = {k: v.cpu() for k, v in metrics.items()}
+        one_s = time.perf_counter() - t0
+        peak_one = torch.cuda.max_memory_allocated(dev)
+        del proc, state, metrics
+        gc.collect()
+        torch.cuda.empty_cache()
+        check_fits(cfg, dev, lanes=2)
+        mesh = make_data_mesh([dev, dev])
+        tcfg = TrainerConfig(total_steps=2, log_every=1, train=TrainConfig(opt=opt))
+        trainer = Trainer(model, tcfg, mesh=mesh, log_fn=quiet)
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        placed = trainer.fit(stream, 0)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        counts = {k: v for k, v in launch_counts().items() if v}
+        peak = torch.cuda.max_memory_allocated(dev)
+        proc = trainer.process
+        per_step = per_step_launches(cfg)
+        want = {k: v * (1 + 2 * 2) for k, v in per_step.items()}
+        diffs = []
+        for name, s in tree_flatten(placed):
+            ref_leaf = want_state[name].to(dev)
+            diffs += [(name, k) for k, p in enumerate(s.pieces)
+                      if not torch.equal(p, ref_leaf[s.slices(k)])]
+        metric_diffs = [k for k, v in want_metrics.items()
+                        if not torch.equal(proc.metrics[k].cpu(), v)]
+        pieces = {k: sum(s.pieces[k].numel() * s.pieces[k].element_size()
+                         for _, s in tree_flatten(placed["opt"])) for k in range(2)}
+        replicas = {k: sum(s.pieces[k].numel() * s.pieces[k].element_size()
+                           for _, s in tree_flatten(placed["params"])) for k in range(2)}
+        print(f"[mesh-lm] {smi}: {arch} at full width over 2 data lanes on {dev} "
+              f"(Trainer(mesh=), batch 4 x 2048 on the TokenStream, AdamW lr 1e-5): 2 steps in "
+              f"{fit_s:.1f} s (init, warm-up and capture included; the one-lane "
+              f"TrainProcess(microbatches=2) took {one_s:.1f} s with its host copy); captures "
+              f"{proc.captures}, replays {proc.replays}; launches {counts} (expected {want}: "
+              "init's warm-up forward and backward of one lane, then each step's two lanes)")
+        print(f"[mesh-lm] {arch} after 2 steps against the one-lane microbatches=2 step: "
+              f"state pieces that differ {len(diffs)} of "
+              f"{sum(len(s.pieces) for _, s in tree_flatten(placed))} {diffs[:4]}; metrics "
+              f"that differ {metric_diffs} of {sorted(want_metrics)}")
+        if diffs or metric_diffs:
+            raise SystemExit(f"chip_smoke: [mesh-lm] {arch}: 2 lanes differ from the one-lane "
+                             "microbatches=2 step")
+        # the second lane adds what train_state_bytes counts for it (a
+        # parameter replica), within 1 GiB of transients (a leaf's f32
+        # copy, a new bf16 piece, the allocator's rounding); placing the
+        # state beside an unplaced one would add 14 bytes a parameter
+        counted = train_state_bytes(cfg, lanes=2)
+        growth = counted - train_state_bytes(cfg, microbatches=2)
+        print(f"[mesh-lm] {smi}: {arch} peak memory over the {base / 2**30:.2f} GiB that "
+              f"earlier phases left allocated: one lane, microbatches=2 "
+              f"{(peak_one - base) / 2**30:.2f} GiB (train_state_bytes "
+              f"{train_state_bytes(cfg, microbatches=2) / 2**30:.2f}); 2 lanes "
+              f"{(peak - base) / 2**30:.2f} GiB (train_state_bytes {counted / 2**30:.2f}, so "
+              f"{(peak - base - counted) / 2**30:.2f} GiB of activations and transients); "
+              f"growth {(peak - peak_one) / 2**30:.2f} GiB against the "
+              f"{growth / 2**30:.2f} GiB counted (+ 1 GiB)")
+        if base > 4 * 2**30:
+            raise SystemExit(f"chip_smoke: [mesh-lm] {base / 2**30:.2f} GiB of earlier phases "
+                             "still allocated before the training runs")
+        if peak - peak_one > growth + 2**30:
+            raise SystemExit(f"chip_smoke: [mesh-lm] {arch}: 2 lanes peak at "
+                             f"{peak / 2**30:.2f} GiB, {(peak - peak_one) / 2**30:.2f} GiB over "
+                             f"one lane's, beyond the {growth / 2**30:.2f} GiB counted + 1 GiB")
+        if (proc.captures, proc.replays) != (1, 2) or \
+                {k: counts.get(k, 0) for k in want} != want:
+            raise SystemExit(f"chip_smoke: [mesh-lm] {arch}: {proc.captures} captures, "
+                             f"{proc.replays} replays, launches {counts}; expected 1, 2 and "
+                             f"{want}")
+        add_counts(counts)
+        del want_state
+        losses = [loss for _, loss in trainer.history]
+        reset_launch_counts()
+        for i in (2, 3):
+            _, metrics = proc.launch(placed, stream.batch_at(i))
+            losses.append(float(metrics["loss"]))
+        step_ms = []
+        for i in range(3):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            proc.launch(placed, stream.batch_at(4 + i))
+            e1.record()
+            e1.synchronize()
+            step_ms.append(e0.elapsed_time(e1))
+        counts = {k: v for k, v in launch_counts().items() if v}
+        add_counts(counts)
+        p50 = statistics.median(step_ms)
+        specs = tree_flatten(model.param_specs())
+        flops, flops_txt = model_flops(cfg, specs, 4, 2048)
+        print(f"[mesh-lm] {smi}: {arch} 2 lanes, losses of steps 0-3 "
+              f"{', '.join(f'{x:.4f}' for x in losses)}; replayed step ms "
+              f"{', '.join(f'{t:.2f}' for t in step_ms)} (the batch's upload included); p50 "
+              f"{p50:.2f}; {4 * 2048 / p50 * 1e3:.0f} tokens/s; MFU "
+              f"{flops / (p50 * 1e-3) / peaks['bf16_tensor']:.4f} ({flops_txt}); each lane's "
+              f"parameter replica {replicas[0] / 1e9:.3f} / {replicas[1] / 1e9:.3f} GB and ZeRO-1 "
+              f"optimizer pieces (master, m, v, step) {pieces[0] / 1e9:.3f} / "
+              f"{pieces[1] / 1e9:.3f} GB")
+        if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+            raise SystemExit(f"chip_smoke: [mesh-lm] {arch}: the loss did not fall: {losses}")
+        del trainer, proc, placed, metrics
+        gc.collect()
+        torch.cuda.empty_cache()
+        wall("after [mesh-lm] part 2 (h2o-danube-1.8b over 2 lanes)")
+
+        # -- 3. lm-100m over 2 lanes: sharded save, restore, restart -----------
+        cfg = train_lm.lm_100m()
+        stream = TokenStream(StreamConfig(vocab=cfg.vocab, seq=256, batch=8, seed=0))
+        two = make_data_mesh([dev, dev])
+        reset_launch_counts()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_ckpt_") as d:
+            t0 = time.perf_counter()
+            sa = Trainer(build_model(cfg), train_lm.trainer_config(10, f"{d}/a", 4), mesh=two,
+                         log_fn=quiet).fit(stream, 0)
+            sb = Trainer(build_model(cfg), train_lm.trainer_config(10, f"{d}/b", 4), mesh=two,
+                         log_fn=quiet).fit_with_restarts(stream, 0, failure_schedule=[6])
+            restart_s = time.perf_counter() - t0
+            differ = [n for (n, x), (_, y) in zip(tree_flatten(sa), tree_flatten(sb))
+                      if not all(torch.equal(p, q) for p, q in zip(x.pieces, y.pieces))]
+            print(f"[mesh-lm] {smi}: lm-100m over 2 lanes, 10 steps with a failure at step 6 "
+                  f"(resumed on 2 lanes from the step-4 checkpoint) against 10 uninterrupted: "
+                  f"leaves whose pieces differ {len(differ)} of {len(tree_flatten(sa))} "
+                  f"({restart_s:.1f} s)")
+            if differ:
+                raise SystemExit(f"chip_smoke: [mesh-lm] the restarted run differs: {differ[:4]}")
+            prof = ProfileParameters(enable=True)
+            t0 = time.perf_counter()
+            save_checkpoint(f"{d}/sharded", 10, sa, sharded=True, profile=prof)
+            save_s = time.perf_counter() - t0
+            files = sorted(os.listdir(f"{d}/sharded/step_0000000010"))
+            like = make_train_state(build_model(cfg), 1, device=dev)
+            results = {}
+            for label, mesh in (("2 lanes", two), ("one lane", make_data_mesh([dev]))):
+                rprof = ProfileParameters(enable=True)
+                t0 = time.perf_counter()
+                back = restore_checkpoint(f"{d}/sharded", like, profile=rprof, shardings=to_named(
+                    state_pspecs(build_model(cfg), like), mesh))
+                torch.cuda.synchronize()
+                same = all(torch.equal(x.full(dev), y.full(dev))
+                           for (_, x), (_, y) in zip(tree_flatten(back), tree_flatten(sa)))
+                results[label] = (same, "gather" in rprof.phases, time.perf_counter() - t0)
+            print(f"[mesh-lm] {smi}: lm-100m sharded save from 2 lanes in {save_s:.2f} s "
+                  f"({', '.join(files)}; no gather: {'gather' not in prof.phases}); restored "
+                  + "; ".join(f"onto {k}: bit for bit {v[0]}, gather {v[1]}, {v[2]:.2f} s"
+                              for k, v in results.items()))
+            if 'gather' in prof.phases or results != {
+                    "2 lanes": (True, False, results["2 lanes"][2]),
+                    "one lane": (True, True, results["one lane"][2])}:
+                raise SystemExit(f"chip_smoke: [mesh-lm] lm-100m checkpoints: {results}")
+        add_counts({k: v for k, v in launch_counts().items() if v})
+        del sa, sb, back, like
+        gc.collect()
+        torch.cuda.empty_cache()
+        wall("after [mesh-lm] part 3 (lm-100m sharded save, restore, restart over 2 lanes)")
+
+        # -- 4. every visible card, where there are more than one ------------
+        cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        n = len(cards)
+        if n < 2 or 8 % n:            # lm-100m's 8 rows a lane a card
+            return
+        model = build_model(train_lm.lm_100m())
+        stream = TokenStream(StreamConfig(vocab=model.cfg.vocab, seq=256, batch=8, seed=0))
+        tcfg = train_lm.trainer_config(3, None)
+        want = Trainer(model, dataclasses.replace(tcfg, train=dataclasses.replace(
+            tcfg.train, microbatches=n)), device=dev, log_fn=quiet).fit(stream, 0)
+        got = Trainer(model, tcfg, mesh=make_data_mesh(cards), log_fn=quiet).fit(stream, 0)
+        differ = [k for (k, x), (_, y) in zip(tree_flatten(got), tree_flatten(want))
+                  if not torch.equal(x.full(dev), y)]
+        print(f"[mesh-lm] {smi}: lm-100m over {n} cards (a lane a card, eager steps): 3 steps "
+              f"bit for bit a one-card microbatches={n} run: {not differ} {differ[:4]}")
+        if differ:
+            raise SystemExit(f"chip_smoke: [mesh-lm] lm-100m over {n} cards differs: {differ}")
+        del want, got
+        if 4 % n == 0:
+            app, _, server, results, run_s, counts = serve(
+                build_model(get_config("qwen3-14b")), cards)
+            add_counts(counts)
+            flips, first = flips_of(results, strip_tokens)
+            bad = [i for i, r in enumerate(results) if len(r) != 32]
+            print(f"[mesh-lm] {smi}: qwen3-14b over a (data 1, model {n}) group of {n} cards "
+                  f"(a weights replica a card, strips copied, eager): "
+                  f"{sum(map(len, results)) / run_s:.2f} tokens/s, decode p50 "
+                  f"{statistics.median(server.decode_profile.samples) * 1e3:.3f} ms; requests "
+                  f"flipped against part 1's strips {sum(1 for f in flips if f)} of 10 (first "
+                  f"flips {first})")
+            if bad:
+                raise SystemExit(f"chip_smoke: [mesh-lm] qwen3-14b over {n} cards: requests "
+                                 f"{bad} lack 32 tokens")
+            del app, server
+            gc.collect()
+        wall(f"after [mesh-lm] part 4 ({n} cards)")
+
     train_kernels_phase()
     wall("after [train-kernels]")
     train_full_width("h2o-danube-1.8b")
@@ -3249,6 +3708,7 @@ def main() -> None:
         wall(f"after [train] {arch}")
     train_ckpt_phase()
     wall("after [train-ckpt]")
+    mesh_lm_phase()
     missing = [k for k in ("rmsnorm", "flash_attention", "rmsnorm_bwd", "flash_attention_bwd",
                            "wkv6", "wkv6_bwd") if not train_counts.get(k)]
     if missing:

@@ -4,7 +4,7 @@ equal (``sharded=True``) and the proportional split, with each card's idle
 share over a traced stream.
 
     python3 scripts/mesh_scaling.py [--cards 1 2 4] [--slices 48] [--batch 8]
-        [--mode fused_kernel] [--out PATH]
+        [--mode fused_kernel] [--lm ARCH] [--out PATH]
 
 Runs only on CUDA cards (on a machine with fewer cards it measures the
 counts it can).  For each card count: an app over the first N cards
@@ -16,6 +16,14 @@ window (a ``record_function`` span on the host) and its idle share.  Every
 output is held against the one-card stream's (bit for bit in the kernel
 mode, rtol 1e-6 under cuFFT).  Prints a line a cell and, with ``--out``,
 writes the cells as JSON there.
+
+``--lm ARCH`` also runs the LM stack over the same card counts, each card
+a lane (distinct cards: eager steps, cross-card copies between them): ARCH
+trained at full width at batch 4 x 2048 (``Trainer(mesh=)``, 2 steps, then
+the step ms of 3 more), its state and metrics held bit for bit against a
+one-card ``TrainProcess(microbatches=N)``; and ARCH served over a
+(data 1, model N) group (10 requests, 4 slots), its tokens held against
+the same group with every strip on card 0 and its decode p50 beside it.
 """
 from __future__ import annotations
 
@@ -61,6 +69,105 @@ def _busy(trace_path: str, n_cards: int):
     return busy, (t1 - t0) / 1e3
 
 
+def lm_cells(arch: str, counts, smi: str) -> list:
+    """The ``--lm`` cells: training and serving ``arch`` over 1, 2, 4 cards."""
+    import gc
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import CLapp, DeviceTraits
+    from repro_torch.core.arena import tree_flatten
+    from repro_torch.data.pipeline import StreamConfig, TokenStream
+    from repro_torch.launch.mesh import Mesh, make_data_mesh
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig, Schedule
+    from repro_torch.processes.lm import weights_data
+    from repro_torch.serve import LMServer, SamplingConfig
+    from repro_torch.train import (TrainConfig, Trainer, TrainerConfig, TrainProcess,
+                                   make_train_state)
+
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    stream = TokenStream(StreamConfig(vocab=cfg.vocab, seq=2048, batch=4, seed=0))
+    opt = AdamWConfig(schedule=Schedule(kind="constant", base_lr=1e-5, warmup_steps=0))
+    cuda = [torch.device("cuda", i) for i in range(max(counts))]
+    cells = []
+    for n in counts:
+        state = make_train_state(model, 0, device=cuda[0])
+        proc = TrainProcess(model, TrainConfig(microbatches=n, opt=opt)).init(
+            state, stream.batch_at(0))
+        for i in range(2):
+            state, metrics = proc.launch(state, stream.batch_at(i))
+        want = {k: v.cpu() for k, v in tree_flatten(state)}
+        want_metrics = {k: v.cpu() for k, v in metrics.items()}
+        del proc, state, metrics
+        gc.collect()
+        torch.cuda.empty_cache()
+        trainer = Trainer(model, TrainerConfig(total_steps=2, log_every=1,
+                                               train=TrainConfig(opt=opt)),
+                          mesh=make_data_mesh(cuda[:n]), log_fn=lambda _m: None)
+        placed = trainer.fit(stream, 0)
+        differ = [name for name, s in tree_flatten(placed) for k, p in enumerate(s.pieces)
+                  if not torch.equal(p.cpu(), want[name][s.slices(k)])]
+        differ += [k for k, v in want_metrics.items()
+                   if not torch.equal(trainer.process.metrics[k].cpu(), v)]
+        step_ms = []
+        for i in range(3):
+            for d in cuda[:n]:
+                torch.cuda.synchronize(d)
+            t0 = time.perf_counter()
+            trainer.process.launch(placed, stream.batch_at(2 + i))
+            for d in cuda[:n]:
+                torch.cuda.synchronize(d)
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        p50 = statistics.median(step_ms)
+        graphs = (trainer.process.captures, trainer.process.replays)
+        print(f"[mesh-scaling] {smi}: {arch} trained over {n} card(s) at 4 x 2048: step ms "
+              f"{', '.join(f'{t:.2f}' for t in step_ms)}, p50 {p50:.2f}, "
+              f"{4 * 2048 / p50 * 1e3:.0f} tokens/s; captures, replays {graphs}; state "
+              f"and metrics bit for bit the one-card microbatches={n} step: {not differ} "
+              f"{differ[:4]}")
+        cells.append({"lm": arch, "part": "train", "cards": n, "step_ms": step_ms,
+                      "p50_ms": p50, "captures_replays": graphs, "bit_for_bit": not differ})
+        del trainer, placed, want
+        gc.collect()
+        for d in cuda[:n]:
+            with torch.cuda.device(d):
+                torch.cuda.empty_cache()
+        if differ:
+            raise SystemExit(f"mesh_scaling: {arch} over {n} cards differs: {differ[:4]}")
+
+    def served(group):
+        app = CLapp().init(device_traits=DeviceTraits(count=1))
+        app.set_mesh(Mesh([group]))
+        weights, wcodec = weights_data(model.param_specs())
+        app.addData(weights)
+        model.init_params(torch.Generator(device=app.device).manual_seed(0),
+                          out=wcodec.unflatten(weights.device_views()))
+        server = LMServer(model, weights, batch=4, max_len=2048,
+                          sampling=SamplingConfig(max_new_tokens=32), app=app)
+        rng = np.random.default_rng(0)
+        for n in rng.integers(17, 1025, size=10):
+            server.submit(rng.integers(0, cfg.vocab, int(n)).tolist())
+        tokens = server.run()
+        return tokens, statistics.median(server.decode_profile.samples) * 1e3
+
+    for n in [c for c in counts if c > 1 and 4 % c == 0]:
+        want, one_p50 = served([cuda[0]] * n)
+        got, p50 = served(cuda[:n])
+        same = got == want
+        print(f"[mesh-scaling] {smi}: {arch} served over a (data 1, model {n}) group of {n} "
+              f"cards (strips copied to their card, a weights replica a card, eager): decode "
+              f"p50 {p50:.3f} ms against {one_p50:.3f} with every strip on card 0 (one graph); "
+              f"tokens equal {same}")
+        cells.append({"lm": arch, "part": "serve", "cards": n, "decode_p50_ms": p50,
+                      "one_card_p50_ms": one_p50, "tokens_equal": same})
+        gc.collect()
+        if not same:
+            raise SystemExit(f"mesh_scaling: {arch} served over {n} cards: tokens differ")
+    return cells
+
+
 def main(argv=None) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -71,6 +178,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--mode", default="fused_kernel",
                     choices=["staged", "fused", "fused_kernel"])
+    ap.add_argument("--lm", metavar="ARCH", help="also train and serve ARCH over the cards")
     ap.add_argument("--out", help="write the cells as JSON to this file")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -149,6 +257,8 @@ def main(argv=None) -> dict:
         del app, proc
         torch.cuda.empty_cache()
     tmp.cleanup()
+    if args.lm:
+        results += lm_cells(args.lm, [c for c in args.cards if c <= have], smi)
     report = {"cards": cards.splitlines(), "cells": results}
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

@@ -1,5 +1,5 @@
 """Arena-blob checkpoints: the paper's contiguous-layout idea applied to
-fault tolerance.  Mirrors ``repro/ckpt/checkpoint.py``, on one device.
+fault tolerance.  Mirrors ``repro/ckpt/checkpoint.py``.
 
 Two on-disk formats share one directory scheme (``step_NNNNNNNNNN/``), the
 JAX package's byte for byte:
@@ -12,20 +12,28 @@ JSON offset table (``layout.json``): one sequential write and read.
 ``sharded-v1``): a ``manifest.json`` naming every piece, committed LAST,
 so a partially written step is detectable: ``latest_step`` skips it and
 ``restore_checkpoint`` raises :class:`CheckpointCorruptError` naming the
-step and the missing piece.  On one device every leaf is whole, so, as
-the JAX package writes it on one device, every leaf goes to one
-``host.arena`` and the manifest lists no ``shard_NNNNN.arena``.  A
-checkpoint the JAX package wrote on a mesh of any shape (leaves cut into
-pieces over ``shard_*.arena`` files) restores here: each leaf is
-assembled on the host from its pieces (the ``"gather"`` profile phase).
-Writes from several devices and restores onto a mesh wait for the
-multi-GPU slice (``ROADMAP.md`` queue 1, item 6).
+step and the missing piece.  A whole leaf (a tensor, or a
+:class:`~repro_torch.launch.mesh.Sharded` leaf every position holds
+whole) goes to the one ``host.arena``; a leaf placed on a mesh in pieces
+writes each piece once (a piece two positions hold: the first position
+wins) into ``shard_NNNNN.arena``, ``NNNNN`` the writing position's place
+in the grid (row-major; the JAX package numbers its files in device-id
+order, and the port's mesh may name one device twice).  The manifest
+records the mesh's axes and shape.  Each package reads the other's.
+
+Restoring with ``shardings`` (a tree of
+:class:`~repro_torch.launch.mesh.Placement`, e.g. ``to_named(state_pspecs
+(...), mesh)``; or the placements of ``state_like``'s ``Sharded`` leaves)
+returns ``Sharded`` leaves: when every position's piece was saved as it
+is (the same mesh shape), each piece goes straight to its device; else
+the leaf is assembled on the host from its pieces (the ``"gather"``
+profile phase) and cut for the target: a restart onto another lane count.
 
 Saving copies each leaf from the device to the host first (synchronously:
 the caller may update the state in place right after), then writes;
 ``CheckpointManager`` writes on a worker thread, and a failed write is
-raised by the next ``wait()``.  Restored leaves are tensors on the device
-of the matching leaf of ``state_like``.
+raised by the next ``wait()``.  Without a placement, a restored leaf is a
+tensor on the device of the matching leaf of ``state_like``.
 """
 from __future__ import annotations
 
@@ -43,6 +51,7 @@ import torch
 from repro_torch.core.arena import (ArenaLayout, dtype_name, np_dtype, pack_host,
                                     pack_tree_host, torch_dtype, tree_flatten, tree_unflatten,
                                     unpack_host)
+from repro_torch.launch.mesh import Placement, Sharded, piece_index
 from repro_torch.models.common import tree_map
 
 _BLOB = "state.arena"
@@ -50,8 +59,6 @@ _META = "layout.json"
 _MANIFEST = "manifest.json"
 _HOST = "host.arena"
 _FORMAT = "sharded-v1"
-_MESH = ("restoring onto a mesh or writing from several devices waits for the "
-         "multi-GPU slice (ROADMAP.md queue 1, item 6)")
 
 
 class CheckpointCorruptError(RuntimeError):
@@ -75,6 +82,10 @@ def _step_dir(directory: str, step: int) -> str:
     return os.path.join(directory, f"step_{step:010d}")
 
 
+def _shard_file(k: int) -> str:
+    return f"shard_{k:05d}.arena"
+
+
 def _atomic_write(path: str, blob: np.ndarray) -> None:
     """A reader never sees a half-written blob under its final name (a
     crash leaves only ``*.tmp`` litter, reaped by :func:`cleanup`)."""
@@ -83,8 +94,10 @@ def _atomic_write(path: str, blob: np.ndarray) -> None:
 
 
 def _host_leaf(leaf: Any) -> Any:
-    """A leaf copied to the host: a CPU tensor (bfloat16 stays bfloat16),
-    or a numpy array."""
+    """A leaf copied to the host: a CPU tensor (bfloat16 stays bfloat16;
+    a ``Sharded`` leaf assembled from its pieces), or a numpy array."""
+    if isinstance(leaf, Sharded):
+        return leaf.full("cpu")
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().to("cpu", copy=True)
     return np.asarray(leaf)
@@ -98,27 +111,52 @@ def _index_slices(idx) -> Tuple[slice, ...]:
     return tuple(slice(a, b) for a, b in idx)
 
 
+def _index_key(idx) -> Tuple[Tuple[int, int], ...]:
+    return tuple((int(a), int(b)) for a, b in idx)
+
+
 # ---------------------------------------------------------------------------
 # save
 # ---------------------------------------------------------------------------
 
 def _sharded_save_plan(state: Any) -> Dict[str, Any]:
-    """Snapshot ``state`` for a sharded save: on one device every leaf is
-    whole, so each is one host entry (the JAX package's plan for a
-    single-device or fully replicated array)."""
+    """Snapshot ``state`` for a sharded save (the device-to-host copies
+    happen here, synchronously): a whole leaf is one host entry; a leaf
+    placed in pieces gives each unique piece to the first position that
+    holds it (the JAX package's plan)."""
     host_arrays: Dict[str, Any] = {}
     leaves_meta: List[Dict[str, Any]] = []
-    for name, leaf in tree_flatten(_host_state(state)):
-        host_arrays[name] = leaf
-        leaves_meta.append({"name": name, "shape": list(leaf.shape),
-                            "dtype": dtype_name(leaf.dtype), "placement": "host"})
-    return {"leaves": leaves_meta, "host": host_arrays}
+    shard_data: Dict[int, Dict[str, Any]] = {}
+    shard_pieces: Dict[int, List[Dict[str, Any]]] = {}
+    mesh_info = None
+    for name, leaf in tree_flatten(state):
+        if isinstance(leaf, Sharded) and not leaf.replicated:
+            if mesh_info is None:
+                mesh_info = {"axes": list(leaf.mesh.axis_names),
+                             "shape": [int(n) for n in leaf.mesh.devices.shape]}
+            for k in leaf.unique():
+                shard_data.setdefault(k, {})[name] = _host_leaf(leaf.pieces[k])
+                shard_pieces.setdefault(k, []).append({"name": name, "index": leaf.index(k)})
+            leaves_meta.append({"name": name, "shape": list(leaf.shape),
+                                "dtype": dtype_name(leaf.dtype), "placement": "sharded"})
+            continue
+        if isinstance(leaf, Sharded):
+            if mesh_info is None:
+                mesh_info = {"axes": list(leaf.mesh.axis_names),
+                             "shape": [int(n) for n in leaf.mesh.devices.shape]}
+            leaf = leaf.pieces[0]                # replicated: one host copy
+        host = _host_leaf(leaf)
+        host_arrays[name] = host
+        leaves_meta.append({"name": name, "shape": list(host.shape),
+                            "dtype": dtype_name(host.dtype), "placement": "host"})
+    return {"mesh": mesh_info, "leaves": leaves_meta, "host": host_arrays,
+            "shards": shard_data, "pieces": shard_pieces}
 
 
 def _write_sharded(directory: str, step: int, plan: Dict[str, Any],
                    keep_last: Optional[int], profile: Any = None) -> str:
-    """``host.arena``, then the manifest (no mesh, no shard files: one
-    device wrote it), committed last."""
+    """One ``shard_NNNNN.arena`` a writing grid position, ``host.arena``,
+    then the manifest, committed last."""
     os.makedirs(directory, exist_ok=True)
     final = _step_dir(directory, step)
     tmp = final + ".tmp"
@@ -126,14 +164,21 @@ def _write_sharded(directory: str, step: int, plan: Dict[str, Any],
         shutil.rmtree(tmp)
     os.makedirs(tmp)
     t0 = time.perf_counter()
+    shard_entries = []
+    for k in sorted(plan["shards"]):
+        blob, layout = pack_host(plan["shards"][k])
+        _atomic_write(os.path.join(tmp, _shard_file(k)), blob)
+        shard_entries.append({"file": _shard_file(k), "bytes": int(blob.nbytes),
+                              "device_id": k, "layout": json.loads(layout.to_json()),
+                              "pieces": plan["pieces"][k]})
     host_entry = None
     if plan["host"]:
         hblob, hlayout = pack_host(plan["host"])
         _atomic_write(os.path.join(tmp, _HOST), hblob)
         host_entry = {"file": _HOST, "bytes": int(hblob.nbytes),
                       "layout": json.loads(hlayout.to_json())}
-    manifest = {"format": _FORMAT, "step": step, "mesh": None,
-                "leaves": plan["leaves"], "host": host_entry, "shards": []}
+    manifest = {"format": _FORMAT, "step": step, "mesh": plan["mesh"],
+                "leaves": plan["leaves"], "host": host_entry, "shards": shard_entries}
     mpath = os.path.join(tmp, _MANIFEST)
     with open(mpath + ".tmp", "w") as f:
         json.dump(manifest, f)
@@ -171,11 +216,13 @@ def _write_legacy(directory: str, step: int, host_state: Any,
 def save_checkpoint(directory: str, step: int, state: Any,
                     keep_last: Optional[int] = None, *,
                     sharded: bool = False, profile: Any = None) -> str:
-    """Atomic save of a nested dict of tensors (or numpy arrays); returns
-    the checkpoint's path.  ``sharded=False`` (legacy) copies every leaf
-    to the host (the ``"gather"`` profile phase) and writes one logical
-    arena blob; ``sharded=True`` writes the ``sharded-v1`` manifest
-    format, manifest last."""
+    """Atomic save of a nested dict of tensors, ``Sharded`` leaves (a
+    state placed on a mesh) or numpy arrays; returns the checkpoint's
+    path.  ``sharded=False`` (legacy) copies every leaf whole to the host
+    (the ``"gather"`` profile phase) and writes one logical arena blob;
+    ``sharded=True`` writes the ``sharded-v1`` manifest format (each
+    unique piece from the position that holds it, no gather), manifest
+    last."""
     if sharded:
         return _write_sharded(directory, step, _sharded_save_plan(state), keep_last, profile)
     t0 = time.perf_counter()
@@ -251,16 +298,40 @@ def latest_step(directory: str) -> Optional[int]:
 # restore
 # ---------------------------------------------------------------------------
 
+def _host_tensor(arr: np.ndarray, dtype: str) -> torch.Tensor:
+    """Host bytes of ``dtype`` as a CPU tensor (a copy; 0-d stays 0-d)."""
+    a = np.array(arr, order="C")
+    if torch_dtype(dtype) == torch.bfloat16:
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
 def _as_tensor(arr: np.ndarray, dtype: str, like: Any) -> torch.Tensor:
     """A restored leaf (host bytes of ``dtype``) as a tensor on the device
     of ``like`` (the CPU when it is no tensor)."""
-    a = np.array(arr, order="C")                     # a copy; 0-d stays 0-d
-    if torch_dtype(dtype) == torch.bfloat16:
-        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
-    else:
-        t = torch.from_numpy(a)
     device = like.device if isinstance(like, torch.Tensor) else "cpu"
-    return t.to(device)
+    return _host_tensor(arr, dtype).to(device)
+
+
+def _placements(state_like: Any, shardings: Any) -> Dict[str, Optional[Placement]]:
+    """Each leaf's target placement: from ``shardings`` (a tree of
+    ``Placement`` or None laid out as ``state_like``), else a ``Sharded``
+    leaf's own."""
+    flat = tree_flatten(state_like)
+    if shardings is not None:
+        given = dict(tree_flatten(shardings))
+        if set(given) != {n for n, _ in flat}:
+            raise ValueError(f"shardings tree has {len(given)} leaves, state has {len(flat)}")
+        return given
+    return {n: (leaf.placement if isinstance(leaf, Sharded) else None) for n, leaf in flat}
+
+
+def _placed(arr: np.ndarray, dtype: str, like: Any, target: Optional[Placement]) -> Any:
+    """A whole restored leaf on the device of ``like``, or cut for
+    ``target``."""
+    if target is None:
+        return _as_tensor(arr, dtype, like)
+    return Sharded.place(_host_tensor(arr, dtype), target)
 
 
 def _check_shape(name: str, shape, like: Any) -> None:
@@ -268,7 +339,7 @@ def _check_shape(name: str, shape, like: Any) -> None:
         raise ValueError(f"{name}: ckpt shape {tuple(shape)} != state {tuple(np.shape(like))}")
 
 
-def _restore_legacy(path: str, step: int, state_like: Any) -> Any:
+def _restore_legacy(path: str, step: int, state_like: Any, shardings: Any) -> Any:
     meta = os.path.join(path, _META)
     if not os.path.exists(meta):
         raise CheckpointCorruptError(step, _META)
@@ -282,17 +353,19 @@ def _restore_legacy(path: str, step: int, state_like: Any) -> Any:
         raise CheckpointCorruptError(
             step, _BLOB, f"truncated: {blob.nbytes} of {layout.total_bytes} bytes")
     named = unpack_host(blob, layout)
+    targets = _placements(state_like, shardings)
     out = {}
     for name, like in tree_flatten(state_like):
         if name not in layout.names:
             raise CheckpointCorruptError(step, f"leaf {name!r}", "not in checkpoint layout")
         arr = named[name]
         _check_shape(name, arr.shape, like)
-        out[name] = _as_tensor(arr, layout.entry(name).dtype, like)
+        out[name] = _placed(arr, layout.entry(name).dtype, like, targets[name])
     return tree_unflatten(out.items())
 
 
-def _restore_sharded(path: str, step: int, state_like: Any, profile: Any) -> Any:
+def _restore_sharded(path: str, step: int, state_like: Any, shardings: Any,
+                     profile: Any) -> Any:
     with open(os.path.join(path, _MANIFEST)) as f:
         manifest = json.load(f)
     missing = _manifest_missing(path, manifest)
@@ -314,6 +387,7 @@ def _restore_sharded(path: str, step: int, state_like: Any, profile: Any) -> Any
         for p in se["pieces"]:
             pieces.setdefault(p["name"], []).append((p["index"], se))
     leaf_meta = {m["name"]: m for m in manifest["leaves"]}
+    targets = _placements(state_like, shardings)
 
     out = {}
     t_gather = 0.0
@@ -322,22 +396,38 @@ def _restore_sharded(path: str, step: int, state_like: Any, profile: Any) -> Any
         if meta is None:
             raise CheckpointCorruptError(step, f"leaf {name!r}", "not in manifest")
         _check_shape(name, meta["shape"], like)
+        target = targets[name]
         if meta["placement"] == "host":
             arr = host_named.get(name)
             if arr is None:
                 raise CheckpointCorruptError(step, f"leaf {name!r}", "not in host arena")
-        else:
-            plist = pieces.get(name, [])
-            if not plist:
-                raise CheckpointCorruptError(step, f"leaf {name!r}",
-                                             "no shard pieces in manifest")
-            # the pieces a mesh wrote, assembled into the logical array
-            t0 = time.perf_counter()
-            arr = np.zeros(tuple(meta["shape"]), np_dtype(meta["dtype"]))
-            for idx, se in plist:
-                arr[_index_slices(idx)] = named_of(se)[name]
-            t_gather += time.perf_counter() - t0
-        out[name] = _as_tensor(arr, meta["dtype"], like)
+            out[name] = _placed(arr, meta["dtype"], like, target)
+            continue
+        plist = pieces.get(name, [])
+        if not plist:
+            raise CheckpointCorruptError(step, f"leaf {name!r}",
+                                         "no shard pieces in manifest")
+        if target is not None:
+            # every target position's piece saved as it is: each goes
+            # straight to its device, no logical array on the host
+            by_idx = {_index_key(idx): se for idx, se in plist}
+            shape = tuple(meta["shape"])
+            wanted = [_index_key(piece_index(shape, target.spec, target.mesh, k))
+                      for k in range(target.mesh.devices.size)]
+            if all(key in by_idx for key in wanted):
+                devs = target.mesh.devices.flat
+                out[name] = Sharded(target, shape, [
+                    _host_tensor(named_of(by_idx[key])[name], meta["dtype"]).to(devs[k])
+                    for k, key in enumerate(wanted)])
+                continue
+        # the pieces assembled into the logical array on the host (another
+        # mesh shape, or no placement)
+        t0 = time.perf_counter()
+        arr = np.zeros(tuple(meta["shape"]), np_dtype(meta["dtype"]))
+        for idx, se in plist:
+            arr[_index_slices(idx)] = named_of(se)[name]
+        t_gather += time.perf_counter() - t0
+        out[name] = _placed(arr, meta["dtype"], like, target)
     if t_gather and profile is not None and getattr(profile, "enable", False):
         profile.record_phase("gather", t_gather)
     return tree_unflatten(out.items())
@@ -346,13 +436,15 @@ def _restore_sharded(path: str, step: int, state_like: Any, profile: Any) -> Any
 def restore_checkpoint(directory: str, state_like: Any, step: Optional[int] = None,
                        shardings: Any = None, *, profile: Any = None) -> Any:
     """Restore a checkpoint of either format (written by either package)
-    into a nested dict laid out as ``state_like``, each leaf on the device
-    of ``state_like``'s.  ``step`` defaults to :func:`latest_step`.  Torn
-    checkpoints raise :class:`CheckpointCorruptError` naming the step and
-    the missing piece; a leaf whose shape differs from ``state_like``'s
-    raises ``ValueError``.  ``shardings`` (a mesh's) is refused."""
-    if shardings is not None:
-        raise NotImplementedError(_MESH)
+    into a nested dict laid out as ``state_like``.  ``step`` defaults to
+    :func:`latest_step`.  A leaf with a target placement (``shardings``,
+    a tree of ``Placement``; or ``state_like``'s ``Sharded`` leaf) comes
+    back ``Sharded``: piece by piece when the checkpoint holds the
+    target's pieces, else assembled on the host and cut (the ``"gather"``
+    phase); any other leaf is a tensor on the device of ``state_like``'s.
+    Torn checkpoints raise :class:`CheckpointCorruptError` naming the step
+    and the missing piece; a leaf whose shape differs from
+    ``state_like``'s raises ``ValueError``."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -361,8 +453,8 @@ def restore_checkpoint(directory: str, state_like: Any, step: Optional[int] = No
     if not os.path.isdir(path):
         raise FileNotFoundError(f"{directory} has no checkpoint for step {step}")
     if os.path.exists(os.path.join(path, _MANIFEST)):
-        return _restore_sharded(path, step, state_like, profile)
-    return _restore_legacy(path, step, state_like)
+        return _restore_sharded(path, step, state_like, shardings, profile)
+    return _restore_legacy(path, step, state_like, shardings)
 
 
 def cleanup(directory: str, keep_last: int) -> None:
@@ -381,8 +473,9 @@ def cleanup(directory: str, keep_last: int) -> None:
 
 class CheckpointManager:
     """Asynchronous checkpoints for the train loop: ``maybe_save`` copies
-    the state to the host synchronously (the loop may update it in place
-    right after) and writes on a worker thread; a failed write is raised
+    the state to the host synchronously (each unique piece of a state on
+    a mesh with ``sharded=True``; the loop may update it in place right
+    after) and writes on a worker thread; a failed write is raised
     by the next ``wait()`` (or ``maybe_save``, which waits first)."""
 
     def __init__(self, directory: str, interval: int = 100, keep_last: int = 3,

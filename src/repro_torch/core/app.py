@@ -186,15 +186,8 @@ class CLapp:
         present raises :class:`NoMatchingDeviceError`: nothing runs on
         another device in its place."""
         if mesh is not None:
-            for d in mesh.device_set:
-                if d.type == "cuda" and (not torch.cuda.is_available() or (
-                        d.index or 0) >= torch.cuda.device_count()):
-                    raise NoMatchingDeviceError(
-                        f"the mesh names {d}, which is not present "
-                        f"({torch.cuda.device_count() if torch.cuda.is_available() else 0} "
-                        "CUDA device(s) found)")
-                if d.type not in ("cuda", "cpu"):
-                    raise NoMatchingDeviceError(f"no devices for platform {d.type!r}")
+            from repro_torch.launch.mesh import check_present
+            check_present(mesh)
         self._mesh = mesh
         self._mesh_explicit = mesh is not None
 

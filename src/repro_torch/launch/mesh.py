@@ -37,33 +37,25 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-_PRODUCTION = ("a production mesh waits for the training half of the multi-GPU slice "
-               "(ROADMAP.md queue 1, item 6)")
-
-
 class Mesh:
-    """A ``(data, model)`` grid of ``torch.device`` s with axis names.
+    """A ``(data, model)`` (or ``(pod, data, model)``) grid of
+    ``torch.device`` s with axis names.
 
-    ``devices`` is the grid as an object array of shape ``(data, model)``;
-    ``shape`` maps each axis name to its size, as a JAX mesh's does.
-    Row ``j`` (:attr:`groups`) is lane ``j``: the model group that runs one
-    share of a streamed batch.  Two meshes are equal when their axis names
-    and device grids are."""
+    ``devices`` is the grid as an object array, one axis a name; ``shape``
+    maps each axis name to its size, as a JAX mesh's does.  Each row over
+    the last (``model``) axis (:attr:`groups`) is a lane: the model group
+    that runs one share of a streamed batch or one data-parallel slice of
+    a training batch.  Two meshes are equal when their axis names and
+    device grids are."""
 
-    def __init__(self, devices: Sequence[Sequence[Any]],
-                 axis_names: Tuple[str, str] = ("data", "model")):
-        rows = [tuple(torch.device(d) for d in row) for row in devices]
-        if not rows or not rows[0]:
-            raise ValueError("cannot build a mesh over zero devices")
-        if any(len(r) != len(rows[0]) for r in rows):
-            raise ValueError("mesh rows must all hold the same number of devices")
-        if len(tuple(axis_names)) != 2:
-            raise ValueError(f"a mesh has two axes (data, model), got {axis_names!r}")
-        self.axis_names = tuple(axis_names)
-        self.devices = np.empty((len(rows), len(rows[0])), dtype=object)
-        for j, row in enumerate(rows):
-            for i, d in enumerate(row):
-                self.devices[j, i] = d
+    def __init__(self, devices: Sequence[Any],
+                 axis_names: Tuple[str, ...] = ("data", "model")):
+        axis_names = tuple(axis_names)
+        if len(axis_names) not in (2, 3):
+            raise ValueError(f"a mesh has two axes (data, model) or three (pod, data, model), "
+                             f"got {axis_names!r}")
+        self.axis_names = axis_names
+        self.devices = _grid(devices, len(axis_names))
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -71,8 +63,10 @@ class Mesh:
 
     @property
     def groups(self) -> Tuple[Tuple[torch.device, ...], ...]:
-        """The rows of the grid: one model group (lane) each."""
-        return tuple(tuple(row) for row in self.devices)
+        """The rows of the grid over its last axis: one model group (lane)
+        each, in row-major order."""
+        rows = self.devices.reshape(-1, self.devices.shape[-1])
+        return tuple(tuple(row) for row in rows)
 
     @property
     def device_list(self) -> List[torch.device]:
@@ -97,9 +91,48 @@ class Mesh:
         return f"Mesh({self.shape}, {[str(d) for d in self.devices.flat]})"
 
 
+def _grid(devices: Sequence[Any], ndim: int) -> np.ndarray:
+    """Nested rows of devices as an object array of ``ndim`` axes."""
+    grid = np.array(devices, dtype=object)
+    if grid.size == 0:
+        raise ValueError("cannot build a mesh over zero devices")
+    if grid.ndim != ndim:
+        raise ValueError("mesh rows must all hold the same number of devices")
+    for idx in np.ndindex(grid.shape):
+        grid[idx] = torch.device(grid[idx])
+    return grid
+
+
+def check_present(mesh: Mesh) -> None:
+    """Raise :class:`~repro_torch.core.app.NoMatchingDeviceError` when the
+    mesh names a CUDA device that is not present (or a platform that is
+    neither the CPU nor CUDA): nothing runs on another device in its place."""
+    from repro_torch.core.app import NoMatchingDeviceError   # lazy: no cycle
+    for d in mesh.device_set:
+        if d.type == "cuda" and (not torch.cuda.is_available() or (
+                d.index or 0) >= torch.cuda.device_count()):
+            raise NoMatchingDeviceError(
+                f"the mesh names {d}, which is not present "
+                f"({torch.cuda.device_count() if torch.cuda.is_available() else 0} "
+                "CUDA device(s) found)")
+        if d.type not in ("cuda", "cpu"):
+            raise NoMatchingDeviceError(f"no devices for platform {d.type!r}")
+
+
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
-    """The JAX package's 16x16 (or 2x16x16) training mesh: not ported yet."""
-    raise NotImplementedError(_PRODUCTION)
+    """The JAX package's training mesh over the visible cards: ``(data
+    16, model 16)``, or ``(pod 2, data 16, model 16)`` with
+    ``multi_pod``.  Fewer cards than the mesh holds raise, naming both
+    counts, as ``jax.make_mesh`` does."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    need = int(np.prod(shape))
+    have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if have < need:
+        raise RuntimeError(f"the production mesh {dict(zip(axes, shape))} needs {need} CUDA "
+                           f"devices; {have} found")
+    devices = np.array([torch.device("cuda", i) for i in range(need)], dtype=object)
+    return Mesh(devices.reshape(shape), axes)
 
 
 def make_data_mesh(devices: Sequence[Any], axis_names: Tuple[str, str] = ("data", "model"),
@@ -164,6 +197,131 @@ class Placement:
     @property
     def device_set(self) -> set:
         return self.mesh.device_set
+
+
+def resolve_spec(spec: Sequence[Any], mesh: Mesh) -> Tuple[Any, ...]:
+    """``spec`` with the axes ``mesh`` lacks dropped (an entry left with
+    none replicates; trailing replicated entries go): the JAX package's
+    ``resolve_spec``, so one spec serves a (data, model) and a (pod, data,
+    model) mesh."""
+    out: List[Any] = []
+    for e in spec:
+        if isinstance(e, (tuple, list)):
+            keep = tuple(a for a in e if a in mesh.axis_names)
+            # one axis left: its name, as a JAX PartitionSpec normalizes it
+            out.append(keep if len(keep) > 1 else (keep[0] if keep else None))
+        else:
+            out.append(e if e in mesh.axis_names else None)
+    while out and out[-1] is None:
+        out.pop()
+    return tuple(out)
+
+
+def piece_index(shape: Sequence[int], spec: Sequence[Any], mesh: Mesh,
+                position: int) -> List[List[int]]:
+    """``[[start, stop], ...]`` a dim: the piece of a ``shape`` array that
+    grid position ``position`` (row-major) holds under ``spec``.  A dim
+    split over several axes is cut row-major over them, as a JAX
+    ``NamedSharding`` cuts it; a dim the axes do not divide raises."""
+    coords = dict(zip(mesh.axis_names, np.unravel_index(position, mesh.devices.shape)))
+    spec = resolve_spec(spec, mesh)
+    out = []
+    for d, size in enumerate(shape):
+        e = spec[d] if d < len(spec) else None
+        axes = () if e is None else ((e,) if isinstance(e, str) else tuple(e))
+        parts, k = 1, 0
+        for a in axes:
+            parts, k = parts * mesh.shape[a], k * mesh.shape[a] + int(coords[a])
+        if size % parts:
+            raise ValueError(f"dim {d} of size {size} does not split into {parts} pieces "
+                             f"over {axes}")
+        n = size // parts
+        out.append([k * n, (k + 1) * n])
+    return out
+
+
+def _slices(index: Sequence[Sequence[int]]) -> Tuple[slice, ...]:
+    return tuple(slice(a, b) for a, b in index)
+
+
+class Sharded:
+    """A leaf placed on a mesh: its :class:`Placement`, logical shape, and
+    one piece a grid position (row-major), each a tensor on that
+    position's device holding :meth:`index` of the logical array.  A
+    replicated dim gives every position the whole dim, so each position
+    owns a copy (two lanes on one card hold two).  The port's counterpart
+    of a JAX array under a ``NamedSharding``."""
+
+    def __init__(self, placement: Placement, shape: Sequence[int],
+                 pieces: Sequence[torch.Tensor]):
+        if len(pieces) != placement.mesh.devices.size:
+            raise ValueError(f"{len(pieces)} pieces for a mesh of "
+                             f"{placement.mesh.devices.size} positions")
+        self.placement = placement
+        self.shape = tuple(int(n) for n in shape)
+        self.pieces = list(pieces)
+
+    @property
+    def mesh(self) -> Mesh:
+        return self.placement.mesh
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.pieces[0].dtype
+
+    def index(self, position: int) -> List[List[int]]:
+        return piece_index(self.shape, self.placement.spec, self.mesh, position)
+
+    def slices(self, position: int) -> Tuple[slice, ...]:
+        return _slices(self.index(position))
+
+    @property
+    def replicated(self) -> bool:
+        """Whether every position holds the whole array."""
+        return all(a == 0 and b == n for k in range(len(self.pieces))
+                   for (a, b), n in zip(self.index(k), self.shape))
+
+    def unique(self) -> List[int]:
+        """The positions that hold a piece no earlier position holds
+        (replicated pieces: first position wins)."""
+        seen, out = set(), []
+        for k in range(len(self.pieces)):
+            key = tuple(map(tuple, self.index(k)))
+            if key not in seen:
+                seen.add(key)
+                out.append(k)
+        return out
+
+    def full(self, device: Any = "cpu") -> torch.Tensor:
+        """The logical array, assembled on ``device`` from the pieces."""
+        out = torch.empty(self.shape, dtype=self.dtype, device=device)
+        for k in self.unique():
+            out[self.slices(k)].copy_(self.pieces[k])
+        return out
+
+    @classmethod
+    def place(cls, x: torch.Tensor, placement: Placement) -> "Sharded":
+        """Cut ``x`` into the pieces ``placement`` gives each position and
+        copy each to its device."""
+        mesh = placement.mesh
+        pieces = [x[_slices(piece_index(x.shape, placement.spec, mesh, k))]
+                  .to(mesh.devices.flat[k], copy=True).contiguous()
+                  for k in range(mesh.devices.size)]
+        return cls(placement, x.shape, pieces)
+
+    @classmethod
+    def zeros(cls, shape: Sequence[int], dtype: torch.dtype, placement: Placement) -> "Sharded":
+        """Zeros of ``shape`` placed by ``placement``, each piece made on
+        its device (no logical array anywhere)."""
+        mesh = placement.mesh
+        pieces = [torch.zeros([b - a for a, b in piece_index(shape, placement.spec, mesh, k)],
+                              dtype=dtype, device=mesh.devices.flat[k])
+                  for k in range(mesh.devices.size)]
+        return cls(placement, shape, pieces)
+
+    def __repr__(self) -> str:
+        return (f"Sharded({self.shape}, {self.dtype}, spec={self.placement.spec}, "
+                f"mesh={self.mesh.shape})")
 
 
 def pinned_sharding(device: Any) -> Placement:

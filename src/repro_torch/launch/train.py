@@ -3,6 +3,7 @@
 
     python -m repro_torch.launch.train --arch h2o-danube-1.8b --scale full \\
         [--steps 6] [--batch 4] [--seq 2048] [--ckpt-dir DIR] [--compress-grads] [--cpu]
+        [--multi-pod]
     (with src/ on PYTHONPATH)
 
 Runs on the CUDA card (each step one replay of the captured step);
@@ -14,8 +15,9 @@ config that does not is refused with both sizes (qwen3-14b needs about
 237 GB), not cut down.  Every family trains: the decoder family (dense,
 moe, vlm), rwkv6-3b (ssm), zamba2-2.7b (hybrid) and whisper-large-v3
 (encdec: its batches carry ``max(8, seq // 2)`` frames a sample, as the
-reference's do); ``--multi-pod`` (a production mesh) waits for the
-multi-GPU slice.
+reference's do).  ``--multi-pod`` names the reference's multi-pod
+production mesh, (pod 2, data 16, model 16) over 512 cards; it is refused
+until training over a model axis lands (ROADMAP.md queue 1, item 6b).
 """
 from __future__ import annotations
 
@@ -33,22 +35,28 @@ from repro_torch.models.common import ArchConfig, tree_flatten
 from repro_torch.optim import AdamWConfig, Schedule
 from repro_torch.train import TrainConfig, Trainer, TrainerConfig
 
-def train_state_bytes(cfg: ArchConfig) -> int:
-    """Bytes of a train state of ``cfg`` on the device, from its parameter
-    specs (nothing allocated): the parameters and their gradients in the
-    parameter dtype, the f32 master, m and v."""
+def train_state_bytes(cfg: ArchConfig, lanes: int = 1, microbatches: int = 1) -> int:
+    """Bytes of a train state of ``cfg`` on the device at the step's peak,
+    from its parameter specs (nothing allocated): a parameter replica a
+    data lane on the one device (``lanes``), one lane's gradients in the
+    parameter dtype (the lanes and microbatches take turns), the f32
+    master, m and v (whole, or in the lanes' ZeRO-1 pieces), and the f32
+    sum of the parts' gradients where there are several parts."""
     total = 0
     for _, spec in tree_flatten(build_model(cfg).param_specs()):
         n = math.prod(spec.shape)
-        total += n * (2 * torch_dtype(spec.dtype).itemsize + 12)
+        total += n * ((lanes + 1) * torch_dtype(spec.dtype).itemsize + 12
+                      + (4 if lanes * microbatches > 1 else 0))
     return total
 
 
-def check_fits(cfg: ArchConfig, device: torch.device) -> None:
-    """Refuse a config whose train state exceeds the card's memory."""
+def check_fits(cfg: ArchConfig, device: torch.device, lanes: int = 1,
+               microbatches: int = 1) -> None:
+    """Refuse a config whose train state (of ``lanes`` data lanes on the
+    one device) exceeds the card's memory."""
     if device.type != "cuda":
         return
-    need = train_state_bytes(cfg)
+    need = train_state_bytes(cfg, lanes, microbatches)
     have = torch.cuda.get_device_properties(device).total_memory
     if need > have:
         raise RuntimeError(
@@ -75,12 +83,13 @@ def main(argv: Optional[list] = None) -> Trainer:
     ap.add_argument("--cpu", action="store_true", help="train on the CPU instead of the card")
     args = ap.parse_args(argv)
 
-    cfg = get_config(args.arch) if args.scale == "full" else get_smoke(args.arch)
     if args.multi_pod:
-        raise NotImplementedError("--multi-pod: a production mesh waits for the multi-GPU "
-                                  "slice (ROADMAP.md queue 1, item 6)")
+        raise NotImplementedError(
+            "--multi-pod trains on the (pod 2, data 16, model 16) production mesh, and training "
+            "over a mesh's model axis waits for ROADMAP.md queue 1, item 6b")
+    cfg = get_config(args.arch) if args.scale == "full" else get_smoke(args.arch)
     device = torch.device("cpu") if args.cpu else torch.device("cuda")
-    check_fits(cfg, device)
+    check_fits(cfg, device, microbatches=args.microbatches)
     model = build_model(cfg)
 
     kind = {"encdec": "encdec", "vlm": "vlm"}.get(cfg.family, "lm")

@@ -1,5 +1,5 @@
 """Shared model infrastructure of the port: the architecture config, the
-parameter-tree helpers and parameter init.
+parameter-tree helpers, the partition rules and parameter init.
 
 Parameters and caches are nested dicts of tensors, as the JAX package's
 pytrees.  :func:`tree_flatten` walks them in sorted key order (the order
@@ -10,12 +10,13 @@ port's arena layouts match the JAX package's entry for entry.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional
+import re
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.core.arena import torch_dtype, tree_flatten
+from repro_torch.core.arena import torch_dtype, tree_flatten, tree_unflatten
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,6 +102,57 @@ def tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
     return fn(tree)
+
+
+# ---------------------------------------------------------------------------
+# Partition rules (the JAX package's, with a tuple for its PartitionSpec)
+# ---------------------------------------------------------------------------
+# One (pod, data, model) vocabulary: parameters follow Megatron-style tensor
+# parallelism over ``model``, the batch shards over ``pod`` x ``data``, and
+# the optimizer state also over ``data`` (ZeRO-1).  A spec is a tuple with
+# one entry a dim: None (not split), an axis name, or a tuple of names.
+
+POD, DATA, MODEL = "pod", "data", "model"
+#: the batch shards over every data-parallel axis the mesh has
+BATCH_AXES = (POD, DATA)
+
+#: (path regex, spec) pairs; the first match wins
+Rules = List[Tuple[str, Tuple]]
+
+
+def spec_for(path: str, rules: Rules) -> Tuple:
+    for pat, spec in rules:
+        if re.search(pat, path):
+            return spec
+    return ()  # replicate by default (norms, biases, small tables)
+
+
+def tree_paths(tree: Any) -> Dict[str, Any]:
+    """``{keystr path: leaf}`` in the tree's flatten order."""
+    return dict(tree_flatten(tree))
+
+
+def partition_tree(tree: Any, rules: Rules) -> Any:
+    """The spec tree matching ``tree`` by the rule table (a leaf's spec
+    may not be longer than its rank)."""
+    specs = []
+    for name, leaf in tree_flatten(tree):
+        spec = spec_for(name, rules)
+        if len(spec) > len(tuple(leaf.shape)):
+            raise ValueError(f"{name}: spec {spec} too long for shape {tuple(leaf.shape)}")
+        specs.append((name, spec))
+    return tree_unflatten(specs)
+
+
+def zero1_spec(spec: Tuple, shape: Tuple[int, ...], data_axis: str = DATA) -> Tuple:
+    """ZeRO-1 sharding of an optimizer-state leaf: the parameter's spec
+    with ``data`` on its first unsplit dim that 16 divides."""
+    entries = list(spec) + [None] * (len(shape) - len(spec))
+    for i, (e, s) in enumerate(zip(entries, shape)):
+        if e is None and s % 16 == 0:  # divisibility by the data axis size
+            entries[i] = data_axis
+            return tuple(entries)
+    return tuple(entries)
 
 
 # ---------------------------------------------------------------------------

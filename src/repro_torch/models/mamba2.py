@@ -26,7 +26,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from .common import ArchConfig, alloc_tree, init_tree, tree_flatten
+from .common import MODEL, ArchConfig, Rules, alloc_tree, init_tree, tree_flatten
 from .layers import _spec as spec
 
 Params = Dict[str, Any]
@@ -221,3 +221,13 @@ def mamba2_step(p: Params, x: torch.Tensor, cfg: ArchConfig,
     state["ssm"].copy_(ssm)
     y = torch.einsum("bhpn,bn->bhp", ssm, Ct)             # (B, nh, hd)
     return _gated_out(p, y[:, None], z, xt[:, None], cfg), state
+
+
+def mamba2_partition_rules(prefix: str = "") -> Rules:
+    """The JAX package's rule table of one Mamba2 layer."""
+    return [
+        (prefix + r"in_proj", (None, MODEL)),
+        (prefix + r"conv_w|conv_b", ()),
+        (prefix + r"out_proj", (MODEL, None)),
+        (prefix + r"A_log|dt_bias|norm_scale", ()),
+    ]

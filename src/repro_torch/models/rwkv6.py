@@ -28,8 +28,8 @@ import torch.nn.functional as F
 from repro_torch.kernels.wkv6 import wkv6
 from . import layers as L
 from .layers import _spec as spec
-from .common import (ArchConfig, alloc_tree, init_tree, remat_call, stacked, tree_flatten,
-                     tree_map, unstacked)
+from .common import (MODEL, ArchConfig, Rules, alloc_tree, init_tree, remat_call, stacked,
+                     tree_flatten, tree_map, unstacked)
 
 Params = Dict[str, Any]
 
@@ -228,3 +228,23 @@ class RWKV6Model:
                                       self.hidden_states(params, batch["tokens"]), self.cfg)
         loss = L.cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
         return loss, {"loss": loss}
+
+    def partition_rules(self) -> Rules:
+        """The JAX package's rule table."""
+        lay: Rules = [
+            (r"tm.*tm_w1|tm.*td_w1", (None, MODEL)),
+            (r"tm.*tm_w2", (None, None, MODEL)),
+            (r"tm.*td_w2", (MODEL, None)),
+            (r"tm.*w_r|tm.*w_k|tm.*w_v|tm.*w_g", (None, MODEL)),
+            (r"tm.*w_o", (MODEL, None)),
+            (r"tm.*'u'", (MODEL, None)),
+            (r"cm.*w_k", (None, MODEL)),
+            (r"cm.*w_v", (MODEL, None)),
+            (r"cm.*w_r", (None, MODEL)),
+        ]
+        rules: Rules = [
+            (r"embed.*embedding", (MODEL, None)),
+            (r"embed.*unembed", (None, MODEL)),
+        ]
+        rules += [(rf"layers.*(?:{pat})", (None,) + spec) for pat, spec in lay]
+        return rules

@@ -20,8 +20,8 @@ import torch
 from . import layers as L
 from . import mla as MLA
 from . import moe as MOE
-from .common import (ArchConfig, alloc_tree, init_tree, remat_call, stacked, tree_flatten,
-                     tree_map, unstacked)
+from .common import (MODEL, ArchConfig, Rules, alloc_tree, init_tree, remat_call, stacked,
+                     tree_flatten, tree_map, unstacked)
 
 Params = Dict[str, Any]
 
@@ -217,3 +217,35 @@ class DecoderLM:
         loss = L.cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
         total = loss + aux["moe_aux_loss"] if "moe_aux_loss" in aux else loss
         return total, {"loss": loss, **aux}
+
+    # ------------------------------------------------------------ sharding
+    def partition_rules(self) -> Rules:
+        """The JAX package's rule table: Megatron-style tensor parallelism
+        over ``model`` (experts over ``model`` for MoE)."""
+        base: Rules = [
+            (r"embed.*embedding", (MODEL, None)),
+            (r"embed.*unembed", (None, MODEL)),
+        ]
+        layer: Rules = [
+            # MLA
+            (r"attn.*w_uk|attn.*w_uv", (None, MODEL, None)),
+            (r"attn.*w_dkv|attn.*w_kr", ()),
+            # GQA + MLA share w_q/w_o shapes
+            (r"attn.*w_q|attn.*w_k|attn.*w_v", (None, MODEL)),
+            (r"attn.*b_q|attn.*b_k|attn.*b_v", (MODEL,)),
+            (r"attn.*w_o", (MODEL, None)),
+            # MoE: experts over model (EP)
+            (r"moe.*router", ()),
+            (r"moe.*w_gate|moe.*w_up|moe.*w_down", (MODEL, None, None)),
+            (r"moe.*shared.*w_gate|moe.*shared.*w_up", (None, MODEL)),
+            (r"moe.*shared.*w_down", (MODEL, None)),
+            # dense MLP
+            (r"mlp.*w_gate|mlp.*w_up", (None, MODEL)),
+            (r"mlp.*w_down", (MODEL, None)),
+            (r"mlp.*b_up", (MODEL,)),
+        ]
+        # shared-expert rules must win over the generic expert rules
+        layer.sort(key=lambda r: 0 if "shared" in r[0] else 1)
+        rules = base + [(rf"layers.*(?:{pat})", (None,) + spec) for pat, spec in layer]
+        rules += [(rf"layer0.*(?:{pat})", spec) for pat, spec in layer]
+        return rules

@@ -31,8 +31,8 @@ import torch
 
 from repro_torch.kernels import ref
 from . import layers as L
-from .common import (ArchConfig, alloc_tree, init_tree, remat_call, stacked, tree_flatten,
-                     tree_map, unstacked)
+from .common import (MODEL, ArchConfig, Rules, alloc_tree, init_tree, remat_call, stacked,
+                     tree_flatten, tree_map, unstacked)
 from .layers import _spec as spec
 
 Params = Dict[str, Any]
@@ -254,3 +254,21 @@ class WhisperModel:
             x = x + L.apply_mlp(p["mlp"], h, cfg)
         x = L.apply_norm(params["final_norm"], x, cfg)
         return L.logits_from_hidden(params["embed"], x, cfg), cache
+
+    def partition_rules(self) -> Rules:
+        """The JAX package's rule table."""
+        lay: Rules = [
+            (r"w_q|w_k|w_v", (None, MODEL)),
+            (r"b_q|b_k|b_v", (MODEL,)),
+            (r"w_o", (MODEL, None)),
+            (r"w_gate|w_up", (None, MODEL)),
+            (r"b_up", (MODEL,)),
+            (r"w_down", (MODEL, None)),
+        ]
+        rules: Rules = [
+            (r"embed.*embedding", (MODEL, None)),
+            (r"embed.*unembed", (None, MODEL)),
+            (r"pos_dec", ()),
+        ]
+        rules += [(rf"(enc|dec)_layers.*(?:{pat})", (None,) + spec) for pat, spec in lay]
+        return rules

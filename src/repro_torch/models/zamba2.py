@@ -29,7 +29,8 @@ import torch
 
 from . import layers as L
 from . import mamba2 as M2
-from .common import ArchConfig, alloc_tree, init_tree, remat_call, stacked, tree_map, unstacked
+from .common import (MODEL, ArchConfig, Rules, alloc_tree, init_tree, remat_call, stacked,
+                     tree_map, unstacked)
 from .transformer import DecoderLM
 
 Params = Dict[str, Any]
@@ -173,3 +174,18 @@ class Zamba2Model:
                                       self.hidden_states(params, batch["tokens"]), self.cfg)
         loss = L.cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
         return loss, {"loss": loss}
+
+    def partition_rules(self) -> Rules:
+        """The JAX package's rule table (the Mamba2 stack has two leading
+        stack dims: superblock, layer in the superblock)."""
+        rules: Rules = [
+            (r"embed.*embedding", (MODEL, None)),
+            (r"embed.*unembed", (None, MODEL)),
+            (r"shared.*w_q|shared.*w_k|shared.*w_v", (None, MODEL)),
+            (r"shared.*w_o", (MODEL, None)),
+            (r"shared.*w_gate|shared.*w_up", (None, MODEL)),
+            (r"shared.*w_down", (MODEL, None)),
+        ]
+        rules += [(rf"mamba_layers.*(?:{pat})", (None, None) + spec)
+                  for pat, spec in M2.mamba2_partition_rules()]
+        return rules

@@ -1,6 +1,8 @@
 """AdamW with f32 master weights and global-norm clipping, mirroring
-``repro/optim/adamw.py`` (the ZeRO-1 sharding there waits for the
-multi-GPU slice).
+``repro/optim/adamw.py``.  The step's scalars (:func:`adamw_scalars`) and
+each leaf's update (:func:`update_leaf`) are apart, so the mesh train step
+updates each lane's ZeRO-1 piece of a leaf with the whole gradient's
+scalars.
 
 State per parameter leaf: ``master``, ``m`` and ``v`` in f32; the step
 counter is a 0-d int32 tensor on the device.  The gradient arrives in the
@@ -59,10 +61,12 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sq)
 
 
-def _update_leaf(p, master, g, m, v, *, scale, lr, c1, c2, cfg: AdamWConfig) -> None:
-    """One leaf's update, in place, in slices of at most :data:`CHUNK`
-    elements (the arithmetic of each element is the reference's)."""
+def update_leaf(p, master, g, m, v, scalars: Dict[str, Any], cfg: AdamWConfig) -> None:
+    """One leaf's update by the step's ``scalars`` (:func:`adamw_scalars`),
+    in place, in slices of at most :data:`CHUNK` elements (the arithmetic
+    of each element is the reference's)."""
     b1, b2 = cfg.b1, cfg.b2
+    scale, lr, c1, c2 = (scalars[k] for k in ("scale", "lr", "c1", "c2"))
     n = master.numel()
     flat = [t.view(-1) for t in (p, master)] + [g.reshape(-1)] + [t.view(-1) for t in (m, v)]
     for i in range(0, n, CHUNK):
@@ -78,24 +82,30 @@ def _update_leaf(p, master, g, m, v, *, scale, lr, c1, c2, cfg: AdamWConfig) -> 
         pp.copy_(master_new)                     # cast to the parameter's dtype
 
 
+def adamw_scalars(step: torch.Tensor, grads, cfg: AdamWConfig) -> Dict[str, Any]:
+    """The step's scalars: the new step count, ``lr``, the global norm of
+    ``grads`` (before clipping), the clip ``scale`` and the bias
+    corrections ``c1``, ``c2``."""
+    step = step + 1
+    gnorm = global_norm(grads)
+    if cfg.clip_norm is not None:
+        scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
+    else:
+        scale = 1.0
+    stepf = step.to(torch.float32)
+    return {"step": step, "lr": cfg.schedule(step), "grad_norm": gnorm, "scale": scale,
+            "c1": 1.0 - torch.pow(cfg.b1, stepf), "c2": 1.0 - torch.pow(cfg.b2, stepf)}
+
+
 def adamw_update(params, grads, state, cfg: AdamWConfig) -> Tuple[Any, Dict[str, Any], Dict]:
     """One AdamW step; returns (params, state, metrics ``lr`` and
     ``grad_norm``, the norm before clipping).  ``params`` and ``state``
     are updated in place and returned."""
     with torch.no_grad():
-        step = state["step"] + 1
-        lr = cfg.schedule(step)
-        gnorm = global_norm(grads)
-        if cfg.clip_norm is not None:
-            scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
-        else:
-            scale = 1.0
-        stepf = step.to(torch.float32)
-        c1 = 1.0 - torch.pow(cfg.b1, stepf)
-        c2 = 1.0 - torch.pow(cfg.b2, stepf)
+        sc = adamw_scalars(state["step"], grads, cfg)
         trees = [dict(tree_flatten(t)) for t in
                  (params, state["master"], grads, state["m"], state["v"])]
         for name in trees[0]:
-            _update_leaf(*(t[name] for t in trees), scale=scale, lr=lr, c1=c1, c2=c2, cfg=cfg)
-        state["step"].copy_(step)
-    return params, state, {"lr": lr, "grad_norm": gnorm}
+            update_leaf(*(t[name] for t in trees), sc, cfg)
+        state["step"].copy_(sc["step"])
+    return params, state, {"lr": sc["lr"], "grad_norm": sc["grad_norm"]}

@@ -34,9 +34,22 @@ state layouts match the JAX package's entry for entry.
   ``enc`` edge is internal: planned device-resident, it is never uploaded
   or read back.
 
+* **slot strips**: launched under a mesh whose ``model`` axis m > 1
+  (``LOGICAL_AXES["slot"] = "model"``), :class:`DecodeStep` decodes the
+  B slots as m strips of B/m rows, strip i on device i of the mesh's
+  first model group, at the one ``pos = positions.max()`` of every slot
+  (the reference's exact ``pmax``).  A strip is rows [i B/m, (i+1) B/m)
+  of the one state, so :class:`CacheSplice` and :class:`SlotRelease`
+  write a slot into the strip that owns it.  Strips on the state's device
+  run on views of its arena and share its one weights Data (one graph
+  holds them all); a strip on another device runs on a copy of its rows
+  and a replica of the weights made once on that device, and its rows
+  are copied back (eager: a graph records one device's work).  Where the
+  axis is trivial, m does not divide B or a cache leaf's slot axis is not
+  known, the step is the one-device step, as the reference's is.
+
 Weights and the spliced row reach ``apply`` as secondary input ports (by
-port name in ``aux``), read live at each launch.  The mesh-partitioned
-step is a later slice of the port (ROADMAP).
+port name in ``aux``), read live at each launch.
 """
 from __future__ import annotations
 
@@ -49,7 +62,8 @@ from repro_torch.core.app import CLapp
 from repro_torch.core.arena import spec_dtype
 from repro_torch.core.data import Data, NDArray, TensorSpec
 from repro_torch.core.graph import Pipeline
-from repro_torch.core.process import Port, Process, ProfileParameters
+from repro_torch.core.process import Port, Process, ProfileParameters, current_compile_mesh
+from repro_torch.launch.mesh import mesh_axis, model_axis_size
 from repro_torch.models.common import tree_flatten, tree_map
 
 STATE_KEYS = ("token", "positions", "active")
@@ -310,29 +324,91 @@ class DecodeStep(_LMProcess):
     Decodes every row at ``pos = positions.max()`` (inactive rows keep
     re-feeding their last token; the per-slot positions in the cache mask
     stale entries), then advances only the active rows: the JAX package's
-    ``DecodeStep`` math."""
+    ``DecodeStep`` math.  Under a mesh whose ``model`` axis is larger than
+    1 the slots are decoded in strips, one a device of the first model
+    group (the module docstring); the tokens are the one-device step's."""
 
     ports = {"in": Port(names=STATE_KEYS), "out": Port(names=STATE_KEYS),
              "weights": Port(doc="flattened model parameters")}
 
-    def __init__(self, app, model, wcodec, ccodec, *, max_len: int):
+    def __init__(self, app, model, wcodec, ccodec, *, max_len: int,
+                 enc_len: Optional[int] = None):
         super().__init__(app, model, wcodec, ccodec, max_len=max_len, tag="decode_step")
+        self.enc_len = enc_len
+        #: weights copied to a strip device other than the state's, keyed
+        #: by device, with the address of the weights they copy
+        self._replicas: Dict[torch.device, Tuple[int, Any]] = {}
+        self._axes: Dict[int, Dict[str, Optional[int]]] = {}
 
     def out_specs(self, in_specs, aux_specs=None):
         return dict(in_specs)
 
-    def apply(self, views, aux, params, out=None):
-        state = _target(views, out)
+    def _slot_axes(self, b: int) -> Dict[str, Optional[int]]:
+        """The slot axis of each cache leaf of a ``b``-slot state: the one
+        axis on which the model's cache layout grows with the slot count
+        (None where that is not one axis, or an encoder-decoder's
+        ``enc_len`` is not known).  The reference guesses it instead (0
+        where the leading axis is ``b``, else 1 where the next is), which
+        agrees on every family but picks a stack axis of Zamba2's Mamba2
+        state when the superblock count or the layers a superblock equal
+        ``b`` (ROADMAP.md §3)."""
+        if b not in self._axes:
+            encdec = self.model.cfg.family == "encdec"
+            axes: Dict[str, Optional[int]] = {}
+            if not (encdec and self.enc_len is None):
+                extra = (self.enc_len,) if encdec else ()
+                one, two = (self.ccodec.flatten(self.model.cache_specs(n, self.max_len, *extra))
+                            for n in (b, b + 1))
+                for name, spec in one.items():
+                    diff = [i for i, (x, y) in enumerate(zip(spec.shape, two[name].shape))
+                            if x != y]
+                    axes[name] = diff[0] if len(diff) == 1 else None
+            self._axes[b] = axes
+        return self._axes[b]
+
+    def _step(self, w, state: Dict[str, torch.Tensor], pos) -> Dict[str, torch.Tensor]:
         token, positions, active = state["token"], state["positions"], state["active"]
-        pos = positions.max()
-        logits, cache = self.model.decode_step(self._weights(aux), token, pos,
-                                               self.ccodec.unflatten(state))
+        logits, cache = self.model.decode_step(w, token, pos, self.ccodec.unflatten(state))
         nxt = logits.argmax(dim=-1).to(torch.int32)               # (B, 1)
         token.copy_(torch.where(active[:, None] > 0, nxt, token))
         positions.add_(active)
-        # the models write their cache views in place; a leaf returned as
-        # other storage is copied into the arena by the launch (pack_device)
-        state.update(self.ccodec.flatten(cache))
+        return self.ccodec.flatten(cache)
+
+    def _weights_on(self, aux, device: torch.device):
+        """The weights tree on ``device``: the weights Data's own views on
+        its device, else a replica made once (again if the weights moved)."""
+        w = self._weights(aux)
+        first = next(iter(aux["weights"].values()))
+        if first.device == device:
+            return w
+        held = self._replicas.get(device)
+        if held is None or held[0] != first.data_ptr():
+            held = self._replicas[device] = (first.data_ptr(), tree_map(
+                lambda t: t.to(device, copy=True), w))
+        return held[1]
+
+    def apply(self, views, aux, params, out=None):
+        state = _target(views, out)
+        b = int(state["token"].shape[0])
+        mesh = current_compile_mesh()
+        m = model_axis_size(mesh) if mesh_axis("slot") == "model" else 1
+        axes = self._slot_axes(b) if m > 1 and b % m == 0 else {}
+        if any(axes.get(n) is None for n in state if n not in STATE_KEYS):
+            # the models write their cache views in place; a leaf returned
+            # as other storage is copied into the arena by the launch
+            state.update(self._step(self._weights(aux), state, state["positions"].max()))
+            return state
+        axes = {**axes, **{k: 0 for k in STATE_KEYS}}
+        pos = state["positions"].max()                  # over every slot: exact
+        rows = b // m
+        for i, dev in enumerate(mesh.groups[0]):
+            strip = {n: t.narrow(axes[n], i * rows, rows) for n, t in state.items()}
+            here = {n: (t if dev == t.device else t.to(dev)) for n, t in strip.items()}
+            new = self._step(self._weights_on(aux, dev), here, pos.to(dev))
+            for n, t in strip.items():
+                src = new.get(n, here[n])
+                if src.data_ptr() != t.data_ptr() or src.device != t.device:
+                    t.copy_(src)
         return state
 
 
@@ -361,10 +437,12 @@ def _splice_row(full: torch.Tensor, row: torch.Tensor, slot: int) -> torch.Tenso
 class CacheSplice(Process):
     """Continuous-batching admission: splice a single-row prefilled state
     (the ``row`` input, batch 1) into slot ``slot`` of the batched state,
-    in place.  ``slot`` is a launch parameter.  Never captured: it runs
-    once per admission, a few copy kernels, and on an H100 its capture
-    pays for itself only after 9-52 admissions of one slot
-    (``launch/lm_step_profile.py``), more than a server run usually makes."""
+    in place (under a mesh's model axis, into the decode strip that owns
+    the slot: its rows are the state's).  ``slot`` is a launch parameter.
+    Never captured: it runs once per admission, a few copy kernels, and on
+    an H100 its capture pays for itself only after 9-52 admissions of one
+    slot (``launch/lm_step_profile.py``), more than a server run usually
+    makes."""
 
     graphed = False
 
@@ -447,7 +525,7 @@ class DecodeSession:
                 app, model, self.wcodec, self.ccodec, max_len=max_len).bind(
                     infile="tokens", outfile=self.state_h, weights=self.weights_h)
         self.decode_pipe = Pipeline(app) | DecodeStep(
-            app, model, self.wcodec, self.ccodec, max_len=max_len).bind(
+            app, model, self.wcodec, self.ccodec, max_len=max_len, enc_len=enc_len).bind(
                 infile=self.state_h, outfile=self.state_h, weights=self.weights_h)
 
     def tokens(self) -> np.ndarray:

@@ -475,7 +475,8 @@ class LMServer:
                                                     np.float32)})
             self._frames_h = self.app.addData(self._frames, to_device=False)
         self.decode_pipe = Pipeline(self.app) | lmp.DecodeStep(
-            self.app, model, self._wcodec, self._ccodec, max_len=max_len).bind(
+            self.app, model, self._wcodec, self._ccodec, max_len=max_len,
+            enc_len=enc_len).bind(
                 infile=self.state_h, outfile=self.state_h, weights=self._weights_h)
         self.decode_pipe.build()
         self._prefill_pipes: Dict[int, Pipeline] = {}     # prompt length -> pipe

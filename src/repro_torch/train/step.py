@@ -1,6 +1,6 @@
 """Train-step factory: loss, gradient (microbatch accumulation), optional
 int8 error-feedback compression, clip and AdamW.  Mirrors
-``repro/train/step.py`` on one device.
+``repro/train/step.py``.
 
 ``make_train_step`` returns the step as a plain function, ``(state,
 batch) -> (state, metrics)``, that updates the state's tensors in place
@@ -8,26 +8,44 @@ batch) -> (state, metrics)``, that updates the state's tensors in place
 :class:`TrainProcess` is the paper's init/launch split at training scale:
 ``init()`` captures the whole step (forward, backward, clip, AdamW) into
 one CUDA graph, ``launch()`` copies the batch into the captured input and
-replays it.  The mesh specs (``state_pspecs``, ``batch_pspecs``,
-``to_named``) wait for the multi-GPU slice.
+replays it.
+
+On a mesh (``TrainProcess(mesh=)``, data parallel over the ``data`` axis,
+one process driving every lane as the JAX package's single controller
+does) the state's leaves are :class:`~repro_torch.launch.mesh.Sharded`:
+the parameters replicated, one copy a lane, and the optimizer's master,
+m, v (and the error-feedback buffer) cut into their ZeRO-1 pieces, one a
+lane (``state_pspecs`` / ``to_named`` / ``shard_state``, or
+``init_mesh_state`` leaf by leaf).  Each lane runs the forward and
+backward of its contiguous rows of the global batch; the lanes'
+gradients are reduced in f32 on the first lane's device in lane order by
+the one microbatch accumulation (``accumulate_grads``), so an L-lane
+step equals the one-lane step with ``microbatches=L`` bit for bit; each
+lane updates its pieces with the whole gradient's norm and scalars, and
+the new parameters are copied into every lane's replica.  The model axis
+of training (tensor parallelism by the partition rules) waits for
+ROADMAP.md queue 1, item 6b.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core import process as _process
 from repro_torch.core.arena import tree_flatten, tree_unflatten
+from repro_torch.core.data import TensorSpec
 from repro_torch.core.registry import add_launches, counting_into
-from repro_torch.models.common import tree_map
+from repro_torch.launch.mesh import (Mesh, Placement, Sharded, check_present, model_axis_size,
+                                     resolve_spec)
+from repro_torch.models.common import BATCH_AXES, partition_tree, tree_map, tree_paths, zero1_spec
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
-from repro_torch.optim.compress import ef_int8_compress
+from repro_torch.optim.adamw import adamw_scalars, update_leaf
 
-_MESH = ("mesh shardings of the train state wait for the multi-GPU slice "
-         "(ROADMAP.md queue 1, item 6)")
+_MODEL_AXIS = ("training over a mesh's model axis (tensor parallelism by the partition rules) "
+               "waits for ROADMAP.md queue 1, item 6b")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,59 +107,256 @@ def loss_and_grads(model, params, batch) -> Tuple[Dict[str, torch.Tensor], Dict[
             tree_unflatten((n, g) for (n, _), g in zip(flat, grads)))
 
 
+def _on(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    return t if t.device == device else t.to(device)
+
+
+def accumulate_grads(model, lanes, batch, microbatches: int = 1
+                     ) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
+    """(metrics, gradient) of the batch's mean loss over ``lanes``, a list
+    of (parameter tree, device), with ``batch`` on the first lane's
+    device.
+
+    Microbatch ``i`` is cut into one contiguous part a lane; the parts'
+    gradients are summed in f32 on the first lane's device, microbatch-
+    major and in lane order (each weighted by its lane's share of the
+    microbatch's ``loss_mask`` tokens where there are several lanes), and
+    divided by the number of parts: the reference's microbatch
+    accumulation, so L lanes give the one-lane ``microbatches=L``
+    gradient bit for bit where the lanes count the same tokens.  The loss
+    is the parts' (weighted) mean, the other metrics the last part's.  One
+    lane and one microbatch return the gradient in the parameters' dtype,
+    as ``jax.grad`` gives it."""
+    home, n_lanes, m = lanes[0][1], len(lanes), microbatches
+    if n_lanes == 1 and m == 1:
+        return loss_and_grads(model, lanes[0][0], batch)
+    rows = len(next(iter(batch.values())))
+    if rows % (m * n_lanes):
+        raise ValueError(f"a batch of {rows} rows does not split into {m} microbatch(es) "
+                         f"over {n_lanes} lane(s)")
+    n = rows // (m * n_lanes)
+    g_acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=home),
+                     lanes[0][0])
+    loss_acc = torch.zeros((), dtype=torch.float32, device=home)
+    for i in range(m):
+        parts = [{k: _on(v[(i * n_lanes + j) * n:(i * n_lanes + j + 1) * n], dev)
+                  for k, v in batch.items()} for j, (_, dev) in enumerate(lanes)]
+        weights = [None] * n_lanes
+        if n_lanes > 1 and "loss_mask" in batch:
+            counts = [_on(p["loss_mask"].float().sum(), home) for p in parts]
+            total = torch.clamp(sum(counts[1:], counts[0]), min=1.0)
+            weights = [c * n_lanes / total for c in counts]
+        for (params, _), part, w in zip(lanes, parts, weights):
+            metrics, g = loss_and_grads(model, params, part)
+            with torch.no_grad():          # in place: the sums of a + b, one buffer
+                for (_, a), (_, b) in zip(tree_flatten(g_acc), tree_flatten(g)):
+                    b = _on(b, home).float()           # across cards in the grad's dtype
+                    a.add_(b if w is None else b * w)
+            loss = _on(metrics["loss"], home)
+            loss_acc = loss_acc + (loss if w is None else loss * w)
+            del g
+    with torch.no_grad():
+        for _, g in tree_flatten(g_acc):
+            g.div_(m * n_lanes)
+    return {**{k: _on(v, home) for k, v in metrics.items()}, "loss": loss_acc / (m * n_lanes)}, \
+        g_acc
+
+
+def compress_grads(grads, ef_tree):
+    """The int8 error-feedback quantization of the (reduced) gradient:
+    each piece of a leaf's error buffer (the whole buffer on one device, a
+    ZeRO-1 piece a lane on a mesh) quantizes its slice of the gradient
+    with the leaf's one scale (the max over the pieces is exact) and keeps
+    its error.  Returns the dequantized gradient in f32, written in place
+    where the gradient is f32."""
+    ef = dict(tree_flatten(ef_tree))
+    out = []
+    with torch.no_grad():
+        for name, g in tree_flatten(grads):
+            e = ef[name]
+            pieces = ([(e.slices(k), p) for k, p in enumerate(e.pieces)]
+                      if isinstance(e, Sharded) else [((), e)])
+            gfs = [_on(g[sl], p.device).float() + p for sl, p in pieces]
+            amax = torch.stack([_on(gf.abs().max(), g.device) for gf in gfs]).max()
+            scale = torch.clamp(amax, min=1e-12) / 127.0
+            dst = g if g.dtype == torch.float32 else torch.empty(
+                g.shape, dtype=torch.float32, device=g.device)
+            for (sl, p), gf in zip(pieces, gfs):
+                s = _on(scale, p.device)
+                deq = torch.clamp(torch.round(gf / s), -127, 127).to(torch.int8).float() * s
+                p.copy_(gf - deq)
+                dst[sl].copy_(_on(deq, g.device))
+            out.append((name, dst))
+    return tree_unflatten(out)
+
+
 def make_train_step(model, tcfg: TrainConfig):
     """``step(state, batch) -> (state, metrics)``: microbatch accumulation
-    in the reference's order (f32 sums from zero, then / m; the loss the
-    microbatches' mean, the other metrics the last one's), optional
-    compression, then AdamW; the state is updated in place."""
+    in the reference's order (:func:`accumulate_grads` over one lane),
+    optional compression, then AdamW; the state is updated in place."""
 
     def step(state, batch):
         params = state["params"]
-        batch = device_batch(batch, _device_of(params))
-        m = tcfg.microbatches
-        if m > 1:
-            parts = {k: v.reshape((m, v.shape[0] // m) + tuple(v.shape[1:]))
-                     for k, v in batch.items()}
-            g_acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                   device=p.device), params)
-            loss_acc = torch.zeros((), dtype=torch.float32, device=_device_of(params))
-            for i in range(m):
-                metrics, g = loss_and_grads(model, params, {k: v[i] for k, v in parts.items()})
-                g_acc = tree_unflatten((n, a + b.float()) for (n, a), (_, b) in
-                                       zip(tree_flatten(g_acc), tree_flatten(g)))
-                loss_acc = loss_acc + metrics["loss"]
-            grads = tree_map(lambda g: g / m, g_acc)
-            metrics = {**metrics, "loss": loss_acc / m}
-        else:
-            metrics, grads = loss_and_grads(model, params, batch)
-
+        device = _device_of(params)
+        metrics, grads = accumulate_grads(model, [(params, device)],
+                                          device_batch(batch, device), tcfg.microbatches)
         if tcfg.compress_grads:
             # error-feedback int8 quantization of the gradient signal; the
             # EF buffer lives in the state so the bias telescopes
-            new_g = []
-            ef = dict(tree_flatten(state["ef"]))
-            with torch.no_grad():
-                for name, g in tree_flatten(grads):
-                    qi, scale, new_e = ef_int8_compress(g, ef[name])
-                    new_g.append((name, qi.float() * scale))
-                    ef[name].copy_(new_e)
-            grads = tree_unflatten(new_g)
+            grads = compress_grads(grads, state["ef"])
         _, _, opt_metrics = adamw_update(params, grads, state["opt"], tcfg.opt)
         return state, {**metrics, **opt_metrics}
 
     return step
 
 
-def state_pspecs(model, state):
-    raise NotImplementedError(_MESH)
+# ---------------------------------------------------------------------------
+# Sharding trees
+# ---------------------------------------------------------------------------
+
+def state_pspecs(model, state) -> Dict[str, Any]:
+    """The spec tree of a train state (the reference's): the parameters
+    by the model's partition rules, ``master``/``m``/``v`` (and ``ef``)
+    each with ZeRO-1 over ``data`` on top (:func:`~repro_torch.models.
+    common.zero1_spec`), ``step`` replicated."""
+    param_specs = tree_paths(partition_tree(state["params"], model.partition_rules()))
+
+    def opt_spec(tree):
+        return tree_unflatten((n, zero1_spec(param_specs[n], tuple(leaf.shape)))
+                              for n, leaf in tree_flatten(tree))
+
+    specs = {"params": tree_unflatten(param_specs.items()),
+             "opt": {"master": opt_spec(state["opt"]["master"]),
+                     "m": opt_spec(state["opt"]["m"]),
+                     "v": opt_spec(state["opt"]["v"]),
+                     "step": ()}}
+    if "ef" in state:
+        specs["ef"] = opt_spec(state["ef"])
+    return specs
 
 
-def batch_pspecs(batch):
-    raise NotImplementedError(_MESH)
+def batch_pspecs(batch, mesh: Optional[Mesh] = None) -> Dict[str, Any]:
+    """The batch's spec tree: rows over ``(pod, data)``.  With ``mesh``,
+    an axis the mesh lacks replicates (the reference names ``pod`` on a
+    (data, model) mesh too, which a JAX mesh refuses)."""
+    def spec(a):
+        s = (BATCH_AXES,) + (None,) * (len(tuple(a.shape)) - 1)
+        return resolve_spec(s, mesh) if mesh is not None else s
+    return tree_map(spec, batch)
 
 
-def to_named(spec_tree, mesh):
-    raise NotImplementedError(_MESH)
+def to_named(spec_tree, mesh: Mesh) -> Any:
+    """A tree of :class:`~repro_torch.launch.mesh.Placement` over ``mesh``
+    (axes the mesh lacks replicate)."""
+    return tree_map(lambda s: Placement(mesh, resolve_spec(s, mesh)), spec_tree)
+
+
+def shard_state(state, shardings) -> Dict[str, Any]:
+    """``state`` placed by ``shardings`` (a :func:`to_named` tree): each
+    tensor leaf cut into its :class:`~repro_torch.launch.mesh.Sharded`
+    pieces, one a grid position, each on its device."""
+    places = dict(tree_flatten(shardings))
+    return tree_unflatten((n, Sharded.place(leaf, places[n]) if isinstance(leaf, torch.Tensor)
+                           else leaf) for n, leaf in tree_flatten(state))
+
+
+def train_state_specs(model, compress: bool = False) -> Dict[str, Any]:
+    """The layout of :func:`make_train_state`'s state as
+    :class:`~repro_torch.core.data.TensorSpec` leaves (nothing
+    allocated): what :func:`state_pspecs` and a restore onto a mesh
+    read."""
+    params = model.param_specs()
+    f32 = tree_map(lambda s: TensorSpec(tuple(s.shape), np.dtype(np.float32)), params)
+    state = {"params": params, "opt": {"master": f32, "m": f32, "v": f32,
+                                       "step": TensorSpec((), np.dtype(np.int32))}}
+    if compress:
+        state["ef"] = f32
+    return state
+
+
+def init_mesh_state(model, rng, mesh: Mesh, compress: bool = False) -> Dict[str, Any]:
+    """``shard_state(make_train_state(model, rng, compress), ...)`` by
+    :func:`state_pspecs`, bit for bit, placed leaf by leaf: the parameters
+    are drawn on the mesh's first device as on one device, and each is
+    cut into its replicas and its ``master`` pieces and then dropped; the
+    moments (and ``ef``) are made as zero pieces.  So no device holds the
+    unplaced master and moments, and the first holds at most one
+    parameter tree beside the placed state."""
+    home = mesh.devices.flat[0]
+    places = dict(tree_flatten(to_named(state_pspecs(model, train_state_specs(model, compress)),
+                                        mesh)))
+    flat = tree_flatten(model.init_params(_generator(rng, home), device=home))
+    zeros = ("['opt']['m']", "['opt']['v']") + (("['ef']",) if compress else ())
+    out = []
+    for i in range(len(flat)):
+        name, p = flat[i]
+        flat[i] = None
+        out.append(("['params']" + name, Sharded.place(p, places["['params']" + name])))
+        key = "['opt']['master']" + name
+        out.append((key, Sharded.place(p.to(torch.float32), places[key])))
+        out += [(z + name, Sharded.zeros(p.shape, torch.float32, places[z + name]))
+                for z in zeros]
+        del p
+    step = torch.zeros((), dtype=torch.int32, device=home)
+    out.append(("['opt']['step']", Sharded.place(step, places["['opt']['step']"])))
+    return tree_unflatten(out)
+
+
+def is_mesh_state(state) -> bool:
+    return isinstance(tree_flatten(state["params"])[0][1], Sharded)
+
+
+def check_train_mesh(mesh: Mesh) -> None:
+    """A training mesh runs data parallel only; its devices must be
+    present."""
+    if model_axis_size(mesh) > 1:
+        raise NotImplementedError(f"{_MODEL_AXIS} (mesh {mesh.shape})")
+    check_present(mesh)
+
+
+def make_mesh_train_step(model, tcfg: TrainConfig, mesh: Mesh):
+    """``step(state, batch) -> (state, metrics)`` over the data lanes of
+    ``mesh`` on a state placed by :func:`shard_state` (in place).
+
+    The gradient is :func:`accumulate_grads` over the lanes' parameter
+    replicas (the gradient of the global batch's mean loss; with
+    ``compress_grads`` quantized as on one device, each lane holding its
+    ZeRO-1 piece of the error buffer).  Then the global norm and AdamW's
+    scalars of the whole gradient, each lane's update of its pieces, and
+    its new pieces copied into every lane's parameter replica."""
+    check_train_mesh(mesh)
+    devs = [g[0] for g in mesh.groups]
+    home, lanes = devs[0], range(len(devs))
+
+    def step(state, batch):
+        replicas = [(tree_map(lambda s, j=j: s.pieces[j], state["params"]), devs[j])
+                    for j in lanes]
+        metrics, grads = accumulate_grads(model, replicas, device_batch(batch, home),
+                                          tcfg.microbatches)
+        del replicas
+        with torch.no_grad():
+            if tcfg.compress_grads:
+                grads = compress_grads(grads, state["ef"])
+            opt = state["opt"]
+            sc = adamw_scalars(opt["step"].pieces[0], grads, tcfg.opt)
+            scs = [{k: _on(v, devs[j]) if isinstance(v, torch.Tensor) else v
+                    for k, v in sc.items()} for j in lanes]
+            masters, ms, vs, gs = (dict(tree_flatten(t)) for t in
+                                   (opt["master"], opt["m"], opt["v"], grads))
+            for name, ps in tree_flatten(state["params"]):
+                for j in lanes:
+                    sl = masters[name].slices(j)
+                    new = torch.empty(masters[name].pieces[j].shape, dtype=ps.dtype,
+                                      device=devs[j])
+                    update_leaf(new, masters[name].pieces[j], _on(gs[name][sl], devs[j]),
+                                ms[name].pieces[j], vs[name].pieces[j], scs[j], tcfg.opt)
+                    for k in lanes:             # the new piece into every replica
+                        ps.pieces[k][sl].copy_(new)
+            for j in lanes:
+                opt["step"].pieces[j].copy_(scs[j]["step"])
+        return state, {**metrics, "lr": sc["lr"], "grad_norm": sc["grad_norm"]}
+
+    return step
 
 
 # ---------------------------------------------------------------------------
@@ -163,31 +378,63 @@ class TrainProcess:
     every replay overwrites.  Kernel launches are counted as for a
     captured process launch (the capture's tally, added at each replay).
     On the CPU, ``launch`` runs the step eagerly.
+
+    With ``mesh`` the step runs over the mesh's data lanes
+    (:func:`make_mesh_train_step`): ``init`` places a plain state by
+    :func:`state_pspecs` (:func:`shard_state`; :attr:`state` is the placed
+    state, which ``launch`` also takes) and, when every lane is on one
+    card, captures every lane's work into the one graph.  Over distinct
+    cards the step runs eagerly (a CUDA graph records one device's work).
+    A mesh with a model axis larger than 1 raises ``NotImplementedError``
+    (ROADMAP.md queue 1, item 6b).
     """
 
-    def __init__(self, model, tcfg: TrainConfig, mesh=None):
+    def __init__(self, model, tcfg: TrainConfig, mesh: Optional[Mesh] = None):
+        self.model, self.tcfg, self.mesh = model, tcfg, mesh
         if mesh is not None:
-            raise NotImplementedError(_MESH)
-        self.model, self.tcfg = model, tcfg
-        self.step = make_train_step(model, tcfg)
-        self._state = None
+            self.step = make_mesh_train_step(model, tcfg, mesh)
+        else:
+            self.step = make_train_step(model, tcfg)
+        self._state = self._given = None
         self._batch: Dict[str, torch.Tensor] = {}
         self._replay = None
         self._tally: Dict[str, int] = {}
         self._metrics: Dict[str, torch.Tensor] = {}
         self.captures = self.replays = 0
 
+    @property
+    def state(self):
+        """The state ``init`` captured (placed on the mesh with one)."""
+        return self._state
+
+    @property
+    def metrics(self) -> Dict[str, torch.Tensor]:
+        """The last replay's metrics (tensors every replay overwrites)."""
+        return self._metrics
+
     def init(self, state, batch) -> "TrainProcess":
-        device = _device_of(state["params"])
+        self._given = state
+        if self.mesh is not None:
+            if not is_mesh_state(state):
+                state = shard_state(state, to_named(state_pspecs(self.model, state), self.mesh))
+            device = self.mesh.devices.flat[0]
+            lane0 = tree_map(lambda s: s.pieces[0], state["params"])
+            one_device = len(self.mesh.device_set) == 1
+        else:
+            device = _device_of(state["params"])
+            lane0, one_device = state["params"], True
         self._state = state
         self._batch = {k: v.clone() for k, v in device_batch(batch, device).items()}
         self._replay = None
-        if not _process._graphs_on(device):
+        if not (_process._graphs_on(device) and one_device):
             return self
+        rows = len(next(iter(self._batch.values())))
+        part = rows // ((len(self.mesh.groups) if self.mesh is not None else 1)
+                        * self.tcfg.microbatches)
         side = torch.cuda.Stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(side):
-            loss_and_grads(self.model, state["params"], self._batch)
+            loss_and_grads(self.model, lane0, {k: v[:part] for k, v in self._batch.items()})
         torch.cuda.current_stream(device).wait_stream(side)
         torch.cuda.synchronize(device)
         tally: Dict[str, int] = {}
@@ -204,8 +451,9 @@ class TrainProcess:
     def launch(self, state, batch):
         if self._state is None:
             raise RuntimeError("TrainProcess.init() not called")
-        if state is not self._state:
+        if state is not self._state and state is not self._given:
             raise ValueError("launch() takes the state that init() captured")
+        state = self._state
         if set(batch) != set(self._batch):
             raise ValueError(f"batch has {sorted(batch)}, init() captured {sorted(self._batch)}")
         for k, v in batch.items():
@@ -215,7 +463,8 @@ class TrainProcess:
                                  f"{tuple(self._batch[k].shape)}")
             self._batch[k].copy_(src)
         if self._replay is None:
-            return self.step(state, self._batch)
+            state, self._metrics = self.step(state, self._batch)
+            return state, self._metrics
         self._replay()
         add_launches(self._tally)
         self.replays += 1

@@ -17,8 +17,12 @@ newest complete one, deterministic data replay, and a straggler timeout.
 
 On a CUDA device ``fit`` runs each step through :class:`~repro_torch.train.
 step.TrainProcess` (one capture, then replays); on the CPU it runs the
-step eagerly.  A mesh (elastic restarts across device counts) waits for
-the multi-GPU slice.
+step eagerly.  With ``mesh`` (a data-parallel mesh, one process driving
+every lane) the state is placed on it leaf by leaf (:func:`~repro_torch.
+train.step.init_mesh_state`: parameters a replica a lane, the optimizer
+in ZeRO-1 pieces) and every step runs through ``TrainProcess(mesh=)``; a
+resume restores straight onto the trainer's mesh, which may hold another
+lane count than the run that wrote the checkpoint (an elastic restart).
 """
 from __future__ import annotations
 
@@ -29,9 +33,8 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from repro_torch.ckpt import CheckpointManager
-from .step import TrainConfig, TrainProcess, make_train_state, make_train_step
-
-_MESH = "training on a mesh waits for the multi-GPU slice (ROADMAP.md queue 1, item 6)"
+from .step import (TrainConfig, TrainProcess, check_train_mesh, init_mesh_state,
+                   make_train_state, make_train_step, state_pspecs, to_named, train_state_specs)
 
 
 @dataclasses.dataclass
@@ -63,10 +66,11 @@ class Trainer:
     def __init__(self, model, cfg: TrainerConfig, mesh=None,
                  log_fn: Callable[[str], None] = print, device=None):
         if mesh is not None:
-            raise NotImplementedError(_MESH)
+            check_train_mesh(mesh)
         self.model = model
         self.cfg = cfg
-        self.device = default_device(device)
+        self.mesh = mesh
+        self.device = mesh.devices.flat[0] if mesh is not None else default_device(device)
         self.log = log_fn
         self.ckpt = (CheckpointManager(cfg.ckpt_dir, cfg.ckpt_interval, cfg.keep_last)
                      if cfg.ckpt_dir else None)
@@ -76,19 +80,30 @@ class Trainer:
 
     # -- state ---------------------------------------------------------------
     def init_state(self, rng) -> Dict[str, Any]:
-        return make_train_state(self.model, rng, compress=self.cfg.train.compress_grads,
-                                device=self.device)
+        """A fresh state from ``rng``, placed on the trainer's mesh when it
+        has one (the same parameters as on one device, placed leaf by
+        leaf: :func:`~repro_torch.train.step.init_mesh_state`)."""
+        compress = self.cfg.train.compress_grads
+        if self.mesh is not None:
+            return init_mesh_state(self.model, rng, self.mesh, compress)
+        return make_train_state(self.model, rng, compress=compress, device=self.device)
 
     def resume_or_init(self, rng) -> tuple:
         """Returns (state, start_step).  Restores the newest checkpoint when
-        one exists (the restart path after a failure)."""
-        state = self.init_state(rng)
+        one exists (the restart path after a failure), onto the trainer's
+        mesh when it has one: there straight from the state's layout, with
+        no fresh state made first."""
         if self.ckpt and self.ckpt.latest() is not None:
             step = self.ckpt.latest()
-            state = self.ckpt.restore(state)
+            if self.mesh is not None:
+                like = train_state_specs(self.model, self.cfg.train.compress_grads)
+                state = self.ckpt.restore(like, to_named(state_pspecs(self.model, like),
+                                                         self.mesh))
+            else:
+                state = self.ckpt.restore(self.init_state(rng))
             self.log(f"[trainer] resumed from checkpoint step {step}")
             return state, int(step)
-        return state, 0
+        return self.init_state(rng), 0
 
     # -- loop ----------------------------------------------------------------
     def fit(self, stream, rng, simulate_failure_at: Optional[int] = None):
@@ -96,8 +111,8 @@ class Trainer:
         loop is restartable at any step boundary.  ``rng``: an int seed or
         a ``torch.Generator`` on the trainer's device."""
         state, start = self.resume_or_init(rng)
-        if self.device.type == "cuda":
-            self.process = TrainProcess(self.model, self.cfg.train)
+        if self.device.type == "cuda" or self.mesh is not None:
+            self.process = TrainProcess(self.model, self.cfg.train, self.mesh)
             self.process.init(state, stream.batch_at(start))
             run = self.process.launch
         else:
@@ -112,8 +127,9 @@ class Trainer:
             t0 = time.perf_counter()
             state, metrics = run(state, batch)
             if self.cfg.step_timeout_s is not None:
-                if self.device.type == "cuda":
-                    torch.cuda.synchronize(self.device)
+                for d in (self.mesh.device_set if self.mesh is not None else {self.device}):
+                    if d.type == "cuda":
+                        torch.cuda.synchronize(d)
                 dt = time.perf_counter() - t0
                 if dt > self.cfg.step_timeout_s:
                     raise StepTimeout(

@@ -235,11 +235,35 @@ def test_shape_mismatch_is_refused(tmp_path, fmt):
 
 
 def test_restore_onto_a_mesh_waits_for_the_multi_gpu_slice(tmp_path):
-    save_checkpoint(str(tmp_path), 1, _port_state())
-    with pytest.raises(NotImplementedError, match="item 6"):
-        restore_checkpoint(str(tmp_path), _port_state(), shardings={"any": None})
+    """The multi-GPU slice came (the name is the refusal's this test
+    replaced): ``shardings`` (a tree of placements; None leaves a leaf
+    whole) cuts each restored leaf of either format into its pieces on
+    the mesh's lanes; a shardings tree that does not match the state
+    raises."""
+    from repro_torch.launch.mesh import Sharded, make_data_mesh
+    mesh = make_data_mesh([torch.device("cpu")] * 2)
+    for step, sharded in enumerate(FORMATS.values(), start=1):
+        save_checkpoint(str(tmp_path), step, _port_state(), sharded=sharded)
+        like = _port_state()
+        back = restore_checkpoint(str(tmp_path), like, step, shardings=_spec_tree(like, mesh))
+        for (name, got), (_, want) in zip(tree_flatten(back), tree_flatten(_port_state())):
+            if isinstance(got, Sharded):
+                assert torch.equal(got.full(), want) and len(got.pieces) == 2, name
+            else:
+                assert torch.equal(got, want), name
+        with pytest.raises(ValueError, match="shardings tree"):
+            restore_checkpoint(str(tmp_path), like, step, shardings={"params": None})
     with pytest.raises(FileNotFoundError):
         restore_checkpoint(str(tmp_path / "none"), _port_state())
+
+
+def _spec_tree(like, mesh):
+    """Rows over ``data`` where they split in two, else whole."""
+    from repro_torch.core.arena import tree_unflatten
+    from repro_torch.launch.mesh import Placement
+    return tree_unflatten(
+        (n, Placement(mesh, ("data",)) if t.ndim and t.shape[0] % 2 == 0 else None)
+        for n, t in tree_flatten(like))
 
 
 @pytest.mark.parametrize("sharded", [False, True])

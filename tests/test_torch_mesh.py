@@ -70,8 +70,28 @@ def test_mesh_grid_shape_groups_and_equality():
         tmesh.make_group_mesh([])
     with pytest.raises(ValueError, match="same number"):
         Mesh([[CPU, CPU], [CPU]])
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(RuntimeError, match="needs 512 CUDA devices; 0 found"):
         tmesh.make_production_mesh(multi_pod=True)
+
+
+def test_production_mesh_over_the_visible_cards(monkeypatch):
+    """The reference's (data 16, model 16) and (pod 2, data 16, model 16)
+    meshes over the first 256 / 512 cards, when that many are visible."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 300)
+    single = tmesh.make_production_mesh()
+    assert single.shape == {"data": 16, "model": 16} and len(single.groups) == 16
+    assert single.device_list == [torch.device("cuda", i) for i in range(256)]
+    with pytest.raises(RuntimeError, match="needs 512 CUDA devices; 300 found"):
+        tmesh.make_production_mesh(multi_pod=True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 512)
+    multi = tmesh.make_production_mesh(multi_pod=True)
+    assert multi.shape == {"pod": 2, "data": 16, "model": 16}
+    assert multi.devices.shape == (2, 16, 16) and len(multi.groups) == 32
+    assert multi.groups[17] == tuple(torch.device("cuda", 17 * 16 + i) for i in range(16))
+    assert model_axis_size(multi) == 16
+    with pytest.raises(ValueError, match="two axes"):
+        Mesh([[CPU]], ("data",))
 
 
 def test_logical_axis_table_contract():

@@ -219,5 +219,15 @@ def test_ef_compress_error_feedback_telescopes():
 
 
 def test_dp_mean_compressed_waits_for_the_multi_gpu_slice():
-    with pytest.raises(NotImplementedError, match="item 6"):
-        dp_mean_compressed(torch.zeros(3), torch.zeros(3), "data")
+    """The multi-GPU slice came (the name is the refusal's this test
+    replaced). Two lanes: the int8 payloads summed in int32, dequantized
+    with the mean of the two scales; each lane keeps its own error buffer
+    (against the JAX function itself: ``tests/test_torch_train_mesh.py``)."""
+    g = [torch.tensor([1.0, -2.0, 0.5]), torch.tensor([4.0, 1.0, -1.0])]
+    err = [torch.zeros(3), torch.full((3,), 0.25)]
+    mean, new_err = dp_mean_compressed(g, err)
+    parts = [ef_int8_compress(a, e) for a, e in zip(g, err)]
+    qsum = parts[0][0].to(torch.int32) + parts[1][0].to(torch.int32)
+    want = qsum.float() * ((parts[0][1] + parts[1][1]) / 2) / 2
+    assert torch.equal(mean, want)
+    assert all(torch.equal(n, p[2]) for n, p in zip(new_err, parts))

@@ -23,6 +23,8 @@ against the JAX package's on the CPU.
   moves as the JAX package's does in ``tests/test_pipeline.py``'s cases,
   where the port compiles on a launch's second run.
 """
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -102,7 +104,18 @@ def _profiles():
     return ProfileParameters(enable=True), jcore.ProfileParameters(enable=True)
 
 
+def _settle_jax_transfer_timers():
+    """The JAX package records each streamed upload's ``"transfer"`` phase
+    from a daemon thread (``transfer-timer``) that wakes when the upload
+    lands, and its stream returns without waiting for them: on a loaded
+    host the profile can still miss some.  Wait for them all."""
+    for t in threading.enumerate():
+        if t.name == "transfer-timer":
+            t.join()
+
+
 def _same_phases(tprof, jprof, samples=True):
+    _settle_jax_transfer_timers()
     assert _counts(tprof) == _counts(jprof)
     assert all(s >= 0 for v in tprof.phases.values() for s in v)
     if samples:

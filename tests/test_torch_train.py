@@ -58,7 +58,7 @@ from repro.models import layers as jlayers
 from repro.kernels import ref as jref
 from repro.optim import AdamWConfig as JAdamWConfig, Schedule as JSchedule
 from repro.train import (TrainConfig as JTrainConfig, make_train_state as j_make_train_state,
-                         make_train_step as j_make_train_step)
+                         make_train_step as j_make_train_step, state_pspecs as j_state_pspecs)
 from repro_torch import interop
 from repro_torch.configs import get_config, get_smoke
 from repro_torch.core import process as process_mod
@@ -72,6 +72,7 @@ from repro_torch.kernels.flash_attention import BWD_TILE, flash_attention_bwd
 from repro_torch.kernels.rmsnorm import BWD_BLOCKS, rmsnorm_bwd
 from repro_torch.launch import train as train_launch
 from repro_torch.launch import train_lm
+from repro_torch.launch.mesh import make_data_mesh
 from repro_torch.models import build_model
 from repro_torch.models import layers as tlayers
 from repro_torch.optim import AdamWConfig, Schedule
@@ -403,8 +404,21 @@ def test_train_state_from_reference_refuses_another_model():
 
 
 def test_state_specs_wait_for_the_multi_gpu_slice():
-    with pytest.raises(NotImplementedError, match="item 6"):
-        state_pspecs(None, {})
+    """The multi-GPU slice came (the name is the refusal's this test
+    replaced): ``state_pspecs`` of a qwen3-14b SMOKE state is the
+    reference's (every family: ``tests/test_torch_train_mesh.py``)."""
+    model = build_model(get_smoke("qwen3-14b"))
+    specs = dict(tree_flatten(state_pspecs(model, make_train_state(model, 0, compress=True))))
+    assert specs["['params']['embed']['embedding']"] == ("model", None)
+    assert specs["['opt']['master']['embed']['embedding']"] == ("model", "data")
+    assert specs["['ef']['layers']['attn']['w_o']"] == (None, "model", "data")
+    assert specs["['opt']['step']"] == ()
+    jstate = jax.eval_shape(lambda: j_make_train_state(
+        j_build_model(j_get_smoke("qwen3-14b")), jax.random.key(0), compress=True))
+    want = jax.tree_util.tree_flatten_with_path(j_state_pspecs(
+        j_build_model(j_get_smoke("qwen3-14b")), jstate),
+        is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))[0]
+    assert {jax.tree_util.keystr(p): tuple(v) for p, v in want} == specs
 
 
 # ---------------------------------------------------------------------------
@@ -489,8 +503,9 @@ def test_one_rng_gives_the_same_parameters(setup):
 
 def test_trainer_refuses_a_mesh_and_needs_a_card_unless_asked(setup, monkeypatch):
     cfg, model, _ = setup
-    with pytest.raises(NotImplementedError, match="item 6"):
-        Trainer(model, TrainerConfig(), mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 6b"):
+        Trainer(model, TrainerConfig(), mesh=make_data_mesh([torch.device("cpu")] * 2, model=2),
+                device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Trainer(model, TrainerConfig())
@@ -622,12 +637,20 @@ def test_train_launcher_refuses_a_train_state_larger_than_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "get_device_name", lambda d=None: "NVIDIA H100 80GB HBM3")
     danube = train_launch.train_state_bytes(get_config("h2o-danube-1.8b"))
     assert danube == 1_831_201_280 * 16
+    # two lanes on the card: two replicas, one lane's gradients at a time,
+    # the master, m and v in pieces and the f32 sum of the lanes' gradients
+    assert train_launch.train_state_bytes(get_config("h2o-danube-1.8b"), lanes=2) == \
+        1_831_201_280 * 22
+    assert train_launch.train_state_bytes(get_config("h2o-danube-1.8b"), microbatches=2) == \
+        1_831_201_280 * 20
+    with pytest.raises(RuntimeError, match="needs"):
+        train_launch.check_fits(get_config("rwkv6-3b"), torch.device("cuda"), lanes=6)
     train_launch.check_fits(get_config("h2o-danube-1.8b"), torch.device("cuda"))
     with pytest.raises(RuntimeError, match=r"needs 23\d\.\d GB .* has 85\.0 GB"):
         train_launch.check_fits(get_config("qwen3-14b"), torch.device("cuda"))
     with pytest.raises(RuntimeError, match="train state needs"):
         train_launch.main(["--arch", "qwen3-14b", "--scale", "full"])
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(NotImplementedError, match="item 6b"):
         train_launch.main(["--arch", "qwen3-14b", "--multi-pod", "--cpu"])
 
 
