@@ -225,14 +225,24 @@
    bytes), and lm-100m over 2 lanes (a sharded save restored onto 2 lanes
    without and onto one with a gather, a restart, all bit for bit); with
    more than one visible card, lm-100m and qwen3-14b over every card too.
+   Then ``[mesh-tp]``, training over a mesh's model axis on card 0:
+   h2o-danube-1.8b at full width over a (data 1, model 2) group (the
+   group's gradient against the no-mesh one in PERF.md's bands, 5
+   replayed steps bit for bit 5 eager ones, exact launches of each lane's
+   norms and heads, each lane's bytes against ``mesh_state_bytes``, p50,
+   tokens/s, MFU, peak), lm-100m over a (1, 2) group (a restart bit for
+   bit), and an f32 cut of deepseek-v2-lite-16b (layer 0 and two MoE
+   layers, 32 experts and 8 MLA heads a lane) on a (data 2, model 2) grid
+   against the no-mesh step (m and v within 1e-4 x max, no router choice
+   moved).
 6. Runs the paper's listing 1 (``repro_torch.launch.quickstart``:
    ``Pipeline(app) | Negate(app)`` on a 256x256 8-bit PNG that the script
    writes) on the card, replayed from its second run, bit for bit, and
    reads its ``output.png`` back: 1 - x in 8 bits.  Temporary files live in
    a ``tempfile`` directory that the script removes.
 7. Ends with a ``{"kernels": [...]}`` line (the LM kernels' launches are
-   the sums over the eight serves, the five training runs and
-   ``[mesh-lm]``; the backward kernels', over the training runs; their ``replaces`` names the forward
+   the sums over the eight serves, the five training runs,
+   ``[mesh-lm]`` and ``[mesh-tp]``; the backward kernels', over the training runs; their ``replaces`` names the forward
    kernel's ``pallas_call``, since the JAX package has no backward kernel)
    and a
    ``{"ok": true, "device": {...}}`` line.
@@ -1883,6 +1893,11 @@ def main() -> None:
             ((2, 5120), bf16, bf16, True), ((2 * 40, 128), bf16, bf16, True),
             ((2 * 8, 128), bf16, bf16, True), ((2 * 2048, 2560), bf16, bf16, True),
             ((4 * 256, 768), f32, f32, True),
+            # [mesh-tp]: every lane of h2o-danube-1.8b's (1, 2) group norms
+            # the whole 4 x 2048 rows; a lane of the f32 deepseek-v2-lite-16b
+            # cut's (2, 2) grid its 1 x 2048 rows and their kv latents
+            ((4 * 2048, 2560), bf16, bf16, True), ((2048, 2048), f32, f32, True),
+            ((2048, 512), f32, f32, True),
             ((64, 512), f32, f32, False),     # the 2-layer f32 runs' latent norm
             ((21, 80), f32, f32, False), ((9, 24), bf16, bf16, False),
             ((3, 20480), bf16, bf16, False), ((5, 100), bf16, bf16, False),
@@ -1928,7 +1943,11 @@ def main() -> None:
         # [mesh-lm]'s training forwards: a 2-row lane of h2o-danube-1.8b
         # (window 4096) and a 4-row lane of lm-100m
         ((2, 32, 2048, 80), (2, 8, 2048, 80), True, 4096, bf16, True),
-        ((4, 12, 256, 64), (4, 4, 256, 64), True, None, f32, True))
+        ((4, 12, 256, 64), (4, 4, 256, 64), True, None, f32, True),
+        # [mesh-tp]: a lane's heads of h2o-danube-1.8b over model 2, and of
+        # lm-100m's (1, 2) group (its restart)
+        ((4, 16, 2048, 80), (4, 4, 2048, 80), True, 4096, bf16, True),
+        ((8, 6, 256, 64), (8, 2, 256, 64), True, None, f32, True))
     for qs, ks, causal, window, dtype, on_path in flash_cases:
         q, k, v = rand(*qs, dtype=dtype), rand(*ks, dtype=dtype), rand(*ks, dtype=dtype)
         got = flash_attention(q, k, v, causal=causal, window=window)
@@ -2780,6 +2799,8 @@ def main() -> None:
                 ((8 * 256, 768), f32, f32, True),          # lm-100m, batch 8 x 256
                 ((2 * 2048, 2560), bf16, bf16, True),      # [mesh-lm]: a 2-row danube lane
                 ((4 * 256, 768), f32, f32, True),          # [mesh-lm]: a 4-row lm-100m lane
+                ((2048, 2048), f32, f32, True),            # [mesh-tp]: a deepseek f32 lane
+                ((2048, 512), f32, f32, True),             # and its kv latents
                 ((1024, 5120), bf16, bf16, False),         # qwen3-14b hidden rows
                 ((40 * 1024, 128), bf16, bf16, False),     # qwen3-14b q/k-norm rows
                 ((2 * 12, 16), f32, f32, False),           # SMOKE head width
@@ -2810,7 +2831,11 @@ def main() -> None:
             ((4, 32, 2048, 80), (4, 32, 2048, 80), True, None, bf16, True),
             # [mesh-lm]: a 2-row lane of h2o-danube-1.8b, a 4-row lane of lm-100m
             ((2, 32, 2048, 80), (2, 8, 2048, 80), True, 4096, bf16, True),
-            ((4, 12, 256, 64), (4, 4, 256, 64), True, None, f32, True))
+            ((4, 12, 256, 64), (4, 4, 256, 64), True, None, f32, True),
+            # [mesh-tp]: a lane's heads of h2o-danube-1.8b over model 2 and of
+            # lm-100m over model 2
+            ((4, 16, 2048, 80), (4, 4, 2048, 80), True, 4096, bf16, True),
+            ((8, 6, 256, 64), (8, 2, 256, 64), True, None, f32, True))
         for qs, ks, causal, window, dtype, on_path in bwd_cases:
             q, k, v = rand(*qs, dtype=dtype), rand(*ks, dtype=dtype), rand(*ks, dtype=dtype)
             do = rand(*qs, dtype=dtype)
@@ -3695,6 +3720,272 @@ def main() -> None:
             gc.collect()
         wall(f"after [mesh-lm] part 4 ({n} cards)")
 
+    def mesh_tp_phase():
+        """[mesh-tp]: the decoder family trained over a mesh's model axis on
+        card 0 (the mesh names it twice, then four times; one process
+        drives every lane): Megatron-style tensor parallelism by the
+        partition rules, experts over ``model``, a vocabulary-parallel
+        loss (``repro_torch.models.parallel``).
+        1. h2o-danube-1.8b at full width over a (data 1, model 2) group,
+           random bf16 weights from seed 0, batch 4 x 2048: the group's
+           loss, grad_norm and every lane's gradient piece against the
+           no-mesh gradient of the same parameters and batch, in the
+           bands PERF.md states (loss rtol 1e-3, grad_norm rtol 1e-2, each
+           piece within 5e-2 x its leaf's max |grad|); then
+           ``TrainProcess(mesh=)`` (AdamW, constant lr 1e-5): 1 capture, 5
+           replayed steps (the loss falls), exact launch counts (each lane
+           norms the whole rows and runs its 16 heads), step p50,
+           tokens/s, MFU, peak memory, each lane's parameter and ZeRO-1
+           bytes against ``mesh_state_bytes``; the 5 replayed steps bit
+           for bit 5 eager ``make_mesh_train_step`` steps from the seed.
+        2. lm-100m (f32) over a (1, 2) group: a failure at step 6 of 10
+           resumed from the step-4 checkpoint ends bit for bit where an
+           uninterrupted run does (a danube train state's checkpoint is
+           26 GB).
+        3. A cut of deepseek-v2-lite-16b at full width, layer 0 (dense)
+           and two MoE layers (64 routed experts, 32 a lane; 8 MLA heads
+           a lane), f32, on a (data 2, model 2) grid, batch 2 x 2048: one
+           step against the no-mesh step with ``microbatches=2`` (PR 30's
+           lane rule): loss and grad_norm within rtol 1e-4, every m and v
+           piece (the gradient, in ZeRO-1 pieces over data and model)
+           within rtol 1e-4 + 1e-4 x its leaf's max, the router's choices
+           the same (in bf16 the lanes' other rounding moves 5-10 % of
+           them, as any other order of sums does)."""
+        from repro_torch.launch.mesh import make_data_mesh
+        from repro_torch.launch.train import mesh_state_bytes
+        from repro_torch.optim import AdamWConfig, Schedule
+        from repro_torch.optim.adamw import global_norm
+        from repro_torch.train import (TrainConfig, init_mesh_state, shard_state, state_pspecs,
+                                       to_named)
+        from repro_torch.train.step import (device_batch, gradient_pieces, make_mesh_train_step,
+                                            mesh_lanes, train_state_specs)
+
+        def worst_gap(got, want, placed):
+            """(gap / the leaf's max |want|, name, lane) of the worst piece."""
+            flat, pieces = dict(tree_flatten(want)), dict(tree_flatten(placed))
+            out = []
+            for lane, tree in enumerate(got):
+                for n, g in tree_flatten(tree):
+                    w = flat[n][pieces[n].slices(lane)].float()
+                    scale = max(float(flat[n].float().abs().max()), 1e-30)
+                    out.append((float((g.float() - w).abs().max()) / scale, n, lane))
+            return max(out)
+
+        # -- 1. h2o-danube-1.8b over a (data 1, model 2) group ----------------
+        arch = "h2o-danube-1.8b"
+        cfg = get_config(arch)
+        model = build_model(cfg)
+        stream = TokenStream(StreamConfig(vocab=cfg.vocab, seq=2048, batch=4, seed=0))
+        opt = AdamWConfig(schedule=Schedule(kind="constant", base_lr=1e-5, warmup_steps=0))
+        tcfg = TrainConfig(opt=opt)
+        mesh = make_data_mesh([dev, dev], model=2)
+        batch = device_batch(stream.batch_at(0), dev)
+        reset_launch_counts()
+        params = model.init_params(torch.Generator(device=dev).manual_seed(0), device=dev)
+        m_one, g_one = loss_and_grads(model, params, batch)
+        norm_one = float(global_norm(g_one))
+        placed = shard_state(params, to_named(state_pspecs(model, train_state_specs(model))[
+            "params"], mesh))
+        del params
+        t0 = time.perf_counter()
+        (lanes, group), = mesh_lanes(placed, mesh)
+        m_tp, g_tp = loss_and_grads(model, lanes, batch, group)
+        norm_tp = float(global_norm(gradient_pieces(g_tp, placed, mesh)))
+        torch.cuda.synchronize()
+        grad_s = time.perf_counter() - t0
+        add_counts({k: v for k, v in launch_counts().items() if v})
+        gap, gap_name, gap_lane = worst_gap(g_tp, g_one, placed)
+        loss_one, loss_tp = float(m_one["loss"]), float(m_tp["loss"])
+        loss_gap, norm_gap = abs(loss_tp - loss_one) / loss_one, abs(norm_tp - norm_one) / norm_one
+        print(f"[mesh-tp] {smi}: {arch} at full width over a (data 1, model 2) group on {dev} "
+              f"(bf16, batch 4 x 2048, {cfg.n_heads // 2} of {cfg.n_heads} heads and "
+              f"{cfg.n_kv_heads // 2} of {cfg.n_kv_heads} kv heads a lane): loss "
+              f"{loss_tp:.6f} against the no-mesh {loss_one:.6f} (rel {loss_gap:.3e}, band "
+              f"1e-3); grad_norm {norm_tp:.6f} against {norm_one:.6f} (rel {norm_gap:.3e}, band "
+              f"1e-2); worst gradient piece {gap:.4e} x its leaf's max |grad| ({gap_name}, lane "
+              f"{gap_lane}; band 5e-2); the group's forward and backward {grad_s:.2f} s eager")
+        if not (loss_gap <= 1e-3 and norm_gap <= 1e-2 and gap <= 5e-2):
+            raise SystemExit(f"chip_smoke: [mesh-tp] {arch}: the model axis's gradient lies "
+                             "outside its band")
+        del g_one, g_tp, lanes, placed, m_one, m_tp, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        state = init_mesh_state(model, 0, mesh)
+        proc = TrainProcess(model, tcfg, mesh=mesh).init(state, stream.batch_at(0))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        losses, step_ms = [], []
+        for i in range(5):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            metrics = proc.launch(state, stream.batch_at(i))[1]
+            e1.record()
+            e1.synchronize()
+            step_ms.append(e0.elapsed_time(e1))
+            losses.append(float(metrics["loss"]))
+        counts = {k: v for k, v in launch_counts().items() if v}
+        peak = torch.cuda.max_memory_allocated(dev)
+        add_counts(counts)
+        per_step = {k: 2 * v for k, v in per_step_launches(cfg).items()}
+        want = {k: v * (1 + 5) for k, v in per_step.items()}
+        held = [[0, 0], [0, 0]]
+        for name, s in tree_flatten(state):
+            for k, p in enumerate(s.pieces):
+                held[k][0 if name.startswith("['params']") else 1] += p.numel() * p.element_size()
+        counted = mesh_state_bytes(model, mesh)
+        p50 = statistics.median(step_ms)
+        flops, flops_txt = model_flops(cfg, tree_flatten(model.param_specs()), 4, 2048)
+        passes = (proc.captures, proc.replays)
+        last = {k: v.clone() for k, v in proc.metrics.items()}
+        print(f"[mesh-tp] {smi}: {arch} TrainProcess over the (1, 2) group: init (the state "
+              f"placed leaf by leaf, the group's warm-up, the capture) {init_s:.1f} s; captures "
+              f"{passes[0]}, replays {passes[1]}; losses {', '.join(f'{x:.4f}' for x in losses)}; "
+              f"launches {counts} (expected {want}: init's warm-up and 5 steps, each lane its "
+              f"norms and its heads' attention, {per_step} a step); replayed step ms "
+              f"{', '.join(f'{t:.2f}' for t in step_ms)} (the batch's upload included); p50 "
+              f"{p50:.2f}; {4 * 2048 / p50 * 1e3:.0f} tokens/s; MFU "
+              f"{flops / (p50 * 1e-3) / peaks['bf16_tensor']:.4f} ({flops_txt}); peak "
+              f"{(peak - base) / 2**30:.2f} GiB over the {base / 2**30:.2f} GiB earlier phases "
+              f"left; each lane's parameters {held[0][0] / 1e9:.3f} / {held[1][0] / 1e9:.3f} GB "
+              f"and ZeRO-1 pieces (master, m, v, step) {held[0][1] / 1e9:.3f} / "
+              f"{held[1][1] / 1e9:.3f} GB against mesh_state_bytes "
+              f"{[tuple(round(b / 1e9, 3) for b in c) for c in counted]} GB")
+        if passes != (1, 5) or {k: counts.get(k, 0) for k in want} != want:
+            raise SystemExit(f"chip_smoke: [mesh-tp] {arch}: {passes} captures and replays, "
+                             f"launches {counts}; expected (1, 5) and {want}")
+        if [tuple(h) for h in held] != counted:
+            raise SystemExit(f"chip_smoke: [mesh-tp] {arch}: the lanes hold {held} bytes, "
+                             f"mesh_state_bytes counts {counted}")
+        if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+            raise SystemExit(f"chip_smoke: [mesh-tp] {arch}: the loss did not fall: {losses}")
+        del proc, metrics
+        gc.collect()
+        torch.cuda.empty_cache()
+        reset_launch_counts()
+        eager = init_mesh_state(model, 0, mesh)
+        step = make_mesh_train_step(model, tcfg, mesh)
+        for i in range(5):
+            eager, em = step(eager, stream.batch_at(i))
+        torch.cuda.synchronize()
+        add_counts({k: v for k, v in launch_counts().items() if v})
+        differ = [(n, k) for (n, x), (_, y) in zip(tree_flatten(state), tree_flatten(eager))
+                  for k, (p, q) in enumerate(zip(x.pieces, y.pieces)) if not torch.equal(p, q)]
+        metric_differ = [k for k in last if not torch.equal(last[k], em[k])]
+        print(f"[mesh-tp] {arch} 5 replayed steps against 5 eager make_mesh_train_step steps "
+              f"from the seed: pieces that differ {len(differ)} of "
+              f"{sum(len(s.pieces) for _, s in tree_flatten(state))} {differ[:4]}; the last "
+              f"step's metrics that differ {metric_differ}")
+        if differ or metric_differ:
+            raise SystemExit(f"chip_smoke: [mesh-tp] {arch}: replayed steps differ from eager")
+        del state, eager, em, step, last
+        gc.collect()
+        torch.cuda.empty_cache()
+        wall("after [mesh-tp] part 1 (h2o-danube-1.8b over a (1, 2) group)")
+
+        # -- 2. lm-100m over a (1, 2) group: a restart ---------------------------
+        cfg2 = train_lm.lm_100m()
+        stream2 = TokenStream(StreamConfig(vocab=cfg2.vocab, seq=256, batch=8, seed=0))
+        reset_launch_counts()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_tp_ckpt_") as d:
+            t0 = time.perf_counter()
+            sa = Trainer(build_model(cfg2), train_lm.trainer_config(10, f"{d}/a", 4), mesh=mesh,
+                         log_fn=quiet).fit(stream2, 0)
+            sb = Trainer(build_model(cfg2), train_lm.trainer_config(10, f"{d}/b", 4), mesh=mesh,
+                         log_fn=quiet).fit_with_restarts(stream2, 0, failure_schedule=[6])
+            restart_s = time.perf_counter() - t0
+        differ = [n for (n, x), (_, y) in zip(tree_flatten(sa), tree_flatten(sb))
+                  if not all(torch.equal(p, q) for p, q in zip(x.pieces, y.pieces))]
+        add_counts({k: v for k, v in launch_counts().items() if v})
+        print(f"[mesh-tp] {smi}: lm-100m over a (1, 2) group, 10 steps with a failure at step 6 "
+              f"(resumed on the group from the step-4 checkpoint) against 10 uninterrupted: "
+              f"leaves whose pieces differ {len(differ)} of {len(tree_flatten(sa))} "
+              f"({restart_s:.1f} s)")
+        if differ:
+            raise SystemExit(f"chip_smoke: [mesh-tp] lm-100m: the restarted run differs: "
+                             f"{differ[:4]}")
+        del sa, sb
+        gc.collect()
+        torch.cuda.empty_cache()
+        wall("after [mesh-tp] part 2 (lm-100m restart over a (1, 2) group)")
+
+        # -- 3. the deepseek-v2-lite-16b cut on a (data 2, model 2) grid -------
+        arch = "deepseek-v2-lite-16b"
+        cfg3 = get_config(arch).scaled(n_layers=3, param_dtype="float32", dtype="float32")
+        model3 = build_model(cfg3)
+        batch3 = TokenStream(StreamConfig(vocab=cfg3.vocab, seq=2048, batch=2, seed=0)).batch_at(0)
+        grid = make_data_mesh([dev] * 4, model=2)
+        routes: list = []
+        route = moe_mod._route
+
+        def recorded(p, x, c):
+            out = route(p, x, c)
+            routes.append(out[2].clone())
+            return out
+
+        moe_mod._route = recorded
+        reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        try:
+            t0 = time.perf_counter()
+            one = make_train_state(model3, 0, device=dev)
+            want = make_train_step(model3, TrainConfig(microbatches=2, opt=opt))(one, batch3)[1]
+            # the no-mesh m and v wait on the host: both states do not fit the card
+            moments = {n: t.cpu() for n, t in tree_flatten(one["opt"])
+                       if n.startswith(("['m']", "['v']"))}
+            del one
+            gc.collect()
+            torch.cuda.empty_cache()
+            one_routes, routes[:] = routes[:], []
+            t1 = time.perf_counter()
+            tp_state = init_mesh_state(model3, 0, grid)
+            got = make_mesh_train_step(model3, TrainConfig(opt=opt), grid)(tp_state, batch3)[1]
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            peak = torch.cuda.max_memory_allocated(dev)
+        finally:
+            moe_mod._route = route
+        add_counts({k: v for k, v in launch_counts().items() if v})
+        lane0 = routes[::2]          # each group's lanes route alike; the first lane's
+        flips = (sum(int((a != b).sum()) for a, b in zip(one_routes, lane0))
+                 if len(lane0) == len(one_routes) else -1)
+        gaps = []
+        for group_name in ("m", "v"):
+            for n, s in tree_flatten(tp_state["opt"][group_name]):
+                w = moments[f"['{group_name}']{n}"]
+                scale = max(float(w.abs().max()), 1e-30)
+                for k, p in enumerate(s.pieces):
+                    wk = w[s.slices(k)].to(dev)
+                    d = (p - wk).abs() - 1e-4 * wk.abs()
+                    gaps.append((float(d.max()) / scale, f"['{group_name}']{n}", k))
+        worst = max(gaps)
+        rel = {k: abs(float(got[k]) - float(want[k])) / abs(float(want[k]))
+               for k in ("loss", "grad_norm")}
+        print(f"[mesh-tp] {smi}: {arch} cut (layer 0 and 2 MoE layers at full width: 64 routed "
+              f"experts, 32 a lane; 8 MLA heads a lane; f32) on a (data 2, model 2) grid on "
+              f"{dev}, batch 2 x 2048, one eager step against the no-mesh step with "
+              f"microbatches=2: loss {float(got['loss']):.6f} / {float(want['loss']):.6f}, "
+              f"grad_norm {float(got['grad_norm']):.6f} / {float(want['grad_norm']):.6f} (rel "
+              f"{rel['loss']:.3e} / {rel['grad_norm']:.3e}, band 1e-4); worst m or v piece "
+              f"beyond rtol 1e-4: {worst[0]:.4e} x its leaf's max ({worst[1]}, position "
+              f"{worst[2]}; band 1e-4); router choices that differ {flips} of "
+              f"{sum(r.numel() for r in one_routes)} (no-mesh step "
+              f"{t1 - t0:.1f} s, the grid's {t2 - t1:.1f} s; peak {(peak - base) / 2**30:.2f} GiB "
+              f"over the {base / 2**30:.2f} GiB left before)")
+        if not (rel["loss"] <= 1e-4 and rel["grad_norm"] <= 1e-4 and worst[0] <= 1e-4
+                and flips == 0):
+            raise SystemExit(f"chip_smoke: [mesh-tp] {arch}: the (2, 2) grid's step lies "
+                             "outside its band of the no-mesh step")
+        del tp_state, moments, routes, one_routes, lane0
+        gc.collect()
+        torch.cuda.empty_cache()
+        wall("after [mesh-tp] part 3 (the deepseek-v2-lite-16b cut on a (2, 2) grid)")
+
     train_kernels_phase()
     wall("after [train-kernels]")
     train_full_width("h2o-danube-1.8b")
@@ -3709,6 +4000,8 @@ def main() -> None:
     train_ckpt_phase()
     wall("after [train-ckpt]")
     mesh_lm_phase()
+    mesh_tp_phase()
+    wall("after [mesh-tp]")
     missing = [k for k in ("rmsnorm", "flash_attention", "rmsnorm_bwd", "flash_attention_bwd",
                            "wkv6", "wkv6_bwd") if not train_counts.get(k)]
     if missing:

@@ -4,7 +4,7 @@ equal (``sharded=True``) and the proportional split, with each card's idle
 share over a traced stream.
 
     python3 scripts/mesh_scaling.py [--cards 1 2 4] [--slices 48] [--batch 8]
-        [--mode fused_kernel] [--lm ARCH] [--out PATH]
+        [--mode fused_kernel] [--lm ARCH] [--tp ARCH] [--out PATH]
 
 Runs only on CUDA cards (on a machine with fewer cards it measures the
 counts it can).  For each card count: an app over the first N cards
@@ -24,6 +24,13 @@ the step ms of 3 more), its state and metrics held bit for bit against a
 one-card ``TrainProcess(microbatches=N)``; and ARCH served over a
 (data 1, model N) group (10 requests, 4 slots), its tokens held against
 the same group with every strip on card 0 and its decode p50 beside it.
+
+``--tp ARCH`` trains ARCH (a ``DecoderLM``) at full width at batch 4 x
+2048 over a (data 1, model N) group of N distinct cards, tensor parallel
+(eager steps; a lane's sums through the first card), for each card count
+above 1: after 2 steps its state and metrics held bit for bit against the
+same group on card 0 named N times (one CUDA graph a step), and the step
+ms of 3 more beside that group's.
 """
 from __future__ import annotations
 
@@ -168,6 +175,77 @@ def lm_cells(arch: str, counts, smi: str) -> list:
     return cells
 
 
+def tp_cells(arch: str, counts, smi: str) -> list:
+    """The ``--tp`` cells: ``arch`` over a (1, N) model group of N cards
+    against the same group on card 0."""
+    import gc
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.arena import tree_flatten
+    from repro_torch.data.pipeline import StreamConfig, TokenStream
+    from repro_torch.launch.mesh import make_data_mesh
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig, Schedule
+    from repro_torch.train import TrainConfig, TrainProcess, init_mesh_state
+
+    model = build_model(get_config(arch))
+    stream = TokenStream(StreamConfig(vocab=model.cfg.vocab, seq=2048, batch=4, seed=0))
+    tcfg = TrainConfig(opt=AdamWConfig(schedule=Schedule(kind="constant", base_lr=1e-5,
+                                                         warmup_steps=0)))
+    cuda = [torch.device("cuda", i) for i in range(max(counts))]
+
+    def run(devices):
+        """(pieces on the host, metrics, step ms of 3 more, captures) of 2
+        steps over the group, then 3 timed."""
+        mesh = make_data_mesh(devices, model=len(devices))
+        state = init_mesh_state(model, 0, mesh)
+        proc = TrainProcess(model, tcfg, mesh=mesh).init(state, stream.batch_at(0))
+        for i in range(2):
+            metrics = proc.launch(state, stream.batch_at(i))[1]
+        pieces = {name: [p.cpu() for p in s.pieces] for name, s in tree_flatten(state)}
+        metrics = {k: v.cpu() for k, v in metrics.items()}
+        step_ms = []
+        for i in range(3):
+            for d in set(devices):
+                torch.cuda.synchronize(d)
+            t0 = time.perf_counter()
+            proc.launch(state, stream.batch_at(2 + i))
+            for d in set(devices):
+                torch.cuda.synchronize(d)
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        captures = proc.captures
+        del proc, state
+        gc.collect()
+        for d in set(devices):
+            with torch.cuda.device(d):
+                torch.cuda.empty_cache()
+        return pieces, metrics, step_ms, captures
+
+    cells = []
+    for n in [c for c in counts if c > 1]:
+        want, want_metrics, one_ms, one_captures = run([cuda[0]] * n)
+        got, metrics, step_ms, captures = run(cuda[:n])
+        differ = [(name, k) for name in want for k, (p, q) in
+                  enumerate(zip(got[name], want[name])) if not torch.equal(p, q)]
+        differ += [k for k in want_metrics if not torch.equal(metrics[k], want_metrics[k])]
+        p50, one_p50 = statistics.median(step_ms), statistics.median(one_ms)
+        print(f"[mesh-scaling] {smi}: {arch} trained over a (data 1, model {n}) group of {n} "
+              f"cards at 4 x 2048 (eager, captures {captures}): step ms "
+              f"{', '.join(f'{t:.2f}' for t in step_ms)}, p50 {p50:.2f}, "
+              f"{4 * 2048 / p50 * 1e3:.0f} tokens/s; the group on card 0 ({one_captures} "
+              f"capture) p50 {one_p50:.2f}; state and metrics after 2 steps bit for bit the "
+              f"card-0 group's: {not differ} {differ[:4]}")
+        cells.append({"tp": arch, "cards": n, "step_ms": step_ms, "p50_ms": p50,
+                      "one_card_step_ms": one_ms, "one_card_p50_ms": one_p50,
+                      "bit_for_bit": not differ})
+        del want, got
+        if differ:
+            raise SystemExit(f"mesh_scaling: {arch} over a model group of {n} cards differs: "
+                             f"{differ[:4]}")
+    return cells
+
+
 def main(argv=None) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -179,6 +257,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--mode", default="fused_kernel",
                     choices=["staged", "fused", "fused_kernel"])
     ap.add_argument("--lm", metavar="ARCH", help="also train and serve ARCH over the cards")
+    ap.add_argument("--tp", metavar="ARCH",
+                    help="also train ARCH over a model group of the cards (tensor parallel)")
     ap.add_argument("--out", help="write the cells as JSON to this file")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -259,6 +339,8 @@ def main(argv=None) -> dict:
     tmp.cleanup()
     if args.lm:
         results += lm_cells(args.lm, [c for c in args.cards if c <= have], smi)
+    if args.tp:
+        results += tp_cells(args.tp, [c for c in args.cards if c <= have], smi)
     report = {"cards": cards.splitlines(), "cells": results}
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

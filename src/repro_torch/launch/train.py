@@ -15,9 +15,13 @@ config that does not is refused with both sizes (qwen3-14b needs about
 237 GB), not cut down.  Every family trains: the decoder family (dense,
 moe, vlm), rwkv6-3b (ssm), zamba2-2.7b (hybrid) and whisper-large-v3
 (encdec: its batches carry ``max(8, seq // 2)`` frames a sample, as the
-reference's do).  ``--multi-pod`` names the reference's multi-pod
-production mesh, (pod 2, data 16, model 16) over 512 cards; it is refused
-until training over a model axis lands (ROADMAP.md queue 1, item 6b).
+reference's do).  ``--multi-pod`` trains on the reference's multi-pod
+production mesh, (pod 2, data 16, model 16) over 512 cards
+(``make_production_mesh``, which refuses fewer cards, naming both
+counts): the decoder family data parallel over ``pod`` and ``data`` and
+tensor parallel over ``model``; rwkv6, zamba2 and whisper train over a
+model axis once ROADMAP.md queue 1, item 6c lands, and refuse it until
+then.
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ import torch
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke
 from repro_torch.core.arena import torch_dtype
 from repro_torch.data.pipeline import StreamConfig, TokenStream
+from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import build_model
 from repro_torch.models.common import ArchConfig, tree_flatten
 from repro_torch.optim import AdamWConfig, Schedule
@@ -48,6 +53,26 @@ def train_state_bytes(cfg: ArchConfig, lanes: int = 1, microbatches: int = 1) ->
         total += n * ((lanes + 1) * torch_dtype(spec.dtype).itemsize + 12
                       + (4 if lanes * microbatches > 1 else 0))
     return total
+
+
+def mesh_state_bytes(model, mesh, compress: bool = False) -> list:
+    """(parameter bytes, optimizer bytes) that each grid position of
+    ``mesh`` holds of ``model``'s placed train state (its pieces by
+    ``state_pspecs``: parameters by the partition rules, master, m, v, the
+    step counter and ``ef`` in their ZeRO-1 pieces), from the specs with
+    nothing allocated."""
+    from repro_torch.launch.mesh import piece_index
+    from repro_torch.train.step import state_pspecs, to_named, train_state_specs
+    like = train_state_specs(model, compress)
+    places = dict(tree_flatten(to_named(state_pspecs(model, like), mesh)))
+    out = [[0, 0] for _ in range(mesh.devices.size)]
+    for name, spec in tree_flatten(like):
+        size = torch_dtype(spec.dtype).itemsize
+        for k in range(mesh.devices.size):
+            index = piece_index(spec.shape, places[name].spec, mesh, k)
+            out[k][0 if name.startswith("['params']") else 1] += \
+                size * math.prod(b - a for a, b in index)
+    return [tuple(b) for b in out]
 
 
 def check_fits(cfg: ArchConfig, device: torch.device, lanes: int = 1,
@@ -83,14 +108,19 @@ def main(argv: Optional[list] = None) -> Trainer:
     ap.add_argument("--cpu", action="store_true", help="train on the CPU instead of the card")
     args = ap.parse_args(argv)
 
-    if args.multi_pod:
-        raise NotImplementedError(
-            "--multi-pod trains on the (pod 2, data 16, model 16) production mesh, and training "
-            "over a mesh's model axis waits for ROADMAP.md queue 1, item 6b")
     cfg = get_config(args.arch) if args.scale == "full" else get_smoke(args.arch)
-    device = torch.device("cpu") if args.cpu else torch.device("cuda")
-    check_fits(cfg, device, microbatches=args.microbatches)
     model = build_model(cfg)
+    mesh = None
+    if args.multi_pod:
+        if not getattr(model, "tensor_parallel", False):
+            raise NotImplementedError(
+                f"--multi-pod trains on the (pod 2, data 16, model 16) production mesh, and "
+                f"training {type(model).__name__} over a mesh's model axis waits for "
+                "ROADMAP.md queue 1, item 6c")
+        mesh = make_production_mesh(multi_pod=True)
+    device = torch.device("cpu") if args.cpu else torch.device("cuda")
+    if mesh is None:
+        check_fits(cfg, device, microbatches=args.microbatches)
 
     kind = {"encdec": "encdec", "vlm": "vlm"}.get(cfg.family, "lm")
     seq = args.seq - (cfg.n_patches if kind == "vlm" else 0)
@@ -105,11 +135,12 @@ def main(argv: Optional[list] = None) -> Trainer:
             opt=AdamWConfig(schedule=Schedule(
                 base_lr=args.lr, warmup_steps=min(100, args.steps // 10 + 1),
                 total_steps=args.steps))))
-    trainer = Trainer(model, tcfg, device=device)
+    trainer = Trainer(model, tcfg, mesh=mesh, device=device)
     trainer.fit_with_restarts(stream, args.seed)
     first = trainer.history[0][1] if trainer.history else float("nan")
     last = trainer.history[-1][1] if trainer.history else float("nan")
-    print(f"[train] {args.arch} ({args.scale}) {args.steps} steps on {device}: "
+    where = f"the mesh {mesh.shape}" if mesh is not None else device
+    print(f"[train] {args.arch} ({args.scale}) {args.steps} steps on {where}: "
           f"loss {first:.4f} -> {last:.4f}")
     return trainer
 

@@ -4,7 +4,12 @@ attention through the flash-attention kernel, cached single-token decode in
 plain torch), MLPs, embeddings.
 
 Mirrors ``repro/models/layers.py``.  Parameters are nested dicts of
-tensors.  The norm and attention kernels are called through their
+tensors.  The training forward's functions (:func:`attention_full`,
+:func:`apply_mlp`, :func:`embed_tokens`, :func:`logits_from_hidden`,
+:func:`cross_entropy`) also run over the lanes of a model group
+(``group=``, :mod:`~repro_torch.models.parallel`): then each parameter
+argument is a list of the lanes' pieces and each activation a list of the
+lanes' copies.  The norm and attention kernels are called through their
 wrappers, which run the hand-written CUDA kernel on CUDA tensors and the
 plain version on CPU tensors.  Unlike the JAX functions, the cache writes
 here are in place: ``prefill_kv`` and ``attention_decode`` write the
@@ -12,7 +17,7 @@ layer's cache tensors (views of the decode-state arena) and return them.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -21,7 +26,9 @@ from repro_torch.core.arena import spec_dtype
 from repro_torch.core.data import TensorSpec
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.rmsnorm import rmsnorm
+from . import parallel as tp
 from .common import ArchConfig
+from .parallel import ModelGroup
 
 Params = Dict[str, Any]
 
@@ -128,20 +135,96 @@ def _project_qkv(p: Params, x: torch.Tensor, cfg: ArchConfig, positions: torch.T
     q = q.view(b, s, h, dh).transpose(1, 2).contiguous()
     k = k.view(b, s, hkv, dh).transpose(1, 2).contiguous()
     v = v.view(b, s, hkv, dh).transpose(1, 2).contiguous()
+    return _norm_rope(p, q, k, cfg, positions) + (v,)
+
+
+def _norm_rope(p: Params, q: torch.Tensor, k: torch.Tensor, cfg: ArchConfig,
+               positions: torch.Tensor):
     if cfg.qk_norm:
         q = apply_norm(p["q_norm"], q, cfg)
         k = apply_norm(p["k_norm"], k, cfg)
     if cfg.use_rope:
         q = apply_rope(q, positions, cfg.rope_theta, cfg.rotary_pct)
         k = apply_rope(k, positions, cfg.rope_theta, cfg.rotary_pct)
-    return q, k, v
+    return q, k
+
+
+def _heads(t: torch.Tensor, dh: int) -> torch.Tensor:
+    """(B, S, n * dh) -> (B, n, S, dh), contiguous."""
+    b, s, _ = t.shape
+    return t.view(b, s, -1, dh).transpose(1, 2).contiguous()
+
+
+def kv_heads_of_lane(h: int, hkv: int, lane: int, m: int) -> List[int]:
+    """The kv heads that lane ``lane``'s q heads read (its H/M q heads in
+    order; query head i meets kv head i // (H / Hkv)): each once where
+    they fall in equal consecutive runs (GQA on the lane), else one a
+    q head."""
+    per, g = h // m, h // hkv
+    kv = [(lane * per + i) // g for i in range(per)]
+    heads = sorted(set(kv))
+    run = per // len(heads)
+    if per % len(heads) == 0 and all(kv[i] == heads[i // run] for i in range(per)):
+        return heads
+    return kv
+
+
+def _project_qkv_lanes(p: List[Params], x: List[torch.Tensor], cfg: ArchConfig,
+                       positions: List[torch.Tensor], group: ModelGroup):
+    """Each lane's q, k and v heads (:meth:`ModelGroup.head_split`): its
+    own heads; its q heads and the kv heads they read from the gathered k
+    and v; or every head, gathered, alike on every lane.  Returns the
+    split and the lanes' (q, k, v)."""
+    h, hkv, dh, m = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, group.size
+    split = group.head_split(h, hkv)
+    xs = tp.copy(group, x)
+    proj = {w: [xl @ pl[f"w_{w}"] for pl, xl in zip(p, xs)] for w in "qkv"}
+    if cfg.qkv_bias:
+        proj = {w: [t + pl[f"b_{w}"] for pl, t in zip(p, ts)] for w, ts in proj.items()}
+    for w in {"heads": "", "q": "kv", "none": "qkv"}[split]:     # the projections gathered
+        proj[w] = tp.gather(group, proj[w])
+        if split == "q":                       # each lane reads its own kv heads
+            proj[w] = tp.copy(group, proj[w])
+    norms = p
+    if cfg.qk_norm and split != "none":        # a replicated scale on a lane's heads
+        norms = [{"q_norm": a, "k_norm": b} for a, b in zip(
+            tp.copy_tree(group, [pl["q_norm"] for pl in p]),
+            tp.copy_tree(group, [pl["k_norm"] for pl in p]))]
+    out = []
+    for lane in range(m):
+        q, k, v = (_heads(proj[w][lane], dh) for w in "qkv")
+        if split == "q":
+            idx = kv_heads_of_lane(h, hkv, lane, m)
+            if idx == list(range(idx[0], idx[-1] + 1)):
+                k, v = (t[:, idx[0]:idx[-1] + 1].contiguous() for t in (k, v))
+            else:
+                sel = torch.tensor(idx, device=k.device)
+                k, v = (t.index_select(1, sel).contiguous() for t in (k, v))
+        q, k = _norm_rope(norms[lane], q, k, cfg, positions[lane])
+        out.append((q, k, v))
+    return split, out
 
 
 def attention_full(p: Params, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor, *,
-                   causal: bool = True) -> torch.Tensor:
+                   causal: bool = True, group: Optional[ModelGroup] = None) -> torch.Tensor:
     """Full-sequence attention with no cache (the decoder's training
     forward; Whisper's encoder: ``causal=False``) through the
-    flash-attention kernel.  x: (B, S, D) -> (B, S, D)."""
+    flash-attention kernel.  x: (B, S, D) -> (B, S, D).
+
+    With ``group`` (``p``, ``x`` and ``positions`` each a list a lane),
+    each lane runs the kernel on its heads and its rows of ``w_o``, and
+    the partial outputs are :func:`~repro_torch.models.parallel.reduce` d;
+    where M does not divide H the kernel runs on every head on every
+    lane, and each lane takes its rows of the output."""
+    if group is not None:
+        split, qkv = _project_qkv_lanes(p, x, cfg, positions, group)
+        os = [flash_attention(q, k, v, causal=causal, window=cfg.window) for q, k, v in qkv]
+        os = [o.transpose(1, 2).reshape(o.shape[0], o.shape[2], -1) for o in os]
+        if split == "none":
+            n = os[0].shape[-1]
+            os = [o[..., slice(*group.piece(n, lane))]
+                  for lane, o in enumerate(tp.copy(group, os))]
+        return tp.reduce(group, [o @ pl["w_o"] for pl, o in zip(p, os)])
     b, s, _ = x.shape
     q, k, v = _project_qkv(p, x, cfg, positions)
     o = flash_attention(q, k, v, causal=causal, window=cfg.window)
@@ -229,36 +312,65 @@ def prefill_kv(p: Params, x: torch.Tensor, cfg: ArchConfig, positions: torch.Ten
 # MLPs
 # ---------------------------------------------------------------------------
 
-def apply_mlp(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+def mlp_partial(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """The MLP without ``b_down``: over a model group, a lane's partial
+    output from its columns of the hidden layer."""
     if cfg.mlp == "swiglu":
         return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
     h = x @ p["w_up"] + p["b_up"]
     # jax.nn.gelu defaults to the tanh approximation
     h = F.gelu(h, approximate="tanh") if cfg.mlp == "gelu" else torch.square(F.relu(h))
-    return h @ p["w_down"] + p["b_down"]
+    return h @ p["w_down"]
+
+
+def apply_mlp(p: Params, x: torch.Tensor, cfg: ArchConfig,
+              group: Optional[ModelGroup] = None) -> torch.Tensor:
+    """The MLP; with ``group``, each lane's :func:`mlp_partial` on its copy
+    of x, reduced, then ``b_down`` added once."""
+    if group is not None:
+        ys = tp.reduce(group, [mlp_partial(pl, xl, cfg) for pl, xl in zip(p, tp.copy(group, x))])
+        return ys if cfg.mlp == "swiglu" else [y + pl["b_down"] for pl, y in zip(p, ys)]
+    y = mlp_partial(p, x, cfg)
+    return y if cfg.mlp == "swiglu" else y + p["b_down"]
 
 
 # ---------------------------------------------------------------------------
 # Embeddings / logits
 # ---------------------------------------------------------------------------
 
-def embed_tokens(p: Params, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+def embed_tokens(p: Params, tokens: torch.Tensor, cfg: ArchConfig,
+                 group: Optional[ModelGroup] = None) -> torch.Tensor:
     """The tokens' embedding rows through ``F.embedding``, whose CUDA
     backward sums the rows of repeated tokens in a fixed order (no float
-    atomics), so a training step's gradient is the same on every run."""
+    atomics), so a training step's gradient is the same on every run.
+    With ``group``, the vocabulary-parallel lookup
+    (:func:`~repro_torch.models.parallel.embed`)."""
+    if group is not None:
+        return tp.embed(group, tokens, [pl["embedding"] for pl in p], cfg.adtype)
     return F.embedding(tokens.long(), p["embedding"]).to(cfg.adtype)
 
 
-def logits_from_hidden(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+def logits_from_hidden(p: Params, x: torch.Tensor, cfg: ArchConfig,
+                       group: Optional[ModelGroup] = None) -> torch.Tensor:
+    """f32 logits; with ``group``, each lane's columns of its vocabulary
+    rows ``(..., V/M)``."""
+    if group is not None:
+        return [logits_from_hidden(pl, xl, cfg) for pl, xl in zip(p, tp.copy(group, x))]
     if cfg.tie_embeddings:
         return (x @ p["embedding"].T.to(cfg.adtype)).float()
     return (x @ p["unembed"]).float()
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  mask: Optional[torch.Tensor] = None,
+                  group: Optional[ModelGroup] = None) -> torch.Tensor:
     """Mean token cross-entropy; logits (..., V) f32, labels (...) int.
-    With ``mask`` (...), the mean over the positions it weights."""
+    With ``mask`` (...), the mean over the positions it weights.  With
+    ``group``, ``logits`` holds each lane's columns and the loss is the
+    vocabulary-parallel one (:func:`~repro_torch.models.parallel.
+    cross_entropy`)."""
+    if group is not None:
+        return tp.cross_entropy(group, logits, labels, mask)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     nll = logz - gold

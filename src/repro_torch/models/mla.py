@@ -13,17 +13,24 @@ The latent norm is :func:`~repro_torch.models.layers.apply_norm`, so the
 the reference's is plain ``jnp.einsum``: q/k dim 192 against v dim 128 fit
 no flash-attention call.  The cache writes are in place, as the dense
 decoder's are.
+
+Over a model group (``mla_full(group=)``) every lane computes the latents
+alike and runs its own heads (its pieces of ``w_q``, ``w_uk`` and
+``w_uv``, its rows of ``w_o``) on its copy of them; the lanes' partial
+outputs are reduced.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import ref
 from . import layers as L
+from . import parallel as tp
 from .common import ArchConfig
 from .layers import _spec as spec
+from .parallel import ModelGroup
 
 Params = Dict[str, object]
 
@@ -47,10 +54,12 @@ def mla_cache_specs(cfg: ArchConfig, n_layers: int, batch: int, max_len: int) ->
             "kpos": spec((n_layers, batch, max_len), "int32")}
 
 
-def _q_proj(p: Params, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor):
-    """x (B, S, D) -> q_nope (B, H, S, dn), q_pe (B, H, S, dr) rotated."""
+def _q_proj(p: Params, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor,
+            heads: Optional[int] = None):
+    """x (B, S, D) -> q_nope (B, H, S, dn), q_pe (B, H, S, dr) rotated (H:
+    ``heads``, a lane's, or the config's)."""
     b, s, _ = x.shape
-    h, dn, dr = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+    h, dn, dr = heads or cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
     q = (x @ p["w_q"]).view(b, s, h, dn + dr).transpose(1, 2)
     return q[..., :dn], L.apply_rope(q[..., dn:], positions, cfg.rope_theta)
 
@@ -75,10 +84,11 @@ def _attend_block(q_nope, q_pe, k_nope, k_pe, v, q_off: int, scale: float) -> to
 
 
 def _attend_full(p: Params, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor,
-                 c_kv: torch.Tensor, k_pe: torch.Tensor) -> torch.Tensor:
+                 c_kv: torch.Tensor, k_pe: torch.Tensor, heads: Optional[int] = None
+                 ) -> torch.Tensor:
     b, s, _ = x.shape
-    h, dn, dr, dv = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
-    q_nope, q_pe = _q_proj(p, x, cfg, positions)
+    h, dn, dr, dv = heads or cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    q_nope, q_pe = _q_proj(p, x, cfg, positions, h)
     k_nope = torch.einsum("bsr,rhd->bhsd", c_kv, p["w_uk"]).float()
     v = torch.einsum("bsr,rhd->bhsd", c_kv, p["w_uv"]).float()
     qn, qp, kp = q_nope.float(), q_pe.float(), k_pe.float()
@@ -93,10 +103,19 @@ def _attend_full(p: Params, x: torch.Tensor, cfg: ArchConfig, positions: torch.T
     return o @ p["w_o"]
 
 
-def mla_full(p: Params, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor
-             ) -> torch.Tensor:
-    """Full-sequence causal MLA, direct form.  x: (B, S, D) -> (B, S, D)."""
-    return _attend_full(p, x, cfg, positions, *_latents(p, x, cfg, positions))
+def mla_full(p: Params, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor,
+             group: Optional[ModelGroup] = None) -> torch.Tensor:
+    """Full-sequence causal MLA, direct form.  x: (B, S, D) -> (B, S, D).
+    With ``group`` (``p``, ``x`` and ``positions`` a list a lane) each lane
+    runs its H/M heads on its copy of the latents, and the lanes' partial
+    outputs are reduced."""
+    if group is None:
+        return _attend_full(p, x, cfg, positions, *_latents(p, x, cfg, positions))
+    heads = group.piece(cfg.n_heads, 0)[1]
+    lat = [_latents(pl, xl, cfg, pos) for pl, xl, pos in zip(p, x, positions)]
+    xs, cs, kps = (tp.copy(group, t) for t in (x, [c for c, _ in lat], [k for _, k in lat]))
+    return tp.reduce(group, [_attend_full(pl, xl, cfg, pos, c, k, heads) for pl, xl, pos, c, k
+                             in zip(p, xs, positions, cs, kps)])
 
 
 def mla_prefill(p: Params, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor,

@@ -10,6 +10,13 @@ decode-state arena) and return it; the training entry points
 ``hidden_states``, ``logits`` and ``loss_fn`` write nothing in place, so
 autograd differentiates them (through the norm and attention kernels'
 hand-written backward passes on CUDA tensors).
+
+The training entry points also run over the lanes of a model group
+(``group=``, :mod:`~repro_torch.models.parallel`), tensor parallel by
+:meth:`DecoderLM.partition_rules`: the parameters are then a list of the
+lanes' pieces (a tree a lane), the hidden states a list of the lanes'
+copies, the logits a list of the lanes' vocabulary columns, and the loss
+the vocabulary-parallel cross-entropy.
 """
 from __future__ import annotations
 
@@ -20,8 +27,10 @@ import torch
 from . import layers as L
 from . import mla as MLA
 from . import moe as MOE
+from . import parallel as tp
 from .common import (MODEL, ArchConfig, Rules, alloc_tree, init_tree, remat_call, stacked,
                      tree_flatten, tree_map, unstacked)
+from .parallel import ModelGroup
 
 Params = Dict[str, Any]
 
@@ -33,6 +42,9 @@ class DecoderLM:
     layer of width ``first_dense_ff`` outside the stack, its parameters and
     cache the unstacked ``layer0`` subtrees; the stacked ``layers`` /
     ``scan`` subtrees hold the other ``n_layers - 1``."""
+
+    #: trains over a mesh's model axis (``repro_torch.train.step``)
+    tensor_parallel = True
 
     def __init__(self, cfg: ArchConfig):
         self.cfg = cfg
@@ -148,9 +160,12 @@ class DecoderLM:
         return L.logits_from_hidden(params["embed"], x, cfg), cache
 
     # ------------------------------------------------------------- train
-    def _layer_fwd(self, p: Params, x: torch.Tensor, positions: torch.Tensor, use_moe: bool
+    def _layer_fwd(self, p: Params, x: torch.Tensor, positions: torch.Tensor, use_moe: bool,
+                   group: Optional[ModelGroup] = None
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         cfg = self.cfg
+        if group is not None:
+            return self._layer_fwd_lanes(p, x, positions, use_moe, group)
         h = L.apply_norm(p["ln_attn"], x, cfg)
         if cfg.mla:
             attn = MLA.mla_full(p["attn"], h, cfg, positions)
@@ -164,8 +179,32 @@ class DecoderLM:
             y, aux = L.apply_mlp(p["mlp"], h, cfg), {}
         return x + y, aux
 
+    def _layer_fwd_lanes(self, p, x, positions, use_moe: bool, group: ModelGroup):
+        """One layer over the group's lanes: the norms and residual adds on
+        every lane's copy, the attention and the MLP or experts on each
+        lane's pieces (one reduce each)."""
+        cfg = self.cfg
+
+        def sub(key):
+            return [pl[key] for pl in p]
+
+        h = [L.apply_norm(n, xl, cfg) for n, xl in zip(sub("ln_attn"), x)]
+        if cfg.mla:
+            attn = MLA.mla_full(sub("attn"), h, cfg, positions, group)
+        else:
+            attn = L.attention_full(sub("attn"), h, cfg, positions, causal=cfg.causal,
+                                    group=group)
+        x = [xl + a for xl, a in zip(x, attn)]
+        h = [L.apply_norm(n, xl, cfg) for n, xl in zip(sub("ln_mlp"), x)]
+        if use_moe:
+            y, aux = MOE.apply_moe(sub("moe"), h, cfg, group)
+        else:
+            y, aux = L.apply_mlp(sub("mlp"), h, cfg, group), {}
+        return [xl + yl for xl, yl in zip(x, y)], aux
+
     def hidden_states(self, params: Params, tokens: torch.Tensor,
-                      prefix_embeds: Optional[torch.Tensor] = None
+                      prefix_embeds: Optional[torch.Tensor] = None,
+                      group: Optional[ModelGroup] = None
                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Full-sequence forward to the final hidden states (B, P + S, D)
         and the MoE metrics (``moe_aux_loss``, ``moe_drop_rate``: sums over
@@ -175,7 +214,14 @@ class DecoderLM:
         layer runs under non-reentrant ``torch.utils.checkpoint`` (its
         activations recomputed in the backward), as the reference wraps
         its scan body in ``jax.checkpoint``; deepseek's layer 0 stays
-        outside, as there."""
+        outside, as there.  With ``group`` (``params`` a tree a lane), the
+        hidden states are a list of the lanes' copies, each MoE metric one
+        value (:func:`~repro_torch.models.parallel.single`), and a
+        checkpoint holds one whole layer of every lane, so its recompute
+        replays the same reduces; a group over distinct cards keeps every
+        layer's activations (the same values)."""
+        if group is not None:
+            return self._hidden_states_lanes(params, tokens, prefix_embeds, group)
         cfg = self.cfg
         x = L.embed_tokens(params["embed"], tokens, cfg)
         if prefix_embeds is not None:
@@ -197,24 +243,67 @@ class DecoderLM:
         n_moe = max(1, self.n_scan)
         return x, {k: v / n_moe for k, v in aux_sums.items()}
 
-    def logits(self, params: Params, tokens: torch.Tensor,
-               prefix_embeds: Optional[torch.Tensor] = None
-               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """(logits (B, P + S, V) f32, MoE metrics) of a full sequence."""
-        x, aux = self.hidden_states(params, tokens, prefix_embeds)
-        return L.logits_from_hidden(params["embed"], x, self.cfg), aux
+    def _hidden_states_lanes(self, params, tokens, prefix_embeds, group: ModelGroup):
+        """:meth:`hidden_states` over the group's lanes (``params`` a tree a
+        lane)."""
+        cfg = self.cfg
 
-    def loss_fn(self, params: Params, batch: Dict[str, torch.Tensor]
+        def sub(key):
+            return [pl[key] for pl in params]
+
+        x = L.embed_tokens(sub("embed"), tokens, cfg, group)
+        if prefix_embeds is not None:
+            x = [torch.cat([prefix_embeds.to(xl.device, cfg.adtype), xl], dim=1) for xl in x]
+        b, s, _ = x[0].shape
+        positions = [torch.arange(s, dtype=torch.int32, device=xl.device).expand(b, s)
+                     for xl in x]
+        if cfg.first_dense_ff:
+            x, _ = self._layer_fwd(sub("layer0"), x, positions, False, group)
+        use_moe = bool(cfg.n_experts)
+        # PyTorch's non-reentrant checkpoint recomputes a layer in whichever
+        # of the autograd engine's device threads first needs it, with no
+        # lock: over distinct cards two threads start it at once (measured
+        # on two H100s), so there the layers keep their activations
+        remat = cfg.remat and torch.is_grad_enabled() and len(set(group.devices)) == 1
+        aux_sums = None
+        stacks = [unstacked(layers, self.n_scan) for layers in sub("layers")]
+        for i in range(self.n_scan):
+            x, aux = remat_call(remat, self._layer_fwd, [st[i] for st in stacks], x, positions,
+                                use_moe, group)
+            if use_moe:
+                aux_sums = aux if aux_sums is None else {
+                    k: [a + b for a, b in zip(aux_sums[k], aux[k])] for k in aux}
+        x = [L.apply_norm(n, xl, cfg) for n, xl in zip(sub("final_norm"), x)]
+        if not use_moe:
+            return x, {}
+        n_moe = max(1, self.n_scan)
+        return x, {k: tp.single(group, v) / n_moe for k, v in aux_sums.items()}
+
+    def logits(self, params: Params, tokens: torch.Tensor,
+               prefix_embeds: Optional[torch.Tensor] = None,
+               group: Optional[ModelGroup] = None
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """(logits (B, P + S, V) f32, MoE metrics) of a full sequence; with
+        ``group``, a list of the lanes' (B, P + S, V/M) columns."""
+        x, aux = self.hidden_states(params, tokens, prefix_embeds, group)
+        embed = [pl["embed"] for pl in params] if group is not None else params["embed"]
+        return L.logits_from_hidden(embed, x, self.cfg, group), aux
+
+    def loss_fn(self, params: Params, batch: Dict[str, torch.Tensor],
+                group: Optional[ModelGroup] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """(total loss, metrics) of a batch: tokens (B, S), labels (B, S)
         [, patch_embeds (B, P, D)] [, loss_mask (B, S)].  The loss is the
         mean token cross-entropy over the text positions (a VLM prefix is
-        left out); the total adds the MoE load-balance loss."""
+        left out); the total adds the MoE load-balance loss.  With
+        ``group`` (``params`` a tree a lane), the vocabulary-parallel
+        cross-entropy on the group's first device."""
         prefix = batch.get("patch_embeds")
-        logits, aux = self.logits(params, batch["tokens"], prefix)
+        logits, aux = self.logits(params, batch["tokens"], prefix, group)
         if prefix is not None:
-            logits = logits[:, prefix.shape[1]:]
-        loss = L.cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
+            cut = prefix.shape[1]
+            logits = [lg[:, cut:] for lg in logits] if group is not None else logits[:, cut:]
+        loss = L.cross_entropy(logits, batch["labels"], batch.get("loss_mask"), group)
         total = loss + aux["moe_aux_loss"] if "moe_aux_loss" in aux else loss
         return total, {"loss": loss, **aux}
 

@@ -1,8 +1,8 @@
 """AdamW with f32 master weights and global-norm clipping, mirroring
 ``repro/optim/adamw.py``.  The step's scalars (:func:`adamw_scalars`) and
 each leaf's update (:func:`update_leaf`) are apart, so the mesh train step
-updates each lane's ZeRO-1 piece of a leaf with the whole gradient's
-scalars.
+updates each grid position's ZeRO-1 piece of a leaf with the whole
+gradient's scalars (:func:`global_norm` reads a gradient in its pieces).
 
 State per parameter leaf: ``master``, ``m`` and ``v`` in f32; the step
 counter is a 0-d int32 tensor on the device.  The gradient arrives in the
@@ -21,6 +21,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.core.arena import tree_flatten
+from repro_torch.launch.mesh import Sharded
 from repro_torch.models.common import tree_map
 from .schedule import Schedule
 
@@ -53,11 +54,15 @@ def adamw_init(params) -> Dict[str, Any]:
 
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of every leaf's squares in f32, leaves summed in
-    the tree's order (the reference's ``jax.tree.reduce``)."""
+    the tree's order (the reference's ``jax.tree.reduce``).  A leaf placed
+    on a mesh (:class:`~repro_torch.launch.mesh.Sharded`) adds each
+    distinct piece's sum once, in position order, on the first leaf's
+    device: a piece that several lanes hold counts once."""
     sq = None
     for _, g in tree_flatten(tree):
-        s = torch.sum(torch.square(g.float()))
-        sq = s if sq is None else sq + s
+        for t in ([g.pieces[k] for k in g.unique()] if isinstance(g, Sharded) else [g]):
+            s = torch.sum(torch.square(t.float()))
+            sq = s if sq is None else sq + (s if s.device == sq.device else s.to(sq.device))
     return torch.sqrt(sq)
 
 

@@ -10,21 +10,27 @@ batch) -> (state, metrics)``, that updates the state's tensors in place
 one CUDA graph, ``launch()`` copies the batch into the captured input and
 replays it.
 
-On a mesh (``TrainProcess(mesh=)``, data parallel over the ``data`` axis,
-one process driving every lane as the JAX package's single controller
-does) the state's leaves are :class:`~repro_torch.launch.mesh.Sharded`:
-the parameters replicated, one copy a lane, and the optimizer's master,
-m, v (and the error-feedback buffer) cut into their ZeRO-1 pieces, one a
-lane (``state_pspecs`` / ``to_named`` / ``shard_state``, or
-``init_mesh_state`` leaf by leaf).  Each lane runs the forward and
-backward of its contiguous rows of the global batch; the lanes'
-gradients are reduced in f32 on the first lane's device in lane order by
-the one microbatch accumulation (``accumulate_grads``), so an L-lane
-step equals the one-lane step with ``microbatches=L`` bit for bit; each
-lane updates its pieces with the whole gradient's norm and scalars, and
-the new parameters are copied into every lane's replica.  The model axis
-of training (tensor parallelism by the partition rules) waits for
-ROADMAP.md queue 1, item 6b.
+On a ``(data, model)`` mesh (``TrainProcess(mesh=)``, one process driving
+every lane as the JAX package's single controller does) the state's leaves
+are :class:`~repro_torch.launch.mesh.Sharded`: each parameter in the
+pieces its partition rule gives the ``model`` axis (Megatron-style tensor
+parallelism; a leaf the rules leave whole is replicated), one piece a grid
+position, and the optimizer's master, m, v (and the error-feedback buffer)
+cut further into their ZeRO-1 pieces over ``data`` (``state_pspecs`` /
+``to_named`` / ``shard_state``, or ``init_mesh_state`` leaf by leaf).
+Each data lane, a model group of M lanes, runs the forward and backward
+of its contiguous rows of the global batch, each lane on its pieces
+(:mod:`repro_torch.models.parallel`); the data lanes' gradients are
+reduced in f32 in lane order by the one microbatch accumulation
+(``accumulate_grads``), each model piece on its own lane of the first
+group, so no lane holds a whole model-split gradient and an L-lane
+data-only step equals the one-lane step with ``microbatches=L`` bit for
+bit.  Each grid position updates its pieces with the whole gradient's
+norm (each distinct piece counted once) and scalars, and its new
+parameter piece is copied into every replica that shares its ``model``
+coordinate.  A model axis larger than 1 trains the decoder family
+(``DecoderLM``); rwkv6, zamba2 and whisper wait for ROADMAP.md queue 1,
+item 6c.
 """
 from __future__ import annotations
 
@@ -41,11 +47,12 @@ from repro_torch.core.registry import add_launches, counting_into
 from repro_torch.launch.mesh import (Mesh, Placement, Sharded, check_present, model_axis_size,
                                      resolve_spec)
 from repro_torch.models.common import BATCH_AXES, partition_tree, tree_map, tree_paths, zero1_spec
+from repro_torch.models.parallel import ModelGroup
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
 from repro_torch.optim.adamw import adamw_scalars, update_leaf
 
-_MODEL_AXIS = ("training over a mesh's model axis (tensor parallelism by the partition rules) "
-               "waits for ROADMAP.md queue 1, item 6b")
+_MODEL_AXIS = ("training {} over a mesh's model axis (tensor parallelism by its partition "
+               "rules) waits for ROADMAP.md queue 1, item 6c")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,18 +100,30 @@ def device_batch(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
             .to(device) for k, v in batch.items()}
 
 
-def loss_and_grads(model, params, batch) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
+def loss_and_grads(model, params, batch, group: Optional[ModelGroup] = None
+                   ) -> Tuple[Dict[str, torch.Tensor], Any]:
     """(metrics, gradient tree) of ``model.loss_fn`` at ``params``; each
-    gradient in its parameter's dtype, as ``jax.grad`` gives it."""
-    flat = tree_flatten(params)
-    leaves = [p.detach().requires_grad_(True) for _, p in flat]
+    gradient in its parameter's dtype, as ``jax.grad`` gives it.  With
+    ``group``, ``params`` is the group's list of lane trees and the
+    gradient a list of trees, one a lane: each lane's pieces' gradient
+    (a leaf the lanes hold alike gets the same whole gradient on each)."""
+    trees = list(params) if group is not None else [params]
+    flats = [tree_flatten(t) for t in trees]
+    leaves = [[p.detach().requires_grad_(True) for _, p in flat] for flat in flats]
     with torch.enable_grad():
-        tree = tree_unflatten((n, t) for (n, _), t in zip(flat, leaves))
-        total, metrics = model.loss_fn(tree, batch)
-        grads = torch.autograd.grad(total, leaves, allow_unused=True)
-    grads = [g if g is not None else torch.zeros_like(p) for g, p in zip(grads, leaves)]
-    return ({k: v.detach() for k, v in metrics.items()},
-            tree_unflatten((n, g) for (n, _), g in zip(flat, grads)))
+        lanes = [tree_unflatten((n, t) for (n, _), t in zip(flat, ls))
+                 for flat, ls in zip(flats, leaves)]
+        if group is not None:
+            total, metrics = model.loss_fn(lanes, batch, group=group)
+        else:
+            total, metrics = model.loss_fn(lanes[0], batch)
+        grads = torch.autograd.grad(total, [t for ls in leaves for t in ls], allow_unused=True)
+    out, i = [], 0
+    for flat, ls in zip(flats, leaves):
+        gs = [g if g is not None else torch.zeros_like(p) for g, p in zip(grads[i:], ls)]
+        out.append(tree_unflatten((n, g) for (n, _), g in zip(flat, gs)))
+        i += len(ls)
+    return {k: v.detach() for k, v in metrics.items()}, (out if group is not None else out[0])
 
 
 def _on(t: torch.Tensor, device: torch.device) -> torch.Tensor:
@@ -112,9 +131,13 @@ def _on(t: torch.Tensor, device: torch.device) -> torch.Tensor:
 
 
 def accumulate_grads(model, lanes, batch, microbatches: int = 1
-                     ) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
+                     ) -> Tuple[Dict[str, torch.Tensor], Any]:
     """(metrics, gradient) of the batch's mean loss over ``lanes``, a list
     of (parameter tree, device), with ``batch`` on the first lane's
+    device.  On a mesh with a model axis each lane is a data lane,
+    (its model group's list of lane trees, :class:`~repro_torch.models.
+    parallel.ModelGroup`), and the gradient a list of trees, one a model
+    lane: lane m's pieces' gradient, summed on the first group's m-th
     device.
 
     Microbatch ``i`` is cut into one contiguous part a lane; the parts'
@@ -127,66 +150,84 @@ def accumulate_grads(model, lanes, batch, microbatches: int = 1
     is the parts' (weighted) mean, the other metrics the last part's.  One
     lane and one microbatch return the gradient in the parameters' dtype,
     as ``jax.grad`` gives it."""
-    home, n_lanes, m = lanes[0][1], len(lanes), microbatches
+    where, n_lanes, m = lanes[0][1], len(lanes), microbatches
+    grouped = isinstance(where, ModelGroup)
+    home = where.home if grouped else where
     if n_lanes == 1 and m == 1:
-        return loss_and_grads(model, lanes[0][0], batch)
+        return loss_and_grads(model, lanes[0][0], batch, where if grouped else None)
     rows = len(next(iter(batch.values())))
     if rows % (m * n_lanes):
         raise ValueError(f"a batch of {rows} rows does not split into {m} microbatch(es) "
                          f"over {n_lanes} lane(s)")
     n = rows // (m * n_lanes)
-    g_acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=home),
-                     lanes[0][0])
+    accs = [tree_map(lambda p, d=d: torch.zeros(p.shape, dtype=torch.float32, device=d), tree)
+            for tree, d in (zip(lanes[0][0], where.devices) if grouped else [(lanes[0][0], home)])]
     loss_acc = torch.zeros((), dtype=torch.float32, device=home)
     for i in range(m):
-        parts = [{k: _on(v[(i * n_lanes + j) * n:(i * n_lanes + j + 1) * n], dev)
-                  for k, v in batch.items()} for j, (_, dev) in enumerate(lanes)]
+        parts = [{k: _on(v[(i * n_lanes + j) * n:(i * n_lanes + j + 1) * n],
+                         wh.home if grouped else wh)
+                  for k, v in batch.items()} for j, (_, wh) in enumerate(lanes)]
         weights = [None] * n_lanes
         if n_lanes > 1 and "loss_mask" in batch:
             counts = [_on(p["loss_mask"].float().sum(), home) for p in parts]
             total = torch.clamp(sum(counts[1:], counts[0]), min=1.0)
             weights = [c * n_lanes / total for c in counts]
-        for (params, _), part, w in zip(lanes, parts, weights):
-            metrics, g = loss_and_grads(model, params, part)
+        for (params, wh), part, w in zip(lanes, parts, weights):
+            metrics, g = loss_and_grads(model, params, part, wh if grouped else None)
             with torch.no_grad():          # in place: the sums of a + b, one buffer
-                for (_, a), (_, b) in zip(tree_flatten(g_acc), tree_flatten(g)):
-                    b = _on(b, home).float()           # across cards in the grad's dtype
-                    a.add_(b if w is None else b * w)
+                for acc, lane_g in zip(accs, g if grouped else [g]):
+                    for (_, a), (_, b) in zip(tree_flatten(acc), tree_flatten(lane_g)):
+                        b = _on(b, a.device).float()   # across cards in the grad's dtype
+                        a.add_(b if w is None else b * _on(w, a.device))
             loss = _on(metrics["loss"], home)
             loss_acc = loss_acc + (loss if w is None else loss * w)
             del g
     with torch.no_grad():
-        for _, g in tree_flatten(g_acc):
-            g.div_(m * n_lanes)
+        for acc in accs:
+            for _, g in tree_flatten(acc):
+                g.div_(m * n_lanes)
     return {**{k: _on(v, home) for k, v in metrics.items()}, "loss": loss_acc / (m * n_lanes)}, \
-        g_acc
+        (accs if grouped else accs[0])
+
+
+def _within(sl: Tuple[slice, ...], index) -> Tuple[slice, ...]:
+    """The global slices ``sl`` within a piece whose ``[[start, stop],
+    ...]`` is ``index``."""
+    return tuple(slice(s.start - a, s.stop - a) for s, (a, _) in zip(sl, index))
 
 
 def compress_grads(grads, ef_tree):
     """The int8 error-feedback quantization of the (reduced) gradient:
     each piece of a leaf's error buffer (the whole buffer on one device, a
-    ZeRO-1 piece a lane on a mesh) quantizes its slice of the gradient
-    with the leaf's one scale (the max over the pieces is exact) and keeps
-    its error.  Returns the dequantized gradient in f32, written in place
-    where the gradient is f32."""
+    ZeRO-1 piece a grid position on a mesh) quantizes its slice of the
+    gradient (of the gradient's piece of its ``model`` coordinate on a
+    mesh) with the leaf's one scale (the max over the pieces is exact) and
+    keeps its error.  Returns the dequantized gradient in f32, written in
+    place where the gradient is f32."""
     ef = dict(tree_flatten(ef_tree))
     out = []
     with torch.no_grad():
         for name, g in tree_flatten(grads):
             e = ef[name]
-            pieces = ([(e.slices(k), p) for k, p in enumerate(e.pieces)]
-                      if isinstance(e, Sharded) else [((), e)])
-            gfs = [_on(g[sl], p.device).float() + p for sl, p in pieces]
-            amax = torch.stack([_on(gf.abs().max(), g.device) for gf in gfs]).max()
+            placed = isinstance(g, Sharded)
+            gp = g.pieces if placed else [g]
+
+            def local(sl, i, g=g, placed=placed):
+                return _within(sl, g.index(i)) if placed else sl
+
+            pieces = ([(e.slices(k), p, k % len(gp)) for k, p in enumerate(e.pieces)]
+                      if isinstance(e, Sharded) else [((), e, 0)])
+            gfs = [_on(gp[i][local(sl, i)], p.device).float() + p for sl, p, i in pieces]
+            amax = torch.stack([_on(gf.abs().max(), gp[0].device) for gf in gfs]).max()
             scale = torch.clamp(amax, min=1e-12) / 127.0
-            dst = g if g.dtype == torch.float32 else torch.empty(
-                g.shape, dtype=torch.float32, device=g.device)
-            for (sl, p), gf in zip(pieces, gfs):
+            dst = [t if t.dtype == torch.float32 else torch.empty(
+                t.shape, dtype=torch.float32, device=t.device) for t in gp]
+            for (sl, p, i), gf in zip(pieces, gfs):
                 s = _on(scale, p.device)
                 deq = torch.clamp(torch.round(gf / s), -127, 127).to(torch.int8).float() * s
                 p.copy_(gf - deq)
-                dst[sl].copy_(_on(deq, g.device))
-            out.append((name, dst))
+                dst[i][local(sl, i)].copy_(_on(deq, dst[i].device))
+            out.append((name, Sharded(g.placement, g.shape, dst) if placed else dst[0]))
     return tree_unflatten(out)
 
 
@@ -306,53 +347,87 @@ def is_mesh_state(state) -> bool:
     return isinstance(tree_flatten(state["params"])[0][1], Sharded)
 
 
-def check_train_mesh(mesh: Mesh) -> None:
-    """A training mesh runs data parallel only; its devices must be
-    present."""
-    if model_axis_size(mesh) > 1:
-        raise NotImplementedError(f"{_MODEL_AXIS} (mesh {mesh.shape})")
+def check_train_mesh(mesh: Mesh, model) -> None:
+    """A training mesh's devices must be present, and a ``model`` axis
+    larger than 1 needs a model that trains tensor parallel (the decoder
+    family, ``DecoderLM``)."""
+    if model_axis_size(mesh) > 1 and not getattr(model, "tensor_parallel", False):
+        raise NotImplementedError(f"{_MODEL_AXIS.format(type(model).__name__)} "
+                                  f"(mesh {mesh.shape})")
     check_present(mesh)
 
 
+def mesh_lanes(params, mesh: Mesh) -> list:
+    """The data lanes of a placed parameter tree, as :func:`accumulate_grads`
+    takes them: (a grid position's tree, its device) on a data-only mesh;
+    (the model group's M trees, its :class:`~repro_torch.models.parallel.
+    ModelGroup`) with a model axis."""
+    n_model = model_axis_size(mesh)
+    if n_model == 1:
+        return [(tree_map(lambda s, j=j: s.pieces[j], params), g[0])
+                for j, g in enumerate(mesh.groups)]
+    return [([tree_map(lambda s, k=d * n_model + m: s.pieces[k], params)
+              for m in range(n_model)], ModelGroup(g)) for d, g in enumerate(mesh.groups)]
+
+
+def gradient_pieces(grads, params, mesh: Mesh) -> Dict[str, Any]:
+    """:func:`accumulate_grads`' gradient over :func:`mesh_lanes` of the
+    placed ``params`` as :class:`Sharded` leaves over the mesh's first
+    model group: each model lane's piece (a leaf the lanes hold alike, a
+    copy a lane), as :func:`~repro_torch.optim.adamw.global_norm` and the
+    update read them."""
+    n_model = model_axis_size(mesh)
+    group = Mesh([list(mesh.groups[0])])
+    lanes = [dict(tree_flatten(t)) for t in (grads if n_model > 1 else [grads])]
+    return tree_unflatten(
+        (n, Sharded(Placement(group, p.placement.spec), p.shape, [g[n] for g in lanes]))
+        for n, p in tree_flatten(params))
+
+
 def make_mesh_train_step(model, tcfg: TrainConfig, mesh: Mesh):
-    """``step(state, batch) -> (state, metrics)`` over the data lanes of
+    """``step(state, batch) -> (state, metrics)`` over the lanes of
     ``mesh`` on a state placed by :func:`shard_state` (in place).
 
-    The gradient is :func:`accumulate_grads` over the lanes' parameter
-    replicas (the gradient of the global batch's mean loss; with
-    ``compress_grads`` quantized as on one device, each lane holding its
-    ZeRO-1 piece of the error buffer).  Then the global norm and AdamW's
-    scalars of the whole gradient, each lane's update of its pieces, and
-    its new pieces copied into every lane's parameter replica."""
-    check_train_mesh(mesh)
-    devs = [g[0] for g in mesh.groups]
-    home, lanes = devs[0], range(len(devs))
+    The gradient is :func:`accumulate_grads` over the data lanes
+    (:func:`mesh_lanes`; the gradient of the global batch's mean loss, in
+    the pieces of the first model group's lanes; with ``compress_grads``
+    quantized as on one device, each grid position holding its ZeRO-1
+    piece of the error buffer).  Then the global norm (each distinct piece
+    once) and AdamW's scalars of the whole gradient, each grid position's
+    update of its pieces, and its new parameter piece copied into every
+    replica that shares its ``model`` coordinate."""
+    check_train_mesh(mesh, model)
+    n_model = model_axis_size(mesh)
+    devs = mesh.device_list
+    home, positions = devs[0], range(len(devs))
 
     def step(state, batch):
-        replicas = [(tree_map(lambda s, j=j: s.pieces[j], state["params"]), devs[j])
-                    for j in lanes]
-        metrics, grads = accumulate_grads(model, replicas, device_batch(batch, home),
-                                          tcfg.microbatches)
-        del replicas
+        params = state["params"]
+        metrics, grads = accumulate_grads(model, mesh_lanes(params, mesh),
+                                          device_batch(batch, home), tcfg.microbatches)
+        grads = gradient_pieces(grads, params, mesh)
         with torch.no_grad():
             if tcfg.compress_grads:
                 grads = compress_grads(grads, state["ef"])
             opt = state["opt"]
             sc = adamw_scalars(opt["step"].pieces[0], grads, tcfg.opt)
             scs = [{k: _on(v, devs[j]) if isinstance(v, torch.Tensor) else v
-                    for k, v in sc.items()} for j in lanes]
+                    for k, v in sc.items()} for j in positions]
             masters, ms, vs, gs = (dict(tree_flatten(t)) for t in
                                    (opt["master"], opt["m"], opt["v"], grads))
-            for name, ps in tree_flatten(state["params"]):
-                for j in lanes:
+            for name, ps in tree_flatten(params):
+                g = gs[name]
+                for j in positions:
+                    lane = j % n_model
                     sl = masters[name].slices(j)
                     new = torch.empty(masters[name].pieces[j].shape, dtype=ps.dtype,
                                       device=devs[j])
-                    update_leaf(new, masters[name].pieces[j], _on(gs[name][sl], devs[j]),
+                    update_leaf(new, masters[name].pieces[j],
+                                _on(g.pieces[lane][_within(sl, g.index(lane))], devs[j]),
                                 ms[name].pieces[j], vs[name].pieces[j], scs[j], tcfg.opt)
-                    for k in lanes:             # the new piece into every replica
-                        ps.pieces[k][sl].copy_(new)
-            for j in lanes:
+                    for k in positions[lane::n_model]:   # into its model coordinate's replicas
+                        ps.pieces[k][_within(sl, ps.index(k))].copy_(new)
+            for j in positions:
                 opt["step"].pieces[j].copy_(scs[j]["step"])
         return state, {**metrics, "lr": sc["lr"], "grad_norm": sc["grad_norm"]}
 
@@ -379,14 +454,18 @@ class TrainProcess:
     captured process launch (the capture's tally, added at each replay).
     On the CPU, ``launch`` runs the step eagerly.
 
-    With ``mesh`` the step runs over the mesh's data lanes
-    (:func:`make_mesh_train_step`): ``init`` places a plain state by
-    :func:`state_pspecs` (:func:`shard_state`; :attr:`state` is the placed
-    state, which ``launch`` also takes) and, when every lane is on one
-    card, captures every lane's work into the one graph.  Over distinct
-    cards the step runs eagerly (a CUDA graph records one device's work).
-    A mesh with a model axis larger than 1 raises ``NotImplementedError``
-    (ROADMAP.md queue 1, item 6b).
+    With ``mesh`` the step runs over the mesh's lanes
+    (:func:`make_mesh_train_step`): data parallel over ``data``, and over
+    ``model`` tensor parallel by the model's partition rules (each model
+    group's lanes run their pieces of every layer).  ``init`` places a
+    plain state by :func:`state_pspecs` (:func:`shard_state`;
+    :attr:`state` is the placed state, which ``launch`` also takes), warms
+    up the first data lane's forward and backward (its whole model group)
+    and, when every lane is on one card, captures every lane's work into
+    the one graph.  Over distinct cards the step runs eagerly (a CUDA graph
+    records one device's work).  A model axis larger than 1 with a model
+    other than ``DecoderLM`` raises ``NotImplementedError`` (ROADMAP.md
+    queue 1, item 6c).
     """
 
     def __init__(self, model, tcfg: TrainConfig, mesh: Optional[Mesh] = None):
@@ -418,11 +497,12 @@ class TrainProcess:
             if not is_mesh_state(state):
                 state = shard_state(state, to_named(state_pspecs(self.model, state), self.mesh))
             device = self.mesh.devices.flat[0]
-            lane0 = tree_map(lambda s: s.pieces[0], state["params"])
+            lane0, where = mesh_lanes(state["params"], self.mesh)[0]
+            group = where if isinstance(where, ModelGroup) else None
             one_device = len(self.mesh.device_set) == 1
         else:
             device = _device_of(state["params"])
-            lane0, one_device = state["params"], True
+            lane0, group, one_device = state["params"], None, True
         self._state = state
         self._batch = {k: v.clone() for k, v in device_batch(batch, device).items()}
         self._replay = None
@@ -434,7 +514,8 @@ class TrainProcess:
         side = torch.cuda.Stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(side):
-            loss_and_grads(self.model, lane0, {k: v[:part] for k, v in self._batch.items()})
+            loss_and_grads(self.model, lane0, {k: v[:part] for k, v in self._batch.items()},
+                           group)
         torch.cuda.current_stream(device).wait_stream(side)
         torch.cuda.synchronize(device)
         tally: Dict[str, int] = {}

@@ -17,12 +17,14 @@ newest complete one, deterministic data replay, and a straggler timeout.
 
 On a CUDA device ``fit`` runs each step through :class:`~repro_torch.train.
 step.TrainProcess` (one capture, then replays); on the CPU it runs the
-step eagerly.  With ``mesh`` (a data-parallel mesh, one process driving
-every lane) the state is placed on it leaf by leaf (:func:`~repro_torch.
-train.step.init_mesh_state`: parameters a replica a lane, the optimizer
-in ZeRO-1 pieces) and every step runs through ``TrainProcess(mesh=)``; a
-resume restores straight onto the trainer's mesh, which may hold another
-lane count than the run that wrote the checkpoint (an elastic restart).
+step eagerly.  With ``mesh`` (a ``(data, model)`` mesh, one process
+driving every lane) the state is placed on it leaf by leaf
+(:func:`~repro_torch.train.step.init_mesh_state`: each parameter in its
+``model`` pieces, a replica a data lane, the optimizer in ZeRO-1 pieces
+over ``data`` as well) and every step runs through
+``TrainProcess(mesh=)``; a resume restores straight onto the trainer's
+mesh, which may have another ``(data, model)`` shape than the run that
+wrote the checkpoint (an elastic restart).
 """
 from __future__ import annotations
 
@@ -66,7 +68,7 @@ class Trainer:
     def __init__(self, model, cfg: TrainerConfig, mesh=None,
                  log_fn: Callable[[str], None] = print, device=None):
         if mesh is not None:
-            check_train_mesh(mesh)
+            check_train_mesh(mesh, model)
         self.model = model
         self.cfg = cfg
         self.mesh = mesh

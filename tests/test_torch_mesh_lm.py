@@ -12,7 +12,10 @@ against its one-lane runs and the JAX package's forced-eight-device run.
 * **Against the JAX package**: a subprocess under
   ``XLA_FLAGS=--xla_force_host_platform_device_count=8`` (about 25 s)
   runs ``tests/test_mesh_stream.py::test_decode_2d_bit_identical``'s
-  setup (the port carries its parameters across; tokens bit for bit),
+  setup (the port carries its parameters across; tokens bit for bit;
+  the parameters drawn through a CRC-32 ``KeyGen``, as
+  ``test_torch_lm.stable_keys()`` draws them, so every process draws the
+  same ones),
   zamba2 with as many slots as superblocks on a (4, 2) mesh (where the
   reference's guessed slot axis picks a stack axis and its step fails to
   trace: the port's tokens are its one-device session's), writes a
@@ -171,7 +174,7 @@ def test_lmserver_in_strips_captures_one_graph(rec):
 # ---------------------------------------------------------------------------
 
 _JAX_EIGHT = r"""
-import os, sys
+import os, sys, zlib
 os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
 import jax, numpy as np
 from repro.ckpt import restore_checkpoint, save_checkpoint
@@ -180,6 +183,11 @@ from repro.core import CLapp, DeviceTraits, ProfileParameters
 from repro.models import build_model
 from repro.models.common import ArchConfig
 from repro.processes.lm import DecodeSession
+from repro.models import common as _common
+# the KeyGen with a CRC-32 of the name for the salted hash (as
+# test_torch_lm.stable_keys()): every process draws the same parameters
+_common.KeyGen.__call__ = lambda self, name: jax.random.fold_in(
+    self.key, zlib.crc32(name.encode()) % (2 ** 31))
 assert len(jax.devices()) == 8
 d = sys.argv[1]
 inp = np.load(f"{d}/in.npz")

@@ -503,9 +503,9 @@ def test_one_rng_gives_the_same_parameters(setup):
 
 def test_trainer_refuses_a_mesh_and_needs_a_card_unless_asked(setup, monkeypatch):
     cfg, model, _ = setup
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        Trainer(model, TrainerConfig(), mesh=make_data_mesh([torch.device("cpu")] * 2, model=2),
-                device="cpu")
+    with pytest.raises(NotImplementedError, match="RWKV6Model .* item 6c"):
+        Trainer(build_model(get_smoke("rwkv6-3b")), TrainerConfig(),
+                mesh=make_data_mesh([torch.device("cpu")] * 2, model=2), device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Trainer(model, TrainerConfig())
@@ -650,8 +650,11 @@ def test_train_launcher_refuses_a_train_state_larger_than_the_card(monkeypatch):
         train_launch.check_fits(get_config("qwen3-14b"), torch.device("cuda"))
     with pytest.raises(RuntimeError, match="train state needs"):
         train_launch.main(["--arch", "qwen3-14b", "--scale", "full"])
-    with pytest.raises(NotImplementedError, match="item 6b"):
+    with pytest.raises(RuntimeError, match=r"\{'pod': 2, 'data': 16, 'model': 16\} needs 512 "
+                       "CUDA devices; 0 found"):
         train_launch.main(["--arch", "qwen3-14b", "--multi-pod", "--cpu"])
+    with pytest.raises(NotImplementedError, match="RWKV6Model .* item 6c"):
+        train_launch.main(["--arch", "rwkv6-3b", "--multi-pod", "--cpu"])
 
 
 def test_train_launcher_trains_a_smoke_config_on_the_cpu(tmp_path):

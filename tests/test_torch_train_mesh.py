@@ -14,8 +14,20 @@ one-lane step and the JAX package's mesh step.
   package's ``TrainProcess`` on a ``(pod 1, data 4, model 1)`` mesh of
   four forced host devices (a subprocess under
   ``--xla_force_host_platform_device_count=4``, about 15 s), 3 steps from
-  its initial state, within the training tests' band
-  (``tests/test_torch_train.py``: metrics rtol 1e-5, state atol 2e-5).
+  its initial state, over :data:`DRAWS` draws.  The subprocess draws the
+  parameters through a CRC-32 ``KeyGen`` (as ``test_torch_lm.
+  stable_keys()`` does), so every process draws the same ones.  The
+  metrics within rtol 1e-5; the state is judged against an f64 run of the
+  port's one-lane ``microbatches=4`` step (:func:`f64_steps`): over the
+  draws, the port's mean rms distance from it is no more than
+  :data:`F64_MULTIPLE` times the reference's.  An element whose gradient
+  is small beside its leaf's moves its Adam step by the f32 rounding of
+  either package, so a fixed atol on the state misses on some draws (4
+  of 12 salted draws missed 2e-5), and one draw's worst element is noise:
+  on draws 0-11 the worst elements lie 1.2e-6 to 2.0e-5 (the port) and
+  2.2e-6 to 1.3e-4 (the reference) from f64, neither package's the larger
+  on every draw; the rms distances 6.7e-9 to 5.1e-8 and 7.9e-9 to 3.0e-7
+  (means 2.6e-8 and 5.3e-8).
 * **A masked batch**: a ``loss_mask`` from a seed gives the lanes unequal
   token counts; the lanes are weighted by them, so the 2-lane step is the
   one-lane step over the whole batch (loss rtol 1e-6, state atol 2e-5, the
@@ -26,8 +38,9 @@ one-lane step and the JAX package's mesh step.
 * ``Trainer(mesh=)``: a failure and a resume on the same 2 lanes equal an
   uninterrupted run bit for bit; a resume from 2 lanes onto 4 (and onto
   one device) within 1e-6 (the reduction order differs).
-* Refusals: a training mesh with a model axis raises, naming ROADMAP
-  item 6b; its specs are still computed.
+* Refusals: a mesh naming an absent card.  (A model axis trains the
+  decoder family and refuses the other classes naming ROADMAP item 6c:
+  ``tests/test_torch_train_tp.py``.)
 """
 import os
 import subprocess
@@ -329,24 +342,6 @@ def test_one_graph_holds_every_lane_of_one_device(captured):
                                                 for k, v in per_step.items()}
 
 
-def test_a_training_mesh_with_a_model_axis_raises_naming_item_6b():
-    cfg = get_smoke("qwen3-14b")
-    model = build_model(cfg)
-    mesh = make_data_mesh([CPU] * 4, model=2)
-    for make in (lambda: TrainProcess(model, _tcfg(), mesh=mesh),
-                 lambda: Trainer(model, TrainerConfig(), mesh=mesh),
-                 lambda: make_mesh_train_step(model, _tcfg(), mesh)):
-        with pytest.raises(NotImplementedError, match="6b"):
-            make()
-    # its specs and placements are still computed: Megatron pieces over model
-    state = make_train_state(model, 0)
-    placed = shard_state(state, to_named(state_pspecs(model, state), mesh))
-    w_q = placed["params"]["layers"]["attn"]["w_q"]
-    assert w_q.placement.spec == (None, None, "model")
-    assert w_q.pieces[0].shape[-1] == state["params"]["layers"]["attn"]["w_q"].shape[-1] // 2
-    assert torch.equal(w_q.full(), state["params"]["layers"]["attn"]["w_q"])
-
-
 def test_a_mesh_naming_an_absent_card_raises():
     from repro_torch.core.app import NoMatchingDeviceError
     model = build_model(get_smoke("qwen3-14b"))
@@ -359,10 +354,28 @@ def test_a_mesh_naming_an_absent_card_raises():
 # against the JAX package's mesh step (four forced host devices)
 # ---------------------------------------------------------------------------
 
+#: the parameter draws (seeds of the CRC-32 ``KeyGen``) the JAX
+#: comparisons run over
+DRAWS = tuple(range(12))
+#: over the draws, the port's worst distance from the f64 run may be this
+#: multiple of the reference's
+F64_MULTIPLE = 1.5
+
+#: the JAX package's ``KeyGen`` with a CRC-32 of the name in place of the
+#: salted ``hash`` (``test_torch_lm.stable_keys()``), for the subprocesses
+STABLE_KEYS = r"""
+import zlib
+import jax
+from repro.models import common as _common
+_common.KeyGen.__call__ = lambda self, name: jax.random.fold_in(
+    self.key, zlib.crc32(name.encode()) % (2 ** 31))
+"""
+
 _JAX_FOUR = r"""
 import os, sys
 os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
 import jax, numpy as np
+""" + STABLE_KEYS + r"""
 from jax.sharding import Mesh
 from repro.configs import get_smoke
 from repro.data.pipeline import StreamConfig, TokenStream
@@ -377,56 +390,134 @@ def named(t):
     return {jax.tree_util.keystr(p): np.asarray(v)
             for p, v in jax.tree_util.tree_flatten_with_path(t)[0]}
 
-state = make_train_state(model, jax.random.key(0))
-out = {"init" + k: v for k, v in named(state).items()}
 # an Auto (pod, data, model) mesh: jax.make_mesh's Explicit axes are
 # refused by the reference's constrain, and its batch specs name "pod"
 mesh = Mesh(np.array(jax.devices(), dtype=object).reshape(1, 4, 1), ("pod", "data", "model"))
 tcfg = TrainConfig(opt=AdamWConfig(schedule=Schedule(kind="constant", base_lr=1e-3,
                                                      warmup_steps=0)))
 stream = TokenStream(StreamConfig(vocab=cfg.vocab, seq=12, batch=8))
-proc = TrainProcess(model, tcfg, mesh).init(state, stream.batch_at(0))
-metrics = []
-for i in range(3):
-    state, m = proc.launch(state, stream.batch_at(i))
-    metrics.append([float(m[k]) for k in ("loss", "grad_norm", "lr")])
-out.update({"final" + k: v for k, v in named(state).items()})
-out["metrics"] = np.array(metrics)
+out = {}
+for seed in map(int, sys.argv[2].split(",")):
+    state = make_train_state(model, jax.random.key(seed))
+    out.update({f"{seed}/init{k}": v for k, v in named(state).items()})
+    proc = TrainProcess(model, tcfg, mesh).init(state, stream.batch_at(0))
+    metrics = []
+    for i in range(3):
+        state, m = proc.launch(state, stream.batch_at(i))
+        metrics.append([float(m[k]) for k in ("loss", "grad_norm", "lr")])
+    out.update({f"{seed}/final{k}": v for k, v in named(state).items()})
+    out[f"{seed}/metrics"] = np.array(metrics)
 np.savez(sys.argv[1], **out)
 """
 
 
+def run_jax(script, *args, timeout=600):
+    """``script`` in a subprocess on the CPU (forced host devices as it
+    sets them) with ``args``; its npz output as ``{name: array}``."""
+    with tempfile.TemporaryDirectory() as d:
+        out = os.path.join(d, "out.npz")
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
+        r = subprocess.run([sys.executable, "-c", script, out, *map(str, args)], env=env,
+                           capture_output=True, text=True, timeout=timeout)
+        assert r.returncode == 0, r.stderr
+        data = np.load(out)
+        return {k: data[k] for k in data.files}
+
+
 @pytest.fixture(scope="module")
-def jax_four(tmp_path_factory):
-    """The JAX package's initial qwen3-14b SMOKE state, its 3 steps on a
-    four-device mesh and their metrics, from a subprocess."""
-    out = tmp_path_factory.mktemp("jax_four") / "out.npz"
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
-    r = subprocess.run([sys.executable, "-c", _JAX_FOUR, str(out)], env=env,
-                       capture_output=True, text=True, timeout=600)
-    assert r.returncode == 0, r.stderr
-    data = np.load(out)
-    return {k: data[k] for k in data.files}
+def jax_four():
+    """The JAX package's initial qwen3-14b SMOKE state of each draw, its 3
+    steps on a four-device mesh and their metrics, from a subprocess."""
+    return run_jax(_JAX_FOUR, ",".join(map(str, DRAWS)))
 
 
-def test_four_lanes_match_the_jax_mesh_step(jax_four):
+def _of(named, prefix):
+    return {k[len(prefix):]: v for k, v in named.items() if k.startswith(prefix)}
+
+
+def f64_steps(arch, init, batches, microbatches=1):
+    """The state after the port's one-lane step with ``microbatches`` runs
+    ``batches`` in f64 from the reference's initial state ``init``
+    (``{keystr: array}``): f64 parameters, master, m and v, every
+    ``.float()`` of the model, the plain kernels and AdamW made
+    ``.double()`` (the patch of ``test_torch_train.py::
+    test_f32_gradients_are_as_close_to_f64_as_the_reference``), the
+    microbatches' gradients averaged in f64.  ``{keystr: float64 array}``."""
+    from unittest import mock
+    from repro_torch.core.arena import tree_unflatten
+    from repro_torch.models.common import tree_map
+    from repro_torch.optim import adamw_update
+    from repro_torch.train.step import loss_and_grads
+    model = build_model(get_smoke(arch).scaled(param_dtype="float64", dtype="float64"))
+    params = tree_unflatten((n, torch.tensor(np.asarray(v, np.float64)))
+                            for n, v in _of(init, "['params']").items())
+    opt = {"master": tree_map(lambda p: p.clone(), params),
+           "m": tree_map(torch.zeros_like, params), "v": tree_map(torch.zeros_like, params),
+           "step": torch.zeros((), dtype=torch.int32)}
+    ocfg = AdamWConfig(schedule=Schedule(**SCHED))
+    with mock.patch.object(torch.Tensor, "float", torch.Tensor.double):
+        for batch in batches:
+            rows = len(batch["tokens"]) // microbatches
+            grads = None
+            for i in range(microbatches):
+                part = {k: torch.from_numpy(np.ascontiguousarray(v[i * rows:(i + 1) * rows]))
+                        for k, v in batch.items()}
+                g = dict(tree_flatten(loss_and_grads(model, params, part)[1]))
+                grads = g if grads is None else {n: grads[n] + g[n] for n in g}
+            grads = tree_unflatten((n, a / microbatches) for n, a in grads.items())
+            adamw_update(params, grads, opt, ocfg)
+    state = {"params": params, "opt": opt}
+    return {n: t.numpy() for n, t in tree_flatten(state) if t.dtype == torch.float64}
+
+
+def f64_distance(named, truth):
+    """(worst element, rms) of the distance of a state's float leaves from
+    the f64 run's."""
+    diff = np.concatenate([(np.asarray(named[n], np.float64) - t).ravel()
+                           for n, t in truth.items()])
+    return float(np.abs(diff).max()), float(np.sqrt(np.mean(diff ** 2)))
+
+
+def assert_as_close_to_f64(port, reference, what=""):
+    """Over the draws (a list of :func:`f64_distance` pairs each), the
+    port's mean rms distance from f64 is no more than
+    :data:`F64_MULTIPLE` times the reference's.  The worst element, a
+    heavy-tailed noise of Adam steps at near-zero gradients, is in the
+    message, not judged."""
+    p, r = np.array(port), np.array(reference)
+    assert p[:, 1].mean() <= F64_MULTIPLE * r[:, 1].mean(), (what, port, reference)
+
+
+@pytest.fixture
+def one_thread():
+    """One torch thread for a test of many SMOKE-size steps: its small
+    products run faster so, and a loaded host's threads do not spin."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def test_four_lanes_match_the_jax_mesh_step(jax_four, one_thread):
     from repro_torch import interop
     cfg = get_smoke("qwen3-14b")
     model = build_model(cfg)
-    init = {k[4:]: v for k, v in jax_four.items() if k.startswith("init")}
-    state = interop.train_state_from_reference(init, cfg, "cpu")
     stream = TokenStream(StreamConfig(vocab=cfg.vocab, seq=12, batch=8))
-    proc = TrainProcess(model, _tcfg(), mesh=_lanes(4)).init(state, stream.batch_at(0))
-    for i in range(3):
-        placed, m = proc.launch(state, stream.batch_at(i))
-        got = [float(m[k]) for k in ("loss", "grad_norm", "lr")]
-        np.testing.assert_allclose(got, jax_four["metrics"][i], rtol=1e-5, err_msg=f"step {i}")
-    for name, s in tree_flatten(placed):
-        want = jax_four["final" + name]
-        for k in range(4):
-            np.testing.assert_allclose(s.pieces[k].float().numpy(),
-                                       want[s.slices(k)].astype(np.float32), rtol=0, atol=2e-5,
-                                       err_msg=f"{name} lane {k}")
+    batches = [stream.batch_at(i) for i in range(3)]
+    port, reference = [], []
+    for seed in DRAWS:
+        init = _of(jax_four, f"{seed}/init")
+        state = interop.train_state_from_reference(init, cfg, "cpu")
+        proc = TrainProcess(model, _tcfg(), mesh=_lanes(4)).init(state, batches[0])
+        for i, batch in enumerate(batches):
+            placed, m = proc.launch(state, batch)
+            got = [float(m[k]) for k in ("loss", "grad_norm", "lr")]
+            np.testing.assert_allclose(got, jax_four[f"{seed}/metrics"][i], rtol=1e-5,
+                                       err_msg=f"draw {seed} step {i}")
+        truth = f64_steps("qwen3-14b", init, batches, microbatches=4)
+        port.append(f64_distance({n: s.full().numpy() for n, s in tree_flatten(placed)}, truth))
+        reference.append(f64_distance(_of(jax_four, f"{seed}/final"), truth))
+    assert_as_close_to_f64(port, reference)
 
 
 # ---------------------------------------------------------------------------
