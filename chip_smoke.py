@@ -438,6 +438,50 @@ def model_flops(cfg, specs, batch: int, seq: int, frames: int = 0) -> tuple[floa
     return 6.0 * total * batch * seq, f"6 N tokens = 6 x {total} x {batch * seq}"
 
 
+def step_ms_by_kind(run) -> tuple[dict, dict]:
+    """(device ms by kind of kernel, the "other" kind's ms by kernel name)
+    of ``run()`` (one replayed training step) under ``torch.profiler``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    buckets: dict = {}
+    other: dict = {}
+    for ev in prof.key_averages():
+        t = getattr(ev, "device_time_total", getattr(ev, "cuda_time_total", 0.0))
+        nm = ev.key.lower()
+        if t <= 0 or nm.startswith(("cudagraph", "memcpy", "memset")):
+            continue
+        kind = ("flash backward" if "flash_bwd" in nm else
+                "flash forward" if "flash_mma" in nm or "flash_fma" in nm else
+                "rmsnorm backward" if "rmsnorm_bwd" in nm or "rmsnorm_dw" in nm else
+                "rmsnorm forward" if "rmsnorm" in nm else
+                "wkv6 backward" if "wkv6_bwd" in nm else
+                "wkv6 forward" if "wkv6" in nm else
+                "GEMMs" if any(s in nm for s in ("gemm", "xmma", "cutlass", "cublas",
+                                                 "nvjet", "sm90_", "ampere")) else
+                "other (elementwise and reductions: AdamW, casts, the embedding, the loss, "
+                "plain-torch norms and Mamba2's SSD)")
+        buckets[kind] = buckets.get(kind, 0.0) + t / 1e3
+        if kind.startswith("other"):
+            other[ev.key[:60]] = t / 1e3
+    return buckets, other
+
+
+def print_by_kind(label: str, buckets: dict, other: dict) -> None:
+    """One line of :func:`step_ms_by_kind`'s kinds, largest first, and the
+    eight largest kernels of the "other" kind."""
+    total = sum(buckets.values())
+    print(f"{label}, torch.profiler device ms by kind: "
+          + "; ".join(f"{k} {v:.2f} ({v / total:.3f})" for k, v in
+                      sorted(buckets.items(), key=lambda kv: -kv[1]))
+          + f"; total {total:.2f}; the largest of the other kinds: "
+          + "; ".join(f"{k} {v:.2f}" for k, v in sorted(other.items(),
+                                                        key=lambda kv: -kv[1])[:8]))
+
+
 def fit_and_time(arch: str, dev, peaks: dict, steps: int = 6, batch: int = 4,
                  seq: int = 2048, reps: int = 5, enc_frames: int = 0) -> dict:
     """``arch`` at full width, random bf16 weights made on the card from
@@ -450,7 +494,6 @@ def fit_and_time(arch: str, dev, peaks: dict, steps: int = 6, batch: int = 4,
     bf16 tensor rate); then one replayed step under ``torch.profiler``, its
     device ms by kind of kernel."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
     from repro_torch.core.arena import tree_flatten
     from repro_torch.core.registry import launch_counts, reset_launch_counts
@@ -495,29 +538,7 @@ def fit_and_time(arch: str, dev, peaks: dict, steps: int = 6, batch: int = 4,
         step_ms.append(e0.elapsed_time(e1))
     p50 = statistics.median(step_ms)
     tokens = batch * seq
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        proc.launch(state, stream.batch_at(steps + reps))
-        torch.cuda.synchronize()
-    buckets: dict = {}
-    other: dict = {}
-    for ev in prof.key_averages():
-        t = getattr(ev, "device_time_total", getattr(ev, "cuda_time_total", 0.0))
-        nm = ev.key.lower()
-        if t <= 0 or nm.startswith(("cudagraph", "memcpy", "memset")):
-            continue
-        kind = ("flash backward" if "flash_bwd" in nm else
-                "flash forward" if "flash_mma" in nm or "flash_fma" in nm else
-                "rmsnorm backward" if "rmsnorm_bwd" in nm or "rmsnorm_dw" in nm else
-                "rmsnorm forward" if "rmsnorm" in nm else
-                "wkv6 backward" if "wkv6_bwd" in nm else
-                "wkv6 forward" if "wkv6" in nm else
-                "GEMMs" if any(s in nm for s in ("gemm", "xmma", "cutlass", "cublas",
-                                                 "nvjet", "sm90_", "ampere")) else
-                "other (elementwise and reductions: AdamW, casts, the embedding, the loss, "
-                "plain-torch norms and Mamba2's SSD)")
-        buckets[kind] = buckets.get(kind, 0.0) + t / 1e3
-        if kind.startswith("other"):
-            other[ev.key[:60]] = t / 1e3
+    buckets, other = step_ms_by_kind(lambda: proc.launch(state, stream.batch_at(steps + reps)))
     return {"cfg": cfg, "stream": stream, "tcfg": tcfg, "trainer": trainer, "state": state,
             "n_params": n_params, "fit_s": fit_s, "counts": counts, "captures": captures,
             "replays": replays, "peak": peak,
@@ -1947,7 +1968,17 @@ def main() -> None:
         # [mesh-tp]: a lane's heads of h2o-danube-1.8b over model 2, and of
         # lm-100m's (1, 2) group (its restart)
         ((4, 16, 2048, 80), (4, 4, 2048, 80), True, 4096, bf16, True),
-        ((8, 6, 256, 64), (8, 2, 256, 64), True, None, f32, True))
+        ((8, 6, 256, 64), (8, 2, 256, 64), True, None, f32, True),
+        # [mesh-tp] parts 5 and 6: a lane's heads over a (1, 2) group of
+        # zamba2-2.7b's shared block (16 of 32, MHA) and of whisper-large-v3's
+        # encoder (10 of 20 over 1500 frames) and decoder (448 tokens), in
+        # bf16 (TrainProcess) and f32 (the cut against the no-mesh step)
+        ((4, 16, 2048, 80), (4, 16, 2048, 80), True, None, bf16, True),
+        ((4, 16, 2048, 80), (4, 16, 2048, 80), True, None, f32, True),
+        ((8, 10, 1500, 64), (8, 10, 1500, 64), False, None, bf16, True),
+        ((8, 10, 1500, 64), (8, 10, 1500, 64), False, None, f32, True),
+        ((8, 10, 448, 64), (8, 10, 448, 64), True, None, bf16, True),
+        ((8, 10, 448, 64), (8, 10, 448, 64), True, None, f32, True))
     for qs, ks, causal, window, dtype, on_path in flash_cases:
         q, k, v = rand(*qs, dtype=dtype), rand(*ks, dtype=dtype), rand(*ks, dtype=dtype)
         got = flash_attention(q, k, v, causal=causal, window=window)
@@ -1973,6 +2004,10 @@ def main() -> None:
 
     for shape, dtype, in_place, on_path, zero in (
             ((1, 1024, 40, 64), bf16, False, True, False),
+            # [mesh-tp] part 4: a lane's 20 of rwkv6-3b's 40 heads over a (1, 2)
+            # group at its training batch, bf16 (TrainProcess) and f32 (the cut)
+            ((4, 2048, 20, 64), bf16, False, True, False),
+            ((4, 2048, 20, 64), f32, False, True, False),
             ((2, 37, 3, 64), f32, False, False, False),
             ((3, 77, 40, 64), bf16, False, False, False),
             ((2, 16, 8, 8), f32, False, False, False),
@@ -2835,7 +2870,16 @@ def main() -> None:
             # [mesh-tp]: a lane's heads of h2o-danube-1.8b over model 2 and of
             # lm-100m over model 2
             ((4, 16, 2048, 80), (4, 4, 2048, 80), True, 4096, bf16, True),
-            ((8, 6, 256, 64), (8, 2, 256, 64), True, None, f32, True))
+            ((8, 6, 256, 64), (8, 2, 256, 64), True, None, f32, True),
+            # [mesh-tp] parts 5 and 6: a lane's heads of zamba2-2.7b's shared
+            # block and of whisper-large-v3's encoder and decoder over a (1, 2)
+            # group, bf16 (TrainProcess) and f32 (the cut)
+            ((4, 16, 2048, 80), (4, 16, 2048, 80), True, None, bf16, True),
+            ((4, 16, 2048, 80), (4, 16, 2048, 80), True, None, f32, True),
+            ((8, 10, 1500, 64), (8, 10, 1500, 64), False, None, bf16, True),
+            ((8, 10, 1500, 64), (8, 10, 1500, 64), False, None, f32, True),
+            ((8, 10, 448, 64), (8, 10, 448, 64), True, None, bf16, True),
+            ((8, 10, 448, 64), (8, 10, 448, 64), True, None, f32, True))
         for qs, ks, causal, window, dtype, on_path in bwd_cases:
             q, k, v = rand(*qs, dtype=dtype), rand(*ks, dtype=dtype), rand(*ks, dtype=dtype)
             do = rand(*qs, dtype=dtype)
@@ -2887,6 +2931,9 @@ def main() -> None:
         # forward's bit for bit
         for shape, dtype, stateful, on_path, shift in (
                 ((4, 2048, 40, 64), bf16, False, True, 0.0),
+                # [mesh-tp] part 4: a lane's 20 heads over a (1, 2) group
+                ((4, 2048, 20, 64), bf16, False, True, 0.0),
+                ((4, 2048, 20, 64), f32, False, True, 0.0),
                 ((3, 77, 40, 64), bf16, True, False, 0.0),
                 ((2, 37, 3, 64), f32, True, False, 0.0), ((2, 100, 4, 8), f32, True, False, 0.0),
                 ((3, 77, 40, 64), bf16, True, False, 7.0), ((2, 69, 3, 64), f32, True, False, 7.0),
@@ -3110,14 +3157,7 @@ def main() -> None:
               f"memory {run['peak'] / 2**30:.2f} GiB allocated "
               f"({torch.cuda.max_memory_reserved(dev) / 2**30:.2f} GiB reserved) of "
               f"{torch.cuda.get_device_properties(dev).total_memory / 2**30:.2f} GiB")
-        buckets, other = run["buckets"], run["other"]
-        total = sum(buckets.values())
-        print(f"[train] {smi}: {arch} one replayed step, torch.profiler device ms by kind: "
-              + "; ".join(f"{k} {v:.2f} ({v / total:.3f})" for k, v in
-                          sorted(buckets.items(), key=lambda kv: -kv[1]))
-              + f"; total {total:.2f}; the largest of the other kinds: "
-              + "; ".join(f"{k} {v:.2f}" for k, v in sorted(other.items(),
-                                                            key=lambda kv: -kv[1])[:8]))
+        print_by_kind(f"[train] {smi}: {arch} one replayed step", run["buckets"], run["other"])
         # the captured step (its graph's memory pool: 40 GiB for zamba2) goes
         # before AdamW runs alone beside the state
         del run["trainer"]
@@ -3242,6 +3282,9 @@ def main() -> None:
     # PERF.md §2: the card's loss and each gradient leaf against the CPU's
     # f32, as (share of the loss, share of the leaf's max |grad|)
     TRAIN_BAND = {"f32": (1e-4, 1e-3), "bf16": (2e-2, 5e-2)}
+    # PERF.md §2: a model group's f32 cut against the no-mesh step, as
+    # shares of the loss, of grad_norm and of each leaf's max |grad|
+    TP_F32_BAND = {"loss": 1e-4, "grad_norm": 1e-4, "piece": 1e-3}
 
     def train_ckpt_phase():
         """[train-ckpt]: repro_torch.launch.train_lm (lm-100m, f32) for 40
@@ -3721,7 +3764,7 @@ def main() -> None:
         wall(f"after [mesh-lm] part 4 ({n} cards)")
 
     def mesh_tp_phase():
-        """[mesh-tp]: the decoder family trained over a mesh's model axis on
+        """[mesh-tp]: every family trained over a mesh's model axis on
         card 0 (the mesh names it twice, then four times; one process
         drives every lane): Megatron-style tensor parallelism by the
         partition rules, experts over ``model``, a vocabulary-parallel
@@ -3750,7 +3793,18 @@ def main() -> None:
            piece (the gradient, in ZeRO-1 pieces over data and model)
            within rtol 1e-4 + 1e-4 x its leaf's max, the router's choices
            the same (in bf16 the lanes' other rounding moves 5-10 % of
-           them, as any other order of sums does)."""
+           them, as any other order of sums does).
+        4-6. rwkv6-3b (batch 4 x 2048; wkv6 and its backward on 20 of 40
+           heads a lane), zamba2-2.7b (4 x 2048; the SSD on 40 of 80 heads
+           a lane, the shared block on 16 of 32) and whisper-large-v3 (8 x
+           448 with 1500 frames; 10 of 20 heads a lane, the cross attention
+           too) over a (1, 2) group: the f32 cut at full width against the
+           no-mesh gradient (``TP_F32_BAND``: in bf16 the lanes' other
+           rounding moves the noisiest leaves, rwkv6's decay and zamba2's
+           conv taps, by 0.3-0.5 x their max |grad|, as bf16 against f32
+           does on one lane), ``TrainProcess(mesh=)`` at full width and
+           depth in bf16, and the bf16 cut's replayed steps against eager
+           ones (:func:`family_part`)."""
         from repro_torch.launch.mesh import make_data_mesh
         from repro_torch.launch.train import mesh_state_bytes
         from repro_torch.optim import AdamWConfig, Schedule
@@ -3821,9 +3875,10 @@ def main() -> None:
         init_s = time.perf_counter() - t0
         losses, step_ms = [], []
         for i in range(5):
+            bt = stream.batch_at(i)         # made on the host before the timed span
             e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             e0.record()
-            metrics = proc.launch(state, stream.batch_at(i))[1]
+            metrics = proc.launch(state, bt)[1]
             e1.record()
             e1.synchronize()
             step_ms.append(e0.elapsed_time(e1))
@@ -3985,6 +4040,159 @@ def main() -> None:
         gc.collect()
         torch.cuda.empty_cache()
         wall("after [mesh-tp] part 3 (the deepseek-v2-lite-16b cut on a (2, 2) grid)")
+
+        # -- 4-6. rwkv6-3b, zamba2-2.7b and whisper-large-v3 over a (1, 2) group --
+        def family_part(part, arch, batch, seq, frames=0, steps=4):
+            """``arch`` over a (data 1, model 2) group on card 0: (a) its f32
+            cut (:func:`cut_of`) at full width and at the batch of (b)
+            against the no-mesh gradient of the same parameters and batch
+            (``TP_F32_BAND``); (b) at full width and depth, bf16, random
+            weights from seed 0: ``TrainProcess(mesh=)``, 1 capture and
+            ``steps`` replays (the loss falls), exact launch counts (each
+            lane its heads' kernels, norms over the whole rows), step p50,
+            tokens/s, MFU, peak memory, each lane's bytes against
+            ``mesh_state_bytes``; (c) the bf16 cut's replayed steps against
+            eager ``make_mesh_train_step`` steps, bit for bit."""
+            cfg = get_config(arch)
+            model = build_model(cfg)
+            kw = dict(kind="encdec", d_model=cfg.d_model, enc_frames=frames) if frames else {}
+            stream = TokenStream(StreamConfig(vocab=cfg.vocab, seq=seq, batch=batch, seed=0,
+                                              **kw))
+            shape_txt = f"batch {batch} x {seq}" + (f" with {frames} frames" if frames else "")
+            cut, cut_txt = cut_of(cfg)
+
+            # (a) the f32 cut against the no-mesh gradient
+            m32 = build_model(cfg.scaled(**cut, param_dtype="float32", dtype="float32"))
+            batch_dev = device_batch(stream.batch_at(0), dev)
+            reset_launch_counts()
+            params = m32.init_params(torch.Generator(device=dev).manual_seed(0), device=dev)
+            m_one, g_one = loss_and_grads(m32, params, batch_dev)
+            norm_one = float(global_norm(g_one))
+            placed = shard_state(params, to_named(state_pspecs(m32, train_state_specs(m32))[
+                "params"], mesh))
+            del params
+            t0 = time.perf_counter()
+            (lanes, group), = mesh_lanes(placed, mesh)
+            m_tp, g_tp = loss_and_grads(m32, lanes, batch_dev, group)
+            norm_tp = float(global_norm(gradient_pieces(g_tp, placed, mesh)))
+            torch.cuda.synchronize()
+            grad_s = time.perf_counter() - t0
+            counts = {k: v for k, v in launch_counts().items() if v}
+            add_counts(counts)
+            # the no-mesh forward and backward, then each of the two lanes'
+            want = {k: 3 * v for k, v in per_step_launches(m32.cfg).items()}
+            gap, gap_name, gap_lane = worst_gap(g_tp, g_one, placed)
+            loss_one, loss_tp = float(m_one["loss"]), float(m_tp["loss"])
+            rel = {"loss": abs(loss_tp - loss_one) / loss_one,
+                   "grad_norm": abs(norm_tp - norm_one) / norm_one, "piece": gap}
+            print(f"[mesh-tp] {smi}: {arch} {cut_txt} at full width, f32, {shape_txt}, over a "
+                  f"(data 1, model 2) group on {dev} against the no-mesh step: loss "
+                  f"{loss_tp:.6f} / {loss_one:.6f} (rel {rel['loss']:.3e}), grad_norm "
+                  f"{norm_tp:.6f} / {norm_one:.6f} (rel {rel['grad_norm']:.3e}), worst gradient "
+                  f"piece {gap:.4e} x its leaf's max |grad| ({gap_name}, lane {gap_lane}); bands "
+                  f"{TP_F32_BAND}; the group's forward and backward {grad_s:.2f} s eager; "
+                  f"launches {counts} (expected {want})")
+            if any(rel[k] > TP_F32_BAND[k] for k in TP_F32_BAND):
+                raise SystemExit(f"chip_smoke: [mesh-tp] {arch}: the model axis's f32 gradient "
+                                 "lies outside its band of the no-mesh one")
+            if {k: counts.get(k, 0) for k in want} != want:
+                raise SystemExit(f"chip_smoke: [mesh-tp] {arch} f32 cut: launches {counts}, "
+                                 f"expected {want}")
+            del g_one, g_tp, lanes, placed, m_one, m_tp, batch_dev
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            # (b) TrainProcess over the group at full width and depth
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            state = init_mesh_state(model, 0, mesh)
+            proc = TrainProcess(model, tcfg, mesh=mesh).init(state, stream.batch_at(0))
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            losses, step_ms = [], []
+            for i in range(steps):
+                bt = stream.batch_at(i)     # made on the host before the timed span
+                e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                e0.record()
+                metrics = proc.launch(state, bt)[1]
+                e1.record()
+                e1.synchronize()
+                step_ms.append(e0.elapsed_time(e1))
+                losses.append(float(metrics["loss"]))
+            counts = {k: v for k, v in launch_counts().items() if v}
+            peak = torch.cuda.max_memory_allocated(dev)
+            add_counts(counts)
+            per_step = {k: 2 * v for k, v in per_step_launches(cfg).items()}
+            want = {k: v * (1 + steps) for k, v in per_step.items()}
+            held = [[0, 0], [0, 0]]
+            for name, s_ in tree_flatten(state):
+                for k, p in enumerate(s_.pieces):
+                    held[k][0 if name.startswith("['params']") else 1] += \
+                        p.numel() * p.element_size()
+            counted = mesh_state_bytes(model, mesh)
+            p50 = statistics.median(step_ms)
+            flops, flops_txt = model_flops(cfg, tree_flatten(model.param_specs()), batch, seq,
+                                           frames)
+            passes = (proc.captures, proc.replays)
+            print(f"[mesh-tp] {smi}: {arch} TrainProcess at full width over the (1, 2) group, "
+                  f"bf16, {shape_txt}: init {init_s:.1f} s; captures {passes[0]}, replays "
+                  f"{passes[1]}; losses {', '.join(f'{x:.4f}' for x in losses)}; launches "
+                  f"{counts} (expected {want}: init's warm-up and {steps} steps, {per_step} a "
+                  f"step); replayed step ms {', '.join(f'{t:.2f}' for t in step_ms)} (the "
+                  f"batch's upload included); p50 {p50:.2f}; {batch * seq / p50 * 1e3:.0f} "
+                  f"tokens/s; MFU {flops / (p50 * 1e-3) / peaks['bf16_tensor']:.4f} "
+                  f"({flops_txt}); peak {(peak - base) / 2**30:.2f} GiB over the "
+                  f"{base / 2**30:.2f} GiB earlier phases left; each lane's parameters "
+                  f"{held[0][0] / 1e9:.3f} / {held[1][0] / 1e9:.3f} GB and ZeRO-1 pieces "
+                  f"{held[0][1] / 1e9:.3f} / {held[1][1] / 1e9:.3f} GB against mesh_state_bytes "
+                  f"{[tuple(round(b / 1e9, 3) for b in c) for c in counted]} GB")
+            if passes != (1, steps) or {k: counts.get(k, 0) for k in want} != want:
+                raise SystemExit(f"chip_smoke: [mesh-tp] {arch}: {passes} captures and replays, "
+                                 f"launches {counts}; expected (1, {steps}) and {want}")
+            if [tuple(h) for h in held] != counted:
+                raise SystemExit(f"chip_smoke: [mesh-tp] {arch}: the lanes hold {held} bytes, "
+                                 f"mesh_state_bytes counts {counted}")
+            if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+                raise SystemExit(f"chip_smoke: [mesh-tp] {arch}: the loss did not fall: {losses}")
+            print_by_kind(f"[mesh-tp] {smi}: {arch} one replayed step of the (1, 2) group",
+                          *step_ms_by_kind(lambda: proc.launch(state, stream.batch_at(steps))))
+            del proc, metrics, state
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            # (c) the bf16 cut's replayed steps against eager ones over the group
+            m16 = build_model(cfg.scaled(**cut))
+            small = [{k: torch.from_numpy(np.ascontiguousarray(v[:1, :256]))
+                      for k, v in stream.batch_at(i).items()} for i in range(3)]
+            reset_launch_counts()
+            replayed = init_mesh_state(m16, 0, mesh)
+            eager = init_mesh_state(m16, 0, mesh)
+            proc = TrainProcess(m16, tcfg, mesh=mesh).init(replayed, small[0])
+            step = make_mesh_train_step(m16, tcfg, mesh)
+            for bt in small:
+                proc.launch(replayed, bt)
+                eager, _ = step(eager, bt)
+            torch.cuda.synchronize()
+            differ = [(n, k) for (n, x), (_, y) in zip(tree_flatten(replayed), tree_flatten(eager))
+                      for k, (p, q) in enumerate(zip(x.pieces, y.pieces)) if not torch.equal(p, q)]
+            print(f"[mesh-tp] {smi}: {arch} {cut_txt} at full width, bf16, batch 1 x 256, over "
+                  f"the (1, 2) group: 3 steps replayed through TrainProcess (captures "
+                  f"{proc.captures}, replays {proc.replays}) against 3 eager "
+                  f"make_mesh_train_step steps: pieces that differ {len(differ)} of "
+                  f"{sum(len(x.pieces) for _, x in tree_flatten(replayed))} {differ[:4]}")
+            if differ or (proc.captures, proc.replays) != (1, 3):
+                raise SystemExit(f"chip_smoke: [mesh-tp] {arch}: the bf16 cut's replayed steps "
+                                 "differ from eager ones")
+            del proc, replayed, eager, step
+            gc.collect()
+            torch.cuda.empty_cache()
+            wall(f"after [mesh-tp] part {part} ({arch} over a (1, 2) group)")
+
+        family_part(4, "rwkv6-3b", 4, 2048)
+        family_part(5, "zamba2-2.7b", 4, 2048)
+        family_part(6, "whisper-large-v3", 8, 448, frames=1500)
 
     train_kernels_phase()
     wall("after [train-kernels]")

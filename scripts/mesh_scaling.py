@@ -4,7 +4,7 @@ equal (``sharded=True``) and the proportional split, with each card's idle
 share over a traced stream.
 
     python3 scripts/mesh_scaling.py [--cards 1 2 4] [--slices 48] [--batch 8]
-        [--mode fused_kernel] [--lm ARCH] [--tp ARCH] [--out PATH]
+        [--mode fused_kernel] [--lm ARCH] [--tp ARCH [ARCH ...]] [--out PATH]
 
 Runs only on CUDA cards (on a machine with fewer cards it measures the
 counts it can).  For each card count: an app over the first N cards
@@ -25,10 +25,13 @@ one-card ``TrainProcess(microbatches=N)``; and ARCH served over a
 (data 1, model N) group (10 requests, 4 slots), its tokens held against
 the same group with every strip on card 0 and its decode p50 beside it.
 
-``--tp ARCH`` trains ARCH (a ``DecoderLM``) at full width at batch 4 x
-2048 over a (data 1, model N) group of N distinct cards, tensor parallel
-(eager steps; a lane's sums through the first card), for each card count
-above 1: after 2 steps its state and metrics held bit for bit against the
+``--tp ARCH [ARCH ...]`` trains each ARCH (any family) at full width at
+batch 4 x 2048 (zamba2-2.7b 1 x 2048, whisper-large-v3 2 x 448 with 1500
+frames a sample: without remat their activations outgrow a card) over a
+(data 1, model N) group of N distinct cards, tensor parallel (eager
+steps; a lane's sums through the first card), for each card count above 1
+(a count that does not divide the vocabulary or the heads is skipped,
+named): after 2 steps its state and metrics held bit for bit against the
 same group on card 0 named N times (one CUDA graph a step), and the step
 ms of 3 more beside that group's.
 """
@@ -189,8 +192,18 @@ def tp_cells(arch: str, counts, smi: str) -> list:
     from repro_torch.optim import AdamWConfig, Schedule
     from repro_torch.train import TrainConfig, TrainProcess, init_mesh_state
 
+    from repro_torch.train.step import check_train_mesh
+
     model = build_model(get_config(arch))
-    stream = TokenStream(StreamConfig(vocab=model.cfg.vocab, seq=2048, batch=4, seed=0))
+    cfg = model.cfg
+    frames = 1500 if cfg.family == "encdec" else 0
+    # over distinct cards a group keeps every layer's activations (no remat:
+    # ModelGroup.one_device), which fits rwkv6-3b's batch of 4 x 2048 but not
+    # zamba2-2.7b's (its f32 SSD) or whisper-large-v3's 8 x 448: those run a
+    # quarter of it
+    batch, seq = {"hybrid": (1, 2048), "encdec": (2, 448)}.get(cfg.family, (4, 2048))
+    kw = dict(kind="encdec", d_model=cfg.d_model, enc_frames=frames) if frames else {}
+    stream = TokenStream(StreamConfig(vocab=cfg.vocab, seq=seq, batch=batch, seed=0, **kw))
     tcfg = TrainConfig(opt=AdamWConfig(schedule=Schedule(kind="constant", base_lr=1e-5,
                                                          warmup_steps=0)))
     cuda = [torch.device("cuda", i) for i in range(max(counts))]
@@ -209,8 +222,9 @@ def tp_cells(arch: str, counts, smi: str) -> list:
         for i in range(3):
             for d in set(devices):
                 torch.cuda.synchronize(d)
+            bt = stream.batch_at(2 + i)     # made on the host before the timed span
             t0 = time.perf_counter()
-            proc.launch(state, stream.batch_at(2 + i))
+            proc.launch(state, bt)
             for d in set(devices):
                 torch.cuda.synchronize(d)
             step_ms.append((time.perf_counter() - t0) * 1e3)
@@ -224,6 +238,11 @@ def tp_cells(arch: str, counts, smi: str) -> list:
 
     cells = []
     for n in [c for c in counts if c > 1]:
+        try:
+            check_train_mesh(make_data_mesh([cuda[0]] * n, model=n), model)
+        except ValueError as e:
+            print(f"[mesh-scaling] {arch} over a model group of {n} cards: skipped ({e})")
+            continue
         want, want_metrics, one_ms, one_captures = run([cuda[0]] * n)
         got, metrics, step_ms, captures = run(cuda[:n])
         differ = [(name, k) for name in want for k, (p, q) in
@@ -231,9 +250,9 @@ def tp_cells(arch: str, counts, smi: str) -> list:
         differ += [k for k in want_metrics if not torch.equal(metrics[k], want_metrics[k])]
         p50, one_p50 = statistics.median(step_ms), statistics.median(one_ms)
         print(f"[mesh-scaling] {smi}: {arch} trained over a (data 1, model {n}) group of {n} "
-              f"cards at 4 x 2048 (eager, captures {captures}): step ms "
+              f"cards at {batch} x {seq} (eager, captures {captures}): step ms "
               f"{', '.join(f'{t:.2f}' for t in step_ms)}, p50 {p50:.2f}, "
-              f"{4 * 2048 / p50 * 1e3:.0f} tokens/s; the group on card 0 ({one_captures} "
+              f"{batch * seq / p50 * 1e3:.0f} tokens/s; the group on card 0 ({one_captures} "
               f"capture) p50 {one_p50:.2f}; state and metrics after 2 steps bit for bit the "
               f"card-0 group's: {not differ} {differ[:4]}")
         cells.append({"tp": arch, "cards": n, "step_ms": step_ms, "p50_ms": p50,
@@ -257,8 +276,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--mode", default="fused_kernel",
                     choices=["staged", "fused", "fused_kernel"])
     ap.add_argument("--lm", metavar="ARCH", help="also train and serve ARCH over the cards")
-    ap.add_argument("--tp", metavar="ARCH",
-                    help="also train ARCH over a model group of the cards (tensor parallel)")
+    ap.add_argument("--tp", metavar="ARCH", nargs="+", default=[],
+                    help="also train each ARCH over a model group of the cards (tensor "
+                         "parallel)")
     ap.add_argument("--out", help="write the cells as JSON to this file")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -339,8 +359,8 @@ def main(argv=None) -> dict:
     tmp.cleanup()
     if args.lm:
         results += lm_cells(args.lm, [c for c in args.cards if c <= have], smi)
-    if args.tp:
-        results += tp_cells(args.tp, [c for c in args.cards if c <= have], smi)
+    for arch in args.tp:
+        results += tp_cells(arch, [c for c in args.cards if c <= have], smi)
     report = {"cards": cards.splitlines(), "cells": results}
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

@@ -18,10 +18,9 @@ moe, vlm), rwkv6-3b (ssm), zamba2-2.7b (hybrid) and whisper-large-v3
 reference's do).  ``--multi-pod`` trains on the reference's multi-pod
 production mesh, (pod 2, data 16, model 16) over 512 cards
 (``make_production_mesh``, which refuses fewer cards, naming both
-counts): the decoder family data parallel over ``pod`` and ``data`` and
-tensor parallel over ``model``; rwkv6, zamba2 and whisper train over a
-model axis once ROADMAP.md queue 1, item 6c lands, and refuse it until
-then.
+counts): every family data parallel over ``pod`` and ``data`` and tensor
+parallel over ``model`` (a config whose dimensions the axes do not divide
+is refused by ``check_train_mesh``, naming the leaf).
 """
 from __future__ import annotations
 
@@ -112,11 +111,6 @@ def main(argv: Optional[list] = None) -> Trainer:
     model = build_model(cfg)
     mesh = None
     if args.multi_pod:
-        if not getattr(model, "tensor_parallel", False):
-            raise NotImplementedError(
-                f"--multi-pod trains on the (pod 2, data 16, model 16) production mesh, and "
-                f"training {type(model).__name__} over a mesh's model axis waits for "
-                "ROADMAP.md queue 1, item 6c")
         mesh = make_production_mesh(multi_pod=True)
     device = torch.device("cpu") if args.cpu else torch.device("cuda")
     if mesh is None:

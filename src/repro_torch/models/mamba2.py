@@ -21,13 +21,15 @@ captured decode step updates the decode-state arena's views.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from . import parallel as tp
 from .common import MODEL, ArchConfig, Rules, alloc_tree, init_tree, tree_flatten
 from .layers import _spec as spec
+from .parallel import ModelGroup
 
 Params = Dict[str, Any]
 
@@ -136,17 +138,50 @@ def _split_proj(zxbcdt: torch.Tensor, cfg: ArchConfig):
     return z, xbc, dt
 
 
+def _gate(D: torch.Tensor, y: torch.Tensor, z: torch.Tensor,
+          x_in: torch.Tensor) -> torch.Tensor:
+    """The D skip and the SiLU gate in f32: (..., heads x head_dim)."""
+    y = y + D[:, None] * x_in                             # skip connection
+    return y.reshape(*y.shape[:-2], -1) * F.silu(z.float())
+
+
 def _gated_out(p: Params, y: torch.Tensor, z: torch.Tensor, x_in: torch.Tensor,
                cfg: ArchConfig, eps: float = 1e-6) -> torch.Tensor:
     """D skip, the SiLU gate and the gated RMS norm in f32 (inline, not the
     rmsnorm kernel: the reference's math), then the output projection."""
-    d_inner = dims(cfg)[0]
-    y = y + p["D"][:, None] * x_in                        # skip connection
-    y = y.reshape(*y.shape[:-2], d_inner)
-    y = y * F.silu(z.float())
+    y = _gate(p["D"], y, z, x_in)
     var = torch.mean(y * y, dim=-1, keepdim=True)
     y = y * torch.rsqrt(var + eps) * p["norm_scale"].float()
     return y.to(cfg.adtype) @ p["out_proj"]
+
+
+def _ssd_of(zxbcdt: torch.Tensor, conv_w: torch.Tensor, conv_b: torch.Tensor,
+            dt_bias: torch.Tensor, A_log: torch.Tensor, cfg: ArchConfig,
+            h0: Optional[torch.Tensor] = None):
+    """The causal conv and the chunked SSD of the heads whose ``z``, ``x``
+    and ``dt`` columns (with the ``B`` and ``C`` every head shares)
+    ``zxbcdt`` holds, ``in_proj``'s layout for ``len(dt_bias)`` heads;
+    ``conv_w`` and ``conv_b`` their conv channels.  Returns (y (B, S, heads,
+    head_dim), z, the conv input x in f32, the conv window a decode step
+    continues from, the final SSM state)."""
+    b, s, _ = zxbcdt.shape
+    n, hd = cfg.ssm_state, cfg.ssm_head_dim
+    nh = dt_bias.shape[0]
+    di = nh * hd
+    z, xbc, dt = zxbcdt[..., :di], zxbcdt[..., di: 2 * di + 2 * n], zxbcdt[..., 2 * di + 2 * n:]
+
+    # causal depthwise conv over time, kernel ssm_conv
+    pad = F.pad(xbc, (0, 0, cfg.ssm_conv - 1, 0))
+    conv = sum(pad[:, i: i + s, :] * conv_w[i] for i in range(cfg.ssm_conv))
+    act = F.silu((conv + conv_b).float()).to(cfg.adtype)
+
+    xs = act[..., :di].reshape(b, s, nh, hd).float()
+    Bm = act[..., di: di + n].float()
+    Cm = act[..., di + n:].float()
+    dt = F.softplus(dt.float() + dt_bias)
+    A = -torch.exp(A_log)
+    y, h_t = _ssd_chunked(xs, dt, A, Bm, Cm, cfg.ssm_chunk, h0)
+    return y, z, xs, pad[:, s:], h_t
 
 
 def mamba2_scan(p: Params, x: torch.Tensor, cfg: ArchConfig,
@@ -158,27 +193,60 @@ def mamba2_scan(p: Params, x: torch.Tensor, cfg: ArchConfig,
     last ssm_conv - 1 pre-activation conv inputs, the zero history in
     front of a shorter prompt, as stepping from a zero window leaves it;
     the final SSM state (B, nh, hd, N) f32)."""
-    b, s, _ = x.shape
-    d_inner, nh, hd, conv_ch = dims(cfg)
-    z, xbc, dt = _split_proj(x @ p["in_proj"], cfg)
-
-    # causal depthwise conv over time, kernel ssm_conv
-    pad = F.pad(xbc, (0, 0, cfg.ssm_conv - 1, 0))
-    conv = sum(pad[:, i: i + s, :] * p["conv_w"][i] for i in range(cfg.ssm_conv))
-    act = F.silu((conv + p["conv_b"]).float()).to(cfg.adtype)
-
-    xs = act[..., :d_inner].reshape(b, s, nh, hd).float()
-    Bm = act[..., d_inner: d_inner + cfg.ssm_state].float()
-    Cm = act[..., d_inner + cfg.ssm_state:].float()
-    dt = F.softplus(dt.float() + p["dt_bias"])
-    A = -torch.exp(p["A_log"])
-    y, h_t = _ssd_chunked(xs, dt, A, Bm, Cm, cfg.ssm_chunk, h0)
-    return _gated_out(p, y, z, xs, cfg), pad[:, s:], h_t
+    y, z, xs, window, h_t = _ssd_of(x @ p["in_proj"], p["conv_w"], p["conv_b"], p["dt_bias"],
+                                    p["A_log"], cfg, h0)
+    return _gated_out(p, y, z, xs, cfg), window, h_t
 
 
 def mamba2_forward(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     """Full-sequence forward from a zero state.  x: (B, S, D) -> (B, S, D)."""
     return mamba2_scan(p, x, cfg)[0]
+
+
+def lane_columns(cfg: ArchConfig, group: ModelGroup) -> List[List[Tuple[int, int]]]:
+    """The ``in_proj`` columns each lane of ``group`` needs for its heads
+    (:meth:`~repro_torch.models.parallel.ModelGroup.piece` of the SSD's
+    heads): its ``z``, its ``x``, the shared ``B`` and ``C``, its ``dt``, in
+    ``in_proj``'s order."""
+    d_inner, nh, hd, _ = dims(cfg)
+    bc = (2 * d_inner, 2 * d_inner + 2 * cfg.ssm_state)
+    return [[(a * hd, b * hd), (d_inner + a * hd, d_inner + b * hd), bc, (bc[1] + a, bc[1] + b)]
+            for a, b in (group.piece(nh, lane) for lane in range(group.size))]
+
+
+def mamba2_forward_lanes(p: List[Params], x: List[torch.Tensor], cfg: ArchConfig,
+                         group: ModelGroup, eps: float = 1e-6) -> List[torch.Tensor]:
+    """:func:`mamba2_forward` over a model group's lanes (``p`` each lane's
+    pieces, ``x`` each lane's copy): the SSD runs on each lane's heads.
+    ``in_proj``'s contiguous column pieces do not line up with the heads,
+    so its products are redistributed (:func:`~repro_torch.models.parallel.
+    regroup`, :func:`lane_columns`) into each lane's ``z``, ``x`` and ``dt``
+    and the ``B`` and ``C`` every lane convolves alike; the replicated conv
+    taps, ``D``, ``A_log``, ``dt_bias`` and ``norm_scale`` reach a lane's
+    channels through ``copy`` / ``split``; the gated norm's sum of squares
+    over the whole ``d_inner`` is summed over the lanes both ways
+    (:func:`~repro_torch.models.parallel.allreduce`); each lane's rows of
+    ``out_proj`` give a partial output, reduced."""
+    d_inner, nh, hd, _ = dims(cfg)
+    heads = [group.piece(nh, lane) for lane in range(group.size)]
+    zx = tp.regroup(group, [xl @ pl["in_proj"] for pl, xl in zip(p, tp.copy(group, x))],
+                    lane_columns(cfg, group))
+
+    def own(t, a, b):               # a lane's x conv channels, then B and C
+        return torch.cat([t[..., a * hd: b * hd], t[..., d_inner:]], -1)
+
+    conv_w, conv_b = (tp.copy(group, tp.sub(p, k)) for k in ("conv_w", "conv_b"))
+    dt_bias, A_log, D, scale = (tp.split(group, tp.sub(p, k), 0)
+                                for k in ("dt_bias", "A_log", "D", "norm_scale"))
+    ys = []
+    for lane, (a, b) in enumerate(heads):
+        y, z, xs, _, _ = _ssd_of(zx[lane], own(conv_w[lane], a, b), own(conv_b[lane], a, b),
+                                 dt_bias[lane], A_log[lane], cfg)
+        ys.append(_gate(D[lane], y, z, xs))
+    sums = tp.allreduce(group, [(y * y).sum(dim=-1, keepdim=True) for y in ys])
+    return tp.reduce(group, [
+        (y * torch.rsqrt(ss / d_inner + eps) * sc.float()).to(cfg.adtype) @ pl["out_proj"]
+        for pl, y, ss, sc in zip(p, ys, sums, scale)])
 
 
 def mamba2_state_specs(cfg: ArchConfig, batch: int) -> Params:

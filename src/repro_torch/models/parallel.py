@@ -23,6 +23,19 @@ lane's tensor:
 * :func:`single`: one lane's copy of a replicated value (the MoE metrics
   that enter the loss once, not M times); its backward hands the gradient
   to every lane.
+* :func:`split` (Megatron's *scatter*): each lane's own piece of a tensor
+  every lane holds alike (a lane's heads of a replicated decay or norm
+  scale); its backward gathers the pieces' gradients onto every lane.  It
+  is ``copy`` followed by each lane's slice, with the zero sums left out.
+* :func:`allreduce`: the sum of the lanes' partial values on every lane,
+  whose backward also sums (``copy`` after ``reduce``): a statistic over
+  a dimension split over the lanes, such as Mamba2's gated RMS norm over
+  the whole ``d_inner``.
+* :func:`regroup`: a column-split product's output redistributed into the
+  column ranges each lane needs (Mamba2's fused ``in_proj``, whose
+  contiguous pieces do not line up with heads: each lane takes its heads'
+  ``z``, ``x`` and ``dt`` and the ``B`` and ``C`` every head shares); its
+  backward sums each column's gradients over the lanes that read it.
 
 A replicated parameter (a norm's scale, the router) is used only by work
 that every lane repeats alike, or through a :func:`copy` (the qk-norm of
@@ -65,6 +78,17 @@ class ModelGroup:
     def size(self) -> int:
         """M, the lanes of the group."""
         return len(self.devices)
+
+    @property
+    def one_device(self) -> bool:
+        """Every lane on one device.  Only then may a training forward
+        recompute its layers in the backward (remat): PyTorch's
+        non-reentrant checkpoint recomputes a segment in whichever of the
+        autograd engine's device threads first needs it, with no lock, and
+        over distinct cards two threads start it at once (measured on two
+        H100s), so there the layers keep their activations (the same
+        values)."""
+        return len(set(self.devices)) == 1
 
     @property
     def home(self) -> torch.device:
@@ -164,6 +188,61 @@ class _Single(torch.autograd.Function):
         return (None,) + tuple(_on(g, d) for d in ctx.group.devices)
 
 
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, dim, *xs):
+        ctx.group, ctx.dim = group, dim
+        n = xs[0].shape[dim]
+        return tuple(x.narrow(dim, a, b - a).contiguous()
+                     for lane, x in enumerate(xs) for a, b in [group.piece(n, lane)])
+
+    @staticmethod
+    def backward(ctx, *gs):
+        like = next(g for g in gs if g is not None)
+        whole = torch.cat([_on(like.new_zeros(like.shape) if g is None else g, ctx.group.home)
+                           for g in gs], ctx.dim)
+        return (None, None) + _place(ctx.group, whole)
+
+
+class _Regroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, ranges, *pieces):
+        n = pieces[0].shape[-1]
+        ctx.group, ctx.ranges, ctx.n = group, ranges, n
+        ctx.dtype = pieces[0].dtype
+        return tuple(torch.cat([_on(pieces[lane][..., a:b], dev)
+                                for lane, a, b, _ in _spans(want, n)], -1)
+                     for dev, want in zip(group.devices, ranges))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        group, n = ctx.group, ctx.n
+        accs: List[Optional[torch.Tensor]] = [None] * group.size
+        for g, want in zip(gs, ctx.ranges):      # in lane order, in f32, on the first lane
+            if g is None:
+                continue
+            for lane, a, b, at in _spans(want, n):
+                if accs[lane] is None:
+                    accs[lane] = torch.zeros(g.shape[:-1] + (n,), dtype=torch.promote_types(
+                        g.dtype, torch.float32), device=group.home)
+                accs[lane][..., a:b] += _on(g[..., at:at + b - a], group.home)
+        return (None, None) + tuple(None if acc is None else _on(acc.to(ctx.dtype), dev)
+                                    for acc, dev in zip(accs, group.devices))
+
+
+def _spans(want: Sequence[Tuple[int, int]], n: int):
+    """``(lane, start, stop, offset)`` of each part of the global column
+    ranges ``want`` that one piece of ``n`` columns holds: the piece's
+    lane, the part's columns within the piece and its first column within
+    the ranges' concatenation."""
+    at = 0
+    for a, b in want:
+        for lane in range(a // n, (b - 1) // n + 1):
+            lo, hi = max(a, lane * n), min(b, (lane + 1) * n)
+            yield lane, lo - lane * n, hi - lane * n, at + lo - a
+        at += b - a
+
+
 def copy(group: ModelGroup, xs: Sequence[torch.Tensor]) -> Tensors:
     """Megatron's *f*: every lane's tensor as it is; the backward gives
     each lane the sum of the lanes' gradients."""
@@ -187,6 +266,37 @@ def single(group: ModelGroup, xs: Sequence[torch.Tensor]) -> torch.Tensor:
     """The first lane's copy of a value every lane holds alike; the
     backward hands the gradient to every lane."""
     return _Single.apply(group, *xs)
+
+
+def split(group: ModelGroup, xs: Sequence[torch.Tensor], dim: int = -1) -> Tensors:
+    """Megatron's *scatter*: each lane's piece (:meth:`ModelGroup.piece`)
+    along ``dim`` of its copy of a tensor the lanes hold alike; the
+    backward gathers the pieces' gradients in lane order and places the
+    whole on every lane."""
+    return list(_Split.apply(group, dim % xs[0].dim(), *xs))
+
+
+def allreduce(group: ModelGroup, partials: Sequence[torch.Tensor]) -> Tensors:
+    """The lanes' partial values summed (:func:`reduce`), a copy on every
+    lane, whose backward sums the lanes' gradients (:func:`copy`): each
+    lane's partial receives the gradient of every lane's use of the sum."""
+    return copy(group, reduce(group, partials))
+
+
+def regroup(group: ModelGroup, pieces: Sequence[torch.Tensor],
+            ranges: Sequence[Sequence[Tuple[int, int]]]) -> Tensors:
+    """The lanes' equal pieces of a last dimension (a column-split
+    product's outputs, in lane order) redistributed: lane ``m`` receives
+    the concatenation of the global column ranges ``ranges[m]``.  The
+    backward hands each piece the gradient of its columns summed over the
+    lanes that read them, in f32 in lane order on the group's first
+    device."""
+    return list(_Regroup.apply(group, tuple(tuple(r) for r in ranges), *pieces))
+
+
+def sub(trees: Sequence[dict], key: str) -> list:
+    """Each lane's ``key`` subtree of the lanes' parameter trees."""
+    return [t[key] for t in trees]
 
 
 def copy_tree(group: ModelGroup, trees: Sequence[dict]) -> List[dict]:

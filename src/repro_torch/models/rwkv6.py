@@ -20,16 +20,18 @@ hand-written backward passes on CUDA tensors).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.wkv6 import wkv6
 from . import layers as L
+from . import parallel as tp
 from .layers import _spec as spec
 from .common import (MODEL, ArchConfig, Rules, alloc_tree, init_tree, remat_call, stacked,
                      tree_flatten, tree_map, unstacked)
+from .parallel import ModelGroup
 
 Params = Dict[str, Any]
 
@@ -76,35 +78,88 @@ def _group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, nh: in
     return xg.reshape(b, t, d) * scale.float() + bias.float()
 
 
+#: the order of the five ddlerp streams in :func:`_streams`' stack
+STREAMS = ("w", "k", "v", "r", "g")
+
+
+def _streams(p: Params, x: torch.Tensor, sx: torch.Tensor, tm_w1: torch.Tensor,
+             tm_w2: torch.Tensor) -> torch.Tensor:
+    """The ddlerp of the five streams (:data:`STREAMS`) stacked, (B, T, 5,
+    D), from the LoRA weights given whole."""
+    b, t, _ = x.shape
+    xxx = x + sx * p["maa_x"]
+    lora = torch.tanh(xxx @ tm_w1).reshape(b, t, 5, TM_LORA)
+    mixes = torch.einsum("btfl,fld->btfd", lora, tm_w2)           # (B, T, 5, D)
+    maa = torch.stack([p[f"maa_{n}"] for n in STREAMS])           # (5, D)
+    return x[:, :, None] + sx[:, :, None] * (maa + mixes)
+
+
+def _decay(p: Params, xw: torch.Tensor, td_w1: torch.Tensor, td_w2: torch.Tensor
+           ) -> torch.Tensor:
+    """The data-dependent decay (B, T, D) f32 of the w stream."""
+    return p["decay"].float() + (torch.tanh(xw @ td_w1) @ td_w2).float()
+
+
+def _heads_out(p: Params, xs: torch.Tensor, w: torch.Tensor, u, gn_scale, gn_bias,
+               cfg: ArchConfig, wkv_state=None, state_out=None):
+    """r, k, v and the gate of the stacked streams ``xs`` through ``p``'s
+    projections (some heads' columns of ``w_r``, ``w_k``, ``w_v``,
+    ``w_g``), the WKV recurrence on those heads, their group norm and gate:
+    ((B, T, heads x D) in the activation dtype, the new WKV state)."""
+    b, t = xs.shape[:2]
+    dh = cfg.rwkv_head_dim
+    xk, xv, xr, xg = xs.unbind(2)[1:]
+    r = (xr @ p["w_r"]).reshape(b, t, -1, dh)
+    k = (xk @ p["w_k"]).reshape(b, t, -1, dh)
+    v = (xv @ p["w_v"]).reshape(b, t, -1, dh)
+    g = F.silu((xg @ p["w_g"]).float())
+    nh = r.shape[2]
+    out, new_state = wkv6(r, k, v, w.reshape(b, t, nh, dh), u, wkv_state, state_out=state_out)
+    out = _group_norm(out.reshape(b, t, nh * dh), gn_scale, gn_bias, nh, dh)
+    return (out * g).to(cfg.adtype), new_state
+
+
 def time_mix(p: Params, x: torch.Tensor, cfg: ArchConfig,
              shift_in: Optional[torch.Tensor] = None, wkv_state: Optional[torch.Tensor] = None,
              state_out: Optional[torch.Tensor] = None):
     """x: (B, T, D).  Returns (out, new shift (B, D), new WKV state); the
     state is written into ``state_out`` when given (which may be
     ``wkv_state``, the cache updated in place)."""
-    b, t, d = x.shape
-    nh, dh = _heads(cfg)
     sx = _shift(x, shift_in) - x
-    xxx = x + sx * p["maa_x"]
-    lora = torch.tanh(xxx @ p["tm_w1"]).reshape(b, t, 5, TM_LORA)
-    mixes = torch.einsum("btfl,fld->btfd", lora, p["tm_w2"])       # (B, T, 5, D)
-    xw = x + sx * (p["maa_w"] + mixes[:, :, 0])
-    xk = x + sx * (p["maa_k"] + mixes[:, :, 1])
-    xv = x + sx * (p["maa_v"] + mixes[:, :, 2])
-    xr = x + sx * (p["maa_r"] + mixes[:, :, 3])
-    xg = x + sx * (p["maa_g"] + mixes[:, :, 4])
+    xs = _streams(p, x, sx, p["tm_w1"], p["tm_w2"])
+    w = _decay(p, xs[:, :, 0], p["td_w1"], p["td_w2"])
+    out, new_state = _heads_out(p, xs, w, p["u"], p["gn_scale"], p["gn_bias"], cfg,
+                                wkv_state, state_out)
+    return out @ p["w_o"], x[:, -1, :], new_state
 
-    r = (xr @ p["w_r"]).reshape(b, t, nh, dh)
-    k = (xk @ p["w_k"]).reshape(b, t, nh, dh)
-    v = (xv @ p["w_v"]).reshape(b, t, nh, dh)
-    g = F.silu((xg @ p["w_g"]).float())
-    w = (p["decay"].float() + (torch.tanh(xw @ p["td_w1"]) @ p["td_w2"]).float())
-    w = w.reshape(b, t, nh, dh)
 
-    out, new_state = wkv6(r, k, v, w, p["u"], wkv_state, state_out=state_out)
-    out = _group_norm(out.reshape(b, t, d), p["gn_scale"], p["gn_bias"], nh, dh)
-    out = (out * g).to(cfg.adtype) @ p["w_o"]
-    return out, x[:, -1, :], new_state
+def time_mix_lanes(p: List[Params], x: List[torch.Tensor], cfg: ArchConfig,
+                   group: ModelGroup) -> List[torch.Tensor]:
+    """:func:`time_mix` of a training forward over a model group's lanes
+    (``p`` each lane's pieces, ``x`` each lane's copy): the LoRA weights,
+    whose column pieces cut inside its 32-wide groups, are gathered (2.3 MB
+    a layer of rwkv6-3b in bf16; the (B, T, 5, D) mixes they make are 210
+    MB at 4 x 2048), the five streams and the decay computed alike on
+    every lane; each lane projects its heads (its columns of ``w_r``,
+    ``w_k``, ``w_v``, ``w_g``, its rows of ``u``), runs the recurrence, the
+    group norm and the gate on them and its rows of ``w_o``; the partial
+    outputs are reduced.  The streams reach the projections through one
+    ``copy`` of their stack: one backward sum a layer, so over distinct
+    cards no lane's sum of stream gradients depends on which card's
+    autograd thread finished first (four copies did)."""
+    dh = cfg.rwkv_head_dim
+    group.piece(cfg.d_model // dh, 0)          # the heads split over the lanes, or raise
+    whole = {name: tp.gather(group, [pl[name] for pl in p], dim) for name, dim in (
+        ("tm_w1", -1), ("tm_w2", -1), ("td_w1", -1), ("td_w2", 0))}
+    xs = [_streams(pl, xl, _shift(xl) - xl, whole["tm_w1"][lane], whole["tm_w2"][lane])
+          for lane, (pl, xl) in enumerate(zip(p, x))]
+    w = tp.split(group, [_decay(pl, s[:, :, 0], whole["td_w1"][lane], whole["td_w2"][lane])
+                         for lane, (pl, s) in enumerate(zip(p, xs))])
+    gn_scale = tp.split(group, [pl["gn_scale"] for pl in p])
+    gn_bias = tp.split(group, [pl["gn_bias"] for pl in p])
+    return tp.reduce(group, [
+        _heads_out(pl, s, wl, pl["u"], gs, gb, cfg)[0] @ pl["w_o"]
+        for pl, s, wl, gs, gb in zip(p, tp.copy(group, xs), w, gn_scale, gn_bias)])
 
 
 def channel_mix(p: Params, x: torch.Tensor, cfg: ArchConfig,
@@ -115,6 +170,24 @@ def channel_mix(p: Params, x: torch.Tensor, cfg: ArchConfig,
     xr = x + sx * p["maa_r"]
     kv = torch.square(F.relu(xk @ p["w_k"])) @ p["w_v"]
     return torch.sigmoid((xr @ p["w_r"]).float()).to(cfg.adtype) * kv, x[:, -1, :]
+
+
+def channel_mix_lanes(p: List[Params], x: List[torch.Tensor], cfg: ArchConfig,
+                      group: ModelGroup) -> List[torch.Tensor]:
+    """:func:`channel_mix` of a training forward over a model group: the
+    squared-ReLU MLP as a Megatron MLP (``w_k`` by columns, ``w_v`` by
+    rows, reduced); each lane's columns of the receptance ``sigmoid(xr @
+    w_r)`` gathered (a (B, T, D) activation, where gathering ``w_r`` would
+    move D x D and repeat its product on every lane) and applied alike.
+    The two streams reach the projections through one ``copy`` of their
+    stack (as in :func:`time_mix_lanes`)."""
+    xs = tp.copy(group, [xl[:, :, None] + (_shift(xl) - xl)[:, :, None] * torch.stack(
+        [pl["maa_k"], pl["maa_r"]]) for pl, xl in zip(p, x)])
+    kv = tp.reduce(group, [torch.square(F.relu(s[:, :, 0] @ pl["w_k"])) @ pl["w_v"]
+                           for pl, s in zip(p, xs)])
+    r = tp.gather(group, [torch.sigmoid((s[:, :, 1] @ pl["w_r"]).float()).to(cfg.adtype)
+                          for pl, s in zip(p, xs)])
+    return [rl * kl for rl, kl in zip(r, kv)]
 
 
 class RWKV6Model:
@@ -199,34 +272,58 @@ class RWKV6Model:
         return self._run_cached(params, token, cache)
 
     # ------------------------------------------------------------- train
-    def _layer_fwd(self, lp: Params, x: torch.Tensor) -> torch.Tensor:
+    def _layer_fwd(self, lp: Params, x: torch.Tensor,
+                   group: Optional[ModelGroup] = None) -> torch.Tensor:
         cfg = self.cfg
+        if group is not None:
+            h = [L.apply_norm(n, xl, cfg) for n, xl in zip(tp.sub(lp, "ln1"), x)]
+            x = [xl + o for xl, o in zip(x, time_mix_lanes(tp.sub(lp, "tm"), h, cfg, group))]
+            h = [L.apply_norm(n, xl, cfg) for n, xl in zip(tp.sub(lp, "ln2"), x)]
+            return [xl + o for xl, o in zip(x, channel_mix_lanes(tp.sub(lp, "cm"), h, cfg,
+                                                                 group))]
         out, _, _ = time_mix(lp["tm"], L.apply_norm(lp["ln1"], x, cfg), cfg)
         x = x + out
         out, _ = channel_mix(lp["cm"], L.apply_norm(lp["ln2"], x, cfg), cfg)
         return x + out
 
-    def hidden_states(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+    def hidden_states(self, params: Params, tokens: torch.Tensor,
+                      group: Optional[ModelGroup] = None) -> torch.Tensor:
         """Full-sequence forward from zero states to the final hidden
         states (B, S, D).  With ``cfg.remat`` and autograd on, each layer
         runs under non-reentrant ``torch.utils.checkpoint``, as the
         reference wraps its scan body in ``jax.checkpoint``; ``ln0`` and the
-        final norm stay outside."""
+        final norm stay outside.  With ``group`` (``params`` a tree a lane,
+        :mod:`~repro_torch.models.parallel`), a list of the lanes' copies:
+        each lane runs its heads of every time mix and its columns of every
+        channel mix (:func:`time_mix_lanes`, :func:`channel_mix_lanes`), and
+        remat holds a layer of every lane where the lanes share a device
+        (:attr:`~repro_torch.models.parallel.ModelGroup.one_device`)."""
         cfg = self.cfg
+        remat = cfg.remat and torch.is_grad_enabled()
+        if group is not None:
+            x = L.embed_tokens(tp.sub(params, "embed"), tokens, cfg, group)
+            x = [L.apply_norm(n, xl, cfg) for n, xl in zip(tp.sub(params, "ln0"), x)]
+            stacks = [unstacked(t, cfg.n_layers) for t in tp.sub(params, "layers")]
+            for i in range(cfg.n_layers):
+                x = remat_call(remat and group.one_device, self._layer_fwd,
+                               [st[i] for st in stacks], x, group)
+            return [L.apply_norm(n, xl, cfg) for n, xl in zip(tp.sub(params, "final_norm"), x)]
         x = L.embed_tokens(params["embed"], tokens, cfg)
         x = L.apply_norm(params["ln0"], x, cfg)
-        remat = cfg.remat and torch.is_grad_enabled()
         for lp in unstacked(params["layers"], cfg.n_layers):
             x = remat_call(remat, self._layer_fwd, lp, x)
         return L.apply_norm(params["final_norm"], x, cfg)
 
-    def loss_fn(self, params: Params, batch: Dict[str, torch.Tensor]
+    def loss_fn(self, params: Params, batch: Dict[str, torch.Tensor],
+                group: Optional[ModelGroup] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """(loss, metrics) of a batch: tokens (B, S), labels (B, S)
-        [, loss_mask (B, S)]; the mean token cross-entropy."""
-        logits = L.logits_from_hidden(params["embed"],
-                                      self.hidden_states(params, batch["tokens"]), self.cfg)
-        loss = L.cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
+        [, loss_mask (B, S)]; the mean token cross-entropy (with ``group``
+        the vocabulary-parallel one, on the group's first device)."""
+        embed = tp.sub(params, "embed") if group is not None else params["embed"]
+        logits = L.logits_from_hidden(embed, self.hidden_states(params, batch["tokens"], group),
+                                      self.cfg, group)
+        loss = L.cross_entropy(logits, batch["labels"], batch.get("loss_mask"), group)
         return loss, {"loss": loss}
 
     def partition_rules(self) -> Rules:

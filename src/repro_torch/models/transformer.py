@@ -43,9 +43,6 @@ class DecoderLM:
     cache the unstacked ``layer0`` subtrees; the stacked ``layers`` /
     ``scan`` subtrees hold the other ``n_layers - 1``."""
 
-    #: trains over a mesh's model axis (``repro_torch.train.step``)
-    tensor_parallel = True
-
     def __init__(self, cfg: ArchConfig):
         self.cfg = cfg
         self.n_scan = cfg.n_layers - (1 if cfg.first_dense_ff else 0)
@@ -260,11 +257,7 @@ class DecoderLM:
         if cfg.first_dense_ff:
             x, _ = self._layer_fwd(sub("layer0"), x, positions, False, group)
         use_moe = bool(cfg.n_experts)
-        # PyTorch's non-reentrant checkpoint recomputes a layer in whichever
-        # of the autograd engine's device threads first needs it, with no
-        # lock: over distinct cards two threads start it at once (measured
-        # on two H100s), so there the layers keep their activations
-        remat = cfg.remat and torch.is_grad_enabled() and len(set(group.devices)) == 1
+        remat = cfg.remat and torch.is_grad_enabled() and group.one_device
         aux_sums = None
         stacks = [unstacked(layers, self.n_scan) for layers in sub("layers")]
         for i in range(self.n_scan):

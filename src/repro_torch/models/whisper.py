@@ -25,15 +25,17 @@ backward on CUDA tensors; cross-attention and the LayerNorms are plain).
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import ref
 from . import layers as L
+from . import parallel as tp
 from .common import (MODEL, ArchConfig, Rules, alloc_tree, init_tree, remat_call, stacked,
                      tree_flatten, tree_map, unstacked)
 from .layers import _spec as spec
+from .parallel import ModelGroup
 
 Params = Dict[str, Any]
 
@@ -56,21 +58,35 @@ def cross_attention_specs(cfg: ArchConfig) -> Params:
 
 def cross_attention(p: Params, x: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
                     cfg: ArchConfig) -> torch.Tensor:
-    """x: (B, S, D); kc, vc: the encoder's K/V (B, H, T_enc, dh)."""
+    """x: (B, S, D); kc, vc: the encoder's K/V (B, H, T_enc, dh).  ``p``
+    may hold some heads' columns of ``w_q`` and rows of ``w_o`` (a lane's,
+    with their K/V): the result is then that lane's partial output."""
     b, s, _ = x.shape
-    h, dh = cfg.n_heads, cfg.head_dim
-    q = (x @ p["w_q"]).view(b, s, h, dh).transpose(1, 2)
+    q = (x @ p["w_q"]).view(b, s, -1, cfg.head_dim).transpose(1, 2)
     o = ref.attention(q, kc, vc, causal=False)
-    return o.transpose(1, 2).reshape(b, s, h * dh) @ p["w_o"]
+    return o.transpose(1, 2).reshape(b, s, -1) @ p["w_o"]
 
 
 def cross_kv(p: Params, enc: torch.Tensor, cfg: ArchConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Encoder states (B, T, D) -> cross K, V (B, H, T, dh)."""
+    """Encoder states (B, T, D) -> cross K, V (B, H, T, dh) (a lane's heads
+    for its columns of ``w_k`` and ``w_v``)."""
     b, t, _ = enc.shape
-    h, dh = cfg.n_heads, cfg.head_dim
-    k = (enc @ p["w_k"]).view(b, t, h, dh).transpose(1, 2)
-    v = (enc @ p["w_v"]).view(b, t, h, dh).transpose(1, 2)
+    k = (enc @ p["w_k"]).view(b, t, -1, cfg.head_dim).transpose(1, 2)
+    v = (enc @ p["w_v"]).view(b, t, -1, cfg.head_dim).transpose(1, 2)
     return k, v
+
+
+def cross_attention_lanes(p: List[Params], x: List[torch.Tensor], enc: List[torch.Tensor],
+                          cfg: ArchConfig, group: ModelGroup) -> List[torch.Tensor]:
+    """Cross attention of a training forward over a model group: each lane
+    projects its heads' queries from its copy of x and their K/V from its
+    copy of the (replicated) encoder output, both through ``copy`` (so the
+    encoder output's gradient is the lanes' sum, and over the decoder's
+    layers the sum of every layer's), attends, and its rows of ``w_o``
+    give a partial output; the partials are reduced."""
+    group.piece(cfg.n_heads, 0)                # the heads split over the lanes, or raise
+    return tp.reduce(group, [cross_attention(pl, xl, *cross_kv(pl, el, cfg), cfg)
+                             for pl, xl, el in zip(p, tp.copy(group, x), tp.copy(group, enc))])
 
 
 class WhisperModel:
@@ -133,38 +149,78 @@ class WhisperModel:
         return tree_map(lambda a: a[i], tree)
 
     # ------------------------------------------------------------ encoder
-    def _enc_layer(self, p: Params, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    def _norms(self, ps: List[Params], xs: List[torch.Tensor]) -> List[torch.Tensor]:
+        return [L.apply_norm(n, xl, self.cfg) for n, xl in zip(ps, xs)]
+
+    def _enc_layer(self, p: Params, x: torch.Tensor, positions: torch.Tensor,
+                   group: Optional[ModelGroup] = None) -> torch.Tensor:
         cfg = self.cfg
+        if group is not None:
+            attn = L.attention_full(tp.sub(p, "attn"), self._norms(tp.sub(p, "ln_attn"), x), cfg,
+                                    positions, causal=False, group=group)
+            x = [xl + a for xl, a in zip(x, attn)]
+            y = L.apply_mlp(tp.sub(p, "mlp"), self._norms(tp.sub(p, "ln_mlp"), x), cfg, group)
+            return [xl + yl for xl, yl in zip(x, y)]
         h = L.apply_norm(p["ln_attn"], x, cfg)
         x = x + L.attention_full(p["attn"], h, cfg, positions, causal=False)
         h = L.apply_norm(p["ln_mlp"], x, cfg)
         return x + L.apply_mlp(p["mlp"], h, cfg)
 
-    def encode(self, params: Params, frames: torch.Tensor) -> torch.Tensor:
+    def encode(self, params: Params, frames: torch.Tensor,
+               group: Optional[ModelGroup] = None) -> torch.Tensor:
         """frames: (B, T_enc, D) stub embeddings -> encoder states, in the
         activation dtype (the frames are cast before the positions are
         added, as in the JAX package).  With ``cfg.remat`` and autograd on,
         each layer runs under non-reentrant ``torch.utils.checkpoint``, as
-        the reference wraps its scan body in ``jax.checkpoint``."""
+        the reference wraps its scan body in ``jax.checkpoint``.  With
+        ``group`` (``params`` a tree a lane), a list of the lanes' copies:
+        each layer's attention and MLP on each lane's heads and columns
+        (:func:`~repro_torch.models.layers.attention_full`,
+        :func:`~repro_torch.models.layers.apply_mlp`), remat only where the
+        lanes share a device."""
         cfg = self.cfg
         b, t, d = frames.shape
+        remat = cfg.remat and torch.is_grad_enabled()
+        if group is not None:
+            x = [frames.to(dev, cfg.adtype) + sinusoids(t, d, dev).to(cfg.adtype)[None]
+                 for dev in group.devices]
+            positions = [torch.arange(t, dtype=torch.int32, device=xl.device).expand(b, t)
+                         for xl in x]
+            stacks = [unstacked(e, cfg.enc_layers) for e in tp.sub(params, "enc_layers")]
+            for i in range(cfg.enc_layers):
+                x = remat_call(remat and group.one_device, self._enc_layer,
+                               [st[i] for st in stacks], x, positions, group)
+            return self._norms(tp.sub(params, "enc_norm"), x)
         x = frames.to(cfg.adtype) + sinusoids(t, d, frames.device).to(cfg.adtype)[None]
         positions = torch.arange(t, dtype=torch.int32, device=x.device).expand(b, t)
-        remat = cfg.remat and torch.is_grad_enabled()
         for p in unstacked(params["enc_layers"], cfg.enc_layers):
             x = remat_call(remat, self._enc_layer, p, x, positions)
         return L.apply_norm(params["enc_norm"], x, cfg)
 
     # ------------------------------------------------------------ decoder
-    def _embed_dec(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
-        """Token embeddings plus the learned positions 0 .. S - 1."""
-        s = tokens.shape[1]
+    def _embed_dec(self, params: Params, tokens: torch.Tensor,
+                   group: Optional[ModelGroup] = None) -> torch.Tensor:
+        """Token embeddings plus the learned positions 0 .. S - 1 (with
+        ``group``, the vocabulary-parallel lookup, a copy a lane)."""
+        s, adtype = tokens.shape[1], self.cfg.adtype
+        if group is not None:
+            x = L.embed_tokens(tp.sub(params, "embed"), tokens, self.cfg, group)
+            return [xl + pl["pos_dec"][:s][None].to(adtype) for pl, xl in zip(params, x)]
         return L.embed_tokens(params["embed"], tokens, self.cfg) + \
-            params["pos_dec"][:s][None].to(self.cfg.adtype)
+            params["pos_dec"][:s][None].to(adtype)
 
     def _dec_layer(self, p: Params, x: torch.Tensor, enc: torch.Tensor,
-                   positions: torch.Tensor) -> torch.Tensor:
+                   positions: torch.Tensor, group: Optional[ModelGroup] = None) -> torch.Tensor:
         cfg = self.cfg
+        if group is not None:
+            attn = L.attention_full(tp.sub(p, "self_attn"), self._norms(tp.sub(p, "ln_self"), x),
+                                    cfg, positions, causal=True, group=group)
+            x = [xl + a for xl, a in zip(x, attn)]
+            y = cross_attention_lanes(tp.sub(p, "cross_attn"), self._norms(
+                tp.sub(p, "ln_cross"), x), enc, cfg, group)
+            x = [xl + yl for xl, yl in zip(x, y)]
+            y = L.apply_mlp(tp.sub(p, "mlp"), self._norms(tp.sub(p, "ln_mlp"), x), cfg, group)
+            return [xl + yl for xl, yl in zip(x, y)]
         h = L.apply_norm(p["ln_self"], x, cfg)
         x = x + L.attention_full(p["self_attn"], h, cfg, positions, causal=True)
         h = L.apply_norm(p["ln_cross"], x, cfg)
@@ -173,29 +229,43 @@ class WhisperModel:
         h = L.apply_norm(p["ln_mlp"], x, cfg)
         return x + L.apply_mlp(p["mlp"], h, cfg)
 
-    def decode_full(self, params: Params, tokens: torch.Tensor,
-                    enc: torch.Tensor) -> torch.Tensor:
+    def decode_full(self, params: Params, tokens: torch.Tensor, enc: torch.Tensor,
+                    group: Optional[ModelGroup] = None) -> torch.Tensor:
         """Teacher-forced decoder forward of tokens (B, S) over encoder
         states ``enc`` (B, T_enc, D) -> logits (B, S, V) f32; each layer
-        rematerialised as in :meth:`encode`."""
+        rematerialised as in :meth:`encode`.  With ``group`` (``params`` a
+        tree a lane, ``enc`` a copy a lane), the lanes' (B, S, V/M) logit
+        columns."""
         cfg = self.cfg
-        x = self._embed_dec(params, tokens)
-        b, s, _ = x.shape
-        positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
+        b, s = tokens.shape
+        x = self._embed_dec(params, tokens, group)
         remat = cfg.remat and torch.is_grad_enabled()
+        if group is not None:
+            positions = [torch.arange(s, dtype=torch.int32, device=xl.device).expand(b, s)
+                         for xl in x]
+            stacks = [unstacked(t, cfg.dec_layers) for t in tp.sub(params, "dec_layers")]
+            for i in range(cfg.dec_layers):
+                x = remat_call(remat and group.one_device, self._dec_layer,
+                               [st[i] for st in stacks], x, enc, positions, group)
+            x = self._norms(tp.sub(params, "final_norm"), x)
+            return L.logits_from_hidden(tp.sub(params, "embed"), x, cfg, group)
+        positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
         for p in unstacked(params["dec_layers"], cfg.dec_layers):
             x = remat_call(remat, self._dec_layer, p, x, enc, positions)
         x = L.apply_norm(params["final_norm"], x, cfg)
         return L.logits_from_hidden(params["embed"], x, cfg)
 
-    def loss_fn(self, params: Params, batch: Dict[str, torch.Tensor]
+    def loss_fn(self, params: Params, batch: Dict[str, torch.Tensor],
+                group: Optional[ModelGroup] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """(loss, metrics) of a batch: frames (B, T_enc, D), tokens (B, S),
         labels (B, S) [, loss_mask (B, S)]; the mean token cross-entropy
-        of the teacher-forced decoder over the encoded frames."""
-        enc = self.encode(params, batch["frames"])
-        logits = self.decode_full(params, batch["tokens"], enc)
-        loss = L.cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
+        of the teacher-forced decoder over the encoded frames (with
+        ``group`` the vocabulary-parallel one, on the group's first
+        device)."""
+        enc = self.encode(params, batch["frames"], group)
+        logits = self.decode_full(params, batch["tokens"], enc, group)
+        loss = L.cross_entropy(logits, batch["labels"], batch.get("loss_mask"), group)
         return loss, {"loss": loss}
 
     # ------------------------------------------------------------- serve

@@ -29,8 +29,10 @@ import torch
 
 from . import layers as L
 from . import mamba2 as M2
+from . import parallel as tp
 from .common import (MODEL, ArchConfig, Rules, alloc_tree, init_tree, remat_call, stacked,
                      tree_map, unstacked)
+from .parallel import ModelGroup
 from .transformer import DecoderLM
 
 Params = Dict[str, Any]
@@ -141,38 +143,76 @@ class Zamba2Model:
 
     # ------------------------------------------------------------- train
     def _superblock_fwd(self, shared: Params, layers: list, x: torch.Tensor,
-                        positions: torch.Tensor) -> torch.Tensor:
+                        positions: torch.Tensor,
+                        group: Optional[ModelGroup] = None) -> torch.Tensor:
         """The shared attention + MLP block, then the superblock's Mamba2
-        layers, each ``x + mamba2_forward(ln(x))``."""
+        layers, each ``x + mamba2_forward(ln(x))``; with ``group``, each
+        argument a list a lane, the attention and MLP on each lane's heads
+        and columns and the Mamba2 layers on its SSD heads."""
         cfg = self.cfg
+        if group is not None:
+            def norms(ps, xs):
+                return [L.apply_norm(n, xl, cfg) for n, xl in zip(ps, xs)]
+
+            attn = L.attention_full(tp.sub(shared, "attn"), norms(tp.sub(shared, "ln_attn"), x),
+                                    cfg, positions, group=group)
+            x = [xl + a for xl, a in zip(x, attn)]
+            y = L.apply_mlp(tp.sub(shared, "mlp"), norms(tp.sub(shared, "ln_mlp"), x), cfg, group)
+            x = [xl + yl for xl, yl in zip(x, y)]
+            for lp in layers:
+                y = M2.mamba2_forward_lanes(tp.sub(lp, "mamba"), norms(tp.sub(lp, "ln"), x), cfg,
+                                            group)
+                x = [xl + yl for xl, yl in zip(x, y)]
+            return x
         h = L.apply_norm(shared["ln_attn"], x, cfg)
         x = self._shared_mlp(shared, x + L.attention_full(shared["attn"], h, cfg, positions))
         for lp in layers:
             x = x + M2.mamba2_forward(lp["mamba"], L.apply_norm(lp["ln"], x, cfg), cfg)
         return x
 
-    def hidden_states(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+    def hidden_states(self, params: Params, tokens: torch.Tensor,
+                      group: Optional[ModelGroup] = None) -> torch.Tensor:
         """Full-sequence forward from zero states to the final hidden
         states (B, S, D).  With ``cfg.remat`` and autograd on, each
         superblock runs under non-reentrant ``torch.utils.checkpoint``, as
-        the reference wraps its superblock in ``jax.checkpoint``."""
+        the reference wraps its superblock in ``jax.checkpoint``.  With
+        ``group`` (``params`` a tree a lane), a list of the lanes' copies:
+        the shared block tensor parallel as ``DecoderLM``'s layers, the
+        Mamba2 layers over the lanes' SSD heads
+        (:func:`~repro_torch.models.mamba2.mamba2_forward_lanes`), remat
+        only where the lanes share a device."""
         cfg = self.cfg
+        remat = cfg.remat and torch.is_grad_enabled()
+        if group is not None:
+            x = L.embed_tokens(tp.sub(params, "embed"), tokens, cfg, group)
+            b, s, _ = x[0].shape
+            positions = [torch.arange(s, dtype=torch.int32, device=xl.device).expand(b, s)
+                         for xl in x]
+            stacks = [[unstacked(sp, self.per_super) for sp in unstacked(t, self.n_super)]
+                      for t in tp.sub(params, "mamba_layers")]
+            for i in range(self.n_super):
+                layers = [[st[i][j] for st in stacks] for j in range(self.per_super)]
+                x = remat_call(remat and group.one_device, self._superblock_fwd,
+                               tp.sub(params, "shared"), layers, x, positions, group)
+            return [L.apply_norm(n, xl, cfg) for n, xl in zip(tp.sub(params, "final_norm"), x)]
         x = L.embed_tokens(params["embed"], tokens, cfg)
         b, s, _ = x.shape
         positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
-        remat = cfg.remat and torch.is_grad_enabled()
         for sp in unstacked(params["mamba_layers"], self.n_super):
             x = remat_call(remat, self._superblock_fwd, params["shared"],
                            unstacked(sp, self.per_super), x, positions)
         return L.apply_norm(params["final_norm"], x, cfg)
 
-    def loss_fn(self, params: Params, batch: Dict[str, torch.Tensor]
+    def loss_fn(self, params: Params, batch: Dict[str, torch.Tensor],
+                group: Optional[ModelGroup] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """(loss, metrics) of a batch: tokens (B, S), labels (B, S)
-        [, loss_mask (B, S)]; the mean token cross-entropy."""
-        logits = L.logits_from_hidden(params["embed"],
-                                      self.hidden_states(params, batch["tokens"]), self.cfg)
-        loss = L.cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
+        [, loss_mask (B, S)]; the mean token cross-entropy (with ``group``
+        the vocabulary-parallel one, on the group's first device)."""
+        embed = tp.sub(params, "embed") if group is not None else params["embed"]
+        logits = L.logits_from_hidden(embed, self.hidden_states(params, batch["tokens"], group),
+                                      self.cfg, group)
+        loss = L.cross_entropy(logits, batch["labels"], batch.get("loss_mask"), group)
         return loss, {"loss": loss}
 
     def partition_rules(self) -> Rules:

@@ -28,9 +28,10 @@ data-only step equals the one-lane step with ``microbatches=L`` bit for
 bit.  Each grid position updates its pieces with the whole gradient's
 norm (each distinct piece counted once) and scalars, and its new
 parameter piece is copied into every replica that shares its ``model``
-coordinate.  A model axis larger than 1 trains the decoder family
-(``DecoderLM``); rwkv6, zamba2 and whisper wait for ROADMAP.md queue 1,
-item 6c.
+coordinate.  Every family trains over a model axis larger than 1: the
+decoder family (``DecoderLM``), rwkv6 (the WKV recurrence on a lane's
+heads), zamba2 (the SSD on a lane's heads, the shared block as the
+decoder's) and whisper (its cross attention over the lanes too).
 """
 from __future__ import annotations
 
@@ -45,15 +46,11 @@ from repro_torch.core.arena import tree_flatten, tree_unflatten
 from repro_torch.core.data import TensorSpec
 from repro_torch.core.registry import add_launches, counting_into
 from repro_torch.launch.mesh import (Mesh, Placement, Sharded, check_present, model_axis_size,
-                                     resolve_spec)
+                                     piece_index, resolve_spec)
 from repro_torch.models.common import BATCH_AXES, partition_tree, tree_map, tree_paths, zero1_spec
 from repro_torch.models.parallel import ModelGroup
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
 from repro_torch.optim.adamw import adamw_scalars, update_leaf
-
-_MODEL_AXIS = ("training {} over a mesh's model axis (tensor parallelism by its partition "
-               "rules) waits for ROADMAP.md queue 1, item 6c")
-
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
@@ -348,13 +345,18 @@ def is_mesh_state(state) -> bool:
 
 
 def check_train_mesh(mesh: Mesh, model) -> None:
-    """A training mesh's devices must be present, and a ``model`` axis
-    larger than 1 needs a model that trains tensor parallel (the decoder
-    family, ``DecoderLM``)."""
-    if model_axis_size(mesh) > 1 and not getattr(model, "tensor_parallel", False):
-        raise NotImplementedError(f"{_MODEL_AXIS.format(type(model).__name__)} "
-                                  f"(mesh {mesh.shape})")
+    """What cannot run on a training mesh, found before anything is
+    placed: a device that is not present, and a parameter dimension that
+    its partition rule splits over axes that do not divide it (as a JAX
+    ``NamedSharding`` refuses it)."""
     check_present(mesh)
+    specs = dict(tree_flatten(state_pspecs(model, train_state_specs(model))["params"]))
+    for name, spec in tree_flatten(model.param_specs()):
+        try:
+            piece_index(spec.shape, specs[name], mesh, 0)
+        except ValueError as e:
+            raise ValueError(f"{type(model).__name__} {name} on the mesh {mesh.shape}: "
+                             f"{e}") from None
 
 
 def mesh_lanes(params, mesh: Mesh) -> list:
@@ -463,9 +465,9 @@ class TrainProcess:
     up the first data lane's forward and backward (its whole model group)
     and, when every lane is on one card, captures every lane's work into
     the one graph.  Over distinct cards the step runs eagerly (a CUDA graph
-    records one device's work).  A model axis larger than 1 with a model
-    other than ``DecoderLM`` raises ``NotImplementedError`` (ROADMAP.md
-    queue 1, item 6c).
+    records one device's work).  A mesh whose axes do not divide a
+    parameter dimension that its rule splits raises ``ValueError``
+    (:func:`check_train_mesh`).
     """
 
     def __init__(self, model, tcfg: TrainConfig, mesh: Optional[Mesh] = None):

@@ -63,6 +63,7 @@ from repro_torch import interop
 from repro_torch.configs import get_config, get_smoke
 from repro_torch.core import process as process_mod
 from repro_torch.core import registry
+from repro_torch.core.app import NoMatchingDeviceError
 from repro_torch.core.arena import tree_flatten, tree_unflatten
 from repro_torch.core.registry import KernelRegistry, launch_counts, reset_launch_counts
 from repro_torch.data import io as tio
@@ -502,10 +503,19 @@ def test_one_rng_gives_the_same_parameters(setup):
 
 
 def test_trainer_refuses_a_mesh_and_needs_a_card_unless_asked(setup, monkeypatch):
+    """A mesh that cannot run is refused before anything is placed: a
+    model axis that does not divide the vocabulary (rwkv6 SMOKE's 128 over
+    3 lanes), a card that is not present."""
     cfg, model, _ = setup
-    with pytest.raises(NotImplementedError, match="RWKV6Model .* item 6c"):
-        Trainer(build_model(get_smoke("rwkv6-3b")), TrainerConfig(),
-                mesh=make_data_mesh([torch.device("cpu")] * 2, model=2), device="cpu")
+    rwkv = build_model(get_smoke("rwkv6-3b"))
+    with pytest.raises(ValueError, match=r"RWKV6Model \['embed'\]\['embedding'\] .* does not "
+                       "split into 3 pieces"):
+        Trainer(rwkv, TrainerConfig(), mesh=make_data_mesh([torch.device("cpu")] * 3, model=3),
+                device="cpu")
+    Trainer(rwkv, TrainerConfig(), mesh=make_data_mesh([torch.device("cpu")] * 2, model=2))
+    with pytest.raises(NoMatchingDeviceError, match="not present"):
+        Trainer(rwkv, TrainerConfig(), mesh=make_data_mesh([torch.device("cuda", 7)] * 2,
+                                                           model=2))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Trainer(model, TrainerConfig())
@@ -653,8 +663,9 @@ def test_train_launcher_refuses_a_train_state_larger_than_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match=r"\{'pod': 2, 'data': 16, 'model': 16\} needs 512 "
                        "CUDA devices; 0 found"):
         train_launch.main(["--arch", "qwen3-14b", "--multi-pod", "--cpu"])
-    with pytest.raises(NotImplementedError, match="RWKV6Model .* item 6c"):
-        train_launch.main(["--arch", "rwkv6-3b", "--multi-pod", "--cpu"])
+    for arch in ("rwkv6-3b", "zamba2-2.7b", "whisper-large-v3"):     # every family
+        with pytest.raises(RuntimeError, match="needs 512 CUDA devices; 0 found"):
+            train_launch.main(["--arch", arch, "--multi-pod", "--cpu"])
 
 
 def test_train_launcher_trains_a_smoke_config_on_the_cpu(tmp_path):

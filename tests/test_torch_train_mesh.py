@@ -38,9 +38,9 @@ one-lane step and the JAX package's mesh step.
 * ``Trainer(mesh=)``: a failure and a resume on the same 2 lanes equal an
   uninterrupted run bit for bit; a resume from 2 lanes onto 4 (and onto
   one device) within 1e-6 (the reduction order differs).
-* Refusals: a mesh naming an absent card.  (A model axis trains the
-  decoder family and refuses the other classes naming ROADMAP item 6c:
-  ``tests/test_torch_train_tp.py``.)
+* Refusals: a mesh naming an absent card.  (A model axis trains every
+  family: ``tests/test_torch_train_tp.py`` and
+  ``tests/test_torch_train_tp_families.py``.)
 """
 import os
 import subprocess
@@ -435,14 +435,16 @@ def _of(named, prefix):
     return {k[len(prefix):]: v for k, v in named.items() if k.startswith(prefix)}
 
 
-def f64_steps(arch, init, batches, microbatches=1):
+def f64_steps(arch, init, batches, microbatches=1, metrics=None):
     """The state after the port's one-lane step with ``microbatches`` runs
     ``batches`` in f64 from the reference's initial state ``init``
     (``{keystr: array}``): f64 parameters, master, m and v, every
     ``.float()`` of the model, the plain kernels and AdamW made
     ``.double()`` (the patch of ``test_torch_train.py::
     test_f32_gradients_are_as_close_to_f64_as_the_reference``), the
-    microbatches' gradients averaged in f64.  ``{keystr: float64 array}``."""
+    microbatches' gradients averaged in f64.  ``{keystr: float64 array}``;
+    with a list ``metrics``, each step's (loss, grad_norm) is appended to
+    it."""
     from unittest import mock
     from repro_torch.core.arena import tree_unflatten
     from repro_torch.models.common import tree_map
@@ -458,14 +460,18 @@ def f64_steps(arch, init, batches, microbatches=1):
     with mock.patch.object(torch.Tensor, "float", torch.Tensor.double):
         for batch in batches:
             rows = len(batch["tokens"]) // microbatches
-            grads = None
+            grads, loss = None, 0.0
             for i in range(microbatches):
                 part = {k: torch.from_numpy(np.ascontiguousarray(v[i * rows:(i + 1) * rows]))
                         for k, v in batch.items()}
-                g = dict(tree_flatten(loss_and_grads(model, params, part)[1]))
+                m, g = loss_and_grads(model, params, part)
+                g = dict(tree_flatten(g))
                 grads = g if grads is None else {n: grads[n] + g[n] for n in g}
+                loss += float(m["loss"]) / microbatches
             grads = tree_unflatten((n, a / microbatches) for n, a in grads.items())
-            adamw_update(params, grads, opt, ocfg)
+            norm = float(adamw_update(params, grads, opt, ocfg)[2]["grad_norm"])
+            if metrics is not None:
+                metrics.append((loss, norm))
     state = {"params": params, "opt": opt}
     return {n: t.numpy() for n, t in tree_flatten(state) if t.dtype == torch.float64}
 

@@ -5,7 +5,10 @@ against the JAX package's GSPMD step and the port's own no-mesh step.
 
 * **The operators** of :mod:`repro_torch.models.parallel`: ``copy`` and
   ``gather`` (around a column-split product), ``reduce`` (after a
-  row-split one), ``single``, the vocabulary-parallel embedding and
+  row-split one), ``single``, ``split`` (each lane's piece of a
+  replicated tensor), ``allreduce`` (a statistic over split columns),
+  ``regroup`` (a column-split output into overlapping ranges that cross
+  the pieces' boundary), the vocabulary-parallel embedding and
   cross-entropy, each against its one-lane form, forward and backward,
   under ``torch.autograd.gradcheck`` in f64; twice give equal bits.
 * **Against the JAX package**: a subprocess runs the reference's
@@ -50,8 +53,10 @@ against the JAX package's GSPMD step and the port's own no-mesh step.
 * One capture holds every lane of a group on one device (the recorder of
   ``tests/test_torch_train.py``): replays bit for bit the eager steps,
   each lane's kernel launches counted.
-* Refusals: rwkv6, zamba2 and whisper on a model axis name ROADMAP item
-  6c; a vocabulary that M does not divide raises, as JAX does.
+* Every family's parameter pieces on (2, 2) are the slices their
+  partition rules give (rwkv6, zamba2 and whisper train over ``model``
+  too: ``tests/test_torch_train_tp_families.py``).  A vocabulary that M
+  does not divide raises, as JAX does.
 * ``Trainer(mesh=)`` on ``(data 2, model 2)``: a failure at step 3
   resumed on the same mesh ends bit for bit where an uninterrupted run
   does; resumes onto ``(4, 1)`` and onto one device within 1e-6.
@@ -78,8 +83,8 @@ from repro_torch.train import (Trainer, TrainerConfig, TrainProcess, make_mesh_t
                                to_named)
 from repro_torch.train.step import accumulate_grads, loss_and_grads, mesh_lanes
 from test_torch_train import FAMILY_GRAD_ATOL, GRAD_ATOL, GRAD_RTOL, captured  # noqa: F401
-from test_torch_train_mesh import (STABLE_KEYS, _of, _stream, _tcfg, assert_as_close_to_f64,
-                                   f64_distance, f64_steps, run_jax)
+from test_torch_train_mesh import (F64_MULTIPLE, STABLE_KEYS, _of, _stream, _tcfg,
+                                   assert_as_close_to_f64, f64_distance, f64_steps, run_jax)
 
 CPU = torch.device("cpu")
 DECODERS = ["qwen3-14b", "h2o-danube-1.8b", "qwen2-7b", "minitron-8b", "granite-moe-1b-a400m",
@@ -160,6 +165,38 @@ def _ce(l0, l1):
     return tp.cross_entropy(GROUP, [l0, l1], labels, mask)
 
 
+def _split(x):
+    """split, each lane's own work on its piece, gather: tanh(x)."""
+    return tp.single(GROUP, tp.gather(GROUP, [torch.tanh(p) for p in
+                                              tp.split(GROUP, _lanes_of(x))]))
+
+
+def _allreduce(x0, x1):
+    """Each lane's columns scaled by the lanes' summed sum of squares (the
+    gated RMS norm of Mamba2 over lanes): x / |x| over the whole row."""
+    sums = tp.allreduce(GROUP, [(x * x).sum(-1, keepdim=True) for x in (x0, x1)])
+    return tp.single(GROUP, tp.gather(GROUP, [x * torch.rsqrt(s) for x, s in
+                                              zip((x0, x1), sums)]))
+
+
+#: column ranges that cross the pieces' boundary (4) and that both lanes read
+REGROUP = [[(0, 2), (3, 6)], [(1, 5), (7, 8)]]
+
+
+def _regroup(p0, p1):
+    """regroup of a column-split output into overlapping ranges, each
+    lane's own work on its columns, gather."""
+    outs = tp.regroup(GROUP, [p0, p1], REGROUP)
+    return tp.single(GROUP, tp.gather(GROUP, [torch.tanh(o) * (lane + 1)
+                                              for lane, o in enumerate(outs)]))
+
+
+def _regroup_one(p0, p1):
+    whole = torch.cat([p0, p1], -1)
+    return torch.cat([torch.tanh(torch.cat([whole[..., a:b] for a, b in ranges], -1)) * (lane + 1)
+                      for lane, ranges in enumerate(REGROUP)], -1)
+
+
 OPERATORS = {
     "copy-gather": (_column, lambda x, w0, w1: x @ torch.cat([w0, w1], 1),
                     lambda: (_f64(2, 3, 4), _f64(4, 5, seed=1), _f64(4, 5, seed=2))),
@@ -172,6 +209,11 @@ OPERATORS = {
     "embed": (_embed, lambda t0, t1: torch.nn.functional.embedding(
         torch.tensor([[0, 5, 3, 7], [6, 6, 1, 2]]), torch.cat([t0, t1])),
         lambda: (_f64(4, 3), _f64(4, 3, seed=1))),
+    "split": (_split, torch.tanh, lambda: (_f64(2, 3, 4),)),
+    "allreduce": (_allreduce, lambda x0, x1: torch.cat([x0, x1], -1) * torch.rsqrt(
+        (torch.cat([x0, x1], -1) ** 2).sum(-1, keepdim=True)),
+        lambda: (_f64(2, 3, 3), _f64(2, 3, 3, seed=1))),
+    "regroup": (_regroup, _regroup_one, lambda: (_f64(2, 3, 4), _f64(2, 3, 4, seed=1))),
     "cross-entropy": (_ce, lambda l0, l1: tlayers.cross_entropy(
         torch.cat([l0, l1], -1), torch.tensor([[0, 5, 3, 7], [6, 6, 1, 2]]),
         torch.tensor([[1.0, 0.0, 1.0, 1.0], [1.0, 1.0, 0.0, 1.0]], dtype=torch.float64)),
@@ -258,10 +300,15 @@ def named(t):
 
 out = {}
 draws = [int(s) for s in sys.argv[4].split(",")]
+# with a fifth argument, a directory: the first arch's first draw's state
+# after three steps on the first mesh, saved there as a sharded checkpoint
+ckpt_dir = sys.argv[5] if len(sys.argv) > 5 else None
 for arch in sys.argv[2].split(","):
     cfg = get_smoke(arch)
     model = build_model(cfg)
-    stream = TokenStream(StreamConfig(vocab=cfg.vocab, seq=12, batch=8))
+    frames = (dict(kind="encdec", enc_frames=6, d_model=cfg.d_model)
+              if cfg.family == "encdec" else {})
+    stream = TokenStream(StreamConfig(vocab=cfg.vocab, seq=12, batch=8, **frames))
     for shape in [tuple(int(n) for n in s.split("x")) for s in sys.argv[3].split(",")]:
         # an Auto (pod, data, model) mesh: jax.make_mesh's Explicit axes are
         # refused by the reference's constrain
@@ -288,6 +335,10 @@ for arch in sys.argv[2].split(","):
                 if i in (0, 2):
                     out.update({f"{key}step{i + 1}{k}": v for k, v in named(state).items()})
             out[key + "metrics"] = np.array(metrics)
+            if ckpt_dir:
+                from repro.ckpt import save_checkpoint
+                save_checkpoint(ckpt_dir, 3, state, sharded=True)
+                ckpt_dir = None
 np.savez(sys.argv[1], **out)
 """
 
@@ -318,32 +369,60 @@ def jax_tp():
                    ",".join(map(str, TP_DRAWS)), timeout=900)
 
 
-@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
-@pytest.mark.parametrize("arch", JAX_ARCHS)
-def test_model_axis_matches_the_jax_gspmd_step(arch, shape, jax_tp):
+def against_the_gspmd_step(arch, shape, jax_out, draws, norm_rtol=1e-5, later_by_f64=False):
+    """The port's ``TrainProcess`` on ``shape``'s (data, model) lanes from
+    each draw's initial state against the reference's GSPMD step
+    (``jax_out``, :data:`_JAX_TP`'s output): the metrics of three steps
+    (loss and lr within rtol 1e-5, grad_norm within ``norm_rtol``; with
+    ``later_by_f64`` the second and third steps' loss and grad_norm are
+    judged as the state is, below), every state piece after one step
+    (:func:`_assert_first_step`), and after three, over the draws, the mean
+    rms distance from an f64 run of the port's no-mesh step at most 1.5x
+    the reference's (and with ``later_by_f64`` the later metrics' median
+    relative distance from that run's, over the draws and steps, at most
+    1.5x the reference's, or 1e-5: after an Adam step these metrics carry
+    the heavy-tailed noise of elements at near-zero gradients, which
+    moves one draw's grad_norm by up to 3e-4 in either package)."""
     cfg = get_smoke(arch)
     model = build_model(cfg)
     _, data, m = shape
-    stream = TokenStream(StreamConfig(vocab=cfg.vocab, seq=12, batch=8))
-    batches = [stream.batch_at(i) for i in range(3)]
-    port, reference = [], []
-    for seed in TP_DRAWS:
+    batches = [_stream(cfg).batch_at(i) for i in range(3)]
+    port, reference, later = [], [], []
+    for seed in draws:
         key = f"{arch}/{'x'.join(map(str, shape))}/{seed}/"
-        init = _of(jax_tp, f"{arch}/{seed}/init")
+        init = _of(jax_out, f"{arch}/{seed}/init")
         state = interop.train_state_from_reference(init, cfg, "cpu")
         proc = TrainProcess(model, _tcfg(), mesh=_mesh(data, m)).init(state, batches[0])
+        got = []
         for i, batch in enumerate(batches):
             placed, metrics = proc.launch(state, batch)
-            np.testing.assert_allclose([float(metrics[k]) for k in ("loss", "grad_norm", "lr")],
-                                       jax_tp[key + "metrics"][i], rtol=1e-5,
-                                       err_msg=f"draw {seed} step {i}")
+            got.append([float(metrics[k]) for k in ("loss", "grad_norm", "lr")])
             if i == 0:
-                _assert_first_step(placed, _of(jax_tp, key + "step1"), 2 * _band(cfg),
+                _assert_first_step(placed, _of(jax_out, key + "step1"), 2 * _band(cfg),
                                    f"draw {seed}")
-        truth = f64_steps(arch, init, batches, microbatches=data)
+        want = jax_out[key + "metrics"]
+        for i in range(len(batches)):
+            for j, (k, rtol) in enumerate(zip(("loss", "grad_norm", "lr"),
+                                              (1e-5, norm_rtol, 1e-5))):
+                if k == "lr" or not (later_by_f64 and i):
+                    np.testing.assert_allclose(got[i][j], want[i][j], rtol=rtol,
+                                               err_msg=f"{k} draw {seed} step {i}")
+        truth_metrics = []
+        truth = f64_steps(arch, init, batches, microbatches=data, metrics=truth_metrics)
         port.append(f64_distance({n: s.full().numpy() for n, s in tree_flatten(placed)}, truth))
-        reference.append(f64_distance(_of(jax_tp, key + "step3"), truth))
+        reference.append(f64_distance(_of(jax_out, key + "step3"), truth))
+        later += [(abs(got[i][j] - t[j]) / abs(t[j]), abs(want[i][j] - t[j]) / abs(t[j]))
+                  for i, t in enumerate(truth_metrics) if i for j in (0, 1)]
     assert_as_close_to_f64(port, reference, arch)
+    if later_by_f64:
+        p, r = np.median(np.array(later), axis=0)
+        assert p <= max(F64_MULTIPLE * r, 1e-5), (arch, p, r, later)
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("arch", JAX_ARCHS)
+def test_model_axis_matches_the_jax_gspmd_step(arch, shape, jax_tp):
+    against_the_gspmd_step(arch, shape, jax_tp, TP_DRAWS)
 
 
 # ---------------------------------------------------------------------------
@@ -496,26 +575,25 @@ def test_one_capture_holds_every_lane_of_a_group(captured):
 # refusals
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", OTHERS)
-def test_a_model_axis_refuses_the_other_classes_naming_item_6c(arch):
-    """rwkv6, zamba2 and whisper do not train over ``model`` yet; their
-    specs and placements are still computed (Megatron pieces over
-    ``model``)."""
+@pytest.mark.parametrize("arch", DECODERS + OTHERS)
+def test_every_piece_is_its_rules_piece(arch):
+    """On a (2, 2) mesh every parameter piece is the slice of the whole
+    leaf that its partition rule gives the grid position (the pieces a
+    ``sharded-v1`` checkpoint holds), and some leaves are split."""
     model = build_model(get_smoke(arch))
     mesh = _mesh(2, 2)
-    name = type(model).__name__
-    for make in (lambda: TrainProcess(model, _tcfg(), mesh=mesh),
-                 lambda: Trainer(model, TrainerConfig(), mesh=mesh),
-                 lambda: make_mesh_train_step(model, _tcfg(), mesh)):
-        with pytest.raises(NotImplementedError, match=f"{name} .* item 6c"):
-            make()
     state = make_train_state(model, 0)
+    whole = dict(tree_flatten(state["params"]))
     placed = dict(tree_flatten(_placed(model, state, mesh)["params"]))
-    split = [(n, s) for n, s in placed.items() if "model" in s.placement.spec]
-    assert split
-    for n, s in split:
-        assert s.pieces[0].numel() < s.full().numel(), n
-        assert torch.equal(s.full(), dict(tree_flatten(state["params"]))[n]), n
+    specs = dict(tree_flatten(state_pspecs(model, state)["params"]))
+    places = dict(tree_flatten(to_named(state_pspecs(model, state)["params"], mesh)))
+    assert any("model" in s for s in specs.values())
+    for n, s in placed.items():
+        assert s.placement == places[n], n
+        for k, piece in enumerate(s.pieces):
+            assert torch.equal(piece, whole[n][s.slices(k)]), (n, k)
+        if "model" in specs[n]:
+            assert s.pieces[0].numel() < whole[n].numel(), n
 
 
 def test_a_vocabulary_the_model_axis_does_not_divide_raises():
