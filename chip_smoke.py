@@ -81,8 +81,29 @@
    (bit for bit in the kernel mode, rtol 1e-6 under cuFFT), each lane given
    rows must have launched every kernel of the path; wall ms a slice, the
    split vectors, twins and captures a lane, launches a lane and a device;
-   ``CLapp.split`` replicas each run one launch.  Each of these phases
-   counts its kernel launches from 0.
+   ``CLapp.split`` replicas each run one launch.  ``[frontdoor]`` (after
+   ``[serve]``): the control plane (``repro_torch.serve.FrontDoor``) in
+   front of two ``PipelineReplica`` s of ``SimpleMRIRecon`` fused_kernel
+   at ``CONFIG`` (``CLapp.split(2)`` of card 0 named twice, servers
+   warmed before the FrontDoor starts): 48 requests over 24 k-spaces
+   under each routing policy, bit for bit the direct server and within
+   1e-4 of the oracle, both replicas serving, no twin captured in a
+   worker thread, one ``dft_recon_kernel`` launch a batch; a fault
+   injected into r1 requeued to r0 and r1 readmitted by its probe;
+   overload (capacity 8, ``"shed"``, the replicas gated) sheds only batch
+   work and a 1 ms deadline times out unlaunched; ``warm_start`` of new
+   maps from a checkpoint.  Then two h2o-danube-1.8b ``LMServer``
+   replicas at full width, each on its own split app of card 0, behind
+   ``FrontDoor(policy="least-outstanding")``: 8 prompts of 17-1024
+   tokens, first cold (each decode step captured in its replica's thread
+   while the other replica runs), then warm (no capture); every request's
+   tokens equal a lone server's.  Requests/s, p50/p99 by class and
+   replica beside a direct server, the split and each replica's rate; one
+   request in flight at a time, end to end, through the FrontDoor beside
+   the direct server's and replica r0's own submit + drain from the main
+   thread and from a worker thread, in turns, the FrontDoor's host time a
+   request and a ``torch.profiler`` summary of r0's submit + drain in
+   each thread; the ``frontdoor_requests_*`` metric lines.  Each of these phases counts its kernel launches from 0.
 4. Holds the LM kernels (``rmsnorm``, ``flash_attention``) against their
    plain versions on the card (bf16 at rtol/atol 2e-2, f32 at rtol 1e-4 /
    atol 1e-5) at the qwen3-14b and rwkv6-3b serving shapes (the
@@ -547,6 +568,492 @@ def fit_and_time(arch: str, dev, peaks: dict, steps: int = 6, batch: int = 4,
             "model_flops": flops, "flops_formula": flops_txt,
             "mfu": flops / (p50 * 1e-3) / peaks["bf16_tensor"],
             "buckets": buckets, "other": other}
+
+
+def frontdoor_phase(dev, smi, cfg, stack, oracle, wall, get_config) -> dict:
+    """[frontdoor]: ``repro_torch.serve.FrontDoor`` in front of replicas on
+    ``dev`` (see the module docstring); ``stack`` holds (k-space, maps) per
+    slice, ``oracle(k, maps)`` the complex128 reference.  Fails on any
+    check; returns the LM part's kernel launches (the main path's)."""
+    import tempfile
+    import threading
+
+    import torch
+
+    from repro_torch.ckpt import save_checkpoint
+    from repro_torch.core import CLapp, Data, DeviceTraits, DeviceType, KData, Pipeline
+    from repro_torch.core.registry import launch_counts
+    from repro_torch.launch.mesh import make_data_mesh
+    from repro_torch.models import build_model
+    from repro_torch.processes import FusedMRIRecon, SimpleMRIRecon
+    from repro_torch.processes.lm import weights_data
+    from repro_torch.serve import (CallableReplica, FrontDoor, LMServer, PipelineReplica,
+                                   PriorityClass, SamplingConfig)
+
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    def one_device_app():
+        return CLapp().init(device_traits=DeviceTraits(index=dev.index or 0) if cuda
+                            else DeviceTraits(type=DeviceType.CPU))
+
+    def split_apps(n):
+        root = one_device_app()
+        root.set_mesh(make_data_mesh([dev] * n))
+        return root.split(n)
+
+    def fail(msg):
+        raise SystemExit(f"chip_smoke: [frontdoor] {msg}")
+
+    def pct(xs, q):
+        return float(np.percentile(np.asarray(xs, np.float64), q)) if xs else float("nan")
+
+    def kd(i):
+        return KData({"kdata": stack[i][0], "sensitivity_maps": stack[i][1]})
+
+    reference = {}
+
+    def oracle_of(k, maps):               # the stack's arrays: one oracle each pair
+        key = (id(k), id(maps))
+        if key not in reference:
+            reference[key] = oracle(k, maps)
+        return reference[key]
+
+    def fused(counts):
+        return counts.get("mriFusedRecon", 0)
+
+    n_k, n_req = len(stack), 2 * len(stack)
+    classes = ["interactive" if i % 3 == 0 else "batch" for i in range(n_req)]
+
+    # -- the direct server: each k-space's result, and the burst beside ---------
+    app = one_device_app()
+    direct = (Pipeline(app) | SimpleMRIRecon(app, mode="fused_kernel")).serve(batch=4)
+    direct.warmup(kd(0))
+    rids = [direct.submit(kd(i)) for i in range(n_k)]
+    by_rid = {r.rid: r.data.device_view("xdata").clone() for r in direct.drain()}
+    want = [by_rid[r] for r in rids]
+    for i, w in enumerate(want):
+        np.testing.assert_allclose(w.cpu().numpy(), oracle_of(*stack[i]), rtol=1e-4, atol=1e-4,
+                                   err_msg=f"[frontdoor] direct server, k-space {i}")
+    sync()
+    t0 = time.perf_counter()
+    for i in range(n_req):
+        direct.submit(kd(i % n_k))
+    resp = direct.drain()
+    sync()
+    direct_s = time.perf_counter() - t0
+    direct_lat = [r.latency_s * 1e3 for r in resp]
+
+    # -- two replicas on card 0 named twice ------------------------------------
+    processed = {}                        # id(payload) -> (replica, seconds of its batch)
+    gate = threading.Event()              # closed only in the overload part
+    gate.set()
+    waiting = []                          # replicas that reached the closed gate
+
+    def replica(i, a):
+        server = (Pipeline(a) | SimpleMRIRecon(a, mode="fused_kernel")).serve(batch=4)
+        server.warmup(kd(0))
+        rep = PipelineReplica(f"r{i}", server, probe_request=kd(0))
+        plain = rep.process
+
+        def process(payloads):
+            if not gate.is_set():
+                waiting.append(rep.name)
+                gate.wait()
+            t = time.perf_counter()
+            out = plain(payloads)
+            dt = time.perf_counter() - t
+            for p in payloads:
+                processed[id(p)] = (rep.name, dt)
+            return out
+        rep.process = process
+        return rep
+
+    reps = [replica(i, a) for i, a in enumerate(split_apps(2))]
+    captures = {r.name: {k: bp.captures for k, bp in r.server._plan.twins.items()}
+                for r in reps}
+
+    def check_ok(outs, fids, idx, label):
+        for fid, i in zip(fids, idx):
+            o = outs.get(fid)
+            if o is None or o.status != "ok":
+                fail(f"{label}: request {fid} ended as {o}")
+            got = o.result.device_view("xdata")
+            if not torch.equal(got, want[i]):
+                fail(f"{label}: request {fid} (k-space {i}) is not bit for bit the direct "
+                     f"server's (max diff {float((got - want[i]).abs().max()):.3e})")
+            np.testing.assert_allclose(got.cpu().numpy(), oracle_of(*stack[i]), rtol=1e-4,
+                                       atol=1e-4, err_msg=f"[frontdoor] {label} {fid}")
+
+    def launches_a_batch(before, label):
+        batches = sum(r.server.launches for r in reps) - before[1]
+        got = fused(launch_counts()) - before[0]
+        if got != batches:
+            fail(f"{label}: {got} dft_recon_kernel launches for {batches} batches")
+        return batches
+
+    def mark():
+        return fused(launch_counts()), sum(r.server.launches for r in reps)
+
+    for policy in ("round-robin", "least-outstanding", "profile"):
+        fd = FrontDoor(reps, capacity=64, policy=policy)
+        before = mark()
+        sync()
+        t0 = time.perf_counter()
+        payloads = [kd(i % n_k) for i in range(n_req)]
+        fids = [fd.submit(p, priority=c) for p, c in zip(payloads, classes)]
+        outs = {o.rid: o for o in fd.drain(timeout=300.0)}
+        sync()
+        total_s = time.perf_counter() - t0
+        check_ok(outs, fids, [i % n_k for i in range(n_req)], policy)
+        batches = launches_a_batch(before, policy)
+        split = {r.name: sum(1 for o in outs.values() if o.replica == r.name) for r in reps}
+        if min(split.values()) == 0:
+            fail(f"{policy}: the split {split} left a replica idle")
+        lat = {c: [o.latency_s * 1e3 for o in outs.values() if o.priority == c]
+               for c in ("interactive", "batch")}
+        by_rep = {n: [o.latency_s * 1e3 for o in outs.values() if o.replica == n] for n in split}
+        print(f"[frontdoor] {smi}: MRI {cfg} fused_kernel, policy {policy}: {n_req} requests "
+              f"over {n_k} k-spaces ({n_req // 3} interactive) through 2 PipelineReplicas "
+              f"(batch 4) in {total_s * 1e3:.1f} ms = {n_req / total_s:.1f} requests/s "
+              f"(the direct server {n_req / direct_s:.1f}: p50 {pct(direct_lat, 50):.2f}, "
+              f"p99 {pct(direct_lat, 99):.2f} ms); p50/p99 ms interactive "
+              f"{pct(lat['interactive'], 50):.2f}/{pct(lat['interactive'], 99):.2f}, batch "
+              f"{pct(lat['batch'], 50):.2f}/{pct(lat['batch'], 99):.2f}; by replica "
+              + ", ".join(f"{n} {pct(v, 50):.2f}/{pct(v, 99):.2f}" for n, v in by_rep.items())
+              + f"; split {split}, rates (items/s) "
+              + ", ".join(f"{r.name} {r.rate:.1f}" for r in reps)
+              + f"; {batches} batches, one dft_recon_kernel launch each; every result bit "
+              "for bit the direct server's and within 1e-4 of the oracle")
+        fd.close()
+    after = {r.name: {k: bp.captures for k, bp in r.server._plan.twins.items()} for r in reps}
+    if after != captures:
+        fail(f"twins captured in a worker thread: {captures} -> {after}")
+
+    # -- one request in flight: the FrontDoor end to end beside direct calls -----
+    # The same request's submit (its host snapshot) + drain (upload, launch,
+    # synchronize), each on the host clock, four ways in turns (A B C D D C
+    # B A): the direct server and replica r0 from the main thread, r0 from
+    # a plain worker thread, and r0 behind a FrontDoor (fd.submit to
+    # fd.collect's return), whose latency less r0's process time is the
+    # FrontDoor's host time.
+    def submit_drain(server, p):
+        t0 = time.perf_counter()
+        server.submit(p)
+        t1 = time.perf_counter()
+        server.drain()
+        return (t1 - t0) * 1e3, (time.perf_counter() - t0) * 1e3
+
+    def in_thread(fn):
+        box = {}
+        t = threading.Thread(target=lambda: box.setdefault("out", fn()))
+        t.start()
+        t.join()
+        return box["out"]
+
+    fd = FrontDoor(reps[:1], capacity=64)
+    host_us = []
+
+    def through_door(p):
+        t0 = time.perf_counter()
+        rid = fd.submit(p)
+        (o,) = fd.collect(1, timeout=60.0)
+        e2e = (time.perf_counter() - t0) * 1e3
+        if o.rid != rid or o.status != "ok":
+            fail(f"one at a time: request {rid} ended as {o}")
+        host_us.append((o.latency_s - processed[id(p)][1]) * 1e6)
+        return processed[id(p)][1] * 1e3, e2e
+
+    ways = {"direct, main thread": lambda p: submit_drain(direct, p),
+            "r0, main thread": lambda p: submit_drain(reps[0].server, p),
+            "r0, a worker thread": None,
+            "r0 behind the FrontDoor": through_door}
+    seen = {w: [] for w in ways}
+
+    def turn(way, idx):
+        if ways[way] is None:
+            return in_thread(lambda: [submit_drain(reps[0].server, kd(i)) for i in idx])
+        return [ways[way](kd(i)) for i in idx]
+    for way in ways:                          # a first pass of each, not kept
+        turn(way, range(4))
+    host_us.clear()
+    half = n_k // 2
+    for k, way in enumerate(list(ways) + list(ways)[::-1]):
+        seen[way] += turn(way, range(half) if k < len(ways) else range(half, n_k))
+    fd.close()
+    e2e = {w: pct([t for _, t in v], 50) for w, v in seen.items()}
+    print(f"[frontdoor] {smi}: one request in flight at a time, {n_k} requests each way, in "
+          "turns: p50 (p99) ms end to end "
+          + ", ".join(f"{w} {e2e[w]:.3f} ({pct([t for _, t in v], 99):.3f})"
+                      for w, v in seen.items())
+          + "; of which the process (submit + drain; r0 behind the FrontDoor: in its worker "
+          f"thread) p50 {pct([t for t, _ in seen['r0 behind the FrontDoor']], 50):.3f} and "
+          f"the submit (a {sum(a.nbytes for a in stack[0]) / 1e6:.2f} MB host snapshot) p50 "
+          + ", ".join(f"{w} {pct([t for t, _ in v], 50):.3f}" for w, v in seen.items()
+                      if w != "r0 behind the FrontDoor")
+          + f"; the FrontDoor's host time (latency less r0's process) p50 "
+          f"{pct(host_us, 50):.1f} us, p99 {pct(host_us, 99):.1f} us; end to end the "
+          f"FrontDoor adds {e2e['r0 behind the FrontDoor'] - e2e['r0, a worker thread']:.3f} "
+          f"ms to r0 in a worker thread, "
+          f"{e2e['r0 behind the FrontDoor'] - e2e['direct, main thread']:.3f} ms to the "
+          "direct server")
+
+    # a profile of r0's submit + drain, 4 requests a turn, in the main thread
+    # and in a worker thread, in turns (main, worker, worker, main)
+    from torch.profiler import ProfilerActivity, profile
+
+    def profiled():
+        with profile(activities=[ProfilerActivity.CPU] + [ProfilerActivity.CUDA] * cuda) as prof:
+            for i in range(4):
+                submit_drain(reps[0].server, kd(i))
+        return {e.key: e.self_cpu_time_total for e in prof.key_averages()
+                if e.key != "Activity Buffer Request"}      # the profiler's own
+    where = {"the main thread": [], "a worker thread": []}
+    for w in ("the main thread", "a worker thread", "a worker thread", "the main thread"):
+        where[w].append(profiled() if w == "the main thread" else in_thread(profiled))
+    for w, profs in where.items():
+        us = {k: sum(p.get(k, 0.0) for p in profs) / (4e3 * len(profs))
+              for k in set().union(*profs)}
+        top = sorted(us.items(), key=lambda kv: -kv[1])[:6]
+        print(f"[frontdoor] {smi}: torch.profiler, r0's submit + drain in {w}, ms a request "
+              f"(2 turns of 4): self CPU {sum(us.values()):.3f}; the most: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in top))
+
+    # -- a fault in r1: requeued to r0, r1 readmitted by its probe ----------------
+    plan = reps[1].server._plan
+
+    def boom(items):
+        raise RuntimeError("injected launch failure")
+    plan.stack_group = boom
+    fd = FrontDoor(reps, capacity=64, policy="round-robin", probe_interval_s=0.02,
+                   max_retries=2)
+    fids = [fd.submit(kd(i)) for i in range(12)]
+    outs = {o.rid: o for o in fd.drain(timeout=120.0)}
+    check_ok(outs, fids, range(12), "fault")
+    requeued = fd.metrics.counter("frontdoor_requests_requeued_total").value()
+    down = fd.health()["replicas"]["r1"]
+    if requeued < 1 or down["healthy"] or "injected" not in (down["last_error"] or ""):
+        fail(f"fault: requeued {requeued}, r1 {down}")
+    served_by = sorted({o.replica for o in outs.values()})
+    del plan.stack_group
+    deadline = time.perf_counter() + 60.0
+    while not reps[1].healthy and time.perf_counter() < deadline:
+        time.sleep(0.005)
+    if not reps[1].healthy:
+        fail("fault: r1's probe never readmitted it")
+    fids = [fd.submit(kd(i)) for i in range(8)]
+    outs2 = {o.rid: o for o in fd.drain(timeout=120.0)}
+    check_ok(outs2, fids, range(8), "after the fault")
+    if "r1" not in {o.replica for o in outs2.values()}:
+        fail("after the fault: r1 served nothing")
+    fault_lines = [ln for ln in fd.metrics.render().splitlines()
+                   if ln.startswith("frontdoor_requests_")]
+    fd.close()
+    print(f"[frontdoor] {smi}: fault in r1 (stack_group raises): 12 requests all ok, served "
+          f"by {served_by}, {requeued:.0f} requeued; r1 readmitted by its probe and serving "
+          f"again (8 more ok, {sum(o.replica == 'r1' for o in outs2.values())} on r1)")
+    for ln in fault_lines:
+        print(f"[frontdoor] {ln}")
+
+    # -- overload: capacity 8, "shed", the replicas gated --------------------------
+    gate.clear()
+    fd = FrontDoor(reps, capacity=8, overflow="shed", policy="least-outstanding",
+                   classes=[PriorityClass("interactive", 0), PriorityClass("rt", 1, 0.001),
+                            PriorityClass("batch", 2)])
+    before = mark()
+    plugs = [fd.submit(kd(i), priority="interactive") for i in range(2)]
+
+    def settle(pred, what):
+        deadline = time.perf_counter() + 30.0
+        while not pred():
+            if time.perf_counter() > deadline:
+                fail(f"overload: timed out waiting for {what}")
+            time.sleep(0.002)
+    settle(lambda: sorted(waiting) == ["r0", "r1"], "each replica to hold a plug at the gate")
+    fill = [fd.submit(kd(2 + i), priority="batch") for i in range(8)]
+    settle(lambda: fd.queue_depth == 0 and all(len(fd._inboxes[r.name]) == r.max_batch
+                                               for r in reps),
+           "the 8 fill requests to fill both inboxes")
+    rt_payload = kd(10)
+    t_rt = time.perf_counter()
+    rt = fd.submit(rt_payload, priority="rt")
+    queued = [fd.submit(kd(11 + i), priority="batch") for i in range(7)]
+    urgent = [fd.submit(kd(18 + i), priority="interactive") for i in range(4)]
+    while time.perf_counter() < t_rt + 0.002:
+        time.sleep(0.0005)                # the rt request's deadline passes queued
+    gate.set()
+    outs = {o.rid: o for o in fd.drain(timeout=120.0)}
+    m = fd.metrics
+    shed = {c: m.counter("frontdoor_requests_shed_total").value(**{"class": c})
+            for c in ("interactive", "rt", "batch")}
+    timed_out = m.counter("frontdoor_requests_timed_out_total").value(**{"class": "rt"})
+    statuses = [outs[f].status for f in queued]
+    if (outs[rt].status != "timed_out" or timed_out != 1 or shed != {"interactive": 0,
+                                                                      "rt": 0, "batch": 4}
+            or statuses != ["shed"] * 4 + ["ok"] * 3 or id(rt_payload) in processed):
+        fail(f"overload: rt {outs[rt].status}, shed {shed}, timed out {timed_out}, queued "
+             f"batch {statuses}, rt launched {id(rt_payload) in processed}")
+    check_ok(outs, plugs + fill + queued[4:] + urgent,
+             [0, 1] + list(range(2, 10)) + list(range(15, 18)) + list(range(18, 22)),
+             "overload")
+    batches = launches_a_batch(before, "overload")
+    overload_lines = [ln for ln in m.render().splitlines()
+                      if ln.startswith("frontdoor_requests_")]
+    fd.close()
+    print(f"[frontdoor] {smi}: overload (capacity 8, shed, both replicas gated with a plug "
+          f"in service and 4 ahead each, then 8 queued and 4 interactive): 4 batch requests shed, no interactive one; the rt request "
+          f"(1 ms deadline) timed out and never reached a replica; {batches} batches, one "
+          "dft_recon_kernel launch each; the rest ok, bit for bit")
+    for ln in overload_lines:
+        print(f"[frontdoor] {ln}")
+
+    # -- warm_start: new maps from a checkpoint into a running replica ------------
+    a = one_device_app()
+    maps = Data({"sensitivity_maps": stack[0][1]})
+    proc = FusedMRIRecon(a)
+    server = (Pipeline(a) | proc.bind(smaps=maps)).serve(batch=4)
+    server.warmup(Data({"kdata": stack[0][0]}))
+    rep = PipelineReplica("w", server)
+    caps = {k: bp.captures for k, bp in server._plan.twins.items()}
+    fd = FrontDoor([rep], capacity=16)
+    fids = [fd.submit(Data({"kdata": stack[i][0]})) for i in range(4)]
+    outs = {o.rid: o for o in fd.drain(timeout=60.0)}
+    for fid, i in zip(fids, range(4)):
+        np.testing.assert_allclose(outs[fid].result.device_view("xdata").cpu().numpy(),
+                                   oracle_of(stack[i][0], stack[0][1]), rtol=1e-4, atol=1e-4,
+                                   err_msg=f"[frontdoor] warm_start, before, {i}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_warm_") as d:
+        save_checkpoint(d, 5, {"sensitivity_maps": stack[1][1]}, sharded=True)
+        step = rep.warm_start(d, proc.in_handles["smaps"])
+    fids = [fd.submit(Data({"kdata": stack[i][0]})) for i in range(4)]
+    outs = {o.rid: o for o in fd.drain(timeout=60.0)}
+    for fid, i in zip(fids, range(4)):
+        np.testing.assert_allclose(outs[fid].result.device_view("xdata").cpu().numpy(),
+                                   oracle_of(stack[i][0], stack[1][1]), rtol=1e-4, atol=1e-4,
+                                   err_msg=f"[frontdoor] warm_start, after, {i}")
+    fd.close()
+    if step != 5 or {k: bp.captures for k, bp in server._plan.twins.items()} != caps:
+        fail(f"warm_start: step {step}, captures {caps} -> "
+             f"{ {k: bp.captures for k, bp in server._plan.twins.items()} }")
+    print(f"[frontdoor] {smi}: warm_start restored step {step} (a sharded-v1 checkpoint of "
+          "new maps) into a running replica's bound maps: the next 4 results within 1e-4 of "
+          "the new maps' oracle, no new capture")
+    wall("after [frontdoor] MRI")
+
+    # -- LM: two LMServer replicas at full width on card 0 --------------------------
+    lm_arch, max_len = "h2o-danube-1.8b", 1088   # slots hold a 1024-token prompt + 32
+    lm_cfg = get_config(lm_arch)
+    model = build_model(lm_cfg)
+
+    def weights_on(a):
+        weights, wcodec = weights_data(model.param_specs())
+        a.addData(weights)
+        gen = torch.Generator(device=a.device).manual_seed(0)
+        model.init_params(gen, out=wcodec.unflatten(weights.device_views()))
+        return weights
+
+    sampling = SamplingConfig(max_new_tokens=32)
+    rng = np.random.default_rng(3)
+    lengths = [int(n) for n in rng.integers(17, 1025, size=8)]
+    prompts = [rng.integers(0, lm_cfg.vocab, n).tolist() for n in lengths]
+    lm_classes = ["interactive" if i % 3 == 0 else "batch" for i in range(8)]
+    servers = []
+
+    def lm_replica(i, a):
+        lm = LMServer(model, weights_on(a), batch=2, max_len=max_len, sampling=sampling,
+                      app=a)
+        servers.append(lm)
+
+        def decode(prompt):
+            rid = lm.submit(list(prompt))
+            return lm.run()[rid]
+        return CallableReplica(f"lm{i}", decode, max_batch=2)
+
+    lm_reps = [lm_replica(i, a) for i, a in enumerate(split_apps(2))]
+    sync()
+    per_layer = 2 + 2 * lm_cfg.qk_norm + lm_cfg.mla
+
+    def expected():
+        return {"rmsnorm": sum((per_layer * lm_cfg.n_layers + 1) * (s.admitted + s.steps)
+                               for s in servers),
+                "flash_attention": sum(lm_cfg.n_layers * s.admitted for s in servers)}
+
+    lm_counts, runs = {}, []
+    served_total = {r.name: 0 for r in lm_reps}   # the totals after the last run
+    steps_total = [(0, 0)] * len(servers)
+    for label in ("cold", "warm"):
+        before, exp0 = launch_counts(), expected()
+        fd = FrontDoor(lm_reps, capacity=16, policy="least-outstanding")
+        sync()
+        t0 = time.perf_counter()
+        fids = [fd.submit(p, priority=c) for p, c in zip(prompts, lm_classes)]
+        outs = {o.rid: o for o in fd.drain(timeout=600.0)}
+        sync()
+        run_s = time.perf_counter() - t0
+        fd.close()
+        lm_lines = [ln for ln in fd.metrics.render().splitlines()
+                    if ln.startswith("frontdoor_requests_")]
+        bad = [f for f in fids if f not in outs or outs[f].status != "ok"]
+        if bad:
+            fail(f"LM {label}: requests {[outs.get(f) for f in bad]}")
+        got = {k: v - before.get(k, 0) for k, v in launch_counts().items()
+               if v != before.get(k, 0)}
+        exp = {k: v - exp0[k] for k, v in expected().items()}
+        if any(got.get(k, 0) != v for k, v in exp.items()):
+            fail(f"LM {label}: launches {got}, expected {exp}")
+        for k, v in got.items():
+            lm_counts[k] = lm_counts.get(k, 0) + v
+        # this run's own served requests and decode steps' (captures, replays)
+        steps = [(st.captures, st.replays)
+                 for st in (s.decode_pipe.build().executor for s in servers)]
+        served = {r.name: r.served - served_total[r.name] for r in lm_reps}
+        caps = [(c - c0, r - r0) for (c, r), (c0, r0) in zip(steps, steps_total)]
+        served_total = {r.name: r.served for r in lm_reps}
+        steps_total = steps
+        runs.append((label, run_s, outs, caps, served, lm_lines))
+    caps_cold, caps_warm = runs[0][3], runs[1][3]
+    if [c for c, _ in caps_cold] != [1, 1] or [c for c, _ in caps_warm] != [0, 0]:
+        fail(f"LM decode step captures: cold {caps_cold}, warm {caps_warm} (one each "
+             "expected, none in the warm run)")
+
+    # a lone server of the same shape, each prompt alone
+    solo_app = one_device_app()
+    solo = LMServer(model, weights_on(solo_app), batch=2, max_len=max_len,
+                    sampling=sampling, app=solo_app)
+    sync()
+    t0 = time.perf_counter()
+    lone = []
+    for p in prompts:
+        rid = solo.submit(p)
+        lone.append(solo.run()[rid])
+    sync()
+    solo_s = time.perf_counter() - t0
+    for label, _, outs, _, _, _ in runs:
+        for i, f in enumerate(sorted(outs)):
+            if list(outs[f].result) != lone[i]:
+                fail(f"LM {label}: request {f}'s tokens differ from a lone server's")
+    tokens = 8 * 32
+    for label, run_s, outs, caps, served, lm_lines in runs:
+        lat = {c: [o.latency_s * 1e3 for o in outs.values() if o.priority == c]
+               for c in ("interactive", "batch")}
+        print(f"[frontdoor] {smi}: {lm_arch} at full width, 2 LMServer replicas (2 slots, "
+              f"max_len {max_len}, 32 new tokens) on {dev}, least-outstanding, {label}: "
+              f"8 prompts of {min(lengths)}-{max(lengths)} tokens in {run_s * 1e3:.1f} ms = "
+              f"{tokens / run_s:.1f} tokens/s (a lone server, each prompt alone, "
+              f"{tokens / solo_s:.1f}); p50/p99 ms interactive "
+              f"{pct(lat['interactive'], 50):.1f}/{pct(lat['interactive'], 99):.1f}, batch "
+              f"{pct(lat['batch'], 50):.1f}/{pct(lat['batch'], 99):.1f}; served {served}; "
+              f"decode steps (captures, replays) {caps}; every request's tokens equal the "
+              "lone server's")
+        for ln in lm_lines:
+            print(f"[frontdoor] {label}: {ln}")
+    print(f"[frontdoor] LM launches {lm_counts}: every prefill and decode step's rmsnorm and "
+          "flash_attention as a lone server counts them")
+    wall("after [frontdoor] LM")
+    return lm_counts
 
 
 def main() -> None:
@@ -1563,6 +2070,15 @@ def main() -> None:
               "response within 1e-4 of its oracle")
 
     counted("serve", serve_phase, ["complexElementProd", "xImageSum", "mriFusedRecon"])
+
+    # -- 4c'. [frontdoor]: the control plane in front of MRI and LM replicas ----
+    from repro_torch.configs import get_config as full_config
+
+    fd_counts = counted("frontdoor", lambda: frontdoor_phase(
+        dev, smi, cfg, stack, oracle, wall, full_config),
+        ["mriFusedRecon", "rmsnorm", "flash_attention"])
+    gc.collect()                      # free the replicas' weights
+    torch.cuda.empty_cache()
 
     # -- 4d. [mesh]: the MRI path over the lanes of a mesh --------------------
     from repro_torch.launch.mesh import make_data_mesh
@@ -4246,7 +4762,7 @@ def main() -> None:
     wall("before section 9")
     # -- 9. result lines -----------------------------------------------------
     kernels = []
-    serves = [lm_counts, rwkv_counts, whisper_counts] + new_counts
+    serves = [lm_counts, rwkv_counts, whisper_counts, fd_counts] + new_counts
     launches = {"rmsnorm": sum(c.get("rmsnorm", 0) for c in serves + [train_counts]),
                 "flash_attention": sum(c.get("flash_attention", 0)
                                        for c in serves + [train_counts]),

@@ -48,6 +48,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import threading
 import time
 import warnings
 from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
@@ -228,32 +229,55 @@ class _Timer:
 #: graph replays and captures of every process: the port's compile cache
 #: hits and misses (:func:`compile_cache_stats`)
 _GRAPH_STATS = {"hits": 0, "misses": 0}
+#: guards ``_GRAPH_STATS`` and the two per-device tables below
+_STATE_LOCK = threading.Lock()
 
 
 def compile_cache_stats() -> Tuple[int, int]:
     """``(hits, misses)`` of the compiled launch, summed over every
     process: a hit is a graph replay, a miss a capture (the JAX package
     counts its AOT compile cache's).  A CPU app compiles nothing."""
-    return _GRAPH_STATS["hits"], _GRAPH_STATS["misses"]
+    with _STATE_LOCK:
+        return _GRAPH_STATS["hits"], _GRAPH_STATS["misses"]
+
+
+def _count_graph(kind: str) -> None:
+    with _STATE_LOCK:
+        _GRAPH_STATS[kind] += 1
 
 
 #: a side stream a CUDA device that captures run on (``torch.cuda.graph``'s
 #: default is one stream, made on whichever device captured first)
 _CAPTURE_STREAMS: Dict[torch.device, Any] = {}
+#: one lock a CUDA device, held across each capture on it
+_CAPTURE_LOCKS: Dict[torch.device, threading.Lock] = {}
 
 
 def capture_graph(body: Callable[[], None], device: torch.device) -> Callable[[], None]:
     """Capture ``body`` (one launch's device work) into a CUDA graph on
     ``device``, on that device's own capture stream, and return its
     replay.  Capturing records the kernels and runs none of them.  The
-    compiled launch's one seam: the CPU tests put a recorder here."""
+    compiled launch's one seam: the CPU tests put a recorder here.
+
+    Several threads may launch on one device (the replicas of a
+    :class:`~repro_torch.serve.control.FrontDoor` on one card): the
+    capture runs in ``"thread_local"`` error mode, so another thread's
+    eager launches, allocations and stream synchronizations carry on
+    during it (the default ``"global"`` mode fails them, or the capture),
+    and the device's lock keeps two captures, and the device-wide
+    synchronize and ``empty_cache`` that ``torch.cuda.graph`` does before
+    one, from overlapping.  In one thread the captures are those of the
+    global mode."""
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.device(device):
         key = torch.device("cuda", torch.cuda.current_device())
-        stream = _CAPTURE_STREAMS.get(key)
-        if stream is None:
-            stream = _CAPTURE_STREAMS[key] = torch.cuda.Stream(key)
-        with torch.cuda.graph(graph, stream=stream):
+        with _STATE_LOCK:
+            lock = _CAPTURE_LOCKS.setdefault(key, threading.Lock())
+            stream = _CAPTURE_STREAMS.get(key)
+            if stream is None:
+                stream = _CAPTURE_STREAMS[key] = torch.cuda.Stream(key)
+        with lock, torch.cuda.graph(graph, stream=stream,
+                                    capture_error_mode="thread_local"):
             body()
     return graph.replay
 
@@ -263,29 +287,30 @@ def _graphs_on(device: torch.device) -> bool:
     return device.type == "cuda"
 
 
-#: the mesh of the launch in progress (None outside one): what
-#: ``repro_torch.launch.mesh.shard_by_logical`` partitions over, so one
-#: annotated ``apply`` body runs whole in a lane's twin on a 1D mesh and
-#: split over its model group in a group's twin (the JAX package's
+#: the mesh of the launch in progress in this thread (None outside one):
+#: what ``repro_torch.launch.mesh.shard_by_logical`` partitions over, so
+#: one annotated ``apply`` body runs whole in a lane's twin on a 1D mesh
+#: and split over its model group in a group's twin (the JAX package's
 #: ``current_compile_mesh``, the mesh of the AOT lowering in progress).
-#: A plain module global, as the JAX package's: a launch runs in the
-#: thread that reads it.
-_CURRENT_COMPILE_MESH: Any = None
+#: Thread-local: two threads that launch at once (two replicas behind a
+#: FrontDoor) each read their own launch's mesh.
+_COMPILE_MESH = threading.local()
 
 
 def current_compile_mesh():
-    """The mesh of the launch in progress (None outside one)."""
-    return _CURRENT_COMPILE_MESH
+    """The mesh of the launch in progress in this thread (None outside
+    one)."""
+    return getattr(_COMPILE_MESH, "mesh", None)
 
 
 @contextlib.contextmanager
 def _compiling_under(mesh) -> Any:
-    global _CURRENT_COMPILE_MESH
-    prev, _CURRENT_COMPILE_MESH = _CURRENT_COMPILE_MESH, mesh
+    prev = getattr(_COMPILE_MESH, "mesh", None)
+    _COMPILE_MESH.mesh = mesh
     try:
         yield
     finally:
-        _CURRENT_COMPILE_MESH = prev
+        _COMPILE_MESH.mesh = prev
 
 
 def _one_device(mesh) -> bool:
@@ -670,7 +695,7 @@ class Process:
         graph.replay()
         registry.add_launches(graph.launches)
         self.replays += 1
-        _GRAPH_STATS["hits"] += 1
+        _count_graph("hits")
         if timed:
             phases.spans.extend(graph.spans)
         self._mark_written()
@@ -685,14 +710,14 @@ class Process:
         def body() -> None:
             if marks is not None:
                 marks.spans.clear()      # a body run again records anew
-            with registry.counting_into(tally):
+            with registry.counting_into(tally, app.device):
                 self._run(marks)
 
         t0 = time.perf_counter()
         replay = capture_graph(body, app.device)
         self.capture_seconds += time.perf_counter() - t0
         self.captures += 1
-        _GRAPH_STATS["misses"] += 1
+        _count_graph("misses")
         return _Graph(replay=replay, key=key, launches=dict(tally),
                       spans=marks.spans if marks is not None else [])
 

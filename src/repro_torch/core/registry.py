@@ -15,6 +15,12 @@ captured into a CUDA graph (:meth:`repro_torch.core.process.Process.launch`),
 nothing executes: the wrappers' counts go to that capture's own tally
 (:func:`counting_into`), and each replay adds the tally to the counts
 (:func:`add_launches`), so the counts stay the kernels that really ran.
+A capture's tally (and :func:`also_counting`'s) belongs to the thread that
+opened it: a launch in another thread meanwhile (a second replica on the
+same card) counts as it would alone.  The one exception is a thread that
+launches on the capture's own stream: autograd's device thread running a
+captured backward, whose launches go to the tally of the capture on its
+device.  The counts themselves are shared, and added to under a lock.
 
 Each entry may carry a ``cost``: ``cost(*args, **kwargs)`` gives the
 :class:`Cost` of one call on those arguments (only shapes and dtypes are
@@ -26,6 +32,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import importlib
+import threading
 import traceback
 from typing import Any, Callable, Dict, Iterator, List, NamedTuple, Optional, Sequence
 
@@ -62,8 +69,28 @@ class KernelCompileError(RuntimeError):
 
 
 _GLOBAL: Dict[str, KernelEntry] = {}
-_tally: Optional[Dict[str, int]] = None     # the capture in progress, if any
-_also: List[Dict[str, int]] = []            # tallies that see every counted launch
+_COUNT_LOCK = threading.Lock()              # guards the launch counts
+#: per thread: ``tally``, the capture in progress (if any), and ``also``, the
+#: tallies that see every launch counted in this thread
+_LOCAL = threading.local()
+#: the tally of the capture in progress on each CUDA device, by index
+_CAPTURING: Dict[int, Dict[str, int]] = {}
+
+
+def _tally() -> Optional[Dict[str, int]]:
+    tally = getattr(_LOCAL, "tally", None)
+    if tally is None and _CAPTURING:
+        import torch                        # only while a CUDA capture runs
+        if torch.cuda.is_current_stream_capturing():
+            tally = _CAPTURING.get(torch.cuda.current_device())
+    return tally
+
+
+def _also() -> List[Dict[str, int]]:
+    also = getattr(_LOCAL, "also", None)
+    if also is None:
+        also = _LOCAL.also = []
+    return also
 
 
 def kernel(name: str, ref: Callable[..., Any] | None = None,
@@ -83,56 +110,82 @@ def count_launch(name: str) -> None:
     """Add one to ``name``'s launch count (called by its wrapper right
     after a successful CUDA launch), or to the tally of the graph capture
     in progress."""
-    if _tally is not None:
-        _tally[name] = _tally.get(name, 0) + 1
-    else:
+    tally = _tally()
+    if tally is not None:
+        tally[name] = tally.get(name, 0) + 1
+        return
+    with _COUNT_LOCK:
         _GLOBAL[name].launches += 1
-        for t in _also:
-            t[name] = t.get(name, 0) + 1
+    for t in _also():
+        t[name] = t.get(name, 0) + 1
 
 
 @contextlib.contextmanager
-def counting_into(tally: Dict[str, int]) -> Iterator[None]:
-    """Send the launches counted inside the block to ``tally`` instead of
-    the launch counts (a graph capture, which runs nothing)."""
-    global _tally
-    outer, _tally = _tally, tally
+def counting_into(tally: Dict[str, int], device: Any = None) -> Iterator[None]:
+    """Send the launches counted inside the block, in this thread, to
+    ``tally`` instead of the launch counts (a graph capture, which runs
+    nothing).  With the CUDA ``device`` of a capture, launches that
+    another thread makes on a capturing stream of that device go there too
+    (autograd's device thread, running the captured step's backward)."""
+    outer = getattr(_LOCAL, "tally", None)
+    _LOCAL.tally = tally
+    key = None
+    if device is not None and device.type == "cuda":
+        if device.index is not None:
+            key = device.index
+        else:
+            import torch
+            key = torch.cuda.current_device()
+        with _COUNT_LOCK:
+            outer_dev = _CAPTURING.get(key)
+            _CAPTURING[key] = tally
     try:
         yield
     finally:
-        _tally = outer
+        _LOCAL.tally = outer
+        if key is not None:
+            with _COUNT_LOCK:
+                if outer_dev is None:
+                    _CAPTURING.pop(key, None)
+                else:
+                    _CAPTURING[key] = outer_dev
 
 
 @contextlib.contextmanager
 def also_counting(tally: Dict[str, int]) -> Iterator[None]:
-    """Add the launches that run inside the block (eager ones and replays)
-    to ``tally`` as well as to the launch counts: the streaming executor
-    counts each lane's launches so."""
-    _also.append(tally)
+    """Add the launches that run inside the block in this thread (eager
+    ones and replays) to ``tally`` as well as to the launch counts: the
+    streaming executor counts each lane's launches so."""
+    also = _also()
+    also.append(tally)
     try:
         yield
     finally:
-        for i in range(len(_also) - 1, -1, -1):
-            if _also[i] is tally:           # by identity: tallies compare by value
-                del _also[i]
+        for i in range(len(also) - 1, -1, -1):
+            if also[i] is tally:            # by identity: tallies compare by value
+                del also[i]
                 break
 
 
 def add_launches(tally: Dict[str, int]) -> None:
     """Add a captured graph's tally to the launch counts (one replay)."""
-    for name, n in tally.items():
-        _GLOBAL[name].launches += n
-        for t in _also:
+    with _COUNT_LOCK:
+        for name, n in tally.items():
+            _GLOBAL[name].launches += n
+    for t in _also():
+        for name, n in tally.items():
             t[name] = t.get(name, 0) + n
 
 
 def launch_counts() -> Dict[str, int]:
-    return {name: e.launches for name, e in sorted(_GLOBAL.items())}
+    with _COUNT_LOCK:
+        return {name: e.launches for name, e in sorted(_GLOBAL.items())}
 
 
 def reset_launch_counts() -> None:
-    for e in _GLOBAL.values():
-        e.launches = 0
+    with _COUNT_LOCK:
+        for e in _GLOBAL.values():
+            e.launches = 0
 
 
 class KernelRegistry:

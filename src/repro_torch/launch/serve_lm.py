@@ -1,6 +1,6 @@
 """Serving example of the port: continuous-batching decode through the
-Pipeline stack (the ``serve_transformer`` and ``serve_whisper`` parts of the
-JAX package's ``examples/serve_lm.py``, at the SMOKE sizes).
+Pipeline stack, and two servers behind the control plane (the three parts
+of the JAX package's ``examples/serve_lm.py``, at the SMOKE sizes).
 
     python -m repro_torch.launch.serve_lm [--cpu] [--arch A]
     (with src/ on PYTHONPATH)
@@ -22,15 +22,22 @@ from a seeded ``torch.Generator``, nothing is trained or downloaded.
   prefill pipe joins its prompt and frames (two input edges), encodes the
   frames and writes the cross K/V into the slot.
 
-The JAX example's third part, ``serve_front_door`` (two replicas behind
-the control plane), waits for the port's control plane (ROADMAP queue 1,
-item 7).
+* ``serve_front_door``: two qwen3-14b SMOKE ``LMServer`` replicas, each
+  on its own app of the app's device, behind
+  :class:`~repro_torch.serve.FrontDoor`
+  (``capacity=16``, ``overflow="shed"``, ``policy="least-outstanding"``),
+  each a ``CallableReplica(max_batch=2)`` that submits one prompt and runs
+  the server: 6 prompts of 5 tokens, every third interactive and the rest
+  batch, 8 new tokens each (checked), then the replicas' health and the
+  ``frontdoor_requests_completed_total`` lines of the metrics.  On the
+  card each replica's worker thread captures its decode step while the
+  other replica runs.
 """
 from __future__ import annotations
 
 import argparse
 import time
-from typing import List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -38,7 +45,7 @@ import torch
 from repro_torch.configs import ARCH_IDS, get_smoke
 from repro_torch.core import CLapp, DeviceTraits, DeviceType
 from repro_torch.models import build_model
-from repro_torch.serve import LMServer, SamplingConfig
+from repro_torch.serve import CallableReplica, FrontDoor, LMServer, SamplingConfig
 
 
 def _params(model, app: CLapp, seed: int):
@@ -93,6 +100,52 @@ def serve_whisper(app: CLapp) -> List[List[int]]:
     return outputs
 
 
+def serve_front_door(app: CLapp, weights: Any = None) -> Dict[int, List[int]]:
+    """Two LMServer replicas behind the FrontDoor control plane; returns
+    each request's tokens by its FrontDoor rid.  ``weights`` (a parameter
+    tree or weights Data of qwen3-14b SMOKE) defaults to random ones from
+    seed 0."""
+    cfg = get_smoke("qwen3-14b")
+    model = build_model(cfg)
+
+    def make_replica(name: str) -> CallableReplica:
+        rapp = CLapp().init(device_traits=traits)          # each replica its own app
+        lm = LMServer(model, weights if weights is not None else _params(model, rapp, 0),
+                      batch=2, max_len=32, sampling=SamplingConfig(max_new_tokens=8), app=rapp)
+
+        def decode(prompt):
+            rid = lm.submit(list(prompt))
+            return lm.run()[rid]
+
+        return CallableReplica(name, decode, max_batch=2)
+
+    traits = (DeviceTraits(type=DeviceType.CPU) if app.device.type == "cpu"
+              else DeviceTraits(index=app.device.index or 0))
+    fd = FrontDoor([make_replica("lm-0"), make_replica("lm-1")],
+                   capacity=16, overflow="shed", policy="least-outstanding")
+    try:
+        rng = np.random.default_rng(2)
+        rids = [fd.submit(list(rng.integers(0, cfg.vocab, size=5)),
+                          priority="interactive" if i % 3 == 0 else "batch")
+                for i in range(6)]
+        outcomes = {o.rid: o for o in fd.drain(timeout=600.0)}
+        for rid in rids:
+            o = outcomes.get(rid)
+            if o is None or o.status != "ok" or len(o.result) != 8:
+                raise RuntimeError(f"front door: request {rid} ended as {o}")
+            print(f"[frontdoor] rid {rid} ({o.priority}) -> {o.replica} on {app.device}: "
+                  f"{len(o.result)} tokens in {o.latency_s * 1e3:.0f} ms")
+        health = fd.health()
+        print(f"[frontdoor] health ok={health['ok']}, served "
+              + str({n: r["served"] for n, r in health["replicas"].items()}))
+        for line in fd.metrics.render().splitlines():
+            if line.startswith("frontdoor_requests_completed_total"):
+                print(f"[frontdoor] {line}")
+    finally:
+        fd.close()
+    return {rid: list(outcomes[rid].result) for rid in rids}
+
+
 def main(argv: Optional[list] = None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cpu", action="store_true", help="run on the CPU instead of the card")
@@ -101,7 +154,8 @@ def main(argv: Optional[list] = None) -> dict:
     args = ap.parse_args(argv)
     traits = DeviceTraits(type=DeviceType.CPU) if args.cpu else DeviceTraits()
     app = CLapp().init(device_traits=traits)
-    out = {args.arch: serve_transformer(app, args.arch), "whisper": serve_whisper(app)}
+    out = {args.arch: serve_transformer(app, args.arch), "whisper": serve_whisper(app),
+           "frontdoor": serve_front_door(app)}
     print("all requests completed")
     return out
 

@@ -28,11 +28,12 @@ image operators):
   its oldest request waited ``flush_timeout``.  Responses are taken with
   :meth:`PipelineServer.collect` (or a final ``drain()``); ``close()``
   flushes what is left and stops the thread.  On the card the worker
-  thread launches, so any twin not captured yet is captured there: under
-  PyTorch's default (global) capture mode a CUDA call from another thread
-  during a capture fails.  :meth:`PipelineServer.warmup` captures every
-  twin the server can use before the thread starts; after it, the worker
-  captures nothing.  A worker's error reaches every later caller.
+  thread launches, so any twin not captured yet is captured there (in
+  thread-local capture mode, :func:`repro_torch.core.process.
+  capture_graph`, so other threads' CUDA calls carry on meanwhile).
+  :meth:`PipelineServer.warmup` captures every twin the server can use
+  before the thread starts; after it, the worker captures nothing.  A
+  worker's error reaches every later caller.
 
 Each response carries its request id and the wall-clock latency from
 ``submit()`` to the result on the device being complete.

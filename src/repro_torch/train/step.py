@@ -523,7 +523,7 @@ class TrainProcess:
         tally: Dict[str, int] = {}
 
         def body() -> None:
-            with counting_into(tally):
+            with counting_into(tally, device):
                 self._metrics = self.step(state, self._batch)[1]
 
         self._replay = _process.capture_graph(body, device)
