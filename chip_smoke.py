@@ -256,6 +256,19 @@
    layers, 32 experts and 8 MLA heads a lane) on a (data 2, model 2) grid
    against the no-mesh step (m and v within 1e-4 x max, no router choice
    moved).
+5d. ``[dryrun]`` (after ``[mesh-tp]``): the port's dry run
+   (``repro_torch.launch.dryrun``, a trace on ``meta`` tensors, on the
+   host) of qwen3-14b x train_4k, deepseek-v2-lite-16b x decode_32k and
+   zamba2-2.7b x long_500k on the (16, 16) production mesh: each one's
+   memory a card, roofline terms at the H100's data-sheet rates and the
+   trace's seconds.  Then h2o-danube-1.8b's train step at ``[train]``'s
+   batch 4 x 2048 dry-run on a one-lane mesh and run eagerly on the card
+   (``make_train_step``, random bf16 weights from a seed) under the same
+   counting mode: its flops and bytes must equal the trace's exactly, and
+   the card's peak (its arguments plus ``torch.cuda.max_memory_allocated``
+   above what was allocated before it) over the trace's arguments + temp
+   must lie in :data:`DRYRUN_PEAK_BAND`; the eager step's p50 (3 steps,
+   no counting) beside the roofline's ``t_bound``.
 6. Runs the paper's listing 1 (``repro_torch.launch.quickstart``:
    ``Pipeline(app) | Negate(app)`` on a 256x256 8-bit PNG that the script
    writes) on the card, replayed from its second run, bit for bit, and
@@ -291,6 +304,103 @@ SRC = "src/repro_torch/kernels/csrc/mri_kernels.cu"
 LM_SRC = "src/repro_torch/kernels/csrc/lm_kernels.cu"
 RWKV_SRC = "src/repro_torch/kernels/csrc/rwkv_kernels.cu"
 NEG_SRC = "src/repro_torch/kernels/csrc/negate_kernels.cu"
+
+#: the card's peak over the dry run's arguments + temp for the same step
+#: (``[dryrun]``): allocator rounding and the kernels' scratch, which the
+#: trace leaves out, may only add a little
+DRYRUN_PEAK_BAND = (0.95, 1.10)
+
+
+def dryrun_phase(dev, smi, wall) -> None:
+    """[dryrun]: see the module docstring (5d)."""
+    import torch
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.core.arena import tree_flatten
+    from repro_torch.launch.dryrun import meta_mesh, run_cell
+    from repro_torch.launch.roofline import CostMode
+    from repro_torch.models import build_model
+    from repro_torch.train import TrainConfig, make_train_state, make_train_step
+
+    for arch, shape in (("qwen3-14b", "train_4k"), ("deepseek-v2-lite-16b", "decode_32k"),
+                        ("zamba2-2.7b", "long_500k")):
+        rec = run_cell(arch, shape, verbose=False)
+        mem, roof = rec["memory"], rec["roofline"]
+        card = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+        print(f"[dryrun] {arch} x {shape} on the (16, 16) production mesh (meta, traced in "
+              f"{rec['compile_s']} s on the host): a card holds arguments "
+              f"{mem['argument_size_in_bytes'] / 2**30:.3f} GiB + temp "
+              f"{mem['temp_size_in_bytes'] / 2**30:.3f} GiB = {card / 2**30:.3f} GiB "
+              f"({'fits' if card < 80e9 else 'does not fit'} 80 GB); flops "
+              f"{roof['flops_per_chip']:.4e}, bytes {roof['hbm_bytes_per_chip']:.4e}, "
+              f"collectives {roof['coll_breakdown']}; roofline at the H100 SXM's data-sheet "
+              f"rates: compute {roof['t_compute_s'] * 1e3:.3f} ms, memory "
+              f"{roof['t_memory_s'] * 1e3:.3f} ms, collective {roof['t_collective_s'] * 1e3:.3f}"
+              f" ms -> {roof['bottleneck']}-bound, mfu_bound {roof['mfu_bound']:.4f} "
+              f"({rec['note']})")
+    wall("after [dryrun]'s production cells")
+
+    arch, batch, seq = "h2o-danube-1.8b", 4, 2048
+    cfg = get_config(arch)
+    rec = run_cell(arch, ShapeSpec("train_2k", "train", seq, batch), mesh=meta_mesh((1, 1)),
+                   microbatches=1, verbose=False)
+    mem, roof = rec["memory"], rec["roofline"]
+    traced = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    model = build_model(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    state = make_train_state(model, 0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    data = {k: torch.randint(0, cfg.vocab, (batch, seq), device=dev, dtype=torch.int32,
+                             generator=gen) for k in ("tokens", "labels")}
+    step = make_train_step(model, TrainConfig())
+    args = sum(t.numel() * t.element_size()
+               for t in [leaf for _, leaf in tree_flatten(state)] + list(data.values()))
+    torch.cuda.synchronize(dev)
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with CostMode() as counted:
+        step(state, data)
+    torch.cuda.synchronize(dev)
+    peak = torch.cuda.max_memory_allocated(dev) - before + args
+    got = counted.total()
+    want = {"flops": roof["flops_per_chip"], "bytes accessed": roof["hbm_bytes_per_chip"]}
+    ratio = peak / traced
+    print(f"[dryrun] {smi}: {arch} train step at batch {batch} x {seq} (bf16, one lane): the "
+          f"card counted flops {got['flops']:.6e}, bytes {got['bytes accessed']:.6e}; the "
+          f"meta trace {want['flops']:.6e}, {want['bytes accessed']:.6e} "
+          f"({'equal' if got == want else 'DIFFERENT'}); kernels counted "
+          f"{ {k: int(v[0]) for k, v in counted.kernels.items()} }; peak {peak / 2**30:.3f} GiB "
+          f"(arguments {args / 2**30:.3f} GiB + max_memory_allocated above the "
+          f"{before / 2**30:.3f} GiB before) against the trace's "
+          f"{traced / 2**30:.3f} GiB (arguments {mem['argument_size_in_bytes'] / 2**30:.3f} + "
+          f"temp {mem['temp_size_in_bytes'] / 2**30:.3f}): ratio {ratio:.4f}, band "
+          f"{DRYRUN_PEAK_BAND}")
+    if got != want:
+        raise SystemExit(f"chip_smoke: [dryrun] the card's step counted {got}, the meta "
+                         f"trace {want}")
+    if not DRYRUN_PEAK_BAND[0] <= ratio <= DRYRUN_PEAK_BAND[1]:
+        raise SystemExit(f"chip_smoke: [dryrun] the card's peak over the trace's is {ratio:.4f}, "
+                         f"outside {DRYRUN_PEAK_BAND}")
+    times = []
+    for _ in range(3):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        step(state, data)
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1))
+    p50 = statistics.median(times)
+    bound_ms = max(roof["t_compute_s"], roof["t_memory_s"], roof["t_collective_s"]) * 1e3
+    print(f"[dryrun] {smi}: {arch} eager step p50 {p50:.2f} ms over 3 (each "
+          f"{', '.join(f'{t:.2f}' for t in times)} ms) against the roofline's t_bound "
+          f"{bound_ms:.2f} ms ({roof['bottleneck']}-bound: compute "
+          f"{roof['t_compute_s'] * 1e3:.2f}, memory {roof['t_memory_s'] * 1e3:.2f} ms at the "
+          f"data sheet's 989 TFLOP/s bf16 and 3.35 TB/s): {p50 / bound_ms:.2f}x")
+    del state, data, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    wall("after [dryrun]")
+
 
 def ptxas_usage(log: str, *fragments: str) -> tuple[int | None, int | None, int | None]:
     """(registers a thread, static shared bytes a block, spill-store bytes)
@@ -4730,6 +4840,7 @@ def main() -> None:
                            "wkv6", "wkv6_bwd") if not train_counts.get(k)]
     if missing:
         raise SystemExit(f"chip_smoke: the training runs launched no {missing}")
+    dryrun_phase(dev, smi, wall)
 
     wall("before section 8")
     # -- 8. the paper's listing 1 (quickstart) on the card, file in, file out --

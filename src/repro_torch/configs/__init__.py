@@ -5,11 +5,15 @@
 
 Each LM module defines ``CONFIG`` (the published configuration) and
 ``SMOKE`` (a reduced same-family config for CPU tests), copied from the JAX
-package's module of the same name.
+package's module of the same name.  ``SHAPES`` is the assigned set of input
+shapes, and ``cells()`` the (arch x shape) grid of the dry run with its
+skips, as in the JAX package.
 """
 from __future__ import annotations
 
+import dataclasses
 import importlib
+from typing import Dict, List, Tuple
 
 from repro_torch.models.common import ArchConfig
 
@@ -32,3 +36,42 @@ def get_config(arch_id: str) -> ArchConfig:
 
 def get_smoke(arch_id: str) -> ArchConfig:
     return _module(arch_id).SMOKE
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    kind: str        # train | prefill | decode
+    seq: int
+    batch: int
+
+
+SHAPES: Dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeSpec("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeSpec("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeSpec("long_500k", "decode", 524288, 1),
+}
+
+
+def is_subquadratic(cfg: ArchConfig) -> bool:
+    """long_500k applicability: SSM / hybrid / sliding-window archs."""
+    return cfg.family in ("ssm", "hybrid") or cfg.window is not None
+
+
+def shape_applicable(cfg: ArchConfig, shape: str) -> Tuple[bool, str]:
+    if shape == "long_500k" and not is_subquadratic(cfg):
+        return False, "full quadratic attention at 524k context (DESIGN.md §Arch-applicability)"
+    return True, ""
+
+
+def cells(include_skips: bool = False) -> List[Tuple[str, str, bool, str]]:
+    """All 40 (arch, shape) cells with applicability flags."""
+    out = []
+    for a in ARCH_IDS:
+        cfg = get_config(a)
+        for s in SHAPES:
+            ok, why = shape_applicable(cfg, s)
+            if ok or include_skips:
+                out.append((a, s, ok, why))
+    return out

@@ -25,7 +25,10 @@ device.  The counts themselves are shared, and added to under a lock.
 Each entry may carry a ``cost``: ``cost(*args, **kwargs)`` gives the
 :class:`Cost` of one call on those arguments (only shapes and dtypes are
 read), the roofline terms of :class:`repro_torch.launch.roofline.
-KernelChooser`, where the JAX package reads XLA's cost analysis.
+KernelChooser`, where the JAX package reads XLA's cost analysis.  While a
+counting mode (:class:`repro_torch.launch.roofline.CostMode`) is active, a
+wrapper's call counts its entry's cost in place of its own operations
+(:func:`counting_mode`, ``repro_torch.kernels.common.traced``).
 """
 from __future__ import annotations
 
@@ -175,6 +178,25 @@ def add_launches(tally: Dict[str, int]) -> None:
     for t in _also():
         for name, n in tally.items():
             t[name] = t.get(name, 0) + n
+
+
+#: the counting modes entered and not yet left, in any thread (outermost
+#: first); empty, the wrappers' check costs one list read
+COST_MODES: List[Any] = []
+
+
+def counting_mode() -> Optional[Any]:
+    """The innermost counting mode active in the calling thread (an
+    autograd device thread runs under its caller's modes) that is not
+    inside a kernel call it already counts, or None."""
+    if not COST_MODES:
+        return None
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+    stack = _get_current_dispatch_mode_stack()
+    for mode in reversed(COST_MODES):
+        if any(m is mode.dispatch for m in stack):
+            return None if mode.hidden else mode
+    return None
 
 
 def launch_counts() -> Dict[str, int]:

@@ -14,11 +14,17 @@ import torch
 
 from repro_torch.core.registry import Cost, count_launch, kernel
 from . import _build, ref
-from .common import check_complex64, check_out, coil_grid, launch, nbytes
+from .common import (check_complex64, check_out, coil_grid, counting, launch, nbytes,
+                     out_or_empty, traced)
 
 
 def _combine(x: torch.Tensor, rss: bool, out: torch.Tensor | None) -> torch.Tensor:
     f, c, h, w = coil_grid(x)
+    if x.is_meta or counting():
+        return traced("rss" if rss else "xImageSum", lambda: _combine(x, rss, out),
+                      lambda: out_or_empty(out, tuple(x.shape[:-3]) + (h, w),
+                                           torch.float32 if rss else torch.complex64, x.device),
+                      x, out)
     if x.device.type == "cpu":
         res = ref.rss(x) if rss else ref.ximage_sum(x)
         return res if out is None else out.copy_(res)

@@ -3,12 +3,52 @@
 The CUDA kernels read complex64 directly as ``float2`` (interleaved re/im,
 the layout torch and numpy already use), so there is no re/im plane split
 here: that existed only because TPU Pallas has no complex dtype.
+
+:func:`traced` is every registered wrapper's route off the plain launch:
+``meta`` inputs (a dry run's trace) and calls under a counting mode
+(:class:`repro_torch.launch.roofline.CostMode`).
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Any, Callable, Sequence
 
 import torch
+
+from repro_torch.core import registry
+
+
+def counting() -> bool:
+    """Whether a counting mode counts this thread's kernel calls (one list
+    read when none is active): a wrapper then takes :func:`traced`."""
+    return bool(registry.COST_MODES) and registry.counting_mode() is not None
+
+
+def _on_meta(args, kwargs) -> bool:
+    for a in list(args) + list(kwargs.values()):
+        if isinstance(a, torch.Tensor):
+            return a.is_meta
+    return False
+
+
+def traced(name: str, run: Callable[[], Any], empty: Callable[[], Any], *args, **kwargs) -> Any:
+    """Registered entry ``name``'s call on ``args`` / ``kwargs`` (its own
+    arguments, which its cost model reads) off the plain launch.
+
+    On ``meta`` inputs ``empty()`` gives the outputs (the shapes and dtypes
+    the plain version returns, and what the kernel allocates beside them),
+    and no launch is counted; otherwise ``run()`` is the wrapper's own path
+    (the plain version on the CPU, the kernel on the card).  Under a
+    counting mode the call counts the entry's ``Cost`` (its flops and
+    bytes) and hides the operations of ``empty()`` or ``run()`` from the
+    count, so a trace on ``meta`` and a run on the CPU or the card count
+    the same work; their allocations still count towards the peak."""
+    meta = _on_meta(args, kwargs)
+    mode = registry.counting_mode()
+    if mode is None:
+        return empty() if meta else run()
+    entry = registry.KernelRegistry().entry(name)
+    with mode.kernel(name, entry.cost, args, kwargs):
+        return empty() if meta else run()
 
 
 def round_up(n: int, m: int) -> int:
@@ -82,6 +122,12 @@ def check_in_place(out: torch.Tensor, src: torch.Tensor) -> None:
     s1 = s0 + src.numel() * src.element_size()
     if o0 < s1 and s0 < o1:
         raise ValueError("out partially overlaps the input")
+
+
+def out_or_empty(out, shape: Sequence[int], dtype: torch.dtype, device) -> torch.Tensor:
+    """``out`` when given, else an uninitialised tensor of the result's
+    layout: a wrapper's meta outputs."""
+    return out if out is not None else torch.empty(tuple(shape), dtype=dtype, device=device)
 
 
 def launch_stream(t: torch.Tensor) -> int:

@@ -13,7 +13,8 @@ import torch
 
 from repro_torch.core.registry import Cost, count_launch, kernel
 from . import _build, ref
-from .common import check_complex64, check_in_place, check_out, launch, nbytes
+from .common import (check_complex64, check_in_place, check_out, counting, launch, nbytes,
+                     out_or_empty, traced)
 
 
 def map_sets(a: torch.Tensor, b: torch.Tensor) -> tuple[int, int, int]:
@@ -40,6 +41,10 @@ def complex_elementprod(a: torch.Tensor, b: torch.Tensor,
     (B, F, C, H, W) (:func:`map_sets`); returns a * conj?(b).  ``out`` may
     be ``a`` itself (in place on the arena)."""
     frames, m, fpm = map_sets(a, b)
+    if a.is_meta or counting():
+        return traced("complexElementProd", lambda: complex_elementprod(a, b, conjugate_b, out),
+                      lambda: out_or_empty(out, a.shape, a.dtype, a.device), a, b, conjugate_b,
+                      out)
     if a.device.type == "cpu":
         res = ref.complex_elementprod(a, b, conjugate_b)
         return res if out is None else out.copy_(res)

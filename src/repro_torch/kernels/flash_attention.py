@@ -35,7 +35,7 @@ import torch
 
 from repro_torch.core.registry import Cost, count_launch, kernel
 from . import _build, ref
-from .common import check_cuda, launch, nbytes
+from .common import check_cuda, counting, launch, nbytes, traced
 
 DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (16, 64, 80, 128)  # the kernel's template instances (16: the SMOKE configs)
@@ -76,7 +76,17 @@ def _check_cuda_inputs(q: torch.Tensor, *others: torch.Tensor, tile: int = 64) -
 def _forward(q, k, v, causal, window, scale, with_lse: bool):
     """The forward kernel; with ``with_lse`` also each row's log-sum-exp
     (B, Hq, Sq) f32 (natural log of the scaled scores; +inf for a row
-    that sees no key)."""
+    that sees no key).  On CPU tensors the plain version, with no
+    log-sum-exp (its backward needs none)."""
+    if q.is_meta or counting():
+        def empty():
+            lse = (torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+                   if with_lse else None)
+            return torch.empty_like(q), lse
+        return traced("flash_attention", lambda: _forward(q, k, v, causal, window, scale, with_lse),
+                      empty, q, k, v, causal=causal, window=window, scale=scale)
+    if q.is_cpu:
+        return ref.attention(q, k, v, causal=causal, window=window, scale=scale), None
     _check_cuda_inputs(q, k, v)
     b, hq, sq, d = q.shape
     out = torch.empty_like(q)
@@ -92,7 +102,8 @@ def _forward(q, k, v, causal, window, scale, with_lse: bool):
 
 class FlashAttentionFn(torch.autograd.Function):
     """:func:`flash_attention` on CUDA tensors with the hand-written
-    backward."""
+    backward (on ``meta`` tensors, and under a counting mode on CPU ones,
+    with the entries' costs)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale):
@@ -117,7 +128,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _check_shapes(q, k, v, window)
     if scale is None:
         scale = q.shape[3] ** -0.5
-    if q.is_cpu:
+    if q.is_cpu and not counting():
         return ref.attention(q, k, v, causal=causal, window=window, scale=scale)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return FlashAttentionFn.apply(q, k, v, causal, window, scale)
@@ -138,6 +149,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
                          f"shape {tuple(q.shape)}")
     if scale is None:
         scale = q.shape[3] ** -0.5
+    if q.is_meta or counting():
+        return traced("flash_attention_bwd",
+                      lambda: flash_attention_bwd(q, k, v, out, dout, lse, causal=causal,
+                                                  window=window, scale=scale),
+                      lambda: (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)),
+                      q, k, v, out, dout, lse, causal=causal, window=window, scale=scale)
     if q.is_cpu:
         return ref.attention_bwd(q, k, v, out, dout, lse, causal=causal, window=window,
                                  scale=scale)

@@ -35,7 +35,8 @@ import torch
 
 from repro_torch.core.registry import Cost, count_launch, kernel
 from . import _build, ref
-from .common import check_complex64, check_cuda, check_out, coil_grid, launch, nbytes
+from .common import (check_complex64, check_cuda, check_out, coil_grid, counting, launch,
+                     nbytes, traced)
 
 MAX_DFT_DIM = 256
 SMEM_OPTIN_BYTES = 232448    # dynamic shared memory one Hopper block may opt into
@@ -80,6 +81,9 @@ def fused_epilogue(x: torch.Tensor, smaps: torch.Tensor, combine: str = "sum",
     """(..., C, H, W) x-images * conj(smaps (C, H, W)) -> (..., H, W); or
     (B, F, C, H, W) against one map set a slice, smaps (B, C, H, W)."""
     fpm = _check_pair(x, smaps, combine)
+    if x.is_meta or counting():
+        return traced("mriFusedEpilogue", lambda: fused_epilogue(x, smaps, combine, out),
+                      lambda: _result(x, combine, out), x, smaps, combine, out)
     if x.device.type == "cpu":
         res = ref.mri_fused_epilogue(x, smaps, combine)
         return res if out is None else out.copy_(res)
@@ -161,6 +165,9 @@ def fused_recon(k: torch.Tensor, smaps: torch.Tensor, combine: str = "sum",
     fpm = _check_pair(k, smaps, combine)
     if norm not in _NORM_SCALE:
         raise ValueError(f"norm {norm!r}")
+    if k.is_meta or counting():
+        return traced("mriFusedRecon", lambda: fused_recon(k, smaps, combine, norm, tables, out),
+                      lambda: _result(k, combine, out), k, smaps, combine, norm, tables, out)
     if k.device.type == "cpu":
         res = ref.mri_fused_recon(k, smaps, combine, norm)
         return res if out is None else out.copy_(res)

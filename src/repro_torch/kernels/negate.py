@@ -17,7 +17,8 @@ import torch
 
 from repro_torch.core.registry import Cost, count_launch, kernel
 from . import _build, ref
-from .common import check_cuda, check_in_place, check_out, launch, nbytes
+from .common import (check_cuda, check_in_place, check_out, counting, launch, nbytes,
+                     out_or_empty, traced)
 
 DTYPES = (torch.float32, torch.bfloat16)
 
@@ -25,6 +26,9 @@ DTYPES = (torch.float32, torch.bfloat16)
 def negate(x: torch.Tensor, out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``1 - x`` of any shape; ``out`` (x's shape and dtype) may be ``x``
     itself or an arena view."""
+    if x.is_meta or counting():
+        return traced("negate_kernel", lambda: negate(x, out),
+                      lambda: out_or_empty(out, x.shape, x.dtype, x.device), x, out)
     if x.device.type == "cpu":
         res = ref.negate(x)
         return res if out is None else out.copy_(res)

@@ -23,7 +23,7 @@ import torch
 
 from repro_torch.core.registry import Cost, count_launch, kernel
 from . import _build, ref
-from .common import check_cuda, launch, nbytes
+from .common import check_cuda, counting, launch, nbytes, traced
 
 DTYPES = (torch.float32, torch.bfloat16)
 #: widest row the backward kernel takes (256 threads x 32 columns)
@@ -33,6 +33,11 @@ BWD_BLOCKS = 264
 
 
 def _forward(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+    if x.is_meta or counting():
+        return traced("rmsnorm", lambda: _forward(x, weight, eps), lambda: torch.empty_like(x),
+                      x, weight, eps)
+    if x.is_cpu:
+        return ref.rmsnorm(x, weight, eps)
     check_cuda("x", x, DTYPES)
     check_cuda("weight", weight, DTYPES, device=x.device)
     d = x.shape[-1]
@@ -46,7 +51,9 @@ def _forward(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
 
 
 class RMSNormFn(torch.autograd.Function):
-    """:func:`rmsnorm` on CUDA tensors with the hand-written backward."""
+    """:func:`rmsnorm` on CUDA tensors with the hand-written backward (on
+    ``meta`` tensors, and under a counting mode on CPU ones, with the
+    entries' costs)."""
 
     @staticmethod
     def forward(ctx, x, weight, eps):
@@ -65,7 +72,7 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.T
     """x: (..., D); weight: (D,).  Matches :func:`ref.rmsnorm`."""
     if x.ndim < 1 or weight.shape != x.shape[-1:]:
         raise ValueError(f"weight {tuple(weight.shape)} does not match x {tuple(x.shape)}")
-    if x.is_cpu:
+    if x.is_cpu and not counting():
         return ref.rmsnorm(x, weight, eps)
     if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad):
         return RMSNormFn.apply(x, weight, eps)
@@ -80,6 +87,9 @@ def rmsnorm_bwd(x: torch.Tensor, weight: torch.Tensor, dy: torch.Tensor,
     if tuple(dy.shape) != tuple(x.shape) or weight.shape != x.shape[-1:]:
         raise ValueError(f"x {tuple(x.shape)}, weight {tuple(weight.shape)} and dy "
                          f"{tuple(dy.shape)} do not match")
+    if x.is_meta or counting():
+        return traced("rmsnorm_bwd", lambda: rmsnorm_bwd(x, weight, dy, eps),
+                      lambda: (torch.empty_like(x), torch.empty_like(weight)), x, weight, dy, eps)
     if x.is_cpu:
         return ref.rmsnorm_bwd(x, weight, dy, eps)
     check_cuda("x", x, DTYPES, aligned=False)

@@ -39,7 +39,7 @@ import torch
 
 from repro_torch.core.registry import Cost, count_launch, kernel
 from . import _build, ref
-from .common import check_cuda, check_in_place, check_out, launch, nbytes
+from .common import check_cuda, check_in_place, check_out, counting, launch, nbytes, traced
 
 DTYPES = (torch.float32, torch.bfloat16)
 #: the kernel's template instances, the configs' head sizes (SMOKE, full
@@ -81,9 +81,23 @@ def _check_cuda_inputs(r, k, v, w, u, state) -> None:
 
 def _forward(r, k, v, w, u, state, state_out, with_ckpt: bool):
     """The kernel: (out, final state, and with ``with_ckpt`` the state
-    checkpoints (B, H, ceil(T / CHUNK), D, D) f32, else None)."""
-    _check_cuda_inputs(r, k, v, w, u, state)
+    checkpoints (B, H, ceil(T / CHUNK), D, D) f32, else None).  On CPU
+    tensors the plain version, with no checkpoints (its backward needs
+    none)."""
     b, t, h, d = r.shape
+    if r.is_meta or counting():
+        def empty():
+            final = state_out if state_out is not None else torch.empty(
+                (b, h, d, d), dtype=torch.float32, device=r.device)
+            ckpt = (torch.empty((b, h, -(-t // CHUNK), d, d), dtype=torch.float32,
+                                device=r.device) if with_ckpt else None)
+            return torch.empty_like(r), final, ckpt
+        return traced("wkv6", lambda: _forward(r, k, v, w, u, state, state_out, with_ckpt), empty,
+                      r, k, v, w, u, state, state_out=state_out)
+    if r.is_cpu:
+        out, final = ref.wkv6(r, k, v, w, u, state)
+        return out, final if state_out is None else state_out.copy_(final), None
+    _check_cuda_inputs(r, k, v, w, u, state)
     sshape = (b, h, d, d)
     if state_out is None:
         state_out = torch.empty(sshape, dtype=torch.float32, device=r.device)
@@ -105,17 +119,14 @@ def _forward(r, k, v, w, u, state, state_out, with_ckpt: bool):
 
 class Wkv6Fn(torch.autograd.Function):
     """:func:`wkv6` with the hand-written backward on CUDA tensors (the
-    plain versions on CPU tensors, which count no launch).  It saves the
+    plain versions on CPU tensors, which count no launch; the entries'
+    costs on ``meta`` tensors and under a counting mode).  It saves the
     inputs and, on the card, the forward's state checkpoints: never a
     state a step."""
 
     @staticmethod
     def forward(ctx, r, k, v, w, u, state):
-        if r.is_cpu:
-            out, final = ref.wkv6(r, k, v, w, u, state)
-            ckpt = None
-        else:
-            out, final, ckpt = _forward(r, k, v, w, u, state, None, with_ckpt=True)
+        out, final, ckpt = _forward(r, k, v, w, u, state, None, with_ckpt=True)
         ctx.save_for_backward(r, k, v, w, u, state, ckpt)
         ctx.set_materialize_grads(False)
         return out, final
@@ -138,7 +149,7 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     into ``state_out`` when given, which may be ``state`` itself (the
     decode cache, updated in place; not under autograd)."""
     _check_shapes(r, k, v, w, u, state)
-    if r.device.type == "cpu":
+    if r.device.type == "cpu" and not counting():
         out, final = ref.wkv6(r, k, v, w, u, state)
         return out, final if state_out is None else state_out.copy_(final)
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad
@@ -168,6 +179,12 @@ def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"dout {tuple(dout.shape)}, expected r's {tuple(r.shape)}")
     if dstate is not None and tuple(dstate.shape) != (b, h, d, d):
         raise ValueError(f"dstate {tuple(dstate.shape)}, expected {(b, h, d, d)}")
+    if r.is_meta or counting():
+        return traced("wkv6_bwd", lambda: wkv6_bwd(r, k, v, w, u, state, dout, dstate, ckpt=ckpt),
+                      lambda: (torch.empty_like(r), torch.empty_like(r), torch.empty_like(r),
+                               torch.empty_like(w), torch.empty_like(u),
+                               None if state is None else torch.empty_like(state)),
+                      r, k, v, w, u, state, dout, dstate, ckpt=ckpt)
     if r.is_cpu:
         return ref.wkv6_bwd(r, k, v, w, u, state, dout, dstate)
     _check_cuda_inputs(r, k, v, w, u, state)

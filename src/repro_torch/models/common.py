@@ -116,6 +116,10 @@ POD, DATA, MODEL = "pod", "data", "model"
 #: the batch shards over every data-parallel axis the mesh has
 BATCH_AXES = (POD, DATA)
 
+#: a decode cache's slot axis: the batch's axes, then ``model`` (the slot
+#: strips of ``repro_torch.processes.lm.DecodeStep``, a lane's own slots)
+SLOT_AXES = BATCH_AXES + (MODEL,)
+
 #: (path regex, spec) pairs; the first match wins
 Rules = List[Tuple[str, Tuple]]
 

@@ -143,7 +143,11 @@ def moe_forward(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
 
 def _metrics(probs: torch.Tensor, eids: torch.Tensor, keep: torch.Tensor, cfg: ArchConfig):
     e = cfg.n_experts
-    frac_tokens = F.one_hot(eids[..., 0], e).float().mean(dim=(0, 1))
+    # the one-hot rows by a comparison, not F.one_hot, whose range check
+    # reads the ids on the host (and only on the CPU), so that the program
+    # is one on every device and a dry run's trace counts what a run does
+    first = eids[..., 0, None] == torch.arange(e, device=eids.device)
+    frac_tokens = first.float().mean(dim=(0, 1))
     frac_probs = probs.mean(dim=(0, 1))
     aux_loss = e * (frac_tokens * frac_probs).sum() * cfg.router_aux_weight
     drop_rate = 1.0 - keep.float().mean()

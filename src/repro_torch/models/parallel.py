@@ -51,16 +51,109 @@ The vocabulary-parallel embedding (:func:`embed`) and cross-entropy
 
 The JAX package has no such module: there GSPMD inserts the collectives
 that the partition rules and ``repro.models.common.constrain`` imply.
+
+**What crosses lanes.**  While a recorder is active (:func:`recording`;
+:class:`repro_torch.launch.roofline.CostMode` is one), each operator
+reports, in its forward and in its backward, the collective a
+multi-process program would run for it, with the bytes a lane sends or
+receives (the larger of a lane's input and output, as the JAX package reads
+collectives from HLO) and an op name, the qualified names of the last
+three calls inside ``repro_torch.models`` that led to the operator:
+
+=============  ===========================  ===========================
+operator       forward                      backward
+=============  ===========================  ===========================
+``copy``       none (the identity)          ``all-reduce`` of a lane's
+                                            gradient
+``reduce``     ``all-reduce`` of a lane's   none (the identity)
+               partial
+``gather``     ``all-gather`` of the whole  none (each lane's slice)
+``single``     none (the first lane's)      ``collective-permute``: the
+                                            gradient to every lane
+``split``      none (each lane's slice)     ``all-gather`` of the whole
+``regroup``    ``all-to-all``               ``all-to-all``
+=============  ===========================  ===========================
+
+``allreduce`` is a ``reduce`` and a ``copy``.  The work inside an
+operator (the sums in lane order, the copies) runs on the group's first
+lane, and the recorder is told so (its ``home()``).  With no recorder an
+operator's cost is one ``None`` check.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+import sys
+import threading
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 Tensors = List[torch.Tensor]
+
+_REC = threading.local()
+
+
+def recorder():
+    """The recorder active in this thread (:func:`recording`), or None."""
+    return getattr(_REC, "rec", None)
+
+
+@contextlib.contextmanager
+def recording(rec) -> Iterator[None]:
+    """Send the cross-lane traffic of the operators called inside (their
+    backward too, in whatever thread autograd runs it) to ``rec``, an
+    object with ``collective(kind, nbytes, name, axis)`` and a ``home()``
+    context (:class:`repro_torch.launch.roofline.CostMode`)."""
+    outer = recorder()
+    _REC.rec = rec
+    try:
+        yield
+    finally:
+        _REC.rec = outer
+
+
+def op_name(depth: int = 3) -> str:
+    """The qualified names of the last ``depth`` calls inside
+    ``repro_torch.models`` (this module's own left out) on the calling
+    stack, outermost first, joined by ``/``."""
+    names: List[str] = []
+    frame = sys._getframe(1)
+    while frame is not None and len(names) < depth:
+        module = frame.f_globals.get("__name__", "")
+        if module.startswith("repro_torch.models") and module != __name__:
+            names.append(f"{module.rsplit('.', 1)[-1]}.{frame.f_code.co_qualname}")
+        frame = frame.f_back
+    return "/".join(reversed(names)) or "?"
+
+
+def _nbytes(t: Optional[torch.Tensor]) -> int:
+    return 0 if t is None else t.numel() * t.element_size()
+
+
+def _traffic(ctx, rec, kind: Optional[str], nbytes: int):
+    """Record one operator's forward (``kind`` None: no traffic) with
+    ``rec`` and keep the recorder and the op name for its backward;
+    returns the ``home()`` context its own work runs in."""
+    ctx.rec = rec
+    if rec is None:
+        return contextlib.nullcontext()
+    ctx.name = op_name()
+    if kind is not None:
+        rec.collective(kind, nbytes, ctx.name, "model")
+    return rec.home()
+
+
+def _back(ctx, kind: Optional[str], nbytes: int):
+    """Record one operator's backward with the recorder of its forward;
+    returns the ``home()`` context its own work runs in."""
+    rec = ctx.rec
+    if rec is None:
+        return contextlib.nullcontext()
+    if kind is not None:
+        rec.collective(kind, nbytes, ctx.name, "model")
+    return rec.home()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -143,18 +236,21 @@ class _Copy(torch.autograd.Function):
     @staticmethod
     def forward(ctx, group, *xs):
         ctx.group = group
-        return tuple(x.view_as(x) for x in xs)
+        with _traffic(ctx, recorder(), None, 0):
+            return tuple(x.view_as(x) for x in xs)
 
     @staticmethod
     def backward(ctx, *gs):
         like = next(g for g in gs if g is not None)
-        return (None,) + _place(ctx.group, _sum(ctx.group, gs, like))
+        with _back(ctx, "all-reduce", _nbytes(like)):
+            return (None,) + _place(ctx.group, _sum(ctx.group, gs, like))
 
 
 class _Reduce(torch.autograd.Function):
     @staticmethod
     def forward(ctx, group, *partials):
-        return _place(group, _sum(group, partials, partials[0]))
+        with _traffic(ctx, recorder(), "all-reduce", _nbytes(partials[0])):
+            return _place(group, _sum(group, partials, partials[0]))
 
     @staticmethod
     def backward(ctx, *gs):
@@ -166,7 +262,8 @@ class _Gather(torch.autograd.Function):
     def forward(ctx, group, dim, *pieces):
         ctx.group, ctx.dim = group, dim
         ctx.sizes = [p.shape[dim] for p in pieces]
-        return _place(group, torch.cat([_on(p, group.home) for p in pieces], dim))
+        with _traffic(ctx, recorder(), "all-gather", sum(_nbytes(p) for p in pieces)):
+            return _place(group, torch.cat([_on(p, group.home) for p in pieces], dim))
 
     @staticmethod
     def backward(ctx, *gs):
@@ -181,11 +278,13 @@ class _Single(torch.autograd.Function):
     @staticmethod
     def forward(ctx, group, *xs):
         ctx.group = group
+        _traffic(ctx, recorder(), None, 0)
         return xs[0].view_as(xs[0])
 
     @staticmethod
     def backward(ctx, g):
-        return (None,) + tuple(_on(g, d) for d in ctx.group.devices)
+        with _back(ctx, "collective-permute", _nbytes(g)):
+            return (None,) + tuple(_on(g, d) for d in ctx.group.devices)
 
 
 class _Split(torch.autograd.Function):
@@ -193,15 +292,23 @@ class _Split(torch.autograd.Function):
     def forward(ctx, group, dim, *xs):
         ctx.group, ctx.dim = group, dim
         n = xs[0].shape[dim]
-        return tuple(x.narrow(dim, a, b - a).contiguous()
-                     for lane, x in enumerate(xs) for a, b in [group.piece(n, lane)])
+        with _traffic(ctx, recorder(), None, 0):
+            return tuple(x.narrow(dim, a, b - a).contiguous()
+                         for lane, x in enumerate(xs) for a, b in [group.piece(n, lane)])
 
     @staticmethod
     def backward(ctx, *gs):
         like = next(g for g in gs if g is not None)
-        whole = torch.cat([_on(like.new_zeros(like.shape) if g is None else g, ctx.group.home)
-                           for g in gs], ctx.dim)
-        return (None, None) + _place(ctx.group, whole)
+        with _back(ctx, "all-gather", _nbytes(like) * len(gs)):
+            whole = torch.cat([_on(like.new_zeros(like.shape) if g is None else g,
+                                   ctx.group.home) for g in gs], ctx.dim)
+            return (None, None) + _place(ctx.group, whole)
+
+
+def _regroup_bytes(pieces_bytes: int, want_cols: int, n: int) -> int:
+    """A lane's all-to-all bytes: the larger of its piece and what it
+    receives (``want_cols`` of the pieces' ``n`` columns)."""
+    return max(pieces_bytes, pieces_bytes * want_cols // max(n, 1))
 
 
 class _Regroup(torch.autograd.Function):
@@ -210,12 +317,20 @@ class _Regroup(torch.autograd.Function):
         n = pieces[0].shape[-1]
         ctx.group, ctx.ranges, ctx.n = group, ranges, n
         ctx.dtype = pieces[0].dtype
-        return tuple(torch.cat([_on(pieces[lane][..., a:b], dev)
-                                for lane, a, b, _ in _spans(want, n)], -1)
-                     for dev, want in zip(group.devices, ranges))
+        ctx.nbytes = _regroup_bytes(_nbytes(pieces[0]), max(sum(b - a for a, b in want)
+                                                            for want in ranges), n)
+        with _traffic(ctx, recorder(), "all-to-all", ctx.nbytes):
+            return tuple(torch.cat([_on(pieces[lane][..., a:b], dev)
+                                    for lane, a, b, _ in _spans(want, n)], -1)
+                         for dev, want in zip(group.devices, ranges))
 
     @staticmethod
     def backward(ctx, *gs):
+        with _back(ctx, "all-to-all", ctx.nbytes):
+            return _Regroup._backward(ctx, *gs)
+
+    @staticmethod
+    def _backward(ctx, *gs):
         group, n = ctx.group, ctx.n
         accs: List[Optional[torch.Tensor]] = [None] * group.size
         for g, want in zip(gs, ctx.ranges):      # in lane order, in f32, on the first lane

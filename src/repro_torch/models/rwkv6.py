@@ -29,7 +29,7 @@ from repro_torch.kernels.wkv6 import wkv6
 from . import layers as L
 from . import parallel as tp
 from .layers import _spec as spec
-from .common import (MODEL, ArchConfig, Rules, alloc_tree, init_tree, remat_call, stacked,
+from .common import (MODEL, SLOT_AXES, ArchConfig, Rules, alloc_tree, init_tree, remat_call, stacked,
                      tree_flatten, tree_map, unstacked)
 from .parallel import ModelGroup
 
@@ -325,6 +325,16 @@ class RWKV6Model:
                                       self.cfg, group)
         loss = L.cross_entropy(logits, batch["labels"], batch.get("loss_mask"), group)
         return loss, {"loss": loss}
+
+    def cache_partition_rules(self) -> Rules:
+        """Where the port's decode puts each cache leaf (the JAX package's
+        ``cache_partition_rules`` names its sequence-over-``model``
+        layout, which the port never runs): the slot axis over the
+        batch's axes and then ``model``, each lane of a model group
+        decoding its strip of slots (``DecodeStep``); where the slots do
+        not divide, the dry run's fit leaves them replicated over
+        ``model``."""
+        return [(r"tm_shift|cm_shift|wkv", (None, SLOT_AXES))]
 
     def partition_rules(self) -> Rules:
         """The JAX package's rule table."""

@@ -28,7 +28,7 @@ from . import layers as L
 from . import mla as MLA
 from . import moe as MOE
 from . import parallel as tp
-from .common import (MODEL, ArchConfig, Rules, alloc_tree, init_tree, remat_call, stacked,
+from .common import (MODEL, SLOT_AXES, ArchConfig, Rules, alloc_tree, init_tree, remat_call, stacked,
                      tree_flatten, tree_map, unstacked)
 from .parallel import ModelGroup
 
@@ -301,6 +301,18 @@ class DecoderLM:
         return total, {"loss": loss, **aux}
 
     # ------------------------------------------------------------ sharding
+    def cache_partition_rules(self) -> Rules:
+        """Where the port's decode puts each cache leaf (the JAX package's
+        ``cache_partition_rules`` names its sequence-over-``model``
+        layout, which the port never runs): the slot axis over the
+        batch's axes and then ``model``, each lane of a model group
+        decoding its strip of slots (``DecodeStep``); where the slots do
+        not divide, the dry run's fit leaves them replicated over
+        ``model``."""
+        if self.cfg.first_dense_ff:
+            return [(r"scan", (None, SLOT_AXES)), (r"layer0", (SLOT_AXES,))]
+        return [(r"scan", (None, SLOT_AXES))]
+
     def partition_rules(self) -> Rules:
         """The JAX package's rule table: Megatron-style tensor parallelism
         over ``model`` (experts over ``model`` for MoE)."""

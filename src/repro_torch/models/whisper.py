@@ -32,7 +32,7 @@ import torch
 from repro_torch.kernels import ref
 from . import layers as L
 from . import parallel as tp
-from .common import (MODEL, ArchConfig, Rules, alloc_tree, init_tree, remat_call, stacked,
+from .common import (MODEL, SLOT_AXES, ArchConfig, Rules, alloc_tree, init_tree, remat_call, stacked,
                      tree_flatten, tree_map, unstacked)
 from .layers import _spec as spec
 from .parallel import ModelGroup
@@ -324,6 +324,16 @@ class WhisperModel:
             x = x + L.apply_mlp(p["mlp"], h, cfg)
         x = L.apply_norm(params["final_norm"], x, cfg)
         return L.logits_from_hidden(params["embed"], x, cfg), cache
+
+    def cache_partition_rules(self) -> Rules:
+        """Where the port's decode puts each cache leaf (the JAX package's
+        ``cache_partition_rules`` names its sequence-over-``model``
+        layout, which the port never runs): the slot axis over the
+        batch's axes and then ``model``, each lane of a model group
+        decoding its strip of slots (``DecodeStep``); where the slots do
+        not divide, the dry run's fit leaves them replicated over
+        ``model``."""
+        return [(r"self|cross_k|cross_v", (None, SLOT_AXES))]
 
     def partition_rules(self) -> Rules:
         """The JAX package's rule table."""

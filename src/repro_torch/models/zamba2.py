@@ -30,7 +30,7 @@ import torch
 from . import layers as L
 from . import mamba2 as M2
 from . import parallel as tp
-from .common import (MODEL, ArchConfig, Rules, alloc_tree, init_tree, remat_call, stacked,
+from .common import (MODEL, SLOT_AXES, ArchConfig, Rules, alloc_tree, init_tree, remat_call, stacked,
                      tree_map, unstacked)
 from .parallel import ModelGroup
 from .transformer import DecoderLM
@@ -214,6 +214,16 @@ class Zamba2Model:
                                       self.cfg, group)
         loss = L.cross_entropy(logits, batch["labels"], batch.get("loss_mask"), group)
         return loss, {"loss": loss}
+
+    def cache_partition_rules(self) -> Rules:
+        """Where the port's decode puts each cache leaf (the JAX package's
+        ``cache_partition_rules`` names its sequence-over-``model``
+        layout, which the port never runs): the slot axis over the
+        batch's axes and then ``model``, each lane of a model group
+        decoding its strip of slots (``DecodeStep``); where the slots do
+        not divide, the dry run's fit leaves them replicated over
+        ``model``."""
+        return [(r"\['kv'\]", (None, SLOT_AXES)), (r"\['ssm'\]", (None, None, SLOT_AXES))]
 
     def partition_rules(self) -> Rules:
         """The JAX package's rule table (the Mamba2 stack has two leading

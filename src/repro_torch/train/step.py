@@ -48,6 +48,7 @@ from repro_torch.core.registry import add_launches, counting_into
 from repro_torch.launch.mesh import (Mesh, Placement, Sharded, check_present, model_axis_size,
                                      piece_index, resolve_spec)
 from repro_torch.models.common import BATCH_AXES, partition_tree, tree_map, tree_paths, zero1_spec
+from repro_torch.models import parallel as tp
 from repro_torch.models.parallel import ModelGroup
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
 from repro_torch.optim.adamw import adamw_scalars, update_leaf
@@ -72,10 +73,23 @@ def _generator(rng, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(int(rng))
 
 
-def make_train_state(model, rng, compress: bool = False, *, device="cpu") -> Dict[str, Any]:
+def default_device(device=None) -> torch.device:
+    """``device``, or the card: the port's entry points run on the card
+    unless the caller asks for the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to train on the CPU")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def make_train_state(model, rng, compress: bool = False, *, device=None) -> Dict[str, Any]:
     """{"params", "opt": {"master", "m", "v", "step"}[, "ef"]}: the
-    reference's layout (and checkpoint leaf names), on ``device``; ``rng``
-    an int seed or a ``torch.Generator`` on ``device``."""
+    reference's layout (and checkpoint leaf names), on ``device``, the
+    card unless given (:func:`default_device`: with no CUDA device, pass
+    ``device="cpu"``); ``rng`` an int seed or a ``torch.Generator`` on
+    ``device``."""
+    device = default_device(device)
     params = model.init_params(_generator(rng, device), device=device)
     state = {"params": params, "opt": adamw_init(params)}
     if compress:
@@ -386,6 +400,32 @@ def gradient_pieces(grads, params, mesh: Mesh) -> Dict[str, Any]:
         for n, p in tree_flatten(params))
 
 
+def record_data_traffic(leaves, n_data: int) -> None:
+    """Record, with a recorder active (:func:`~repro_torch.models.parallel.
+    recording`), what one step moves over the data axes of a mesh of
+    ``n_data`` model groups: for each ``(name, bytes of a lane's gradient
+    piece, whether its optimizer state is split over data)`` of
+    ``leaves``, the lanes' gradient sum as an ``all-reduce``, or, where
+    the optimizer state is in ZeRO-1 pieces, a ``reduce-scatter`` of the
+    gradient and an ``all-gather`` of the updated parameter piece (the
+    gradient crosses in the parameter's dtype, so both move its bytes)."""
+    rec = tp.recorder()
+    if rec is None or n_data == 1:
+        return
+    for name, nbytes, split in leaves:
+        if split:
+            rec.collective("reduce-scatter", nbytes, name, "data")
+            rec.collective("all-gather", nbytes, name, "data")
+        else:
+            rec.collective("all-reduce", nbytes, name, "data")
+
+
+def splits_over_data(spec) -> bool:
+    """Whether a placement spec splits a dim over a data axis."""
+    return any(a in BATCH_AXES for e in spec if e is not None
+               for a in ((e,) if isinstance(e, str) else e))
+
+
 def make_mesh_train_step(model, tcfg: TrainConfig, mesh: Mesh):
     """``step(state, batch) -> (state, metrics)`` over the lanes of
     ``mesh`` on a state placed by :func:`shard_state` (in place).
@@ -408,6 +448,11 @@ def make_mesh_train_step(model, tcfg: TrainConfig, mesh: Mesh):
         metrics, grads = accumulate_grads(model, mesh_lanes(params, mesh),
                                           device_batch(batch, home), tcfg.microbatches)
         grads = gradient_pieces(grads, params, mesh)
+        if tp.recorder() is not None:
+            masters = dict(tree_flatten(state["opt"]["master"]))
+            record_data_traffic([(n, p.pieces[0].numel() * p.pieces[0].element_size(),
+                                  splits_over_data(masters[n].placement.spec))
+                                 for n, p in tree_flatten(params)], len(mesh.groups))
         with torch.no_grad():
             if tcfg.compress_grads:
                 grads = compress_grads(grads, state["ef"])

@@ -35,7 +35,7 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from repro_torch.ckpt import CheckpointManager
-from .step import (TrainConfig, TrainProcess, check_train_mesh, init_mesh_state,
+from .step import (TrainConfig, TrainProcess, check_train_mesh, default_device, init_mesh_state,
                    make_train_state, make_train_step, state_pspecs, to_named, train_state_specs)
 
 
@@ -52,16 +52,6 @@ class TrainerConfig:
 
 class StepTimeout(RuntimeError):
     pass
-
-
-def default_device(device=None) -> torch.device:
-    """``device``, or the card: the port's entry points run on the card
-    unless the caller asks for the CPU."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass device='cpu' to train on the CPU")
-    return torch.device("cuda", torch.cuda.current_device())
 
 
 class Trainer:

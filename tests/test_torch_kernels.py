@@ -139,14 +139,23 @@ def test_registry_names_and_cpu_runs_count_no_launch(rng):
     assert launch_counts() == before     # plain versions are no launches
 
 
-def test_wrappers_raise_off_cpu_and_cuda(rng):
-    """A wrapper runs its plain version only for CPU tensors; any other
-    device launches the kernel or raises (meta has no kernel)."""
+def test_wrappers_raise_off_cpu_and_cuda(rng, monkeypatch):
+    """A wrapper runs its plain version only for CPU tensors: on ``meta``
+    tensors (a dry run's trace) it gives outputs of the plain version's
+    layout without running it, and counts no launch."""
+    def plain(*_a, **_k):
+        raise AssertionError("the plain version ran off the CPU")
+
+    monkeypatch.setattr(ref, "ximage_sum", plain)
+    monkeypatch.setattr(ref, "complex_elementprod", plain)
     m = torch.empty((2, 3, 4, 4), dtype=torch.complex64, device="meta")
-    with pytest.raises(ValueError, match="CUDA"):
-        ximage_sum(m)
-    with pytest.raises(ValueError, match="CUDA"):
-        complex_elementprod(m, m[0])
+    before = launch_counts()
+    out = ximage_sum(m)
+    assert (out.device.type, tuple(out.shape), out.dtype) == ("meta", (2, 4, 4), torch.complex64)
+    out = complex_elementprod(m, m[0])
+    assert (out.device.type, tuple(out.shape), out.dtype) == ("meta", (2, 3, 4, 4),
+                                                              torch.complex64)
+    assert launch_counts() == before
 
 
 def test_resolve_backend_contract():

@@ -42,8 +42,12 @@ def test_negate_writes_out_in_place(rng):
     want = 1.0 - x
     assert negate(x, out=x) is x
     assert torch.equal(x, want)
-    with pytest.raises(ValueError, match="CUDA"):
-        negate(torch.empty(3, device="meta"))
+    before = launch_counts()
+    m = torch.empty(3, device="meta")           # a dry run's trace: the layout, no launch
+    out = negate(m)
+    assert (out.device.type, tuple(out.shape)) == ("meta", (3,))
+    assert negate(m, out=m) is m
+    assert launch_counts() == before
 
 
 def _kernel_constants():

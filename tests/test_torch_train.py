@@ -409,7 +409,7 @@ def test_state_specs_wait_for_the_multi_gpu_slice():
     replaced): ``state_pspecs`` of a qwen3-14b SMOKE state is the
     reference's (every family: ``tests/test_torch_train_mesh.py``)."""
     model = build_model(get_smoke("qwen3-14b"))
-    specs = dict(tree_flatten(state_pspecs(model, make_train_state(model, 0, compress=True))))
+    specs = dict(tree_flatten(state_pspecs(model, make_train_state(model, 0, compress=True, device="cpu"))))
     assert specs["['params']['embed']['embedding']"] == ("model", None)
     assert specs["['opt']['master']['embed']['embedding']"] == ("model", "data")
     assert specs["['ef']['layers']['attn']['w_o']"] == (None, "model", "data")
@@ -478,7 +478,7 @@ def test_straggler_timeout_raises(setup, tmp_path):
 def test_grad_accumulation_equivalence(setup):
     cfg, model, stream = setup
     batch = stream.batch_at(0)
-    s1, s2 = make_train_state(model, 1), make_train_state(model, 1)
+    s1, s2 = make_train_state(model, 1, device="cpu"), make_train_state(model, 1, device="cpu")
     n1, _ = make_train_step(model, TrainConfig(microbatches=1))(s1, batch)
     n2, _ = make_train_step(model, TrainConfig(microbatches=4))(s2, batch)
     assert _max_param_diff(n1["params"], n2["params"]) < 3e-5
@@ -486,7 +486,7 @@ def test_grad_accumulation_equivalence(setup):
 
 def test_compressed_grads_trains(setup):
     cfg, model, stream = setup
-    s = make_train_state(model, 1, compress=True)
+    s = make_train_state(model, 1, compress=True, device="cpu")
     step = make_train_step(model, TrainConfig(compress_grads=True))
     for i in range(3):
         s, m = step(s, stream.batch_at(i))
@@ -497,9 +497,9 @@ def test_compressed_grads_trains(setup):
 def test_one_rng_gives_the_same_parameters(setup):
     cfg, model, _ = setup
     g = torch.Generator().manual_seed(5)
-    a, b = make_train_state(model, g), make_train_state(model, g)
+    a, b = make_train_state(model, g, device="cpu"), make_train_state(model, g, device="cpu")
     assert _max_param_diff(a, b) == 0.0
-    assert _max_param_diff(a, make_train_state(model, 5)) == 0.0
+    assert _max_param_diff(a, make_train_state(model, 5, device="cpu")) == 0.0
 
 
 def test_trainer_refuses_a_mesh_and_needs_a_card_unless_asked(setup, monkeypatch):
@@ -579,10 +579,10 @@ def test_train_process_replays_the_eager_steps_bit_for_bit(setup, captured):
     cfg, model, stream = setup
     tcfg = TrainConfig(opt=AdamWConfig(schedule=Schedule(kind="constant", base_lr=1e-3,
                                                          warmup_steps=0)))
-    state = captured.state = make_train_state(model, 2)
+    state = captured.state = make_train_state(model, 2, device="cpu")
     proc = TrainProcess(model, tcfg).init(state, stream.batch_at(0))
     assert captured.events == ["capture"] and int(state["opt"]["step"]) == 0
-    eager = make_train_state(model, 2)
+    eager = make_train_state(model, 2, device="cpu")
     step = make_train_step(model, tcfg)
     per_step = {"rmsnorm": 2 * (4 * cfg.n_layers) + 1, "flash_attention": 2 * cfg.n_layers}
     for i in range(3):
@@ -606,7 +606,7 @@ def test_train_process_replays_the_eager_steps_bit_for_bit(setup, captured):
 
 def test_train_process_on_the_cpu_runs_eagerly(setup):
     cfg, model, stream = setup
-    state = make_train_state(model, 0)
+    state = make_train_state(model, 0, device="cpu")
     proc = TrainProcess(model, TrainConfig())
     with pytest.raises(RuntimeError, match="init"):
         proc.launch(state, stream.batch_at(0))
@@ -735,13 +735,22 @@ def test_backward_wrappers_on_the_cpu_are_the_plain_versions():
     assert launch_counts() == before
 
 
-def test_backward_wrappers_raise_off_cpu_and_cuda():
+def test_backward_wrappers_raise_off_cpu_and_cuda(monkeypatch):
+    """On ``meta`` tensors (a dry run's trace) the backward wrappers give
+    the plain layout without running the plain version; shapes are checked
+    first."""
+    def plain(*_a, **_k):
+        raise AssertionError("the plain version ran off the CPU")
+
+    monkeypatch.setattr(ref, "rmsnorm_bwd", plain)
+    monkeypatch.setattr(ref, "attention_bwd", plain)
     m = torch.empty((2, 8), device="meta")
-    with pytest.raises(ValueError, match="CUDA"):
-        rmsnorm_bwd(m, torch.empty(8, device="meta"), m)
+    dx, dw = rmsnorm_bwd(m, torch.empty(8, device="meta"), m)
+    assert (dx.device.type, tuple(dx.shape), tuple(dw.shape)) == ("meta", (2, 8), (8,))
     q = torch.empty((1, 2, 4, 16), device="meta")
-    with pytest.raises(ValueError, match="CUDA"):
-        flash_attention_bwd(q, q, q, q, q, torch.empty((1, 2, 4), device="meta"))
+    grads = flash_attention_bwd(q, q, q, q, q, torch.empty((1, 2, 4), device="meta"))
+    assert [tuple(g.shape) for g in grads] == [(1, 2, 4, 16)] * 3
+    assert all(g.device.type == "meta" for g in grads)
     with pytest.raises(ValueError, match="shape"):
         flash_attention_bwd(q, q, q, q[:, :, :2], q, None)
 

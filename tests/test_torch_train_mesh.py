@@ -163,7 +163,7 @@ def test_to_named_places_a_state_in_its_zero1_pieces():
     nowhere stays whole on every lane; ``step`` replicated."""
     cfg = get_smoke("qwen3-14b")
     model = build_model(cfg)
-    state = make_train_state(model, 0)
+    state = make_train_state(model, 0, device="cpu")
     placed = shard_state(state, to_named(state_pspecs(model, state), _lanes(4)))
     emb = placed["params"]["embed"]["embedding"]
     assert isinstance(emb, Sharded) and emb.replicated and len(emb.pieces) == 4
@@ -192,7 +192,7 @@ def test_init_mesh_state_places_the_one_device_state_leaf_by_leaf(lanes, compres
     cfg = get_smoke("qwen3-14b")
     model = build_model(cfg)
     mesh = _lanes(lanes)
-    want = make_train_state(model, 3, compress=compress)
+    want = make_train_state(model, 3, compress=compress, device="cpu")
     want = shard_state(want, to_named(state_pspecs(model, want), mesh))
 
     def refused(*_a, **_k):
@@ -225,10 +225,10 @@ def _against_microbatches(arch, lanes, compress, steps=2):
     cfg = get_smoke(arch)
     model = build_model(cfg)
     stream = _stream(cfg)
-    one = make_train_state(model, 0, compress=compress)
+    one = make_train_state(model, 0, compress=compress, device="cpu")
     step = make_train_step(model, _tcfg(microbatches=lanes, compress_grads=compress))
     proc = TrainProcess(model, _tcfg(compress_grads=compress), mesh=_lanes(lanes))
-    plain = make_train_state(model, 0, compress=compress)
+    plain = make_train_state(model, 0, compress=compress, device="cpu")
     proc.init(plain, stream.batch_at(0))
     for i in range(steps):
         one, want = step(one, stream.batch_at(i))
@@ -268,7 +268,7 @@ def test_lane_rows_are_contiguous_in_lane_order():
     model.loss_fn = recorded
     batch = _stream(cfg).batch_at(0)
     mesh = _lanes(4)
-    state = make_train_state(model, 0)
+    state = make_train_state(model, 0, device="cpu")
     step = make_mesh_train_step(model, _tcfg(), mesh)
     step(shard_state(state, to_named(state_pspecs(model, state), mesh)), batch)
     assert [tuple(t.shape) for t in seen] == [(2, 12)] * 4
@@ -289,25 +289,25 @@ def test_masked_batch_weights_lanes_by_their_tokens():
     mask = (rng.random((8, 12)) < np.repeat([0.8, 0.35], 4)[:, None]).astype(np.float32)
     batch["loss_mask"] = mask
     assert mask[:4].sum() != mask[4:].sum()
-    one = make_train_state(model, 0)
+    one = make_train_state(model, 0, device="cpu")
     _, want = make_train_step(model, _tcfg())(one, batch)
     proc = TrainProcess(model, _tcfg(), mesh=_lanes(2))
-    proc.init(make_train_state(model, 0), batch)
+    proc.init(make_train_state(model, 0, device="cpu"), batch)
     state, got = proc.launch(proc.state, batch)
     for k in ("loss", "grad_norm", "lr"):
         np.testing.assert_allclose(float(got[k]), float(want[k]), rtol=1e-6, err_msg=k)
     for (name, s), (_, t) in zip(tree_flatten(state), tree_flatten(one)):
         np.testing.assert_allclose(s.full().float().numpy(), t.float().numpy(), rtol=0,
                                    atol=2e-5, err_msg=name)
-    halves = [make_train_step(model, _tcfg())(make_train_state(model, 0),
+    halves = [make_train_step(model, _tcfg())(make_train_state(model, 0, device="cpu"),
                                               {k: v[h] for k, v in batch.items()})[1]["loss"]
               for h in (slice(0, 4), slice(4, 8))]
     assert abs(float(sum(halves)) / 2 - float(want["loss"])) > 1e-3
     # lanes that count the same tokens: bit for bit the microbatch step
     batch["loss_mask"] = np.concatenate([mask[:4], mask[:4]])
-    one = make_train_state(model, 0)
+    one = make_train_state(model, 0, device="cpu")
     _, want = make_train_step(model, _tcfg(microbatches=2))(one, batch)
-    proc = TrainProcess(model, _tcfg(), mesh=_lanes(2)).init(make_train_state(model, 0), batch)
+    proc = TrainProcess(model, _tcfg(), mesh=_lanes(2)).init(make_train_state(model, 0, device="cpu"), batch)
     state, got = proc.launch(proc.state, batch)
     assert all(torch.equal(got[k], want[k]) for k in want)
     _assert_same_state(state, one, 2)
@@ -320,13 +320,13 @@ def test_one_graph_holds_every_lane_of_one_device(captured):
     cfg = get_smoke("qwen3-14b")
     model = build_model(cfg)
     stream = _stream(cfg)
-    state = make_train_state(model, 2)
+    state = make_train_state(model, 2, device="cpu")
     placed = shard_state(state, to_named(state_pspecs(model, state), _lanes(2)))
     captured.state = {f"{n}/{k}": p for n, s in tree_flatten(placed)
                       for k, p in enumerate(s.pieces)}
     proc = TrainProcess(model, _tcfg(), mesh=_lanes(2)).init(placed, stream.batch_at(0))
     assert captured.events == ["capture"] and int(placed["opt"]["step"].pieces[0]) == 0
-    eager = make_train_state(model, 2)
+    eager = make_train_state(model, 2, device="cpu")
     step = make_train_step(model, _tcfg(microbatches=2))
     for i in range(3):
         out, metrics = proc.launch(placed, stream.batch_at(i))

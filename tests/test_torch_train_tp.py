@@ -442,7 +442,7 @@ def _against_no_mesh(cfg, m):
     step's metrics, against the no-mesh step."""
     model = build_model(cfg)
     batch = _batch(cfg)
-    state = make_train_state(model, 0)
+    state = make_train_state(model, 0, device="cpu")
     tensors = {k: torch.from_numpy(v) for k, v in batch.items()}
     metrics, grads = loss_and_grads(model, state["params"], tensors)
     mesh = _mesh(1, m)
@@ -456,8 +456,8 @@ def _against_no_mesh(cfg, m):
             assert tuple(g.shape) == tuple(pieces[name].pieces[lane].shape), name
             _close(g.numpy(), whole[name][pieces[name].slices(lane)].numpy(), _band(cfg),
                    f"{name} lane {lane}")
-    _, want = make_train_step(model, _tcfg())(make_train_state(model, 0), batch)
-    proc = TrainProcess(model, _tcfg(), mesh=mesh).init(make_train_state(model, 0), batch)
+    _, want = make_train_step(model, _tcfg())(make_train_state(model, 0, device="cpu"), batch)
+    proc = TrainProcess(model, _tcfg(), mesh=mesh).init(make_train_state(model, 0, device="cpu"), batch)
     _, got = proc.launch(proc.state, batch)
     for k in want:
         np.testing.assert_allclose(float(got[k]), float(want[k]), rtol=1e-5, err_msg=k)
@@ -480,7 +480,7 @@ def test_head_splits_that_m_does_not_divide(heads, kv, m):
 
 
 def _run(model, mesh, batch, steps=2, **kw):
-    proc = TrainProcess(model, _tcfg(**kw), mesh=mesh).init(make_train_state(model, 0), batch)
+    proc = TrainProcess(model, _tcfg(**kw), mesh=mesh).init(make_train_state(model, 0, device="cpu"), batch)
     out = [proc.launch(proc.state, batch)[1] for _ in range(steps)]
     return proc.state, out
 
@@ -513,7 +513,7 @@ def test_masked_batch_weights_the_data_lanes_by_their_tokens():
     rng = np.random.default_rng(5)
     batch["loss_mask"] = (rng.random((8, 12)) < np.repeat([0.8, 0.35], 4)[:, None]) \
         .astype(np.float32)
-    one = make_train_state(model, 0)
+    one = make_train_state(model, 0, device="cpu")
     _, want = make_train_step(model, _tcfg())(one, batch)
     state, (got,) = _run(model, _mesh(2, 2), batch, steps=1)
     for k in ("loss", "grad_norm", "lr"):
@@ -529,7 +529,7 @@ def test_model_split_gradients_stay_in_their_pieces():
     cfg = get_smoke("granite-moe-1b-a400m")
     model = build_model(cfg)
     mesh = _mesh(2, 2)
-    placed = _placed(model, make_train_state(model, 0), mesh)
+    placed = _placed(model, make_train_state(model, 0, device="cpu"), mesh)
     batch = {k: torch.from_numpy(v) for k, v in _batch(cfg).items()}
     _, grads = accumulate_grads(model, mesh_lanes(placed["params"], mesh), batch)
     assert len(grads) == 2
@@ -551,12 +551,12 @@ def test_one_capture_holds_every_lane_of_a_group(captured):
     model = build_model(cfg)
     stream = _stream(cfg)
     mesh = _mesh(1, 2)
-    placed = _placed(model, make_train_state(model, 2), mesh)
+    placed = _placed(model, make_train_state(model, 2, device="cpu"), mesh)
     captured.state = {f"{n}/{k}": p for n, s in tree_flatten(placed)
                       for k, p in enumerate(s.pieces)}
     proc = TrainProcess(model, _tcfg(), mesh=mesh).init(placed, stream.batch_at(0))
     assert captured.events == ["capture"] and int(placed["opt"]["step"].pieces[0]) == 0
-    eager = _placed(model, make_train_state(model, 2), mesh)
+    eager = _placed(model, make_train_state(model, 2, device="cpu"), mesh)
     step = make_mesh_train_step(model, _tcfg(), mesh)
     for i in range(3):
         out, metrics = proc.launch(placed, stream.batch_at(i))
@@ -582,7 +582,7 @@ def test_every_piece_is_its_rules_piece(arch):
     ``sharded-v1`` checkpoint holds), and some leaves are split."""
     model = build_model(get_smoke(arch))
     mesh = _mesh(2, 2)
-    state = make_train_state(model, 0)
+    state = make_train_state(model, 0, device="cpu")
     whole = dict(tree_flatten(state["params"]))
     placed = dict(tree_flatten(_placed(model, state, mesh)["params"]))
     specs = dict(tree_flatten(state_pspecs(model, state)["params"]))
@@ -598,7 +598,7 @@ def test_every_piece_is_its_rules_piece(arch):
 
 def test_a_vocabulary_the_model_axis_does_not_divide_raises():
     model = build_model(get_smoke("qwen3-14b").scaled(vocab=129))
-    state = make_train_state(model, 0)
+    state = make_train_state(model, 0, device="cpu")
     with pytest.raises(ValueError, match="does not split into 2 pieces"):
         TrainProcess(model, _tcfg(), mesh=_mesh(1, 2)).init(state, _batch(model.cfg))
 

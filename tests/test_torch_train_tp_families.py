@@ -121,7 +121,7 @@ def test_a_jax_model_axis_checkpoint_restores_onto_the_port_lanes(jax_families):
     arch = "whisper-large-v3"
     model = build_model(get_smoke(arch))
     mesh = _mesh(2, 2)
-    like = make_train_state(model, 0)
+    like = make_train_state(model, 0, device="cpu")
     back = restore_checkpoint(jax_families["ckpt"], like,
                               shardings=to_named(state_pspecs(model, like), mesh))
     want = _of(jax_families, f"{arch}/1x2x2/0/step3")
@@ -166,9 +166,9 @@ def _lanes(model, m, seed=0):
     """The one-lane parameters of ``model`` from ``seed``, a (1, m) group's
     lanes of them and the group."""
     mesh = _mesh(1, m)
-    placed = _placed(model, make_train_state(model, seed), mesh)["params"]
+    placed = _placed(model, make_train_state(model, seed, device="cpu"), mesh)["params"]
     (lanes, group), = mesh_lanes(placed, mesh)
-    return make_train_state(model, seed)["params"], lanes, group
+    return make_train_state(model, seed, device="cpu")["params"], lanes, group
 
 
 @pytest.mark.parametrize("m", [2, 4])
@@ -262,12 +262,12 @@ def test_one_capture_holds_every_lane_of_a_rwkv6_group(captured, monkeypatch):
     model = build_model(cfg)
     stream = _stream(cfg)
     mesh = _mesh(1, 2)
-    placed = _placed(model, make_train_state(model, 2), mesh)
+    placed = _placed(model, make_train_state(model, 2, device="cpu"), mesh)
     captured.state = {f"{n}/{k}": p for n, s in tree_flatten(placed)
                       for k, p in enumerate(s.pieces)}
     proc = TrainProcess(model, _tcfg(), mesh=mesh).init(placed, stream.batch_at(0))
     assert captured.events == ["capture"]
-    eager = _placed(model, make_train_state(model, 2), mesh)
+    eager = _placed(model, make_train_state(model, 2, device="cpu"), mesh)
     step = make_mesh_train_step(model, _tcfg(), mesh)
     for i in range(3):
         out, metrics = proc.launch(placed, stream.batch_at(i))
