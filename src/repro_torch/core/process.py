@@ -56,7 +56,7 @@ from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from . import registry
+from . import registry, trace
 from .app import CLapp, DataHandle, INVALID_HANDLE
 from .arena import is_bfloat16, pack_device, spec_dtype, torch_dtype
 from .data import TensorSpec
@@ -145,6 +145,9 @@ class _HostEvent:
     def record(self, stream=None) -> None:
         self.t = time.perf_counter()
 
+    def query(self) -> bool:
+        return True
+
     def elapsed_time(self, end: "_HostEvent") -> float:
         return (end.t - self.t) * 1e3
 
@@ -226,24 +229,17 @@ class _Timer:
         return self._start.elapsed_time(end) / 1e3
 
 
-#: graph replays and captures of every process: the port's compile cache
-#: hits and misses (:func:`compile_cache_stats`)
-_GRAPH_STATS = {"hits": 0, "misses": 0}
-#: guards ``_GRAPH_STATS`` and the two per-device tables below
+#: guards the two per-device tables below
 _STATE_LOCK = threading.Lock()
 
 
 def compile_cache_stats() -> Tuple[int, int]:
     """``(hits, misses)`` of the compiled launch, summed over every
     process: a hit is a graph replay, a miss a capture (the JAX package
-    counts its AOT compile cache's).  A CPU app compiles nothing."""
-    with _STATE_LOCK:
-        return _GRAPH_STATS["hits"], _GRAPH_STATS["misses"]
-
-
-def _count_graph(kind: str) -> None:
-    with _STATE_LOCK:
-        _GRAPH_STATS[kind] += 1
+    counts its AOT compile cache's), read from the registry's counts
+    (:func:`~repro_torch.core.registry.graph_counts`).  A CPU app
+    compiles nothing."""
+    return registry.graph_counts()
 
 
 #: a side stream a CUDA device that captures run on (``torch.cuda.graph``'s
@@ -649,25 +645,30 @@ class Process:
         a process annotated with :func:`repro_torch.launch.mesh.
         shard_by_logical` splits its frames over the mesh's first model
         group.  A group that names more than one device runs eagerly: a
-        CUDA graph holds one device's work."""
-        if not self._initialized:
-            self.init()
-        self._check_donation()
-        app = self.getApp()
-        on = profile is not None and profile.enable
-        phases = _Phases(app.device) if on else None
-        timer = _Timer(app.device) if on else None
-        with _compiling_under(app.mesh):
-            if self.graphed and _graphs_on(app.device) and _one_device(app.mesh):
-                self._launch_compiled(phases)
-            else:
-                self._launch_eager(phases)
-        if timer is not None:
-            seconds = timer.seconds()
-            profile.record(seconds)
-            if not self._times_stages:
-                profile.record_phase("compute", seconds)
-            phases.read(profile)
+        CUDA graph holds one device's work.
+
+        While a ``torch.profiler`` runs, the launch keeps the spans
+        ``process.launch``, ``process.replay`` and ``process.capture``
+        (:mod:`repro_torch.core.trace`)."""
+        with trace.span("process.launch"):
+            if not self._initialized:
+                self.init()
+            self._check_donation()
+            app = self.getApp()
+            on = profile is not None and profile.enable
+            phases = _Phases(app.device) if on else None
+            timer = _Timer(app.device) if on else None
+            with _compiling_under(app.mesh):
+                if self.graphed and _graphs_on(app.device) and _one_device(app.mesh):
+                    self._launch_compiled(phases)
+                else:
+                    self._launch_eager(phases)
+            if timer is not None:
+                seconds = timer.seconds()
+                profile.record(seconds)
+                if not self._times_stages:
+                    profile.record_phase("compute", seconds)
+                phases.read(profile)
 
     @property
     def _times_stages(self) -> bool:
@@ -692,10 +693,10 @@ class Process:
                 self._warm = True
                 return
             graph = self._graphs[timed] = self._capture(key, timed)
-        graph.replay()
-        registry.add_launches(graph.launches)
+        with trace.span("process.replay"):
+            graph.replay()
+        registry.add_launches(graph.launches, hit=1)
         self.replays += 1
-        _count_graph("hits")
         if timed:
             phases.spans.extend(graph.spans)
         self._mark_written()
@@ -713,11 +714,12 @@ class Process:
             with registry.counting_into(tally, app.device):
                 self._run(marks)
 
-        t0 = time.perf_counter()
-        replay = capture_graph(body, app.device)
-        self.capture_seconds += time.perf_counter() - t0
+        with trace.span("process.capture"):
+            t0 = time.perf_counter()
+            replay = capture_graph(body, app.device)
+            self.capture_seconds += time.perf_counter() - t0
         self.captures += 1
-        _count_graph("misses")
+        registry.count_capture()
         return _Graph(replay=replay, key=key, launches=dict(tally),
                       spans=marks.spans if marks is not None else [])
 

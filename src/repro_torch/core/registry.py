@@ -14,7 +14,9 @@ main path really went through the kernel.  While a process's launch is
 captured into a CUDA graph (:meth:`repro_torch.core.process.Process.launch`),
 nothing executes: the wrappers' counts go to that capture's own tally
 (:func:`counting_into`), and each replay adds the tally to the counts
-(:func:`add_launches`), so the counts stay the kernels that really ran.
+(:func:`add_launches`), so the counts stay the kernels that really ran;
+a process's replay also counts a hit, and its capture a miss, of the
+compiled launch's cache (:func:`graph_counts`).
 A capture's tally (and :func:`also_counting`'s) belongs to the thread that
 opened it: a launch in another thread meanwhile (a second replica on the
 same card) counts as it would alone.  The one exception is a thread that
@@ -37,7 +39,7 @@ import dataclasses
 import importlib
 import threading
 import traceback
-from typing import Any, Callable, Dict, Iterator, List, NamedTuple, Optional, Sequence
+from typing import Any, Callable, Dict, Iterator, List, NamedTuple, Optional, Sequence, Tuple
 
 
 class Cost(NamedTuple):
@@ -170,14 +172,33 @@ def also_counting(tally: Dict[str, int]) -> Iterator[None]:
                 break
 
 
-def add_launches(tally: Dict[str, int]) -> None:
-    """Add a captured graph's tally to the launch counts (one replay)."""
+#: process graph replays and captures: the compiled launch's cache hits and
+#: misses (:func:`graph_counts`), guarded by ``_COUNT_LOCK``
+_GRAPHS = {"hits": 0, "misses": 0}
+
+
+def add_launches(tally: Dict[str, int], hit: int = 0) -> None:
+    """Add a captured graph's tally to the launch counts (one replay), and
+    ``hit`` to the graph hits under the same lock."""
     with _COUNT_LOCK:
         for name, n in tally.items():
             _GLOBAL[name].launches += n
+        _GRAPHS["hits"] += hit
     for t in _also():
         for name, n in tally.items():
             t[name] = t.get(name, 0) + n
+
+
+def count_capture() -> None:
+    """One process graph capture: a miss."""
+    with _COUNT_LOCK:
+        _GRAPHS["misses"] += 1
+
+
+def graph_counts() -> Tuple[int, int]:
+    """``(hits, misses)``: process graph replays and captures."""
+    with _COUNT_LOCK:
+        return _GRAPHS["hits"], _GRAPHS["misses"]
 
 
 #: the counting modes entered and not yet left, in any thread (outermost

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import process as _process
+from repro_torch.core import trace
 from repro_torch.core.arena import tree_flatten, tree_unflatten
 from repro_torch.core.data import TensorSpec
 from repro_torch.core.registry import add_launches, counting_into
@@ -242,21 +243,35 @@ def compress_grads(grads, ef_tree):
     return tree_unflatten(out)
 
 
-def make_train_step(model, tcfg: TrainConfig):
-    """``step(state, batch) -> (state, metrics)``: microbatch accumulation
-    in the reference's order (:func:`accumulate_grads` over one lane),
-    optional compression, then AdamW; the state is updated in place."""
+def _mark(marks, device: torch.device):
+    """An event of ``marks`` (a :class:`~repro_torch.core.process._Phases`)
+    recorded now on ``device``'s current stream."""
+    return marks.mark(torch.cuda.current_stream(device) if device.type == "cuda" else None)
 
-    def step(state, batch):
+
+def make_train_step(model, tcfg: TrainConfig):
+    """``step(state, batch, marks=None) -> (state, metrics)``: microbatch
+    accumulation in the reference's order (:func:`accumulate_grads` over
+    one lane), optional compression, then AdamW; the state is updated in
+    place.  ``marks`` (a :class:`~repro_torch.core.process._Phases`)
+    gets the ``"train.optimizer"`` span's events, recorded where the
+    gradient meets the optimizer and after AdamW has cast the new
+    parameters: between them run the compression, the clip's global norm,
+    AdamW and the cast (:class:`TrainProcess` keeps the span)."""
+
+    def step(state, batch, marks=None):
         params = state["params"]
         device = _device_of(params)
         metrics, grads = accumulate_grads(model, [(params, device)],
                                           device_batch(batch, device), tcfg.microbatches)
+        start = _mark(marks, device) if marks is not None else None
         if tcfg.compress_grads:
             # error-feedback int8 quantization of the gradient signal; the
             # EF buffer lives in the state so the bias telescopes
             grads = compress_grads(grads, state["ef"])
         _, _, opt_metrics = adamw_update(params, grads, state["opt"], tcfg.opt)
+        if marks is not None:
+            marks.spans.append(("train.optimizer", start, _mark(marks, device)))
         return state, {**metrics, **opt_metrics}
 
     return step
@@ -437,13 +452,16 @@ def make_mesh_train_step(model, tcfg: TrainConfig, mesh: Mesh):
     piece of the error buffer).  Then the global norm (each distinct piece
     once) and AdamW's scalars of the whole gradient, each grid position's
     update of its pieces, and its new parameter piece copied into every
-    replica that shares its ``model`` coordinate."""
+    replica that shares its ``model`` coordinate.  ``marks`` records the
+    ``"train.optimizer"`` events as :func:`make_train_step`'s do, on the
+    first device's stream: over distinct cards they time that card's
+    share of the update."""
     check_train_mesh(mesh, model)
     n_model = model_axis_size(mesh)
     devs = mesh.device_list
     home, positions = devs[0], range(len(devs))
 
-    def step(state, batch):
+    def step(state, batch, marks=None):
         params = state["params"]
         metrics, grads = accumulate_grads(model, mesh_lanes(params, mesh),
                                           device_batch(batch, home), tcfg.microbatches)
@@ -453,6 +471,7 @@ def make_mesh_train_step(model, tcfg: TrainConfig, mesh: Mesh):
             record_data_traffic([(n, p.pieces[0].numel() * p.pieces[0].element_size(),
                                   splits_over_data(masters[n].placement.spec))
                                  for n, p in tree_flatten(params)], len(mesh.groups))
+        start = _mark(marks, home) if marks is not None else None
         with torch.no_grad():
             if tcfg.compress_grads:
                 grads = compress_grads(grads, state["ef"])
@@ -476,6 +495,8 @@ def make_mesh_train_step(model, tcfg: TrainConfig, mesh: Mesh):
                         ps.pieces[k][_within(sl, ps.index(k))].copy_(new)
             for j in positions:
                 opt["step"].pieces[j].copy_(scs[j]["step"])
+        if marks is not None:
+            marks.spans.append(("train.optimizer", start, _mark(marks, home)))
         return state, {**metrics, "lr": sc["lr"], "grad_norm": sc["grad_norm"]}
 
     return step
@@ -513,6 +534,16 @@ class TrainProcess:
     records one device's work).  A mesh whose axes do not divide a
     parameter dimension that its rule splits raises ``ValueError``
     (:func:`check_train_mesh`).
+
+    While a ``torch.profiler`` runs, ``launch`` keeps the spans
+    ``train.launch`` and ``train.replay`` and the device span
+    ``train.optimizer`` (:mod:`repro_torch.core.trace`): the captured
+    step records its pair of events at every replay, and the pair of a
+    replay launched under a profiler is read, without waiting, at the next
+    launch or by :func:`~repro_torch.core.trace.spans`.  It is kept only for
+    a step that has completed before the next launch records the pair
+    again: a loop that launches ahead of the card loses the others, which
+    :func:`~repro_torch.core.trace.dropped` counts.
     """
 
     def __init__(self, model, tcfg: TrainConfig, mesh: Optional[Mesh] = None):
@@ -526,6 +557,11 @@ class TrainProcess:
         self._replay = None
         self._tally: Dict[str, int] = {}
         self._metrics: Dict[str, torch.Tensor] = {}
+        self._device: Optional[torch.device] = None
+        #: the captured step's ``train.optimizer`` events, recorded by every replay
+        self._marks: Optional[_process._Phases] = None
+        #: the device spans of the last launch under a profiler, not read yet
+        self._pending: list = []
         self.captures = self.replays = 0
 
     @property
@@ -550,9 +586,9 @@ class TrainProcess:
         else:
             device = _device_of(state["params"])
             lane0, group, one_device = state["params"], None, True
-        self._state = state
+        self._state, self._device = state, device
         self._batch = {k: v.clone() for k, v in device_batch(batch, device).items()}
-        self._replay = None
+        self._replay = self._marks = None
         if not (_process._graphs_on(device) and one_device):
             return self
         rows = len(next(iter(self._batch.values())))
@@ -566,34 +602,50 @@ class TrainProcess:
         torch.cuda.current_stream(device).wait_stream(side)
         torch.cuda.synchronize(device)
         tally: Dict[str, int] = {}
+        marks = _process._Phases(device, external=True)
 
         def body() -> None:
+            marks.spans.clear()                  # a body run again records anew
             with counting_into(tally, device):
-                self._metrics = self.step(state, self._batch)[1]
+                self._metrics = self.step(state, self._batch, marks)[1]
 
         self._replay = _process.capture_graph(body, device)
-        self._tally = dict(tally)
+        self._tally, self._marks = dict(tally), marks
         self.captures += 1
         return self
 
     def launch(self, state, batch):
-        if self._state is None:
-            raise RuntimeError("TrainProcess.init() not called")
-        if state is not self._state and state is not self._given:
-            raise ValueError("launch() takes the state that init() captured")
-        state = self._state
-        if set(batch) != set(self._batch):
-            raise ValueError(f"batch has {sorted(batch)}, init() captured {sorted(self._batch)}")
-        for k, v in batch.items():
-            src = v if isinstance(v, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(v))
-            if tuple(src.shape) != tuple(self._batch[k].shape):
-                raise ValueError(f"{k}: shape {tuple(src.shape)}, init() captured "
-                                 f"{tuple(self._batch[k].shape)}")
-            self._batch[k].copy_(src)
-        if self._replay is None:
-            state, self._metrics = self.step(state, self._batch)
+        with trace.span("train.launch"):
+            for p in self._pending:              # before the replay records its events again
+                trace.settle(p, last=True)
+            self._pending = []
+            if self._state is None:
+                raise RuntimeError("TrainProcess.init() not called")
+            if state is not self._state and state is not self._given:
+                raise ValueError("launch() takes the state that init() captured")
+            state = self._state
+            if set(batch) != set(self._batch):
+                raise ValueError(f"batch has {sorted(batch)}, init() captured "
+                                 f"{sorted(self._batch)}")
+            for k, v in batch.items():
+                src = (v if isinstance(v, torch.Tensor)
+                       else torch.from_numpy(np.ascontiguousarray(v)))
+                if tuple(src.shape) != tuple(self._batch[k].shape):
+                    raise ValueError(f"{k}: shape {tuple(src.shape)}, init() captured "
+                                     f"{tuple(self._batch[k].shape)}")
+                self._batch[k].copy_(src)
+            traced = trace.active()
+            if self._replay is None:
+                marks = _process._Phases(self._device) if traced else None
+                state, self._metrics = self.step(state, self._batch, marks)
+            else:
+                with trace.span("train.replay"):
+                    self._replay()
+                add_launches(self._tally)
+                self.replays += 1
+                marks = self._marks if traced else None
+            if marks is not None and marks.spans:
+                ready = _mark(_process._Phases(self._device), self._device)
+                self._pending = [p for p in (trace.device_span(name, a, b, ready)
+                                             for name, a, b in marks.spans) if p is not None]
             return state, self._metrics
-        self._replay()
-        add_launches(self._tally)
-        self.replays += 1
-        return state, self._metrics
