@@ -215,7 +215,20 @@
    forward's beside it with the checkpoints' bytes; ptxas of its kernels
    (``wkv6_bwd_contrib_kernel``, ``wkv6_bwd_scan_kernel``,
    ``wkv6_bwd_chunk_kernel`` with its dynamic shared memory,
-   ``wkv6_bwd_du_kernel``) and of the checkpointing forward.  Then h2o-danube-1.8b at full width (random bf16 weights made
+   ``wkv6_bwd_du_kernel``) and of the checkpointing forward.  AdamW's two
+   kernels (``optim_kernels.cu``, :func:`adamw_checks`): the update bit for
+   bit the plain ``update_leaf`` given the same scalars (bf16 and f32
+   parameters at 1, 7, 2560, 6,553,600 and 81,920,000 elements, a piece at
+   an odd offset, an f32 gradient of bf16 parameters, no clip; a tensor
+   that is not is named and held to 1 ulp), each leaf's sum of squares
+   within 1e-6 of a float64 one (a piece at an odd offset among them), the
+   clip's norm the same bits over two replays of a captured norm and
+   within 1e-6 of a float64 one; one step at danube's full-width leaves
+   against the plain step, every leaf of it updated bit for bit the plain
+   version and its sum of squares within 1e-6, the bytes bound and
+   ``torch._fused_adamw_`` (:func:`adamw_times`).  The optimizer's
+   launches (an ``adamw_update`` a leaf, ``sum_squares`` a leaf and one)
+   join the exact counts of every training run below.  Then h2o-danube-1.8b at full width (random bf16 weights made
    on the card from a seed): 6 ``Trainer`` steps at batch 4 x 2048 on the
    ``TokenStream`` (the loss falls; 1 capture, 6 replays; exact launch
    counts of init's warm-up and each step: forward, remat recompute and
@@ -303,6 +316,7 @@ ROOT = Path(__file__).resolve().parent
 SRC = "src/repro_torch/kernels/csrc/mri_kernels.cu"
 LM_SRC = "src/repro_torch/kernels/csrc/lm_kernels.cu"
 RWKV_SRC = "src/repro_torch/kernels/csrc/rwkv_kernels.cu"
+OPTIM_SRC = "src/repro_torch/kernels/csrc/optim_kernels.cu"
 NEG_SRC = "src/repro_torch/kernels/csrc/negate_kernels.cu"
 
 #: the card's peak over the dry run's arguments + temp for the same step
@@ -521,6 +535,238 @@ def wkv6_bwd_times(rand) -> dict:
             "wkv6_args": (r, k, v, w, u, do, ckpt)}
 
 
+def optimizer_launches(model) -> dict:
+    """Launches of the optimizer's kernels a training step makes on one
+    card: an ``adamw_update`` a parameter leaf, and ``sum_squares``' partial
+    pass a leaf and its one final pass."""
+    from repro_torch.core.arena import tree_flatten
+    n = len(tree_flatten(model.param_specs()))
+    return {"adamw_update": n, "sum_squares": n + 1}
+
+
+#: the lengths the AdamW kernel is held to bit for bit at: 1, 7 (the scalar
+#: tail alone), a norm scale (2560), one layer's square projection (2560 x
+#: 2560) and the embedding (32000 x 2560); danube's stacked leaves (157M to
+#: 425M elements) are compared in :func:`adamw_times`
+ADAMW_LENGTHS = (1, 7, 2560, 6_553_600, 81_920_000)
+
+
+def compare_update(label: str, kern, plain, worst: dict) -> float:
+    """The kernel's p, master, m and v (``kern``) against the plain
+    update's (``plain``): each tensor's largest distance in ulps goes into
+    ``worst``; a tensor that is not bit for bit is named, and one more than
+    1 ulp off stops the run.  Returns the largest |kernel - plain|."""
+    import torch
+
+    ints = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+    err = 0.0
+    for name, a, b in zip(("p", "master", "m", "v"), kern, plain):
+        ulps = int((a.view(ints[a.dtype]).long() - b.view(ints[b.dtype]).long()).abs().max())
+        err = max(err, float((a.float() - b.float()).abs().max()))
+        worst[name] = max(worst[name], ulps)
+        if ulps:
+            print(f"[train-kernels] {label}: {name} NOT bit for bit, "
+                  f"{int((a != b).sum())} elements differ, by at most {ulps} ulp")
+        if ulps > 1:
+            raise SystemExit(f"chip_smoke: [train-kernels] {label}: {name} differs from "
+                             f"the plain version by {ulps} ulp")
+    return err
+
+
+def check_sum_squares(label: str, g) -> float:
+    """``sum_squares``' kernel on one piece against a float64 sum of its
+    squares: the relative gap, held to 1e-6."""
+    from repro_torch.optim import adamw as opt
+
+    want = float(g.double().square().sum())
+    got = float(opt._sum_squares_kernel([g]))
+    gap = abs(got - want) / want
+    if gap > 1e-6:
+        raise SystemExit(f"chip_smoke: [train-kernels] sum_squares of {label} ({g.numel()} "
+                         f"{g.dtype}): {got!r} against the float64 {want!r}, {gap:.3e} of it "
+                         "(limit 1e-6)")
+    return gap
+
+
+def adamw_checks(dev, smi: str) -> dict:
+    """[train-kernels] AdamW's two kernels against their plain versions on
+    the card (``optim/adamw.py``): the update (``_update_leaf_kernel``)
+    against ``_update_leaf_plain`` given the same scalars, bit for bit in
+    master, m, v and the parameter (:func:`compare_update`), for bf16 and
+    f32 parameters at :data:`ADAMW_LENGTHS`, a piece at an odd element
+    offset (every pointer misaligned: the scalar-load variant), an f32
+    gradient beside bf16 parameters (the int8 compression's) and no clip
+    (the scale a Python 1.0).  The clip's norm (``global_norm`` through
+    ``sum_squares``) over a tree of danube-sized leaves and odd ones, one
+    piece at an odd element offset (the scalar-load variant): each leaf's
+    sum of squares within 1e-6 of a float64 sum of it
+    (:func:`check_sum_squares`), and the norm captured into a CUDA graph:
+    two replays give the same bits, an eager call gives them too, and it
+    lies within 1e-6 of a float64 norm.  Returns the largest ulp distance
+    of each tensor, the largest |kernel - plain|, and the largest leaf's
+    and the norm's relative gaps."""
+    import torch
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim import adamw as opt
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    cfg = AdamWConfig(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    def randn(n, std, dtype=f32):
+        return (torch.randn(n, generator=gen, device=dev) * std).to(dtype)
+
+    step = torch.full((), 3.0, device=dev)
+    scalars = {"scale": torch.full((), 0.37, device=dev), "lr": torch.full((), 3e-4, device=dev),
+               "c1": 1.0 - torch.pow(cfg.b1, step), "c2": 1.0 - torch.pow(cfg.b2, step)}
+    worst = {k: 0 for k in ("p", "master", "m", "v")}
+    err = 0.0
+    unclipped = {**scalars, "scale": 1.0}      # no clip: the scale a Python 1.0
+    cases = [(dt, dt, n, 0, scalars) for dt in (bf16, f32) for n in ADAMW_LENGTHS]
+    cases += [(bf16, bf16, 6_553_600 - 5, 3, scalars), (f32, f32, 6_553_600 - 5, 3, scalars),
+              (bf16, f32, 2560 * 7, 0, scalars), (bf16, bf16, 2560 * 7, 0, unclipped)]
+    for p_dt, g_dt, n, off, sc in cases:
+        p0 = randn(n + off, 0.02, p_dt)
+        bases = [p0, p0.float() + randn(n + off, 1e-5), randn(n + off, 1e-4),
+                 randn(n + off, 1e-4).square()]
+        g = randn(n + off, 1e-3, g_dt)[off:]
+        kern = [t.clone()[off:] for t in bases]
+        plain = [t.clone()[off:] for t in bases]
+        opt._update_leaf_kernel(*kern[:2], g, *kern[2:], sc, cfg)
+        opt._update_leaf_plain(*plain[:2], g, *plain[2:], sc, cfg)
+        torch.cuda.synchronize(dev)
+        label = (f"adamw_update {n} {p_dt} parameters, {g_dt} gradient, offset {off}"
+                 f"{'' if sc is scalars else ', no clip'}")
+        err = max(err, compare_update(label, kern, plain, worst))
+        del p0, bases, g, kern, plain
+    print(f"[train-kernels] {smi}: adamw_update against the plain update_leaf, same scalars, "
+          f"{len(cases)} cases (bf16 and f32 at {ADAMW_LENGTHS}, offset 3, f32 gradient of "
+          f"bf16 parameters, no clip): largest ulp distance {worst}, largest |kernel - plain| "
+          f"{err!r}{' (bit for bit)' if not any(worst.values()) else ''}")
+    torch.cuda.empty_cache()
+
+    # the norm: danube's leaf sizes (the embedding, a projection, an MLP
+    # matrix, a norm scale) in bf16, odd f32 leaves, and a bf16 piece that
+    # starts 3 elements into its buffer
+    tree = {f"l{i}": randn(n, std, dt) for i, (n, std, dt) in enumerate(
+        ((81_920_000, 1e-4, bf16), (6_553_600, 3e-3, bf16), (17_694_720, 1e-3, bf16),
+         (2560, 1.0, bf16), (7, 2.0, f32), (100_003, 1e-2, f32)))}
+    tree["odd"] = randn(1_000_003 + 3, 1e-2, bf16)[3:]
+    leaf_gap = max(check_sum_squares(f"leaf {k}", t) for k, t in tree.items())
+    eager = opt.global_norm(tree)
+    torch.cuda.synchronize(dev)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = opt.global_norm(tree)
+    runs = []
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize(dev)
+        runs.append(captured.clone())
+    want = float(sum(t.double().square().sum() for t in tree.values())) ** 0.5
+    gap = abs(float(runs[0]) - want) / want
+    same = all(torch.equal(r.view(torch.int32), eager.view(torch.int32)) for r in runs)
+    print(f"[train-kernels] {smi}: sum_squares leaf by leaf against float64 over {len(tree)} "
+          f"leaves (one at element offset 3): largest gap {leaf_gap:.3e} of the leaf's sum "
+          f"(limit 1e-6); global_norm over them ({sum(t.numel() for t in tree.values())} "
+          f"elements), captured: two replays and an eager call "
+          f"{'bit for bit' if same else 'DIFFER'} ({float(runs[0])!r}); against the float64 "
+          f"norm {want!r}: {gap:.3e} of it (limit 1e-6)")
+    if not same or gap > 1e-6:
+        raise SystemExit("chip_smoke: [train-kernels] the clip's norm is not deterministic "
+                         "or not within 1e-6 of the float64 norm")
+    del graph, captured, runs, tree, eager
+    torch.cuda.empty_cache()
+    return {"ulps": worst, "max_abs_err": err, "leaf_gap": leaf_gap, "norm_gap": gap}
+
+
+def adamw_times(dev, peaks: dict) -> dict:
+    """One eager AdamW step (``adamw_update``: the clip's norm, the
+    scalars, an update a leaf) at h2o-danube-1.8b's full-width leaves in
+    bf16, built and timed by ``scripts/adamw_time.py``'s functions (the
+    ``danube.train`` cell's AdamW): device ms of the kernels' step; the
+    same step through the plain versions (``_update_leaf_plain``,
+    ``_sum_squares_plain`` swapped in for the kernels); then, given one
+    step's scalars, each leaf updated by the kernel and by the plain
+    version from the same state, compared bit for bit
+    (:func:`compare_update`), and each leaf's gradient's sum of squares
+    against a float64 sum (:func:`check_sum_squares`);
+    ``torch._fused_adamw_`` on the f32 master, an f32 copy of the gradient,
+    m and v as a library yardstick (no clip, no cast: the port never calls
+    it); the launches of one step; and the bound of the step's bytes at
+    ``peaks``."""
+    import importlib.util
+
+    import torch
+    from repro_torch.core.arena import tree_flatten
+    from repro_torch.core.registry import launch_counts, reset_launch_counts
+    from repro_torch.optim import adamw as opt
+    from repro_torch.optim import adamw_update
+
+    spec = importlib.util.spec_from_file_location("adamw_time",
+                                                  ROOT / "scripts" / "adamw_time.py")
+    at = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(at)
+    params, grads, state = at.danube_state(dev)
+    cfg = at.CFG
+    bound_ms = at.bound_ms(params, grads, state, peaks)
+
+    def step():
+        adamw_update(params, grads, state, cfg)
+    step()
+    torch.cuda.synchronize(dev)
+    reset_launch_counts()
+    step()
+    torch.cuda.synchronize(dev)
+    launches = {k: v for k, v in launch_counts().items() if v}
+    kernel_ms = statistics.median(at.step_ms(step))
+    swapped = {"_update_leaf_kernel": opt._update_leaf_plain,
+               "_sum_squares_kernel": opt._sum_squares_plain}
+    saved = {k: getattr(opt, k) for k in swapped}
+    for k, fn in swapped.items():
+        setattr(opt, k, fn)
+    try:
+        plain_ms = statistics.median(at.step_ms(step))
+    finally:
+        for k, fn in saved.items():
+            setattr(opt, k, fn)
+
+    # every leaf, kernel against plain from the same state (the moments no
+    # longer 0 after the timed steps), given the same scalars
+    sc = opt.adamw_scalars(state["step"], grads, cfg)
+    flat = [dict(tree_flatten(t)) for t in (params, state["master"], grads, state["m"],
+                                            state["v"])]
+    worst = {k: 0 for k in ("p", "master", "m", "v")}
+    err = leaf_gap = 0.0
+    for name in flat[0]:
+        p, w, g, m, v = (t[name] for t in flat)
+        plain = [t.clone() for t in (p, w, m, v)]
+        opt._update_leaf_kernel(p, w, g, m, v, sc, cfg)
+        opt._update_leaf_plain(plain[0], plain[1], g, plain[2], plain[3], sc, cfg)
+        torch.cuda.synchronize(dev)
+        label = f"danube's leaf {name} ({g.numel()} elements)"
+        err = max(err, compare_update(f"adamw_update at {label}", [p, w, m, v], plain, worst))
+        del plain
+        leaf_gap = max(leaf_gap, check_sum_squares(label, g))
+        torch.cuda.empty_cache()
+
+    masters = list(flat[1].values())
+    g32 = [g.float() for g in flat[2].values()]
+    ms_, vs_ = list(flat[3].values()), list(flat[4].values())
+    steps = [torch.ones((), dtype=torch.float32, device=dev) for _ in masters]
+    library_ms = statistics.median(at.step_ms(lambda: torch._fused_adamw_(
+        masters, g32, ms_, vs_, [], steps, lr=1e-5, beta1=0.9, beta2=0.95, weight_decay=0.1,
+        eps=1e-8, amsgrad=False, maximize=False)))
+    out = {"elements": sum(g.numel() for g in flat[2].values()), "leaves": len(flat[0]),
+           "steps": at.STEPS,
+           "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": bound_ms, "launches": launches, "ulps": worst, "max_abs_err": err,
+           "leaf_gap": leaf_gap}
+    del g32, steps, masters, ms_, vs_, flat, params, grads, state
+    torch.cuda.empty_cache()
+    return out
+
+
 def per_step_launches(cfg) -> dict:
     """Launches of each kernel a training step makes: the forward, its
     remat recompute (every norm and kernel inside a checkpointed layer or
@@ -591,10 +837,12 @@ def step_ms_by_kind(run) -> tuple[dict, dict]:
                 "rmsnorm forward" if "rmsnorm" in nm else
                 "wkv6 backward" if "wkv6_bwd" in nm else
                 "wkv6 forward" if "wkv6" in nm else
+                "AdamW (update and the clip's sum of squares)" if "adamw_update" in nm
+                or "sumsq_" in nm else
                 "GEMMs" if any(s in nm for s in ("gemm", "xmma", "cutlass", "cublas",
                                                  "nvjet", "sm90_", "ampere")) else
-                "other (elementwise and reductions: AdamW, casts, the embedding, the loss, "
-                "plain-torch norms and Mamba2's SSD)")
+                "other (elementwise and reductions: AdamW's scalars, casts, the embedding, "
+                "the loss, plain-torch norms and Mamba2's SSD)")
         buckets[kind] = buckets.get(kind, 0.0) + t / 1e3
         if kind.startswith("other"):
             other[ev.key[:60]] = t / 1e3
@@ -3720,6 +3968,43 @@ def main() -> None:
             regs, smem, spill = ptxas_usage(log, "rmsnorm_bwd_kernelI13__nv_bfloat16S", tmpl)
             print(f"[ptxas] rmsnorm_bwd_kernel<bf16, bf16, J={tmpl[2:-1]}>: {regs} registers a "
                   f"thread, {spill} bytes spilled, {smem} bytes shared memory a block")
+        for label, frags in (("adamw_update_kernel<bf16, bf16, vector>",
+                              ("adamw_update_kernelI13__nv_bfloat16S", "Lb1E")),
+                             ("adamw_update_kernel<f32, f32, vector>",
+                              ("adamw_update_kernelIffLb1E",)),
+                             ("sumsq_partial_kernel<bf16, vector>",
+                              ("sumsq_partial_kernelI13__nv_bfloat16Lb1E",)),
+                             ("sumsq_final_kernel", ("sumsq_final_kernel",))):
+            regs, smem, spill = ptxas_usage(log, *frags)
+            print(f"[ptxas] {label}: {regs} registers a thread, {spill} bytes spilled, {smem} "
+                  "bytes shared memory a block")
+        torch.cuda.empty_cache()
+
+        # AdamW's two kernels (optim/adamw.py): bit for bit against the plain
+        # update, the clip's norm deterministic; then one step at danube's
+        # full-width leaves against the plain step (and every leaf compared
+        # with it), the library's fused AdamW and the bytes bound
+        ac = adamw_checks(dev, smi)
+        at = adamw_times(dev, peaks)
+        rows["adamw_update"] = dict(
+            name="adamw_update", route="cuda", source=OPTIM_SRC, replaces="none",
+            ms=at["kernel_ms"], plain_ms=at["plain_ms"], bound_ms=at["bound_ms"],
+            bound_by="bytes", library_ms=at["library_ms"],
+            max_abs_err=max(ac["max_abs_err"], at["max_abs_err"]))
+        print(f"[train-kernels] {smi}: adamw_update against the plain update_leaf at "
+              f"h2o-danube-1.8b's {at['leaves']} full-width leaves, same scalars: largest ulp "
+              f"distance {at['ulps']}, largest |kernel - plain| {at['max_abs_err']!r}"
+              f"{' (bit for bit)' if not any(at['ulps'].values()) else ''}; sum_squares leaf "
+              f"by leaf against float64: largest gap {at['leaf_gap']:.3e} of the leaf's sum "
+              "(limit 1e-6)")
+        print(f"[time] {smi}: AdamW step (clip's norm, scalars, an update a leaf) at "
+              f"h2o-danube-1.8b's {at['leaves']} full-width leaves ({at['elements']} bf16 "
+              f"parameters), median device ms of {at['steps']} steps: kernels "
+              f"{at['kernel_ms']:.5f}, plain {at['plain_ms']:.5f}, library (torch._fused_adamw_ "
+              f"on f32 master, gradient, m and v; no clip, no cast) {at['library_ms']:.5f}, "
+              f"bound {at['bound_ms']:.5f} "
+              f"(bytes); kernels / bound {at['kernel_ms'] / at['bound_ms']:.2f}; launches a "
+              f"step {at['launches']}")
         torch.cuda.empty_cache()
 
     def quiet(_msg):
@@ -3759,6 +4044,7 @@ def main() -> None:
         n_params, counts, losses = run["n_params"], run["counts"], run["losses"]
         add_counts(counts)
         want = {k: v * (steps + 1) for k, v in per_step_launches(cfg).items()}
+        want.update({k: v * steps for k, v in optimizer_launches(run["trainer"].model).items()})
         passes = (run["captures"], run["replays"])
         frames_txt = f" (and {enc_frames} frames a sample)" if enc_frames else ""
         print(f"[train] {smi}: {arch} at full width ({n_params} parameters, bf16, AdamW with "
@@ -3766,7 +4052,8 @@ def main() -> None:
               f"on the TokenStream in {run['fit_s']:.1f} s (init's warm-up and capture included): losses "
               f"{', '.join(f'{x:.4f}' for x in losses)}; captures {passes[0]}, replays "
               f"{passes[1]}; launches {counts} (expected {want}: {steps} replayed steps "
-              "and init's warm-up forward and backward, each with its remat recompute)")
+              "and init's warm-up forward and backward, each with its remat recompute; "
+              "AdamW's kernels in the steps alone)")
         if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
             raise SystemExit(f"chip_smoke: [train] {arch}: the loss did not fall: {losses}")
         if passes != (1, steps):
@@ -3892,6 +4179,9 @@ def main() -> None:
                                  f"{differ[:6]} (max |difference| {gaps[-1]:.3e})")
         counts = {k: v for k, v in launch_counts().items() if v}
         want = {k: v * (1 + 2 * steps) for k, v in per_step_launches(model.cfg).items()}
+        # AdamW a step: one update a leaf, the sum of squares' pass a leaf and
+        # its final pass (the captured step's tally, added at each replay)
+        want.update({k: v * 2 * steps for k, v in optimizer_launches(model).items()})
         print(f"[train-check] {smi}: {arch} {cut_of(model.cfg)[1]} at full width, bf16, batch "
               f"1 x 256: {steps} "
               f"steps replayed through TrainProcess (captures {proc.captures}, replays "
@@ -3927,6 +4217,7 @@ def main() -> None:
         add_counts(counts)
         cfg = train_lm.lm_100m()
         want = {k: 41 * v for k, v in per_step_launches(cfg).items()}
+        want.update({k: 40 * v for k, v in optimizer_launches(build_model(cfg)).items()})
         print(f"[train-ckpt] {smi}: train_lm.main(['--steps', '40']) (lm-100m, f32, batch 8 x "
               f"256) in {run_s:.1f} s: loss {tr.history[0][1]:.4f} -> {tr.history[-1][1]:.4f}; "
               f"captures {tr.process.captures}, replays {tr.process.replays}; launches "
@@ -4880,10 +5171,12 @@ def main() -> None:
                 "rmsnorm_bwd": train_counts["rmsnorm_bwd"],
                 "flash_attention_bwd": train_counts["flash_attention_bwd"],
                 "wkv6": rwkv_counts["wkv6"] + train_counts["wkv6"],
-                "wkv6_bwd": train_counts["wkv6_bwd"], "negate": qs_counts["negate_kernel"]}
+                "wkv6_bwd": train_counts["wkv6_bwd"], "negate": qs_counts["negate_kernel"],
+                "adamw_update": train_counts["adamw_update"]}
     launches.update({k: counts[reg] + io_counts.get(reg, 0) for k, reg in names.items()})
     for kname in ["negate"] + list(names) + ["rmsnorm", "flash_attention", "wkv6",
-                                             "rmsnorm_bwd", "flash_attention_bwd", "wkv6_bwd"]:
+                                             "rmsnorm_bwd", "flash_attention_bwd", "wkv6_bwd",
+                                             "adamw_update"]:
         row = dict(rows[kname], launches=launches[kname])
         kernels.append({key: row[key] for key in (
             "name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

@@ -45,6 +45,9 @@ _SIGNATURES = {
     "rt_wkv6": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "rt_wkv6_bwd": (_P,) * 17 + (_I, _I, _I, _I, _I, _P),
     "rt_negate": (_P, _P, _LL, _I, _P),
+    "rt_adamw_update": (_P,) * 5 + (_LL, _I, _I) + (_P,) * 4 + (_F,) * 6 + (_P,),
+    "rt_sumsq_partial": (_P, _LL, _I, _P, _I, _P),
+    "rt_sumsq_final": (_P, _I, _I, _P, _P),
 }
 
 

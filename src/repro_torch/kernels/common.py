@@ -24,9 +24,12 @@ def counting() -> bool:
 
 
 def _on_meta(args, kwargs) -> bool:
+    """Whether the first tensor among the arguments (or in a list or tuple
+    of them) is on ``meta``."""
     for a in list(args) + list(kwargs.values()):
-        if isinstance(a, torch.Tensor):
-            return a.is_meta
+        for t in (a if isinstance(a, (list, tuple)) else [a]):
+            if isinstance(t, torch.Tensor):
+                return t.is_meta
     return False
 
 

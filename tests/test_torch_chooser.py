@@ -29,6 +29,7 @@ import repro_torch.kernels.mri_fused  # noqa: F401
 import repro_torch.kernels.negate  # noqa: F401
 import repro_torch.kernels.rmsnorm  # noqa: F401
 import repro_torch.kernels.wkv6  # noqa: F401
+import repro_torch.optim.adamw  # noqa: F401
 from repro_torch.launch import roofline
 from repro_torch.launch.roofline import (CALIBRATION_TIE_BAND, CARD_PEAKS, H100_PEAKS,
                                          KernelChooser, card_peaks, default_chooser,
@@ -216,6 +217,15 @@ BOUNDS = {
         ("wkv6_bwd", tuple(_meta(4, 2048, 40, 64, dtype=BF16) for _ in range(3))
          + (_meta(4, 2048, 40, 64, dtype=F32), _meta(40, 64, dtype=F32), None,
             _meta(4, 2048, 40, 64, dtype=BF16)), {}), 0.28609, "compute"),
+    # row 9: AdamW's two passes at h2o-danube-1.8b's embedding leaf (32000 x
+    # 2560 bf16 parameters): the update (28 bytes an element) and the clip's
+    # sum of squares (the bf16 gradient read once)
+    "adamw_update h2o-danube-1.8b embedding": (
+        ("adamw_update", (_meta(32000, 2560, dtype=BF16), _meta(32000, 2560, dtype=F32),
+                          _meta(32000, 2560, dtype=BF16), _meta(32000, 2560, dtype=F32),
+                          _meta(32000, 2560, dtype=F32)), {}), 0.68470, "memory"),
+    "sum_squares h2o-danube-1.8b embedding": (
+        ("sum_squares", ([_meta(32000, 2560, dtype=BF16)],), {}), 0.04891, "memory"),
 }
 
 

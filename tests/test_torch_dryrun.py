@@ -379,6 +379,8 @@ def _inputs():
 
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import flash_attention_bwd
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim import adamw as opt
     from repro_torch.kernels.rmsnorm import rmsnorm_bwd
     from repro_torch.kernels.wkv6 import wkv6_bwd
     q, k, v = r(1, 4, 5, 16), r(1, 2, 5, 16), r(1, 2, 5, 16)
@@ -401,6 +403,16 @@ def _inputs():
                                 {"causal": True}),
         "wkv6": (ops.wkv6, ref.wkv6, tuple(wk), {}),
         "wkv6_bwd": (wkv6_bwd, ref.wkv6_bwd, tuple(wk) + (r(1, 5, 2, 8), r(1, 2, 8, 8)), {}),
+        # AdamW's two passes: a bf16 leaf's update (in place, no output) and
+        # the sum of squares of a bf16 and an f32 gradient
+        "adamw_update": (opt.update_leaf, opt._update_leaf_plain,
+                         (r(3, 8, dtype=torch.bfloat16), r(3, 8), r(3, 8, dtype=torch.bfloat16),
+                          r(3, 8), r(3, 8).abs(),
+                          {"scale": torch.tensor(0.5), "lr": torch.tensor(1e-3),
+                           "c1": torch.tensor(0.1), "c2": torch.tensor(0.05)}, AdamWConfig()),
+                         {}),
+        "sum_squares": (opt.sum_squares, opt._sum_squares_plain,
+                        ([r(4, 5, dtype=torch.bfloat16), r(7)],), {}),
     }
 
 
@@ -411,6 +423,8 @@ def _layout(out):
 
 
 def _to(x, device):
+    if isinstance(x, list):
+        return [_to(t, device) for t in x]
     return x.to(device) if isinstance(x, torch.Tensor) else x
 
 

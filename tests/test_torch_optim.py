@@ -116,6 +116,62 @@ def test_adamw_updates_the_state_in_place_in_chunks(monkeypatch):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cpu_route_runs_the_plain_chunked_path(monkeypatch, dtype):
+    """On CPU tensors the update and the clip's norm are the plain
+    versions, the update in ``CHUNK`` slices: the kernel library is never
+    loaded, no launch is counted, one plain call a leaf, one square root a
+    slice (and the norm's), and the state equals the whole-leaf update's."""
+    from repro_torch.core.registry import launch_counts
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    rng = np.random.default_rng(3)
+    p0, g = _tree(rng), _tree(rng, scale=2.0)
+    cfg = AdamWConfig(schedule=Schedule(kind="constant", base_lr=1e-2, warmup_steps=0))
+    whole_p = _t(p0, tdt)
+    whole = adamw_init(whole_p)
+    adamw_update(whole_p, _t(g, tdt), whole, cfg)
+
+    def refused():
+        raise AssertionError("the CPU route loaded the kernel library")
+
+    plain_calls, sqrt_calls = [], []
+    plain, sqrt = adamw_mod._update_leaf_plain, torch.sqrt
+    monkeypatch.setattr(adamw_mod._build, "library", refused)
+    monkeypatch.setattr(adamw_mod, "CHUNK", 5)
+    monkeypatch.setattr(adamw_mod, "_update_leaf_plain",
+                        lambda *a: plain_calls.append(a[1].numel()) or plain(*a))
+    monkeypatch.setattr(torch, "sqrt", lambda x: sqrt_calls.append(x.numel()) or sqrt(x))
+    before = launch_counts()
+    tp = _t(p0, tdt)
+    st = adamw_init(tp)
+    adamw_update(tp, _t(g, tdt), st, cfg)
+    assert launch_counts() == before
+    assert sorted(plain_calls) == [7, 12, 20]
+    assert len(sqrt_calls) == 1 + sum(-(-n // 5) for n in plain_calls)
+    for (_, a), (_, b) in zip(tree_flatten({"p": tp, "s": st}),
+                              tree_flatten({"p": whole_p, "s": whole})):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("p_dtype,g_dtype,update_bytes,norm_bytes", [
+    (torch.bfloat16, torch.bfloat16, 28, 2), (torch.float32, torch.float32, 32, 4),
+    (torch.bfloat16, torch.float32, 30, 4)])
+def test_optimizer_costs_count_each_stream_once(p_dtype, g_dtype, update_bytes, norm_bytes):
+    """The kernels' cost models: the update reads the gradient, master, m
+    and v and writes master, m, v and the parameter; the sum of squares
+    reads the gradient (bf16 parameters' gradient in f32 after the int8
+    compression)."""
+    n = 6 * 7
+
+    def meta(dtype):
+        return torch.empty(6, 7, dtype=dtype, device="meta")
+    cost = adamw_mod.adamw_update_cost(meta(p_dtype), meta(torch.float32), meta(g_dtype),
+                                       meta(torch.float32), meta(torch.float32))
+    assert (cost.flops, cost.bytes, cost.peak) == (17 * n, update_bytes * n, "fp32")
+    cost = adamw_mod.sum_squares_cost([meta(g_dtype), meta(g_dtype)])
+    assert (cost.flops, cost.bytes) == (2 * 2 * n, 2 * norm_bytes * n)
+
+
 def test_adamw_init_master_is_a_distinct_buffer():
     p = {"w": torch.ones(3)}
     st = adamw_init(p)
